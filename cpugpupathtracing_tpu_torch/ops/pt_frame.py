@@ -1,0 +1,946 @@
+"""`pt_frame`: the whole ADVANCED path trace of a batch of rays in one
+launch -- per depth the closest hit over the slim 8-wide tables, the
+TracePathAdvanced shading body (Source/Main.cpp:396-579), the NEE shadow
+any-hit over the occlusion tables plus the analytic occluders, and the
+energy add.
+
+It replaces the JAX package's Pallas kernel ops/pt_frame_kernel.py
+(`_pt_frame_kernel`, launched by `pt_frame`).  On CUDA tensors the
+wrapper launches the hand-written kernel of csrc/pt_frame.cu (per-ray
+body in csrc/pt_device.cuh), built with nvcc for sm_90a on first use and
+loaded with ctypes.  On CPU tensors it runs `pt_frame_reference`, a
+lane-vectorised PyTorch transcription of the same depth loop; nothing
+falls back from one to the other.
+
+Exactness.  Both versions draw the per-lane xorshift32 stream in the
+order of the JAX package's megakernel._shade_surface and use its
+predicates, epsilons and f32 association.  Hits are exact: the kernel
+walks the BVH, the plain version tests every leaf record (brute force,
+lowest original id first), and both return the bitwise nearest hit.
+Transcendentals (sin, cos, exp, rsqrt) may differ from XLA's by ULPs,
+which can flip a near-tangent NEE shadow test: the megakernel contract.
+Unlike the TPU kernel, which keeps stepping a dead lane's RNG state
+while any lane of its 1024-lane tile lives, both versions freeze a lane
+the moment its path dies; energy and traced counts are unaffected.
+
+Span mode serves the split-span schedule (models/integrators.py):
+`depths` counts this span's depths, `depth_base` offsets the NEE
+double-count guard's depth-0 test, `carry_in=(throughput3, energy3,
+flags)` continues paths of an earlier span and `carry_out=True` returns
+the whole carry: (rays6, state, throughput3, energy3, flags, traced)
+with flags = active | is_specular << 1.
+
+RNG states are u32 values carried in int64 tensors (utils/rng.py).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import time
+
+import torch
+
+from cpugpupathtracing_tpu_torch.ops import sampling
+from cpugpupathtracing_tpu_torch.ops.intersect import (
+    PLANE_DENOM_EPS,
+    brute_force_nearest_triangle,
+)
+from cpugpupathtracing_tpu_torch.utils.build import hashed_dir, source_path
+from cpugpupathtracing_tpu_torch.utils.device import resolve_device
+from cpugpupathtracing_tpu_torch.utils.rng import u2f, xs32
+from cpugpupathtracing_tpu_torch.utils.vecmath import (
+    INV_PI,
+    PI,
+    RAY_NUDGE,
+    RAY_TMAX,
+    TWO_PI,
+    fdiv,
+    sqrt,
+)
+
+# kernel launches of `pt_frame` (the closest-hit test hook is not counted)
+launches = 0
+# work counters of count_iters: the kernel's visits (pt::Counters: node,
+# leaf, shadow node and shadow leaf rows read, closest-hit and shadow rays
+# traversed), then the distinct node, leaf, shadow node and shadow leaf
+# rows the launch read (pt::Tree::seen_*)
+NUM_COUNTERS = 6
+COUNTERS = ("node", "leaf", "snode", "sleaf", "ray", "sray",
+            "node_rows", "leaf_rows", "snode_rows", "sleaf_rows")
+# per-ray traversal stack of the kernel (csrc/pt_device.cuh PT_STACK): the
+# wrappers refuse more roots than it holds, and the scene build
+# (models/scene.py) refuses trees whose worst-case walk would not fit
+PT_STACK = 64
+
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
+    "-shared", "-Xcompiler", "-fPIC", "--fmad=false", "-Xptxas=-v",
+]
+HOST_FLAGS = ["-O2", "-std=c++17", "-shared", "-fPIC", "-ffp-contract=off"]
+_SOURCES = ("pt_frame.cu", "pt_device.cuh")
+_HOST_SOURCES = ("pt_host_check.cc", "pt_device.cuh")
+_MAX_SMALL_BYTES = 48 * 1024
+
+_lib = None
+build_log = ""      # nvcc's output of the last build (registers, spills)
+build_seconds = 0.0
+_host_lib = None
+# one i32 per device: bit 0 set once any launch overflowed a traversal stack
+_status: dict = {}
+
+
+# ---- build and bind --------------------------------------------------------
+
+
+class _PtArgs(ctypes.Structure):
+    """Launch arguments; mirrors struct pt::PtArgs of csrc/pt_device.cuh."""
+
+    _fields_ = [
+        ("nodes", ctypes.c_void_p),
+        ("ltris", ctypes.c_void_p),
+        ("sh_nodes", ctypes.c_void_p),
+        ("sh_ltris", ctypes.c_void_p),
+        ("small", ctypes.c_void_p),
+        ("ray", ctypes.c_void_p * 6),
+        ("state", ctypes.c_void_p),
+        ("tp_in", ctypes.c_void_p * 3),
+        ("en_in", ctypes.c_void_p * 3),
+        ("flags_in", ctypes.c_void_p),
+        ("ray_out", ctypes.c_void_p * 6),
+        ("state_out", ctypes.c_void_p),
+        ("tp_out", ctypes.c_void_p * 3),
+        ("en_out", ctypes.c_void_p * 3),
+        ("flags_out", ctypes.c_void_p),
+        ("tr_out", ctypes.c_void_p),
+        ("hit_out", ctypes.c_void_p * 6),
+        ("iters", ctypes.c_void_p),
+        ("seen", ctypes.c_void_p * 4),
+        ("status", ctypes.c_void_p),
+        ("stream", ctypes.c_void_p),
+    ] + [(name, ctypes.c_int) for name in (
+        "small_words",
+        "mat_rows", "light_rows", "ltri_rows", "sph_rows", "pln_rows",
+        "obj_rows",
+        "num_sph", "num_pln", "num_lights", "nroots", "sh_nroots",
+        "mesh_lights", "sh_occl",
+        "n", "depths", "depth_base", "nee", "rr", "cosine", "ref_pdf",
+    )]
+
+
+def _bind(lib, names):
+    for name in names:
+        fn = getattr(lib, name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p]
+    return lib
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    if home and os.path.exists(os.path.join(home, "bin", "nvcc")):
+        return os.path.join(home, "bin", "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
+
+
+def build() -> ctypes.CDLL:
+    """Compile csrc/pt_frame.cu for sm_90a (once per source hash) into
+    build/torch_kernels/<hash>/ and load it.  Raises if nvcc fails."""
+    global _lib, build_log, build_seconds
+    if _lib is not None:
+        return _lib
+    srcs = [source_path("csrc", s) for s in _SOURCES]
+    out = os.path.join(hashed_dir("torch_kernels", srcs, NVCC_FLAGS),
+                       "libpt_frame.so")
+    t0 = time.perf_counter()
+    if not os.path.exists(out):
+        tmp = f"{out}.{os.getpid()}.tmp"
+        proc = subprocess.run(
+            [_nvcc(), *NVCC_FLAGS, "-o", tmp, srcs[0]],
+            capture_output=True, text=True, timeout=900,
+        )
+        build_log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {srcs[0]}:\n{build_log}")
+        os.replace(tmp, out)
+    build_seconds = time.perf_counter() - t0
+    _lib = _bind(ctypes.CDLL(out), ("pt_frame_launch",
+                                    "pt_closest_hit_launch"))
+    return _lib
+
+
+def build_host() -> ctypes.CDLL:
+    """g++ build of the kernel's per-ray body (csrc/pt_host_check.cc) for
+    CPU tests that hold the device code against the plain version.  The
+    render path never uses it."""
+    global _host_lib
+    if _host_lib is not None:
+        return _host_lib
+    srcs = [source_path("csrc", s) for s in _HOST_SOURCES]
+    out = os.path.join(hashed_dir("torch_host", srcs, HOST_FLAGS),
+                       "libpt_host.so")
+    if not os.path.exists(out):
+        tmp = f"{out}.{os.getpid()}.tmp"
+        subprocess.run(["g++", *HOST_FLAGS, "-o", tmp, srcs[0]], check=True,
+                       capture_output=True, timeout=300)
+        os.replace(tmp, out)
+    _host_lib = _bind(ctypes.CDLL(out), ("pt_frame_host",
+                                         "pt_closest_hit_host"))
+    return _host_lib
+
+
+# ---- argument packing (shared by the CUDA and the host build) -------------
+
+
+def _pack_small(mats, lights, ltri, sph, pln, sphmat, plnmat, objmat,
+                light_tri_meta, roots, sh_roots) -> torch.Tensor:
+    """The small scene tables as one f32 word array in the layout of
+    pt::unpack: f32 mats, lights, light triangles, spheres, planes, then
+    the i32 bits of objmat, sphmat, plnmat, light_tri_meta, roots and
+    shadow roots."""
+    dev = mats.device
+    meta = [v for se in light_tri_meta for v in se]
+    meta += [0] * (2 * lights.shape[0] - len(meta))
+    ints = torch.cat([
+        objmat.reshape(-1).to(torch.int32),
+        sphmat.reshape(-1).to(torch.int32),
+        plnmat.reshape(-1).to(torch.int32),
+        torch.tensor(meta + list(roots) + list(sh_roots), dtype=torch.int32,
+                     device=dev),
+    ])
+    return torch.cat([
+        mats.reshape(-1), lights.reshape(-1), ltri.reshape(-1),
+        sph.reshape(-1), pln.reshape(-1), ints.view(torch.float32),
+    ]).contiguous()
+
+
+def _check(name, x, dtype, dev, shape=None):
+    if x.device != dev or x.dtype != dtype or not x.is_contiguous():
+        raise ValueError(
+            f"{name}: need a contiguous {dtype} tensor on {dev}, got "
+            f"{x.dtype} on {x.device} (contiguous={x.is_contiguous()})")
+    if shape is not None and tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{name}: need shape {tuple(shape)}, got "
+                         f"{tuple(x.shape)}")
+
+
+def _make_args(nodes, ltris, sh_nodes, sh_ltris, small, tables, rays, *,
+               n, roots, sh_roots, occl, light_tri_meta, num_sph, num_pln,
+               num_lights, nee, rr, cosine, ref_pdf, depths, depth_base):
+    mats, lights, ltri, sph, pln, sphmat, plnmat, objmat = tables
+    a = _PtArgs()
+    a.nodes, a.ltris = nodes.data_ptr(), ltris.data_ptr()
+    a.sh_nodes, a.sh_ltris = sh_nodes.data_ptr(), sh_ltris.data_ptr()
+    a.small = small.data_ptr()
+    for c in range(6):
+        a.ray[c] = rays[c].data_ptr()
+    a.small_words = small.numel()
+    a.mat_rows, a.light_rows = mats.shape[0], lights.shape[0]
+    a.ltri_rows, a.sph_rows, a.pln_rows = (ltri.shape[0], sph.shape[0],
+                                           pln.shape[0])
+    a.obj_rows = objmat.shape[0]
+    a.num_sph, a.num_pln, a.num_lights = num_sph, num_pln, num_lights
+    a.nroots, a.sh_nroots = len(roots), len(sh_roots)
+    a.mesh_lights = int(any(c for _, c in light_tri_meta))
+    a.sh_occl = int(occl)
+    a.n, a.depths, a.depth_base = n, depths, depth_base
+    a.nee, a.rr, a.cosine, a.ref_pdf = int(nee), int(rr), int(cosine), \
+        int(ref_pdf)
+    return a
+
+
+def _status_tensor(dev) -> torch.Tensor:
+    key = str(dev)
+    if key not in _status:
+        _status[key] = torch.zeros(1, dtype=torch.int32, device=dev)
+    return _status[key]
+
+
+def check_status(device="cuda") -> None:
+    """Raise if any launch on `device` overflowed a per-ray traversal
+    stack (the scene build refuses trees that could; this reads the
+    kernel's own flag, and synchronises)."""
+    st = _status.get(str(resolve_device(device)))
+    if st is not None and int(st.item()) != 0:
+        raise RuntimeError("pt_frame: a traversal stack overflowed; the "
+                           "scene's tree is deeper than the kernel's stack")
+
+
+# ---- the entry point -------------------------------------------------------
+
+
+def pt_frame(
+    nodes, ltris, mats, lights, ltri, sph, pln, sphmat, plnmat, objmat,
+    rays, state,
+    *, roots, num_mats, num_lights, num_sph, num_pln, num_objs,
+    nee, rr, cosine, ref_pdf, depths,
+    sh_nodes=None, sh_ltris=None, sh_roots=None, occl=False,
+    count_iters=False, light_tri_meta=(), depth_base=0, carry_in=None,
+    carry_out=False,
+):
+    """Full advanced path trace of rays (6-tuple of (N,) f32) with RNG
+    state (N,) (int64 carrying u32).  The arguments are those of the JAX
+    package's pt_frame without its TPU schedule flags.
+
+    Returns (energy (N, 3) f32, state' (N,), traced () int64), or with
+    carry_out=True (rays6, state', throughput3, energy3, flags (N,) i32,
+    traced).  count_iters=True appends an int64 tensor of the kernel's
+    ten work counts (CUDA only; names in COUNTERS): closest-hit node rows
+    and leaf rows visited, shadow node rows and leaf rows visited,
+    closest-hit rays and shadow rays traversed, then how many distinct
+    rows of each of the four tables (nodes, ltris, sh_nodes, sh_ltris)
+    the launch read (the shadow ones 0 when the shadow rays walk the
+    closest-hit tables, whose rows then count once).
+
+    sh_* are the any-hit tables (bvh8.to_slim_occl when occl=True); when
+    absent the shadow rays walk the closest-hit tables."""
+    del num_mats, num_objs  # read from the table shapes
+    sh_nodes, sh_ltris, sh_roots = _shadow_tables(
+        nodes, ltris, roots, sh_nodes, sh_ltris, sh_roots, occl)
+    nee = nee and num_lights > 0
+    kw = dict(num_lights=num_lights, num_sph=num_sph, num_pln=num_pln,
+              nee=nee, rr=rr, cosine=cosine, ref_pdf=ref_pdf, depths=depths,
+              light_tri_meta=light_tri_meta, depth_base=depth_base,
+              carry_in=carry_in, carry_out=carry_out)
+    tables = (mats, lights, ltri, sph, pln, sphmat, plnmat, objmat)
+    dev = state.device
+    if dev.type == "cpu":
+        if count_iters:
+            raise ValueError("count_iters needs the CUDA kernel")
+        return pt_frame_reference(ltris, *tables, rays, state, **kw)
+    if dev.type != "cuda":
+        raise ValueError(f"pt_frame runs on cuda or cpu tensors, not {dev}")
+    return _launch(build().pt_frame_launch, dev, nodes, ltris, sh_nodes,
+                   sh_ltris, tables, rays, state, roots=roots,
+                   sh_roots=sh_roots, occl=occl, count_iters=count_iters,
+                   **kw)
+
+
+def pt_frame_host(
+    nodes, ltris, mats, lights, ltri, sph, pln, sphmat, plnmat, objmat,
+    rays, state, *, roots, num_lights, num_sph, num_pln, nee, rr, cosine,
+    ref_pdf, depths, sh_nodes=None, sh_ltris=None, sh_roots=None,
+    occl=False, light_tri_meta=(), depth_base=0, carry_in=None,
+    carry_out=False, count_iters=False, **_,
+):
+    """`pt_frame` through the g++ build of the kernel body, on CPU
+    tensors: a test of the device code without a card."""
+    sh_nodes, sh_ltris, sh_roots = _shadow_tables(
+        nodes, ltris, roots, sh_nodes, sh_ltris, sh_roots, occl)
+    return _launch(
+        build_host().pt_frame_host, torch.device("cpu"), nodes, ltris,
+        sh_nodes, sh_ltris,
+        (mats, lights, ltri, sph, pln, sphmat, plnmat, objmat), rays, state,
+        roots=roots, sh_roots=sh_roots, occl=occl,
+        light_tri_meta=light_tri_meta, num_sph=num_sph, num_pln=num_pln,
+        num_lights=num_lights, nee=nee and num_lights > 0, rr=rr,
+        cosine=cosine, ref_pdf=ref_pdf, depths=depths, depth_base=depth_base,
+        carry_in=carry_in, carry_out=carry_out, count_iters=count_iters)
+
+
+def _shadow_tables(nodes, ltris, roots, sh_nodes, sh_ltris, sh_roots, occl):
+    if sh_nodes is None:
+        if occl:
+            raise ValueError("occl=True requires separate shadow tables")
+        return nodes, ltris, roots
+    if not occl:
+        raise ValueError("separate shadow tables must be the "
+                         "occlusion-specialized (occl) form")
+    return sh_nodes, sh_ltris, sh_roots
+
+
+def _check_roots(name, roots):
+    if not 1 <= len(roots) <= PT_STACK:
+        raise ValueError(f"{name}: the kernel walks 1 to {PT_STACK} roots "
+                         f"(its traversal stack), got {len(roots)}")
+
+
+def _launch(entry, dev, nodes, ltris, sh_nodes, sh_ltris, tables, rays,
+            state, *, roots, sh_roots, occl=False, light_tri_meta=(),
+            num_sph, num_pln, num_lights, nee, rr, cosine, ref_pdf, depths,
+            depth_base=0, carry_in=None, carry_out=False, count_iters=False):
+    global launches
+    n = state.shape[0]
+    _check_roots("roots", roots)
+    _check_roots("sh_roots", sh_roots)
+    f32, i32, i64 = torch.float32, torch.int32, torch.int64
+    for name, t in (("nodes", nodes), ("sh_nodes", sh_nodes)):
+        _check(name, t, f32, dev)
+        if t.dim() != 2 or t.shape[1] != 64:
+            raise ValueError(f"{name}: need (B, 64) slim 8-wide node rows")
+    for name, t in (("ltris", ltris), ("sh_ltris", sh_ltris)):
+        _check(name, t, f32, dev)
+        if t.dim() != 2 or t.shape[1] != 128:
+            raise ValueError(f"{name}: need (NL, 128) leaf rows")
+    for k, t in enumerate(tables):
+        _check(f"table {k}", t, i32 if k >= 5 else f32, dev)
+    _check("state", state, i64, dev, (n,))
+    for c in range(6):
+        _check(f"rays[{c}]", rays[c], f32, dev, (n,))
+    small = _pack_small(*tables, light_tri_meta, roots, sh_roots)
+    if small.numel() * 4 > _MAX_SMALL_BYTES:
+        raise ValueError("small scene tables exceed the kernel's 48 KB of "
+                         "shared memory")
+    a = _make_args(nodes, ltris, sh_nodes, sh_ltris, small, tables, rays,
+                   n=n, roots=roots, sh_roots=sh_roots, occl=occl,
+                   light_tri_meta=light_tri_meta, num_sph=num_sph,
+                   num_pln=num_pln, num_lights=num_lights, nee=nee, rr=rr,
+                   cosine=cosine, ref_pdf=ref_pdf, depths=depths,
+                   depth_base=depth_base)
+    a.state = state.data_ptr()
+    if carry_in is not None:
+        tp_in, en_in, flags_in = carry_in
+        for c in range(3):
+            _check("carry throughput", tp_in[c], f32, dev, (n,))
+            _check("carry energy", en_in[c], f32, dev, (n,))
+            a.tp_in[c], a.en_in[c] = tp_in[c].data_ptr(), en_in[c].data_ptr()
+        _check("carry flags", flags_in, i32, dev, (n,))
+        a.flags_in = flags_in.data_ptr()
+
+    def col(dtype=f32):
+        return torch.empty(n, dtype=dtype, device=dev)
+
+    en = [col() for _ in range(3)]
+    st_out, tr = col(i64), col(i32)
+    for c in range(3):
+        a.en_out[c] = en[c].data_ptr()
+    a.state_out, a.tr_out = st_out.data_ptr(), tr.data_ptr()
+    if carry_out:
+        rays_out, tp_out, flags = [col() for _ in range(6)], \
+            [col() for _ in range(3)], col(i32)
+        for c in range(6):
+            a.ray_out[c] = rays_out[c].data_ptr()
+        for c in range(3):
+            a.tp_out[c] = tp_out[c].data_ptr()
+        a.flags_out = flags.data_ptr()
+    iters = seen = None
+    if count_iters:
+        iters = torch.zeros(NUM_COUNTERS, dtype=i64, device=dev)
+        a.iters = iters.data_ptr()
+        # one byte per row of nodes, ltris, sh_nodes, sh_ltris; the shadow
+        # walk shares the closest-hit bytes when it walks the same tables
+        sizes = [nodes.shape[0], ltris.shape[0]]
+        if sh_nodes is not nodes:
+            sizes += [sh_nodes.shape[0], sh_ltris.shape[0]]
+        seen = torch.zeros(sum(sizes), dtype=torch.uint8,
+                           device=dev).split(sizes)
+        for k in range(4):
+            a.seen[k] = seen[k % len(seen)].data_ptr()
+    a.status = _status_tensor(dev).data_ptr()
+    if dev.type == "cuda":
+        a.stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = entry(ctypes.addressof(a))
+    if rc != 0:
+        raise RuntimeError(f"pt_frame launch failed (error {rc})")
+    if dev.type == "cuda":
+        launches += 1
+    traced = tr.sum(dtype=i64)
+    if carry_out:
+        out = (tuple(rays_out), st_out, tuple(tp_out), tuple(en), flags,
+               traced)
+    else:
+        out = (torch.stack(en, dim=1), st_out, traced)
+    if not count_iters:
+        return out
+    rows = [x.sum(dtype=i64) for x in seen]
+    rows += [torch.zeros((), dtype=i64, device=dev)] * (4 - len(rows))
+    return out + (torch.cat([iters, torch.stack(rows)]),)
+
+
+def closest_hit(nodes, ltris, roots, rays):
+    """Nearest hit of each ray over one slim tree: (t, original triangle
+    id, object, nx, ny, nz), t = 1e34 and ids -1 on a miss.  On CUDA
+    tensors it runs the kernel's own traversal (a test hook of
+    csrc/pt_frame.cu that the path tracer never calls); on CPU tensors the
+    brute-force plain version."""
+    dev = rays[0].device
+    if dev.type == "cpu":
+        return closest_hit_reference(ltris, rays)
+    return _hits(build().pt_closest_hit_launch, dev, nodes, ltris, roots,
+                 rays)
+
+
+def closest_hit_host(nodes, ltris, roots, rays):
+    """`closest_hit` through the g++ build of the kernel body (CPU)."""
+    return _hits(build_host().pt_closest_hit_host, torch.device("cpu"),
+                 nodes, ltris, roots, rays)
+
+
+def _hits(entry, dev, nodes, ltris, roots, rays):
+    n = rays[0].shape[0]
+    f32, i32 = torch.float32, torch.int32
+    _check_roots("roots", roots)
+    _check("nodes", nodes, f32, dev)
+    _check("ltris", ltris, f32, dev)
+    for c in range(6):
+        _check(f"rays[{c}]", rays[c], f32, dev, (n,))
+    zi = torch.zeros(1, dtype=i32, device=dev)
+    tables = tuple(torch.zeros((1, c), dtype=f32, device=dev)
+                   for c in (14, 10, 12, 6, 7)) + (zi, zi, zi)
+    small = _pack_small(*tables, (), roots, roots)
+    a = _make_args(nodes, ltris, nodes, ltris, small, tables, rays, n=n,
+                   roots=roots, sh_roots=roots, occl=False,
+                   light_tri_meta=(), num_sph=0, num_pln=0, num_lights=0,
+                   nee=False, rr=False, cosine=False, ref_pdf=False,
+                   depths=1, depth_base=0)
+    out = [torch.empty(n, dtype=f32, device=dev),
+           torch.empty(n, dtype=i32, device=dev),
+           torch.empty(n, dtype=i32, device=dev)] + \
+        [torch.empty(n, dtype=f32, device=dev) for _ in range(3)]
+    for c in range(6):
+        a.hit_out[c] = out[c].data_ptr()
+    a.status = _status_tensor(dev).data_ptr()
+    if dev.type == "cuda":
+        a.stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = entry(ctypes.addressof(a))
+    if rc != 0:
+        raise RuntimeError(f"closest-hit launch failed (error {rc})")
+    return tuple(out)
+
+
+# ---- the plain version -----------------------------------------------------
+
+
+def leaf_records(ltris: torch.Tensor) -> dict:
+    """Every real triangle record of slim leaf rows (8 x 16 cols), in
+    original-id order: v0, e1, e2, flat normal (R, 3) f32, obj, id (R,)
+    i32."""
+    rec = ltris.reshape(-1, 16)
+    ids = rec[:, 13].view(torch.int32)
+    rec = rec[ids >= 0]
+    order = torch.argsort(rec[:, 13].view(torch.int32).to(torch.int64),
+                          stable=True)
+    rec = rec[order]
+    return dict(v0=rec[:, 0:3], e1=rec[:, 3:6], e2=rec[:, 6:9],
+                n=rec[:, 9:12], obj=rec[:, 12].view(torch.int32),
+                id=rec[:, 13].view(torch.int32))
+
+
+def closest_hit_reference(ltris, rays, t_init=None, records=None,
+                          chunk=4096):
+    """Brute-force nearest hit over the leaf records (ties keep the lowest
+    original id) with t < t_init (default 1e34): (t, tri, obj, nx, ny, nz)
+    like `closest_hit`; `records` reuses leaf_records(ltris)."""
+    rc = records if records is not None else leaf_records(ltris)
+    o = torch.stack(rays[0:3], dim=1)
+    d = torch.stack(rays[3:6], dim=1)
+    if t_init is None:
+        t_init = torch.full_like(rays[0], RAY_TMAX)
+    t, k = brute_force_nearest_triangle(o, d, rc["v0"], rc["e1"], rc["e2"],
+                                        t_init, chunk=chunk)
+    hit = k >= 0
+    kk = torch.where(hit, k, 0)
+    m1 = torch.full_like(k, -1).to(torch.int32)
+    tri = torch.where(hit, rc["id"][kk], m1)
+    obj = torch.where(hit, rc["obj"][kk], m1)
+    nrm = torch.where(hit[:, None], rc["n"][kk], torch.zeros_like(o))
+    return t, tri, obj, nrm[:, 0], nrm[:, 1], nrm[:, 2]
+
+
+def _sphere_t(s, ox, oy, oz, dx, dy, dz):
+    """Hit distance of sphere row s (center, r^2), +inf where missed."""
+    elx, ely, elz = s[0] - ox, s[1] - oy, s[2] - oz
+    tca = elx * dx + ely * dy + elz * dz
+    d2 = (elx * elx + ely * ely + elz * elz) - tca * tca
+    thc = sqrt(torch.clamp(s[3] - d2, min=0.0))
+    t0 = tca - thc
+    t1 = tca + thc
+    ts = torch.where(t0 < 0.0, t1, t0)
+    vs = (tca >= 0.0) & (d2 <= s[3]) & (ts >= 0.0)
+    return torch.where(vs, ts, torch.full_like(ts, float("inf")))
+
+
+def _plane_t(p, ox, oy, oz, dx, dy, dz):
+    """Hit distance of plane row p (point, normal), +inf where missed."""
+    denom = dx * p[3] + dy * p[4] + dz * p[5]
+    den_ok = torch.abs(denom) > PLANE_DENOM_EPS
+    tp = ((p[0] - ox) * p[3] + (p[1] - oy) * p[4] + (p[2] - oz) * p[5]) / (
+        torch.where(den_ok, denom, torch.ones_like(denom)))
+    vp = den_ok & (tp > 0.0)
+    return torch.where(vp, tp, torch.full_like(tp, float("inf")))
+
+
+def _analytic_tests(sph, pln, num_sph, num_pln, ox, oy, oz, dx, dy, dz, t,
+                    kind):
+    """megakernel._analytic_tests: kind 0 = mesh/miss, 1 + s = sphere s,
+    1 + S + p = plane p."""
+    inf = float("inf")
+    for rows, count, fn, base in ((sph, num_sph, _sphere_t, 1),
+                                  (pln, num_pln, _plane_t, 1 + num_sph)):
+        if not count:
+            continue
+        best = torch.full_like(t, inf)
+        bj = torch.zeros_like(kind)
+        for j in range(count):
+            tj = fn(rows[j], ox, oy, oz, dx, dy, dz)
+            closer = (tj < t) & (tj < best)
+            best = torch.where(closer, tj, best)
+            bj = torch.where(closer, torch.full_like(bj, j), bj)
+        found = torch.isfinite(best)
+        t = torch.where(found, best, t)
+        kind = torch.where(found, base + bj, kind)
+    return t, kind
+
+
+def _shade_surface(tb, md, p, depth0, t, tri, obj, mnx, mny, mnz):
+    """megakernel._shade_surface on lane tensors: updates the path dict
+    `p` in place and returns the shadow ray (sneed, origin3, dir3, tmax,
+    contribution3)."""
+    ox, oy, oz, dx, dy, dz = p["ray"]
+    state = p["state"]
+    active = p["active"]
+    is_spec = p["spec"] != 0
+    mats, lights = tb["mats"], tb["lights"]
+    sph, pln = tb["sph"], tb["pln"]
+    num_sph, num_pln = tb["num_sph"], tb["num_pln"]
+    kind = torch.zeros_like(tri)
+    t, kind = _analytic_tests(sph, pln, num_sph, num_pln, ox, oy, oz, dx,
+                              dy, dz, t, kind)
+
+    hit_any = (tri >= 0) | (kind > 0)
+    active = active & hit_any
+
+    # hit surface (GetRayHitResult, Main.cpp:325-338)
+    px = ox + dx * t
+    py = oy + dy * t
+    pz = oz + dz * t
+    nx, ny, nz = mnx, mny, mnz
+    objmat = tb["objmat"]
+    in_obj = (obj >= 1) & (obj < objmat.shape[0])
+    mat_idx = objmat[torch.where(in_obj, obj, 0).long()]
+    for s in range(num_sph):
+        is_s = kind == 1 + s
+        c = sph[s]
+        vx, vy, vz = px - c[0], py - c[1], pz - c[2]
+        l_s = sqrt(vx * vx + vy * vy + vz * vz)
+        nx = torch.where(is_s, vx / l_s, nx)
+        ny = torch.where(is_s, vy / l_s, ny)
+        nz = torch.where(is_s, vz / l_s, nz)
+        mat_idx = torch.where(is_s, tb["sphmat"][s], mat_idx)
+    for q in range(num_pln):
+        is_p = kind == 1 + num_sph + q
+        nx = torch.where(is_p, pln[q, 3], nx)
+        ny = torch.where(is_p, pln[q, 4], ny)
+        nz = torch.where(is_p, pln[q, 5], nz)
+        mat_idx = torch.where(is_p, tb["plnmat"][q], mat_idx)
+    in_mat = (mat_idx >= 0) & (mat_idx < mats.shape[0])
+    mrow = mats[torch.where(in_mat, mat_idx, 0).long()]  # (n, 14)
+    alb_r, alb_g, alb_b = mrow[:, 0], mrow[:, 1], mrow[:, 2]
+    m_spec, m_refr, m_ior = mrow[:, 3], mrow[:, 4], mrow[:, 8]
+    is_light = mrow[:, 13] > 0.5
+
+    # light hit (Main.cpp:424-431)
+    tpx, tpy, tpz = p["tp"]
+    enx, eny, enz = p["en"]
+    zero = torch.zeros_like(t)
+    hit_light = active & is_light
+    add_em = hit_light & (depth0 | is_spec) if md["nee"] else hit_light
+    inten = mrow[:, 12]
+    enx = enx + torch.where(add_em, tpx * mrow[:, 9] * inten, zero)
+    eny = eny + torch.where(add_em, tpy * mrow[:, 10] * inten, zero)
+    enz = enz + torch.where(add_em, tpz * mrow[:, 11] * inten, zero)
+    active = active & ~hit_light
+
+    dw = torch.clamp(1.0 - m_spec - m_refr, min=0.0)
+    brdf_r, brdf_g, brdf_b = alb_r * INV_PI, alb_g * INV_PI, alb_b * INV_PI
+
+    # NEE (Main.cpp:439-465; sample_light draw layout)
+    shadow = None
+    if md["nee"]:
+        do_nee = active & (dw > 0.001)
+        state = xs32(state)
+        num_lights = tb["num_lights"]
+        li = state % num_lights
+        lrow = lights[li]
+        lcx, lcy, lcz = lrow[:, 0], lrow[:, 1], lrow[:, 2]
+        lrad, larea = lrow[:, 3], lrow[:, 4]
+
+        # random_point_sphere_facing (Source/Primitives.cpp:214-220)
+        tcx, tcy, tcz = px - lcx, py - lcy, pz - lcz
+        l_tp = sqrt(tcx * tcx + tcy * tcy + tcz * tcz)
+        fx, fy, fz = tcx / l_tp, tcy / l_tp, tcz / l_tp
+        state = xs32(state)
+        u1 = u2f(state)
+        state = xs32(state)
+        u2 = u2f(state)
+        sx, sy, sz = sampling.uniform_sphere_from_uv(u1, u2)
+        flip = torch.where(sx * fx + sy * fy + sz * fz < 0.0,
+                           torch.full_like(sx, -1.0), torch.ones_like(sx))
+        sx, sy, sz = sx * flip, sy * flip, sz * flip
+        lpx, lpy, lpz = lcx + lrad * sx, lcy + lrad * sy, lcz + lrad * sz
+        r_d = torch.clamp(lrad, min=1e-20)
+        lnx, lny, lnz = (lpx - lcx) / r_d, (lpy - lcy) / r_d, (lpz - lcz) / r_d
+        meta = tb["light_tri_meta"]
+        state = xs32(state)
+        if any(c for _, c in meta):
+            # mesh-light arm: a uniform triangle of the picked light,
+            # fold-sampled on the unit square
+            ti = torch.zeros_like(li)
+            for lj, (st_, cnt) in enumerate(meta):
+                if cnt:
+                    ti = torch.where(li == lj, st_ + state % cnt, ti)
+            state = xs32(state)
+            u0m = u2f(state)
+            state = xs32(state)
+            u1m = u2f(state)
+            over = (u0m + u1m) > 1.0
+            alpha = torch.where(over, 1.0 - u0m, u0m)
+            beta = torch.where(over, 1.0 - u1m, u1m)
+            gamma = 1.0 - alpha - beta
+            trow = tb["ltri"][ti]
+            is_sph_l = lrow[:, 9] > 0.5
+            ptx = alpha * trow[:, 0] + beta * trow[:, 3] + gamma * trow[:, 6]
+            pty = alpha * trow[:, 1] + beta * trow[:, 4] + gamma * trow[:, 7]
+            ptz = alpha * trow[:, 2] + beta * trow[:, 5] + gamma * trow[:, 8]
+            lpx = torch.where(is_sph_l, lpx, ptx)
+            lpy = torch.where(is_sph_l, lpy, pty)
+            lpz = torch.where(is_sph_l, lpz, ptz)
+            lnx = torch.where(is_sph_l, lnx, trow[:, 9])
+            lny = torch.where(is_sph_l, lny, trow[:, 10])
+            lnz = torch.where(is_sph_l, lnz, trow[:, 11])
+        else:
+            # stream-layout dummies (sample_light's no-mesh-light arm)
+            state = xs32(xs32(state))
+
+        tlx, tly, tlz = lpx - px, lpy - py, lpz - pz
+        dist = sqrt(tlx * tlx + tly * tly + tlz * tlz)
+        d_d = torch.clamp(dist, min=1e-20)
+        tlx, tly, tlz = tlx / d_d, tly / d_d, tlz / d_d
+        ndotl = nx * tlx + ny * tly + nz * tlz
+        nldotl = -(lnx * tlx + lny * tly + lnz * tlz)
+        sneed = do_nee & (ndotl > 0.0) & (nldotl > 0.0)
+        solid = (nldotl * larea) / torch.clamp(dist * dist, min=1e-20)
+        s_ = ndotl * solid
+        nl_f = float(num_lights)
+        contrib = tuple(
+            torch.where(sneed, tp * s_ * brdf * lem * nl_f * dw, zero)
+            for tp, brdf, lem in ((tpx, brdf_r, lrow[:, 5]),
+                                  (tpy, brdf_g, lrow[:, 6]),
+                                  (tpz, brdf_b, lrow[:, 7])))
+        so = (px + tlx * RAY_NUDGE, py + tly * RAY_NUDGE,
+              pz + tlz * RAY_NUDGE)
+        stmax = dist - 2.0 * RAY_NUDGE
+        shadow = (sneed, so, (tlx, tly, tlz), stmax, contrib)
+
+    # Russian roulette (Main.cpp:468-475)
+    if md["rr"]:
+        surv = sampling.survival_probability_rr(alb_r, alb_g, alb_b)
+        state = xs32(state)
+        r_rr = u2f(state)
+        active = active & ~(surv < r_rr)
+        tpx = torch.where(active, tpx / surv, tpx)
+        tpy = torch.where(active, tpy / surv, tpy)
+        tpz = torch.where(active, tpz / surv, tpz)
+
+    # lobe selection (Main.cpp:478-570)
+    state = xs32(state)
+    r_lobe = u2f(state)
+    sel_spec = active & (r_lobe < m_spec)
+    sel_diel = active & ~sel_spec & (r_lobe < m_spec + m_refr)
+    sel_diff = active & ~sel_spec & ~sel_diel
+
+    ddn = dx * nx + dy * ny + dz * nz
+    rfx, rfy, rfz = sampling.reflect((dx, dy, dz), (nx, ny, nz), ddn)
+
+    cosi_raw = torch.clamp(ddn, -1.0, 1.0)
+    outside = cosi_raw < 0.0
+    inside = ~outside
+    cosi = torch.abs(cosi_raw)
+    one = torch.ones_like(t)
+    etai = torch.where(outside, one, m_ior)
+    etat = torch.where(outside, m_ior, one)
+    nrx = torch.where(outside, nx, -nx)
+    nry = torch.where(outside, ny, -ny)
+    nrz = torch.where(outside, nz, -nz)
+    eta = etai / etat
+    kk = 1.0 - eta * eta * (1.0 - cosi * cosi)
+    tir = kk < 0.0
+    coef = eta * cosi - sqrt(torch.clamp(kk, min=0.0))
+    rx = dx * eta + coef * nrx
+    ry = dy * eta + coef * nry
+    rz = dz * eta + coef * nrz
+    l_r = sqrt(rx * rx + ry * ry + rz * rz)
+    rx, ry, rz = rx / l_r, ry / l_r, rz / l_r
+    angle_in = ddn
+    angle_out = rx * nx + ry * ny + rz * nz
+    fr = sampling.fresnel(angle_in, angle_out, etai, etat)
+    fr = torch.where(tir, one, fr)
+    state = xs32(state)
+    r_fr = u2f(state)
+    choose_refract = r_fr > fr
+
+    # diffuse bounce (Main.cpp:548-568)
+    state = xs32(state)
+    u1 = u2f(state)
+    state = xs32(state)
+    u2 = u2f(state)
+    ux, uy, uz = sampling.uniform_sphere_from_uv(u1, u2)
+    if md["cosine"]:
+        # normalize_safe(normal + d, fallback=normal)
+        wx, wy, wz = nx + ux, ny + uy, nz + uz
+        len_sq = wx * wx + wy * wy + wz * wz
+        ok_l = len_sq > 1e-20
+        scale_l = torch.where(ok_l, torch.rsqrt(torch.clamp(len_sq, min=1e-20)),
+                              zero)
+        dfx = torch.where(ok_l, wx * scale_l, nx)
+        dfy = torch.where(ok_l, wy * scale_l, ny)
+        dfz = torch.where(ok_l, wz * scale_l, nz)
+        ndotr = dfx * nx + dfy * ny + dfz * nz
+        if md["ref_pdf"]:
+            weight = fdiv(ndotr, 1.0 / TWO_PI)
+        else:
+            weight = ndotr / fdiv(torch.clamp(ndotr, min=1e-6), PI)
+    else:
+        fl2 = torch.where(ux * nx + uy * ny + uz * nz < 0.0,
+                          torch.full_like(ux, -1.0), one)
+        dfx, dfy, dfz = ux * fl2, uy * fl2, uz * fl2
+        ndotr = dfx * nx + dfy * ny + dfz * nz
+        if md["ref_pdf"]:
+            weight = ndotr / fdiv(torch.clamp(ndotr, min=1e-6), PI)
+        else:
+            weight = fdiv(ndotr, 1.0 / TWO_PI)
+
+    beer_r = torch.exp(-mrow[:, 5] * t)
+    beer_g = torch.exp(-mrow[:, 6] * t)
+    beer_b = torch.exp(-mrow[:, 7] * t)
+
+    diel_bounce = sel_diel & ~tir
+    diel_refract = diel_bounce & choose_refract
+    diel_reflect = diel_bounce & ~choose_refract
+
+    mirror = sel_spec | diel_reflect
+    ndir_x = torch.where(sel_diff, dfx,
+                         torch.where(diel_refract, rx,
+                                     torch.where(mirror, rfx, dx)))
+    ndir_y = torch.where(sel_diff, dfy,
+                         torch.where(diel_refract, ry,
+                                     torch.where(mirror, rfy, dy)))
+    ndir_z = torch.where(sel_diff, dfz,
+                         torch.where(diel_refract, rz,
+                                     torch.where(mirror, rfz, dz)))
+
+    mul_any = sel_spec | diel_reflect | diel_refract
+    ref_in = diel_refract & inside
+    tms = []
+    for alb, beer, brdf in ((alb_r, beer_r, brdf_r), (alb_g, beer_g, brdf_g),
+                            (alb_b, beer_b, brdf_b)):
+        tm = torch.where(mul_any, alb, one)
+        tm = torch.where(ref_in, alb * beer, tm)
+        tms.append(torch.where(sel_diff, weight * brdf, tm))
+    tpx, tpy, tpz = tpx * tms[0], tpy * tms[1], tpz * tms[2]
+
+    bounced = sel_spec | diel_bounce | sel_diff
+    spec = torch.where(sel_spec | diel_bounce, torch.ones_like(p["spec"]),
+                       p["spec"])
+    spec = torch.where(sel_diff, torch.zeros_like(spec), spec)
+    p["ray"] = (
+        torch.where(bounced, px + ndir_x * RAY_NUDGE, ox),
+        torch.where(bounced, py + ndir_y * RAY_NUDGE, oy),
+        torch.where(bounced, pz + ndir_z * RAY_NUDGE, oz),
+        torch.where(bounced, ndir_x, dx),
+        torch.where(bounced, ndir_y, dy),
+        torch.where(bounced, ndir_z, dz),
+    )
+    p.update(state=state, tp=(tpx, tpy, tpz), en=(enx, eny, enz),
+             active=active, spec=spec)
+    return shadow
+
+
+def _analytic_occluded(sph, pln, num_sph, num_pln, so, sd, tmax):
+    """megakernel._analytic_occluded_nee without the sneed mask (the
+    caller passes shadow rays only)."""
+    occ = torch.zeros_like(tmax, dtype=torch.bool)
+    for s in range(num_sph):
+        occ = occ | (_sphere_t(sph[s], *so, *sd) < tmax)
+    for q in range(num_pln):
+        occ = occ | (_plane_t(pln[q], *so, *sd) < tmax)
+    return occ
+
+
+def pt_frame_reference(
+    ltris, mats, lights, ltri, sph, pln, sphmat, plnmat, objmat, rays, state,
+    *, num_lights, num_sph, num_pln, nee, rr, cosine, ref_pdf, depths,
+    light_tri_meta=(), depth_base=0, carry_in=None, carry_out=False,
+    chunk=4096,
+):
+    """The plain version of `pt_frame` (same returns): the depth loop of
+    _pt_frame_kernel over the lanes still alive, with the hits taken by
+    brute force over the leaf records of `ltris` and the shadow test as
+    an any-hit over the same records plus the analytic occluders.  A lane
+    leaves the loop when its path dies, as in the CUDA kernel."""
+    n = state.shape[0]
+    f32 = torch.float32
+    rec = leaf_records(ltris)
+    tb = dict(mats=mats, lights=lights, ltri=ltri, sph=sph, pln=pln,
+              sphmat=sphmat, plnmat=plnmat, objmat=objmat,
+              num_lights=num_lights, num_sph=num_sph, num_pln=num_pln,
+              light_tri_meta=tuple(light_tri_meta))
+    md = dict(nee=nee and num_lights > 0, rr=rr, cosine=cosine,
+              ref_pdf=ref_pdf)
+    ray = [r.clone() for r in rays]
+    st = state.clone()
+    if carry_in is not None:
+        tp = [c.clone() for c in carry_in[0]]
+        en = [c.clone() for c in carry_in[1]]
+        active = (carry_in[2] & 1) != 0
+        spec = (carry_in[2] >> 1) & 1
+    else:
+        tp = [torch.ones(n, dtype=f32, device=st.device) for _ in range(3)]
+        en = [torch.zeros(n, dtype=f32, device=st.device) for _ in range(3)]
+        active = torch.ones(n, dtype=torch.bool, device=st.device)
+        spec = torch.zeros(n, dtype=torch.int32, device=st.device)
+    tr = torch.zeros(n, dtype=torch.int64, device=st.device)
+    for d in range(depths):
+        lanes = active.nonzero().squeeze(1)
+        if lanes.numel() == 0:
+            break
+        p = dict(ray=tuple(r[lanes] for r in ray), state=st[lanes],
+                 tp=tuple(c[lanes] for c in tp),
+                 en=tuple(c[lanes] for c in en),
+                 active=active[lanes], spec=spec[lanes])
+        tr[lanes] += 1
+        hit = closest_hit_reference(ltris, p["ray"], records=rec,
+                                    chunk=chunk)
+        depth0 = torch.full_like(hit[1], d + depth_base == 0,
+                                 dtype=torch.bool)
+        shadow = _shade_surface(tb, md, p, depth0, *hit)
+        en_l = list(p["en"])
+        if shadow is not None:
+            sneed, so, sd, stmax, contrib = shadow
+            sl = sneed.nonzero().squeeze(1)
+            if sl.numel():
+                tr[lanes[sl]] += 1
+                so_s = tuple(c[sl] for c in so)
+                sd_s = tuple(c[sl] for c in sd)
+                occ = closest_hit_reference(
+                    ltris, so_s + sd_s, t_init=stmax[sl], records=rec,
+                    chunk=chunk)[1] >= 0
+                occ = occ | _analytic_occluded(
+                    sph, pln, num_sph, num_pln, so_s, sd_s, stmax[sl])
+                lit = torch.zeros_like(sneed)
+                lit[sl] = ~occ
+                zero = torch.zeros_like(en_l[0])
+                en_l = [e + torch.where(lit, c, zero)
+                        for e, c in zip(en_l, contrib)]
+        for c in range(6):
+            ray[c][lanes] = p["ray"][c]
+        st[lanes] = p["state"]
+        for c in range(3):
+            tp[c][lanes] = p["tp"][c]
+            en[c][lanes] = en_l[c]
+        active[lanes] = p["active"]
+        spec[lanes] = p["spec"]
+
+    traced = tr.sum()
+    if carry_out:
+        flags = active.to(torch.int32) | (spec.to(torch.int32) << 1)
+        return tuple(ray), st, tuple(tp), tuple(en), flags, traced
+    return torch.stack(en, dim=1), st, traced
