@@ -3,30 +3,44 @@
 
     python3 chip_smoke.py [--profile]
 
-Drives the port's main path -- config 3 (glass dragon stand-in, ground
+Drives the port's main paths -- config 3 (glass dragon stand-in, ground
 quad, two sphere lights; ADVANCED, depth 5, 1 spp) at 1920x1080 through
-`Renderer` -- and holds every CUDA kernel of that path against its plain
-PyTorch version on the card.  Phases, one line each; any failure raises
-and exits non-zero:
+`Renderer`, on the whole-frame route (`pt_frame`) and on the per-depth
+route (`shade_extend` + `shadow_resolve` per depth, chosen with
+CPUGPU_NO_PTFRAME=1) -- and holds every CUDA kernel of those paths against
+its plain PyTorch version on the card.  Phases, one line each; any
+failure raises and exits non-zero:
 
-  1. device   the card's name and power limit (nvidia-smi)
-  2. build    nvcc build of the kernels from the checkout (seconds, ptxas)
-  3. scene    the JAX-free config-3 scene build (seconds, table bytes)
-  4. check    8192 lanes from the middle of the 1920x1080 blocked camera
-              order through the kernel (single span, split span) and the
-              plain version on the card; closest hits (t, id, object,
-              normal) of the kernel's own traversal against brute force
-  5. frame    one warm-up frame; one frame timing each kernel launch; one
-              frame counting each launch's work and holding every 256th
-              lane of both launches (their real inputs: 2 depths with the
-              carry out, then 4 sorted depths with the carry in) against
-              the plain version; then timed frames through Renderer
-  6. the {"kernels": [...]} line: the 8192-lane check's numbers, and per
-     main-path launch its lanes, ms, bound and sampled error
-  7. the last line {"ok": true, "device": {...}}
+  1. device      the card's name and power limit (nvidia-smi)
+  2. build       nvcc build of the kernels from the checkout, one nvcc per
+                 unit in parallel (seconds, ptxas per kernel)
+  3. scene       the JAX-free config-3 scene build (seconds, table bytes)
+  4. check       8192 lanes from the middle of the 1920x1080 blocked camera
+                 order through pt_frame (single span, split span) and its
+                 plain version on the card; closest hits (t, id, object,
+                 normal) of the kernel's own traversal against brute force
+  5. check_mega  the same lanes: one shade_extend at depth 0 and one
+                 shadow_resolve on its outputs against their plain
+                 versions (flags and traced exact, energy under the
+                 megakernel contract); trace_advanced_mega with and without
+                 lane identities against trace_advanced_frame, bitwise
+  6. frame       whole-frame route: one warm-up frame; one frame timing
+                 each kernel launch; one frame counting each launch's work
+                 and holding every 256th lane of both launches (their real
+                 inputs: 2 depths with the carry out, then 4 sorted depths
+                 with the carry in) against the plain version; then timed
+                 frames through Renderer
+  7. frame_mega  the same on the per-depth route (6 + 6 launches and 3
+                 sorts per frame), then one frame from reset on each route
+                 with the same seed: images and traced counts equal
+  8. the {"kernels": [...]} line: per kernel the 8192-lane check's
+     numbers, and per main-path launch its lanes, ms, bound and sampled
+     error
+  9. the last line {"ok": true, "device": {...}}
 
---profile adds, after phase 5, a torch.profiler table of two frames'
-device time by kernel and the device-busy share of the frame time.
+--profile adds, after phases 6 and 7, a torch.profiler table of two
+frames' device time by kernel and the device-busy share of the frame
+time, per route.
 
 Imports nothing of JAX and nothing of the JAX package.  Needs one card;
 without one it exits non-zero and prints no result.
@@ -36,6 +50,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -65,10 +80,18 @@ LEAF_TRIS, OCCL_TRIS = 8, 14
 NODE_ROW_BYTES = 14 * 16
 LEAF_ROW_BYTES = LEAF_TRIS * 16 * 4
 OCCL_ROW_BYTES = OCCL_TRIS * 9 * 4
-# per-lane bytes of a launch: rays + RNG state in; the carry in
+# per-lane bytes of a pt_frame launch: rays + RNG state in; the carry in
 # (throughput, energy, flags); energy + state + traced out, or the whole
 # carry out (rays, state, throughput, energy, flags, traced)
 LANE_IN, CARRY_IN, LANE_OUT, CARRY_OUT = 32, 28, 24, 64
+# per-lane bytes of shade_extend: 14 columns in (6 ray f32, state 8,
+# throughput and energy 3 f32 each, flags i32), 24 out (the same 14 and
+# 10 f32 shadow columns), on every lane; of shadow_resolve: flags and
+# energy in, energy out on every lane, and the 10 shadow columns in on a
+# lane with a shadow ray
+SE_LANE = (6 * 4 + 8 + 6 * 4 + 4) + (6 * 4 + 8 + 6 * 4 + 4 + 10 * 4)
+SR_LANE, SR_SHADOW = 4 + 12 + 12, 10 * 4
+MEGA_KERNELS = ("shade_extend", "shadow_resolve")
 # megakernel contract (the JAX package's tests/test_megakernel.py)
 FLIP_SHARE_MAX, FLIP_MAX, MEAN_MAX = 0.03, 0.02, 1e-4
 
@@ -84,6 +107,23 @@ def nvidia_smi() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_lines(log: str) -> list:
+    """One line per kernel of nvcc's -Xptxas=-v output: the kernel's name,
+    its registers, and its stack frame and spills."""
+    out, name, frame = [], None, ""
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '.*?"
+                      r"([A-Za-z]+(?:_[A-Za-z]+)*_kernel)E", ln)
+        if m:
+            name, frame = m.group(1), ""
+        elif "spill" in ln:
+            frame = ln.strip()
+        elif "registers" in ln and name:
+            out.append(f"{name}: {ln.split(':', 1)[1].strip()}; {frame}")
+            name = None
+    return out
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -105,13 +145,14 @@ def lane_bytes(carry_in: bool, carry_out: bool) -> int:
             + (CARRY_OUT if carry_out else LANE_OUT))
 
 
-def bound_ms(iters: dict, lanes: int, lane_b: int, small_bytes: int):
+def bound_ms(iters: dict, lane_bytes_total: int, small_bytes: int):
     """Least time of one launch's work on this run's data: the larger of
     bytes over HBM bandwidth and f32 operations over the f32 peak.  The
-    bytes are each lane's input read once and output written once, the
-    small scene tables once, and once each table row the launch read
-    (the distinct rows of pt_frame's count_iters), not whole tables.
-    iters: pt_frame's count_iters counters by name (ptf.COUNTERS)."""
+    bytes are each lane's input read once and output written once
+    (lane_bytes_total), the small scene tables once, and once each table
+    row the launch read (the distinct rows of count_iters), not whole
+    tables.  iters: a kernel's count_iters counters by name
+    (ptf.COUNTERS)."""
     c = iters
     ops = (OPS_NODE * (c["node"] + c["snode"])
            + OPS_TRI * LEAF_TRIS * c["leaf"]
@@ -119,13 +160,14 @@ def bound_ms(iters: dict, lanes: int, lane_b: int, small_bytes: int):
     rows = (NODE_ROW_BYTES * (c["node_rows"] + c["snode_rows"])
             + LEAF_ROW_BYTES * c["leaf_rows"]
             + OCCL_ROW_BYTES * c["sleaf_rows"])
-    t_bytes = (lanes * lane_b + rows + small_bytes) / PEAK_BYTES_PER_S
+    t_bytes = (lane_bytes_total + rows + small_bytes) / PEAK_BYTES_PER_S
     t_ops = ops / PEAK_F32_FLOPS
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops
                                        else "operations")
 
 
-def profile_frames(r, ms_per_frame: float, frames: int = 2) -> None:
+def profile_frames(r, ms_per_frame: float, route: str,
+                   frames: int = 2) -> None:
     """Device kernel time by name over `frames` frames (torch.profiler),
     and the device-busy share of the unprofiled frame time."""
     import torch
@@ -148,7 +190,8 @@ def profile_frames(r, ms_per_frame: float, frames: int = 2) -> None:
         rows.append((us / 1e3 / frames, e.count // frames, e.key))
     rows.sort(reverse=True)
     busy = sum(ms for ms, _, _ in rows)
-    say("profile", frames=frames, device_busy_ms_per_frame=busy,
+    say("profile", route=route, frames=frames,
+        device_busy_ms_per_frame=busy,
         kernels_per_frame=sum(c for _, c, _ in rows),
         device_busy_share=busy / ms_per_frame)
     for ms, count, key in rows[:12]:
@@ -165,6 +208,111 @@ def plain(ptf, tables, rays, state, **kw):
                                   **{k: v for k, v in kw.items() if k in keys})
 
 
+def shade_plain(mk, a, kw, records=None):
+    """shade_extend's plain version on the arguments of a shade_extend
+    call (a: ten tables, depth, rays, state, throughput, energy,
+    flags)."""
+    keys = ("num_lights", "num_sph", "num_pln", "nee", "rr", "cosine",
+            "ref_pdf", "light_tri_meta")
+    return mk.shade_extend_reference(a[1], *a[2:], records=records,
+                                     **{k: kw[k] for k in keys})
+
+
+def resolve_plain(mk, a, kw, records=None):
+    """shadow_resolve's plain version on the arguments of a
+    shadow_resolve call (a: nodes, ltris, sph, pln, shadow origin,
+    direction, tmax, flags, energy, contribution)."""
+    return mk.shadow_resolve_reference(
+        *a[1:], num_sph=kw["num_sph"], num_pln=kw["num_pln"],
+        occl=kw["occl"], records=records)
+
+
+def check_mega(ds, settings, o, d, st, ref, small_bytes) -> dict:
+    """Phase 5 on the check lanes: one shade_extend at depth 0 and one
+    shadow_resolve on its outputs against their plain versions, and the
+    per-depth route against `ref` = (energy, state, traced) of pt_frame's
+    single span, bitwise.  Returns each kernel's numbers."""
+    import torch
+    from cpugpupathtracing_tpu_torch.models import integrators
+    from cpugpupathtracing_tpu_torch.ops import megakernel as mk
+    from cpugpupathtracing_tpu_torch.ops import pt_frame as ptf
+
+    dev, n = st.device, st.shape[0]
+    rays = tuple(o[:, k].contiguous() for k in range(3)) + tuple(
+        d[:, k].contiguous() for k in range(3))
+    one = torch.ones(n, device=dev)
+    zero = torch.zeros(n, device=dev)
+    flags = torch.ones(n, dtype=torch.int32, device=dev)
+    kw = integrators.extend_kwargs(ds, settings)
+    skw = integrators.shadow_kwargs(ds)
+    a = (*ds.tables(), 0, rays, st, (one, one, one), (zero, zero, zero),
+         flags)
+    *se, se_it = mk.shade_extend(*a, count_iters=True, **kw)
+    sa = (ds.poccl_nodes, ds.poccl_ltris, ds.mk_sph, ds.mk_pln, se[5], se[6],
+          se[7], se[4], se[3], se[8])
+    *sr, sr_it = mk.shadow_resolve(*sa, count_iters=True, **skw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    se_p = shade_plain(mk, a, kw)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    sr_p = resolve_plain(mk, sa, skw)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    ptf.check_status(dev)
+
+    def traced(fl):
+        return int((fl & 1).sum()) + int(((fl >> 2) & 1).sum())
+
+    if not torch.equal(se[4], se_p[4]):
+        raise AssertionError("shade_extend: flags differ from the plain "
+                             "version")
+    if not torch.equal(se[1], se_p[1]):
+        raise AssertionError("shade_extend: RNG state differs from the "
+                             "plain version")
+    _, se_err, _ = contract(torch.stack(se_p[3], 1), torch.stack(se[3], 1),
+                            "shade_extend vs plain")
+    _, sr_err, _ = contract(torch.stack(sr_p, 1), torch.stack(sr, 1),
+                            "shadow_resolve vs plain")
+    se_it = dict(zip(ptf.COUNTERS, (int(v) for v in se_it)))
+    sr_it = dict(zip(ptf.COUNTERS, (int(v) for v in sr_it)))
+    sr_small = 4 * (ds.mk_sph.numel() + ds.mk_pln.numel())
+    out = {
+        "shade_extend": dict(
+            ms=cuda_ms(lambda: mk.shade_extend(*a, **kw), 20),
+            plain_ms=(t1 - t0) * 1e3, max_abs_err=se_err, iters=se_it,
+            bound=bound_ms(se_it, n * SE_LANE, small_bytes)),
+        "shadow_resolve": dict(
+            ms=cuda_ms(lambda: mk.shadow_resolve(*sa, **skw), 20),
+            plain_ms=(t2 - t1) * 1e3, max_abs_err=sr_err, iters=sr_it,
+            bound=bound_ms(sr_it, n * SR_LANE + sr_it["sray"] * SR_SHADOW,
+                           sr_small)),
+    }
+    same = {}
+    idx = torch.arange(n, dtype=torch.int32, device=dev)
+    for label, ix in (("sorted", idx), ("unsorted", None)):
+        s_m, res = integrators.trace_advanced_mega(ds, settings, o, d, st,
+                                                   idx=ix)
+        same[label] = (torch.equal(res.energy, ref[0])
+                       and torch.equal(s_m, ref[1])
+                       and int(res.traced_rays) == ref[2])
+        if not same[label]:
+            raise AssertionError(f"per-depth route ({label}) differs from "
+                                 "the whole-frame kernel")
+    ptf.check_status(dev)
+    say("check_mega", lanes=n, traced_kernel=traced(se[4]),
+        traced_plain=traced(se_p[4]), flags_equal=True,
+        shade_extend_max_abs_err=se_err, shadow_resolve_max_abs_err=sr_err,
+        route_bitwise_sorted=same["sorted"],
+        route_bitwise_unsorted=same["unsorted"],
+        **{f"{k}_{f}": v[f] for k, v in out.items()
+           for f in ("ms", "plain_ms")},
+        **{f"{k}_bound_ms": v["bound"][0] for k, v in out.items()},
+        **{f"{k}_bound_by": v["bound"][1] for k, v in out.items()},
+        shade_extend_iters=se_it, shadow_resolve_iters=sr_it)
+    return out
+
+
 def contract(ref, got, what: str):
     """The megakernel contract on per-lane (N, 3) energies."""
     diff = (ref - got).abs()
@@ -178,6 +326,181 @@ def contract(ref, got, what: str):
     return flips, dmax, dmean
 
 
+def frame_mega(scene, cam_cfg, settings, width, height, small_bytes,
+               profile: bool) -> list:
+    """Phase 7: config 3 through Renderer on the per-depth route
+    (CPUGPU_NO_PTFRAME=1, restored afterwards).  Returns the main-path
+    entries of every launch of one frame, and prints the frame line."""
+    import os
+
+    import torch
+    from cpugpupathtracing_tpu_torch.config import RenderConfig
+    from cpugpupathtracing_tpu_torch.models import integrators
+    from cpugpupathtracing_tpu_torch.models.renderer import Renderer
+    from cpugpupathtracing_tpu_torch.ops import megakernel as mk
+    from cpugpupathtracing_tpu_torch.ops import pt_frame as ptf
+
+    dev = torch.device("cuda")
+    config = RenderConfig(width=width, height=height)
+    depths = settings.max_ray_depth + 1
+    sorts_per_frame = min(3, settings.max_ray_depth)
+    prev = os.environ.get("CPUGPU_NO_PTFRAME")
+    os.environ["CPUGPU_NO_PTFRAME"] = "1"
+    try:
+        r = Renderer(scene, camera=cam_cfg, config=config, settings=settings,
+                     device=dev)
+        r.render_frame()  # warm-up
+        entries = {name: getattr(mk, name) for name in MEGA_KERNELS}
+
+        def instrumented_frame(wrap) -> None:
+            for name in MEGA_KERNELS:
+                setattr(mk, name, wrap(name, entries[name]))
+            try:
+                r.render_frame()
+            finally:
+                for name in MEGA_KERNELS:
+                    setattr(mk, name, entries[name])
+            torch.cuda.synchronize()
+
+        # one frame with CUDA events around each launch
+        events = []
+
+        def timed(name, fn):
+            def call(*a, **k):
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                ev[0].record()
+                out = fn(*a, **k)
+                ev[1].record()
+                events.append(ev)
+                return out
+            return call
+
+        instrumented_frame(timed)
+        launch_ms = [e0.elapsed_time(e1) for e0, e1 in events]
+
+        # one frame counting each launch's work and keeping every
+        # SAMPLE_STRIDE-th lane's inputs and outputs for the plain versions
+        launches = []
+
+        def counted(name, fn):
+            def call(*a, **k):
+                *out, iters = fn(*a, count_iters=True, **k)
+                # lanes: shade_extend's state, shadow_resolve's flags
+                n = a[12 if name == "shade_extend" else 7].shape[0]
+                sel = torch.arange(0, n, SAMPLE_STRIDE, device=dev)
+
+                def pick(x):
+                    return tuple(pick(y) for y in x) if isinstance(
+                        x, tuple) else x[sel]
+                if name == "shade_extend":
+                    args = a[:11] + tuple(pick(x) for x in a[11:])
+                    got = (pick(out[3]), pick(out[4]))
+                else:
+                    args = a[:4] + tuple(pick(x) for x in a[4:])
+                    got = (pick(tuple(out)), None)
+                launches.append(dict(name=name, lanes=n, iters=iters,
+                                     args=args, kw=k, got=got))
+                return tuple(out)
+            return call
+
+        instrumented_frame(counted)
+        if len(launches) != 2 * depths or len(launch_ms) != 2 * depths:
+            raise AssertionError(f"{len(launches)} launches in a per-depth "
+                                 f"frame, expected {2 * depths}")
+        main_path = []
+        rec = ptf.leaf_records(scene.device(dev).pltris)
+        orec = mk.occl_records(scene.device(dev).poccl_ltris)
+        sr_small = 4 * (scene.device(dev).mk_sph.numel()
+                        + scene.device(dev).mk_pln.numel())
+        for k, (ln, ms) in enumerate(zip(launches, launch_ms)):
+            it = dict(zip(ptf.COUNTERS, (int(v) for v in ln["iters"])))
+            what = f"per-depth launch {k + 1} ({ln['name']}), sampled lanes"
+            if ln["name"] == "shade_extend":
+                ref = shade_plain(mk, ln["args"], ln["kw"], rec)
+                if not torch.equal(ref[4], ln["got"][1]):
+                    raise AssertionError(f"{what}: flags differ")
+                e_ref, e_got = ref[3], ln["got"][0]
+                b = bound_ms(it, ln["lanes"] * SE_LANE, small_bytes)
+            else:
+                e_ref = resolve_plain(mk, ln["args"], ln["kw"], orec)
+                e_got = ln["got"][0]
+                b = bound_ms(it, ln["lanes"] * SR_LANE
+                             + it["sray"] * SR_SHADOW, sr_small)
+            flips, err, mean = contract(torch.stack(e_ref, 1),
+                                        torch.stack(e_got, 1), what)
+            main_path.append(dict(
+                name=ln["name"], depth=k // 2, lanes=ln["lanes"], ms=ms,
+                bound_ms=b[0], bound_by=b[1],
+                sampled_lanes=int(e_got[0].shape[0]), max_abs_err=err,
+                flip_share=flips, mean_err=mean, iters=it))
+        ptf.check_status(dev)
+
+        # the main path: timed frames, every count from 0
+        ptf.launches = 0
+        for name in MEGA_KERNELS:
+            mk.launches[name] = 0
+        integrators.sorts = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        traced = 0
+        for _ in range(TIMED_FRAMES):
+            traced = traced + r.render_frame(sync=False)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = dict(pt_frame=ptf.launches, **mk.launches)
+        sorts = integrators.sorts
+        traced = int(traced)
+        ptf.check_status(dev)
+        want = dict(pt_frame=0, shade_extend=depths * TIMED_FRAMES,
+                    shadow_resolve=depths * TIMED_FRAMES)
+        if counts != want or sorts != sorts_per_frame * TIMED_FRAMES:
+            raise AssertionError(f"per-depth frames launched {counts} and "
+                                 f"sorted {sorts} times, expected {want} "
+                                 f"and {sorts_per_frame * TIMED_FRAMES}")
+        ms_per_frame = dt * 1e3 / TIMED_FRAMES
+        if profile:
+            profile_frames(r, ms_per_frame, "per-depth")
+
+        # one frame from reset on each route, same seed: equal images
+        r_mega = Renderer(scene, camera=cam_cfg, config=config,
+                          settings=settings, device=dev)
+        r_mega.render_frame()
+    finally:
+        if prev is None:
+            os.environ.pop("CPUGPU_NO_PTFRAME", None)
+        else:
+            os.environ["CPUGPU_NO_PTFRAME"] = prev
+    r_whole = Renderer(scene, camera=cam_cfg, config=config,
+                       settings=settings, device=dev)
+    before = ptf.launches
+    r_whole.render_frame()
+    if ptf.launches != before + 2:
+        raise AssertionError("the whole-frame route did not take pt_frame")
+    img = r_mega.image_u32()
+    same_image = bool((img == r_whole.image_u32()).all())
+    same_traced = r_mega.stats.traced_rays == r_whole.stats.traced_rays
+    if not (same_image and same_traced):
+        raise AssertionError("the per-depth route's frame differs from the "
+                             "whole-frame route's")
+    energy = r_mega.mean_energy
+    if not (math.isfinite(energy) and energy > 0.0):
+        raise AssertionError(f"mean energy {energy}")
+    if img.shape != (height, width) or not (img != 0xFF000000).any():
+        raise AssertionError("the per-depth frame is black")
+    say("frame_mega", width=width, height=height, frames=TIMED_FRAMES,
+        ms_per_frame=ms_per_frame,
+        kernel_share=sum(launch_ms) / ms_per_frame,
+        mrays_per_s=traced / dt / 1e6,
+        traced_per_frame=traced // TIMED_FRAMES,
+        launches_per_frame={k: v / TIMED_FRAMES for k, v in counts.items()},
+        sorts_per_frame=sorts / TIMED_FRAMES, mean_energy=energy,
+        image_equal_whole_frame=same_image,
+        traced_equal_whole_frame=same_traced)
+    for mp in main_path:
+        say(f"mega_d{mp['depth']}_{mp['name']}", **mp)
+    return main_path, counts
+
+
 def main() -> int:
     import torch
 
@@ -189,6 +512,7 @@ def main() -> int:
     from cpugpupathtracing_tpu_torch.models import camera as camlib
     from cpugpupathtracing_tpu_torch.models import integrators
     from cpugpupathtracing_tpu_torch.models.renderer import Renderer
+    from cpugpupathtracing_tpu_torch.ops import megakernel as mk
     from cpugpupathtracing_tpu_torch.ops import pt_frame as ptf
     from cpugpupathtracing_tpu_torch.utils import rng as rnglib
 
@@ -205,9 +529,9 @@ def main() -> int:
 
     # 2. build
     ptf.build()
-    ptxas = [ln.strip() for ln in ptf.build_log.splitlines()
-             if "registers" in ln or "spill" in ln]
-    say("build", seconds=round(ptf.build_seconds, 2), source="csrc/pt_frame.cu")
+    ptxas = ptxas_lines(ptf.build_log)
+    say("build", seconds=round(ptf.build_seconds, 2),
+        units=",".join(f"csrc/{u}" for u, _ in ptf._UNITS))
     for ln in ptxas:
         print("  ptxas:", ln, flush=True)
 
@@ -272,7 +596,7 @@ def main() -> int:
         raise AssertionError(f"{mism} closest hits differ from brute force")
     kernel_ms = cuda_ms(lambda: ptf.pt_frame(*ds.tables(), rays, st,
                                              depths=depths, **kw), 20)
-    b_ms, b_by = bound_ms(it_k, CHECK_LANES, lane_bytes(False, False),
+    b_ms, b_by = bound_ms(it_k, CHECK_LANES * lane_bytes(False, False),
                           small_bytes)
     say("check", lanes=CHECK_LANES, depths=depths, traced_kernel=int(tr_k),
         traced_plain=int(tr_p), traced_split=int(res_sp.traced_rays),
@@ -283,7 +607,11 @@ def main() -> int:
         iters=it_k, kernel_ms=kernel_ms, plain_ms=plain_ms,
         bound_ms=b_ms, bound_by=b_by)
 
-    # 5. frame
+    # 5. the per-depth kernels and route on the same lanes
+    mega = check_mega(ds, settings, o, d, st, (e_k, s_k, int(tr_k)),
+                      small_bytes)
+
+    # 6. frame (whole-frame route)
     r = Renderer(scene, camera=cam_cfg,
                  config=RenderConfig(width=width, height=height),
                  settings=settings, device=dev)
@@ -343,8 +671,8 @@ def main() -> int:
         s_flips, s_max, s_mean = contract(e_ref, sp["energy"], what)
         it = dict(zip(ptf.COUNTERS, (int(v) for v in sp["iters"])))
         sb_ms, sb_by = bound_ms(
-            it, sp["lanes"], lane_bytes(sp["carry_in"] is not None,
-                                        bool(k.get("carry_out"))),
+            it, sp["lanes"] * lane_bytes(sp["carry_in"] is not None,
+                                         bool(k.get("carry_out"))),
             small_bytes)
         main_path.append(dict(
             lanes=sp["lanes"], depths=k["depths"],
@@ -354,7 +682,10 @@ def main() -> int:
             iters=it))
     ptf.check_status(dev)
 
+    # the main path: timed frames, every count from 0
     ptf.launches = 0
+    for name in MEGA_KERNELS:
+        mk.launches[name] = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     traced = 0
@@ -365,9 +696,10 @@ def main() -> int:
     traced = int(traced)
     launches = ptf.launches
     ptf.check_status(dev)
-    if launches != 2 * TIMED_FRAMES:
-        raise AssertionError(f"{launches} pt_frame launches in "
-                             f"{TIMED_FRAMES} frames, expected 2 per frame")
+    if launches != 2 * TIMED_FRAMES or any(mk.launches.values()):
+        raise AssertionError(f"{launches} pt_frame and {mk.launches} "
+                             f"per-depth launches in {TIMED_FRAMES} frames, "
+                             "expected 2 pt_frame launches per frame")
     r.total_energy_received = 0.0
     r.num_accumulated = 0
     r.render_frame()
@@ -385,12 +717,18 @@ def main() -> int:
     for k, mp in enumerate(main_path, 1):
         say(f"launch{k}", **mp)
     if "--profile" in sys.argv[1:]:
-        profile_frames(r, dt * 1e3 / TIMED_FRAMES)
+        profile_frames(r, dt * 1e3 / TIMED_FRAMES, "whole-frame")
 
-    # 6. kernels line: ms, plain_ms, bound_ms and max_abs_err of the
+    # 7. frame_mega (per-depth route)
+    mega_path, mega_counts = frame_mega(
+        scene, cam_cfg, settings, width, height, small_bytes,
+        "--profile" in sys.argv[1:])
+
+    # 8. kernels line: ms, plain_ms, bound_ms and max_abs_err of the
     # 8192-lane check (check_lanes); per main-path launch (main_path) its
-    # lanes, ms, bound and the error of its sampled lanes
-    print(json.dumps({"kernels": [{
+    # lanes, ms, bound and the error of its sampled lanes; launches from
+    # each kernel's main path (the timed frames of its route)
+    kernels = [{
         "name": "pt_frame",
         "route": "cuda",
         "source": "cpugpupathtracing_tpu_torch/csrc/pt_frame.cu",
@@ -406,8 +744,29 @@ def main() -> int:
         "main_path": [{key: mp[key] for key in (
             "lanes", "depths", "ms", "bound_ms", "bound_by", "sampled_lanes",
             "max_abs_err")} for mp in main_path],
-    }]}), flush=True)
-    # 7. last line
+    }]
+    for name, line in (("shade_extend", 1713), ("shadow_resolve", 1847)):
+        m = mega[name]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "cpugpupathtracing_tpu_torch/csrc/megakernel.cu",
+            "replaces": f"cpugpupathtracing_tpu/ops/megakernel.py:{line}",
+            "launches": mega_counts[name],
+            "max_abs_err": m["max_abs_err"],
+            "ms": m["ms"],
+            "plain_ms": m["plain_ms"],
+            "bound_ms": m["bound"][0],
+            "bound_by": m["bound"][1],
+            "library_ms": None,
+            "check_lanes": CHECK_LANES,
+            "main_path": [{key: mp[key] for key in (
+                "depth", "lanes", "ms", "bound_ms", "bound_by",
+                "sampled_lanes", "max_abs_err")}
+                for mp in mega_path if mp["name"] == name],
+        })
+    print(json.dumps({"kernels": kernels}), flush=True)
+    # 9. last line
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -20,7 +20,8 @@
 // One thread traces one ray with its own stack; the packet machinery of
 // the TPU kernels (shared row stacks, frame stacks, SMEM side tables) is
 // a schedule for that machine and is not ported.  The kernel entry
-// points are in pt_frame.cu.
+// points are in pt_frame.cu (whole frame) and megakernel.cu (per depth),
+// their shared launch code in pt_launch.cuh.
 
 #pragma once
 
@@ -751,7 +752,51 @@ PT_HD Shadow shade_surface(const Tables& tb, const Mode& md, Path& ps,
   return sh;
 }
 
-// ---- one lane of pt_frame -------------------------------------------------
+// ---- one path vertex, shared by every kernel of the ADVANCED mode ---------
+//
+// pt_frame runs extend + unoccluded + add_light for every depth of a lane
+// in one launch; the per-depth pipeline runs extend in shade_extend and
+// unoccluded + add_light in shadow_resolve, with the shadow ray passed
+// through memory as f32 columns.  Both routes thus do the same
+// operations in the same order and give bitwise the same energy, state
+// and traced counts.
+
+// One depth of a live path: the closest hit of its ray, then the shading
+// body.  Updates `ps` and returns the NEE shadow ray (all zero unless
+// sneed).  Clears `ok` on a stack overflow.
+PT_HD Shadow extend(const Tree& tree, const Tables& tb, const Mode& md,
+                    Path& ps, bool depth0, Counters& cnt, bool& ok) {
+  ++cnt.ray;
+  Hit h = {RAY_TMAX, -1, -1, 0.0f, 0.0f, 0.0f};
+  ok &= closest_hit(tree, ps.ox, ps.oy, ps.oz, ps.dx, ps.dy, ps.dz, h,
+                    cnt.node, cnt.leaf);
+  return shade_surface(tb, md, ps, depth0, h);
+}
+
+// The NEE shadow test of a shadow ray with sneed set: any hit over the
+// any-hit tree, then the analytic occluders.  True when the light is
+// visible.  Clears `ok` on a stack overflow.
+PT_HD bool unoccluded(const Tree& sh_tree, const Tables& tb, const Shadow& sh,
+                      Counters& cnt, bool& ok) {
+  ++cnt.sray;
+  bool occ = false;
+  ok &= any_hit(sh_tree, sh.ox, sh.oy, sh.oz, sh.dx, sh.dy, sh.dz, sh.tmax,
+                occ, cnt.snode, cnt.sleaf);
+  if (!occ) {
+    occ = analytic_occluded(tb, sh.ox, sh.oy, sh.oz, sh.dx, sh.dy, sh.dz,
+                            sh.tmax);
+  }
+  return !occ;
+}
+
+// The energy add of a visible light sample (Main.cpp:459-463).
+PT_HD void add_light(float& enx, float& eny, float& enz, const Shadow& sh) {
+  enx = enx + sh.cr;
+  eny = eny + sh.cg;
+  enz = enz + sh.cb;
+}
+
+// ---- per-lane columns ------------------------------------------------------
 
 struct Params {
   Tree tree, sh_tree;
@@ -759,21 +804,23 @@ struct Params {
   const long long* state;  // (n,) u32 values in an int64 carrier
   const float* tp_in[3];   // carry-in throughput, or null (fresh paths)
   const float* en_in[3];   // carry-in energy
-  const int* flags_in;     // carry-in active | spec << 1
+  const int* flags_in;     // carry-in active | spec << 1 (| sneed << 2)
   float* ray_out[6];       // carry-out rays, or null
   long long* state_out;
   float* tp_out[3];        // carry-out throughput
   float* en_out[3];
-  int* flags_out;          // carry-out active | spec << 1
+  int* flags_out;          // carry-out active | spec << 1 (| sneed << 2)
   int* tr_out;             // rays traced by the lane
-  int n, depths, depth_base;
+  // shadow columns: origin xyz, direction xyz, tmax, contribution rgb;
+  // written by shade_extend, read by shadow_resolve
+  float* shadow[10];
+  int n, depths, depth_base;  // shade_extend: depth_base = absolute depth
   Mode mode;
 };
 
-// Every depth of one lane; the lane leaves the loop when its path dies
-// (its RNG state then stays as it is).  Returns false on a stack overflow.
-PT_HD bool trace_lane(const Params& p, const Tables& tb, int lane,
-                      Counters& cnt) {
+// A lane's path from the carry-in columns, or a fresh path (throughput
+// 1, energy 0, active, not specular) when there are none.
+PT_HD Path load_path(const Params& p, int lane) {
   Path ps;
   ps.ox = p.ray[0][lane];
   ps.oy = p.ray[1][lane];
@@ -798,37 +845,16 @@ PT_HD bool trace_lane(const Params& p, const Tables& tb, int lane,
     ps.active = true;
     ps.spec = 0;
   }
-  int tr = 0;
-  bool ok = true;
-  for (int d = 0; d < p.depths && ps.active; ++d) {
-    tr += 1;
-    ++cnt.ray;
-    Hit h = {RAY_TMAX, -1, -1, 0.0f, 0.0f, 0.0f};
-    ok &= closest_hit(p.tree, ps.ox, ps.oy, ps.oz, ps.dx, ps.dy, ps.dz, h,
-                      cnt.node, cnt.leaf);
-    Shadow sh = shade_surface(tb, p.mode, ps, d + p.depth_base == 0, h);
-    if (sh.sneed) {
-      tr += 1;
-      ++cnt.sray;
-      bool occ = false;
-      ok &= any_hit(p.sh_tree, sh.ox, sh.oy, sh.oz, sh.dx, sh.dy, sh.dz,
-                    sh.tmax, occ, cnt.snode, cnt.sleaf);
-      if (!occ) {
-        occ = analytic_occluded(tb, sh.ox, sh.oy, sh.oz, sh.dx, sh.dy, sh.dz,
-                                sh.tmax);
-      }
-      if (!occ) {
-        ps.enx = ps.enx + sh.cr;
-        ps.eny = ps.eny + sh.cg;
-        ps.enz = ps.enz + sh.cb;
-      }
-    }
-  }
+  return ps;
+}
+
+// State and energy out; with carry-out columns also rays, throughput and
+// flags (plus bit 2 = sneed).
+PT_HD void store_path(const Params& p, int lane, const Path& ps, bool sneed) {
   p.state_out[lane] = (long long)ps.state;
   p.en_out[0][lane] = ps.enx;
   p.en_out[1][lane] = ps.eny;
   p.en_out[2][lane] = ps.enz;
-  p.tr_out[lane] = tr;
   if (p.ray_out[0]) {
     p.ray_out[0][lane] = ps.ox;
     p.ray_out[1][lane] = ps.oy;
@@ -839,8 +865,85 @@ PT_HD bool trace_lane(const Params& p, const Tables& tb, int lane,
     p.tp_out[0][lane] = ps.tpx;
     p.tp_out[1][lane] = ps.tpy;
     p.tp_out[2][lane] = ps.tpz;
-    p.flags_out[lane] = (ps.active ? 1 : 0) | (ps.spec << 1);
+    p.flags_out[lane] =
+        (ps.active ? 1 : 0) | (ps.spec << 1) | (sneed ? 4 : 0);
   }
+}
+
+// ---- one lane of each kernel -----------------------------------------------
+
+// pt_frame: every depth of one lane; the lane leaves the loop when its
+// path dies (its RNG state then stays as it is).  Returns false on a
+// stack overflow.
+PT_HD bool trace_lane(const Params& p, const Tables& tb, int lane,
+                      Counters& cnt) {
+  Path ps = load_path(p, lane);
+  int tr = 0;
+  bool ok = true;
+  for (int d = 0; d < p.depths && ps.active; ++d) {
+    tr += 1;
+    Shadow sh = extend(p.tree, tb, p.mode, ps, d + p.depth_base == 0, cnt, ok);
+    if (sh.sneed) {
+      tr += 1;
+      if (unoccluded(p.sh_tree, tb, sh, cnt, ok)) {
+        add_light(ps.enx, ps.eny, ps.enz, sh);
+      }
+    }
+  }
+  store_path(p, lane, ps, false);
+  p.tr_out[lane] = tr;
+  return ok;
+}
+
+// shade_extend: one depth (p.depth_base, absolute) of one lane.  A lane
+// that is not active passes its columns through with flags & 3 and zero
+// shadow columns (the per-lane form of the Pallas kernel's dead-tile
+// rule); a live lane writes its next ray and carry, flags with bit 2 =
+// sneed, and its shadow ray (zero unless sneed, so tmax = sneed ? tmax :
+// 0).  Returns false on a stack overflow.
+PT_HD bool shade_extend_lane(const Params& p, const Tables& tb, int lane,
+                             Counters& cnt) {
+  Path ps = load_path(p, lane);
+  Shadow sh = {false, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  bool ok = true;
+  if (ps.active) {
+    sh = extend(p.tree, tb, p.mode, ps, p.depth_base == 0, cnt, ok);
+  }
+  store_path(p, lane, ps, sh.sneed);
+  const float cols[10] = {sh.ox, sh.oy, sh.oz, sh.dx, sh.dy,
+                          sh.dz, sh.tmax, sh.cr, sh.cg, sh.cb};
+#pragma unroll
+  for (int c = 0; c < 10; ++c) p.shadow[c][lane] = cols[c];
+  return ok;
+}
+
+// shadow_resolve: a lane with sneed (flags bit 2) runs the shadow test
+// of its shadow ray over p.sh_tree and adds the contribution when the
+// light is visible; every other lane copies its energy.  Returns false
+// on a stack overflow.
+PT_HD bool shadow_resolve_lane(const Params& p, const Tables& tb, int lane,
+                               Counters& cnt) {
+  float enx = p.en_in[0][lane], eny = p.en_in[1][lane],
+        enz = p.en_in[2][lane];
+  bool ok = true;
+  if ((p.flags_in[lane] >> 2) & 1) {
+    Shadow sh;
+    sh.sneed = true;
+    sh.ox = p.shadow[0][lane];
+    sh.oy = p.shadow[1][lane];
+    sh.oz = p.shadow[2][lane];
+    sh.dx = p.shadow[3][lane];
+    sh.dy = p.shadow[4][lane];
+    sh.dz = p.shadow[5][lane];
+    sh.tmax = p.shadow[6][lane];
+    sh.cr = p.shadow[7][lane];
+    sh.cg = p.shadow[8][lane];
+    sh.cb = p.shadow[9][lane];
+    if (unoccluded(p.sh_tree, tb, sh, cnt, ok)) add_light(enx, eny, enz, sh);
+  }
+  p.en_out[0][lane] = enx;
+  p.en_out[1][lane] = eny;
+  p.en_out[2][lane] = enz;
   return ok;
 }
 
@@ -865,6 +968,7 @@ struct PtArgs {
   void* flags_out;
   void* tr_out;
   void* hit_out[6];   // closest-hit hook: t, tri, obj, nx, ny, nz
+  void* shadow[10];   // Params::shadow: shade_extend out, shadow_resolve in
   void* iters;        // NUM_COUNTERS u64 work counters (Counters order), or null
   void* seen[4];      // u8 row bitmaps (Tree::seen_*): node, leaf, shadow
                       // node, shadow leaf rows; null unless counting
@@ -938,7 +1042,8 @@ PT_HD Params make_params(const PtArgs& a, const Tree& tree,
     p.tp_out[c] = static_cast<float*>(a.tp_out[c]);
     p.en_out[c] = static_cast<float*>(a.en_out[c]);
   }
-  p.state = static_cast<const long long*>(a.state);
+  for (int c = 0; c < 10; ++c) p.shadow[c] = static_cast<float*>(a.shadow[c]);
+  p.state =static_cast<const long long*>(a.state);
   p.flags_in = static_cast<const int*>(a.flags_in);
   p.state_out = static_cast<long long*>(a.state_out);
   p.flags_out = static_cast<int*>(a.flags_out);

@@ -31,80 +31,30 @@
 //   and square root, no contraction, so hits stay bit-equal to the
 //   brute-force oracle).  ops/pt_frame.py builds and loads it.
 
-#include <cuda_runtime.h>
-
-#include "pt_device.cuh"
+#include "pt_launch.cuh"
 
 namespace {
 
-constexpr int kBlock = 128;
-
-__device__ void reduce_counters(pt::Counters c, unsigned long long* iters) {
-  unsigned long long v[pt::NUM_COUNTERS] = {c.node, c.leaf, c.snode,
-                                            c.sleaf, c.ray, c.sray};
-#pragma unroll
-  for (int k = 0; k < pt::NUM_COUNTERS; ++k) {
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      v[k] += __shfl_down_sync(0xffffffffu, v[k], off);
-    }
-  }
-  if ((threadIdx.x & 31) == 0) {
-#pragma unroll
-    for (int k = 0; k < pt::NUM_COUNTERS; ++k) atomicAdd(iters + k, v[k]);
-  }
-}
-
-__device__ void load_small(const pt::PtArgs& a, float* smem) {
-  const float* src = static_cast<const float*>(a.small);
-  for (int i = threadIdx.x; i < a.small_words; i += blockDim.x) {
-    smem[i] = src[i];
-  }
-  __syncthreads();
-}
-
-__global__ void __launch_bounds__(kBlock)
+__global__ void __launch_bounds__(pt::kBlock)
     pt_frame_kernel(const pt::PtArgs a) {
   extern __shared__ float smem[];
-  load_small(a, smem);
   pt::Tables tb;
-  pt::Tree tree, sh_tree;
-  pt::unpack(a, smem, tb, tree, sh_tree);
-  const pt::Params p = pt::make_params(a, tree, sh_tree);
+  const pt::Params p = pt::setup(a, smem, tb);
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   pt::Counters cnt;
-  if (lane < a.n && !pt::trace_lane(p, tb, lane, cnt)) {
-    atomicOr(static_cast<int*>(a.status), 1);
-  }
-  if (a.iters) {
-    reduce_counters(cnt, static_cast<unsigned long long*>(a.iters));
-  }
+  const bool ok = lane >= a.n || pt::trace_lane(p, tb, lane, cnt);
+  pt::finish(a, ok, cnt);
 }
 
-__global__ void __launch_bounds__(kBlock)
+__global__ void __launch_bounds__(pt::kBlock)
     pt_closest_hit_kernel(const pt::PtArgs a) {
   extern __shared__ float smem[];
-  load_small(a, smem);
   pt::Tables tb;
-  pt::Tree tree, sh_tree;
-  pt::unpack(a, smem, tb, tree, sh_tree);
+  const pt::Params p = pt::setup(a, smem, tb);
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   pt::Counters cnt;
-  if (lane < a.n && !pt::hit_lane(a, tree, lane, cnt)) {
-    atomicOr(static_cast<int*>(a.status), 1);
-  }
-  if (a.iters) {
-    reduce_counters(cnt, static_cast<unsigned long long*>(a.iters));
-  }
-}
-
-int launch(void (*kernel)(const pt::PtArgs), const pt::PtArgs* a) {
-  if (a->small_words != pt::small_words(*a)) return -1;
-  if (a->n <= 0) return 0;
-  const size_t smem = sizeof(float) * (size_t)a->small_words;
-  const int grid = (a->n + kBlock - 1) / kBlock;
-  kernel<<<grid, kBlock, smem, static_cast<cudaStream_t>(a->stream)>>>(*a);
-  return (int)cudaGetLastError();
+  const bool ok = lane >= a.n || pt::hit_lane(a, p.tree, lane, cnt);
+  pt::finish(a, ok, cnt);
 }
 
 }  // namespace
@@ -112,11 +62,11 @@ int launch(void (*kernel)(const pt::PtArgs), const pt::PtArgs* a) {
 // Both entries return cudaGetLastError() after the launch (or -1 when the
 // packed small tables do not match the layout); they never synchronise.
 extern "C" int pt_frame_launch(const pt::PtArgs* a) {
-  return launch(pt_frame_kernel, a);
+  return pt::launch(pt_frame_kernel, a);
 }
 
 // Test hook: the kernel's closest-hit traversal alone, over 6 ray
 // columns, into hit_out.  The path tracer never calls it.
 extern "C" int pt_closest_hit_launch(const pt::PtArgs* a) {
-  return launch(pt_closest_hit_kernel, a);
+  return pt::launch(pt_closest_hit_kernel, a);
 }

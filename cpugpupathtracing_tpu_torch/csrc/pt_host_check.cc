@@ -1,7 +1,7 @@
-// Host build of the kernel's per-ray body (pt_device.cuh), for the CPU
+// Host build of the kernels' per-lane bodies (pt_device.cuh), for the CPU
 // tests only: it runs the same traversal and shading code one lane after
 // another, so a test can hold the device code against the plain PyTorch
-// version without a card.  It stands in for nothing on the render path.
+// versions without a card.  It stands in for nothing on the render path.
 //
 // Build: g++ -O2 -std=c++17 -shared -fPIC -ffp-contract=off
 
@@ -9,7 +9,15 @@
 
 namespace {
 
-int run(const pt::PtArgs* a, bool hits_only) {
+using LaneFn = bool (*)(const pt::Params&, const pt::Tables&, int,
+                        pt::Counters&);
+
+bool hit_body(const pt::Params& p, const pt::Tables&, int lane,
+              pt::Counters& cnt, const pt::PtArgs& a) {
+  return pt::hit_lane(a, p.tree, lane, cnt);
+}
+
+int run(const pt::PtArgs* a, LaneFn fn) {
   if (a->small_words != pt::small_words(*a)) return -1;
   pt::Tables tb;
   pt::Tree tree, sh_tree;
@@ -18,8 +26,7 @@ int run(const pt::PtArgs* a, bool hits_only) {
   pt::Counters cnt;
   bool ok = true;
   for (int lane = 0; lane < a->n; ++lane) {
-    ok &= hits_only ? pt::hit_lane(*a, tree, lane, cnt)
-                    : pt::trace_lane(p, tb, lane, cnt);
+    ok &= fn ? fn(p, tb, lane, cnt) : hit_body(p, tb, lane, cnt, *a);
   }
   if (!ok) *static_cast<int*>(a->status) |= 1;
   if (a->iters) {
@@ -36,6 +43,18 @@ int run(const pt::PtArgs* a, bool hits_only) {
 
 }  // namespace
 
-extern "C" int pt_frame_host(const pt::PtArgs* a) { return run(a, false); }
+extern "C" int pt_frame_host(const pt::PtArgs* a) {
+  return run(a, pt::trace_lane);
+}
 
-extern "C" int pt_closest_hit_host(const pt::PtArgs* a) { return run(a, true); }
+extern "C" int pt_closest_hit_host(const pt::PtArgs* a) {
+  return run(a, nullptr);
+}
+
+extern "C" int mk_shade_extend_host(const pt::PtArgs* a) {
+  return run(a, pt::shade_extend_lane);
+}
+
+extern "C" int mk_shadow_resolve_host(const pt::PtArgs* a) {
+  return run(a, pt::shadow_resolve_lane);
+}

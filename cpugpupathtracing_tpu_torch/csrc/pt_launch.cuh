@@ -1,0 +1,66 @@
+// Launch code shared by the ADVANCED mode's kernels (pt_frame.cu,
+// megakernel.cu): one thread per lane in blocks of kBlock, the packed
+// small scene tables copied once per block into shared memory, the work
+// counters reduced per warp, and the stack-overflow flag.
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include "pt_device.cuh"
+
+namespace pt {
+
+constexpr int kBlock = 128;
+
+// Copy the packed small tables into shared memory `smem` (every thread
+// of the block takes part) and unpack them with the trees: the launch
+// parameters of one lane body.
+__device__ __forceinline__ Params setup(const PtArgs& a, float* smem,
+                                       Tables& tb) {
+  const float* src = static_cast<const float*>(a.small);
+  for (int i = threadIdx.x; i < a.small_words; i += blockDim.x) {
+    smem[i] = src[i];
+  }
+  __syncthreads();
+  Tree tree, sh_tree;
+  unpack(a, smem, tb, tree, sh_tree);
+  return make_params(a, tree, sh_tree);
+}
+
+// After the lane body: set the overflow flag when `ok` is false, and
+// with count_iters add the warp's work counters (every thread of the
+// warp takes part, lanes past n with zero counts).
+__device__ __forceinline__ void finish(const PtArgs& a, bool ok,
+                                       const Counters& c) {
+  if (!ok) atomicOr(static_cast<int*>(a.status), 1);
+  if (!a.iters) return;
+  unsigned long long v[NUM_COUNTERS] = {c.node, c.leaf, c.snode,
+                                        c.sleaf, c.ray, c.sray};
+#pragma unroll
+  for (int k = 0; k < NUM_COUNTERS; ++k) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      v[k] += __shfl_down_sync(0xffffffffu, v[k], off);
+    }
+  }
+  if ((threadIdx.x & 31) == 0) {
+    unsigned long long* iters = static_cast<unsigned long long*>(a.iters);
+#pragma unroll
+    for (int k = 0; k < NUM_COUNTERS; ++k) atomicAdd(iters + k, v[k]);
+  }
+}
+
+// Launch `kernel` over a->n lanes on a->stream; returns
+// cudaGetLastError() (or -1 when the packed small tables do not match
+// the layout).  Never synchronises.
+inline int launch(void (*kernel)(const PtArgs), const PtArgs* a) {
+  if (a->small_words != small_words(*a)) return -1;
+  if (a->n <= 0) return 0;
+  const size_t smem = sizeof(float) * (size_t)a->small_words;
+  const int grid = (a->n + kBlock - 1) / kBlock;
+  kernel<<<grid, kBlock, smem, static_cast<cudaStream_t>(a->stream)>>>(*a);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace pt

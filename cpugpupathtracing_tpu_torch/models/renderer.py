@@ -2,10 +2,12 @@
 models/renderer.py, ADVANCED mode).
 
 One frame: camera rays in pixel-block order (coherent rays for the
-kernel; RNG streams key on the true pixel index, so the image does not
-depend on the order), per-lane seeds, the trace through the whole-frame
-kernel with the split-span schedule, the return to row-major order, the
-accumulation into a device framebuffer and the RGBA8 pack.  The Renderer
+kernels; RNG streams key on the true pixel index, so the image does not
+depend on the order), per-lane seeds, the trace through the route the
+JAX package's gates choose (`trace_sample`: the whole-frame kernel with
+the split-span schedule, else the per-depth pipeline), the return to
+row-major order, the accumulation into a device framebuffer and the
+RGBA8 pack.  The Renderer
 keeps the reference's accumulator policy (a camera move resets it;
 settings toggles do not) and the stats panel's counters
 (Source/Main.cpp:691-755, :841-857).
@@ -16,6 +18,7 @@ checkpoint wait for later slices of the port and raise here.
 
 from __future__ import annotations
 
+import os
 import time
 
 import numpy as np
@@ -30,7 +33,13 @@ from cpugpupathtracing_tpu_torch.config import (
 )
 from cpugpupathtracing_tpu_torch.models import camera as camlib
 from cpugpupathtracing_tpu_torch.models import integrators
-from cpugpupathtracing_tpu_torch.models.scene import DeviceScene, Scene
+from cpugpupathtracing_tpu_torch.models.scene import (
+    DeviceScene,
+    Scene,
+    megakernel_active,
+    megakernel_gate_reason,
+    pt_frame_active,
+)
 from cpugpupathtracing_tpu_torch.ops import pt_frame as ptf
 from cpugpupathtracing_tpu_torch.utils import rng as rnglib
 from cpugpupathtracing_tpu_torch.utils.device import resolve_device
@@ -43,6 +52,24 @@ def _check_supported(settings: RenderSettings) -> None:
             f"render mode {settings.render_mode.name} is not ported yet")
     if settings.debug_render_mode != DebugRenderMode.NONE:
         raise NotImplementedError("debug render modes are not ported yet")
+
+
+def trace_sample(dev: DeviceScene, settings: RenderSettings, origin,
+                 direction, state, idx):
+    """One ADVANCED sample over prepared rays, on the route of the JAX
+    package's trace_sample: the whole-frame kernel when pt_frame_active,
+    else the per-depth pipeline when megakernel_active.  Where the JAX
+    package falls back to its XLA integrator (AOVs, mesh lights over the
+    light table) the port has no route yet and raises."""
+    if pt_frame_active(dev, settings):
+        fn = integrators.trace_advanced_frame
+    elif megakernel_active(dev, settings):
+        fn = integrators.trace_advanced_mega
+    else:
+        raise NotImplementedError(
+            "the XLA integrator route is not ported (ROADMAP.md A9): "
+            f"{megakernel_gate_reason(dev, settings)}")
+    return fn(dev, settings, origin, direction, state, idx=idx)
 
 
 def render_frame(dev: DeviceScene, cam: camlib.CameraArrays, accumulator,
@@ -66,11 +93,13 @@ def render_frame(dev: DeviceScene, cam: camlib.CameraArrays, accumulator,
     frame_energy = torch.zeros((n, 3), dtype=torch.float32,
                                device=lane.device)
     traced = torch.zeros((), dtype=torch.int64, device=lane.device)
+    # lane identities for wavefront sorting; CPUGPU_NO_SORT=1 drops them
+    # (A/B runs), which sends a big tree to the unsorted per-depth route
+    idx = None if os.environ.get("CPUGPU_NO_SORT") == "1" else lane
     for s in range(spp):
         stream = (sample_base + s) & 0xFFFFFFFF
         state = rnglib.seed_lanes(pix, stream, salt=seed & 0xFFFFFFFF)
-        _, res = integrators.trace_advanced_frame(
-            dev, settings, origin, direction, state, idx=lane)
+        _, res = trace_sample(dev, settings, origin, direction, state, idx)
         frame_energy = frame_energy + res.energy
         traced = traced + res.traced_rays
     if bs is not None:

@@ -22,6 +22,7 @@ ops/megakernel.py, listed at `_mk_tables`.
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import numpy as np
 import torch
@@ -33,12 +34,13 @@ from cpugpupathtracing_tpu_torch.models import materials as matlib
 from cpugpupathtracing_tpu_torch.models.mesh import Mesh
 from cpugpupathtracing_tpu_torch.ops.pt_frame import PT_STACK
 from cpugpupathtracing_tpu_torch.utils.device import resolve_device
-from cpugpupathtracing_tpu_torch.utils.log import except_error
+from cpugpupathtracing_tpu_torch.utils.log import except_error, log_warn
 
 PRIM_MESH, PRIM_SPHERE, PRIM_PLANE = 0, 1, 2
 
-# mesh lights: the kernel samples a light triangle from a table of at
-# most this many rows (the JAX package's MESH_LIGHT_UNROLL_MAX default)
+# mesh lights: the kernels sample a light triangle from a table of at
+# most this many rows (the JAX package's MESH_LIGHT_UNROLL_MAX default);
+# a scene with more keeps no table and the gates refuse it
 MESH_LIGHT_MAX_TRIS = 64
 # the 8-bit-per-axis morton key of the split-span wavefront sort
 MORTON_BITS = 8
@@ -61,7 +63,7 @@ TABLE_FIELDS = (
     ("world_inv_extent", torch.float32),  # (3,) 1 / AABB extent
 )
 META_FIELDS = ("proots", "poccl_roots", "light_tri_meta", "num_lights",
-               "num_sph", "num_pln")
+               "num_sph", "num_pln", "has_mesh_lights")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -90,6 +92,9 @@ class DeviceScene:
     num_lights: int
     num_sph: int
     num_pln: int
+    # any light is a mesh (its triangles are in light_tri_meta only when
+    # they fit MESH_LIGHT_MAX_TRIS)
+    has_mesh_lights: bool = False
 
     @property
     def device(self) -> torch.device:
@@ -142,6 +147,7 @@ def scene_from_numpy(arrays: dict, meta: dict, device="cuda") -> DeviceScene:
         num_lights=int(meta["num_lights"]),
         num_sph=int(meta["num_sph"]),
         num_pln=int(meta["num_pln"]),
+        has_mesh_lights=bool(meta.get("has_mesh_lights", False)),
     )
 
 
@@ -305,8 +311,8 @@ class Scene:
             whi = np.ones(3, f32)
         wext = np.maximum(whi - wlo, 1e-6).astype(f32)
 
-        mk, light_tri_meta = self._mk_tables(sph, pln, mesh_tri_range,
-                                             mesh_bvh, tris9_l, tnrm_l)
+        mk, light_tri_meta, has_mesh_lights = self._mk_tables(
+            sph, pln, mesh_tri_range, mesh_bvh, tris9_l, tnrm_l)
 
         def t(a, dtype):
             return torch.from_numpy(np.ascontiguousarray(a)).to(
@@ -329,6 +335,7 @@ class Scene:
             num_lights=len(self.light_indices),
             num_sph=len(sph["center"]),
             num_pln=len(pln["point"]),
+            has_mesh_lights=has_mesh_lights,
         )
 
     def _mk_tables(self, sph, pln, mesh_tri_range, mesh_bvh, tris9_l,
@@ -344,7 +351,10 @@ class Scene:
           mk_sph    (S, 6): center 0..2, radius^2 3, material 4, is_light 5
           mk_pln    (P, 7): point 0..2, normal 3..5, material 6
           mk_light_tris (LT, 12): v0, v1, v2, flat normal per light
-                    triangle, light_tri_meta (start, count) per light."""
+                    triangle, light_tri_meta (start, count) per light,
+                    (0, 0) for every light when the mesh lights' triangles
+                    exceed MESH_LIGHT_MAX_TRIS (the gates then refuse the
+                    scene), and whether any light is a mesh."""
         f32, i32 = np.float32, np.int32
         M = len(self.materials)
         mk_mats = np.zeros((max(M, 1), 14), f32)
@@ -395,13 +405,9 @@ class Scene:
         # [v0, v1, v2, flat normal] in per-light order; v1/v2 rebuilt from
         # the (v0, e1, e2) rows in f32
         lt_total = sum(c for _, c in l_tri)
-        if lt_total > MESH_LIGHT_MAX_TRIS:
-            except_error("Scene", "mesh lights with {} triangles exceed the "
-                         "kernel's {}-row light table", lt_total,
-                         MESH_LIGHT_MAX_TRIS)
         mk_light_tris = np.zeros((max(lt_total, 1), 12), f32)
         light_tri_meta = [(0, 0)] * L
-        if lt_total:
+        if lt_total and lt_total <= MESH_LIGHT_MAX_TRIS:
             tris9_h = np.concatenate(tris9_l).astype(f32)
             tnrm_h = np.concatenate(tnrm_l).astype(f32)
             cur = 0
@@ -440,7 +446,7 @@ class Scene:
             mk_pln_mat=np.asarray(
                 [self.objects[o].mat_index for o in pln["obj"]] or [0], i32),
         )
-        return mk, light_tri_meta
+        return mk, light_tri_meta, lt_total > 0
 
 
 def _pack_tris(v0, v1, v2) -> np.ndarray:
@@ -452,30 +458,133 @@ def _pack_tris(v0, v1, v2) -> np.ndarray:
     return out
 
 
-def reorder_key(dev: DeviceScene, origin, direction, act):
-    """Ray-coherence sort key (the JAX package's scene.reorder_key at 8
-    bits per axis): active-first | direction octant | origin morton over
-    the scene AABB.  (1 - act) sits at bit 27, the octant at bits 24-26.
+def reorder_key(dev: DeviceScene, origin, direction, act,
+                bits: int = MORTON_BITS):
+    """Ray-coherence sort key (the JAX package's scene.reorder_key):
+    active-first | direction octant | origin morton at `bits` (5 or 8)
+    bits per axis over the scene AABB.  (1 - act) sits at bit 3*bits + 3
+    (active_bit), the octant at bits 3*bits .. 3*bits + 2.
     origin/direction (N, 3) f32, act (N,) int; returns (N,) int64."""
-    bits = MORTON_BITS
     q = ((origin - dev.world_lo) * dev.world_inv_extent * float(1 << bits))
     # bounded before the cast (an out-of-range float -> int is undefined);
     # the truncated value then clips exactly as the JAX key's does
     q = torch.clamp(q, -1.0, float(1 << bits)).to(torch.int32)
     q = torch.clamp(q.to(torch.int64), 0, (1 << bits) - 1)
 
-    def spread(v):
-        v = (v | (v << 16)) & 0x030000FF
-        v = (v | (v << 8)) & 0x0300F00F
-        v = (v | (v << 4)) & 0x030C30C3
-        v = (v | (v << 2)) & 0x09249249
-        return v
+    if bits <= 5:
+        def spread(v):
+            v = (v | (v << 8)) & 0x0300F
+            v = (v | (v << 4)) & 0x030C3
+            v = (v | (v << 2)) & 0x09249
+            return v
+    else:
+        def spread(v):
+            v = (v | (v << 16)) & 0x030000FF
+            v = (v | (v << 8)) & 0x0300F00F
+            v = (v | (v << 4)) & 0x030C30C3
+            v = (v | (v << 2)) & 0x09249249
+            return v
 
     morton = spread(q[:, 0]) | (spread(q[:, 1]) << 1) | (spread(q[:, 2]) << 2)
     neg = (direction < 0).to(torch.int64)
     octant = neg[:, 0] | (neg[:, 1] << 1) | (neg[:, 2] << 2)
     act = act.to(torch.int64)
     return ((1 - act) << (3 * bits + 3)) | (octant << (3 * bits)) | morton
+
+
+def active_bit(mode: str) -> int:
+    """Bit of the sort key that holds (1 - active) for a sort_wavefront
+    mode ("morton5" is sorted_shadow_resolve's 5-bit key)."""
+    return {"compact": 0, "morton5": 18, "morton8": 27}[mode]
+
+
+# ---- route gates (the JAX package's scene.py:1972-2102) ----------------------
+#
+# The environment is read at every call: the port has no trace cache.
+# The JAX gates' arms for the packet path, the leaf-14, fused and 16-wide
+# tables and the TLAS have no counterpart here (one thread per ray over
+# the one 8-wide tree of a non-instanced scene), nor has its budget of
+# 16 analytic primitives (a TPU compile-time limit of unrolled tests).
+
+_logged_reasons: set = set()
+
+
+def _log_once(reason: str, what: str) -> None:
+    if reason not in _logged_reasons:
+        _logged_reasons.add(reason)
+        log_warn("scene", "{}: {}", what, reason)
+
+
+def megakernel_gate_reason(dev: DeviceScene, settings) -> str | None:
+    """Why the per-depth pipeline (models/integrators.trace_advanced_mega)
+    cannot run, or None when it can.  Where the JAX package then falls
+    back to its XLA integrator, the port has no route yet."""
+    if os.environ.get("CPUGPU_NO_MEGAKERNEL") == "1":
+        return "CPUGPU_NO_MEGAKERNEL=1"
+    if dev.has_mesh_lights and not any(c for _, c in dev.light_tri_meta):
+        return (f"mesh lights over the {MESH_LIGHT_MAX_TRIS}-triangle "
+                "light table")
+    if settings.aovs_active:
+        return "AOV tracking active"
+    return None
+
+
+def megakernel_active(dev: DeviceScene, settings) -> bool:
+    """True when the per-depth pipeline can run; logs each distinct
+    reason it cannot once."""
+    reason = megakernel_gate_reason(dev, settings)
+    if reason is not None:
+        _log_once(reason, "per-depth pipeline unavailable")
+    return reason is None
+
+
+def ptframe_split(settings) -> int:
+    """Depths of the split-span schedule's first span:
+    CPUGPU_PTFRAME_SPLIT, else 2 when a path has more than three depths,
+    else 0 (no split)."""
+    env = os.environ.get("CPUGPU_PTFRAME_SPLIT")
+    if env:
+        return int(env)
+    return 2 if settings.max_ray_depth + 1 > 3 else 0
+
+
+def ptframe_max_nodes(split_on: bool) -> int:
+    """Largest closest-hit tree (node rows) the whole-frame kernel takes:
+    CPUGPU_PTFRAME_MAX_NODES, else 32768 with the split-span schedule
+    and 2048 without (unsorted fans must stay cheap)."""
+    env = os.environ.get("CPUGPU_PTFRAME_MAX_NODES")
+    return int(env or ("32768" if split_on else "2048"))
+
+
+def pt_frame_gate_reason(dev: DeviceScene, settings) -> str | None:
+    """Why ADVANCED mode must leave the whole-frame kernel
+    (integrators.trace_advanced_frame) for the per-depth pipeline, or
+    None when it can run.  CPUGPU_NO_PTFRAME=1 opts out (A/B runs);
+    CPUGPU_FORCE_PTFRAME=1 lifts the tree-size bound."""
+    if os.environ.get("CPUGPU_NO_PTFRAME") == "1":
+        return "CPUGPU_NO_PTFRAME=1"
+    reason = megakernel_gate_reason(dev, settings)
+    if reason is not None:
+        return reason
+    if settings.max_ray_depth > 32:
+        return "max_ray_depth > 32"
+    split_on = ptframe_split(settings) > 0
+    max_nodes = ptframe_max_nodes(split_on)
+    rows = int(dev.pnodes.shape[0])
+    if rows > max_nodes and os.environ.get("CPUGPU_FORCE_PTFRAME") != "1":
+        return (f"{rows}-row tree > {'split' if split_on else 'unsorted'}"
+                f"-fan budget {max_nodes}")
+    return None
+
+
+def pt_frame_active(dev: DeviceScene, settings) -> bool:
+    """True when ADVANCED mode runs the whole-frame kernel; logs each
+    distinct reason of its own (not the per-depth gate's) once."""
+    reason = pt_frame_gate_reason(dev, settings)
+    if reason is not None and megakernel_gate_reason(dev, settings) is None:
+        _log_once(reason, "whole-frame kernel unavailable, using the "
+                          "per-depth pipeline")
+    return reason is None
 
 
 def make_reference_scene(dragon_mesh: Mesh | None = None) -> Scene:

@@ -1,0 +1,347 @@
+"""The per-depth kernels of the ADVANCED path tracer: `shade_extend` (one
+depth of closest hit + shading) and `shadow_resolve` (the NEE shadow
+any-hit + energy add), which models/integrators.py's
+`trace_advanced_mega` launches once each per depth.
+
+They replace the JAX package's Pallas kernels of ops/megakernel.py
+(`_shade_extend_kernel` launched by `shade_extend`, `_shadow_resolve_kernel`
+launched by `shadow_resolve`), for non-instanced scenes.  On CUDA tensors
+the wrappers launch the hand-written kernels of csrc/megakernel.cu (per-lane
+bodies in csrc/pt_device.cuh, shared with pt_frame), built by
+ops/pt_frame.py's `build`.  On CPU tensors they run the plain versions
+`shade_extend_reference` and `shadow_resolve_reference`; nothing falls
+back from one to the other.
+
+Per-lane rules (both versions):
+  * shade_extend: a lane whose flags say not active passes its columns
+    through, writes flags & 3 and zero shadow columns, and keeps its RNG
+    state (the TPU kernel keeps stepping the state of a dead lane in a
+    live 1024-lane tile; energy and traced counts are unaffected).  A
+    live lane writes its next ray and carry, flags | sneed << 2, and its
+    shadow ray: origin, direction, tmax and contribution, all zero unless
+    sneed.
+  * shadow_resolve: a lane with sneed adds its contribution when neither
+    the any-hit tree nor the analytic occluders block the shadow ray;
+    every other lane copies its energy.
+
+The JAX functions' instance machinery (inst_inv / inst_nrm / inst_root),
+leaf-14 payload tables, fused tables and 16-wide tables are not ported
+(ROADMAP.md A8): the wrappers raise on them.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from cpugpupathtracing_tpu_torch.ops import pt_frame as ptf
+from cpugpupathtracing_tpu_torch.ops.intersect import (
+    brute_force_nearest_triangle,
+)
+
+# kernel launches per wrapper (comparisons against the plain version and
+# CPU calls are not counted)
+launches = {"shade_extend": 0, "shadow_resolve": 0}
+
+_F32, _I32, _I64 = torch.float32, torch.int32, torch.int64
+
+
+def _refuse(what: str, inst: dict, pay=None, fused_nn=0, width=8) -> None:
+    """Raise on the JAX arguments the port has no kernel arm for: the
+    instance machinery, leaf-14 payload, fused or 16-wide tables."""
+    given = [k for k, v in inst.items() if v is not None]
+    if pay is not None:
+        given.append("pay")
+    if fused_nn:
+        given.append(f"fused_nn={fused_nn}")
+    if width != 8:
+        given.append(f"width={width}")
+    if given:
+        raise NotImplementedError(
+            f"{what}: {', '.join(given)} not ported (the kernels walk the "
+            "plain 8-wide tables of a non-instanced scene); see ROADMAP.md A8")
+
+
+def _cols(name, cols, count, dtype, dev, n):
+    if len(cols) != count:
+        raise ValueError(f"{name}: need {count} columns, got {len(cols)}")
+    for c, x in enumerate(cols):
+        ptf._check(f"{name}[{c}]", x, dtype, dev, (n,))
+
+
+# ---- shade_extend ------------------------------------------------------------
+
+
+def shade_extend(
+    nodes, ltris, mats, lights, ltri, sph, pln, sphmat, plnmat, objmat,
+    depth, rays, state, throughput, energy, flags,
+    *, roots, num_mats, num_lights, num_sph, num_pln, num_objs,
+    nee, rr, cosine, ref_pdf, light_tri_meta=(), count_iters=False,
+    inst_inv=None, inst_nrm=None, inst_root=None, pay=None, fused_nn=0,
+    width=8,
+):
+    """One depth (`depth`, the absolute depth: the NEE double-count guard
+    adds emission at depth 0) of the wavefront, minus the shadow resolve.
+
+    rays: 6 (N,) f32 columns; state (N,) int64 carrying u32; throughput,
+    energy: 3 (N,) f32 columns each; flags (N,) i32, bit 0 active, bit 1
+    is_specular.  Returns (rays', state', throughput', energy', flags'
+    (bit 2 = shadow needed), shadow origin (3), shadow direction (3),
+    shadow tmax, contribution (3)), the JAX function's tuple; with
+    count_iters=True (CUDA only) also pt_frame's ten work counters
+    (ops/pt_frame.py COUNTERS; the shadow ones 0)."""
+    del num_mats, num_objs  # read from the table shapes
+    _refuse("shade_extend", dict(inst_inv=inst_inv, inst_nrm=inst_nrm,
+                                 inst_root=inst_root), pay, fused_nn, width)
+    nee = nee and num_lights > 0
+    tables = (mats, lights, ltri, sph, pln, sphmat, plnmat, objmat)
+    dev = state.device
+    if dev.type == "cpu":
+        if count_iters:
+            raise ValueError("count_iters needs the CUDA kernel")
+        return shade_extend_reference(
+            ltris, *tables, depth, rays, state, throughput, energy, flags,
+            num_lights=num_lights, num_sph=num_sph, num_pln=num_pln, nee=nee,
+            rr=rr, cosine=cosine, ref_pdf=ref_pdf,
+            light_tri_meta=light_tri_meta)
+    if dev.type != "cuda":
+        raise ValueError(f"shade_extend runs on cuda or cpu tensors, not {dev}")
+    out = _shade_extend_launch(
+        ptf.build().mk_shade_extend_launch, dev, nodes, ltris, tables,
+        int(depth), rays, state, throughput, energy, flags, roots=roots,
+        num_lights=num_lights, num_sph=num_sph, num_pln=num_pln, nee=nee,
+        rr=rr, cosine=cosine, ref_pdf=ref_pdf, light_tri_meta=light_tri_meta,
+        count_iters=count_iters)
+    launches["shade_extend"] += 1
+    return out
+
+
+def shade_extend_host(
+    nodes, ltris, mats, lights, ltri, sph, pln, sphmat, plnmat, objmat,
+    depth, rays, state, throughput, energy, flags, *, roots, num_lights,
+    num_sph, num_pln, nee, rr, cosine, ref_pdf, light_tri_meta=(),
+    count_iters=False, **_,
+):
+    """`shade_extend` through the g++ build of the kernel body, on CPU
+    tensors: a test of the device code without a card."""
+    return _shade_extend_launch(
+        ptf.build_host().mk_shade_extend_host, torch.device("cpu"), nodes,
+        ltris, (mats, lights, ltri, sph, pln, sphmat, plnmat, objmat),
+        int(depth), rays, state, throughput, energy, flags, roots=roots,
+        num_lights=num_lights, num_sph=num_sph, num_pln=num_pln,
+        nee=nee and num_lights > 0, rr=rr, cosine=cosine, ref_pdf=ref_pdf,
+        light_tri_meta=light_tri_meta, count_iters=count_iters)
+
+
+def _shade_extend_launch(entry, dev, nodes, ltris, tables, depth, rays, state,
+                         throughput, energy, flags, *, roots, num_lights,
+                         num_sph, num_pln, nee, rr, cosine, ref_pdf,
+                         light_tri_meta, count_iters):
+    n = state.shape[0]
+    ptf._check("state", state, _I64, dev, (n,))
+    _cols("throughput", throughput, 3, _F32, dev, n)
+    _cols("energy", energy, 3, _F32, dev, n)
+    ptf._check("flags", flags, _I32, dev, (n,))
+    a = ptf.launch_args(
+        dev, nodes, ltris, nodes, ltris, tables, rays, n=n, roots=roots,
+        sh_roots=roots, light_tri_meta=light_tri_meta, num_sph=num_sph,
+        num_pln=num_pln, num_lights=num_lights, nee=nee, rr=rr,
+        cosine=cosine, ref_pdf=ref_pdf, depth_base=depth)
+    a.state, a.flags_in = state.data_ptr(), flags.data_ptr()
+    for c in range(3):
+        a.tp_in[c] = throughput[c].data_ptr()
+        a.en_in[c] = energy[c].data_ptr()
+
+    def col(dtype=_F32):
+        return torch.empty(n, dtype=dtype, device=dev)
+
+    rays_o = tuple(col() for _ in range(6))
+    st_o, fl_o = col(_I64), col(_I32)
+    tp_o = tuple(col() for _ in range(3))
+    en_o = tuple(col() for _ in range(3))
+    shadow = tuple(col() for _ in range(10))
+    for c in range(6):
+        a.ray_out[c] = rays_o[c].data_ptr()
+    for c in range(3):
+        a.tp_out[c], a.en_out[c] = tp_o[c].data_ptr(), en_o[c].data_ptr()
+    for c in range(10):
+        a.shadow[c] = shadow[c].data_ptr()
+    a.state_out, a.flags_out = st_o.data_ptr(), fl_o.data_ptr()
+    if count_iters:
+        counted = ptf.count_rows(a, dev, {0: (nodes, ltris)})
+    ptf.run_launch(entry, a, "shade_extend")
+    out = (rays_o, st_o, tp_o, en_o, fl_o, shadow[0:3], shadow[3:6],
+           shadow[6], shadow[7:10])
+    if count_iters:
+        return out + (ptf.counters(*counted),)
+    return out
+
+
+def shade_extend_reference(
+    ltris, mats, lights, ltri, sph, pln, sphmat, plnmat, objmat, depth,
+    rays, state, throughput, energy, flags, *, num_lights, num_sph, num_pln,
+    nee, rr, cosine, ref_pdf, light_tri_meta=(), records=None, chunk=4096,
+):
+    """The plain version of `shade_extend` (same returns, no counters):
+    the hits by brute force over the leaf records of `ltris` (or
+    `records`, pt_frame.leaf_records(ltris)), then pt_frame's plain
+    shading body, on the active lanes only."""
+    n = state.shape[0]
+    dev = state.device
+    tb = dict(mats=mats, lights=lights, ltri=ltri, sph=sph, pln=pln,
+              sphmat=sphmat, plnmat=plnmat, objmat=objmat,
+              num_lights=num_lights, num_sph=num_sph, num_pln=num_pln,
+              light_tri_meta=tuple(light_tri_meta))
+    md = dict(nee=nee and num_lights > 0, rr=rr, cosine=cosine,
+              ref_pdf=ref_pdf)
+    ray = [r.clone() for r in rays]
+    st = state.clone()
+    tp = [c.clone() for c in throughput]
+    en = [c.clone() for c in energy]
+    fl = flags & 3
+    shadow = [torch.zeros(n, dtype=_F32, device=dev) for _ in range(10)]
+    lanes = ((flags & 1) != 0).nonzero().squeeze(1)
+    if lanes.numel():
+        p = dict(ray=tuple(r[lanes] for r in rays), state=state[lanes],
+                 tp=tuple(c[lanes] for c in throughput),
+                 en=tuple(c[lanes] for c in energy),
+                 active=torch.ones(lanes.numel(), dtype=torch.bool,
+                                   device=dev),
+                 spec=(flags[lanes] >> 1) & 1)
+        rec = records if records is not None else ptf.leaf_records(ltris)
+        hit = ptf.closest_hit_reference(ltris, p["ray"], records=rec,
+                                        chunk=chunk)
+        depth0 = torch.full_like(hit[1], int(depth) == 0, dtype=torch.bool)
+        sh = ptf._shade_surface(tb, md, p, depth0, *hit)
+        for c in range(6):
+            ray[c][lanes] = p["ray"][c]
+        st[lanes] = p["state"]
+        for c in range(3):
+            tp[c][lanes] = p["tp"][c]
+            en[c][lanes] = p["en"][c]
+        word = p["active"].to(_I32) | (p["spec"].to(_I32) << 1)
+        if sh is not None:
+            sneed, so, sd, stmax, contrib = sh
+            word = word | (sneed.to(_I32) << 2)
+            zero = torch.zeros_like(stmax)
+            for c, v in enumerate((*so, *sd, stmax, *contrib)):
+                shadow[c][lanes] = torch.where(sneed, v, zero)
+        fl[lanes] = word
+    return (tuple(ray), st, tuple(tp), tuple(en), fl, tuple(shadow[0:3]),
+            tuple(shadow[3:6]), shadow[6], tuple(shadow[7:10]))
+
+
+# ---- shadow_resolve ----------------------------------------------------------
+
+
+def shadow_resolve(
+    nodes, ltris, sph, pln, shadow_o, shadow_d, shadow_tmax, flags, energy,
+    contrib, *, roots, num_sph, num_pln, occl=False, count_iters=False,
+    inst_inv=None, inst_root=None, fused_nn=0, width=8,
+):
+    """The NEE shadow any-hit of every lane with sneed (flags bit 2) over
+    the tree (nodes, ltris, roots) -- the occlusion tables
+    (bvh8.to_slim_occl) with occl=True, else shading tables -- and the
+    analytic occluders, then energy + (visible ? contrib : 0).  Returns
+    energy' (3 (N,) f32 columns); with count_iters=True (CUDA only) also
+    the ten work counters (the closest-hit ones 0)."""
+    _refuse("shadow_resolve", dict(inst_inv=inst_inv, inst_root=inst_root),
+            fused_nn=fused_nn, width=width)
+    dev = flags.device
+    if dev.type == "cpu":
+        if count_iters:
+            raise ValueError("count_iters needs the CUDA kernel")
+        return shadow_resolve_reference(
+            ltris, sph, pln, shadow_o, shadow_d, shadow_tmax, flags, energy,
+            contrib, num_sph=num_sph, num_pln=num_pln, occl=occl)
+    if dev.type != "cuda":
+        raise ValueError(
+            f"shadow_resolve runs on cuda or cpu tensors, not {dev}")
+    out = _shadow_resolve_launch(
+        ptf.build().mk_shadow_resolve_launch, dev, nodes, ltris, sph, pln,
+        shadow_o, shadow_d, shadow_tmax, flags, energy, contrib, roots=roots,
+        num_sph=num_sph, num_pln=num_pln, occl=occl, count_iters=count_iters)
+    launches["shadow_resolve"] += 1
+    return out
+
+
+def shadow_resolve_host(nodes, ltris, sph, pln, shadow_o, shadow_d,
+                        shadow_tmax, flags, energy, contrib, *, roots,
+                        num_sph, num_pln, occl=False, count_iters=False,
+                        **_):
+    """`shadow_resolve` through the g++ build of the kernel body (CPU)."""
+    return _shadow_resolve_launch(
+        ptf.build_host().mk_shadow_resolve_host, torch.device("cpu"), nodes,
+        ltris, sph, pln, shadow_o, shadow_d, shadow_tmax, flags, energy,
+        contrib, roots=roots, num_sph=num_sph, num_pln=num_pln, occl=occl,
+        count_iters=count_iters)
+
+
+def _shadow_resolve_launch(entry, dev, nodes, ltris, sph, pln, shadow_o,
+                           shadow_d, shadow_tmax, flags, energy, contrib, *,
+                           roots, num_sph, num_pln, occl, count_iters):
+    n = flags.shape[0]
+    ptf._check("flags", flags, _I32, dev, (n,))
+    _cols("shadow_o", shadow_o, 3, _F32, dev, n)
+    _cols("shadow_d", shadow_d, 3, _F32, dev, n)
+    ptf._check("shadow_tmax", shadow_tmax, _F32, dev, (n,))
+    _cols("energy", energy, 3, _F32, dev, n)
+    _cols("contrib", contrib, 3, _F32, dev, n)
+    # the shadow tree rides in both tree slots; the closest-hit one is
+    # never walked.  The small tables are zero but for spheres and planes.
+    tables = list(ptf.dummy_tables(dev, sph.shape[0], pln.shape[0]))
+    tables[3:5] = sph, pln
+    a = ptf.launch_args(dev, nodes, ltris, nodes, ltris, tables,
+                        tuple(shadow_o) + tuple(shadow_d), n=n, roots=roots,
+                        sh_roots=roots, occl=occl, num_sph=num_sph,
+                        num_pln=num_pln)
+    a.flags_in = flags.data_ptr()
+    cols = tuple(shadow_o) + tuple(shadow_d) + (shadow_tmax,) + tuple(contrib)
+    for c in range(10):
+        a.shadow[c] = cols[c].data_ptr()
+    en_o = tuple(torch.empty(n, dtype=_F32, device=dev) for _ in range(3))
+    for c in range(3):
+        a.en_in[c], a.en_out[c] = energy[c].data_ptr(), en_o[c].data_ptr()
+    if count_iters:
+        counted = ptf.count_rows(a, dev, {1: (nodes, ltris)})
+    ptf.run_launch(entry, a, "shadow_resolve")
+    if count_iters:
+        return en_o + (ptf.counters(*counted),)
+    return en_o
+
+
+def occl_records(ltris: torch.Tensor) -> dict:
+    """The triangle records of occlusion leaf rows (14 x 9-col [v0, e1,
+    e2], bvh8.to_slim_occl), all-zero padding records dropped (they fail
+    the determinant test anyway)."""
+    rec = ltris[:, :14 * 9].reshape(-1, 9)
+    rec = rec[(rec[:, 3:9] != 0).any(dim=1)]
+    return dict(v0=rec[:, 0:3], e1=rec[:, 3:6], e2=rec[:, 6:9])
+
+
+def shadow_resolve_reference(ltris, sph, pln, shadow_o, shadow_d,
+                             shadow_tmax, flags, energy, contrib, *, num_sph,
+                             num_pln, occl=False, records=None, chunk=4096):
+    """The plain version of `shadow_resolve`: the shadow rays of the
+    lanes with sneed against every triangle record of `ltris` (occlusion
+    rows when occl, else shading rows; or `records`) by brute force --
+    the same triangle set as any tree over them, so the same occluded
+    bit -- then the analytic occluders and the energy add."""
+    en = [e.clone() for e in energy]
+    sl = (((flags >> 2) & 1) != 0).nonzero().squeeze(1)
+    if sl.numel() == 0:
+        return tuple(en)
+    rc = records
+    if rc is None:
+        rc = occl_records(ltris) if occl else ptf.leaf_records(ltris)
+    so = tuple(c[sl] for c in shadow_o)
+    sd = tuple(c[sl] for c in shadow_d)
+    tmax = shadow_tmax[sl]
+    _, k = brute_force_nearest_triangle(
+        torch.stack(so, dim=1), torch.stack(sd, dim=1), rc["v0"], rc["e1"],
+        rc["e2"], tmax, chunk=chunk)
+    occ = (k >= 0) | ptf._analytic_occluded(sph, pln, num_sph, num_pln, so,
+                                            sd, tmax)
+    zero = torch.zeros_like(tmax)
+    for c in range(3):
+        en[c][sl] = en[c][sl] + torch.where(occ, zero, contrib[c][sl])
+    return tuple(en)

@@ -40,6 +40,7 @@ import os
 import shutil
 import subprocess
 import time
+import types
 
 import torch
 
@@ -80,8 +81,16 @@ NVCC_FLAGS = [
     "-shared", "-Xcompiler", "-fPIC", "--fmad=false", "-Xptxas=-v",
 ]
 HOST_FLAGS = ["-O2", "-std=c++17", "-shared", "-fPIC", "-ffp-contract=off"]
-_SOURCES = ("pt_frame.cu", "pt_device.cuh")
+# every source of the CUDA build (the build directory hashes them all),
+# and per compilation unit the C entry points of its shared library
+_SOURCES = ("pt_frame.cu", "megakernel.cu", "pt_launch.cuh", "pt_device.cuh")
+_UNITS = (
+    ("pt_frame.cu", ("pt_frame_launch", "pt_closest_hit_launch")),
+    ("megakernel.cu", ("mk_shade_extend_launch", "mk_shadow_resolve_launch")),
+)
 _HOST_SOURCES = ("pt_host_check.cc", "pt_device.cuh")
+_HOST_ENTRIES = ("pt_frame_host", "pt_closest_hit_host",
+                 "mk_shade_extend_host", "mk_shadow_resolve_host")
 _MAX_SMALL_BYTES = 48 * 1024
 
 _lib = None
@@ -90,6 +99,10 @@ build_seconds = 0.0
 _host_lib = None
 # one i32 per device: bit 0 set once any launch overflowed a traversal stack
 _status: dict = {}
+# packed small tables by the identity of the tables they were packed from
+# (see _small_tables)
+_small_cache: dict = {}
+_SMALL_CACHE_MAX = 16
 
 
 # ---- build and bind --------------------------------------------------------
@@ -116,6 +129,7 @@ class _PtArgs(ctypes.Structure):
         ("flags_out", ctypes.c_void_p),
         ("tr_out", ctypes.c_void_p),
         ("hit_out", ctypes.c_void_p * 6),
+        ("shadow", ctypes.c_void_p * 10),
         ("iters", ctypes.c_void_p),
         ("seen", ctypes.c_void_p * 4),
         ("status", ctypes.c_void_p),
@@ -130,12 +144,14 @@ class _PtArgs(ctypes.Structure):
     )]
 
 
-def _bind(lib, names):
+def _bind(lib, names) -> dict:
+    fns = {}
     for name in names:
         fn = getattr(lib, name)
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_void_p]
-    return lib
+        fns[name] = fn
+    return fns
 
 
 def _nvcc() -> str:
@@ -151,36 +167,51 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
 
 
-def build() -> ctypes.CDLL:
-    """Compile csrc/pt_frame.cu for sm_90a (once per source hash) into
-    build/torch_kernels/<hash>/ and load it.  Raises if nvcc fails."""
+def build() -> types.SimpleNamespace:
+    """Compile every kernel unit (csrc/pt_frame.cu, csrc/megakernel.cu)
+    for sm_90a, one nvcc per unit, all started together, into
+    build/torch_kernels/<hash of all sources>/ and load them: a namespace
+    of the C launch entries.  Raises if any nvcc fails."""
     global _lib, build_log, build_seconds
     if _lib is not None:
         return _lib
-    srcs = [source_path("csrc", s) for s in _SOURCES]
-    out = os.path.join(hashed_dir("torch_kernels", srcs, NVCC_FLAGS),
-                       "libpt_frame.so")
+    out_dir = hashed_dir("torch_kernels",
+                         [source_path("csrc", s) for s in _SOURCES],
+                         NVCC_FLAGS)
     t0 = time.perf_counter()
-    if not os.path.exists(out):
-        tmp = f"{out}.{os.getpid()}.tmp"
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, srcs[0]],
-            capture_output=True, text=True, timeout=900,
-        )
-        build_log = proc.stdout + proc.stderr
+    jobs = []
+    for unit, _ in _UNITS:
+        out = os.path.join(out_dir, "lib" + unit.replace(".cu", ".so"))
+        if not os.path.exists(out):
+            tmp = f"{out}.{os.getpid()}.tmp"
+            proc = subprocess.Popen(
+                [_nvcc(), *NVCC_FLAGS, "-o", tmp, source_path("csrc", unit)],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            jobs.append((unit, out, tmp, proc))
+    logs, failed = [], []
+    for unit, out, tmp, proc in jobs:
+        stdout, stderr = proc.communicate(timeout=900)
+        logs.append(f"{unit}:\n{stdout}{stderr}")
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {srcs[0]}:\n{build_log}")
-        os.replace(tmp, out)
+            failed.append(unit)
+        else:
+            os.replace(tmp, out)
+    build_log = "".join(logs)
+    if failed:
+        raise RuntimeError(f"nvcc failed on {', '.join(failed)}:\n{build_log}")
     build_seconds = time.perf_counter() - t0
-    _lib = _bind(ctypes.CDLL(out), ("pt_frame_launch",
-                                    "pt_closest_hit_launch"))
+    fns = {}
+    for unit, names in _UNITS:
+        out = os.path.join(out_dir, "lib" + unit.replace(".cu", ".so"))
+        fns.update(_bind(ctypes.CDLL(out), names))
+    _lib = types.SimpleNamespace(**fns)
     return _lib
 
 
-def build_host() -> ctypes.CDLL:
-    """g++ build of the kernel's per-ray body (csrc/pt_host_check.cc) for
-    CPU tests that hold the device code against the plain version.  The
-    render path never uses it."""
+def build_host() -> types.SimpleNamespace:
+    """g++ build of the kernels' per-lane bodies (csrc/pt_host_check.cc)
+    for CPU tests that hold the device code against the plain versions.
+    The render path never uses it."""
     global _host_lib
     if _host_lib is not None:
         return _host_lib
@@ -192,8 +223,8 @@ def build_host() -> ctypes.CDLL:
         subprocess.run(["g++", *HOST_FLAGS, "-o", tmp, srcs[0]], check=True,
                        capture_output=True, timeout=300)
         os.replace(tmp, out)
-    _host_lib = _bind(ctypes.CDLL(out), ("pt_frame_host",
-                                         "pt_closest_hit_host"))
+    _host_lib = types.SimpleNamespace(
+        **_bind(ctypes.CDLL(out), _HOST_ENTRIES))
     return _host_lib
 
 
@@ -232,9 +263,54 @@ def _check(name, x, dtype, dev, shape=None):
                          f"{tuple(x.shape)}")
 
 
-def _make_args(nodes, ltris, sh_nodes, sh_ltris, small, tables, rays, *,
-               n, roots, sh_roots, occl, light_tri_meta, num_sph, num_pln,
-               num_lights, nee, rr, cosine, ref_pdf, depths, depth_base):
+def _small_tables(tables, light_tri_meta, roots, sh_roots) -> torch.Tensor:
+    """_pack_small, once per set of tables: a scene's small tables are
+    packed on its first launch and reused after, so a launch makes no
+    host-to-device copy (which would synchronise the host with the
+    stream).  The cache holds the tables themselves, so an id it keys on
+    cannot be reused by another tensor while the entry lives."""
+    key = (tuple(id(t) for t in tables), tuple(light_tri_meta), tuple(roots),
+           tuple(sh_roots))
+    hit = _small_cache.get(key)
+    if hit is None:
+        if len(_small_cache) >= _SMALL_CACHE_MAX:
+            _small_cache.pop(next(iter(_small_cache)))
+        hit = _small_cache[key] = (tuple(tables), _pack_small(
+            *tables, light_tri_meta, roots, sh_roots))
+    return hit[1]
+
+
+def _check_tree(prefix, nodes, ltris, roots, dev) -> None:
+    """A slim 8-wide tree as the kernels take it: (B, 64) f32 node rows,
+    (NL, 128) f32 leaf rows, 1 to PT_STACK roots."""
+    _check_roots(f"{prefix}roots", roots)
+    _check(f"{prefix}nodes", nodes, torch.float32, dev)
+    if nodes.dim() != 2 or nodes.shape[1] != 64:
+        raise ValueError(f"{prefix}nodes: need (B, 64) slim 8-wide node rows")
+    _check(f"{prefix}ltris", ltris, torch.float32, dev)
+    if ltris.dim() != 2 or ltris.shape[1] != 128:
+        raise ValueError(f"{prefix}ltris: need (NL, 128) leaf rows")
+
+
+def launch_args(dev, nodes, ltris, sh_nodes, sh_ltris, tables, rays, *, n,
+                roots, sh_roots, occl=False, light_tri_meta=(), num_sph=0,
+                num_pln=0, num_lights=0, nee=False, rr=False, cosine=False,
+                ref_pdf=False, depths=1, depth_base=0) -> _PtArgs:
+    """Checked launch arguments of any kernel of csrc/ over n lanes: the
+    closest-hit tree, the shadow tree, the eight small tables (f32 mats,
+    lights, light triangles, spheres, planes; i32 sphmat, plnmat,
+    objmat), six (n,) f32 ray columns, the mode and the stream.  The
+    caller sets the per-lane column pointers."""
+    _check_tree("", nodes, ltris, roots, dev)
+    _check_tree("sh_", sh_nodes, sh_ltris, sh_roots, dev)
+    for k, t in enumerate(tables):
+        _check(f"table {k}", t, torch.int32 if k >= 5 else torch.float32, dev)
+    for c in range(6):
+        _check(f"rays[{c}]", rays[c], torch.float32, dev, (n,))
+    small = _small_tables(tables, light_tri_meta, roots, sh_roots)
+    if small.numel() * 4 > _MAX_SMALL_BYTES:
+        raise ValueError("small scene tables exceed the kernel's 48 KB of "
+                         "shared memory")
     mats, lights, ltri, sph, pln, sphmat, plnmat, objmat = tables
     a = _PtArgs()
     a.nodes, a.ltris = nodes.data_ptr(), ltris.data_ptr()
@@ -254,7 +330,51 @@ def _make_args(nodes, ltris, sh_nodes, sh_ltris, small, tables, rays, *,
     a.n, a.depths, a.depth_base = n, depths, depth_base
     a.nee, a.rr, a.cosine, a.ref_pdf = int(nee), int(rr), int(cosine), \
         int(ref_pdf)
+    a.status = _status_tensor(dev).data_ptr()
+    if dev.type == "cuda":
+        a.stream = torch.cuda.current_stream(dev).cuda_stream
     return a
+
+
+def count_rows(a: _PtArgs, dev, trees):
+    """count_iters: zeroed work counters and one byte map per row of each
+    walked tree's nodes and leaves, set into `a`.  `trees` maps slot 0
+    (closest-hit) and/or 1 (shadow) to (nodes, ltris); a shadow walk over
+    the closest-hit tables shares its maps.  Returns the (iters, maps)
+    that `counters` reads after the launch."""
+    iters = torch.zeros(NUM_COUNTERS, dtype=torch.int64, device=dev)
+    a.iters = iters.data_ptr()
+    maps = [None] * 4
+    for slot, (nodes, ltris) in trees.items():
+        other = trees.get(1 - slot)
+        if slot == 1 and other is not None and other[0] is nodes:
+            maps[2], maps[3] = maps[0], maps[1]
+            continue
+        sizes = [nodes.shape[0], ltris.shape[0]]
+        maps[2 * slot], maps[2 * slot + 1] = torch.zeros(
+            sum(sizes), dtype=torch.uint8, device=dev).split(sizes)
+    for k in range(4):
+        if maps[k] is not None:
+            a.seen[k] = maps[k].data_ptr()
+    return iters, maps
+
+
+def counters(iters, maps) -> torch.Tensor:
+    """The ten counts of COUNTERS: the kernel's six visit counts, then the
+    distinct rows read of nodes, ltris, sh_nodes and sh_ltris (0 for a
+    tree not walked, and for the shadow tree when it is the closest-hit
+    tree, whose rows then count once)."""
+    zero = torch.zeros((), dtype=torch.int64, device=iters.device)
+    rows = [zero if m is None else m.sum(dtype=torch.int64) for m in maps]
+    if maps[2] is maps[0] and maps[0] is not None:
+        rows[2] = rows[3] = zero
+    return torch.cat([iters, torch.stack(rows)])
+
+
+def run_launch(entry, a: _PtArgs, what: str) -> None:
+    rc = entry(ctypes.addressof(a))
+    if rc != 0:
+        raise RuntimeError(f"{what} launch failed (error {rc})")
 
 
 def _status_tensor(dev) -> torch.Tensor:
@@ -369,32 +489,14 @@ def _launch(entry, dev, nodes, ltris, sh_nodes, sh_ltris, tables, rays,
             depth_base=0, carry_in=None, carry_out=False, count_iters=False):
     global launches
     n = state.shape[0]
-    _check_roots("roots", roots)
-    _check_roots("sh_roots", sh_roots)
     f32, i32, i64 = torch.float32, torch.int32, torch.int64
-    for name, t in (("nodes", nodes), ("sh_nodes", sh_nodes)):
-        _check(name, t, f32, dev)
-        if t.dim() != 2 or t.shape[1] != 64:
-            raise ValueError(f"{name}: need (B, 64) slim 8-wide node rows")
-    for name, t in (("ltris", ltris), ("sh_ltris", sh_ltris)):
-        _check(name, t, f32, dev)
-        if t.dim() != 2 or t.shape[1] != 128:
-            raise ValueError(f"{name}: need (NL, 128) leaf rows")
-    for k, t in enumerate(tables):
-        _check(f"table {k}", t, i32 if k >= 5 else f32, dev)
     _check("state", state, i64, dev, (n,))
-    for c in range(6):
-        _check(f"rays[{c}]", rays[c], f32, dev, (n,))
-    small = _pack_small(*tables, light_tri_meta, roots, sh_roots)
-    if small.numel() * 4 > _MAX_SMALL_BYTES:
-        raise ValueError("small scene tables exceed the kernel's 48 KB of "
-                         "shared memory")
-    a = _make_args(nodes, ltris, sh_nodes, sh_ltris, small, tables, rays,
-                   n=n, roots=roots, sh_roots=sh_roots, occl=occl,
-                   light_tri_meta=light_tri_meta, num_sph=num_sph,
-                   num_pln=num_pln, num_lights=num_lights, nee=nee, rr=rr,
-                   cosine=cosine, ref_pdf=ref_pdf, depths=depths,
-                   depth_base=depth_base)
+    a = launch_args(dev, nodes, ltris, sh_nodes, sh_ltris, tables, rays, n=n,
+                    roots=roots, sh_roots=sh_roots, occl=occl,
+                    light_tri_meta=light_tri_meta, num_sph=num_sph,
+                    num_pln=num_pln, num_lights=num_lights, nee=nee, rr=rr,
+                    cosine=cosine, ref_pdf=ref_pdf, depths=depths,
+                    depth_base=depth_base)
     a.state = state.data_ptr()
     if carry_in is not None:
         tp_in, en_in, flags_in = carry_in
@@ -421,25 +523,10 @@ def _launch(entry, dev, nodes, ltris, sh_nodes, sh_ltris, tables, rays,
         for c in range(3):
             a.tp_out[c] = tp_out[c].data_ptr()
         a.flags_out = flags.data_ptr()
-    iters = seen = None
     if count_iters:
-        iters = torch.zeros(NUM_COUNTERS, dtype=i64, device=dev)
-        a.iters = iters.data_ptr()
-        # one byte per row of nodes, ltris, sh_nodes, sh_ltris; the shadow
-        # walk shares the closest-hit bytes when it walks the same tables
-        sizes = [nodes.shape[0], ltris.shape[0]]
-        if sh_nodes is not nodes:
-            sizes += [sh_nodes.shape[0], sh_ltris.shape[0]]
-        seen = torch.zeros(sum(sizes), dtype=torch.uint8,
-                           device=dev).split(sizes)
-        for k in range(4):
-            a.seen[k] = seen[k % len(seen)].data_ptr()
-    a.status = _status_tensor(dev).data_ptr()
-    if dev.type == "cuda":
-        a.stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = entry(ctypes.addressof(a))
-    if rc != 0:
-        raise RuntimeError(f"pt_frame launch failed (error {rc})")
+        counted = count_rows(a, dev, {0: (nodes, ltris),
+                                      1: (sh_nodes, sh_ltris)})
+    run_launch(entry, a, "pt_frame")
     if dev.type == "cuda":
         launches += 1
     traced = tr.sum(dtype=i64)
@@ -450,9 +537,7 @@ def _launch(entry, dev, nodes, ltris, sh_nodes, sh_ltris, tables, rays,
         out = (torch.stack(en, dim=1), st_out, traced)
     if not count_iters:
         return out
-    rows = [x.sum(dtype=i64) for x in seen]
-    rows += [torch.zeros((), dtype=i64, device=dev)] * (4 - len(rows))
-    return out + (torch.cat([iters, torch.stack(rows)]),)
+    return out + (counters(*counted),)
 
 
 def closest_hit(nodes, ltris, roots, rays):
@@ -474,35 +559,37 @@ def closest_hit_host(nodes, ltris, roots, rays):
                  nodes, ltris, roots, rays)
 
 
+_dummy: dict = {}
+
+
+def dummy_tables(dev, sph_rows: int = 1, pln_rows: int = 1) -> tuple:
+    """Zero small tables for launches that read none of them (one row
+    each; sphere and plane rows as given, so that real sphere and plane
+    tables can take their place), one set per device and shape, so their
+    packing is cached."""
+    key = (str(dev), sph_rows, pln_rows)
+    if key not in _dummy:
+        def z(*shape, dtype=torch.float32):
+            return torch.zeros(shape, dtype=dtype, device=dev)
+
+        _dummy[key] = (z(1, 14), z(1, 10), z(1, 12), z(sph_rows, 6),
+                       z(pln_rows, 7), z(sph_rows, dtype=torch.int32),
+                       z(pln_rows, dtype=torch.int32),
+                       z(1, dtype=torch.int32))
+    return _dummy[key]
+
+
 def _hits(entry, dev, nodes, ltris, roots, rays):
     n = rays[0].shape[0]
-    f32, i32 = torch.float32, torch.int32
-    _check_roots("roots", roots)
-    _check("nodes", nodes, f32, dev)
-    _check("ltris", ltris, f32, dev)
-    for c in range(6):
-        _check(f"rays[{c}]", rays[c], f32, dev, (n,))
-    zi = torch.zeros(1, dtype=i32, device=dev)
-    tables = tuple(torch.zeros((1, c), dtype=f32, device=dev)
-                   for c in (14, 10, 12, 6, 7)) + (zi, zi, zi)
-    small = _pack_small(*tables, (), roots, roots)
-    a = _make_args(nodes, ltris, nodes, ltris, small, tables, rays, n=n,
-                   roots=roots, sh_roots=roots, occl=False,
-                   light_tri_meta=(), num_sph=0, num_pln=0, num_lights=0,
-                   nee=False, rr=False, cosine=False, ref_pdf=False,
-                   depths=1, depth_base=0)
-    out = [torch.empty(n, dtype=f32, device=dev),
-           torch.empty(n, dtype=i32, device=dev),
-           torch.empty(n, dtype=i32, device=dev)] + \
-        [torch.empty(n, dtype=f32, device=dev) for _ in range(3)]
+    a = launch_args(dev, nodes, ltris, nodes, ltris, dummy_tables(dev), rays,
+                    n=n, roots=roots, sh_roots=roots)
+    out = [torch.empty(n, dtype=torch.float32, device=dev),
+           torch.empty(n, dtype=torch.int32, device=dev),
+           torch.empty(n, dtype=torch.int32, device=dev)] + \
+        [torch.empty(n, dtype=torch.float32, device=dev) for _ in range(3)]
     for c in range(6):
         a.hit_out[c] = out[c].data_ptr()
-    a.status = _status_tensor(dev).data_ptr()
-    if dev.type == "cuda":
-        a.stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = entry(ctypes.addressof(a))
-    if rc != 0:
-        raise RuntimeError(f"closest-hit launch failed (error {rc})")
+    run_launch(entry, a, "closest-hit")
     return tuple(out)
 
 

@@ -1,13 +1,15 @@
-"""The port's CUDA kernel on the card (marked `gpu`; without a CUDA
+"""The port's CUDA kernels on the card (marked `gpu`; without a CUDA
 device each test skips).  No JAX here: the machine with the card has
 none, so run these there without the JAX conftest:
 
     python -m pytest tests/test_torch_gpu.py -m gpu --noconftest
 
-The kernel is held against its plain PyTorch version on the same card
-and inputs under the megakernel contract (traced exact, < 3% flipped
-lanes, flips < 0.02, mean within 1e-4), its closest hits against brute
-force bitwise, and the split-span schedule against one span bitwise."""
+Each kernel (pt_frame, shade_extend, shadow_resolve) is held against its
+plain PyTorch version on the same card and inputs under the megakernel
+contract (traced exact, < 3% flipped lanes, flips < 0.02, mean within
+1e-4), pt_frame's closest hits against brute force bitwise, the
+split-span schedule against one span bitwise, and the per-depth route
+against the whole-frame route bitwise."""
 
 import numpy as np
 import pytest
@@ -19,6 +21,7 @@ from cpugpupathtracing_tpu_torch.models import integrators
 from cpugpupathtracing_tpu_torch.models import materials as matlib
 from cpugpupathtracing_tpu_torch.models import mesh as meshlib
 from cpugpupathtracing_tpu_torch.models.scene import Scene
+from cpugpupathtracing_tpu_torch.ops import megakernel as mk
 from cpugpupathtracing_tpu_torch.ops import pt_frame as ptf
 from cpugpupathtracing_tpu_torch.utils import rng as rnglib
 
@@ -127,3 +130,102 @@ def test_wrapper_refuses_bad_inputs(card):
                      depths=6, **kw)
     assert np.isfinite(float(ptf.pt_frame(*dev.tables(), rays, st, depths=6,
                                           **kw)[0].sum()))
+
+
+def _depth0(dev, o, d, st):
+    """shade_extend's inputs of a fresh wavefront at depth 0 (kernel args,
+    keyword args)."""
+    n = st.shape[0]
+    one = torch.ones(n, device="cuda")
+    zero = torch.zeros(n, device="cuda")
+    flags = torch.ones(n, dtype=torch.int32, device="cuda")
+    return ((*dev.tables(), 0, _rays(o, d), st, (one, one, one),
+             (zero, zero, zero), flags), integrators.extend_kwargs(dev, RenderSettings()))
+
+
+def _shade_plain(dev, args, kw):
+    keys = ("num_lights", "num_sph", "num_pln", "nee", "rr", "cosine",
+            "ref_pdf", "light_tri_meta")
+    return mk.shade_extend_reference(dev.pltris, *args[2:],
+                                     **{k: kw[k] for k in keys})
+
+
+def test_shade_extend_matches_plain(card):
+    dev, o, d, st = card
+    args, kw = _depth0(dev, o, d, st)
+    before = mk.launches["shade_extend"]
+    got = mk.shade_extend(*args, **kw)
+    assert mk.launches["shade_extend"] == before + 1
+    ref = _shade_plain(dev, args, kw)
+    ptf.check_status("cuda")
+    assert torch.equal(got[4], ref[4])  # flags, sneed included
+    assert torch.equal(got[1], ref[1])  # state
+    _contract(torch.stack(ref[3], 1), torch.stack(got[3], 1))
+    sneed = ((got[4] >> 2) & 1).bool()
+    assert float(sneed.float().mean()) > 0.1
+    for g, r in zip((*got[5], *got[6], got[7], *got[8]),
+                    (*ref[5], *ref[6], ref[7], *ref[8])):
+        assert not bool(g[~sneed].any())
+        assert torch.allclose(g, r, rtol=1e-4, atol=1e-5)
+
+
+def test_shadow_resolve_matches_plain(card):
+    dev, o, d, st = card
+    args, kw = _depth0(dev, o, d, st)
+    _, _, _, en, fl, so, sd, stm, contrib = _shade_plain(dev, args, kw)
+    sargs = (dev.poccl_nodes, dev.poccl_ltris, dev.mk_sph, dev.mk_pln, so,
+             sd, stm, fl, en, contrib)
+    before = mk.launches["shadow_resolve"]
+    got = mk.shadow_resolve(*sargs, **integrators.shadow_kwargs(dev))
+    assert mk.launches["shadow_resolve"] == before + 1
+    ref = mk.shadow_resolve_reference(
+        dev.poccl_ltris, dev.mk_sph, dev.mk_pln, so, sd, stm, fl, en,
+        contrib, num_sph=dev.num_sph, num_pln=dev.num_pln, occl=True)
+    ptf.check_status("cuda")
+    assert torch.equal(torch.stack(got, 1), torch.stack(ref, 1))
+
+
+@pytest.mark.parametrize("sort", [False, True], ids=["nosort", "sort"])
+def test_per_depth_route_bitwise(card, sort):
+    dev, o, d, st = card
+    settings = RenderSettings()
+    idx = torch.arange(W * H, dtype=torch.int32, device="cuda") if sort \
+        else None
+    s1, one = integrators.trace_advanced_frame(dev, settings, o, d, st)
+    before = dict(mk.launches)
+    s2, two = integrators.trace_advanced_mega(dev, settings, o, d, st,
+                                              idx=idx)
+    for name in before:
+        assert mk.launches[name] == before[name] + settings.max_ray_depth + 1
+    ptf.check_status("cuda")
+    assert torch.equal(one.energy, two.energy)
+    assert int(one.traced_rays) == int(two.traced_rays)
+    assert torch.equal(s1, s2)
+
+
+def test_megakernel_wrappers_refuse_bad_inputs(card):
+    dev, o, d, st = card
+    args, kw = _depth0(dev, o, d, st)
+    inst = torch.zeros((1, 12), device="cuda")
+    with pytest.raises(NotImplementedError, match="inst_inv"):
+        mk.shade_extend(*args, inst_inv=inst, **kw)
+    with pytest.raises(NotImplementedError, match="width=16"):
+        mk.shade_extend(*args, width=16, **kw)
+    bad = list(args)
+    bad[12] = st.to(torch.int32)
+    with pytest.raises(ValueError, match="state"):
+        mk.shade_extend(*bad, **kw)
+    got = mk.shade_extend(*args, **kw)
+    _, _, _, en, fl, so, sd, stm, contrib = got
+    sargs = [dev.poccl_nodes, dev.poccl_ltris, dev.mk_sph, dev.mk_pln, so,
+             sd, stm, fl, en, contrib]
+    skw = integrators.shadow_kwargs(dev)
+    with pytest.raises(NotImplementedError, match="inst_inv"):
+        mk.shadow_resolve(*sargs, inst_inv=inst, **skw)
+    sargs[7] = fl.to(torch.int64)
+    with pytest.raises(ValueError, match="flags"):
+        mk.shadow_resolve(*sargs, **skw)
+    sargs[7] = fl
+    sargs[4] = (so[0].cpu(), so[1], so[2])
+    with pytest.raises(ValueError, match="shadow_o"):
+        mk.shadow_resolve(*sargs, **skw)

@@ -74,7 +74,8 @@ def jax_tables(jdev):
                 light_tri_meta=jdev.light_tri_meta,
                 num_lights=jdev.num_lights,
                 num_sph=int(jdev.sph_center.shape[0]),
-                num_pln=int(jdev.pln_point.shape[0]))
+                num_pln=int(jdev.pln_point.shape[0]),
+                has_mesh_lights=bool(jdev.has_mesh_lights))
     return arrays, meta
 
 
