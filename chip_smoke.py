@@ -7,9 +7,12 @@ Drives the port's main paths -- config 3 (glass dragon stand-in, ground
 quad, two sphere lights; ADVANCED, depth 5, 1 spp) at 1920x1080 through
 `Renderer`, on the whole-frame route (`pt_frame`) and on the per-depth
 route (`shade_extend` + `shadow_resolve` per depth, chosen with
-CPUGPU_NO_PTFRAME=1) -- and holds every CUDA kernel of those paths against
-its plain PyTorch version on the card.  Phases, one line each; any
-failure raises and exits non-zero:
+CPUGPU_NO_PTFRAME=1); config 1 (spheres, a plane, two point lights;
+WHITTED, depth 4) at 800x600 through the whole-frame Whitted kernel
+(`whitted_frame`); and WHITTED on config 3's scene at 1920x1080 through
+`trace_whitted` (`traverse_packet_slim` per scene query) -- and holds
+every CUDA kernel of those paths against its plain PyTorch version on the
+card.  Phases, one line each; any failure raises and exits non-zero:
 
   1. device      the card's name and power limit (nvidia-smi)
   2. build       nvcc build of the kernels from the checkout, one nvcc per
@@ -33,13 +36,28 @@ failure raises and exits non-zero:
   7. frame_mega  the same on the per-depth route (6 + 6 launches and 3
                  sorts per frame), then one frame from reset on each route
                  with the same seed: images and traced counts equal
-  8. the {"kernels": [...]} line: per kernel the 8192-lane check's
-     numbers, and per main-path launch its lanes, ms, bound and sampled
-     error
-  9. the last line {"ok": true, "device": {...}}
+  8. check_traverse  8192 config-3 lanes: traverse_packet_slim's closest
+                 hits of camera rays and any hits of shadow rays toward
+                 both lights (half of the lanes inactive) against its
+                 plain version, bitwise (any hits: existence)
+  9. check_whitted  8192 config-1 lanes through whitted_frame against its
+                 plain version (bitwise) and against trace_whitted (state
+                 and traced exact, energy under the contract)
+ 10. frame_whitted  config 1 at 800x600 through Renderer: 1 launch per
+                 frame, every 256th lane of it against the plain version,
+                 then one frame from reset on trace_whitted
+                 (CPUGPU_NO_WHITTED_KERNEL=1): traced equal, image within
+                 the golden tolerance
+ 11. frame_whitted_mesh  WHITTED on config 3's scene at 1920x1080, depth
+                 4, through Renderer (trace_whitted): 5 closest-hit and 10
+                 any-hit launches and 5 morton5 sorts per frame, every
+                 256th lane of each launch against the plain version
+ 12. the {"kernels": [...]} line: per kernel its check's numbers, and per
+     main-path launch its lanes, ms, bound and sampled error
+ 13. the last line {"ok": true, "device": {...}}
 
---profile adds, after phases 6 and 7, a torch.profiler table of two
-frames' device time by kernel and the device-busy share of the frame
+--profile adds, after phases 6, 7, 10 and 11, a torch.profiler table of
+two frames' device time by kernel and the device-busy share of the frame
 time, per route.
 
 Imports nothing of JAX and nothing of the JAX package.  Needs one card;
@@ -94,6 +112,24 @@ SR_LANE, SR_SHADOW = 4 + 12 + 12, 10 * 4
 MEGA_KERNELS = ("shade_extend", "shadow_resolve")
 # megakernel contract (the JAX package's tests/test_megakernel.py)
 FLIP_SHARE_MAX, FLIP_MAX, MEAN_MAX = 0.03, 0.02, 1e-4
+# Whitted contract (the JAX package's tests/test_whitted_kernel.py): < 1%
+# of lanes beyond 3e-6 + 3e-5 |e|, every difference < 0.05
+W_FLIP_SHARE_MAX, W_FLIP_MAX = 0.01, 0.05
+# golden image tolerance (tests/test_torch_renderer.py), per 8-bit channel
+IMG_EQUAL_MIN, IMG_MEAN_MAX, IMG_MAX_MAX = 0.995, 0.05, 32
+# per-lane bytes of traverse_packet_slim: 6 ray columns, t_init and the
+# active flag in; t, id, object and 3 normal columns out
+TRAV_LANE = 6 * 4 + 4 + 4 + 6 * 4
+# per-lane bytes of whitted_frame: 6 ray columns and the state in;
+# energy, state and traced out
+WHITTED_LANE = 6 * 4 + 8 + 3 * 4 + 8 + 4
+# f32 operations of the Whitted body (csrc/whitted.cuh), counted per
+# object of the scene: a sphere test 27 (sphere_t and the closest-hit
+# compares), a plane test 18; the occluder tests of a shadow ray 26 and
+# 17; per live depth 150 for shading and the Fresnel continuation and 28
+# per light for its direction; per shadow ray 9 for the light's add
+W_OPS_DEPTH, W_OPS_LIGHT, W_OPS_SHADOW = 150, 28, 9
+W_OPS_SPH, W_OPS_PLN, W_OPS_OCC_SPH, W_OPS_OCC_PLN = 27, 18, 26, 17
 
 
 def say(phase: str, **kw) -> None:
@@ -140,23 +176,57 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def launch_ms(fn, kernel: str, reps: int = 1) -> list:
+    """Device milliseconds of every launch of the CUDA kernel named
+    `kernel` (its function in csrc/) while fn() runs reps times, in launch
+    order (torch.profiler).  Unlike CUDA events around a call, this leaves
+    out the time the device waits for the host to enqueue the launch."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    evs = sorted((e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA and kernel in e.name),
+                 key=lambda e: e.time_range.start)
+    if not evs:
+        raise AssertionError(f"the profiler saw no {kernel} launch")
+    return [(e.time_range.end - e.time_range.start) / 1e3 for e in evs]
+
+
+def kernel_ms(fn, kernel: str, reps: int = 20) -> dict:
+    """A check's timing of one wrapper call fn(): `ms`, the kernel's mean
+    device time per launch (launch_ms), and `call_ms`, CUDA events around
+    reps back-to-back calls, which include the wrapper's host time where
+    that is the longer."""
+    dev_ms = launch_ms(fn, kernel, reps)
+    return dict(ms=sum(dev_ms) / len(dev_ms), call_ms=cuda_ms(fn, reps))
+
+
 def lane_bytes(carry_in: bool, carry_out: bool) -> int:
     return (LANE_IN + (CARRY_IN if carry_in else 0)
             + (CARRY_OUT if carry_out else LANE_OUT))
 
 
-def bound_ms(iters: dict, lane_bytes_total: int, small_bytes: int):
+def bound_ms(iters: dict, lane_bytes_total: int, small_bytes: int,
+             shade_ops: int = OPS_SHADE):
     """Least time of one launch's work on this run's data: the larger of
     bytes over HBM bandwidth and f32 operations over the f32 peak.  The
     bytes are each lane's input read once and output written once
     (lane_bytes_total), the small scene tables once, and once each table
     row the launch read (the distinct rows of count_iters), not whole
     tables.  iters: a kernel's count_iters counters by name
-    (ptf.COUNTERS)."""
+    (ptf.COUNTERS); shade_ops: operations per closest-hit ray beyond its
+    walk (0 for a bare traversal)."""
     c = iters
     ops = (OPS_NODE * (c["node"] + c["snode"])
            + OPS_TRI * LEAF_TRIS * c["leaf"]
-           + OPS_TRI * OCCL_TRIS * c["sleaf"] + OPS_SHADE * c["ray"])
+           + OPS_TRI * OCCL_TRIS * c["sleaf"] + shade_ops * c["ray"])
     rows = (NODE_ROW_BYTES * (c["node_rows"] + c["snode_rows"])
             + LEAF_ROW_BYTES * c["leaf_rows"]
             + OCCL_ROW_BYTES * c["sleaf_rows"])
@@ -164,6 +234,65 @@ def bound_ms(iters: dict, lane_bytes_total: int, small_bytes: int):
     t_ops = ops / PEAK_F32_FLOPS
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops
                                        else "operations")
+
+
+def whitted_bound(iters: dict, lanes: int, ds):
+    """Least time of a whitted_frame launch's work on this run's data:
+    the operations of its live depths and shadow rays (count_iters' `ray`
+    and `sray`, every occluder test of a shadow ray counted) over the f32
+    peak, against its lanes' bytes and the small tables over HBM
+    bandwidth."""
+    per_depth = (W_OPS_DEPTH + W_OPS_SPH * ds.num_sph + W_OPS_PLN * ds.num_pln
+                 + W_OPS_LIGHT * ds.num_lights)
+    per_shadow = (W_OPS_SHADOW + W_OPS_OCC_SPH * ds.num_sph
+                  + W_OPS_OCC_PLN * ds.num_pln)
+    ops = per_depth * iters["ray"] + per_shadow * iters["sray"]
+    small = 4 * sum(t.numel() for t in (ds.mk_mats, ds.mk_lights, ds.mk_sph,
+                                         ds.mk_pln, ds.mk_sph_mat,
+                                         ds.mk_pln_mat, ds.mk_objmat))
+    t_bytes = (lanes * WHITTED_LANE + small) / PEAK_BYTES_PER_S
+    t_ops = ops / PEAK_F32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops
+                                       else "operations")
+
+
+def counts() -> dict:
+    """Every kernel's launch count, and the wavefront sorts."""
+    from cpugpupathtracing_tpu_torch.models import integrators
+    from cpugpupathtracing_tpu_torch.ops import megakernel as mk
+    from cpugpupathtracing_tpu_torch.ops import pt_frame as ptf
+    from cpugpupathtracing_tpu_torch.ops import traverse_packet_slim as tps
+    from cpugpupathtracing_tpu_torch.ops import whitted_kernel as wk
+
+    return dict(pt_frame=ptf.launches, **mk.launches,
+                traverse_packet_slim=tps.launches, whitted_frame=wk.launches,
+                sorts=integrators.sorts)
+
+
+def reset_counts() -> None:
+    """Every kernel's launch count and the sort count to 0, just before a
+    main path runs."""
+    from cpugpupathtracing_tpu_torch.models import integrators
+    from cpugpupathtracing_tpu_torch.ops import megakernel as mk
+    from cpugpupathtracing_tpu_torch.ops import pt_frame as ptf
+    from cpugpupathtracing_tpu_torch.ops import traverse_packet_slim as tps
+    from cpugpupathtracing_tpu_torch.ops import whitted_kernel as wk
+
+    ptf.launches = tps.launches = wk.launches = integrators.sorts = 0
+    for name in MEGA_KERNELS:
+        mk.launches[name] = 0
+
+
+def expect_counts(got: dict, what: str, **want) -> None:
+    """Raise unless the counts are `want` and 0 for every other kernel."""
+    full = {k: want.get(k, 0) for k in got}
+    if got != full:
+        raise AssertionError(f"{what}: launched {got}, expected {full}")
+
+
+def columns(o, d) -> tuple:
+    return tuple(o[:, k].contiguous() for k in range(3)) + tuple(
+        d[:, k].contiguous() for k in range(3))
 
 
 def profile_frames(r, ms_per_frame: float, route: str,
@@ -238,8 +367,7 @@ def check_mega(ds, settings, o, d, st, ref, small_bytes) -> dict:
     from cpugpupathtracing_tpu_torch.ops import pt_frame as ptf
 
     dev, n = st.device, st.shape[0]
-    rays = tuple(o[:, k].contiguous() for k in range(3)) + tuple(
-        d[:, k].contiguous() for k in range(3))
+    rays = columns(o, d)
     one = torch.ones(n, device=dev)
     zero = torch.zeros(n, device=dev)
     flags = torch.ones(n, dtype=torch.int32, device=dev)
@@ -279,11 +407,13 @@ def check_mega(ds, settings, o, d, st, ref, small_bytes) -> dict:
     sr_small = 4 * (ds.mk_sph.numel() + ds.mk_pln.numel())
     out = {
         "shade_extend": dict(
-            ms=cuda_ms(lambda: mk.shade_extend(*a, **kw), 20),
+            **kernel_ms(lambda: mk.shade_extend(*a, **kw),
+                        "shade_extend_kernel"),
             plain_ms=(t1 - t0) * 1e3, max_abs_err=se_err, iters=se_it,
             bound=bound_ms(se_it, n * SE_LANE, small_bytes)),
         "shadow_resolve": dict(
-            ms=cuda_ms(lambda: mk.shadow_resolve(*sa, **skw), 20),
+            **kernel_ms(lambda: mk.shadow_resolve(*sa, **skw),
+                        "shadow_resolve_kernel"),
             plain_ms=(t2 - t1) * 1e3, max_abs_err=sr_err, iters=sr_it,
             bound=bound_ms(sr_it, n * SR_LANE + sr_it["sray"] * SR_SHADOW,
                            sr_small)),
@@ -306,7 +436,7 @@ def check_mega(ds, settings, o, d, st, ref, small_bytes) -> dict:
         route_bitwise_sorted=same["sorted"],
         route_bitwise_unsorted=same["unsorted"],
         **{f"{k}_{f}": v[f] for k, v in out.items()
-           for f in ("ms", "plain_ms")},
+           for f in ("ms", "call_ms", "plain_ms")},
         **{f"{k}_bound_ms": v["bound"][0] for k, v in out.items()},
         **{f"{k}_bound_by": v["bound"][1] for k, v in out.items()},
         shade_extend_iters=se_it, shadow_resolve_iters=sr_it)
@@ -335,7 +465,6 @@ def frame_mega(scene, cam_cfg, settings, width, height, small_bytes,
 
     import torch
     from cpugpupathtracing_tpu_torch.config import RenderConfig
-    from cpugpupathtracing_tpu_torch.models import integrators
     from cpugpupathtracing_tpu_torch.models.renderer import Renderer
     from cpugpupathtracing_tpu_torch.ops import megakernel as mk
     from cpugpupathtracing_tpu_torch.ops import pt_frame as ptf
@@ -436,30 +565,10 @@ def frame_mega(scene, cam_cfg, settings, width, height, small_bytes,
         ptf.check_status(dev)
 
         # the main path: timed frames, every count from 0
-        ptf.launches = 0
-        for name in MEGA_KERNELS:
-            mk.launches[name] = 0
-        integrators.sorts = 0
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        traced = 0
-        for _ in range(TIMED_FRAMES):
-            traced = traced + r.render_frame(sync=False)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        counts = dict(pt_frame=ptf.launches, **mk.launches)
-        sorts = integrators.sorts
-        traced = int(traced)
+        ms_per_frame, traced, rate, got = timed_frames(
+            r, "per-depth frames", profile, "per-depth",
+            shade_extend=depths, shadow_resolve=depths, sorts=sorts_per_frame)
         ptf.check_status(dev)
-        want = dict(pt_frame=0, shade_extend=depths * TIMED_FRAMES,
-                    shadow_resolve=depths * TIMED_FRAMES)
-        if counts != want or sorts != sorts_per_frame * TIMED_FRAMES:
-            raise AssertionError(f"per-depth frames launched {counts} and "
-                                 f"sorted {sorts} times, expected {want} "
-                                 f"and {sorts_per_frame * TIMED_FRAMES}")
-        ms_per_frame = dt * 1e3 / TIMED_FRAMES
-        if profile:
-            profile_frames(r, ms_per_frame, "per-depth")
 
         # one frame from reset on each route, same seed: equal images
         r_mega = Renderer(scene, camera=cam_cfg, config=config,
@@ -490,15 +599,385 @@ def frame_mega(scene, cam_cfg, settings, width, height, small_bytes,
     say("frame_mega", width=width, height=height, frames=TIMED_FRAMES,
         ms_per_frame=ms_per_frame,
         kernel_share=sum(launch_ms) / ms_per_frame,
-        mrays_per_s=traced / dt / 1e6,
-        traced_per_frame=traced // TIMED_FRAMES,
-        launches_per_frame={k: v / TIMED_FRAMES for k, v in counts.items()},
-        sorts_per_frame=sorts / TIMED_FRAMES, mean_energy=energy,
+        mrays_per_s=rate / 1e6, traced_per_frame=traced,
+        launches_per_frame={k: v / TIMED_FRAMES for k, v in got.items()
+                            if k != "sorts"},
+        sorts_per_frame=got["sorts"] / TIMED_FRAMES, mean_energy=energy,
         image_equal_whole_frame=same_image,
         traced_equal_whole_frame=same_traced)
     for mp in main_path:
         say(f"mega_d{mp['depth']}_{mp['name']}", **mp)
-    return main_path, counts
+    return main_path, got
+
+
+def check_traverse(ds, o, d) -> dict:
+    """Phase 8 on the check lanes of config 3: traverse_packet_slim's
+    closest hits of the camera rays (even lanes active) and its any hits
+    of shadow rays from the camera hits toward each light (odd lanes that
+    hit active) against the plain version on the card -- closest hits
+    bitwise on every lane (t, id, object, normal; inactive lanes t_init
+    and -1), any hits in existence.  Returns each query's numbers."""
+    import torch
+    from cpugpupathtracing_tpu_torch.ops import pt_frame as ptf
+    from cpugpupathtracing_tpu_torch.ops import traverse_packet_slim as tps
+
+    dev, n = o.device, o.shape[0]
+    rays = columns(o, d)
+    even = torch.arange(n, device=dev) % 2 == 0
+    far = torch.full((n,), 1e34, device=dev)
+    rec = ptf.leaf_records(ds.pltris)
+    cam = tps.traverse_packet_slim_reference(rays, far, ds.pltris,
+                                             records=rec)
+    pos = o + d * cam[0][:, None]
+    queries = [("closest", rays, far, even, False)]
+    for li in range(ds.num_lights):
+        to_l = ds.mk_lights[li, 0:3][None, :] - pos
+        dist = torch.sqrt((to_l * to_l).sum(dim=1))
+        to_l = to_l / dist[:, None]
+        queries.append((
+            f"any_light{li}", columns(pos + to_l * 0.001, to_l),
+            dist - ds.mk_lights[li, 3] - 0.002, ~even & (cam[1] >= 0), True))
+    out = {}
+    for name, qr, t0, act, any_hit in queries:
+        args = (qr[:3], qr[3:], t0, ds.pnodes, ds.pltris, ds.proots)
+        *got, it = tps.traverse_packet_slim(*args, active=act, any_hit=any_hit,
+                                            count_iters=True)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        ref = tps.traverse_packet_slim_reference(qr, t0, ds.pltris, active=act,
+                                                 any_hit=any_hit, records=rec)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t1) * 1e3
+        ptf.check_status(dev)
+        got = (got[0], got[1], got[2]) + got[3]
+        ref = (ref[0], ref[1], ref[2]) + ref[3]
+        if any_hit:
+            bad = (got[1] >= 0) != (ref[1] >= 0)
+            dead = ~act
+            bad |= dead & ((got[0] != t0) | (got[1] != -1) | (got[2] != -1))
+        else:
+            bad = torch.zeros(n, dtype=torch.bool, device=dev)
+            for a_, b_ in zip(got, ref):
+                bad |= a_.view(torch.int32) != b_.view(torch.int32)
+        mism = int(bad.sum())
+        if mism:
+            raise AssertionError(f"traverse_packet_slim {name}: {mism} lanes "
+                                 "differ from the plain version")
+        it = dict(zip(ptf.COUNTERS, (int(v) for v in it)))
+        out[name] = dict(
+            active=int(act.sum()), hits=int((got[1] >= 0).sum()),
+            mismatches=mism,
+            max_abs_err=float((got[0] - ref[0]).abs().max()) if not any_hit
+            else 0.0,
+            **kernel_ms(lambda: tps.traverse_packet_slim(
+                *args, active=act, any_hit=any_hit), "traverse_kernel"),
+            plain_ms=plain_ms, iters=it,
+            bound=bound_ms(it, n * TRAV_LANE, 0, shade_ops=0))
+    say("check_traverse", lanes=n, **{
+        f"{q}_{k}": v[k] for q, v in out.items()
+        for k in ("active", "hits", "mismatches", "ms", "call_ms",
+                  "plain_ms")},
+        **{f"{q}_bound_ms": v["bound"][0] for q, v in out.items()},
+        **{f"{q}_bound_by": v["bound"][1] for q, v in out.items()},
+        **{f"{q}_iters": v["iters"] for q, v in out.items()})
+    return out
+
+
+def whitted_contract(ref, got, what: str):
+    """The Whitted contract on per-lane (N, 3) energies."""
+    diff = (ref - got).abs()
+    flips = (diff > 3e-6 + 3e-5 * ref.abs()).any(dim=1).float().mean().item()
+    dmax = diff.max().item()
+    if not (flips < W_FLIP_SHARE_MAX and dmax < W_FLIP_MAX):
+        raise AssertionError(f"{what}: flip share {flips}, max {dmax} break "
+                             "the Whitted contract")
+    return flips, dmax
+
+
+def whitted_args(ds, rays, st):
+    return ((ds.mk_mats, ds.mk_lights, ds.mk_sph, ds.mk_pln, ds.mk_sph_mat,
+             ds.mk_pln_mat, ds.mk_objmat, rays, st),
+            dict(num_lights=ds.num_lights, num_sph=ds.num_sph,
+                 num_pln=ds.num_pln))
+
+
+def check_whitted(ds, settings, o, d, st) -> dict:
+    """Phase 9 on 8192 config-1 lanes: whitted_frame against its plain
+    version (energy, state and traced bitwise) and against trace_whitted
+    (state and traced exact, energy under the Whitted contract)."""
+    import torch
+    from cpugpupathtracing_tpu_torch.models import whitted
+    from cpugpupathtracing_tpu_torch.ops import pt_frame as ptf
+    from cpugpupathtracing_tpu_torch.ops import whitted_kernel as wk
+
+    n = st.shape[0]
+    depths = settings.max_ray_depth + 1
+    a, kw = whitted_args(ds, columns(o, d), st)
+    *out_k, it = wk.whitted_frame(*a, num_mats=ds.num_mats, depths=depths,
+                                  count_iters=True, **kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out_p = wk.whitted_frame_reference(*a, depths=depths, **kw)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    same = [torch.equal(x, y) for x, y in zip(out_k, out_p)]
+    if not all(same):
+        raise AssertionError(f"whitted_frame differs from its plain version "
+                             f"(energy, state, traced equal: {same})")
+    s_t, res = whitted.trace_whitted(ds, settings, o, d, st)
+    ptf.check_status(st.device)
+    if not (torch.equal(s_t, out_k[1])
+            and int(res.traced_rays) == int(out_k[2])):
+        raise AssertionError("whitted_frame's state or traced differ from "
+                             "trace_whitted's")
+    flips, dmax = whitted_contract(res.energy, out_k[0],
+                                   "whitted_frame vs trace_whitted")
+    it = dict(zip(ptf.COUNTERS, (int(v) for v in it)))
+    out = dict(**kernel_ms(lambda: wk.whitted_frame(
+        *a, num_mats=ds.num_mats, depths=depths, **kw), "whitted_kernel"),
+        plain_ms=plain_ms, iters=it, bound=whitted_bound(it, n, ds),
+        max_abs_err=float((out_k[0] - out_p[0]).abs().max()),
+        trace_max_abs_err=dmax, trace_flip_share=flips,
+        trace_bitwise=torch.equal(res.energy, out_k[0]))
+    say("check_whitted", lanes=n, depths=depths, traced=int(out_k[2]),
+        plain_bitwise=True, state_equal_trace_whitted=True,
+        traced_equal_trace_whitted=True,
+        **{k: out[k] for k in ("max_abs_err", "trace_max_abs_err",
+                               "trace_flip_share", "trace_bitwise", "ms",
+                               "call_ms", "plain_ms", "iters")},
+        bound_ms=out["bound"][0], bound_by=out["bound"][1])
+    return out
+
+
+def instrument(module, name, wrap, fn):
+    """Run fn() with module.name replaced by wrap(original), then restore
+    it and synchronise."""
+    import torch
+
+    entry = getattr(module, name)
+    setattr(module, name, wrap(entry))
+    try:
+        fn()
+    finally:
+        setattr(module, name, entry)
+    torch.cuda.synchronize()
+
+
+def image_delta(a, b) -> dict:
+    """The golden tolerance's numbers between two u32 RGBA8 images."""
+    import numpy as np
+
+    delta = np.abs(a.view(np.uint8).astype(np.int64)
+                   - b.view(np.uint8).astype(np.int64))
+    return dict(equal_share=float((delta == 0).mean()),
+                mean=float(delta.mean()), max=int(delta.max()))
+
+
+def timed_frames(r, what: str, profile: bool, route: str, **want):
+    """Phase body: TIMED_FRAMES frames of r with every count from 0; the
+    launch and sort counts must be `want`.  Returns (ms per frame, traced
+    rays per frame, rays per second, counts)."""
+    import torch
+
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    traced = 0
+    for _ in range(TIMED_FRAMES):
+        traced = traced + r.render_frame(sync=False)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    got = counts()
+    expect_counts(got, what, **{k: v * TIMED_FRAMES for k, v in want.items()})
+    ms = dt * 1e3 / TIMED_FRAMES
+    if profile:
+        profile_frames(r, ms, route)
+    return ms, int(traced) // TIMED_FRAMES, int(traced) / dt, got
+
+
+def frame_whitted(scene, cam_cfg, settings, width, height, profile: bool):
+    """Phase 10: config 1 through Renderer on the whole-frame Whitted
+    kernel.  Returns (main-path entries, counts)."""
+    import os
+
+    import torch
+    from cpugpupathtracing_tpu_torch.config import RenderConfig
+    from cpugpupathtracing_tpu_torch.models.renderer import Renderer
+    from cpugpupathtracing_tpu_torch.ops import pt_frame as ptf
+    from cpugpupathtracing_tpu_torch.ops import whitted_kernel as wk
+
+    dev = torch.device("cuda")
+    config = RenderConfig(width=width, height=height)
+    ds = scene.device(dev)
+    r = Renderer(scene, camera=cam_cfg, config=config, settings=settings,
+                 device=dev)
+    r.render_frame()  # warm-up
+    dev_ms = launch_ms(r.render_frame, "whitted_kernel")
+    launches = []
+
+    def counted(entry):
+        def call(*a, **k):
+            *out, iters = entry(*a, count_iters=True, **k)
+            st = a[8]
+            sel = torch.arange(0, st.shape[0], SAMPLE_STRIDE, device=dev)
+            launches.append(dict(
+                lanes=st.shape[0], iters=iters, kw=k,
+                args=a[:7] + (tuple(x[sel] for x in a[7]), st[sel]),
+                got=tuple(x[sel] for x in out[:2])))
+            return tuple(out)
+        return call
+
+    instrument(wk, "whitted_frame", counted, r.render_frame)
+    if len(launches) != 1 or len(dev_ms) != 1:
+        raise AssertionError(f"{len(launches)} whitted_frame launches in a "
+                             "frame, expected 1")
+    ln = launches[0]
+    kw = {k: v for k, v in ln["kw"].items() if k != "num_mats"}
+    ref = wk.whitted_frame_reference(*ln["args"], **kw)
+    if not all(torch.equal(x, y) for x, y in zip(ref[:2], ln["got"])):
+        raise AssertionError("whitted_frame's sampled lanes differ from the "
+                             "plain version")
+    it = dict(zip(ptf.COUNTERS, (int(v) for v in ln["iters"])))
+    b = whitted_bound(it, ln["lanes"], ds)
+    main_path = [dict(lanes=ln["lanes"], depths=kw["depths"], ms=dev_ms[0],
+                      bound_ms=b[0], bound_by=b[1],
+                      sampled_lanes=int(ref[1].shape[0]),
+                      max_abs_err=float((ref[0] - ln["got"][0]).abs().max()),
+                      iters=it)]
+    ms, traced, rate, got = timed_frames(r, "whitted frames", profile,
+                                         "whitted-kernel", whitted_frame=1)
+
+    # one frame from reset on each route, same seed
+    r_k = Renderer(scene, camera=cam_cfg, config=config, settings=settings,
+                   device=dev)
+    r_k.render_frame()
+    prev = os.environ.get("CPUGPU_NO_WHITTED_KERNEL")
+    os.environ["CPUGPU_NO_WHITTED_KERNEL"] = "1"
+    try:
+        before = wk.launches
+        r_t = Renderer(scene, camera=cam_cfg, config=config,
+                       settings=settings, device=dev)
+        r_t.render_frame()
+        if wk.launches != before:
+            raise AssertionError("CPUGPU_NO_WHITTED_KERNEL=1 still took the "
+                                 "kernel")
+    finally:
+        if prev is None:
+            os.environ.pop("CPUGPU_NO_WHITTED_KERNEL", None)
+        else:
+            os.environ["CPUGPU_NO_WHITTED_KERNEL"] = prev
+    img = r_k.image_u32()
+    delta = image_delta(img, r_t.image_u32())
+    if r_k.stats.traced_rays != r_t.stats.traced_rays or not (
+            delta["equal_share"] >= IMG_EQUAL_MIN
+            and delta["mean"] <= IMG_MEAN_MAX and delta["max"] <= IMG_MAX_MAX):
+        raise AssertionError(f"the Whitted routes' frames differ: traced "
+                             f"{r_k.stats.traced_rays} vs "
+                             f"{r_t.stats.traced_rays}, image {delta}")
+    energy = r_k.mean_energy
+    if not (math.isfinite(energy) and energy > 0.0):
+        raise AssertionError(f"mean energy {energy}")
+    if img.shape != (height, width) or not (img != 0xFF000000).any():
+        raise AssertionError("the Whitted frame is black")
+    say("frame_whitted", width=width, height=height, frames=TIMED_FRAMES,
+        depths=settings.max_ray_depth + 1, ms_per_frame=ms,
+        kernel_share=main_path[0]["ms"] / ms, mrays_per_s=rate / 1e6,
+        traced_per_frame=traced, launches_per_frame=1, mean_energy=energy,
+        traced_equal_trace_whitted=True,
+        image_vs_trace_whitted=delta)
+    say("whitted_launch", **main_path[0])
+    return main_path, got
+
+
+def frame_whitted_mesh(scene, cam_cfg, settings, width, height,
+                       profile: bool):
+    """Phase 11: WHITTED on config 3's scene through Renderer, i.e.
+    trace_whitted with one closest-hit and one any-hit launch per light
+    of traverse_packet_slim per depth and a morton5 sort after each.
+    Returns (main-path entries, counts)."""
+    import torch
+    from cpugpupathtracing_tpu_torch.config import RenderConfig
+    from cpugpupathtracing_tpu_torch.models.renderer import Renderer
+    from cpugpupathtracing_tpu_torch.ops import pt_frame as ptf
+    from cpugpupathtracing_tpu_torch.ops import traverse_packet_slim as tps
+
+    dev = torch.device("cuda")
+    ds = scene.device(dev)
+    depths = settings.max_ray_depth + 1
+    per_depth = 1 + ds.num_lights
+    r = Renderer(scene, camera=cam_cfg,
+                 config=RenderConfig(width=width, height=height),
+                 settings=settings, device=dev)
+    r.render_frame()  # warm-up
+    dev_ms = launch_ms(r.render_frame, "traverse_kernel")
+    launches = []
+
+    def counted(entry):
+        def call(*a, active=None, any_hit=False, **k):
+            *out, iters = entry(*a, active=active, any_hit=any_hit,
+                                count_iters=True, **k)
+            n = a[2].shape[0]
+            sel = torch.arange(0, n, SAMPLE_STRIDE, device=dev)
+            launches.append(dict(
+                lanes=n, iters=iters, any_hit=any_hit,
+                rays=tuple(x[sel] for x in a[0] + a[1]), t_init=a[2][sel],
+                active=None if active is None else active[sel],
+                got=(out[0][sel], out[1][sel], out[2][sel])
+                + tuple(x[sel] for x in out[3])))
+            return tuple(out)
+        return call
+
+    instrument(tps, "traverse_packet_slim", counted, r.render_frame)
+    if len(launches) != depths * per_depth or len(dev_ms) != len(launches):
+        raise AssertionError(f"{len(launches)} traversal launches in a "
+                             f"frame, expected {depths * per_depth}")
+    rec = ptf.leaf_records(ds.pltris)
+    main_path = []
+    for k, (ln, ms_k) in enumerate(zip(launches, dev_ms)):
+        ref = tps.traverse_packet_slim_reference(
+            ln["rays"], ln["t_init"], ds.pltris, active=ln["active"],
+            records=rec)
+        ref = (ref[0], ref[1], ref[2]) + ref[3]
+        got = ln["got"]
+        if ln["any_hit"]:
+            mism = int(((got[1] >= 0) != (ref[1] >= 0)).sum())
+            err = 0.0
+        else:
+            bad = torch.zeros_like(got[1], dtype=torch.bool)
+            for a_, b_ in zip(got, ref):
+                bad |= a_.view(torch.int32) != b_.view(torch.int32)
+            mism = int(bad.sum())
+            err = float((got[0] - ref[0]).abs().max())
+        if mism:
+            raise AssertionError(f"traversal launch {k + 1}: {mism} sampled "
+                                 "lanes differ from the plain version")
+        it = dict(zip(ptf.COUNTERS, (int(v) for v in ln["iters"])))
+        b = bound_ms(it, ln["lanes"] * TRAV_LANE, 0, shade_ops=0)
+        main_path.append(dict(
+            depth=k // per_depth, kind="any" if ln["any_hit"] else "closest",
+            lanes=ln["lanes"], active=it["ray"],
+            ms=ms_k, bound_ms=b[0], bound_by=b[1],
+            sampled_lanes=int(got[0].shape[0]), max_abs_err=err,
+            mismatches=mism, iters=it))
+    ptf.check_status(dev)
+    ms, traced, rate, got = timed_frames(
+        r, "whitted mesh frames", profile, "whitted-mesh",
+        traverse_packet_slim=depths * per_depth, sorts=depths)
+    energy = r.mean_energy
+    img = r.image_u32()
+    if not (math.isfinite(energy) and energy > 0.0):
+        raise AssertionError(f"mean energy {energy}")
+    if img.shape != (height, width) or not (img != 0xFF000000).any():
+        raise AssertionError("the Whitted mesh frame is black")
+    say("frame_whitted_mesh", width=width, height=height,
+        frames=TIMED_FRAMES, depths=depths, ms_per_frame=ms,
+        kernel_share=sum(mp["ms"] for mp in main_path) / ms,
+        mrays_per_s=rate / 1e6, traced_per_frame=traced,
+        launches_per_frame=depths * per_depth, sorts_per_frame=depths,
+        mean_energy=energy)
+    for mp in main_path:
+        say(f"whitted_mesh_d{mp['depth']}_{mp['kind']}", **mp)
+    return main_path, got
 
 
 def main() -> int:
@@ -512,7 +991,6 @@ def main() -> int:
     from cpugpupathtracing_tpu_torch.models import camera as camlib
     from cpugpupathtracing_tpu_torch.models import integrators
     from cpugpupathtracing_tpu_torch.models.renderer import Renderer
-    from cpugpupathtracing_tpu_torch.ops import megakernel as mk
     from cpugpupathtracing_tpu_torch.ops import pt_frame as ptf
     from cpugpupathtracing_tpu_torch.utils import rng as rnglib
 
@@ -558,8 +1036,7 @@ def main() -> int:
     bh, bw = camlib.block_shape(width, height)
     o, d, pix = camlib.blocked_lane_rays(cam, lane, width, height, bh, bw)
     st = rnglib.seed_lanes(pix, 0, salt=RenderConfig().seed)
-    rays = tuple(o[:, k].contiguous() for k in range(3)) + tuple(
-        d[:, k].contiguous() for k in range(3))
+    rays = columns(o, d)
     kw = integrators.frame_kwargs(ds, settings)
     depths = settings.max_ray_depth + 1
 
@@ -594,8 +1071,9 @@ def main() -> int:
     mism = int(bad.sum())
     if mism:
         raise AssertionError(f"{mism} closest hits differ from brute force")
-    kernel_ms = cuda_ms(lambda: ptf.pt_frame(*ds.tables(), rays, st,
-                                             depths=depths, **kw), 20)
+    pt_ms = kernel_ms(lambda: ptf.pt_frame(*ds.tables(), rays, st,
+                                           depths=depths, **kw),
+                      "pt_frame_kernel")
     b_ms, b_by = bound_ms(it_k, CHECK_LANES * lane_bytes(False, False),
                           small_bytes)
     say("check", lanes=CHECK_LANES, depths=depths, traced_kernel=int(tr_k),
@@ -604,7 +1082,8 @@ def main() -> int:
         mean_err=dmean, hit_mismatches=mism,
         hits=int((hk[1] >= 0).sum()), state_equal_share=float(
             (s_k == s_p).float().mean()),
-        iters=it_k, kernel_ms=kernel_ms, plain_ms=plain_ms,
+        iters=it_k, kernel_ms=pt_ms["ms"], call_ms=pt_ms["call_ms"],
+        plain_ms=plain_ms,
         bound_ms=b_ms, bound_by=b_by)
 
     # 5. the per-depth kernels and route on the same lanes
@@ -683,23 +1162,9 @@ def main() -> int:
     ptf.check_status(dev)
 
     # the main path: timed frames, every count from 0
-    ptf.launches = 0
-    for name in MEGA_KERNELS:
-        mk.launches[name] = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    traced = 0
-    for _ in range(TIMED_FRAMES):
-        traced = traced + r.render_frame(sync=False)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    traced = int(traced)
-    launches = ptf.launches
+    frame_ms, traced, rate, frame_counts = timed_frames(
+        r, "whole-frame frames", False, "whole-frame", pt_frame=2, sorts=1)
     ptf.check_status(dev)
-    if launches != 2 * TIMED_FRAMES or any(mk.launches.values()):
-        raise AssertionError(f"{launches} pt_frame and {mk.launches} "
-                             f"per-depth launches in {TIMED_FRAMES} frames, "
-                             "expected 2 pt_frame launches per frame")
     r.total_energy_received = 0.0
     r.num_accumulated = 0
     r.render_frame()
@@ -710,32 +1175,63 @@ def main() -> int:
     if img.shape != (height, width) or not (img != 0xFF000000).any():
         raise AssertionError("the frame is black")
     say("frame", width=width, height=height, frames=TIMED_FRAMES,
-        ms_per_frame=dt * 1e3 / TIMED_FRAMES,
-        kernel_share=sum(span_ms) / (dt * 1e3 / TIMED_FRAMES),
-        mrays_per_s=traced / dt / 1e6, traced_per_frame=traced // TIMED_FRAMES,
-        launches_per_frame=launches / TIMED_FRAMES, mean_energy=energy)
+        ms_per_frame=frame_ms, kernel_share=sum(span_ms) / frame_ms,
+        mrays_per_s=rate / 1e6, traced_per_frame=traced,
+        launches_per_frame=frame_counts["pt_frame"] / TIMED_FRAMES,
+        mean_energy=energy)
     for k, mp in enumerate(main_path, 1):
         say(f"launch{k}", **mp)
     if "--profile" in sys.argv[1:]:
-        profile_frames(r, dt * 1e3 / TIMED_FRAMES, "whole-frame")
+        profile_frames(r, frame_ms, "whole-frame")
 
     # 7. frame_mega (per-depth route)
+    profile = "--profile" in sys.argv[1:]
     mega_path, mega_counts = frame_mega(
-        scene, cam_cfg, settings, width, height, small_bytes,
-        "--profile" in sys.argv[1:])
+        scene, cam_cfg, settings, width, height, small_bytes, profile)
 
-    # 8. kernels line: ms, plain_ms, bound_ms and max_abs_err of the
-    # 8192-lane check (check_lanes); per main-path launch (main_path) its
-    # lanes, ms, bound and the error of its sampled lanes; launches from
-    # each kernel's main path (the timed frames of its route)
+    # 8. traverse_packet_slim on the config-3 check lanes
+    trav = check_traverse(ds, o, d)
+
+    # 9. whitted_frame on 8192 config-1 lanes
+    scene1, cam1, settings1, width1, height1, _ = benchscenes.config1_whitted()
+    ds1 = scene1.device(dev)
+    cam1_a = camlib.to_arrays(cam1, dev)
+    lo1 = width1 * height1 // 2 - CHECK_LANES // 2
+    lane1 = torch.arange(lo1, lo1 + CHECK_LANES, dtype=torch.int64,
+                         device=dev)
+    bs1 = camlib.block_shape(width1, height1)
+    if bs1 is not None:
+        o1, d1, pix1 = camlib.blocked_lane_rays(cam1_a, lane1, width1,
+                                                height1, *bs1)
+    else:
+        (o1, d1), pix1 = camlib.lane_rays(cam1_a, lane1, width1,
+                                          height1), lane1
+    st1 = rnglib.seed_lanes(pix1, 0, salt=RenderConfig().seed)
+    whit = check_whitted(ds1, settings1, o1, d1, st1)
+
+    # 10. frame_whitted (config 1, whole-frame Whitted kernel)
+    whit_path, whit_counts = frame_whitted(scene1, cam1, settings1, width1,
+                                           height1, profile)
+
+    # 11. frame_whitted_mesh (WHITTED on config 3's scene, trace_whitted)
+    mesh_path, mesh_counts = frame_whitted_mesh(
+        scene, cam_cfg, settings1, width, height, profile)
+
+    # 12. kernels line: ms (device time per launch), call_ms (events
+    # around back-to-back wrapper calls), plain_ms, bound_ms and
+    # max_abs_err of each kernel's 8192-lane check (check_lanes;
+    # traverse_packet_slim's closest-hit query); per main-path launch
+    # (main_path) its lanes, ms, bound and the error of its sampled lanes;
+    # launches from each kernel's main path (the timed frames of its route)
     kernels = [{
         "name": "pt_frame",
         "route": "cuda",
         "source": "cpugpupathtracing_tpu_torch/csrc/pt_frame.cu",
         "replaces": "cpugpupathtracing_tpu/ops/pt_frame_kernel.py:419",
-        "launches": launches,
+        "launches": frame_counts["pt_frame"],
         "max_abs_err": dmax,
-        "ms": kernel_ms,
+        "ms": pt_ms["ms"],
+        "call_ms": pt_ms["call_ms"],
         "plain_ms": plain_ms,
         "bound_ms": b_ms,
         "bound_by": b_by,
@@ -755,6 +1251,7 @@ def main() -> int:
             "launches": mega_counts[name],
             "max_abs_err": m["max_abs_err"],
             "ms": m["ms"],
+            "call_ms": m["call_ms"],
             "plain_ms": m["plain_ms"],
             "bound_ms": m["bound"][0],
             "bound_by": m["bound"][1],
@@ -765,8 +1262,49 @@ def main() -> int:
                 "sampled_lanes", "max_abs_err")}
                 for mp in mega_path if mp["name"] == name],
         })
+    tq = trav["closest"]
+    kernels.append({
+        "name": "traverse_packet_slim",
+        "route": "cuda",
+        "source": "cpugpupathtracing_tpu_torch/csrc/traverse.cu",
+        "replaces": "cpugpupathtracing_tpu/ops/traverse_packet_slim.py:1485",
+        "launches": mesh_counts["traverse_packet_slim"],
+        "max_abs_err": tq["max_abs_err"],
+        "ms": tq["ms"],
+        "call_ms": tq["call_ms"],
+        "plain_ms": tq["plain_ms"],
+        "bound_ms": tq["bound"][0],
+        "bound_by": tq["bound"][1],
+        "library_ms": None,
+        "check_lanes": CHECK_LANES,
+        "check_any_hit": {q: {k: v[k] for k in ("ms", "call_ms", "plain_ms",
+                                                "mismatches")}
+                          | {"bound_ms": v["bound"][0]}
+                          for q, v in trav.items() if q != "closest"},
+        "main_path": [{key: mp[key] for key in (
+            "depth", "kind", "lanes", "active", "ms", "bound_ms", "bound_by",
+            "sampled_lanes", "max_abs_err")} for mp in mesh_path],
+    })
+    kernels.append({
+        "name": "whitted_frame",
+        "route": "cuda",
+        "source": "cpugpupathtracing_tpu_torch/csrc/whitted.cu",
+        "replaces": "cpugpupathtracing_tpu/ops/whitted_kernel.py:364",
+        "launches": whit_counts["whitted_frame"],
+        "max_abs_err": whit["max_abs_err"],
+        "ms": whit["ms"],
+        "call_ms": whit["call_ms"],
+        "plain_ms": whit["plain_ms"],
+        "bound_ms": whit["bound"][0],
+        "bound_by": whit["bound"][1],
+        "library_ms": None,
+        "check_lanes": CHECK_LANES,
+        "main_path": [{key: mp[key] for key in (
+            "lanes", "depths", "ms", "bound_ms", "bound_by", "sampled_lanes",
+            "max_abs_err")} for mp in whit_path],
+    })
     print(json.dumps({"kernels": kernels}), flush=True)
-    # 9. last line
+    # 13. last line
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

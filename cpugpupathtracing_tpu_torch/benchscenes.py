@@ -1,9 +1,9 @@
 """Benchmark configurations (the JAX package's benchscenes.py).
 
 Each returns (scene, camera, settings, default_width, default_height,
-per_frame_hook).  This slice of the port carries config 3, the main
-path; the other configurations wait for the render modes and the
-instancing they exercise.
+per_frame_hook).  The port carries config 1 (WHITTED) and config 3
+(ADVANCED, the main path); configs 2, 4 and 5 wait for the midpoint and
+binned builds and the instancing they exercise.
 """
 
 from __future__ import annotations
@@ -14,6 +14,17 @@ from cpugpupathtracing_tpu_torch.config import (
     RenderSettings,
 )
 from cpugpupathtracing_tpu_torch.models.scene import make_reference_scene
+from cpugpupathtracing_tpu_torch.models.whitted import make_whitted_scene
+
+
+def config1_whitted():
+    """Whitted raytracer: spheres + plane, shadow rays, point lights, 800x600."""
+    return (
+        make_whitted_scene(),
+        CameraConfig(pos=(0.0, 0.5, 8.0), aspect=800 / 600),
+        RenderSettings(render_mode=RenderMode.WHITTED, max_ray_depth=4),
+        800, 600, None,
+    )
 
 
 def config3_sah_dielectrics():

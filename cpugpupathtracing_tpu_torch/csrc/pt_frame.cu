@@ -46,27 +46,10 @@ __global__ void __launch_bounds__(pt::kBlock)
   pt::finish(a, ok, cnt);
 }
 
-__global__ void __launch_bounds__(pt::kBlock)
-    pt_closest_hit_kernel(const pt::PtArgs a) {
-  extern __shared__ float smem[];
-  pt::Tables tb;
-  const pt::Params p = pt::setup(a, smem, tb);
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  pt::Counters cnt;
-  const bool ok = lane >= a.n || pt::hit_lane(a, p.tree, lane, cnt);
-  pt::finish(a, ok, cnt);
-}
-
 }  // namespace
 
-// Both entries return cudaGetLastError() after the launch (or -1 when the
-// packed small tables do not match the layout); they never synchronise.
+// Returns cudaGetLastError() after the launch (or -1 when the packed small
+// tables do not match the layout); never synchronises.
 extern "C" int pt_frame_launch(const pt::PtArgs* a) {
   return pt::launch(pt_frame_kernel, a);
-}
-
-// Test hook: the kernel's closest-hit traversal alone, over 6 ray
-// columns, into hit_out.  The path tracer never calls it.
-extern "C" int pt_closest_hit_launch(const pt::PtArgs* a) {
-  return pt::launch(pt_closest_hit_kernel, a);
 }

@@ -6,15 +6,16 @@
 // Build: g++ -O2 -std=c++17 -shared -fPIC -ffp-contract=off
 
 #include "pt_device.cuh"
+#include "whitted.cuh"
 
 namespace {
 
 using LaneFn = bool (*)(const pt::Params&, const pt::Tables&, int,
                         pt::Counters&);
 
-bool hit_body(const pt::Params& p, const pt::Tables&, int lane,
-              pt::Counters& cnt, const pt::PtArgs& a) {
-  return pt::hit_lane(a, p.tree, lane, cnt);
+bool traverse_body(const pt::Params& p, const pt::Tables&, int lane,
+                   pt::Counters& cnt, const pt::PtArgs& a) {
+  return pt::traverse_lane(a, p.tree, lane, cnt);
 }
 
 int run(const pt::PtArgs* a, LaneFn fn) {
@@ -26,7 +27,7 @@ int run(const pt::PtArgs* a, LaneFn fn) {
   pt::Counters cnt;
   bool ok = true;
   for (int lane = 0; lane < a->n; ++lane) {
-    ok &= fn ? fn(p, tb, lane, cnt) : hit_body(p, tb, lane, cnt, *a);
+    ok &= fn ? fn(p, tb, lane, cnt) : traverse_body(p, tb, lane, cnt, *a);
   }
   if (!ok) *static_cast<int*>(a->status) |= 1;
   if (a->iters) {
@@ -47,8 +48,12 @@ extern "C" int pt_frame_host(const pt::PtArgs* a) {
   return run(a, pt::trace_lane);
 }
 
-extern "C" int pt_closest_hit_host(const pt::PtArgs* a) {
+extern "C" int traverse_host(const pt::PtArgs* a) {
   return run(a, nullptr);
+}
+
+extern "C" int whitted_host(const pt::PtArgs* a) {
+  return run(a, pt::whitted_lane);
 }
 
 extern "C" int mk_shade_extend_host(const pt::PtArgs* a) {

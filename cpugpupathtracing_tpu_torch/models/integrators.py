@@ -18,7 +18,9 @@ both routes are bitwise equal (tests pin it).  The gates that choose a
 route are in models/scene.py; models/renderer.trace_sample applies them.
 
 Only the ADVANCED mode without AOVs is ported; NEE, cosine sampling,
-Russian roulette and the diffuse-pdf mode are all honoured.
+Russian roulette and the diffuse-pdf mode are all honoured.  The
+wavefront sort, the lane-order restore and the material and dielectric
+helpers serve the Whitted integrator (models/whitted.py) too.
 """
 
 from __future__ import annotations
@@ -38,6 +40,8 @@ from cpugpupathtracing_tpu_torch.models.scene import (
 )
 from cpugpupathtracing_tpu_torch.ops import megakernel as mk
 from cpugpupathtracing_tpu_torch.ops import pt_frame as ptf
+from cpugpupathtracing_tpu_torch.ops import sampling
+from cpugpupathtracing_tpu_torch.utils.vecmath import dot3, normalize, sqrt
 
 # is_specular rides bit 30 of the lane id through the sort
 SPEC_BIT = 30
@@ -90,41 +94,84 @@ def sort_wavefront(dev: DeviceScene, c: dict, mode: str = "morton8") -> dict:
     """Permute every per-lane carry column by the coherence key of the
     carry's next ray (the AOV-free branch of the JAX package's
     sort_wavefront): "compact" keys on (1 - active) alone, so live lanes
-    keep their incoming (camera-blocked) order; "morton8" keys on
-    active first, then direction octant, then origin morton at 8 bits.
-    `active` rides the key, `is_specular` bit 30 of `lane`; the sort is
-    stable, like lax.sort."""
+    keep their incoming (camera-blocked) order; "morton5" / "morton8" key
+    on active first, then direction octant, then origin morton at 5 / 8
+    bits per axis.  The carry holds ray (6 columns), state, tp and en (3
+    columns each), active, lane and, on the path tracer's carry, spec
+    (the Whitted carry has none).  `active` rides the key, `spec` bit 30
+    of `lane`; the sort is stable, like lax.sort."""
     global sorts
     act = c["active"].to(torch.int64)
     if mode == "compact":
         key = 1 - act
-    elif mode == "morton8":
+    elif mode in ("morton5", "morton8"):
         key = reorder_key(dev, torch.stack(c["ray"][0:3], dim=1),
-                          torch.stack(c["ray"][3:6], dim=1), act)
+                          torch.stack(c["ray"][3:6], dim=1), act,
+                          bits=5 if mode == "morton5" else 8)
     else:
         raise ValueError(f"sort mode {mode!r} is not ported")
     key_s, perm = torch.sort(key, stable=True)
     sorts += 1
-    lane = (c["lane"] | (c["spec"] << SPEC_BIT))[perm]
-    return dict(
+    has_spec = "spec" in c
+    lane = c["lane"] | (c["spec"] << SPEC_BIT) if has_spec else c["lane"]
+    lane = lane[perm]
+    out = dict(
         ray=tuple(r[perm] for r in c["ray"]),
         state=c["state"][perm],
         tp=tuple(x[perm] for x in c["tp"]),
         en=tuple(x[perm] for x in c["en"]),
         active=(1 - ((key_s >> active_bit(mode)) & 1)).to(torch.int32),
-        spec=lane >> SPEC_BIT,
-        lane=lane & ((1 << SPEC_BIT) - 1),
+        lane=lane,
     )
+    if has_spec:
+        out.update(spec=lane >> SPEC_BIT, lane=lane & ((1 << SPEC_BIT) - 1))
+    return out
 
 
 def restore_lane_order(lane: torch.Tensor, cols):
-    """Undo wavefront sorting: scatter each column back to its lane id."""
+    """Undo wavefront sorting: scatter each column ((N,) or (N, k)) back
+    to its lane id."""
     out = []
     for v in cols:
         r = torch.empty_like(v)
         r[lane.long()] = v
         out.append(r)
     return out
+
+
+def _gather_material(dev: DeviceScene, mat_idx) -> dict:
+    """Material rows of mat_idx (N,) (GetRayHitResult's
+    data.materials[mat_index], Source/Main.cpp:336), from the mk_mats
+    columns, under the JAX package's names."""
+    m = dev.mk_mats[mat_idx.long()]
+    return dict(albedo=m[:, 0:3], specular=m[:, 3], refractivity=m[:, 4],
+                absorption=m[:, 5:8], ior=m[:, 8], emissive=m[:, 9:12],
+                intensity=m[:, 12], is_light=m[:, 13] > 0.5)
+
+
+def _dielectric(ray_d, normal, mat):
+    """Shared dielectric ingredients (Source/Main.cpp:488-519 and
+    :621-653): (tir, inside, refract_dir, Fresnel reflectance) for rays
+    and normals (N, 3), in the JAX package's association."""
+    cosi_raw = torch.clamp(dot3(normal, ray_d), -1.0, 1.0)
+    outside = cosi_raw < 0.0  # reference: inside=false when cosi<0
+    inside = ~outside
+    cosi = torch.abs(cosi_raw)
+    one = torch.ones_like(cosi)
+    etai = torch.where(outside, one, mat["ior"])
+    etat = torch.where(outside, mat["ior"], one)
+    n_ref = torch.where(outside[:, None], normal, -normal)
+    eta = etai / etat
+    k = 1.0 - eta * eta * (1.0 - cosi * cosi)
+    tir = k < 0.0
+    # the JAX package's sampling.refract: normalize(d eta + (eta cosi -
+    # sqrt(max(k, 0))) n)
+    coef = eta * cosi - sqrt(torch.clamp(k, min=0.0))
+    refract_dir = normalize(ray_d * eta[:, None] + coef[:, None] * n_ref)
+    angle_in = dot3(ray_d, normal)
+    angle_out = dot3(refract_dir, normal)
+    fr = sampling.fresnel(angle_in, angle_out, etai, etat)
+    return tir, inside, refract_dir, torch.where(tir, one, fr)
 
 
 def sorted_shadow_resolve(dev: DeviceScene, so, sd, stmax, flags, en,

@@ -1,19 +1,21 @@
 """Progressive renderer: the frame driver (the JAX package's
-models/renderer.py, ADVANCED mode).
+models/renderer.py, ADVANCED and WHITTED modes).
 
 One frame: camera rays in pixel-block order (coherent rays for the
 kernels; RNG streams key on the true pixel index, so the image does not
 depend on the order), per-lane seeds, the trace through the route the
-JAX package's gates choose (`trace_sample`: the whole-frame kernel with
-the split-span schedule, else the per-depth pipeline), the return to
+JAX package's gates choose (`trace_sample`: for ADVANCED the whole-frame
+kernel with the split-span schedule, else the per-depth pipeline; for
+WHITTED the whole-frame Whitted kernel, else the per-depth
+trace_whitted), the return to
 row-major order, the accumulation into a device framebuffer and the
 RGBA8 pack.  The Renderer
 keeps the reference's accumulator policy (a camera move resets it;
 settings toggles do not) and the stats panel's counters
 (Source/Main.cpp:691-755, :841-857).
 
-Other render modes, the debug views, multi-spp sub-steps and the
-checkpoint wait for later slices of the port and raise here.
+The BRUTE_FORCE and COMPARISON modes, the debug views and the checkpoint
+wait for later slices of the port and raise here.
 """
 
 from __future__ import annotations
@@ -32,13 +34,14 @@ from cpugpupathtracing_tpu_torch.config import (
     RenderSettings,
 )
 from cpugpupathtracing_tpu_torch.models import camera as camlib
-from cpugpupathtracing_tpu_torch.models import integrators
+from cpugpupathtracing_tpu_torch.models import integrators, whitted
 from cpugpupathtracing_tpu_torch.models.scene import (
     DeviceScene,
     Scene,
     megakernel_active,
     megakernel_gate_reason,
     pt_frame_active,
+    whitted_kernel_active,
 )
 from cpugpupathtracing_tpu_torch.ops import pt_frame as ptf
 from cpugpupathtracing_tpu_torch.utils import rng as rnglib
@@ -47,7 +50,7 @@ from cpugpupathtracing_tpu_torch.utils.vecmath import vec4_to_uint
 
 
 def _check_supported(settings: RenderSettings) -> None:
-    if settings.render_mode != RenderMode.ADVANCED:
+    if settings.render_mode not in (RenderMode.ADVANCED, RenderMode.WHITTED):
         raise NotImplementedError(
             f"render mode {settings.render_mode.name} is not ported yet")
     if settings.debug_render_mode != DebugRenderMode.NONE:
@@ -56,12 +59,20 @@ def _check_supported(settings: RenderSettings) -> None:
 
 def trace_sample(dev: DeviceScene, settings: RenderSettings, origin,
                  direction, state, idx):
-    """One ADVANCED sample over prepared rays, on the route of the JAX
-    package's trace_sample: the whole-frame kernel when pt_frame_active,
-    else the per-depth pipeline when megakernel_active.  Where the JAX
+    """One sample over prepared rays, on the route of the JAX package's
+    trace_sample.  ADVANCED: the whole-frame kernel when pt_frame_active,
+    else the per-depth pipeline when megakernel_active; where the JAX
     package falls back to its XLA integrator (AOVs, mesh lights over the
-    light table) the port has no route yet and raises."""
-    if pt_frame_active(dev, settings):
+    light table, a scene without meshes) the port has no route yet and
+    raises.  WHITTED: the whole-frame Whitted kernel when
+    whitted_kernel_active, else trace_whitted.  The JAX package's
+    chunking of big batches (trace_chunked) leaves results bitwise
+    unchanged and is not ported."""
+    if settings.render_mode == RenderMode.WHITTED:
+        fn = (whitted.trace_whitted_kernel
+              if whitted_kernel_active(dev, settings)
+              else whitted.trace_whitted)
+    elif pt_frame_active(dev, settings):
         fn = integrators.trace_advanced_frame
     elif megakernel_active(dev, settings):
         fn = integrators.trace_advanced_mega
@@ -129,7 +140,7 @@ class Statistics:
 
 
 class Renderer:
-    """Progressive path-tracing renderer on one device (default: the
+    """Progressive renderer (ADVANCED or WHITTED) on one device (default: the
     card; pass device="cpu" to run the plain PyTorch versions)."""
 
     def __init__(self, scene: Scene, camera: CameraConfig | None = None,

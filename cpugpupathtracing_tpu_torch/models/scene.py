@@ -12,17 +12,25 @@ full-sweep SAH binary build (SAH_SPLIT_PRIMITIVES, leaf <= 8):
 Objects are concatenated into one table per kind, with one root per
 object (`proots`, `poccl_roots`).  These are the tables the JAX package
 builds under its benchmark flags (CPUGPU_PACKET_TREE=sweep_dp,
-CPUGPU_OCCL=1), bitwise.
+CPUGPU_OCCL=1), bitwise.  A scene without meshes (benchmark config 1)
+gets empty trees and no roots.
 
 The small scene tables (materials, lights, spheres, planes, object ->
 material) keep the column layouts of the JAX package's
 ops/megakernel.py, listed at `_mk_tables`.
+
+`intersect_scene` and `hit_surface` are the nearest hit over every object
+(the mesh trees through ops/traverse_packet_slim.py, then the analytic
+spheres and planes) and its surface, as the Whitted integrator
+(models/whitted.py) uses them.  The route gates of the kernels live here
+too, as in the JAX package.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -32,9 +40,12 @@ from cpugpupathtracing_tpu_torch.models import bvh as bvhlib
 from cpugpupathtracing_tpu_torch.models import bvh8 as bvh8lib
 from cpugpupathtracing_tpu_torch.models import materials as matlib
 from cpugpupathtracing_tpu_torch.models.mesh import Mesh
+from cpugpupathtracing_tpu_torch.ops import intersect
+from cpugpupathtracing_tpu_torch.ops import traverse_packet_slim as tps
 from cpugpupathtracing_tpu_torch.ops.pt_frame import PT_STACK
 from cpugpupathtracing_tpu_torch.utils.device import resolve_device
 from cpugpupathtracing_tpu_torch.utils.log import except_error, log_warn
+from cpugpupathtracing_tpu_torch.utils.vecmath import normalize
 
 PRIM_MESH, PRIM_SPHERE, PRIM_PLANE = 0, 1, 2
 
@@ -44,6 +55,11 @@ PRIM_MESH, PRIM_SPHERE, PRIM_PLANE = 0, 1, 2
 MESH_LIGHT_MAX_TRIS = 64
 # the 8-bit-per-axis morton key of the split-span wavefront sort
 MORTON_BITS = 8
+# analytic sphere / plane tests run as a per-object loop up to this many
+# objects and in the batched (N, S) form beyond (bitwise the same hits);
+# the Whitted kernel's gate takes scenes of at most this many analytic
+# objects and materials (the JAX package's limit, kept for parity)
+ANALYTIC_UNROLL_MAX = 16
 
 # (name, dtype) of every tensor field of DeviceScene, in order
 TABLE_FIELDS = (
@@ -59,6 +75,8 @@ TABLE_FIELDS = (
     ("mk_objmat", torch.int32),       # (O,) object -> material
     ("mk_sph_mat", torch.int32),      # (max(S,1),) sphere material
     ("mk_pln_mat", torch.int32),      # (max(P,1),) plane material
+    ("sph_obj", torch.int32),         # (S,) sphere -> object
+    ("pln_obj", torch.int32),         # (P,) plane -> object
     ("world_lo", torch.float32),      # (3,) scene AABB low corner
     ("world_inv_extent", torch.float32),  # (3,) 1 / AABB extent
 )
@@ -83,6 +101,8 @@ class DeviceScene:
     mk_objmat: torch.Tensor
     mk_sph_mat: torch.Tensor
     mk_pln_mat: torch.Tensor
+    sph_obj: torch.Tensor
+    pln_obj: torch.Tensor
     world_lo: torch.Tensor
     world_inv_extent: torch.Tensor
     proots: tuple
@@ -131,11 +151,20 @@ def scene_from_numpy(arrays: dict, meta: dict, device="cuda") -> DeviceScene:
     """DeviceScene from numpy tables named like TABLE_FIELDS (e.g. the
     leaves of a JAX package DeviceScene, np.asarray(getattr(dev, name)))
     and the static `meta` of META_FIELDS.  Used by the tests to hand both
-    packages the same tables."""
+    packages the same tables.  A missing any-hit tree (None: the JAX
+    package builds none for a scene without meshes) becomes an empty
+    one."""
     dev = resolve_device(device)
+    empty = {"poccl_nodes": (0, 64), "poccl_ltris": (0, 128)}
+
+    def table(name):
+        a = arrays[name]
+        if a is None and name in empty:
+            a = np.zeros(empty[name], np.float32)
+        return np.array(a, order="C")
+
     tensors = {
-        name: torch.from_numpy(np.array(arrays[name], order="C"))
-        .to(device=dev, dtype=dtype)
+        name: torch.from_numpy(table(name)).to(device=dev, dtype=dtype)
         for name, dtype in TABLE_FIELDS
     }
     return DeviceScene(
@@ -293,9 +322,6 @@ class Scene:
                 pln["normal"].append(n)
                 pln["obj"].append(oi)
 
-        if not proots:
-            except_error("Scene", "the path-tracing kernel needs at least "
-                         "one mesh object")
         # the kernel's per-ray stack holds at most 7 pending siblings per
         # level plus the extra roots; refuse a tree that could overflow it
         for kind, depth, roots in (("closest-hit", pdepth, proots),
@@ -318,11 +344,16 @@ class Scene:
             return torch.from_numpy(np.ascontiguousarray(a)).to(
                 device=dev, dtype=dtype)
 
+        def rows(parts, width):  # empty trees for a scene without meshes
+            return np.concatenate(parts) if parts else np.zeros((0, width), f32)
+
         arrays = dict(
-            pnodes=np.concatenate(pnodes_l),
-            pltris=np.concatenate(ptris_l),
-            poccl_nodes=np.concatenate(onodes_l),
-            poccl_ltris=np.concatenate(oltris_l),
+            pnodes=rows(pnodes_l, 64),
+            pltris=rows(ptris_l, 128),
+            poccl_nodes=rows(onodes_l, 64),
+            poccl_ltris=rows(oltris_l, 128),
+            sph_obj=np.asarray(sph["obj"], i32),
+            pln_obj=np.asarray(pln["obj"], i32),
             world_lo=wlo.astype(f32),
             world_inv_extent=(1.0 / wext).astype(f32),
             **mk,
@@ -494,17 +525,54 @@ def reorder_key(dev: DeviceScene, origin, direction, act,
 
 def active_bit(mode: str) -> int:
     """Bit of the sort key that holds (1 - active) for a sort_wavefront
-    mode ("morton5" is sorted_shadow_resolve's 5-bit key)."""
+    mode ("morton5": trace_whitted's and sorted_shadow_resolve's 5-bit
+    key)."""
     return {"compact": 0, "morton5": 18, "morton8": 27}[mode]
 
 
-# ---- route gates (the JAX package's scene.py:1972-2102) ----------------------
+# ---- route gates (the JAX package's scene.py:1915-2141) ----------------------
 #
 # The environment is read at every call: the port has no trace cache.
-# The JAX gates' arms for the packet path, the leaf-14, fused and 16-wide
-# tables and the TLAS have no counterpart here (one thread per ray over
-# the one 8-wide tree of a non-instanced scene), nor has its budget of
+# The JAX gates' arms for the leaf-14, fused and 16-wide tables and the
+# TLAS have no counterpart here (one thread per ray over the one 8-wide
+# tree of a non-instanced scene), nor has the ADVANCED gates' budget of
 # 16 analytic primitives (a TPU compile-time limit of unrolled tests).
+# Where the JAX package asks for the TPU backend, the port asks for a
+# scene on the card.
+
+
+def packet_path_active(dev: DeviceScene) -> bool:
+    """True when the scene's meshes are traced by the kernel of
+    ops/traverse_packet_slim.py on the card -- where the JAX package runs
+    its packet kernel, and where trace_whitted sorts the wavefront.
+    CPUGPU_TPU_FORCE_PACKET=1 says yes for a scene on the CPU too (the
+    wrapper then runs its plain version), as the JAX flag does for its
+    interpret mode."""
+    return bool(dev.proots) and (
+        dev.device.type == "cuda"
+        or os.environ.get("CPUGPU_TPU_FORCE_PACKET") == "1")
+
+
+def whitted_kernel_active(dev: DeviceScene, settings) -> bool:
+    """True when WHITTED mode runs the whole-frame Whitted kernel
+    (ops/whitted_kernel.py) instead of the per-depth trace_whitted: an
+    all-analytic scene (no mesh, no mesh light) within the JAX gate's
+    limits of ANALYTIC_UNROLL_MAX objects and materials, 8 lights and
+    depth 32, AOVs off, on the card.  CPUGPU_FORCE_WHITTED_KERNEL=1 takes
+    it for a scene on the CPU too (the wrapper's plain version);
+    CPUGPU_NO_WHITTED_KERNEL=1 opts out (A/B runs)."""
+    return bool(
+        (dev.device.type == "cuda"
+         or os.environ.get("CPUGPU_FORCE_WHITTED_KERNEL") == "1")
+        and os.environ.get("CPUGPU_NO_WHITTED_KERNEL") != "1"
+        and not dev.proots
+        and not dev.has_mesh_lights
+        and dev.num_sph + dev.num_pln <= ANALYTIC_UNROLL_MAX
+        and dev.num_lights <= 8
+        and dev.num_mats <= ANALYTIC_UNROLL_MAX
+        and settings.max_ray_depth <= 32
+        and not settings.aovs_active
+    )
 
 _logged_reasons: set = set()
 
@@ -521,6 +589,8 @@ def megakernel_gate_reason(dev: DeviceScene, settings) -> str | None:
     back to its XLA integrator, the port has no route yet."""
     if os.environ.get("CPUGPU_NO_MEGAKERNEL") == "1":
         return "CPUGPU_NO_MEGAKERNEL=1"
+    if not dev.proots:
+        return "no mesh object (the kernels walk a BVH)"
     if dev.has_mesh_lights and not any(c for _, c in dev.light_tri_meta):
         return (f"mesh lights over the {MESH_LIGHT_MAX_TRIS}-triangle "
                 "light table")
@@ -585,6 +655,126 @@ def pt_frame_active(dev: DeviceScene, settings) -> bool:
         _log_once(reason, "whole-frame kernel unavailable, using the "
                           "per-depth pipeline")
     return reason is None
+
+
+# ---- scene intersection (the JAX package's scene.py:2144-2373) --------------
+
+
+class Hit(NamedTuple):
+    """Nearest hit per lane: t, object index (-1 = miss), PRIM_* kind,
+    primitive index (original triangle id, sphere or plane index) and the
+    mesh hit's flat normal (3 (N,) columns)."""
+
+    t: torch.Tensor
+    obj: torch.Tensor
+    kind: torch.Tensor
+    prim: torch.Tensor
+    normal: tuple | None
+
+
+def _analytic_arm(origin, direction, t, obj, kind, prim, points, params,
+                  objs, test, prim_kind):
+    """Nearest analytic primitive of one kind closer than t: a strict <
+    per-object loop (ties keep the lowest index) up to ANALYTIC_UNROLL_MAX
+    objects, the batched (N, S) first-min form beyond; bitwise the same
+    hits either way."""
+    count = points.shape[0]
+    if count == 0:
+        return t, obj, kind, prim
+    if count <= ANALYTIC_UNROLL_MAX:
+        best = torch.full_like(t, float("inf"))
+        bj = torch.zeros_like(obj)
+        for j in range(count):
+            valid, tj = test(origin, direction, points[j], params[j])
+            closer = valid & (tj < t) & (tj < best)
+            best = torch.where(closer, tj, best)
+            bj = torch.where(closer, torch.full_like(bj, j), bj)
+    else:
+        valid, ts = test(origin[:, None, :], direction[:, None, :],
+                         points[None], params[None])
+        ts = torch.where(valid & (ts < t[:, None]), ts,
+                         torch.full_like(ts, float("inf")))
+        bj = torch.argmin(ts, dim=1).to(obj.dtype)  # the first minimum
+        best = torch.gather(ts, 1, bj[:, None].long())[:, 0]
+    closer = torch.isfinite(best)
+    return (torch.where(closer, best, t),
+            torch.where(closer, objs[bj.long()], obj),
+            torch.where(closer, torch.full_like(kind, prim_kind), kind),
+            torch.where(closer, bj, prim))
+
+
+def intersect_scene(dev: DeviceScene, origin, direction, t_init, *,
+                    any_hit: bool = False, active=None,
+                    count_depth: bool = False) -> Hit:
+    """Nearest hit closer than t_init across every object
+    (IntersectScene, Source/Main.cpp:299-316): the mesh trees through
+    ops/traverse_packet_slim (closest or any hit; `active` masks lanes
+    out of the traversal), then the analytic spheres and planes.  Rows of
+    lanes that are not active are unspecified.  With any_hit, `obj >= 0`
+    says whether anything lies closer than t_init (the analytic loop's
+    nearest hit and an any-hit agree on existence).
+
+    origin/direction: (N, 3) tensors or 3-tuples of (N,) columns.  The
+    JAX function's BVH depth count (count_depth, the debug AOVs) waits
+    for ROADMAP.md A9 and raises; instanced scenes (A8) do not exist in
+    the port yet."""
+    if count_depth:
+        raise NotImplementedError(
+            "intersect_scene: count_depth (the BVH_DEPTH AOV) is not ported; "
+            "see ROADMAP.md A9")
+    if isinstance(origin, tuple):
+        o_c, d_c = origin, direction
+        origin = torch.stack(origin, dim=1)
+        direction = torch.stack(direction, dim=1)
+    else:
+        o_c = tuple(origin[:, k].contiguous() for k in range(3))
+        d_c = tuple(direction[:, k].contiguous() for k in range(3))
+    n = origin.shape[0]
+    i32 = torch.int32
+    t = t_init
+    obj = torch.full((n,), -1, dtype=i32, device=origin.device)
+    kind = torch.full_like(obj, PRIM_MESH)
+    prim = torch.full_like(obj, -1)
+    normal = None
+    if dev.proots:
+        t, tri, mobj, normal = tps.traverse_packet_slim(
+            o_c, d_c, t_init, dev.pnodes, dev.pltris, dev.proots,
+            active=active, any_hit=any_hit)
+        mesh_hit = tri >= 0
+        obj = torch.where(mesh_hit, mobj, obj)
+        prim = torch.where(mesh_hit, tri, prim)
+    t, obj, kind, prim = _analytic_arm(
+        origin, direction, t, obj, kind, prim, dev.mk_sph[:dev.num_sph, 0:3],
+        dev.mk_sph[:dev.num_sph, 3], dev.sph_obj, intersect.intersect_sphere,
+        PRIM_SPHERE)
+    t, obj, kind, prim = _analytic_arm(
+        origin, direction, t, obj, kind, prim, dev.mk_pln[:dev.num_pln, 0:3],
+        dev.mk_pln[:dev.num_pln, 3:6], dev.pln_obj, intersect.intersect_plane,
+        PRIM_PLANE)
+    return Hit(t=t, obj=obj, kind=kind, prim=prim, normal=normal)
+
+
+def hit_surface(dev: DeviceScene, hit: Hit, origin, direction):
+    """GetRayHitResult (Source/Main.cpp:325-338): hit position, geometric
+    normal (the flat triangle normal of a mesh hit) and material index
+    per lane; origin/direction (N, 3).  Lanes that missed get clamped
+    garbage the caller masks."""
+    pos = origin + direction * hit.t[:, None]
+    pc = torch.clamp(hit.prim, min=0).long()
+    zero = torch.zeros_like(pos)
+    n_mesh = zero if hit.normal is None else torch.stack(hit.normal, dim=1)
+    n_sph = n_pln = zero
+    if dev.num_sph:
+        centers = dev.mk_sph[:dev.num_sph, 0:3]
+        n_sph = normalize(pos - centers[torch.clamp(pc, max=dev.num_sph - 1)])
+    if dev.num_pln:
+        n_pln = dev.mk_pln[:dev.num_pln, 3:6][
+            torch.clamp(pc, max=dev.num_pln - 1)]
+    normal = torch.where((hit.kind == PRIM_SPHERE)[:, None], n_sph,
+                         torch.where((hit.kind == PRIM_PLANE)[:, None], n_pln,
+                                     n_mesh))
+    mat_idx = dev.mk_objmat[torch.clamp(hit.obj, min=0).long()]
+    return pos, normal, mat_idx
 
 
 def make_reference_scene(dragon_mesh: Mesh | None = None) -> Scene:

@@ -62,7 +62,7 @@ from cpugpupathtracing_tpu_torch.utils.vecmath import (
     sqrt,
 )
 
-# kernel launches of `pt_frame` (the closest-hit test hook is not counted)
+# kernel launches of `pt_frame`
 launches = 0
 # work counters of count_iters: the kernel's visits (pt::Counters: node,
 # leaf, shadow node and shadow leaf rows read, closest-hit and shadow rays
@@ -83,13 +83,16 @@ NVCC_FLAGS = [
 HOST_FLAGS = ["-O2", "-std=c++17", "-shared", "-fPIC", "-ffp-contract=off"]
 # every source of the CUDA build (the build directory hashes them all),
 # and per compilation unit the C entry points of its shared library
-_SOURCES = ("pt_frame.cu", "megakernel.cu", "pt_launch.cuh", "pt_device.cuh")
+_SOURCES = ("pt_frame.cu", "megakernel.cu", "traverse.cu", "whitted.cu",
+            "pt_launch.cuh", "pt_device.cuh", "whitted.cuh")
 _UNITS = (
-    ("pt_frame.cu", ("pt_frame_launch", "pt_closest_hit_launch")),
+    ("pt_frame.cu", ("pt_frame_launch",)),
     ("megakernel.cu", ("mk_shade_extend_launch", "mk_shadow_resolve_launch")),
+    ("traverse.cu", ("traverse_launch",)),
+    ("whitted.cu", ("whitted_launch",)),
 )
-_HOST_SOURCES = ("pt_host_check.cc", "pt_device.cuh")
-_HOST_ENTRIES = ("pt_frame_host", "pt_closest_hit_host",
+_HOST_SOURCES = ("pt_host_check.cc", "pt_device.cuh", "whitted.cuh")
+_HOST_ENTRIES = ("pt_frame_host", "traverse_host", "whitted_host",
                  "mk_shade_extend_host", "mk_shadow_resolve_host")
 _MAX_SMALL_BYTES = 48 * 1024
 
@@ -129,6 +132,8 @@ class _PtArgs(ctypes.Structure):
         ("flags_out", ctypes.c_void_p),
         ("tr_out", ctypes.c_void_p),
         ("hit_out", ctypes.c_void_p * 6),
+        ("t_init", ctypes.c_void_p),
+        ("active", ctypes.c_void_p),
         ("shadow", ctypes.c_void_p * 10),
         ("iters", ctypes.c_void_p),
         ("seen", ctypes.c_void_p * 4),
@@ -141,6 +146,7 @@ class _PtArgs(ctypes.Structure):
         "num_sph", "num_pln", "num_lights", "nroots", "sh_nroots",
         "mesh_lights", "sh_occl",
         "n", "depths", "depth_base", "nee", "rr", "cosine", "ref_pdf",
+        "any_hit",
     )]
 
 
@@ -168,8 +174,8 @@ def _nvcc() -> str:
 
 
 def build() -> types.SimpleNamespace:
-    """Compile every kernel unit (csrc/pt_frame.cu, csrc/megakernel.cu)
-    for sm_90a, one nvcc per unit, all started together, into
+    """Compile every kernel unit (csrc/pt_frame.cu, megakernel.cu,
+    traverse.cu, whitted.cu) for sm_90a, one nvcc per unit, all started together, into
     build/torch_kernels/<hash of all sources>/ and load them: a namespace
     of the C launch entries.  Raises if any nvcc fails."""
     global _lib, build_log, build_seconds
@@ -297,12 +303,16 @@ def launch_args(dev, nodes, ltris, sh_nodes, sh_ltris, tables, rays, *, n,
                 num_pln=0, num_lights=0, nee=False, rr=False, cosine=False,
                 ref_pdf=False, depths=1, depth_base=0) -> _PtArgs:
     """Checked launch arguments of any kernel of csrc/ over n lanes: the
-    closest-hit tree, the shadow tree, the eight small tables (f32 mats,
+    closest-hit tree, the shadow tree (both None, with no roots, for the
+    Whitted kernel, which walks none), the eight small tables (f32 mats,
     lights, light triangles, spheres, planes; i32 sphmat, plnmat,
     objmat), six (n,) f32 ray columns, the mode and the stream.  The
     caller sets the per-lane column pointers."""
-    _check_tree("", nodes, ltris, roots, dev)
-    _check_tree("sh_", sh_nodes, sh_ltris, sh_roots, dev)
+    if nodes is not None:
+        _check_tree("", nodes, ltris, roots, dev)
+        _check_tree("sh_", sh_nodes, sh_ltris, sh_roots, dev)
+    elif roots or sh_roots:
+        raise ValueError("roots given without a tree")
     for k, t in enumerate(tables):
         _check(f"table {k}", t, torch.int32 if k >= 5 else torch.float32, dev)
     for c in range(6):
@@ -313,8 +323,9 @@ def launch_args(dev, nodes, ltris, sh_nodes, sh_ltris, tables, rays, *, n,
                          "shared memory")
     mats, lights, ltri, sph, pln, sphmat, plnmat, objmat = tables
     a = _PtArgs()
-    a.nodes, a.ltris = nodes.data_ptr(), ltris.data_ptr()
-    a.sh_nodes, a.sh_ltris = sh_nodes.data_ptr(), sh_ltris.data_ptr()
+    if nodes is not None:
+        a.nodes, a.ltris = nodes.data_ptr(), ltris.data_ptr()
+        a.sh_nodes, a.sh_ltris = sh_nodes.data_ptr(), sh_ltris.data_ptr()
     a.small = small.data_ptr()
     for c in range(6):
         a.ray[c] = rays[c].data_ptr()
@@ -543,20 +554,27 @@ def _launch(entry, dev, nodes, ltris, sh_nodes, sh_ltris, tables, rays,
 def closest_hit(nodes, ltris, roots, rays):
     """Nearest hit of each ray over one slim tree: (t, original triangle
     id, object, nx, ny, nz), t = 1e34 and ids -1 on a miss.  On CUDA
-    tensors it runs the kernel's own traversal (a test hook of
-    csrc/pt_frame.cu that the path tracer never calls); on CPU tensors the
+    tensors the kernel's own traversal (traverse_packet_slim's kernel,
+    launched here without its launch count); on CPU tensors the
     brute-force plain version."""
+    from cpugpupathtracing_tpu_torch.ops import traverse_packet_slim as tps
+
     dev = rays[0].device
     if dev.type == "cpu":
         return closest_hit_reference(ltris, rays)
-    return _hits(build().pt_closest_hit_launch, dev, nodes, ltris, roots,
-                 rays)
+    t, tri, obj, nrm = tps.launch(build().traverse_launch, dev, rays, None,
+                                  nodes, ltris, roots)
+    return (t, tri, obj) + nrm
 
 
 def closest_hit_host(nodes, ltris, roots, rays):
     """`closest_hit` through the g++ build of the kernel body (CPU)."""
-    return _hits(build_host().pt_closest_hit_host, torch.device("cpu"),
-                 nodes, ltris, roots, rays)
+    from cpugpupathtracing_tpu_torch.ops import traverse_packet_slim as tps
+
+    t, tri, obj, nrm = tps.launch(build_host().traverse_host,
+                                  torch.device("cpu"), rays, None, nodes,
+                                  ltris, roots)
+    return (t, tri, obj) + nrm
 
 
 _dummy: dict = {}
@@ -577,20 +595,6 @@ def dummy_tables(dev, sph_rows: int = 1, pln_rows: int = 1) -> tuple:
                        z(pln_rows, dtype=torch.int32),
                        z(1, dtype=torch.int32))
     return _dummy[key]
-
-
-def _hits(entry, dev, nodes, ltris, roots, rays):
-    n = rays[0].shape[0]
-    a = launch_args(dev, nodes, ltris, nodes, ltris, dummy_tables(dev), rays,
-                    n=n, roots=roots, sh_roots=roots)
-    out = [torch.empty(n, dtype=torch.float32, device=dev),
-           torch.empty(n, dtype=torch.int32, device=dev),
-           torch.empty(n, dtype=torch.int32, device=dev)] + \
-        [torch.empty(n, dtype=torch.float32, device=dev) for _ in range(3)]
-    for c in range(6):
-        a.hit_out[c] = out[c].data_ptr()
-    run_launch(entry, a, "closest-hit")
-    return tuple(out)
 
 
 # ---- the plain version -----------------------------------------------------

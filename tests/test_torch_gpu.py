@@ -9,20 +9,31 @@ plain PyTorch version on the same card and inputs under the megakernel
 contract (traced exact, < 3% flipped lanes, flips < 0.02, mean within
 1e-4), pt_frame's closest hits against brute force bitwise, the
 split-span schedule against one span bitwise, and the per-depth route
-against the whole-frame route bitwise."""
+against the whole-frame route bitwise.  traverse_packet_slim's closest
+hits equal its plain version's bitwise and its any hits in existence;
+whitted_frame equals its plain version bitwise (energy, state, traced);
+the two Whitted routes agree on state and traced exactly and on energy
+bitwise."""
 
 import numpy as np
 import pytest
 import torch
 
-from cpugpupathtracing_tpu_torch.config import CameraConfig, RenderSettings
+from cpugpupathtracing_tpu_torch.config import (
+    CameraConfig,
+    RenderMode,
+    RenderSettings,
+)
 from cpugpupathtracing_tpu_torch.models import camera as camlib
 from cpugpupathtracing_tpu_torch.models import integrators
 from cpugpupathtracing_tpu_torch.models import materials as matlib
 from cpugpupathtracing_tpu_torch.models import mesh as meshlib
+from cpugpupathtracing_tpu_torch.models import whitted
 from cpugpupathtracing_tpu_torch.models.scene import Scene
 from cpugpupathtracing_tpu_torch.ops import megakernel as mk
 from cpugpupathtracing_tpu_torch.ops import pt_frame as ptf
+from cpugpupathtracing_tpu_torch.ops import traverse_packet_slim as tps
+from cpugpupathtracing_tpu_torch.ops import whitted_kernel as wk
 from cpugpupathtracing_tpu_torch.utils import rng as rnglib
 
 pytestmark = pytest.mark.gpu
@@ -229,3 +240,65 @@ def test_megakernel_wrappers_refuse_bad_inputs(card):
     sargs[4] = (so[0].cpu(), so[1], so[2])
     with pytest.raises(ValueError, match="shadow_o"):
         mk.shadow_resolve(*sargs, **skw)
+
+
+@pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any"])
+def test_traverse_matches_plain(card, any_hit):
+    dev, o, d, _ = card
+    n = W * H
+    g = torch.Generator(device="cuda").manual_seed(3)
+    t_init = torch.where(torch.rand(n, device="cuda", generator=g) < 0.5,
+                         torch.full((n,), 1e34, device="cuda"),
+                         1.0 + 10.0 * torch.rand(n, device="cuda",
+                                                 generator=g))
+    active = torch.rand(n, device="cuda", generator=g) < 0.5
+    before = tps.launches
+    got = tps.traverse_packet_slim(o, d, t_init, dev.pnodes, dev.pltris,
+                                   dev.proots, active=active, any_hit=any_hit)
+    assert tps.launches == before + 1
+    ref = tps.traverse_packet_slim_reference(_rays(o, d), t_init, dev.pltris,
+                                             active=active)
+    ptf.check_status("cuda")
+    assert int((ref[1] >= 0).sum()) > n // 8
+    assert torch.equal(got[1] >= 0, ref[1] >= 0)
+    if not any_hit:
+        for a, b in zip(got[:3] + got[3], ref[:3] + ref[3]):
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.fixture()
+def whitted_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = whitted.make_whitted_scene().build_device("cuda")
+    cam = camlib.to_arrays(CameraConfig(pos=(0.0, 0.5, 8.0), aspect=2.0),
+                           "cuda")
+    lane = torch.arange(W * H, device="cuda")
+    o, d = camlib.lane_rays(cam, lane, W, H)
+    return dev, o, d, rnglib.seed_lanes(lane, 0, salt=0x1CE)
+
+
+def test_whitted_frame_matches_plain(whitted_card):
+    dev, o, d, st = whitted_card
+    args = (dev.mk_mats, dev.mk_lights, dev.mk_sph, dev.mk_pln,
+            dev.mk_sph_mat, dev.mk_pln_mat, dev.mk_objmat, _rays(o, d), st)
+    kw = dict(num_lights=dev.num_lights, num_sph=dev.num_sph,
+              num_pln=dev.num_pln, depths=5)
+    before = wk.launches
+    got = wk.whitted_frame(*args, num_mats=dev.num_mats, **kw)
+    assert wk.launches == before + 1
+    ref = wk.whitted_frame_reference(*args, **kw)
+    assert int(got[2]) == int(ref[2]) > W * H
+    assert torch.equal(got[1], ref[1])
+    assert torch.equal(got[0], ref[0])
+
+
+def test_whitted_routes_agree(whitted_card):
+    dev, o, d, st = whitted_card
+    settings = RenderSettings(render_mode=RenderMode.WHITTED,
+                              max_ray_depth=4)
+    s1, one = whitted.trace_whitted(dev, settings, o, d, st)
+    s2, two = whitted.trace_whitted_kernel(dev, settings, o, d, st)
+    assert int(one.traced_rays) == int(two.traced_rays)
+    assert torch.equal(s1, s2)
+    assert torch.equal(one.energy, two.energy)

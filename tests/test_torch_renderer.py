@@ -75,5 +75,5 @@ def test_reset_and_unsupported_modes():
     assert float(r._accumulator.abs().sum()) == 0.0
     with pytest.raises(NotImplementedError):
         Renderer(golden_scene(tscene, tmat, tmesh),
-                 settings=RenderSettings(render_mode=RenderMode.WHITTED),
+                 settings=RenderSettings(render_mode=RenderMode.BRUTE_FORCE),
                  device="cpu")
