@@ -117,9 +117,11 @@ FLIP_SHARE_MAX, FLIP_MAX, MEAN_MAX = 0.03, 0.02, 1e-4
 W_FLIP_SHARE_MAX, W_FLIP_MAX = 0.01, 0.05
 # golden image tolerance (tests/test_torch_renderer.py), per 8-bit channel
 IMG_EQUAL_MIN, IMG_MEAN_MAX, IMG_MAX_MAX = 0.995, 0.05, 32
-# per-lane bytes of traverse_packet_slim: 6 ray columns, t_init and the
-# active flag in; t, id, object and 3 normal columns out
-TRAV_LANE = 6 * 4 + 4 + 4 + 6 * 4
+# bytes of traverse_packet_slim (csrc/pt_device.cuh traverse_lane): on
+# every lane t_init and the active flag in (where given) and t, id, object
+# and 3 normal columns out; on an active lane also its 6 ray columns in (a
+# lane that is not active never loads them)
+TRAV_OUT, TRAV_RAY = 6 * 4, 6 * 4
 # per-lane bytes of whitted_frame: 6 ray columns and the state in;
 # energy, state and traced out
 WHITTED_LANE = 6 * 4 + 8 + 3 * 4 + 8 + 4
@@ -176,15 +178,18 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def launch_ms(fn, kernel: str, reps: int = 1) -> list:
-    """Device milliseconds of every launch of the CUDA kernel named
-    `kernel` (its function in csrc/) while fn() runs reps times, in launch
-    order (torch.profiler).  Unlike CUDA events around a call, this leaves
-    out the time the device waits for the host to enqueue the launch."""
+def launch_ms(fn, kernels, reps: int = 1) -> list:
+    """Device milliseconds of every launch of the CUDA kernels named in
+    `kernels` (a name or a tuple of names of functions in csrc/) while
+    fn() runs reps times, in launch order (torch.profiler).  Unlike CUDA
+    events around a call, this leaves out the time the device waits for
+    the host to enqueue the launch.  Every `ms` of the kernels line is
+    this clock."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    kernels = (kernels,) if isinstance(kernels, str) else kernels
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -192,11 +197,44 @@ def launch_ms(fn, kernel: str, reps: int = 1) -> list:
             fn()
         torch.cuda.synchronize()
     evs = sorted((e for e in prof.events()
-                  if e.device_type == DeviceType.CUDA and kernel in e.name),
+                  if e.device_type == DeviceType.CUDA
+                  and any(k in e.name for k in kernels)),
                  key=lambda e: e.time_range.start)
     if not evs:
-        raise AssertionError(f"the profiler saw no {kernel} launch")
+        raise AssertionError(f"the profiler saw no launch of {kernels}")
     return [(e.time_range.end - e.time_range.start) / 1e3 for e in evs]
+
+
+def wrapper_ms(module, names, fn) -> list:
+    """Milliseconds of CUDA events around every call of the wrappers
+    module.<name> (name in `names`) while fn() runs, in call order: the
+    launch's device time plus any wait for the host to enqueue it.  Every
+    `call_ms` of a main-path launch is this clock (PRs 1-2 reported it as
+    `ms`)."""
+    import torch
+
+    events = []
+    entries = {name: getattr(module, name) for name in names}
+
+    def timed(entry):
+        def call(*a, **k):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            out = entry(*a, **k)
+            ev[1].record()
+            events.append(ev)
+            return out
+        return call
+
+    for name in names:
+        setattr(module, name, timed(entries[name]))
+    try:
+        fn()
+    finally:
+        for name in names:
+            setattr(module, name, entries[name])
+    torch.cuda.synchronize()
+    return [e0.elapsed_time(e1) for e0, e1 in events]
 
 
 def kernel_ms(fn, kernel: str, reps: int = 20) -> dict:
@@ -234,6 +272,13 @@ def bound_ms(iters: dict, lane_bytes_total: int, small_bytes: int,
     t_ops = ops / PEAK_F32_FLOPS
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops
                                        else "operations")
+
+
+def trav_bytes(lanes: int, live: int, t_init: bool, active: bool) -> int:
+    """Lane bytes a traverse_packet_slim launch must move: outputs and the
+    given t_init / active columns on every lane, ray columns on the `live`
+    (active) lanes only."""
+    return lanes * (TRAV_OUT + 4 * t_init + 4 * active) + live * TRAV_RAY
 
 
 def whitted_bound(iters: dict, lanes: int, ds):
@@ -491,21 +536,11 @@ def frame_mega(scene, cam_cfg, settings, width, height, small_bytes,
                     setattr(mk, name, entries[name])
             torch.cuda.synchronize()
 
-        # one frame with CUDA events around each launch
-        events = []
-
-        def timed(name, fn):
-            def call(*a, **k):
-                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-                ev[0].record()
-                out = fn(*a, **k)
-                ev[1].record()
-                events.append(ev)
-                return out
-            return call
-
-        instrumented_frame(timed)
-        launch_ms = [e0.elapsed_time(e1) for e0, e1 in events]
+        # one frame timing each launch on the device, one with CUDA events
+        # around each wrapper call
+        dev_ms = launch_ms(r.render_frame,
+                           tuple(f"{name}_kernel" for name in MEGA_KERNELS))
+        call_ms = wrapper_ms(mk, MEGA_KERNELS, r.render_frame)
 
         # one frame counting each launch's work and keeping every
         # SAMPLE_STRIDE-th lane's inputs and outputs for the plain versions
@@ -533,7 +568,8 @@ def frame_mega(scene, cam_cfg, settings, width, height, small_bytes,
             return call
 
         instrumented_frame(counted)
-        if len(launches) != 2 * depths or len(launch_ms) != 2 * depths:
+        if not (len(launches) == len(dev_ms) == len(call_ms)
+                == 2 * depths):
             raise AssertionError(f"{len(launches)} launches in a per-depth "
                                  f"frame, expected {2 * depths}")
         main_path = []
@@ -541,7 +577,7 @@ def frame_mega(scene, cam_cfg, settings, width, height, small_bytes,
         orec = mk.occl_records(scene.device(dev).poccl_ltris)
         sr_small = 4 * (scene.device(dev).mk_sph.numel()
                         + scene.device(dev).mk_pln.numel())
-        for k, (ln, ms) in enumerate(zip(launches, launch_ms)):
+        for k, (ln, ms, c_ms) in enumerate(zip(launches, dev_ms, call_ms)):
             it = dict(zip(ptf.COUNTERS, (int(v) for v in ln["iters"])))
             what = f"per-depth launch {k + 1} ({ln['name']}), sampled lanes"
             if ln["name"] == "shade_extend":
@@ -559,7 +595,7 @@ def frame_mega(scene, cam_cfg, settings, width, height, small_bytes,
                                         torch.stack(e_got, 1), what)
             main_path.append(dict(
                 name=ln["name"], depth=k // 2, lanes=ln["lanes"], ms=ms,
-                bound_ms=b[0], bound_by=b[1],
+                call_ms=c_ms, bound_ms=b[0], bound_by=b[1],
                 sampled_lanes=int(e_got[0].shape[0]), max_abs_err=err,
                 flip_share=flips, mean_err=mean, iters=it))
         ptf.check_status(dev)
@@ -598,7 +634,7 @@ def frame_mega(scene, cam_cfg, settings, width, height, small_bytes,
         raise AssertionError("the per-depth frame is black")
     say("frame_mega", width=width, height=height, frames=TIMED_FRAMES,
         ms_per_frame=ms_per_frame,
-        kernel_share=sum(launch_ms) / ms_per_frame,
+        kernel_share=sum(dev_ms) / ms_per_frame,
         mrays_per_s=rate / 1e6, traced_per_frame=traced,
         launches_per_frame={k: v / TIMED_FRAMES for k, v in got.items()
                             if k != "sorts"},
@@ -672,7 +708,8 @@ def check_traverse(ds, o, d) -> dict:
             **kernel_ms(lambda: tps.traverse_packet_slim(
                 *args, active=act, any_hit=any_hit), "traverse_kernel"),
             plain_ms=plain_ms, iters=it,
-            bound=bound_ms(it, n * TRAV_LANE, 0, shade_ops=0))
+            bound=bound_ms(it, trav_bytes(n, it["ray"], True, True), 0,
+                           shade_ops=0))
     say("check_traverse", lanes=n, **{
         f"{q}_{k}": v[k] for q, v in out.items()
         for k in ("active", "hits", "mismatches", "ms", "call_ms",
@@ -813,6 +850,7 @@ def frame_whitted(scene, cam_cfg, settings, width, height, profile: bool):
                  device=dev)
     r.render_frame()  # warm-up
     dev_ms = launch_ms(r.render_frame, "whitted_kernel")
+    call_ms = wrapper_ms(wk, ("whitted_frame",), r.render_frame)
     launches = []
 
     def counted(entry):
@@ -828,7 +866,7 @@ def frame_whitted(scene, cam_cfg, settings, width, height, profile: bool):
         return call
 
     instrument(wk, "whitted_frame", counted, r.render_frame)
-    if len(launches) != 1 or len(dev_ms) != 1:
+    if not len(launches) == len(dev_ms) == len(call_ms) == 1:
         raise AssertionError(f"{len(launches)} whitted_frame launches in a "
                              "frame, expected 1")
     ln = launches[0]
@@ -840,7 +878,7 @@ def frame_whitted(scene, cam_cfg, settings, width, height, profile: bool):
     it = dict(zip(ptf.COUNTERS, (int(v) for v in ln["iters"])))
     b = whitted_bound(it, ln["lanes"], ds)
     main_path = [dict(lanes=ln["lanes"], depths=kw["depths"], ms=dev_ms[0],
-                      bound_ms=b[0], bound_by=b[1],
+                      call_ms=call_ms[0], bound_ms=b[0], bound_by=b[1],
                       sampled_lanes=int(ref[1].shape[0]),
                       max_abs_err=float((ref[0] - ln["got"][0]).abs().max()),
                       iters=it)]
@@ -910,6 +948,7 @@ def frame_whitted_mesh(scene, cam_cfg, settings, width, height,
                  settings=settings, device=dev)
     r.render_frame()  # warm-up
     dev_ms = launch_ms(r.render_frame, "traverse_kernel")
+    call_ms = wrapper_ms(tps, ("traverse_packet_slim",), r.render_frame)
     launches = []
 
     def counted(entry):
@@ -920,6 +959,7 @@ def frame_whitted_mesh(scene, cam_cfg, settings, width, height,
             sel = torch.arange(0, n, SAMPLE_STRIDE, device=dev)
             launches.append(dict(
                 lanes=n, iters=iters, any_hit=any_hit,
+                given_active=active is not None,
                 rays=tuple(x[sel] for x in a[0] + a[1]), t_init=a[2][sel],
                 active=None if active is None else active[sel],
                 got=(out[0][sel], out[1][sel], out[2][sel])
@@ -928,12 +968,13 @@ def frame_whitted_mesh(scene, cam_cfg, settings, width, height,
         return call
 
     instrument(tps, "traverse_packet_slim", counted, r.render_frame)
-    if len(launches) != depths * per_depth or len(dev_ms) != len(launches):
+    if not (len(launches) == len(dev_ms) == len(call_ms)
+            == depths * per_depth):
         raise AssertionError(f"{len(launches)} traversal launches in a "
                              f"frame, expected {depths * per_depth}")
     rec = ptf.leaf_records(ds.pltris)
     main_path = []
-    for k, (ln, ms_k) in enumerate(zip(launches, dev_ms)):
+    for k, (ln, ms_k, c_ms) in enumerate(zip(launches, dev_ms, call_ms)):
         ref = tps.traverse_packet_slim_reference(
             ln["rays"], ln["t_init"], ds.pltris, active=ln["active"],
             records=rec)
@@ -952,11 +993,12 @@ def frame_whitted_mesh(scene, cam_cfg, settings, width, height,
             raise AssertionError(f"traversal launch {k + 1}: {mism} sampled "
                                  "lanes differ from the plain version")
         it = dict(zip(ptf.COUNTERS, (int(v) for v in ln["iters"])))
-        b = bound_ms(it, ln["lanes"] * TRAV_LANE, 0, shade_ops=0)
+        b = bound_ms(it, trav_bytes(ln["lanes"], it["ray"], True,
+                                    ln["given_active"]), 0, shade_ops=0)
         main_path.append(dict(
             depth=k // per_depth, kind="any" if ln["any_hit"] else "closest",
             lanes=ln["lanes"], active=it["ray"],
-            ms=ms_k, bound_ms=b[0], bound_by=b[1],
+            ms=ms_k, call_ms=c_ms, bound_ms=b[0], bound_by=b[1],
             sampled_lanes=int(got[0].shape[0]), max_abs_err=err,
             mismatches=mism, iters=it))
     ptf.check_status(dev)
@@ -1105,19 +1147,10 @@ def main() -> int:
             ptf.pt_frame = entry
         torch.cuda.synchronize()
 
-    # one frame with CUDA events around each launch
-    events = []
-
-    def timed(*a, **k):
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-        ev[0].record()
-        out = entry(*a, **k)
-        ev[1].record()
-        events.append(ev)
-        return out
-
-    instrumented_frame(timed)
-    span_ms = [e0.elapsed_time(e1) for e0, e1 in events]
+    # one frame timing each launch on the device, one with CUDA events
+    # around each wrapper call
+    span_ms = launch_ms(r.render_frame, "pt_frame_kernel")
+    span_call_ms = wrapper_ms(ptf, ("pt_frame",), r.render_frame)
 
     # one frame counting each launch's work and keeping every
     # SAMPLE_STRIDE-th lane's inputs and energy for the plain version
@@ -1139,10 +1172,10 @@ def main() -> int:
         return tuple(out)
 
     instrumented_frame(counted)
-    if len(spans) != 2 or len(span_ms) != 2:
+    if not len(spans) == len(span_ms) == len(span_call_ms) == 2:
         raise AssertionError(f"{len(spans)} launches in a frame, expected 2")
     main_path = []
-    for sp, ms in zip(spans, span_ms):
+    for sp, ms, c_ms in zip(spans, span_ms, span_call_ms):
         k = dict(sp["kw"], carry_in=sp["carry_in"])
         res = plain(ptf, sp["tables"], sp["rays"], sp["state"], **k)
         e_ref = torch.stack(res[3], 1) if k.get("carry_out") else res[0]
@@ -1155,7 +1188,8 @@ def main() -> int:
             small_bytes)
         main_path.append(dict(
             lanes=sp["lanes"], depths=k["depths"],
-            depth_base=k.get("depth_base", 0), ms=ms, bound_ms=sb_ms,
+            depth_base=k.get("depth_base", 0), ms=ms, call_ms=c_ms,
+            bound_ms=sb_ms,
             bound_by=sb_by, sampled_lanes=sp["state"].shape[0],
             max_abs_err=s_max, flip_share=s_flips, mean_err=s_mean,
             iters=it))
@@ -1217,8 +1251,9 @@ def main() -> int:
     mesh_path, mesh_counts = frame_whitted_mesh(
         scene, cam_cfg, settings1, width, height, profile)
 
-    # 12. kernels line: ms (device time per launch), call_ms (events
-    # around back-to-back wrapper calls), plain_ms, bound_ms and
+    # 12. kernels line, one clock per field: ms (device time per launch,
+    # launch_ms), call_ms (CUDA events around the wrapper calls,
+    # wrapper_ms and cuda_ms), plain_ms, bound_ms and
     # max_abs_err of each kernel's 8192-lane check (check_lanes;
     # traverse_packet_slim's closest-hit query); per main-path launch
     # (main_path) its lanes, ms, bound and the error of its sampled lanes;
@@ -1238,8 +1273,8 @@ def main() -> int:
         "library_ms": None,
         "check_lanes": CHECK_LANES,
         "main_path": [{key: mp[key] for key in (
-            "lanes", "depths", "ms", "bound_ms", "bound_by", "sampled_lanes",
-            "max_abs_err")} for mp in main_path],
+            "lanes", "depths", "ms", "call_ms", "bound_ms", "bound_by",
+            "sampled_lanes", "max_abs_err")} for mp in main_path],
     }]
     for name, line in (("shade_extend", 1713), ("shadow_resolve", 1847)):
         m = mega[name]
@@ -1258,7 +1293,7 @@ def main() -> int:
             "library_ms": None,
             "check_lanes": CHECK_LANES,
             "main_path": [{key: mp[key] for key in (
-                "depth", "lanes", "ms", "bound_ms", "bound_by",
+                "depth", "lanes", "ms", "call_ms", "bound_ms", "bound_by",
                 "sampled_lanes", "max_abs_err")}
                 for mp in mega_path if mp["name"] == name],
         })
@@ -1282,8 +1317,8 @@ def main() -> int:
                           | {"bound_ms": v["bound"][0]}
                           for q, v in trav.items() if q != "closest"},
         "main_path": [{key: mp[key] for key in (
-            "depth", "kind", "lanes", "active", "ms", "bound_ms", "bound_by",
-            "sampled_lanes", "max_abs_err")} for mp in mesh_path],
+            "depth", "kind", "lanes", "active", "ms", "call_ms", "bound_ms",
+            "bound_by", "sampled_lanes", "max_abs_err")} for mp in mesh_path],
     })
     kernels.append({
         "name": "whitted_frame",
@@ -1300,8 +1335,8 @@ def main() -> int:
         "library_ms": None,
         "check_lanes": CHECK_LANES,
         "main_path": [{key: mp[key] for key in (
-            "lanes", "depths", "ms", "bound_ms", "bound_by", "sampled_lanes",
-            "max_abs_err")} for mp in whit_path],
+            "lanes", "depths", "ms", "call_ms", "bound_ms", "bound_by",
+            "sampled_lanes", "max_abs_err")} for mp in whit_path],
     })
     print(json.dumps({"kernels": kernels}), flush=True)
     # 13. last line

@@ -10,11 +10,12 @@
 // t_init and ids -1.  Returns t, original triangle id, object and flat
 // normal (the shading payload of the leaf records).
 //
-// What bounds it on this card: neither HBM bytes (a lane reads 32 bytes
-// and writes 24) nor f32 operations (26 per slab test, 55 per triangle
-// test), but the latency of the dependent, scattered 224- and 512-byte
-// node and leaf row loads of each ray's walk (mostly L2 hits) and warp
-// divergence between rays that walk different subtrees.
+// What bounds it on this card: neither HBM bytes (an active lane reads
+// 32 bytes, one that is not active 8, and each writes 24) nor f32
+// operations (26 per slab test, 55 per triangle test), but the latency
+// of the dependent, scattered 224- and 512-byte node and leaf row loads
+// of each ray's walk (mostly L2 hits) and warp divergence between rays
+// that walk different subtrees.
 //
 // What the design does about it, in this first version: one thread per
 // ray with its own stack in local memory, the walk of pt_device.cuh that

@@ -7,16 +7,18 @@
 // tests and the dielectric / mirror continuation -- in one launch.  The
 // per-lane body is whitted.cuh.
 //
-// What bounds it on this card: f32 operations.  A lane reads 32 bytes
+// What bounds it on this card: HBM bytes, barely.  A lane reads 32 bytes
 // (ray and RNG state) and writes 24 (energy, state, traced); in between
-// it does ~1,000 f32 operations per depth on config 1 (6 sphere and 1
-// plane test for the closest hit, the same 7 occluder tests per shadow
-// ray of each of the 2 lights, shading and the Fresnel continuation), out
-// of registers and shared memory, with no gathers.  At 800x600 and 5
-// depths that is a few billion operations against a few tens of MB, so
-// the operation bound is the larger; divergence between live and dead
-// lanes of a warp and the division / square-root throughput keep the
-// kernel above it (PERF.md).
+// it does ~390 f32 operations per live depth on config 1 (6 sphere and 1
+// plane test for the closest hit, shading, the two lights' directions and
+// the Fresnel continuation) and ~180 per shadow ray (the 7 occluder
+// tests), out of registers and shared memory, with no gathers.  At
+// 800x600 and 5 depths that is ~0.28 GFLOP (0.004 ms at the f32 peak)
+// against ~27 MB (0.008 ms at the HBM rate), so the bytes bound is the
+// larger; the kernel takes ~0.03 ms on an H100 80GB HBM3 at 700 W,
+// about 4x above it, where divergence between live and dead lanes of a
+// warp and the division / square-root throughput show.  The frame around
+// it is bound by the host (the launch is under 1% of it; PERF.md).
 //
 // What the design does about it, in this first version: one thread per
 // lane looping over the depths with the whole carry in registers; the

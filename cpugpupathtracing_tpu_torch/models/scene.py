@@ -544,13 +544,8 @@ def active_bit(mode: str) -> int:
 def packet_path_active(dev: DeviceScene) -> bool:
     """True when the scene's meshes are traced by the kernel of
     ops/traverse_packet_slim.py on the card -- where the JAX package runs
-    its packet kernel, and where trace_whitted sorts the wavefront.
-    CPUGPU_TPU_FORCE_PACKET=1 says yes for a scene on the CPU too (the
-    wrapper then runs its plain version), as the JAX flag does for its
-    interpret mode."""
-    return bool(dev.proots) and (
-        dev.device.type == "cuda"
-        or os.environ.get("CPUGPU_TPU_FORCE_PACKET") == "1")
+    its packet kernel, and where trace_whitted sorts the wavefront."""
+    return bool(dev.proots) and dev.device.type == "cuda"
 
 
 def whitted_kernel_active(dev: DeviceScene, settings) -> bool:

@@ -133,12 +133,11 @@ def _trace_port(tdev, rays, depth, sort, monkeypatch):
     o, d, st = rays
     idx = torch.arange(o.shape[0]) if sort else None
     if sort:  # sort on the CPU as on the card
-        monkeypatch.setenv("CPUGPU_TPU_FORCE_PACKET", "1")
-    state, res = tw.trace_whitted(
+        monkeypatch.setattr(tw, "packet_path_active",
+                            lambda dev: bool(dev.proots))
+    return tw.trace_whitted(
         tdev, SETTINGS.replace(max_ray_depth=depth), _t(o), _t(d),
         _t(st, torch.int64), idx=idx)
-    monkeypatch.delenv("CPUGPU_TPU_FORCE_PACKET", raising=False)
-    return state, res
 
 
 @pytest.mark.parametrize("sort", [False, True], ids=["unsorted", "sorted"])
