@@ -9,10 +9,16 @@ quad, two sphere lights; ADVANCED, depth 5, 1 spp) at 1920x1080 through
 route (`shade_extend` + `shadow_resolve` per depth, chosen with
 CPUGPU_NO_PTFRAME=1); config 1 (spheres, a plane, two point lights;
 WHITTED, depth 4) at 800x600 through the whole-frame Whitted kernel
-(`whitted_frame`); and WHITTED on config 3's scene at 1920x1080 through
-`trace_whitted` (`traverse_packet_slim` per scene query) -- and holds
-every CUDA kernel of those paths against its plain PyTorch version on the
-card.  Phases, one line each; any failure raises and exits non-zero:
+(`whitted_frame`); WHITTED on config 3's scene at 1920x1080 through
+`trace_whitted` (`traverse_packet_slim` per scene query); and config 5
+(six instanced dragons under a TLAS, refit every frame; ADVANCED, depth
+5, 1280x720) on its three routes: flattened whole-frame, flattened
+per-depth, and object-space per-depth (CPUGPU_NO_FLATTEN=1, the instance
+arms of `shade_extend` and `shadow_resolve`), plus one WHITTED frame of
+its object-space scene (the instance arm of `traverse_packet_slim`) --
+and holds every CUDA kernel of those paths against its plain PyTorch
+version on the card.  Phases, one line each; any failure raises and
+exits non-zero:
 
   1. device      the card's name and power limit (nvidia-smi)
   2. build       nvcc build of the kernels from the checkout, one nvcc per
@@ -52,13 +58,41 @@ card.  Phases, one line each; any failure raises and exits non-zero:
                  4, through Renderer (trace_whitted): 5 closest-hit and 10
                  any-hit launches and 5 morton5 sorts per frame, every
                  256th lane of each launch against the plain version
- 12. the {"kernels": [...]} line: per kernel its check's numbers, and per
-     main-path launch its lanes, ms, bound and sampled error
- 13. the last line {"ok": true, "device": {...}}
+ 12. scene5      config 5 built flattened (default) and object-space
+                 (CPUGPU_NO_FLATTEN=1, sharing the trees): seconds, table
+                 bytes, flat_bytes against the budget, tree rows, TLAS
+                 rows and depth, the traversal stack each tree needs
+ 13. check_inst  8192 config-5 lanes of the object-space scene: the
+                 instance arm of traverse_packet_slim (closest hits with
+                 their instance, any hits toward a light), one
+                 shade_extend and one shadow_resolve, bitwise against
+                 their plain versions; the flattened scene's hits against
+                 the object-space ones (lanes the triangle test's
+                 determinant epsilon explains, the rest within the JAX
+                 package's bound); a refit of both snapshots on the card
+                 against a fresh build, every table bitwise
+ 14-16. frame5, frame5_mega, frame5_inst  config 5 at 1280x720 through
+                 Renderer on each route, the hook (new transforms, so a
+                 refit) before every frame: each launch's lanes, device
+                 ms, call_ms and bound, every 256th lane against the plain
+                 version, timed frames with the launch and sort counts
+                 per route, the refit's own ms; [frame5_<k>_<kernel>] per
+                 launch
+ 17. compare5 / whitted5  one frame from reset per config-5 route at the
+                 same transforms (flattened routes: images and traced
+                 equal; object-space: its differences reported), and one
+                 WHITTED frame of the object-space scene: 15 launches of
+                 traverse_packet_slim's instance arm, every 256th lane
+                 against the plain version
+ 18. the {"kernels": [...]} line: per kernel its check's numbers, and per
+     main-path launch its lanes, ms, bound and sampled error; the
+     instance arms as entries of their own (`*_inst`)
+ 19. the last line {"ok": true, "device": {...}}
 
---profile adds, after phases 6, 7, 10 and 11, a torch.profiler table of
-two frames' device time by kernel and the device-busy share of the frame
-time, per route.
+--profile adds, after phases 6, 7, 10, 11 and 14-16, a torch.profiler
+table of two frames' device time by kernel, the device-busy share of the
+frame time and the host-to-device copies from pageable memory per frame,
+per route.
 
 Imports nothing of JAX and nothing of the JAX package.  Needs one card;
 without one it exits non-zero and prints no result.
@@ -66,6 +100,7 @@ without one it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import re
@@ -75,6 +110,8 @@ import time
 
 CHECK_LANES = 8192
 TIMED_FRAMES = 5
+# profiling sessions launch_ms makes before it gives up on seeing a launch
+PROFILE_ATTEMPTS = 3
 # every SAMPLE_STRIDE-th lane of a main-path launch is held against the
 # plain version (~8100 lanes per launch at 1920x1080)
 SAMPLE_STRIDE = 256
@@ -117,6 +154,11 @@ FLIP_SHARE_MAX, FLIP_MAX, MEAN_MAX = 0.03, 0.02, 1e-4
 W_FLIP_SHARE_MAX, W_FLIP_MAX = 0.01, 0.05
 # golden image tolerance (tests/test_torch_renderer.py), per 8-bit channel
 IMG_EQUAL_MIN, IMG_MEAN_MAX, IMG_MAX_MAX = 0.995, 0.05, 32
+# flattened vs object-space instance hits (the JAX package's
+# tests/test_packet_instances.py bound: at most 8 of 8192 lanes differ
+# in the hit triangle, t within 1e-5 absolute and relative elsewhere),
+# after the lanes explain_flattened explains
+FLAT_UNEXPLAINED_MAX, FLAT_T_TOL = 8, 1e-5
 # bytes of traverse_packet_slim (csrc/pt_device.cuh traverse_lane): on
 # every lane t_init and the active flag in (where given) and t, id, object
 # and 3 normal columns out; on an active lane also its 6 ray columns in (a
@@ -153,9 +195,12 @@ def ptxas_lines(log: str) -> list:
     out, name, frame = [], None, ""
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '.*?"
-                      r"([A-Za-z]+(?:_[A-Za-z]+)*_kernel)E", ln)
+                      r"([A-Za-z]+(?:_[A-Za-z]+)*_kernel)(?:ILb([01])EE|E)",
+                      ln)
         if m:
             name, frame = m.group(1), ""
+            if m.group(2) is not None:  # the kInst template argument
+                name += "<true>" if m.group(2) == "1" else "<false>"
         elif "spill" in ln:
             frame = ln.strip()
         elif "registers" in ln and name:
@@ -190,19 +235,26 @@ def launch_ms(fn, kernels, reps: int = 1) -> list:
     from torch.profiler import ProfilerActivity, profile
 
     kernels = (kernels,) if isinstance(kernels, str) else kernels
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
+    for attempt in range(PROFILE_ATTEMPTS):
         torch.cuda.synchronize()
-    evs = sorted((e for e in prof.events()
-                  if e.device_type == DeviceType.CUDA
-                  and any(k in e.name for k in kernels)),
-                 key=lambda e: e.time_range.start)
-    if not evs:
-        raise AssertionError(f"the profiler saw no launch of {kernels}")
-    return [(e.time_range.end - e.time_range.start) / 1e3 for e in evs]
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        evs = sorted((e for e in prof.events()
+                      if e.device_type == DeviceType.CUDA
+                      and any(k in e.name for k in kernels)),
+                     key=lambda e: e.time_range.start)
+        if evs:
+            return [(e.time_range.end - e.time_range.start) / 1e3
+                    for e in evs]
+        # a profiling session now and then records no device activity
+        # at all (seen after --profile's tables); the next one does
+        say("profiler_retry", kernels=",".join(kernels), attempt=attempt + 1,
+            device_events=sum(1 for e in prof.events()
+                              if e.device_type == DeviceType.CUDA))
+    raise AssertionError(f"the profiler saw no launch of {kernels}")
 
 
 def wrapper_ms(module, names, fn) -> list:
@@ -310,8 +362,9 @@ def counts() -> dict:
     from cpugpupathtracing_tpu_torch.ops import whitted_kernel as wk
 
     return dict(pt_frame=ptf.launches, **mk.launches,
-                traverse_packet_slim=tps.launches, whitted_frame=wk.launches,
-                sorts=integrators.sorts)
+                traverse_packet_slim=tps.launches,
+                traverse_packet_slim_inst=tps.launches_inst,
+                whitted_frame=wk.launches, sorts=integrators.sorts)
 
 
 def reset_counts() -> None:
@@ -323,8 +376,9 @@ def reset_counts() -> None:
     from cpugpupathtracing_tpu_torch.ops import traverse_packet_slim as tps
     from cpugpupathtracing_tpu_torch.ops import whitted_kernel as wk
 
-    ptf.launches = tps.launches = wk.launches = integrators.sorts = 0
-    for name in MEGA_KERNELS:
+    ptf.launches = tps.launches = tps.launches_inst = wk.launches = 0
+    integrators.sorts = 0
+    for name in mk.launches:
         mk.launches[name] = 0
 
 
@@ -341,9 +395,12 @@ def columns(o, d) -> tuple:
 
 
 def profile_frames(r, ms_per_frame: float, route: str,
-                   frames: int = 2) -> None:
+                   frames: int = 2, step=None) -> None:
     """Device kernel time by name over `frames` frames (torch.profiler),
-    and the device-busy share of the unprofiled frame time."""
+    the device-busy share of the unprofiled frame time, and the
+    host-to-device copies from pageable memory per frame (each one
+    synchronises the host with the stream); step() runs before each
+    frame (config 5's hook)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -352,8 +409,12 @@ def profile_frames(r, ms_per_frame: float, route: str,
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(frames):
+            if step is not None:
+                step()
             r.render_frame(sync=False)
         torch.cuda.synchronize()
+    pageable = sum(1 for e in prof.events() if "Pageable" in e.name
+                   and "HtoD" in e.name)
     rows = []
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
@@ -367,7 +428,8 @@ def profile_frames(r, ms_per_frame: float, route: str,
     say("profile", route=route, frames=frames,
         device_busy_ms_per_frame=busy,
         kernels_per_frame=sum(c for _, c, _ in rows),
-        device_busy_share=busy / ms_per_frame)
+        device_busy_share=busy / ms_per_frame,
+        pageable_h2d_copies_per_frame=pageable / frames)
     for ms, count, key in rows[:12]:
         print(f"  {ms:8.3f} ms/frame {count:5d}/frame  {key[:100]}",
               flush=True)
@@ -385,20 +447,28 @@ def plain(ptf, tables, rays, state, **kw):
 def shade_plain(mk, a, kw, records=None):
     """shade_extend's plain version on the arguments of a shade_extend
     call (a: ten tables, depth, rays, state, throughput, energy,
-    flags)."""
+    flags), its instance arm when kw has the instance tables."""
     keys = ("num_lights", "num_sph", "num_pln", "nee", "rr", "cosine",
             "ref_pdf", "light_tri_meta")
+    inst = None
+    if kw.get("inst_inv") is not None:
+        inst = (a[0], kw["roots"], kw["inst_inv"], kw["inst_nrm"],
+                kw["inst_root"])
     return mk.shade_extend_reference(a[1], *a[2:], records=records,
-                                     **{k: kw[k] for k in keys})
+                                     inst=inst, **{k: kw[k] for k in keys})
 
 
 def resolve_plain(mk, a, kw, records=None):
     """shadow_resolve's plain version on the arguments of a
     shadow_resolve call (a: nodes, ltris, sph, pln, shadow origin,
-    direction, tmax, flags, energy, contribution)."""
+    direction, tmax, flags, energy, contribution), its instance arm when
+    kw has the instance tables."""
+    inst = None
+    if kw.get("inst_inv") is not None:
+        inst = (a[0], kw["roots"], kw["inst_inv"], kw["inst_root"])
     return mk.shadow_resolve_reference(
         *a[1:], num_sph=kw["num_sph"], num_pln=kw["num_pln"],
-        occl=kw["occl"], records=records)
+        occl=kw["occl"], records=records, inst=inst)
 
 
 def check_mega(ds, settings, o, d, st, ref, small_bytes) -> dict:
@@ -1022,6 +1092,671 @@ def frame_whitted_mesh(scene, cam_cfg, settings, width, height,
     return main_path, got
 
 
+# ---- config 5: TLAS instancing --------------------------------------------
+
+@contextlib.contextmanager
+def environ(**kv):
+    """Set (a value) or unset (None) environment variables for the block,
+    then restore them."""
+    import os
+
+    prev = {k: os.environ.get(k) for k in kv}
+    for k, v in kv.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
+    try:
+        yield
+    finally:
+        for k, v in prev.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+class _NoRenderer:
+    """A hook's renderer argument where there is no renderer."""
+
+    def reset(self) -> None:
+        pass
+
+
+def config5(share=None):
+    """A config-5 scene; with `share` (another config-5 scene) it reuses
+    that scene's meshes and trees, so only the snapshot is built."""
+    from cpugpupathtracing_tpu_torch import benchscenes
+
+    scene, cam, settings, w, h, hook = benchscenes.config5_tlas_animated()
+    if share is not None:
+        for ob, oa in zip(scene.objects, share.objects):
+            ob.mesh, ob.blas = oa.mesh, oa.blas
+    return scene, cam, settings, w, h, hook
+
+
+def scene5(dev) -> dict:
+    """Phase 12: config 5 built twice from the checkout, flattened (the
+    default) and on the object-space machinery (CPUGPU_NO_FLATTEN=1,
+    sharing the first build's trees)."""
+    import torch
+
+    out = {}
+    for route, no_flatten in (("flat", None), ("obj", "1")):
+        scene, cam, settings, w, h, hook = config5(
+            share=out["flat"]["scene"] if out else None)
+        t0 = time.perf_counter()
+        with environ(CPUGPU_NO_FLATTEN=no_flatten):
+            ds = scene.device(dev)
+        torch.cuda.synchronize()
+        out[route] = dict(scene=scene, hook=hook, ds=ds,
+                          seconds=time.perf_counter() - t0,
+                          info=dict(scene.build_info))
+    flat, obj = out["flat"], out["obj"]
+    if not flat["ds"].packet_flattened or not obj["ds"].machinery:
+        raise AssertionError("config 5 did not build one flattened and one "
+                             "object-space snapshot")
+    for k in ("flat", "obj"):
+        say("scene5", route=k, seconds=round(out[k]["seconds"], 2),
+            flattened=out[k]["ds"].packet_flattened,
+            instances=out[k]["ds"].num_instances,
+            flat_bytes=out[k]["info"]["flat_bytes"],
+            flatten_budget_bytes=int(out[k]["info"]["flatten_budget_mb"]
+                                     * 1e6),
+            node_rows=out[k]["ds"].pnodes.shape[0],
+            leaf_rows=out[k]["ds"].pltris.shape[0],
+            occl_node_rows=out[k]["ds"].poccl_nodes.shape[0],
+            occl_leaf_rows=out[k]["ds"].poccl_ltris.shape[0],
+            tlas_rows=out[k]["info"]["tlas_rows"],
+            tlas_depth=out[k]["info"]["tlas_depth"],
+            stack_need=out[k]["info"]["stack_need"],
+            table_bytes=sum(out[k]["ds"].table_bytes().values()))
+    out.update(cam=cam, settings=settings, width=w, height=h)
+    return out
+
+
+def inst_args(ds) -> tuple:
+    """(nodes, roots, inst_inv, inst_root): the plain instance arm's
+    arguments for a scene on the object-space machinery."""
+    return ds.pnodes, ds.proots, ds.inst_inv, ds.inst_blas_root_packet
+
+
+def bits_differ(got, ref):
+    """Lanes where any column differs bit for bit."""
+    import torch
+
+    bad = torch.zeros_like(got[1], dtype=torch.bool)
+    for a_, b_ in zip(got, ref):
+        a_ = a_.view(torch.int32) if a_.dtype == torch.float32 else a_
+        b_ = b_.view(torch.int32) if b_.dtype == torch.float32 else b_
+        bad |= a_ != b_
+    return bad
+
+
+def explain_flattened(s5, rec, d, h_obj, h_flat) -> dict:
+    """The flattened scene's closest hits against the object-space
+    ones on the same rays.  A hit of the object-space walk is lost on
+    the flattened tables when its triangle, moved to world space, fails
+    the triangle test's |det| >= TRI_DET_EPS: the determinant is not
+    invariant under the instance transform (it scales with s^3 between
+    the two spaces for a uniform scale s).  Returns the counts of lanes
+    whose hit triangle differs, of those explained so, and the largest
+    |t| difference where the triangles agree."""
+    import torch
+
+    ds = s5["obj"]["ds"]
+    scene = s5["obj"]["scene"]
+    differ = h_obj[1] != h_flat[1]
+    explained = torch.zeros_like(differ)
+    A_l = [torch.as_tensor(m[:3, :3], device=d.device)
+           for o_ in scene.objects if o_.instances is not None
+           for m in o_.instances]
+    for i, A in enumerate(A_l):
+        lanes = (differ & (h_obj[6] == i)).nonzero().squeeze(1)
+        if lanes.numel() == 0:
+            continue
+        rc = rec["blas"][i]
+        at = torch.searchsorted(rc["id"].long(), h_obj[1][lanes].long())
+        e1 = rc["e1"][at] @ A.T
+        e2 = rc["e2"][at] @ A.T
+        det = (e1 * torch.linalg.cross(d[lanes], e2)).sum(dim=1)
+        explained[lanes] = det.abs() < 1e-3
+    same = ~differ & (h_obj[1] >= 0)
+    dt = (h_obj[0][same] - h_flat[0][same]).abs()
+    tol = FLAT_T_TOL + FLAT_T_TOL * h_obj[0][same].abs()
+    return dict(lanes=int(differ.numel()), hits=int((h_obj[1] >= 0).sum()),
+                differ=int(differ.sum()), det_explained=int(explained.sum()),
+                unexplained=int((differ & ~explained).sum()),
+                same_t_max_abs_diff=float(dt.max()) if dt.numel() else 0.0,
+                same_t_within_tol=bool((dt <= tol).all()))
+
+
+def check_inst(s5, dev) -> dict:
+    """Phase 13 on 8192 config-5 lanes from the middle of the blocked
+    camera order, on the object-space scene: traverse_packet_slim's
+    instance arm (closest hits: t, id, object, normal, instance; any hits
+    of shadow rays toward the first light: existence), one shade_extend
+    at depth 0 and one shadow_resolve on its outputs, all bitwise against
+    their plain versions; the flattened scene's hits against the
+    object-space ones (explain_flattened: at most FLAT_UNEXPLAINED_MAX
+    lanes differ for another reason, t within FLAT_T_TOL (absolute and
+    relative) where the triangles agree); a refit of both snapshots on the card against a
+    fresh build at the same transforms, every table bitwise."""
+    import torch
+    from cpugpupathtracing_tpu_torch.config import RenderConfig
+    from cpugpupathtracing_tpu_torch.models import camera as camlib
+    from cpugpupathtracing_tpu_torch.models import integrators
+    from cpugpupathtracing_tpu_torch.models import scene as scenelib
+    from cpugpupathtracing_tpu_torch.ops import megakernel as mk
+    from cpugpupathtracing_tpu_torch.ops import pt_frame as ptf
+    from cpugpupathtracing_tpu_torch.ops import traverse_packet_slim as tps
+    from cpugpupathtracing_tpu_torch.utils import rng as rnglib
+
+    ds, settings = s5["obj"]["ds"], s5["settings"]
+    w, h = s5["width"], s5["height"]
+    cam = camlib.to_arrays(s5["cam"], dev)
+    lo = w * h // 2 - CHECK_LANES // 2
+    lane = torch.arange(lo, lo + CHECK_LANES, dtype=torch.int64, device=dev)
+    o, d, pix = camlib.blocked_lane_rays(cam, lane, w, h,
+                                         *camlib.block_shape(w, h))
+    n = CHECK_LANES
+    rays = columns(o, d)
+    far = torch.full((n,), 1e34, device=dev)
+    ikw = ds.inst_kwargs(nrm=False)
+    rec = ptf.instance_records(ds.pnodes, ds.pltris, ds.proots,
+                               ds.inst_blas_root_packet)
+    out = {}
+
+    # B4: closest hits of the camera rays, any hits toward light 0
+    *hk, it = tps.traverse_packet_slim(rays[:3], rays[3:], far, ds.pnodes,
+                                       ds.pltris, ds.proots,
+                                       count_iters=True, **ikw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hp = tps.traverse_packet_slim_reference(rays, far, ds.pltris,
+                                            inst=inst_args(ds), records=rec)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    hk = (hk[0], hk[1], hk[2]) + hk[3] + (hk[4],)
+    hp = (hp[0], hp[1], hp[2]) + hp[3] + (hp[4],)
+    mism = int(bits_differ(hk, hp).sum())
+    if mism:
+        raise AssertionError(f"traverse_packet_slim instance arm: {mism} "
+                             "closest hits differ from the plain version")
+    it = dict(zip(ptf.COUNTERS, (int(v) for v in it)))
+    out["traverse_packet_slim_inst"] = dict(
+        **kernel_ms(lambda: tps.traverse_packet_slim(
+            rays[:3], rays[3:], far, ds.pnodes, ds.pltris, ds.proots,
+            **ikw), "traverse_kernel"),
+        plain_ms=plain_ms, max_abs_err=float((hk[0] - hp[0]).abs().max()),
+        iters=it, bound=bound_ms(it, trav_bytes(n, it["ray"], True, False)
+                                 + n * 4, 0, shade_ops=0),
+        hits=int((hk[1] >= 0).sum()), instance_hits=int((hk[6] >= 0).sum()))
+    pos = o + d * hk[0][:, None]
+    to_l = ds.mk_lights[0, 0:3][None, :] - pos
+    dist = torch.sqrt((to_l * to_l).sum(dim=1))
+    to_l = to_l / dist[:, None]
+    sq = columns(pos + to_l * 0.001, to_l)
+    tmax = dist - ds.mk_lights[0, 3] - 0.002
+    act = hk[1] >= 0
+    ak = tps.traverse_packet_slim(sq[:3], sq[3:], tmax, ds.pnodes, ds.pltris,
+                                  ds.proots, active=act, any_hit=True, **ikw)
+    ap = tps.traverse_packet_slim_reference(sq, tmax, ds.pltris, active=act,
+                                            any_hit=True, inst=inst_args(ds),
+                                            records=rec)
+    any_mism = int(((ak[1] >= 0) != (ap[1] >= 0)).sum())
+    if any_mism:
+        raise AssertionError(f"traverse_packet_slim instance arm: {any_mism} "
+                             "any hits differ from the plain version")
+
+    # one depth of the per-depth pipeline on the instance arms
+    st = rnglib.seed_lanes(pix, 0, salt=RenderConfig().seed)
+    one = torch.ones(n, device=dev)
+    zero = torch.zeros(n, device=dev)
+    kw = dict(integrators.extend_kwargs(ds, settings), **ds.inst_kwargs())
+    a = (*ds.tables(), 0, rays, st, (one, one, one), (zero, zero, zero),
+         torch.ones(n, dtype=torch.int32, device=dev))
+    *se, se_it = mk.shade_extend(*a, count_iters=True, **kw)
+    sh_nodes, sh_ltris, skw = integrators.shadow_tables(ds)
+    sa = (sh_nodes, sh_ltris, ds.mk_sph, ds.mk_pln, se[5], se[6], se[7],
+          se[4], se[3], se[8])
+    *sr, sr_it = mk.shadow_resolve(*sa, count_iters=True, **skw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    se_p = shade_plain(mk, a, kw, rec)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    sr_p = resolve_plain(mk, sa, skw, rec)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    ptf.check_status(dev)
+
+    def flat_cols(x):
+        return [c for v in x for c in (v if isinstance(v, tuple) else (v,))]
+
+    se_bad = sum(int(bits_differ((x, x), (y, y)).sum())
+                 for x, y in zip(flat_cols(se), flat_cols(se_p)))
+    sr_bad = int(bits_differ(tuple(sr), tuple(sr_p)).sum())
+    if se_bad or sr_bad:
+        raise AssertionError(f"instance arms differ from their plain "
+                             f"versions: shade_extend {se_bad} values, "
+                             f"shadow_resolve {sr_bad} lanes")
+    se_it = dict(zip(ptf.COUNTERS, (int(v) for v in se_it)))
+    sr_it = dict(zip(ptf.COUNTERS, (int(v) for v in sr_it)))
+    small = sum(v for k, v in ds.table_bytes().items()
+                if k.startswith("mk_"))
+    out["shade_extend_inst"] = dict(
+        **kernel_ms(lambda: mk.shade_extend(*a, **kw),
+                    "shade_extend_kernel"),
+        plain_ms=(t1 - t0) * 1e3, iters=se_it,
+        max_abs_err=float(max((x - y).abs().max() for x, y in zip(
+            se[3], se_p[3]))),
+        bound=bound_ms(se_it, n * SE_LANE, small))
+    out["shadow_resolve_inst"] = dict(
+        **kernel_ms(lambda: mk.shadow_resolve(*sa, **skw),
+                    "shadow_resolve_kernel"),
+        plain_ms=(t2 - t1) * 1e3, iters=sr_it,
+        max_abs_err=float(max((x - y).abs().max() for x, y in zip(sr,
+                                                                 sr_p))),
+        bound=bound_ms(sr_it, n * SR_LANE + sr_it["sray"] * SR_SHADOW,
+                       4 * (ds.mk_sph.numel() + ds.mk_pln.numel())))
+
+    # the flattened scene's hits against the object-space ones
+    fds = s5["flat"]["ds"]
+    hf = tps.traverse_packet_slim(rays[:3], rays[3:], far, fds.pnodes,
+                                  fds.pltris, fds.proots)
+    hf = (hf[0], hf[1], hf[2]) + hf[3]
+    ex = explain_flattened(s5, rec, d, hk, hf)
+    if ex["unexplained"] > FLAT_UNEXPLAINED_MAX or \
+            not ex["same_t_within_tol"]:
+        raise AssertionError(f"flattened vs object-space hits: {ex}")
+
+    # a refit on the card against a fresh build at the same transforms
+    refit_same = {}
+    for route in ("flat", "obj"):
+        scene, hook = s5[route]["scene"], s5[route]["hook"]
+        hook(1, _NoRenderer())
+        with environ(CPUGPU_NO_FLATTEN="1" if route == "obj" else None):
+            refit = scene.device(dev)
+            fresh_scene, *_, fresh_hook = config5(share=scene)
+            fresh_hook(1, _NoRenderer())
+            fresh = fresh_scene.device(dev)
+        torch.cuda.synchronize()
+        bad = [name for name, _ in scenelib.TABLE_FIELDS
+               if not torch.equal(
+                   getattr(refit, name).view(torch.int32),
+                   getattr(fresh, name).view(torch.int32))]
+        if bad or refit.proots != fresh.proots:
+            raise AssertionError(f"{route}: the refit differs from a fresh "
+                                 f"build in {bad}")
+        refit_same[route] = True
+    say("check_inst", lanes=n, hits=out["traverse_packet_slim_inst"]["hits"],
+        instance_hits=out["traverse_packet_slim_inst"]["instance_hits"],
+        closest_mismatches=mism, any_active=int(act.sum()),
+        any_hits=int((ak[1] >= 0).sum()), any_mismatches=any_mism,
+        shade_extend_mismatches=se_bad, shadow_resolve_mismatches=sr_bad,
+        shadow_rays=int(((se[4] >> 2) & 1).sum()),
+        flattened_vs_objspace=ex, refit_bitwise=refit_same,
+        **{f"{k}_{f}": v[f] for k, v in out.items()
+           for f in ("ms", "call_ms", "plain_ms")},
+        **{f"{k}_bound_ms": v["bound"][0] for k, v in out.items()},
+        **{f"{k}_bound_by": v["bound"][1] for k, v in out.items()},
+        **{f"{k}_iters": v["iters"] for k, v in out.items()})
+    return out
+
+
+FRAME5_ROUTES = {
+    # route: (scene, environment, wrappers (module, name, kernels),
+    #         launches and sorts per frame)
+    "frame5": ("flat", {}, "pt_frame", dict(pt_frame=2, sorts=1)),
+    "frame5_mega": ("flat", {"CPUGPU_NO_PTFRAME": "1"}, "mega",
+                    dict(shade_extend=6, shadow_resolve=6, sorts=3)),
+    "frame5_inst": ("obj", {"CPUGPU_NO_FLATTEN": "1"}, "mega",
+                    dict(shade_extend_inst=6, shadow_resolve_inst=6,
+                         sorts=3)),
+}
+
+
+def frame5(s5, phase: str, profile: bool):
+    """Phases 14-16: config 5 at 1280x720 through Renderer on one route,
+    with the hook (new transforms, hence a refit) before every frame: one
+    frame timing each launch on the device and one with CUDA events
+    around each wrapper call; one frame counting each launch's work and
+    holding every SAMPLE_STRIDE-th lane against the plain version
+    (state and flags exact; energy bitwise on the instance arms, under
+    the megakernel contract on the plain arms); TIMED_FRAMES timed frames with
+    every count from 0; the refit's own time over TIMED_FRAMES refits.
+    Returns (main-path entries, counts, the renderer)."""
+    import torch
+    from cpugpupathtracing_tpu_torch.config import RenderConfig
+    from cpugpupathtracing_tpu_torch.models.renderer import Renderer
+    from cpugpupathtracing_tpu_torch.ops import megakernel as mk
+    from cpugpupathtracing_tpu_torch.ops import pt_frame as ptf
+
+    which, env, wrappers, want = FRAME5_ROUTES[phase]
+    scene, hook = s5[which]["scene"], s5[which]["hook"]
+    settings, w, h = s5["settings"], s5["width"], s5["height"]
+    dev = torch.device("cuda")
+    depths = settings.max_ray_depth + 1
+    if wrappers == "pt_frame":
+        module, names, kernels = ptf, ("pt_frame",), "pt_frame_kernel"
+    else:
+        module, names = mk, MEGA_KERNELS
+        kernels = tuple(f"{k}_kernel" for k in MEGA_KERNELS)
+    with environ(**env):
+        r = Renderer(scene, camera=s5["cam"],
+                     config=RenderConfig(width=w, height=h),
+                     settings=settings, device=dev)
+        frame_no = [2]
+
+        def frame(sync=True):
+            hook(frame_no[0], r)
+            frame_no[0] += 1
+            return r.render_frame(sync=sync)
+
+        frame()  # warm-up
+        dev_ms = launch_ms(frame, kernels)
+        call_ms = wrapper_ms(module, names, frame)
+        launches = []
+        entries = {name: getattr(module, name) for name in names}
+
+        def counted(name):
+            fn = entries[name]
+
+            def call(*a, **k):
+                *out, iters = fn(*a, count_iters=True, **k)
+                if name == "pt_frame":
+                    rays_, state_ = a[-2], a[-1]
+                    sel = torch.arange(0, state_.shape[0], SAMPLE_STRIDE,
+                                       device=dev)
+                    ci = k.get("carry_in")
+                    launches.append(dict(
+                        name=name, lanes=state_.shape[0], iters=iters,
+                        tables=a[:-2], kw=k,
+                        rays=tuple(x[sel] for x in rays_),
+                        state=state_[sel],
+                        carry_in=None if ci is None else (
+                            tuple(x[sel] for x in ci[0]),
+                            tuple(x[sel] for x in ci[1]), ci[2][sel]),
+                        got=out if k.get("carry_out") else out[:2],
+                        sel=sel))
+                    return tuple(out)
+                n_ = a[12 if name == "shade_extend" else 7].shape[0]
+                sel = torch.arange(0, n_, SAMPLE_STRIDE, device=dev)
+
+                def pick(x):
+                    return tuple(pick(y) for y in x) if isinstance(
+                        x, tuple) else x[sel]
+                if name == "shade_extend":
+                    args = a[:11] + tuple(pick(x) for x in a[11:])
+                    got = (pick(out[3]), pick(out[4]), pick(out[1]))
+                else:
+                    args = a[:4] + tuple(pick(x) for x in a[4:])
+                    got = (pick(tuple(out)),)
+                launches.append(dict(name=name, lanes=n_, iters=iters,
+                                     args=args, kw=k, got=got))
+                return tuple(out)
+            return call
+
+        for name in names:
+            setattr(module, name, counted(name))
+        try:
+            frame()
+        finally:
+            for name in names:
+                setattr(module, name, entries[name])
+        torch.cuda.synchronize()
+        n_launch = sum(v for k, v in want.items() if k != "sorts")
+        if not (len(launches) == len(dev_ms) == len(call_ms) == n_launch):
+            raise AssertionError(f"{phase}: {len(launches)} launches in a "
+                                 f"frame, expected {n_launch}")
+        ds = scene.device(dev)
+        rec = (ptf.instance_records(ds.pnodes, ds.pltris, ds.proots,
+                                    ds.inst_blas_root_packet)
+               if ds.machinery else ptf.leaf_records(ds.pltris))
+        orec = None if ds.machinery else mk.occl_records(ds.poccl_ltris)
+        small = sum(v for k, v in ds.table_bytes().items()
+                    if k.startswith("mk_"))
+        sr_small = 4 * (ds.mk_sph.numel() + ds.mk_pln.numel())
+        main_path = []
+        for k, (ln, ms, c_ms) in enumerate(zip(launches, dev_ms, call_ms)):
+            it = dict(zip(ptf.COUNTERS, (int(v) for v in ln["iters"])))
+            what = f"{phase} launch {k + 1} ({ln['name']}), sampled lanes"
+            if ln["name"] == "pt_frame":
+                kk = dict(ln["kw"], carry_in=ln["carry_in"])
+                ref = plain(ptf, ln["tables"], ln["rays"], ln["state"], **kk)
+                got = ln["got"]
+                sel = ln["sel"]
+                if kk.get("carry_out"):
+                    exact = [(ref[1], got[1][sel]), (ref[4], got[4][sel])]
+                    e_ref = torch.stack(ref[3], 1)
+                    e_got = torch.stack([y[sel] for y in got[3]], 1)
+                else:
+                    exact = [(ref[1], got[1][sel])]
+                    e_ref, e_got = ref[0], got[0][sel]
+                b = bound_ms(it, ln["lanes"] * lane_bytes(
+                    ln["carry_in"] is not None, bool(kk.get("carry_out"))),
+                    small)
+            elif ln["name"] == "shade_extend":
+                ref = shade_plain(mk, ln["args"], ln["kw"], rec)
+                exact = [(ref[4], ln["got"][1]), (ref[1], ln["got"][2])]
+                e_ref = torch.stack(ref[3], 1)
+                e_got = torch.stack(ln["got"][0], 1)
+                b = bound_ms(it, ln["lanes"] * SE_LANE, small)
+            else:
+                ref = resolve_plain(mk, ln["args"], ln["kw"],
+                                    rec if ds.machinery else orec)
+                exact = []
+                e_ref = torch.stack(ref, 1)
+                e_got = torch.stack(ln["got"][0], 1)
+                b = bound_ms(it, ln["lanes"] * SR_LANE
+                             + it["sray"] * SR_SHADOW, sr_small)
+            if any(not torch.equal(x, y) for x, y in exact):
+                raise AssertionError(f"{what}: state or flags differ from "
+                                     "the plain version")
+            mism = int(bits_differ((e_got, e_got), (e_ref, e_ref)).sum())
+            if ds.machinery and mism:
+                raise AssertionError(f"{what}: {mism} energies differ from "
+                                     "the plain version")
+            contract(e_ref, e_got, what)
+            main_path.append(dict(
+                name=ln["name"] + ("_inst" if ds.machinery else ""),
+                launch=k + 1, lanes=ln["lanes"], ms=ms, call_ms=c_ms,
+                bound_ms=b[0], bound_by=b[1],
+                sampled_lanes=int(e_got.shape[0]),
+                max_abs_err=float((e_ref - e_got).abs().max()),
+                energy_bit_mismatches=mism, iters=it))
+        ptf.check_status(dev)
+
+        # the main path: timed frames, the hook before each, counts from 0
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        traced = 0
+        for _ in range(TIMED_FRAMES):
+            traced = traced + frame(sync=False)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        got = counts()
+        expect_counts(got, phase, **{k: v * TIMED_FRAMES
+                                     for k, v in want.items()})
+        ms_frame = dt * 1e3 / TIMED_FRAMES
+        ptf.check_status(dev)
+
+        # the refit alone: the hook, then the snapshot (device events and
+        # host time)
+        refit_ms, refit_host_ms = [], []
+        for _ in range(TIMED_FRAMES):
+            hook(frame_no[0], r)
+            frame_no[0] += 1
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            torch.cuda.synchronize()
+            th = time.perf_counter()
+            ev[0].record()
+            scene.device(dev)
+            ev[1].record()
+            refit_host_ms.append((time.perf_counter() - th) * 1e3)
+            torch.cuda.synchronize()
+            refit_ms.append(ev[0].elapsed_time(ev[1]))
+        if profile:
+            profile_frames(r, ms_frame, phase,
+                           step=lambda: hook(frame_no[0], r))
+    say(phase, route=which, width=w, height=h, frames=TIMED_FRAMES,
+        depths=depths, ms_per_frame=ms_frame,
+        kernel_share=sum(dev_ms) / ms_frame,
+        mrays_per_s=int(traced) / dt / 1e6,
+        traced_per_frame=int(traced) // TIMED_FRAMES,
+        launches_per_frame={k: v / TIMED_FRAMES for k, v in got.items()
+                            if v and k != "sorts"},
+        sorts_per_frame=got["sorts"] / TIMED_FRAMES,
+        refit_ms=sum(refit_ms) / len(refit_ms),
+        refit_host_ms=sum(refit_host_ms) / len(refit_host_ms))
+    for mp in main_path:
+        say(f"{phase}_{mp['launch']}_{mp['name']}", **mp)
+    return main_path, got
+
+
+def compare_routes5(s5) -> dict:
+    """One frame from reset on each config-5 route at the same transforms
+    and seed: the two flattened routes' images and traced counts equal;
+    the object-space route's image and traced counts against them (see
+    explain_flattened for why they may differ).  Prints [compare5]."""
+    import torch
+    from cpugpupathtracing_tpu_torch.config import RenderConfig
+    from cpugpupathtracing_tpu_torch.models.renderer import Renderer
+
+    dev = torch.device("cuda")
+    out = {}
+    for phase, (which, env, _, _) in FRAME5_ROUTES.items():
+        scene, hook = s5[which]["scene"], s5[which]["hook"]
+        with environ(**env):
+            r = Renderer(scene, camera=s5["cam"],
+                         config=RenderConfig(width=s5["width"],
+                                             height=s5["height"]),
+                         settings=s5["settings"], device=dev)
+            hook(100, r)
+            r.render_frame()
+        img = r.image_u32()
+        if not (math.isfinite(r.mean_energy) and r.mean_energy > 0.0) or \
+                not (img != 0xFF000000).any():
+            raise AssertionError(f"{phase}: the frame is black")
+        out[phase] = (img, r.stats.traced_rays, r.mean_energy)
+    (a, ta, _), (b, tb, _) = out["frame5"], out["frame5_mega"]
+    if not ((a == b).all() and ta == tb):
+        raise AssertionError("config 5: the flattened per-depth frame "
+                             "differs from the whole-frame one")
+    c, tc, ec = out["frame5_inst"]
+    res = dict(flattened_routes_equal=True, traced_flat=ta,
+               traced_objspace=tc, traced_rel_diff=(tc - ta) / ta,
+               mean_energy_flat=out["frame5"][2], mean_energy_objspace=ec,
+               image_objspace_vs_flat=image_delta(c, a))
+    say("compare5", **res)
+    return res
+
+
+def whitted5(s5) -> list:
+    """Phase 17: a WHITTED frame (depth 4) of config 5's object-space
+    scene through Renderer (trace_whitted), whose scene queries run
+    traverse_packet_slim's instance arm: 1 closest-hit and 1 any-hit
+    launch per light per depth; one frame timing each launch (device and
+    call), one counting its work and holding every SAMPLE_STRIDE-th lane
+    against the plain version.  Returns (its main-path entries, the
+    counts of the frame)."""
+    import torch
+    from cpugpupathtracing_tpu_torch.config import (RenderConfig,
+                                                    RenderMode,
+                                                    RenderSettings)
+    from cpugpupathtracing_tpu_torch.models.renderer import Renderer
+    from cpugpupathtracing_tpu_torch.ops import pt_frame as ptf
+    from cpugpupathtracing_tpu_torch.ops import traverse_packet_slim as tps
+
+    dev = torch.device("cuda")
+    scene, hook = s5["obj"]["scene"], s5["obj"]["hook"]
+    settings = RenderSettings(render_mode=RenderMode.WHITTED,
+                              max_ray_depth=4)
+    depths = settings.max_ray_depth + 1
+    with environ(CPUGPU_NO_FLATTEN="1"):
+        ds = scene.device(dev)
+        per_depth = 1 + ds.num_lights
+        r = Renderer(scene, camera=s5["cam"],
+                     config=RenderConfig(width=s5["width"],
+                                         height=s5["height"]),
+                     settings=settings, device=dev)
+        hook(200, r)
+        ds = scene.device(dev)
+        r.render_frame()  # warm-up
+        dev_ms = launch_ms(r.render_frame, "traverse_kernel")
+        call_ms = wrapper_ms(tps, ("traverse_packet_slim",), r.render_frame)
+        launches = []
+
+        def counted(entry):
+            def call(*a, active=None, any_hit=False, **k):
+                *out, iters = entry(*a, active=active, any_hit=any_hit,
+                                    count_iters=True, **k)
+                n = a[2].shape[0]
+                sel = torch.arange(0, n, SAMPLE_STRIDE, device=dev)
+                launches.append(dict(
+                    lanes=n, iters=iters, any_hit=any_hit,
+                    given_active=active is not None,
+                    rays=tuple(x[sel] for x in a[0] + a[1]),
+                    t_init=a[2][sel],
+                    active=None if active is None else active[sel],
+                    got=(out[0][sel], out[1][sel], out[2][sel])
+                    + tuple(x[sel] for x in out[3]) + (out[4][sel],)))
+                return tuple(out)
+            return call
+
+        reset_counts()
+        instrument(tps, "traverse_packet_slim", counted, r.render_frame)
+        got_counts = counts()
+    expect_counts(got_counts, "config-5 WHITTED frame",
+                  traverse_packet_slim_inst=depths * per_depth, sorts=depths)
+    if not len(launches) == len(dev_ms) == len(call_ms):
+        raise AssertionError(f"{len(launches)} traversal launches, "
+                             f"{len(dev_ms)} timed")
+    rec = ptf.instance_records(ds.pnodes, ds.pltris, ds.proots,
+                               ds.inst_blas_root_packet)
+    main_path = []
+    for k, (ln, ms_k, c_ms) in enumerate(zip(launches, dev_ms, call_ms)):
+        ref = tps.traverse_packet_slim_reference(
+            ln["rays"], ln["t_init"], ds.pltris, active=ln["active"],
+            any_hit=ln["any_hit"], inst=inst_args(ds), records=rec)
+        ref = (ref[0], ref[1], ref[2]) + ref[3] + (ref[4],)
+        got = ln["got"]
+        if ln["any_hit"]:
+            mism = int(((got[1] >= 0) != (ref[1] >= 0)).sum())
+        else:
+            mism = int(bits_differ(got, ref).sum())
+        if mism:
+            raise AssertionError(f"config-5 WHITTED launch {k + 1}: {mism} "
+                                 "sampled lanes differ from the plain version")
+        it = dict(zip(ptf.COUNTERS, (int(v) for v in ln["iters"])))
+        # the instance column is one more i32 output per lane
+        b = bound_ms(it, trav_bytes(ln["lanes"], it["ray"], True,
+                                    ln["given_active"]) + 4 * ln["lanes"],
+                     0, shade_ops=0)
+        main_path.append(dict(
+            depth=k // per_depth, kind="any" if ln["any_hit"] else "closest",
+            lanes=ln["lanes"], active=it["ray"], ms=ms_k, call_ms=c_ms,
+            bound_ms=b[0], bound_by=b[1], sampled_lanes=int(got[0].shape[0]),
+            mismatches=mism, instance_hits=int((got[6] >= 0).sum()),
+            iters=it))
+    ptf.check_status(dev)
+    img = r.image_u32()
+    if not (math.isfinite(r.mean_energy) and r.mean_energy > 0.0) or \
+            not (img != 0xFF000000).any():
+        raise AssertionError("the config-5 WHITTED frame is black")
+    say("whitted5", width=s5["width"], height=s5["height"], depths=depths,
+        launches=got_counts["traverse_packet_slim_inst"],
+        sorts=got_counts["sorts"], mean_energy=r.mean_energy,
+        sampled_mismatches=sum(mp["mismatches"] for mp in main_path),
+        instance_hits_sampled=sum(mp["instance_hits"] for mp in main_path),
+        traverse_ms=sum(mp["ms"] for mp in main_path))
+    for mp in main_path:
+        say(f"whitted5_d{mp['depth']}_{mp['kind']}", **mp)
+    return main_path, got_counts
+
+
 def main() -> int:
     import torch
 
@@ -1251,7 +1986,18 @@ def main() -> int:
     mesh_path, mesh_counts = frame_whitted_mesh(
         scene, cam_cfg, settings1, width, height, profile)
 
-    # 12. kernels line, one clock per field: ms (device time per launch,
+    # 12-17. config 5: the scene (flattened and object-space), the
+    # instance arms on 8192 lanes and the refit, the three routes, the
+    # routes' frames compared, one WHITTED frame on the instance arm
+    s5 = scene5(dev)
+    inst = check_inst(s5, dev)
+    paths5, counts5 = {}, {}
+    for phase in FRAME5_ROUTES:
+        paths5[phase], counts5[phase] = frame5(s5, phase, profile)
+    compare_routes5(s5)
+    whit5_path, whit5_counts = whitted5(s5)
+
+    # 18. kernels line, one clock per field: ms (device time per launch,
     # launch_ms), call_ms (CUDA events around the wrapper calls,
     # wrapper_ms and cuda_ms), plain_ms, bound_ms and
     # max_abs_err of each kernel's 8192-lane check (check_lanes;
@@ -1338,8 +2084,45 @@ def main() -> int:
             "lanes", "depths", "ms", "call_ms", "bound_ms", "bound_by",
             "sampled_lanes", "max_abs_err")} for mp in whit_path],
     })
+    # the instance arms: their 8192-lane check on config 5's object-space
+    # scene, launches from config 5's object-space route (B4: from the
+    # config-5 WHITTED frame)
+    for name, src, line in (
+            ("shade_extend_inst", "megakernel.cu", "megakernel.py:1713"),
+            ("shadow_resolve_inst", "megakernel.cu", "megakernel.py:1847"),
+            ("traverse_packet_slim_inst", "traverse.cu",
+             "traverse_packet_slim.py:1485")):
+        m = inst[name]
+        if name == "traverse_packet_slim_inst":
+            launches = whit5_counts["traverse_packet_slim_inst"]
+            path = [{key: mp[key] for key in (
+                "depth", "kind", "lanes", "active", "ms", "call_ms",
+                "bound_ms", "bound_by", "sampled_lanes", "mismatches")}
+                for mp in whit5_path]
+        else:
+            launches = counts5["frame5_inst"][name]
+            path = [{key: mp[key] for key in (
+                "launch", "lanes", "ms", "call_ms", "bound_ms", "bound_by",
+                "sampled_lanes", "max_abs_err")}
+                for mp in paths5["frame5_inst"] if mp["name"] == name]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"cpugpupathtracing_tpu_torch/csrc/{src}",
+            "replaces": f"cpugpupathtracing_tpu/ops/{line}",
+            "launches": launches,
+            "max_abs_err": m["max_abs_err"],
+            "ms": m["ms"],
+            "call_ms": m["call_ms"],
+            "plain_ms": m["plain_ms"],
+            "bound_ms": m["bound"][0],
+            "bound_by": m["bound"][1],
+            "library_ms": None,
+            "check_lanes": CHECK_LANES,
+            "main_path": path,
+        })
     print(json.dumps({"kernels": kernels}), flush=True)
-    # 13. last line
+    # 19. last line
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

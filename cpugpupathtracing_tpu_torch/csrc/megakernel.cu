@@ -1,6 +1,8 @@
 // The ADVANCED path tracer's per-depth kernels for Hopper (sm_90a).
 //
-// Replaces the JAX package's Pallas kernels of ops/megakernel.py:
+// Replaces the JAX package's Pallas kernels of ops/megakernel.py, instance
+// arms (the TLAS machinery: ops/megakernel.py _emit_traversal's
+// num_inst > 0 arm and the inst_nrm normal epilogue) included:
 //   shade_extend_kernel    _shade_extend_kernel (launched by shade_extend):
 //                          one depth of the wavefront -- the closest hit
 //                          over the slim 8-wide tables and the
@@ -39,6 +41,10 @@
 
 namespace {
 
+// kInst: the instance arm (the TLAS machinery of the object-space
+// instanced scene; the instance tables ride in PtArgs, not in the
+// shared-memory pack); each kernel is built both ways.
+template <bool kInst>
 __global__ void __launch_bounds__(pt::kBlock)
     shade_extend_kernel(const pt::PtArgs a) {
   extern __shared__ float smem[];
@@ -46,10 +52,12 @@ __global__ void __launch_bounds__(pt::kBlock)
   const pt::Params p = pt::setup(a, smem, tb);
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   pt::Counters cnt;
-  const bool ok = lane >= a.n || pt::shade_extend_lane(p, tb, lane, cnt);
+  const bool ok =
+      lane >= a.n || pt::shade_extend_lane<kInst>(p, tb, lane, cnt);
   pt::finish(a, ok, cnt);
 }
 
+template <bool kInst>
 __global__ void __launch_bounds__(pt::kBlock)
     shadow_resolve_kernel(const pt::PtArgs a) {
   extern __shared__ float smem[];
@@ -57,7 +65,8 @@ __global__ void __launch_bounds__(pt::kBlock)
   const pt::Params p = pt::setup(a, smem, tb);
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   pt::Counters cnt;
-  const bool ok = lane >= a.n || pt::shadow_resolve_lane(p, tb, lane, cnt);
+  const bool ok =
+      lane >= a.n || pt::shadow_resolve_lane<kInst>(p, tb, lane, cnt);
   pt::finish(a, ok, cnt);
 }
 
@@ -66,9 +75,11 @@ __global__ void __launch_bounds__(pt::kBlock)
 // Both entries return cudaGetLastError() after the launch (or -1 when the
 // packed small tables do not match the layout); they never synchronise.
 extern "C" int mk_shade_extend_launch(const pt::PtArgs* a) {
-  return pt::launch(shade_extend_kernel, a);
+  return a->num_inst > 0 ? pt::launch(shade_extend_kernel<true>, a)
+                         : pt::launch(shade_extend_kernel<false>, a);
 }
 
 extern "C" int mk_shadow_resolve_launch(const pt::PtArgs* a) {
-  return pt::launch(shadow_resolve_kernel, a);
+  return a->num_inst > 0 ? pt::launch(shadow_resolve_kernel<true>, a)
+                         : pt::launch(shadow_resolve_kernel<false>, a);
 }

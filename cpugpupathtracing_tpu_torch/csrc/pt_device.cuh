@@ -20,7 +20,15 @@
 //
 // One thread traces one ray with its own stack; the packet machinery of
 // the TPU kernels (shared row stacks, frame stacks, SMEM side tables) is
-// a schedule for that machine and is not ported.  The kernel entry
+// a schedule for that machine and is not ported.  The TLAS instance
+// machinery of ops/traverse_packet_slim.py is: with kInst, an entry above
+// SLIM_EMPTY (SLIM_EMPTY + 1 + instance id) moves the ray into the
+// instance's object space by its 3x4 inst_inv row (the direction stays
+// unnormalised, so t stays the world ray's parameter), pushes RESTORE and
+// descends into the instance's BLAS root; popping RESTORE restores the
+// world ray.  A hit carries its instance id, and its normal stays in
+// object space until shade_extend's epilogue (inst_nrm) or
+// models/scene.hit_surface turns it into a world normal.  The kernel entry
 // points are in pt_frame.cu (whole frame), megakernel.cu (per depth),
 // traverse.cu (standalone traversal) and whitted.cu (Whitted frame),
 // their shared launch code in pt_launch.cuh.
@@ -41,6 +49,9 @@ namespace pt {
 
 constexpr int PT_STACK = 64;  // ops/pt_frame.py PT_STACK mirrors it
 constexpr int SLIM_EMPTY = 0x40000000;
+// stack marker: leave instance space (below SLIM_EMPTY, far above any
+// real node row)
+constexpr int RESTORE = 0x3FFFFFFF;
 constexpr int LEAF_TRIS = 8;
 constexpr int OCCL_TRIS = 14;
 constexpr int OCCL_STRIDE = 9;
@@ -159,6 +170,13 @@ struct Tree {  // one slim 8-wide tree: (B, 64) nodes, (NL, 128) leaf rows
   // reads the row (the rows the launch touched); else null
   unsigned char* seen_node;
   unsigned char* seen_leaf;
+  // the object-space instance machinery (walks with kInst): per instance
+  // the world -> object 3x4 rows (I, 12), the normal matrix (I, 9, read
+  // by shade_extend's epilogue only) and the BLAS root row (I,)
+  const float* inst_inv;
+  const float* inst_nrm;
+  const int* inst_root;
+  int num_inst;
 };
 
 struct Counters {  // work done: node / leaf rows visited, rays traversed
@@ -171,6 +189,7 @@ struct Hit {
   float t;
   int tri, obj;
   float nx, ny, nz;
+  int iid;  // instance of the hit, -1 for a world-space hit
 };
 
 PT_HD float inv_dir(float d) { return d == 0.0f ? BIG : 1.0f / d; }
@@ -271,30 +290,85 @@ PT_HD float tri_test(float ox, float oy, float oz, float dx, float dy,
   return ok ? tt : -1.0f;
 }
 
+// The ray of a walk in its current space: world space, or after an
+// instance entry that instance's object space (kInst walks).
+struct WalkRay {
+  float ox, oy, oz, dx, dy, dz;
+  SlabRay sr;
+  int iid;
+};
+
+PT_HD WalkRay world_ray(float ox, float oy, float oz, float dx, float dy,
+                        float dz) {
+  return {ox, oy, oz, dx, dy, dz, slab_ray(ox, oy, oz, dx, dy, dz), -1};
+}
+
+// One control entry of a kInst walk, before the node / leaf cases: on
+// RESTORE the world ray `w` comes back (and the caller pops); on an
+// instance entry the ray moves into the instance's object space by its
+// inst_inv row in _enter's association, RESTORE is pushed and `e`
+// becomes the BLAS root (the caller descends without a pop).  Returns 1
+// after an instance entry, 2 after RESTORE, 0 for a node or leaf entry.
+PT_HD int instance_entry(const Tree& tr, const WalkRay& w, WalkRay& cur,
+                         int& e, int* stack, int& sp, bool& ok) {
+  if (e == RESTORE) {
+    cur = w;
+    return 2;
+  }
+  if (e <= SLIM_EMPTY) return 0;
+  int k = e - SLIM_EMPTY - 1;
+  k = k < 0 ? 0 : (k > tr.num_inst - 1 ? tr.num_inst - 1 : k);
+  const float* m = tr.inst_inv + 12 * k;
+  const float ox = w.ox, oy = w.oy, oz = w.oz;
+  const float dx = w.dx, dy = w.dy, dz = w.dz;
+  cur.ox = m[0] * ox + m[1] * oy + m[2] * oz + m[3];
+  cur.oy = m[4] * ox + m[5] * oy + m[6] * oz + m[7];
+  cur.oz = m[8] * ox + m[9] * oy + m[10] * oz + m[11];
+  cur.dx = m[0] * dx + m[1] * dy + m[2] * dz;
+  cur.dy = m[4] * dx + m[5] * dy + m[6] * dz;
+  cur.dz = m[8] * dx + m[9] * dy + m[10] * dz;
+  cur.sr = slab_ray(cur.ox, cur.oy, cur.oz, cur.dx, cur.dy, cur.dz);
+  cur.iid = k;
+  if (sp < PT_STACK) {
+    stack[sp++] = RESTORE;
+  } else {
+    ok = false;
+  }
+  e = ld(tr.inst_root + k);
+  return 1;
+}
+
 // Closest hit over a shading tree (_emit_traversal, any_hit=False):
 // h.t starts at the ray's t_init; on a hit h holds t, original triangle
-// id, object and flat normal.  A hit replaces the current one when it is
-// strictly nearer (the strict accept of _leaf_tests) or, at exactly the
-// same t, has the lower original id: exact ties (a ray through a shared
-// vertex or edge) then resolve as the brute-force oracle resolves them,
-// whatever order the walk visits the leaves in, so hits are bitwise the
-// oracle's on every ray.  Returns false on a stack overflow.
+// id, object, flat normal and instance.  A hit replaces the current one
+// when it is strictly nearer (the strict accept of _leaf_tests) or, at
+// exactly the same t, has the lower original id (then the lower
+// instance): exact ties (a ray through a shared vertex or edge) then
+// resolve as the brute-force oracle resolves them, whatever order the
+// walk visits the leaves in, so hits are bitwise the oracle's on every
+// ray.  With kInst the walk runs the instance machinery.  Returns false
+// on a stack overflow.
+template <bool kInst = false>
 PT_HD bool closest_hit(const Tree& tr, float ox, float oy, float oz,
                        float dx, float dy, float dz, Hit& h,
                        unsigned long long& it_node,
                        unsigned long long& it_leaf) {
-  const SlabRay sr = slab_ray(ox, oy, oz, dx, dy, dz);
+  const WalkRay w = world_ray(ox, oy, oz, dx, dy, dz);
+  WalkRay cur = w;
   int stack[PT_STACK];
   int sp = 0;
   bool ok = true;
   for (int i = 1; i < tr.nroots; ++i) stack[sp++] = tr.roots[i];
   int e = tr.roots[0];
   for (;;) {
-    if (e >= 0) {
+    if (kInst && instance_entry(tr, w, cur, e, stack, sp, ok) == 1) continue;
+    if (kInst && e == RESTORE) {
+      // the world ray is back; pop below
+    } else if (e >= 0) {
       ++it_node;
       if (tr.seen_node) tr.seen_node[e] = 1;
-      ok &= push_children(tr.nodes + (size_t)e * 64, sr, h.t, true, stack,
-                          sp);
+      ok &= push_children(tr.nodes + (size_t)e * 64, cur.sr, h.t, true,
+                          stack, sp);
     } else {
       ++it_leaf;
       if (tr.seen_leaf) tr.seen_leaf[-e - 1] = 1;
@@ -303,16 +377,19 @@ PT_HD bool closest_hit(const Tree& tr, float ox, float oy, float oz,
       for (int c = 0; c < LEAF_TRIS; ++c) {
         const float* r = row + 16 * c;
         F4 a = ld4(r), b = ld4(r + 4), d4 = ld4(r + 8), p = ld4(r + 12);
-        float tt = tri_test(ox, oy, oz, dx, dy, dz, a.x, a.y, a.z, a.w, b.x,
-                            b.y, b.z, b.w, d4.x);
+        float tt = tri_test(cur.ox, cur.oy, cur.oz, cur.dx, cur.dy, cur.dz,
+                            a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w, d4.x);
         const int id = as_int(p.y);
-        if (tt >= 0.0f && (tt < h.t || (tt == h.t && id < h.tri))) {
+        const bool tie = tt == h.t && (id < h.tri ||
+                                       (kInst && id == h.tri && cur.iid < h.iid));
+        if (tt >= 0.0f && (tt < h.t || tie)) {
           h.t = tt;
           h.tri = id;
           h.obj = as_int(p.x);
           h.nx = d4.y;
           h.ny = d4.z;
           h.nz = d4.w;
+          h.iid = cur.iid;
         }
       }
     }
@@ -325,14 +402,16 @@ PT_HD bool closest_hit(const Tree& tr, float ox, float oy, float oz,
 // Any hit with t < tmax over an occlusion tree (14 bare records per leaf
 // row) or a shading tree (8 records of 16 cols).  Sets `occluded`; with
 // kReport (shading trees only) also writes the record it found into
-// `found` (t, original id, object, flat normal).  Returns false on a
-// stack overflow.
-template <bool kReport = false>
+// `found` (t, original id, object, flat normal, instance).  With kInst
+// the walk runs the instance machinery.  Returns false on a stack
+// overflow.
+template <bool kReport = false, bool kInst = false>
 PT_HD bool any_hit(const Tree& tr, float ox, float oy, float oz, float dx,
                    float dy, float dz, float tmax, bool& occluded,
                    unsigned long long& it_node, unsigned long long& it_leaf,
                    Hit* found = nullptr) {
-  const SlabRay sr = slab_ray(ox, oy, oz, dx, dy, dz);
+  const WalkRay w = world_ray(ox, oy, oz, dx, dy, dz);
+  WalkRay cur = w;
   int stack[PT_STACK];
   int sp = 0;
   bool ok = true;
@@ -340,11 +419,14 @@ PT_HD bool any_hit(const Tree& tr, float ox, float oy, float oz, float dx,
   for (int i = 1; i < tr.nroots; ++i) stack[sp++] = tr.roots[i];
   int e = tr.roots[0];
   for (;;) {
-    if (e >= 0) {
+    if (kInst && instance_entry(tr, w, cur, e, stack, sp, ok) == 1) continue;
+    if (kInst && e == RESTORE) {
+      // the world ray is back; pop below
+    } else if (e >= 0) {
       ++it_node;
       if (tr.seen_node) tr.seen_node[e] = 1;
-      ok &= push_children(tr.nodes + (size_t)e * 64, sr, tmax, false, stack,
-                          sp);
+      ok &= push_children(tr.nodes + (size_t)e * 64, cur.sr, tmax, false,
+                          stack, sp);
     } else {
       ++it_leaf;
       if (tr.seen_leaf) tr.seen_leaf[-e - 1] = 1;
@@ -353,9 +435,9 @@ PT_HD bool any_hit(const Tree& tr, float ox, float oy, float oz, float dx,
       const int stride = tr.occl ? OCCL_STRIDE : 16;
       for (int c = 0; c < ntri; ++c) {
         const float* r = row + stride * c;
-        float tt = tri_test(ox, oy, oz, dx, dy, dz, ld(r), ld(r + 1),
-                            ld(r + 2), ld(r + 3), ld(r + 4), ld(r + 5),
-                            ld(r + 6), ld(r + 7), ld(r + 8));
+        float tt = tri_test(cur.ox, cur.oy, cur.oz, cur.dx, cur.dy, cur.dz,
+                            ld(r), ld(r + 1), ld(r + 2), ld(r + 3), ld(r + 4),
+                            ld(r + 5), ld(r + 6), ld(r + 7), ld(r + 8));
         if (tt >= 0.0f && tt < tmax) {
           occluded = true;
           if constexpr (kReport) {
@@ -365,6 +447,7 @@ PT_HD bool any_hit(const Tree& tr, float ox, float oy, float oz, float dx,
             found->nx = ld(r + 9);
             found->ny = ld(r + 10);
             found->nz = ld(r + 11);
+            found->iid = cur.iid;
           }
           return ok;
         }
@@ -776,26 +859,44 @@ PT_HD Shadow shade_surface(const Tables& tb, const Mode& md, Path& ps,
 // and traced counts.
 
 // One depth of a live path: the closest hit of its ray, then the shading
-// body.  Updates `ps` and returns the NEE shadow ray (all zero unless
-// sneed).  Clears `ok` on a stack overflow.
+// body.  With kInst the hit's object-space normal first becomes
+// normalize(inst_nrm @ n) (megakernel.py's instanced epilogue, the
+// arithmetic of models/scene.hit_surface).  Updates `ps` and returns the
+// NEE shadow ray (all zero unless sneed).  Clears `ok` on a stack
+// overflow.
+template <bool kInst = false>
 PT_HD Shadow extend(const Tree& tree, const Tables& tb, const Mode& md,
                     Path& ps, bool depth0, Counters& cnt, bool& ok) {
   ++cnt.ray;
-  Hit h = {RAY_TMAX, -1, -1, 0.0f, 0.0f, 0.0f};
-  ok &= closest_hit(tree, ps.ox, ps.oy, ps.oz, ps.dx, ps.dy, ps.dz, h,
-                    cnt.node, cnt.leaf);
+  Hit h = {RAY_TMAX, -1, -1, 0.0f, 0.0f, 0.0f, -1};
+  ok &= closest_hit<kInst>(tree, ps.ox, ps.oy, ps.oz, ps.dx, ps.dy, ps.dz, h,
+                           cnt.node, cnt.leaf);
+  if (kInst && h.iid >= 0) {
+    const float* m = tree.inst_nrm + 9 * h.iid;
+    const float n0 = h.nx, n1 = h.ny, n2 = h.nz;
+    const float wx = ld(m) * n0 + ld(m + 1) * n1 + ld(m + 2) * n2;
+    const float wy = ld(m + 3) * n0 + ld(m + 4) * n1 + ld(m + 5) * n2;
+    const float wz = ld(m + 6) * n0 + ld(m + 7) * n1 + ld(m + 8) * n2;
+    const float wl = sqrtf(wx * wx + wy * wy + wz * wz);
+    if (wl > 0.0f) {
+      h.nx = wx / wl;
+      h.ny = wy / wl;
+      h.nz = wz / wl;
+    }
+  }
   return shade_surface(tb, md, ps, depth0, h);
 }
 
 // The NEE shadow test of a shadow ray with sneed set: any hit over the
 // any-hit tree, then the analytic occluders.  True when the light is
 // visible.  Clears `ok` on a stack overflow.
+template <bool kInst = false>
 PT_HD bool unoccluded(const Tree& sh_tree, const Tables& tb, const Shadow& sh,
                       Counters& cnt, bool& ok) {
   ++cnt.sray;
   bool occ = false;
-  ok &= any_hit(sh_tree, sh.ox, sh.oy, sh.oz, sh.dx, sh.dy, sh.dz, sh.tmax,
-                occ, cnt.snode, cnt.sleaf);
+  ok &= any_hit<false, kInst>(sh_tree, sh.ox, sh.oy, sh.oz, sh.dx, sh.dy,
+                              sh.dz, sh.tmax, occ, cnt.snode, cnt.sleaf);
   if (!occ) {
     occ = analytic_occluded(tb, sh.ox, sh.oy, sh.oz, sh.dx, sh.dy, sh.dz,
                             sh.tmax);
@@ -909,19 +1010,21 @@ PT_HD bool trace_lane(const Params& p, const Tables& tb, int lane,
   return ok;
 }
 
-// shade_extend: one depth (p.depth_base, absolute) of one lane.  A lane
+// shade_extend: one depth (p.depth_base, absolute) of one lane (kInst: on
+// the instance machinery).  A lane
 // that is not active passes its columns through with flags & 3 and zero
 // shadow columns (the per-lane form of the Pallas kernel's dead-tile
 // rule); a live lane writes its next ray and carry, flags with bit 2 =
 // sneed, and its shadow ray (zero unless sneed, so tmax = sneed ? tmax :
 // 0).  Returns false on a stack overflow.
+template <bool kInst = false>
 PT_HD bool shade_extend_lane(const Params& p, const Tables& tb, int lane,
                              Counters& cnt) {
   Path ps = load_path(p, lane);
   Shadow sh = {false, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
   bool ok = true;
   if (ps.active) {
-    sh = extend(p.tree, tb, p.mode, ps, p.depth_base == 0, cnt, ok);
+    sh = extend<kInst>(p.tree, tb, p.mode, ps, p.depth_base == 0, cnt, ok);
   }
   store_path(p, lane, ps, sh.sneed);
   const float cols[10] = {sh.ox, sh.oy, sh.oz, sh.dx, sh.dy,
@@ -932,9 +1035,10 @@ PT_HD bool shade_extend_lane(const Params& p, const Tables& tb, int lane,
 }
 
 // shadow_resolve: a lane with sneed (flags bit 2) runs the shadow test
-// of its shadow ray over p.sh_tree and adds the contribution when the
-// light is visible; every other lane copies its energy.  Returns false
-// on a stack overflow.
+// of its shadow ray over p.sh_tree (kInst: on the instance machinery)
+// and adds the contribution when the light is visible; every other lane
+// copies its energy.  Returns false on a stack overflow.
+template <bool kInst = false>
 PT_HD bool shadow_resolve_lane(const Params& p, const Tables& tb, int lane,
                                Counters& cnt) {
   float enx = p.en_in[0][lane], eny = p.en_in[1][lane],
@@ -953,7 +1057,9 @@ PT_HD bool shadow_resolve_lane(const Params& p, const Tables& tb, int lane,
     sh.cr = p.shadow[7][lane];
     sh.cg = p.shadow[8][lane];
     sh.cb = p.shadow[9][lane];
-    if (unoccluded(p.sh_tree, tb, sh, cnt, ok)) add_light(enx, eny, enz, sh);
+    if (unoccluded<kInst>(p.sh_tree, tb, sh, cnt, ok)) {
+      add_light(enx, eny, enz, sh);
+    }
   }
   p.en_out[0][lane] = enx;
   p.en_out[1][lane] = eny;
@@ -981,19 +1087,23 @@ struct PtArgs {
   void* en_out[3];
   void* flags_out;
   void* tr_out;
-  void* hit_out[6];   // traverse: t, tri, obj, nx, ny, nz
+  void* hit_out[7];   // traverse: t, tri, obj, nx, ny, nz, iid (or null)
   const void* t_init;  // traverse: (n,) f32 per-lane t bound, or null
   const void* active;  // traverse: (n,) i32 lane mask, or null (all)
   void* shadow[10];   // Params::shadow: shade_extend out, shadow_resolve in
   void* iters;        // NUM_COUNTERS u64 work counters (Counters order), or null
   void* seen[4];      // u8 row bitmaps (Tree::seen_*): node, leaf, shadow
                       // node, shadow leaf rows; null unless counting
+  // the instance machinery of both trees (Tree::inst_*), or null
+  const void* inst_inv;
+  const void* inst_nrm;
+  const void* inst_root;
   void* status;       // i32, bit 0 set on a traversal stack overflow
   void* stream;
   int small_words;
   int mat_rows, light_rows, ltri_rows, sph_rows, pln_rows, obj_rows;
   int num_sph, num_pln, num_lights, nroots, sh_nroots, mesh_lights, sh_occl;
-  int n, depths, depth_base, nee, rr, cosine, ref_pdf, any_hit;
+  int n, depths, depth_base, nee, rr, cosine, ref_pdf, any_hit, num_inst;
 };
 
 // Word offsets of the packed small tables: mats (M, 14), lights (L, 10),
@@ -1035,12 +1145,15 @@ PT_HD void unpack(const PtArgs& a, const float* small, Tables& tb, Tree& tree,
   tb.mesh_lights = a.mesh_lights;
   w += 2 * a.light_rows;
   unsigned char* const* seen = reinterpret_cast<unsigned char* const*>(a.seen);
+  const float* inv = static_cast<const float*>(a.inst_inv);
+  const float* nrm = static_cast<const float*>(a.inst_nrm);
+  const int* iroot = static_cast<const int*>(a.inst_root);
   tree = {static_cast<const float*>(a.nodes), static_cast<const float*>(a.ltris),
-          w, a.nroots, false, seen[0], seen[1]};
+          w, a.nroots, false, seen[0], seen[1], inv, nrm, iroot, a.num_inst};
   w += a.nroots;
   sh_tree = {static_cast<const float*>(a.sh_nodes),
              static_cast<const float*>(a.sh_ltris), w, a.sh_nroots,
-             a.sh_occl != 0, seen[2], seen[3]};
+             a.sh_occl != 0, seen[2], seen[3], inv, nrm, iroot, a.num_inst};
 }
 
 PT_HD Params make_params(const PtArgs& a, const Tree& tree,
@@ -1073,28 +1186,32 @@ PT_HD Params make_params(const PtArgs& a, const Tree& tree,
 
 // One lane of traverse_packet_slim: over the closest-hit tree, the
 // nearest hit closer than the lane's t_init (closest_hit's exact-tie rule
-// included) or, with any_hit, the first one the walk finds.  A lane that
-// is not active, and a lane that hits nothing, writes t_init, ids -1 and
-// a zero normal.  Without t_init / active columns every lane is active
-// with t_init = RAY_TMAX (the closest-hit test of ops/pt_frame.py).
+// included) or, with any_hit, the first one the walk finds; with kInst on
+// the instance machinery, the hit's instance (the 7th output column) and
+// its normal in object space.  A lane that is not active, and a lane
+// that hits nothing, writes t_init, ids -1 and a zero normal.  Without
+// t_init / active columns every lane is active with t_init = RAY_TMAX
+// (the closest-hit test of ops/pt_frame.py).
+template <bool kInst = false>
 PT_HD bool traverse_lane(const PtArgs& a, const Tree& tree, int lane,
                          Counters& cnt) {
   const float* const* r = reinterpret_cast<const float* const*>(a.ray);
   const float t0 =
       a.t_init ? static_cast<const float*>(a.t_init)[lane] : RAY_TMAX;
   const bool act = !a.active || static_cast<const int*>(a.active)[lane] != 0;
-  Hit h = {t0, -1, -1, 0.0f, 0.0f, 0.0f};
+  Hit h = {t0, -1, -1, 0.0f, 0.0f, 0.0f, -1};
   bool ok = true;
   if (act) {
     ++cnt.ray;
     if (a.any_hit) {
       bool occ = false;
-      ok = any_hit<true>(tree, r[0][lane], r[1][lane], r[2][lane],
-                         r[3][lane], r[4][lane], r[5][lane], t0, occ,
-                         cnt.node, cnt.leaf, &h);
+      ok = any_hit<true, kInst>(tree, r[0][lane], r[1][lane], r[2][lane],
+                                r[3][lane], r[4][lane], r[5][lane], t0, occ,
+                                cnt.node, cnt.leaf, &h);
     } else {
-      ok = closest_hit(tree, r[0][lane], r[1][lane], r[2][lane], r[3][lane],
-                       r[4][lane], r[5][lane], h, cnt.node, cnt.leaf);
+      ok = closest_hit<kInst>(tree, r[0][lane], r[1][lane], r[2][lane],
+                              r[3][lane], r[4][lane], r[5][lane], h,
+                              cnt.node, cnt.leaf);
     }
   }
   static_cast<float*>(a.hit_out[0])[lane] = h.t;
@@ -1103,6 +1220,7 @@ PT_HD bool traverse_lane(const PtArgs& a, const Tree& tree, int lane,
   static_cast<float*>(a.hit_out[3])[lane] = h.nx;
   static_cast<float*>(a.hit_out[4])[lane] = h.ny;
   static_cast<float*>(a.hit_out[5])[lane] = h.nz;
+  if (a.hit_out[6]) static_cast<int*>(a.hit_out[6])[lane] = h.iid;
   return ok;
 }
 

@@ -15,7 +15,8 @@ using LaneFn = bool (*)(const pt::Params&, const pt::Tables&, int,
 
 bool traverse_body(const pt::Params& p, const pt::Tables&, int lane,
                    pt::Counters& cnt, const pt::PtArgs& a) {
-  return pt::traverse_lane(a, p.tree, lane, cnt);
+  return a.num_inst > 0 ? pt::traverse_lane<true>(a, p.tree, lane, cnt)
+                        : pt::traverse_lane<false>(a, p.tree, lane, cnt);
 }
 
 int run(const pt::PtArgs* a, LaneFn fn) {
@@ -57,9 +58,11 @@ extern "C" int whitted_host(const pt::PtArgs* a) {
 }
 
 extern "C" int mk_shade_extend_host(const pt::PtArgs* a) {
-  return run(a, pt::shade_extend_lane);
+  return run(a, a->num_inst > 0 ? pt::shade_extend_lane<true>
+                                : pt::shade_extend_lane<false>);
 }
 
 extern "C" int mk_shadow_resolve_host(const pt::PtArgs* a) {
-  return run(a, pt::shadow_resolve_lane);
+  return run(a, a->num_inst > 0 ? pt::shadow_resolve_lane<true>
+                                : pt::shadow_resolve_lane<false>);
 }

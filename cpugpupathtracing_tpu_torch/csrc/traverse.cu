@@ -2,8 +2,9 @@
 // a batch of rays over the slim 8-wide closest-hit tables.
 //
 // Replaces the JAX package's Pallas kernel ops/traverse_packet_slim.py
-// (_traverse_kernel, launched by traverse_packet_slim) for non-instanced
-// scenes without the BVH-depth count.  models/scene.intersect_scene calls
+// (_traverse_kernel, launched by traverse_packet_slim) without the
+// BVH-depth count, its TLAS instance machinery (instanced=True: inst_inv,
+// inst_root, the RESTORE marker, the hit's instance id) included.  models/scene.intersect_scene calls
 // it for the mesh arm of every scene query of the Whitted integrator: the
 // closest hit of each depth's rays and the any-hit of each light's shadow
 // rays.  Per lane: t_init bounds the hit; a lane that is not active writes
@@ -32,6 +33,8 @@
 
 namespace {
 
+// kInst: the instance arm (object-space TLAS machinery), built both ways
+template <bool kInst>
 __global__ void __launch_bounds__(pt::kBlock)
     traverse_kernel(const pt::PtArgs a) {
   extern __shared__ float smem[];
@@ -39,7 +42,8 @@ __global__ void __launch_bounds__(pt::kBlock)
   const pt::Params p = pt::setup(a, smem, tb);
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   pt::Counters cnt;
-  const bool ok = lane >= a.n || pt::traverse_lane(a, p.tree, lane, cnt);
+  const bool ok =
+      lane >= a.n || pt::traverse_lane<kInst>(a, p.tree, lane, cnt);
   pt::finish(a, ok, cnt);
 }
 
@@ -48,5 +52,6 @@ __global__ void __launch_bounds__(pt::kBlock)
 // Returns cudaGetLastError() after the launch (or -1 when the packed small
 // tables do not match the layout); never synchronises.
 extern "C" int traverse_launch(const pt::PtArgs* a) {
-  return pt::launch(traverse_kernel, a);
+  return a->num_inst > 0 ? pt::launch(traverse_kernel<true>, a)
+                         : pt::launch(traverse_kernel<false>, a);
 }

@@ -56,7 +56,8 @@ class TraceResult(NamedTuple):
 
 
 def extend_kwargs(dev: DeviceScene, settings: RenderSettings) -> dict:
-    """The keyword arguments of shade_extend for this scene/settings."""
+    """The keyword arguments of shade_extend for this scene/settings,
+    without the instance tables (DeviceScene.inst_kwargs)."""
     return dict(
         roots=dev.proots,
         num_mats=dev.num_mats,
@@ -83,11 +84,23 @@ def frame_kwargs(dev: DeviceScene, settings: RenderSettings) -> dict:
     )
 
 
+def shadow_tables(dev: DeviceScene) -> tuple:
+    """(nodes, ltris, keyword arguments) of shadow_resolve: the occlusion
+    tables, or on the object-space instance machinery the shading tables
+    with the instance tables (the JAX package's instanced arm, which
+    builds no occlusion tables)."""
+    kw = dict(num_sph=dev.num_sph, num_pln=dev.num_pln)
+    if dev.machinery:
+        return dev.pnodes, dev.pltris, dict(
+            kw, roots=dev.proots, occl=False, **dev.inst_kwargs(nrm=False))
+    return dev.poccl_nodes, dev.poccl_ltris, dict(kw, roots=dev.poccl_roots,
+                                                   occl=True)
+
+
 def shadow_kwargs(dev: DeviceScene) -> dict:
-    """The keyword arguments of shadow_resolve over the occlusion tables,
-    after its positional (nodes, ltris, sph, pln)."""
-    return dict(roots=dev.poccl_roots, num_sph=dev.num_sph,
-                num_pln=dev.num_pln, occl=True)
+    """The keyword arguments of shadow_resolve after its positional
+    (nodes, ltris, sph, pln), the tables of shadow_tables."""
+    return shadow_tables(dev)[2]
 
 
 def sort_wavefront(dev: DeviceScene, c: dict, mode: str = "morton8") -> dict:
@@ -189,11 +202,12 @@ def sorted_shadow_resolve(dev: DeviceScene, so, sd, stmax, flags, en,
     key_s, slots = torch.sort(key, stable=True)
     sneed_s = (1 - ((key_s >> active_bit("morton5")) & 1)).to(torch.int32)
     zero = torch.zeros_like(en[0])
+    sh_nodes, sh_ltris, sh_kw = shadow_tables(dev)
     delta = mk.shadow_resolve(
-        dev.poccl_nodes, dev.poccl_ltris, dev.mk_sph, dev.mk_pln,
+        sh_nodes, sh_ltris, dev.mk_sph, dev.mk_pln,
         tuple(c[slots] for c in so), tuple(c[slots] for c in sd),
         stmax[slots], sneed_s << 2, (zero, zero, zero),
-        tuple(c[slots] for c in contrib), **shadow_kwargs(dev))
+        tuple(c[slots] for c in contrib), **sh_kw)
     out = []
     for e, dl in zip(en, delta):
         back = torch.empty_like(dl)
@@ -206,10 +220,11 @@ def trace_advanced_mega(dev: DeviceScene, settings: RenderSettings, origin,
                         direction, state, idx=None):
     """TracePathAdvanced of rays origin/direction (N, 3) f32 with RNG
     state (N,) (int64 carrying u32) through the per-depth pipeline (the
-    JAX package's trace_advanced_mega for a non-instanced scene).  Per
-    depth d: flags = active | spec << 1, traced += live lanes,
-    shade_extend at depth d, traced += shadow rays, shadow_resolve over
-    the occlusion tables.  With lane identities `idx` (N,) the carry is
+    JAX package's trace_advanced_mega).  Per depth d: flags = active |
+    spec << 1, traced += live lanes, shade_extend at depth d, traced +=
+    shadow rays, shadow_resolve over the occlusion tables -- on the
+    object-space instance machinery both kernels run their instance arms
+    and shadow rays walk the shading tables (shadow_tables).  With lane identities `idx` (N,) the carry is
     sorted after depth d < min(CPUGPU_SORT_DEPTHS or 3, max depth) --
     compact after depth 0, morton8 later -- and energy and state return
     to lane order at the end; CPUGPU_SHADOW_SORT=1 also sorts the depth-0
@@ -218,9 +233,10 @@ def trace_advanced_mega(dev: DeviceScene, settings: RenderSettings, origin,
     each; the host never synchronises.  Returns (state', TraceResult)."""
     n = origin.shape[0]
     dv = origin.device
-    kw = extend_kwargs(dev, settings)
+    kw = dict(extend_kwargs(dev, settings), **dev.inst_kwargs())
     nee = kw["nee"]
     tables = dev.tables()
+    sh_nodes, sh_ltris, sh_kw = shadow_tables(dev)
     do_sort = idx is not None
     shadow_sort = do_sort and os.environ.get("CPUGPU_SHADOW_SORT") == "1"
     sort_depths = min(int(os.environ.get("CPUGPU_SORT_DEPTHS") or "3"),
@@ -248,8 +264,8 @@ def trace_advanced_mega(dev: DeviceScene, settings: RenderSettings, origin,
                                            contrib)
             else:
                 en = mk.shadow_resolve(
-                    dev.poccl_nodes, dev.poccl_ltris, dev.mk_sph, dev.mk_pln,
-                    so, sd, stmax, fl, en, contrib, **shadow_kwargs(dev))
+                    sh_nodes, sh_ltris, dev.mk_sph, dev.mk_pln,
+                    so, sd, stmax, fl, en, contrib, **sh_kw)
         c = dict(c, ray=rays, state=st, tp=tp, en=en, active=fl & 1,
                  spec=(fl >> 1) & 1)
         if do_sort and d < sort_depths:

@@ -161,6 +161,16 @@ class Renderer:
                                         device=self.device)
         self._pixels = torch.zeros(n, dtype=torch.int64, device=self.device)
         self._lane = torch.arange(n, dtype=torch.int64, device=self.device)
+        # the camera's device arrays, made again only when the camera
+        # changes: an upload from pageable memory would synchronise the
+        # host with the stream every frame
+        self._cam: tuple | None = None
+
+    def _camera_arrays(self) -> camlib.CameraArrays:
+        if self._cam is None or self._cam[0] != self.camera:
+            self._cam = (self.camera,
+                         camlib.to_arrays(self.camera, self.device))
+        return self._cam[1]
 
     def render_frame(self, sync: bool = True):
         """Trace one progressive frame.  sync=False skips the host sync
@@ -170,7 +180,7 @@ class Renderer:
         spp = self.config.samples_per_frame
         acc, pixels, traced, esum = render_frame(
             self.scene.device(self.device),
-            camlib.to_arrays(self.camera, self.device),
+            self._camera_arrays(),
             self._accumulator, self._sample_counter, self._lane,
             self.settings, self.config.width, self.config.height, spp,
             self.config.seed)

@@ -1,10 +1,10 @@
 """Scene model: host-side object list and the device tables the
 path-tracing kernel reads.
 
-The port of the non-instanced part of the JAX package's
-`Scene._build_device` (models/scene.py there), for scenes of meshes,
-spheres and planes.  Every mesh object gets two slim 8-wide trees over a
-full-sweep SAH binary build (SAH_SPLIT_PRIMITIVES, leaf <= 8):
+The port of the JAX package's `Scene._build_device` and `_refit_device`
+(models/scene.py there), for scenes of meshes, instanced meshes, spheres
+and planes.  Every mesh gets two slim 8-wide trees over a full-sweep SAH
+binary build (SAH_SPLIT_PRIMITIVES, leaf <= 8):
   * the closest-hit tables `pnodes`/`pltris`: the SAH-cost DP collapse
     at leaf_max 8, shading-complete leaf records (bvh8.to_slim);
   * the any-hit tables `poccl_nodes`/`poccl_ltris`: the same collapse
@@ -14,6 +14,16 @@ object (`proots`, `poccl_roots`).  These are the tables the JAX package
 builds under its benchmark flags (CPUGPU_PACKET_TREE=sweep_dp,
 CPUGPU_OCCL=1), bitwise.  A scene without meshes (benchmark config 1)
 gets empty trees and no roots.
+
+Instanced meshes (one BLAS, many object-to-world transforms) sit under a
+TLAS whose root is the last root.  When the world-space copies of their
+BLASes fit CPUGPU_FLATTEN_BUDGET_MB (default 64) and CPUGPU_NO_FLATTEN
+is not 1, the scene is flattened: each instance gets its own world-space
+copy of the tables and the kernels run their plain arms.  Otherwise the
+object-space machinery runs: the TLAS's instance entries carry the
+instance id, the kernels move the ray by `inst_inv` into the instance's
+space, and shadow rays keep the shading tables.  A transform edit
+(`set_instance_transform`) refits the snapshot in place on its device.
 
 The small scene tables (materials, lights, spheres, planes, object ->
 material) keep the column layouts of the JAX package's
@@ -41,11 +51,12 @@ from cpugpupathtracing_tpu_torch.models import bvh8 as bvh8lib
 from cpugpupathtracing_tpu_torch.models import materials as matlib
 from cpugpupathtracing_tpu_torch.models.mesh import Mesh
 from cpugpupathtracing_tpu_torch.ops import intersect
+from cpugpupathtracing_tpu_torch.ops import pt_frame as ptf
 from cpugpupathtracing_tpu_torch.ops import traverse_packet_slim as tps
 from cpugpupathtracing_tpu_torch.ops.pt_frame import PT_STACK
 from cpugpupathtracing_tpu_torch.utils.device import resolve_device
 from cpugpupathtracing_tpu_torch.utils.log import except_error, log_warn
-from cpugpupathtracing_tpu_torch.utils.vecmath import normalize
+from cpugpupathtracing_tpu_torch.utils.vecmath import normalize, sqrt
 
 PRIM_MESH, PRIM_SPHERE, PRIM_PLANE = 0, 1, 2
 
@@ -79,15 +90,22 @@ TABLE_FIELDS = (
     ("pln_obj", torch.int32),         # (P,) plane -> object
     ("world_lo", torch.float32),      # (3,) scene AABB low corner
     ("world_inv_extent", torch.float32),  # (3,) 1 / AABB extent
+    ("inst_inv", torch.float32),      # (I, 12) world -> object, 3x4 rows
+    ("inst_nrm", torch.float32),      # (I, 9) normal matrix inv(M)^T
+    ("inst_blas_root_packet", torch.int32),  # (I,) slim row of the BLAS root
+    ("inst_obj", torch.int32),        # (I,) owning object
 )
 META_FIELDS = ("proots", "poccl_roots", "light_tri_meta", "num_lights",
-               "num_sph", "num_pln", "has_mesh_lights")
+               "num_sph", "num_pln", "has_mesh_lights", "num_instances",
+               "packet_flattened")
 
 
 @dataclasses.dataclass(frozen=True)
 class DeviceScene:
-    """Immutable device snapshot of a Scene: the tables of TABLE_FIELDS
-    plus static metadata (roots, light-triangle ranges, counts)."""
+    """Device snapshot of a Scene: the tables of TABLE_FIELDS plus static
+    metadata (roots, light-triangle ranges, counts).  A transform-only
+    edit of an instanced scene refits the snapshot in place
+    (Scene.device); every other edit builds a new one."""
 
     pnodes: torch.Tensor
     pltris: torch.Tensor
@@ -105,6 +123,10 @@ class DeviceScene:
     pln_obj: torch.Tensor
     world_lo: torch.Tensor
     world_inv_extent: torch.Tensor
+    inst_inv: torch.Tensor
+    inst_nrm: torch.Tensor
+    inst_blas_root_packet: torch.Tensor
+    inst_obj: torch.Tensor
     proots: tuple
     poccl_roots: tuple
     # per-light (start, count) into mk_light_tris; (0, 0) for spheres
@@ -115,6 +137,14 @@ class DeviceScene:
     # any light is a mesh (its triangles are in light_tri_meta only when
     # they fit MESH_LIGHT_MAX_TRIS)
     has_mesh_lights: bool = False
+    num_instances: int = 0
+    # instanced BLASes replicated into world space (the kernels' plain
+    # arms run); False with instances = the object-space TLAS machinery
+    packet_flattened: bool = False
+    # what a refit needs (Scene._refit_device); None for a snapshot made
+    # from numpy tables
+    refit: dict | None = dataclasses.field(default=None, compare=False,
+                                           repr=False)
 
     @property
     def device(self) -> torch.device:
@@ -128,11 +158,27 @@ class DeviceScene:
     def num_objs(self) -> int:
         return int(self.mk_objmat.shape[0])
 
+    @property
+    def machinery(self) -> bool:
+        """True when the kernels run the object-space instance arms."""
+        return self.num_instances > 0 and not self.packet_flattened
+
     def tables(self) -> tuple:
         """The ten scene tables of pt_frame's positional arguments."""
         return (self.pnodes, self.pltris, self.mk_mats, self.mk_lights,
                 self.mk_light_tris, self.mk_sph, self.mk_pln,
                 self.mk_sph_mat, self.mk_pln_mat, self.mk_objmat)
+
+    def inst_kwargs(self, nrm: bool = True) -> dict:
+        """The instance arguments of the kernel wrappers: inst_inv,
+        inst_root (and inst_nrm) on the object-space machinery, none
+        otherwise."""
+        if not self.machinery:
+            return {}
+        kw = dict(inst_inv=self.inst_inv, inst_root=self.inst_blas_root_packet)
+        if nrm:
+            kw["inst_nrm"] = self.inst_nrm
+        return kw
 
     def table_bytes(self) -> dict:
         return {name: int(getattr(self, name).numel()
@@ -152,19 +198,23 @@ def scene_from_numpy(arrays: dict, meta: dict, device="cuda") -> DeviceScene:
     leaves of a JAX package DeviceScene, np.asarray(getattr(dev, name)))
     and the static `meta` of META_FIELDS.  Used by the tests to hand both
     packages the same tables.  A missing any-hit tree (None: the JAX
-    package builds none for a scene without meshes) becomes an empty
-    one."""
+    package builds none for a scene without meshes, nor for one on the
+    object-space instance machinery) becomes an empty one, missing
+    instance tables empty ones."""
     dev = resolve_device(device)
-    empty = {"poccl_nodes": (0, 64), "poccl_ltris": (0, 128)}
+    empty = {"poccl_nodes": (0, 64), "poccl_ltris": (0, 128),
+             "inst_inv": (0, 12), "inst_nrm": (0, 9),
+             "inst_blas_root_packet": (0,), "inst_obj": (0,)}
 
-    def table(name):
-        a = arrays[name]
+    def table(name, dtype):
+        a = arrays.get(name)
         if a is None and name in empty:
-            a = np.zeros(empty[name], np.float32)
+            a = np.zeros(empty[name], np.float32 if dtype == torch.float32
+                         else np.int32)
         return np.array(a, order="C")
 
     tensors = {
-        name: torch.from_numpy(table(name)).to(device=dev, dtype=dtype)
+        name: torch.from_numpy(table(name, dtype)).to(device=dev, dtype=dtype)
         for name, dtype in TABLE_FIELDS
     }
     return DeviceScene(
@@ -177,6 +227,8 @@ def scene_from_numpy(arrays: dict, meta: dict, device="cuda") -> DeviceScene:
         num_sph=int(meta["num_sph"]),
         num_pln=int(meta["num_pln"]),
         has_mesh_lights=bool(meta.get("has_mesh_lights", False)),
+        num_instances=int(meta.get("num_instances", 0)),
+        packet_flattened=bool(meta.get("packet_flattened", False)),
     )
 
 
@@ -188,17 +240,55 @@ class SceneObject:
     mesh: Mesh | None = None
     sphere: tuple | None = None  # (center xyz, radius)
     plane: tuple | None = None   # (point xyz, normal xyz)
+    # instanced mesh: (I, 4, 4) object-to-world transforms; one BLAS is
+    # built and referenced from the TLAS once per instance
+    instances: np.ndarray | None = None
+    # (mesh, binary BVH, slim tree, occlusion collapse, occlusion tree)
+    # of the mesh, kept across snapshots (_blas)
+    blas: tuple | None = None
+
+
+class _Blas(NamedTuple):
+    """The trees of one mesh: its binary SAH build, the slim closest-hit
+    tree (leaf_max 8), the occlusion collapse (leaf_max 14) and its slim
+    any-hit tree."""
+
+    b: bvhlib.BVH
+    pw: bvh8lib.BVH8Slim
+    wo: bvh8lib.BVH8
+    po: bvh8lib.BVH8Slim
+
+
+def _blas(obj: SceneObject) -> _Blas:
+    """The object's trees, built once per mesh (full-sweep SAH binary
+    build, leaf <= 8; the SAH-cost DP collapses of bvh8)."""
+    if obj.blas is None or obj.blas[0] is not obj.mesh:
+        m = obj.mesh
+        b = bvhlib.build(m.positions, m.normals, m.indices,
+                         BuildOption.SAH_SPLIT_PRIMITIVES, max_leaf_size=8)
+        wo = bvh8lib.collapse_sah(b, leaf_max=bvh8lib.OCCL_TRIS)
+        obj.blas = (obj.mesh, _Blas(
+            b, bvh8lib.to_slim(bvh8lib.collapse_sah(b, leaf_max=8),
+                               b.tri_normal),
+            wo, bvh8lib.to_slim_occl(wo)))
+    return obj.blas[1]
 
 
 class Scene:
-    """Mutable host scene; `device(device)` returns a cached immutable
-    snapshot (rebuilt after any edit)."""
+    """Mutable host scene; `device(device)` returns a cached snapshot,
+    rebuilt after any edit but an instance transform, after which it is
+    refit."""
 
     def __init__(self):
         self.objects: list[SceneObject] = []
         self.materials: list[matlib.Material] = []
         self.light_indices: list[int] = []
         self._device: DeviceScene | None = None
+        self._transforms_dirty = False
+        # what the last build_device decided: flat_bytes against
+        # flatten_budget_mb, flattened, tlas_rows / tlas_depth, and the
+        # traversal stack each tree needs (stack_need)
+        self.build_info: dict = {}
 
     # -- construction (Source/Main.cpp:779-819 equivalents) --
 
@@ -214,6 +304,28 @@ class Scene:
         self.objects.append(SceneObject(name, mat_index, PRIM_MESH, mesh=mesh))
         self._device = None
         return len(self.objects) - 1
+
+    def add_instanced_mesh(self, name: str, mesh: Mesh, mat_index: int,
+                           transforms) -> int:
+        """One BLAS, many placements: `transforms` is (I, 4, 4) object-to-
+        world matrices, gathered under a TLAS.  An instanced mesh cannot
+        be a light."""
+        self.objects.append(SceneObject(
+            name, mat_index, PRIM_MESH, mesh=mesh,
+            instances=np.asarray(transforms, np.float32).reshape(-1, 4, 4)))
+        self._device = None
+        return len(self.objects) - 1
+
+    def set_instance_transform(self, obj_index: int, instance_index: int,
+                               transform) -> None:
+        """Move one instance (animation): the next snapshot refits the
+        TLAS, the instance tables, the world bounds and, on a flattened
+        scene, the world-space copies of the BLAS; no tree is rebuilt."""
+        obj = self.objects[obj_index]
+        if obj.instances is None:
+            except_error("Scene", "object {} has no instances", obj.name)
+        obj.instances[instance_index] = np.asarray(transform, np.float32)
+        self._transforms_dirty = True
 
     def add_sphere(self, name: str, center, radius: float, mat_index: int) -> int:
         self.objects.append(
@@ -240,11 +352,58 @@ class Scene:
         dev = resolve_device(device)
         if self._device is None or self._device.device != dev:
             self._device = self.build_device(dev)
+            self._transforms_dirty = False
+        elif self._transforms_dirty:
+            self._refit_device(self._device)
+            self._transforms_dirty = False
         return self._device
+
+    def _refit_device(self, dev: DeviceScene) -> None:
+        """Refit the snapshot in place to the current instance transforms
+        (the JAX package's Scene._refit_device): the TLAS rows, inst_inv,
+        inst_nrm and the world bounds, and on a flattened scene the
+        world-space BLAS copies and the occlusion rows repacked from
+        them.  The host work (inverses, instance boxes, the TLAS rows) is
+        O(instances); its result goes to the device in one copy from
+        pinned memory, and the device work is queued behind the frames
+        already queued, without a host synchronisation.  Raises when the
+        TLAS topology would change."""
+        rf = dev.refit
+        if rf is None:
+            except_error("Scene", "this snapshot cannot be refit")
+        pack, _, _ = _transform_pack(self.objects, rf)
+        _apply_transforms(dev, rf, _upload(pack, dev.device))
 
     def build_device(self, device="cuda") -> DeviceScene:
         dev = resolve_device(device)
         f32, i32 = np.float32, np.int32
+        has_instances = any(o.instances is not None for o in self.objects)
+        trees = {oi: _blas(o) for oi, o in enumerate(self.objects)
+                 if o.kind == PRIM_MESH}
+
+        # the flatten decision (the JAX package's packet-path rule):
+        # instanced BLASes are copied into world space when the copies
+        # fit CPUGPU_FLATTEN_BUDGET_MB (read per build) and
+        # CPUGPU_NO_FLATTEN != 1; else the object-space machinery runs
+        flatten = False
+        flat_bytes = 0
+        budget = float(os.environ.get("CPUGPU_FLATTEN_BUDGET_MB") or "64")
+        if has_instances:
+            flat_bytes = sum(
+                len(o.instances) * (trees[oi].pw.nodes.nbytes
+                                    + trees[oi].pw.ltris.nbytes)
+                for oi, o in enumerate(self.objects)
+                if o.instances is not None)
+            flatten = (flat_bytes <= budget * 1e6
+                       and os.environ.get("CPUGPU_NO_FLATTEN") != "1")
+            if not flatten and flat_bytes > budget * 1e6:
+                log_warn("Scene", "flattened instance tables {:.0f} MB exceed "
+                         "the {:.0f} MB budget; using the object-space TLAS "
+                         "machinery", flat_bytes / 1e6, budget)
+        # the any-hit tables: for non-instanced and flattened scenes; the
+        # object-space machinery keeps shadow rays on the shading tables
+        build_occl = not has_instances or flatten
+
         pnodes_l, ptris_l, proots = [], [], []
         onodes_l, oltris_l, oroots = [], [], []
         pnode_off = pleaf_off = onode_off = oleaf_off = 0
@@ -257,56 +416,89 @@ class Scene:
         whi = np.full(3, -np.inf, f32)
         sph = {k: [] for k in ("center", "radius", "obj")}
         pln = {k: [] for k in ("point", "normal", "obj")}
+        inst_obj_l, inst_root_l, inst_objs = [], [], []
+        flat_meta, p_flat_roots = [], []
+        oflat_meta, o_flat_roots, operm_l = [], [], []
 
         for oi, obj in enumerate(self.objects):
             if obj.kind == PRIM_MESH:
-                m = obj.mesh
-                b = bvhlib.build(m.positions, m.normals, m.indices,
-                                 BuildOption.SAH_SPLIT_PRIMITIVES,
-                                 max_leaf_size=8)
+                b, pw, wo, po = trees[oi]
+                inst = obj.instances
                 tris9_l.append(_pack_tris(b.tri_v0, b.tri_v1, b.tri_v2))
                 tnrm_l.append(b.tri_normal)
-                mesh_tri_range[oi] = (tri_off, b.num_triangles, b.total_area)
                 mesh_bvh[oi] = b
-                wlo = np.minimum(wlo, b.nodes_min[0])
-                whi = np.maximum(whi, b.nodes_max[0])
+                if inst is None:
+                    mesh_tri_range[oi] = (tri_off, b.num_triangles,
+                                          b.total_area)
+                    wlo = np.minimum(wlo, b.nodes_min[0])
+                    whi = np.maximum(whi, b.nodes_max[0])
+                elif oi in self.light_indices:
+                    except_error("Scene", "instanced mesh '{}' cannot be a "
+                                 "light", obj.name)
 
                 # closest-hit tables: object index stamped and triangle
-                # ids made global in the leaf records, entries rebased
-                pw = bvh8lib.to_slim(bvh8lib.collapse_sah(b, leaf_max=8),
-                                     b.tri_normal)
+                # ids made global in the leaf records (shared by every
+                # instance of the object), entries rebased
                 lt = pw.ltris.copy()
                 ltv = lt.view(i32)
                 for krec in range(8):
                     ltv[:, 16 * krec + 12] = oi
                     tidc = ltv[:, 16 * krec + 13]
                     tidc[tidc >= 0] += tri_off
-                prow = pw.nodes.copy()
-                pcidx = prow[:, 48:56].view(i32)
-                pccnt = prow[:, 56:64].view(i32)
-                pcidx[pccnt == 0] += pnode_off
-                pcidx[pccnt > 0] -= pleaf_off  # leaf enc -(row+1)
-                pnodes_l.append(prow)
-                ptris_l.append(lt)
-                proots.append(pnode_off)
-                pnode_off += pw.num_nodes
-                pleaf_off += pw.num_leaf_rows
+                copies = len(inst) if inst is not None and flatten else 1
+                if inst is not None and flatten:
+                    flat_meta.append(dict(
+                        first=len(inst_obj_l), count=len(inst),
+                        node_base=pnode_off, ltris_base=pleaf_off,
+                        src_bounds=pw.nodes[:, :48].copy(), src_ltris=lt))
+                blas_root = pnode_off
+                for _ in range(copies):
+                    pnodes_l.append(_rebase(pw.nodes, pnode_off, pleaf_off))
+                    ptris_l.append(lt)
+                    if inst is None:
+                        proots.append(pnode_off)
+                    elif flatten:
+                        p_flat_roots.append(pnode_off)
+                    pnode_off += pw.num_nodes
+                    pleaf_off += pw.num_leaf_rows
                 pdepth = max(pdepth, pw.max_depth)
 
-                # any-hit tables over the same binary build
-                po = bvh8lib.to_slim_occl(
-                    bvh8lib.collapse_sah(b, leaf_max=bvh8lib.OCCL_TRIS))
-                orow = po.nodes.copy()
-                ocidx = orow[:, 48:56].view(i32)
-                occnt = orow[:, 56:64].view(i32)
-                ocidx[occnt == 0] += onode_off
-                ocidx[occnt > 0] -= oleaf_off
-                onodes_l.append(orow)
-                oltris_l.append(po.ltris)
-                oroots.append(onode_off)
-                onode_off += po.num_nodes
-                oleaf_off += po.num_leaf_rows
-                odepth = max(odepth, po.max_depth)
+                if build_occl:
+                    # any-hit tables over the same binary build; on a
+                    # flattened scene their leaf rows are repacked from
+                    # the shading records (_occl_repack), so operm maps
+                    # every occlusion record to a shading record
+                    seg = (_occl_seg(lt, wo, b.num_triangles, tri_off)
+                           if flatten else None)
+                    if inst is not None:
+                        oflat_meta.append(dict(
+                            first=len(inst_obj_l), count=len(inst),
+                            node_base=onode_off,
+                            src_bounds=po.nodes[:, :48].copy()))
+                    for k in range(copies):
+                        onodes_l.append(_rebase(po.nodes, onode_off,
+                                                oleaf_off))
+                        oltris_l.append(po.ltris)
+                        if inst is None:
+                            oroots.append(onode_off)
+                            base = pleaf_off - pw.num_leaf_rows
+                        else:
+                            o_flat_roots.append(onode_off)
+                            base = (flat_meta[-1]["ltris_base"]
+                                    + k * pw.num_leaf_rows)
+                        if flatten:
+                            operm_l.append(seg + 8 * base)
+                        onode_off += po.num_nodes
+                        oleaf_off += po.num_leaf_rows
+                    odepth = max(odepth, po.max_depth)
+
+                if inst is not None:
+                    inst_objs.append((oi, b.nodes_min[0].copy(),
+                                      b.nodes_max[0].copy()))
+                    for k in range(len(inst)):
+                        inst_obj_l.append(oi)
+                        inst_root_l.append(p_flat_roots[-len(inst)]
+                                           if flatten else blas_root)
                 tri_off += b.num_triangles
             elif obj.kind == PRIM_SPHERE:
                 c, r = obj.sphere
@@ -322,16 +514,46 @@ class Scene:
                 pln["normal"].append(n)
                 pln["obj"].append(oi)
 
+        num_instances = len(inst_obj_l)
+        refit = None
+        tlas_depth = 0
+        if num_instances:
+            # the TLAS over the instances' world boxes, after every BLAS;
+            # its root is the last closest-hit (and any-hit) root
+            refit = dict(inst_objs=inst_objs, num_instances=num_instances,
+                         static_lo=wlo.copy(),
+                         static_hi=whi.copy(), flatten=flatten,
+                         p_tlas_off=pnode_off, p_flat_roots=p_flat_roots,
+                         o_tlas_off=onode_off if build_occl else None,
+                         o_flat_roots=o_flat_roots)
+            _, tlas_rows, tlas_depth = _transform_pack(self.objects, refit)
+            refit["tlas_count"] = len(tlas_rows)
+            pnodes_l.append(np.zeros((len(tlas_rows), 64), f32))
+            proots.append(pnode_off)
+            pnode_off += len(tlas_rows)
+            if build_occl:
+                onodes_l.append(np.zeros((len(tlas_rows), 64), f32))
+                oroots.append(onode_off)
+                onode_off += len(tlas_rows)
+
         # the kernel's per-ray stack holds at most 7 pending siblings per
-        # level plus the extra roots; refuse a tree that could overflow it
+        # level of the TLAS and the deepest tree below it, the RESTORE
+        # marker of an instance and the extra roots; refuse a tree that
+        # could overflow it
+        stack_need = {}
         for kind, depth, roots in (("closest-hit", pdepth, proots),
                                    ("any-hit", odepth, oroots)):
-            need = 7 * (depth + 1) + 1 + max(len(roots), 1)
+            need = 7 * (tlas_depth + depth + 1) + 1 + max(len(roots), 1)
+            stack_need[kind] = need
             if need > PT_STACK:
                 except_error(
                     "Scene", "{} tree needs a {}-entry traversal stack, "
                     "more than the kernel's {}", kind, need, PT_STACK)
 
+        self.build_info = dict(
+            flat_bytes=flat_bytes, flatten_budget_mb=budget,
+            flattened=flatten, tlas_rows=refit["tlas_count"] if refit else 0,
+            tlas_depth=tlas_depth, stack_need=stack_need)
         if not np.isfinite(wlo).all():
             wlo = np.zeros(3, f32)
             whi = np.ones(3, f32)
@@ -356,9 +578,22 @@ class Scene:
             pln_obj=np.asarray(pln["obj"], i32),
             world_lo=wlo.astype(f32),
             world_inv_extent=(1.0 / wext).astype(f32),
+            inst_inv=np.zeros((num_instances, 12), f32),
+            inst_nrm=np.zeros((num_instances, 9), f32),
+            inst_blas_root_packet=np.asarray(inst_root_l, i32),
+            inst_obj=np.asarray(inst_obj_l, i32),
             **mk,
         )
-        return DeviceScene(
+        if num_instances:
+            for fm in flat_meta:
+                fm["src_bounds"] = t(fm.pop("src_bounds"), torch.float32)
+                fm["src_ltris"] = t(fm.pop("src_ltris"), torch.float32)
+            for ofm in oflat_meta:
+                ofm["src_bounds"] = t(ofm.pop("src_bounds"), torch.float32)
+            refit.update(flat_meta=flat_meta, oflat_meta=oflat_meta,
+                         operm=(t(np.concatenate(operm_l), torch.int64)
+                                if flatten and build_occl else None))
+        ds = DeviceScene(
             **{name: t(arrays[name], dtype) for name, dtype in TABLE_FIELDS},
             proots=tuple(proots),
             poccl_roots=tuple(oroots),
@@ -367,7 +602,16 @@ class Scene:
             num_sph=len(sph["center"]),
             num_pln=len(pln["point"]),
             has_mesh_lights=has_mesh_lights,
+            num_instances=num_instances,
+            packet_flattened=flatten,
+            refit=refit,
         )
+        if num_instances:
+            # the transforms' part of the tables, by the refit's own code:
+            # a refit to the same transforms gives the same bits
+            pack, _, _ = _transform_pack(self.objects, refit)
+            _apply_transforms(ds, refit, _upload(pack, dev))
+        return ds
 
     def _mk_tables(self, sph, pln, mesh_tri_range, mesh_bvh, tris9_l,
                    tnrm_l):
@@ -489,6 +733,298 @@ def _pack_tris(v0, v1, v2) -> np.ndarray:
     return out
 
 
+def _rebase(rows: np.ndarray, node_off: int, leaf_off: int) -> np.ndarray:
+    """A copy of slim node rows with interior entries moved by node_off
+    rows and leaf entries -(row + 1) by leaf_off rows."""
+    out = rows.copy()
+    cidx = out[:, 48:56].view(np.int32)
+    ccnt = out[:, 56:64].view(np.int32)
+    cidx[ccnt == 0] += node_off
+    cidx[ccnt > 0] -= leaf_off
+    return out
+
+
+def _occl_seg(lt: np.ndarray, wo: bvh8lib.BVH8, num_tris: int,
+              tri_off: int) -> np.ndarray:
+    """Per occlusion record of one object (14 per leaf row, leaf order of
+    bvh8.to_slim_occl) the index row * 8 + slot of a shading record of
+    the same triangle in the object's leaf rows `lt` (ids global from
+    tri_off); padding records take the record of local triangle 0.  The
+    gather of _occl_repack (the JAX package's _build_occl_cache rec_tid
+    and operm)."""
+    i32 = np.int32
+    cidx = wo.nodes[:, 48:56].view(i32)
+    ccnt = wo.nodes[:, 56:64].view(i32)
+    is_leaf = ccnt > 0
+    starts, counts = cidx[is_leaf], ccnt[is_leaf]
+    rec_tid = np.full((max(len(starts), 1), bvh8lib.OCCL_TRIS), -1, i32)
+    for leaf, (st, c) in enumerate(zip(starts, counts)):
+        rec_tid[leaf, :c] = wo.leaf_tri_id[st:st + c]
+    ltv = lt.view(i32)
+    gids = np.stack([ltv[:, 16 * k + 13] for k in range(8)], axis=1)
+    valid = gids >= 0
+    recpos = (np.arange(lt.shape[0], dtype=i32)[:, None] * 8
+              + np.arange(8, dtype=i32)[None, :])
+    local_map = np.zeros(num_tris, i32)
+    local_map[gids[valid] - tri_off] = recpos[valid]
+    return np.where(rec_tid >= 0, local_map[np.maximum(rec_tid, 0)],
+                    local_map[0]).astype(np.int64).reshape(-1)
+
+
+# ---- instances: TLAS rows, transforms, world-space copies ----------------
+#
+# The JAX package's scene.py:392-731 and the refit of :921-1033, for the
+# 8-wide slim tables.  The TLAS is built on the host (a handful of rows);
+# the world-space copies of a flattened scene are made on the scene's
+# device in the JAX package's explicit per-component arithmetic, so that
+# the floats equal op-by-op JAX bitwise and a refit equals a fresh build.
+
+# TLAS leaf children carry this count and the instance id as their index
+# (the JAX package's ops/traverse_wide.py CCNT_INSTANCE)
+CCNT_INSTANCE = -2
+
+
+def _build_tlas_rows(imin: np.ndarray, imax: np.ndarray):
+    """8-ary TLAS over instance world AABBs: (rows (K, 64) with local
+    interior child indices and CCNT_INSTANCE leaves, depth)."""
+    num = len(imin)
+    centers = (imin + imax) * 0.5
+    rows: list[np.ndarray] = []
+
+    def split8(ids: np.ndarray) -> list[np.ndarray]:
+        groups = [ids]
+        while len(groups) < 8:
+            gi = max(range(len(groups)), key=lambda g: len(groups[g]))
+            if len(groups[gi]) <= 1:
+                break
+            g = groups.pop(gi)
+            c = centers[g]
+            axis = int(np.argmax(c.max(0) - c.min(0)))
+            order = np.argsort(c[:, axis], kind="stable")
+            h = len(g) // 2
+            groups.append(g[order[:h]])
+            groups.append(g[order[h:]])
+        return groups
+
+    def build(ids: np.ndarray, depth: int) -> tuple[int, int]:
+        row_idx = len(rows)
+        rows.append(np.zeros(64, np.float32))
+        groups = [g for g in split8(ids) if len(g)]
+        bmin = np.full((8, 3), 1e30, np.float32)
+        bmax = np.full((8, 3), -1e30, np.float32)
+        cidx = np.zeros(8, np.int32)
+        ccnt = np.full(8, -1, np.int32)
+        max_d = depth
+        for k, g in enumerate(groups):
+            bmin[k] = imin[g].min(0)
+            bmax[k] = imax[g].max(0)
+            if len(g) == 1:
+                cidx[k] = int(g[0])
+                ccnt[k] = CCNT_INSTANCE
+            else:
+                child, d = build(g, depth + 1)
+                cidx[k] = child
+                ccnt[k] = 0
+                max_d = max(max_d, d)
+        row = rows[row_idx]
+        row[0:48] = np.concatenate([bmin, bmax], axis=1).reshape(-1)
+        row[48:56] = cidx.view(np.float32)
+        row[56:64] = ccnt.view(np.float32)
+        return row_idx, max_d
+
+    _, depth = build(np.arange(num), 1)
+    return np.stack(rows), depth
+
+
+def _slim_tlas_rows(tlas_rows: np.ndarray, p_off: int, inst_roots=None):
+    """TLAS rows in the slim encoding at row p_off: interior children ->
+    global row, empty -> SLIM_EMPTY, instance children -> SLIM_EMPTY + 1 +
+    instance id (the object-space machinery) or, with `inst_roots`, the
+    root row of the instance's world-space BLAS copy (flattened)."""
+    rows = tlas_rows.copy()
+    cidx = rows[:, 48:56].view(np.int32)
+    ccnt = rows[:, 56:64].view(np.int32)
+    inst = ccnt == CCNT_INSTANCE
+    if inst_roots is None:
+        cidx[inst] = bvh8lib.SLIM_EMPTY + 1 + cidx[inst]
+    else:
+        cidx[inst] = np.asarray(inst_roots, np.int32)[cidx[inst]]
+    cidx[ccnt == 0] += p_off
+    cidx[ccnt == -1] = bvh8lib.SLIM_EMPTY
+    ccnt[:] = -1  # the kernels never read counts
+    return rows
+
+
+def _instance_world_aabb(nmin, nmax, m4):
+    """Transform an AABB's 8 corners by the 4x4 object-to-world matrix."""
+    xs = [nmin[0], nmax[0]]
+    ys = [nmin[1], nmax[1]]
+    zs = [nmin[2], nmax[2]]
+    pts = np.array([[x, y, z, 1.0] for x in xs for y in ys for z in zs],
+                   np.float32)
+    world = pts @ m4.T
+    return (world[:, :3].min(0).astype(np.float32),
+            world[:, :3].max(0).astype(np.float32))
+
+
+def _transform_pack(objects, rf: dict):
+    """The host part of a refit from the current instance transforms:
+    (words, tlas_rows, tlas_depth), words one f32 array of inst_inv
+    (I, 12), inst_nrm (I, 9), the linear parts A (I, 9) and translations
+    b (I, 3) of the transforms, the slim TLAS rows (K, 64), those of the
+    any-hit TLAS (K, 64, when the scene has any-hit tables), world_lo and
+    world_inv_extent -- the layout _apply_transforms reads.  Raises when
+    a refit (rf with tlas_count) would change the TLAS topology."""
+    f32 = np.float32
+    inv_l, nrm_l, a_l, b_l, imin_l, imax_l = [], [], [], [], [], []
+    for oi, bmin, bmax in rf["inst_objs"]:
+        for m4 in objects[oi].instances:
+            m = np.asarray(m4, f32)
+            inv = np.linalg.inv(np.asarray(m4, np.float64))
+            inv_l.append(inv[:3, :].astype(f32).reshape(12))
+            nrm_l.append(inv[:3, :3].T.astype(f32).reshape(9))
+            a_l.append(m[:3, :3].reshape(9))
+            b_l.append(m[:3, 3])
+            amin, amax = _instance_world_aabb(bmin, bmax, m)
+            imin_l.append(amin)
+            imax_l.append(amax)
+    imin, imax = np.stack(imin_l), np.stack(imax_l)
+    tlas_rows, depth = _build_tlas_rows(imin, imax)
+    if "tlas_count" in rf and (len(tlas_rows) != rf["tlas_count"]
+                               or len(imin) != rf["num_instances"]):
+        except_error("Scene", "TLAS topology changed across refit ({} -> {} "
+                     "rows, {} -> {} instances)", rf["tlas_count"],
+                     len(tlas_rows), rf["num_instances"], len(imin))
+    flat = rf["flatten"]
+    parts = [np.stack(inv_l), np.stack(nrm_l), np.stack(a_l), np.stack(b_l),
+             _slim_tlas_rows(tlas_rows, rf["p_tlas_off"],
+                             rf["p_flat_roots"] if flat else None)]
+    if rf["o_tlas_off"] is not None:
+        parts.append(_slim_tlas_rows(tlas_rows, rf["o_tlas_off"],
+                                     rf["o_flat_roots"]))
+    wlo = np.minimum(rf["static_lo"], imin.min(0))
+    whi = np.maximum(rf["static_hi"], imax.max(0))
+    wext = np.maximum(whi - wlo, 1e-6).astype(f32)
+    parts += [wlo.astype(f32), (1.0 / wext).astype(f32)]
+    words = np.concatenate([np.ascontiguousarray(p, f32).reshape(-1)
+                            for p in parts])
+    return words, tlas_rows, depth
+
+
+def _upload(words: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """words on `dev`: on the card one asynchronous copy from pinned
+    memory (no host synchronisation; the pinned block is recycled only
+    after the copy has run)."""
+    host = torch.from_numpy(words)
+    if dev.type != "cuda":
+        return host.to(dev)
+    return host.pin_memory().to(dev, non_blocking=True)
+
+
+def _lin(m, v, t=None):
+    """(I, ..., 3) = m (I, 3, 3) applied to the 3-vectors v (..., 3) of
+    every instance (+ t (I, 3)): each output component x in the JAX
+    package's explicit order ((m[x, 0] v0 + m[x, 1] v1) + m[x, 2] v2) + t[x]
+    -- never matmul, whose reductions differ in the last bit.  The three
+    components come out of one broadcast product per column of m."""
+    shape = (m.shape[0],) + (1,) * (v.dim() - 1) + (3,)
+    acc = (m[:, :, 0].reshape(shape) * v[None, ..., 0:1]
+           + m[:, :, 1].reshape(shape) * v[None, ..., 1:2]
+           + m[:, :, 2].reshape(shape) * v[None, ..., 2:3])
+    if t is not None:
+        acc = acc + t.reshape(shape)
+    return acc
+
+
+def world_boxes(src_bounds, A, b):
+    """(I * B, 48) world child boxes of (B, 48) object-space slim node
+    bounds under every instance: center' = A c + b, extent' = |A| e, so
+    boxes only grow (conservative culling, the JAX package's
+    _flatten_tables and _flatten_splice_occl)."""
+    B = src_bounds.shape[0]
+    bx = src_bounds.reshape(B, 8, 6)
+    mn, mx = bx[..., 0:3], bx[..., 3:6]
+    c = (mn + mx) * 0.5
+    e = (mx - mn) * 0.5
+    cw = _lin(A, c, b)
+    ew = _lin(torch.abs(A), e)
+    return torch.cat([cw - ew, cw + ew], dim=-1).reshape(-1, 48)
+
+
+def flatten_tables(src_bounds, src_ltris, A, b, nrm):
+    """World-space copies of one instanced BLAS (the JAX package's
+    _flatten_tables, width 8): ((I * B, 48) world child boxes,
+    (I * Lr, 128) world leaf records).  Records transform exactly (v0
+    affine, e1 / e2 linear); the flat normal becomes the normalised
+    nrm (I, 3, 3) image, as the object-space machinery's shading
+    epilogue computes it per hit; the id columns are copied."""
+    I, Lr = A.shape[0], src_ltris.shape[0]
+    r = src_ltris.reshape(Lr, 8, 16)
+    # v0, e1, e2 of every record at once; v0 alone takes the translation
+    tri = _lin(A, r[..., 0:9].reshape(Lr, 8, 3, 3))
+    tri[..., 0, :] += b.reshape(I, 1, 1, 3)
+    nw = _lin(nrm, r[..., 9:12])
+    nl = sqrt(nw[..., 0:1] * nw[..., 0:1] + nw[..., 1:2] * nw[..., 1:2]
+              + nw[..., 2:3] * nw[..., 2:3])
+    nw = torch.where(nl > 0.0, nw / torch.clamp(nl, min=1e-30), nw)
+    ids = r[None, ..., 12:16].expand(I, Lr, 8, 4)
+    recs = torch.cat([tri.reshape(I, Lr, 8, 9), nw, ids],
+                     dim=-1).reshape(I * Lr, 128)
+    return world_boxes(src_bounds, A, b), recs
+
+
+def _occl_repack(pltris, perm):
+    """Occlusion leaf rows gathered from the (world-space) shading records
+    (the JAX package's _occl_repack): perm (NO * 14,) record indices
+    row * 8 + slot; each row takes the [v0, e1, e2] of its 14 records,
+    so the any-hit floats are the shading floats bit for bit.  The
+    gather runs on the int32 bits (some id columns are NaN payloads as
+    f32)."""
+    rec = pltris.view(torch.int32).reshape(-1, 16)[perm, :9]
+    no = perm.shape[0] // bvh8lib.OCCL_TRIS
+    body = rec.reshape(no, 126)
+    return torch.cat([body, torch.zeros_like(body[:, :2])],
+                     dim=1).view(torch.float32)
+
+
+def _apply_transforms(ds: DeviceScene, rf: dict, words: torch.Tensor) -> None:
+    """Write the transforms' part of the tables in place from the words
+    of _transform_pack on the scene's device: the TLAS rows, on a
+    flattened scene the world-space BLAS copies and the repacked
+    occlusion rows, inst_inv, inst_nrm and the world bounds."""
+    I, K = ds.num_instances, rf["tlas_count"]
+    sizes = [12 * I, 9 * I, 9 * I, 3 * I, 64 * K]
+    if rf["o_tlas_off"] is not None:
+        sizes.append(64 * K)
+    sizes += [3, 3]
+    parts = list(words.split(sizes))
+    inv, nrm, A, b, prow = parts[:5]
+    wlo, wie = parts[-2:]
+    A, b, nrm3 = A.view(I, 3, 3), b.view(I, 3), nrm.view(I, 3, 3)
+    ds.pnodes[rf["p_tlas_off"]:rf["p_tlas_off"] + K].copy_(prow.view(K, 64))
+    for fm in rf["flat_meta"]:
+        sl = slice(fm["first"], fm["first"] + fm["count"])
+        bounds, recs = flatten_tables(fm["src_bounds"], fm["src_ltris"],
+                                      A[sl], b[sl], nrm3[sl])
+        nb, lb = fm["node_base"], fm["ltris_base"]
+        ds.pnodes[nb:nb + bounds.shape[0], :48] = bounds
+        ds.pltris[lb:lb + recs.shape[0]] = recs
+    if rf["o_tlas_off"] is not None:
+        o = rf["o_tlas_off"]
+        ds.poccl_nodes[o:o + K].copy_(parts[5].view(K, 64))
+        for ofm in rf["oflat_meta"]:
+            sl = slice(ofm["first"], ofm["first"] + ofm["count"])
+            bounds = world_boxes(ofm["src_bounds"], A[sl], b[sl])
+            nb = ofm["node_base"]
+            ds.poccl_nodes[nb:nb + bounds.shape[0], :48] = bounds
+        if rf["operm"] is not None:
+            ds.poccl_ltris.copy_(_occl_repack(ds.pltris, rf["operm"]))
+    ds.inst_inv.copy_(inv.view(I, 12))
+    ds.inst_nrm.copy_(nrm.view(I, 9))
+    ds.world_lo.copy_(wlo)
+    ds.world_inv_extent.copy_(wie)
+
+
 def reorder_key(dev: DeviceScene, origin, direction, act,
                 bits: int = MORTON_BITS):
     """Ray-coherence sort key (the JAX package's scene.reorder_key):
@@ -533,10 +1069,10 @@ def active_bit(mode: str) -> int:
 # ---- route gates (the JAX package's scene.py:1915-2141) ----------------------
 #
 # The environment is read at every call: the port has no trace cache.
-# The JAX gates' arms for the leaf-14, fused and 16-wide tables and the
-# TLAS have no counterpart here (one thread per ray over the one 8-wide
-# tree of a non-instanced scene), nor has the ADVANCED gates' budget of
-# 16 analytic primitives (a TPU compile-time limit of unrolled tests).
+# The JAX gates' arms for the leaf-14, fused and 16-wide tables have no
+# counterpart here (one thread per ray over 8-wide trees), nor has the
+# ADVANCED gates' budget of 16 analytic primitives (a TPU compile-time
+# limit of unrolled tests).
 # Where the JAX package asks for the TPU backend, the port asks for a
 # scene on the card.
 
@@ -561,6 +1097,7 @@ def whitted_kernel_active(dev: DeviceScene, settings) -> bool:
          or os.environ.get("CPUGPU_FORCE_WHITTED_KERNEL") == "1")
         and os.environ.get("CPUGPU_NO_WHITTED_KERNEL") != "1"
         and not dev.proots
+        and dev.num_instances == 0
         and not dev.has_mesh_lights
         and dev.num_sph + dev.num_pln <= ANALYTIC_UNROLL_MAX
         and dev.num_lights <= 8
@@ -631,6 +1168,8 @@ def pt_frame_gate_reason(dev: DeviceScene, settings) -> str | None:
     reason = megakernel_gate_reason(dev, settings)
     if reason is not None:
         return reason
+    if dev.machinery:
+        return "TLAS instance machinery (flattened scenes qualify)"
     if settings.max_ray_depth > 32:
         return "max_ray_depth > 32"
     split_on = ptframe_split(settings) > 0
@@ -657,13 +1196,15 @@ def pt_frame_active(dev: DeviceScene, settings) -> bool:
 
 class Hit(NamedTuple):
     """Nearest hit per lane: t, object index (-1 = miss), PRIM_* kind,
-    primitive index (original triangle id, sphere or plane index) and the
-    mesh hit's flat normal (3 (N,) columns)."""
+    primitive index (original triangle id, sphere or plane index), the
+    instance id (-1 = a world-space hit) and the mesh hit's flat normal
+    (3 (N,) columns; in the instance's object space when inst >= 0)."""
 
     t: torch.Tensor
     obj: torch.Tensor
     kind: torch.Tensor
     prim: torch.Tensor
+    inst: torch.Tensor
     normal: tuple | None
 
 
@@ -709,10 +1250,14 @@ def intersect_scene(dev: DeviceScene, origin, direction, t_init, *,
     says whether anything lies closer than t_init (the analytic loop's
     nearest hit and an any-hit agree on existence).
 
+    On a scene on the object-space instance machinery the traversal
+    runs the kernel's instance arm (inst_inv, inst_blas_root_packet) and
+    `inst` holds the instance of each mesh hit; a flattened scene's
+    tables are world-space already and `inst` stays -1.
+
     origin/direction: (N, 3) tensors or 3-tuples of (N,) columns.  The
     JAX function's BVH depth count (count_depth, the debug AOVs) waits
-    for ROADMAP.md A9 and raises; instanced scenes (A8) do not exist in
-    the port yet."""
+    for ROADMAP.md A9 and raises."""
     if count_depth:
         raise NotImplementedError(
             "intersect_scene: count_depth (the BVH_DEPTH AOV) is not ported; "
@@ -730,14 +1275,18 @@ def intersect_scene(dev: DeviceScene, origin, direction, t_init, *,
     obj = torch.full((n,), -1, dtype=i32, device=origin.device)
     kind = torch.full_like(obj, PRIM_MESH)
     prim = torch.full_like(obj, -1)
+    inst = torch.full_like(obj, -1)
     normal = None
     if dev.proots:
-        t, tri, mobj, normal = tps.traverse_packet_slim(
+        res = tps.traverse_packet_slim(
             o_c, d_c, t_init, dev.pnodes, dev.pltris, dev.proots,
-            active=active, any_hit=any_hit)
+            active=active, any_hit=any_hit, **dev.inst_kwargs(nrm=False))
+        t, tri, mobj, normal = res[:4]
         mesh_hit = tri >= 0
         obj = torch.where(mesh_hit, mobj, obj)
         prim = torch.where(mesh_hit, tri, prim)
+        if dev.machinery:
+            inst = torch.where(mesh_hit, res[4], inst)
     t, obj, kind, prim = _analytic_arm(
         origin, direction, t, obj, kind, prim, dev.mk_sph[:dev.num_sph, 0:3],
         dev.mk_sph[:dev.num_sph, 3], dev.sph_obj, intersect.intersect_sphere,
@@ -746,18 +1295,25 @@ def intersect_scene(dev: DeviceScene, origin, direction, t_init, *,
         origin, direction, t, obj, kind, prim, dev.mk_pln[:dev.num_pln, 0:3],
         dev.mk_pln[:dev.num_pln, 3:6], dev.pln_obj, intersect.intersect_plane,
         PRIM_PLANE)
-    return Hit(t=t, obj=obj, kind=kind, prim=prim, normal=normal)
+    return Hit(t=t, obj=obj, kind=kind, prim=prim, inst=inst, normal=normal)
 
 
 def hit_surface(dev: DeviceScene, hit: Hit, origin, direction):
     """GetRayHitResult (Source/Main.cpp:325-338): hit position, geometric
-    normal (the flat triangle normal of a mesh hit) and material index
-    per lane; origin/direction (N, 3).  Lanes that missed get clamped
-    garbage the caller masks."""
+    normal (the flat triangle normal of a mesh hit; of an instance hit
+    normalize(inst_nrm @ n_object)) and material index per lane;
+    origin/direction (N, 3).  Lanes that missed get clamped garbage the
+    caller masks."""
     pos = origin + direction * hit.t[:, None]
     pc = torch.clamp(hit.prim, min=0).long()
     zero = torch.zeros_like(pos)
     n_mesh = zero if hit.normal is None else torch.stack(hit.normal, dim=1)
+    if dev.num_instances:
+        # the JAX package's explicit arithmetic, which the shade_extend
+        # kernel's epilogue repeats, so the two agree bitwise
+        n_mesh = torch.stack(ptf.instance_normal(
+            dev.inst_nrm, hit.inst, n_mesh[:, 0], n_mesh[:, 1],
+            n_mesh[:, 2]), dim=1)
     n_sph = n_pln = zero
     if dev.num_sph:
         centers = dev.mk_sph[:dev.num_sph, 0:3]

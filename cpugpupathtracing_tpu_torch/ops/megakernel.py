@@ -5,7 +5,7 @@ any-hit + energy add), which models/integrators.py's
 
 They replace the JAX package's Pallas kernels of ops/megakernel.py
 (`_shade_extend_kernel` launched by `shade_extend`, `_shadow_resolve_kernel`
-launched by `shadow_resolve`), for non-instanced scenes.  On CUDA tensors
+launched by `shadow_resolve`), with their instance arms.  On CUDA tensors
 the wrappers launch the hand-written kernels of csrc/megakernel.cu (per-lane
 bodies in csrc/pt_device.cuh, shared with pt_frame), built by
 ops/pt_frame.py's `build`.  On CPU tensors they run the plain versions
@@ -24,9 +24,15 @@ Per-lane rules (both versions):
     the any-hit tree nor the analytic occluders block the shadow ray;
     every other lane copies its energy.
 
-The JAX functions' instance machinery (inst_inv / inst_nrm / inst_root),
-leaf-14 payload tables, fused tables and 16-wide tables are not ported
-(ROADMAP.md A8): the wrappers raise on them.
+Instance arm (inst_inv / inst_nrm / inst_root given: a scene on the
+object-space TLAS machinery of models/scene.py): both walks run the TLAS
+instance machinery of ops/traverse_packet_slim.py, and shade_extend turns
+an instance hit's object-space normal into normalize(inst_nrm @ n) before
+shading.  The plain versions then take their hits from
+pt_frame.closest_hit_instances_reference; the kernels equal them bitwise.
+
+The JAX functions' leaf-14 payload tables, fused tables and 16-wide tables
+are not ported (ROADMAP.md A14): the wrappers raise on them.
 """
 
 from __future__ import annotations
@@ -38,17 +44,18 @@ from cpugpupathtracing_tpu_torch.ops.intersect import (
     brute_force_nearest_triangle,
 )
 
-# kernel launches per wrapper (comparisons against the plain version and
-# CPU calls are not counted)
-launches = {"shade_extend": 0, "shadow_resolve": 0}
+# kernel launches per wrapper, the instance arms apart (comparisons
+# against the plain version and CPU calls are not counted)
+launches = {"shade_extend": 0, "shadow_resolve": 0, "shade_extend_inst": 0,
+            "shadow_resolve_inst": 0}
 
 _F32, _I32, _I64 = torch.float32, torch.int32, torch.int64
 
 
-def _refuse(what: str, inst: dict, pay=None, fused_nn=0, width=8) -> None:
+def _refuse(what: str, pay=None, fused_nn=0, width=8) -> None:
     """Raise on the JAX arguments the port has no kernel arm for: the
-    instance machinery, leaf-14 payload, fused or 16-wide tables."""
-    given = [k for k, v in inst.items() if v is not None]
+    leaf-14 payload, fused or 16-wide tables."""
+    given = []
     if pay is not None:
         given.append("pay")
     if fused_nn:
@@ -57,8 +64,8 @@ def _refuse(what: str, inst: dict, pay=None, fused_nn=0, width=8) -> None:
         given.append(f"width={width}")
     if given:
         raise NotImplementedError(
-            f"{what}: {', '.join(given)} not ported (the kernels walk the "
-            "plain 8-wide tables of a non-instanced scene); see ROADMAP.md A8")
+            f"{what}: {', '.join(given)} not ported (the kernels walk "
+            "8-wide tables); see ROADMAP.md A14")
 
 
 def _cols(name, cols, count, dtype, dev, n):
@@ -88,13 +95,16 @@ def shade_extend(
     (bit 2 = shadow needed), shadow origin (3), shadow direction (3),
     shadow tmax, contribution (3)), the JAX function's tuple; with
     count_iters=True (CUDA only) also pt_frame's ten work counters
-    (ops/pt_frame.py COUNTERS; the shadow ones 0)."""
+    (ops/pt_frame.py COUNTERS; the shadow ones 0).  inst_inv (I, 12),
+    inst_nrm (I, 9), inst_root (I,): the instance arm."""
     del num_mats, num_objs  # read from the table shapes
-    _refuse("shade_extend", dict(inst_inv=inst_inv, inst_nrm=inst_nrm,
-                                 inst_root=inst_root), pay, fused_nn, width)
+    _refuse("shade_extend", pay, fused_nn, width)
     nee = nee and num_lights > 0
     tables = (mats, lights, ltri, sph, pln, sphmat, plnmat, objmat)
     dev = state.device
+    inst = ptf.check_instances(dev, inst_inv, inst_root, inst_nrm)
+    if inst is not None and inst_nrm is None:
+        raise ValueError("shade_extend: the instance arm needs inst_nrm")
     if dev.type == "cpu":
         if count_iters:
             raise ValueError("count_iters needs the CUDA kernel")
@@ -102,7 +112,8 @@ def shade_extend(
             ltris, *tables, depth, rays, state, throughput, energy, flags,
             num_lights=num_lights, num_sph=num_sph, num_pln=num_pln, nee=nee,
             rr=rr, cosine=cosine, ref_pdf=ref_pdf,
-            light_tri_meta=light_tri_meta)
+            light_tri_meta=light_tri_meta,
+            inst=None if inst is None else (nodes, roots, *inst))
     if dev.type != "cuda":
         raise ValueError(f"shade_extend runs on cuda or cpu tensors, not {dev}")
     out = _shade_extend_launch(
@@ -110,8 +121,8 @@ def shade_extend(
         int(depth), rays, state, throughput, energy, flags, roots=roots,
         num_lights=num_lights, num_sph=num_sph, num_pln=num_pln, nee=nee,
         rr=rr, cosine=cosine, ref_pdf=ref_pdf, light_tri_meta=light_tri_meta,
-        count_iters=count_iters)
-    launches["shade_extend"] += 1
+        count_iters=count_iters, inst=inst)
+    launches["shade_extend" if inst is None else "shade_extend_inst"] += 1
     return out
 
 
@@ -119,23 +130,25 @@ def shade_extend_host(
     nodes, ltris, mats, lights, ltri, sph, pln, sphmat, plnmat, objmat,
     depth, rays, state, throughput, energy, flags, *, roots, num_lights,
     num_sph, num_pln, nee, rr, cosine, ref_pdf, light_tri_meta=(),
-    count_iters=False, **_,
+    count_iters=False, inst_inv=None, inst_nrm=None, inst_root=None, **_,
 ):
     """`shade_extend` through the g++ build of the kernel body, on CPU
     tensors: a test of the device code without a card."""
+    dev = torch.device("cpu")
     return _shade_extend_launch(
-        ptf.build_host().mk_shade_extend_host, torch.device("cpu"), nodes,
+        ptf.build_host().mk_shade_extend_host, dev, nodes,
         ltris, (mats, lights, ltri, sph, pln, sphmat, plnmat, objmat),
         int(depth), rays, state, throughput, energy, flags, roots=roots,
         num_lights=num_lights, num_sph=num_sph, num_pln=num_pln,
         nee=nee and num_lights > 0, rr=rr, cosine=cosine, ref_pdf=ref_pdf,
-        light_tri_meta=light_tri_meta, count_iters=count_iters)
+        light_tri_meta=light_tri_meta, count_iters=count_iters,
+        inst=ptf.check_instances(dev, inst_inv, inst_root, inst_nrm))
 
 
 def _shade_extend_launch(entry, dev, nodes, ltris, tables, depth, rays, state,
                          throughput, energy, flags, *, roots, num_lights,
                          num_sph, num_pln, nee, rr, cosine, ref_pdf,
-                         light_tri_meta, count_iters):
+                         light_tri_meta, count_iters, inst=None):
     n = state.shape[0]
     ptf._check("state", state, _I64, dev, (n,))
     _cols("throughput", throughput, 3, _F32, dev, n)
@@ -145,7 +158,7 @@ def _shade_extend_launch(entry, dev, nodes, ltris, tables, depth, rays, state,
         dev, nodes, ltris, nodes, ltris, tables, rays, n=n, roots=roots,
         sh_roots=roots, light_tri_meta=light_tri_meta, num_sph=num_sph,
         num_pln=num_pln, num_lights=num_lights, nee=nee, rr=rr,
-        cosine=cosine, ref_pdf=ref_pdf, depth_base=depth)
+        cosine=cosine, ref_pdf=ref_pdf, depth_base=depth, inst=inst)
     a.state, a.flags_in = state.data_ptr(), flags.data_ptr()
     for c in range(3):
         a.tp_in[c] = throughput[c].data_ptr()
@@ -179,12 +192,17 @@ def _shade_extend_launch(entry, dev, nodes, ltris, tables, depth, rays, state,
 def shade_extend_reference(
     ltris, mats, lights, ltri, sph, pln, sphmat, plnmat, objmat, depth,
     rays, state, throughput, energy, flags, *, num_lights, num_sph, num_pln,
-    nee, rr, cosine, ref_pdf, light_tri_meta=(), records=None, chunk=4096,
+    nee, rr, cosine, ref_pdf, light_tri_meta=(), records=None, inst=None,
+    chunk=4096,
 ):
     """The plain version of `shade_extend` (same returns, no counters):
     the hits by brute force over the leaf records of `ltris` (or
     `records`, pt_frame.leaf_records(ltris)), then pt_frame's plain
-    shading body, on the active lanes only."""
+    shading body, on the active lanes only.  With inst = (nodes, roots,
+    inst_inv, inst_nrm, inst_root) the instance arm: the hits of
+    pt_frame.closest_hit_instances_reference (`records` then from
+    pt_frame.instance_records), instance normals made world normals by
+    pt_frame.instance_normal."""
     n = state.shape[0]
     dev = state.device
     tb = dict(mats=mats, lights=lights, ltri=ltri, sph=sph, pln=pln,
@@ -207,9 +225,16 @@ def shade_extend_reference(
                  active=torch.ones(lanes.numel(), dtype=torch.bool,
                                    device=dev),
                  spec=(flags[lanes] >> 1) & 1)
-        rec = records if records is not None else ptf.leaf_records(ltris)
-        hit = ptf.closest_hit_reference(ltris, p["ray"], records=rec,
-                                        chunk=chunk)
+        if inst is None:
+            rec = records if records is not None else ptf.leaf_records(ltris)
+            hit = ptf.closest_hit_reference(ltris, p["ray"], records=rec,
+                                            chunk=chunk)
+        else:
+            nodes, roots, inst_inv, inst_nrm, inst_root = inst
+            h = ptf.closest_hit_instances_reference(
+                nodes, ltris, roots, inst_inv, inst_root, p["ray"],
+                records=records, chunk=chunk)
+            hit = h[:3] + ptf.instance_normal(inst_nrm, h[6], *h[3:6])
         depth0 = torch.full_like(hit[1], int(depth) == 0, dtype=torch.bool)
         sh = ptf._shade_surface(tb, md, p, depth0, *hit)
         for c in range(6):
@@ -243,42 +268,53 @@ def shadow_resolve(
     (bvh8.to_slim_occl) with occl=True, else shading tables -- and the
     analytic occluders, then energy + (visible ? contrib : 0).  Returns
     energy' (3 (N,) f32 columns); with count_iters=True (CUDA only) also
-    the ten work counters (the closest-hit ones 0)."""
-    _refuse("shadow_resolve", dict(inst_inv=inst_inv, inst_root=inst_root),
-            fused_nn=fused_nn, width=width)
+    the ten work counters (the closest-hit ones 0).  inst_inv (I, 12),
+    inst_root (I,): the instance arm (over the shading tables)."""
+    _refuse("shadow_resolve", fused_nn=fused_nn, width=width)
     dev = flags.device
+    inst = ptf.check_instances(dev, inst_inv, inst_root)
+    if inst is not None and occl:
+        raise ValueError("shadow_resolve: the instance arm walks the "
+                         "shading tables, not the occlusion tables")
     if dev.type == "cpu":
         if count_iters:
             raise ValueError("count_iters needs the CUDA kernel")
         return shadow_resolve_reference(
             ltris, sph, pln, shadow_o, shadow_d, shadow_tmax, flags, energy,
-            contrib, num_sph=num_sph, num_pln=num_pln, occl=occl)
+            contrib, num_sph=num_sph, num_pln=num_pln, occl=occl,
+            inst=None if inst is None else (nodes, roots, inst_inv,
+                                            inst_root))
     if dev.type != "cuda":
         raise ValueError(
             f"shadow_resolve runs on cuda or cpu tensors, not {dev}")
     out = _shadow_resolve_launch(
         ptf.build().mk_shadow_resolve_launch, dev, nodes, ltris, sph, pln,
         shadow_o, shadow_d, shadow_tmax, flags, energy, contrib, roots=roots,
-        num_sph=num_sph, num_pln=num_pln, occl=occl, count_iters=count_iters)
-    launches["shadow_resolve"] += 1
+        num_sph=num_sph, num_pln=num_pln, occl=occl, count_iters=count_iters,
+        inst=inst)
+    launches["shadow_resolve" if inst is None
+             else "shadow_resolve_inst"] += 1
     return out
 
 
 def shadow_resolve_host(nodes, ltris, sph, pln, shadow_o, shadow_d,
                         shadow_tmax, flags, energy, contrib, *, roots,
                         num_sph, num_pln, occl=False, count_iters=False,
-                        **_):
+                        inst_inv=None, inst_root=None, **_):
     """`shadow_resolve` through the g++ build of the kernel body (CPU)."""
+    dev = torch.device("cpu")
     return _shadow_resolve_launch(
-        ptf.build_host().mk_shadow_resolve_host, torch.device("cpu"), nodes,
+        ptf.build_host().mk_shadow_resolve_host, dev, nodes,
         ltris, sph, pln, shadow_o, shadow_d, shadow_tmax, flags, energy,
         contrib, roots=roots, num_sph=num_sph, num_pln=num_pln, occl=occl,
-        count_iters=count_iters)
+        count_iters=count_iters,
+        inst=ptf.check_instances(dev, inst_inv, inst_root))
 
 
 def _shadow_resolve_launch(entry, dev, nodes, ltris, sph, pln, shadow_o,
                            shadow_d, shadow_tmax, flags, energy, contrib, *,
-                           roots, num_sph, num_pln, occl, count_iters):
+                           roots, num_sph, num_pln, occl, count_iters,
+                           inst=None):
     n = flags.shape[0]
     ptf._check("flags", flags, _I32, dev, (n,))
     _cols("shadow_o", shadow_o, 3, _F32, dev, n)
@@ -293,7 +329,7 @@ def _shadow_resolve_launch(entry, dev, nodes, ltris, sph, pln, shadow_o,
     a = ptf.launch_args(dev, nodes, ltris, nodes, ltris, tables,
                         tuple(shadow_o) + tuple(shadow_d), n=n, roots=roots,
                         sh_roots=roots, occl=occl, num_sph=num_sph,
-                        num_pln=num_pln)
+                        num_pln=num_pln, inst=inst)
     a.flags_in = flags.data_ptr()
     cols = tuple(shadow_o) + tuple(shadow_d) + (shadow_tmax,) + tuple(contrib)
     for c in range(10):
@@ -320,25 +356,35 @@ def occl_records(ltris: torch.Tensor) -> dict:
 
 def shadow_resolve_reference(ltris, sph, pln, shadow_o, shadow_d,
                              shadow_tmax, flags, energy, contrib, *, num_sph,
-                             num_pln, occl=False, records=None, chunk=4096):
+                             num_pln, occl=False, records=None, inst=None,
+                             chunk=4096):
     """The plain version of `shadow_resolve`: the shadow rays of the
     lanes with sneed against every triangle record of `ltris` (occlusion
     rows when occl, else shading rows; or `records`) by brute force --
     the same triangle set as any tree over them, so the same occluded
-    bit -- then the analytic occluders and the energy add."""
+    bit -- then the analytic occluders and the energy add.  With inst =
+    (nodes, roots, inst_inv, inst_root) the instance arm: a hit of
+    pt_frame.closest_hit_instances_reference (`records` then from
+    pt_frame.instance_records) occludes."""
     en = [e.clone() for e in energy]
     sl = (((flags >> 2) & 1) != 0).nonzero().squeeze(1)
     if sl.numel() == 0:
         return tuple(en)
-    rc = records
-    if rc is None:
-        rc = occl_records(ltris) if occl else ptf.leaf_records(ltris)
     so = tuple(c[sl] for c in shadow_o)
     sd = tuple(c[sl] for c in shadow_d)
     tmax = shadow_tmax[sl]
-    _, k = brute_force_nearest_triangle(
-        torch.stack(so, dim=1), torch.stack(sd, dim=1), rc["v0"], rc["e1"],
-        rc["e2"], tmax, chunk=chunk)
+    if inst is None:
+        rc = records
+        if rc is None:
+            rc = occl_records(ltris) if occl else ptf.leaf_records(ltris)
+        _, k = brute_force_nearest_triangle(
+            torch.stack(so, dim=1), torch.stack(sd, dim=1), rc["v0"],
+            rc["e1"], rc["e2"], tmax, chunk=chunk)
+    else:
+        nodes, roots, inst_inv, inst_root = inst
+        k = ptf.closest_hit_instances_reference(
+            nodes, ltris, roots, inst_inv, inst_root, so + sd, t_init=tmax,
+            any_hit=True, records=records, chunk=chunk)[1]
     occ = (k >= 0) | ptf._analytic_occluded(sph, pln, num_sph, num_pln, so,
                                             sd, tmax)
     zero = torch.zeros_like(tmax)

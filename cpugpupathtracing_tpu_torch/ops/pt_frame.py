@@ -42,6 +42,7 @@ import subprocess
 import time
 import types
 
+import numpy as np
 import torch
 
 from cpugpupathtracing_tpu_torch.ops import sampling
@@ -131,12 +132,15 @@ class _PtArgs(ctypes.Structure):
         ("en_out", ctypes.c_void_p * 3),
         ("flags_out", ctypes.c_void_p),
         ("tr_out", ctypes.c_void_p),
-        ("hit_out", ctypes.c_void_p * 6),
+        ("hit_out", ctypes.c_void_p * 7),
         ("t_init", ctypes.c_void_p),
         ("active", ctypes.c_void_p),
         ("shadow", ctypes.c_void_p * 10),
         ("iters", ctypes.c_void_p),
         ("seen", ctypes.c_void_p * 4),
+        ("inst_inv", ctypes.c_void_p),
+        ("inst_nrm", ctypes.c_void_p),
+        ("inst_root", ctypes.c_void_p),
         ("status", ctypes.c_void_p),
         ("stream", ctypes.c_void_p),
     ] + [(name, ctypes.c_int) for name in (
@@ -146,7 +150,7 @@ class _PtArgs(ctypes.Structure):
         "num_sph", "num_pln", "num_lights", "nroots", "sh_nroots",
         "mesh_lights", "sh_occl",
         "n", "depths", "depth_base", "nee", "rr", "cosine", "ref_pdf",
-        "any_hit",
+        "any_hit", "num_inst",
     )]
 
 
@@ -301,13 +305,15 @@ def _check_tree(prefix, nodes, ltris, roots, dev) -> None:
 def launch_args(dev, nodes, ltris, sh_nodes, sh_ltris, tables, rays, *, n,
                 roots, sh_roots, occl=False, light_tri_meta=(), num_sph=0,
                 num_pln=0, num_lights=0, nee=False, rr=False, cosine=False,
-                ref_pdf=False, depths=1, depth_base=0) -> _PtArgs:
+                ref_pdf=False, depths=1, depth_base=0,
+                inst=None) -> _PtArgs:
     """Checked launch arguments of any kernel of csrc/ over n lanes: the
     closest-hit tree, the shadow tree (both None, with no roots, for the
     Whitted kernel, which walks none), the eight small tables (f32 mats,
     lights, light triangles, spheres, planes; i32 sphmat, plnmat,
-    objmat), six (n,) f32 ray columns, the mode and the stream.  The
-    caller sets the per-lane column pointers."""
+    objmat), six (n,) f32 ray columns, the mode and the stream; `inst`
+    the instance tables (check_instances) of a walk on the object-space
+    machinery.  The caller sets the per-lane column pointers."""
     if nodes is not None:
         _check_tree("", nodes, ltris, roots, dev)
         _check_tree("sh_", sh_nodes, sh_ltris, sh_roots, dev)
@@ -341,10 +347,35 @@ def launch_args(dev, nodes, ltris, sh_nodes, sh_ltris, tables, rays, *, n,
     a.n, a.depths, a.depth_base = n, depths, depth_base
     a.nee, a.rr, a.cosine, a.ref_pdf = int(nee), int(rr), int(cosine), \
         int(ref_pdf)
+    if inst is not None:
+        inst_inv, inst_nrm, inst_root = inst
+        a.inst_inv, a.inst_root = inst_inv.data_ptr(), inst_root.data_ptr()
+        if inst_nrm is not None:
+            a.inst_nrm = inst_nrm.data_ptr()
+        a.num_inst = inst_root.shape[0]
     a.status = _status_tensor(dev).data_ptr()
     if dev.type == "cuda":
         a.stream = torch.cuda.current_stream(dev).cuda_stream
     return a
+
+
+def check_instances(dev, inst_inv, inst_root, inst_nrm=None):
+    """The instance tables of a kernel wrapper's object-space arm, checked
+    ((I, 12) f32 inst_inv, (I,) i32 inst_root, (I, 9) f32 inst_nrm or
+    None), as launch_args takes them; None when no instance table is
+    given.  Raises when only some are."""
+    if inst_inv is None and inst_root is None and inst_nrm is None:
+        return None
+    if inst_inv is None or inst_root is None:
+        raise ValueError("the instance arm needs inst_inv and inst_root")
+    i = inst_root.shape[0]
+    if i == 0:
+        raise ValueError("the instance arm needs at least one instance")
+    _check("inst_inv", inst_inv, torch.float32, dev, (i, 12))
+    _check("inst_root", inst_root, torch.int32, dev, (i,))
+    if inst_nrm is not None:
+        _check("inst_nrm", inst_nrm, torch.float32, dev, (i, 9))
+    return inst_inv, inst_nrm, inst_root
 
 
 def count_rows(a: _PtArgs, dev, trees):
@@ -634,6 +665,167 @@ def closest_hit_reference(ltris, rays, t_init=None, records=None,
     obj = torch.where(hit, rc["obj"][kk], m1)
     nrm = torch.where(hit[:, None], rc["n"][kk], torch.zeros_like(o))
     return t, tri, obj, nrm[:, 0], nrm[:, 1], nrm[:, 2]
+
+
+# slim entry encoding (models/bvh8.py SLIM_EMPTY; csrc/pt_device.cuh)
+SLIM_EMPTY = 0x40000000
+BIG = 1e30
+
+
+def _leaf_rows_records(ltris, rows) -> dict:
+    """leaf_records of the leaf rows `rows` (a list of row indices)."""
+    idx = torch.as_tensor(sorted(set(rows)), dtype=torch.int64,
+                          device=ltris.device)
+    return leaf_records(ltris.index_select(0, idx).reshape(-1, 128))
+
+
+def instance_records(nodes, ltris, roots, inst_root) -> dict:
+    """What the plain version of the instance arm needs of a tree with a
+    TLAS over object-space instances, from a host walk of its entries:
+    the leaf records reached without an instance entry (world space),
+    per instance the (row, slot) child boxes of its path through the TLAS
+    (in world space), and the leaf records of each instance's BLAS."""
+    ent = nodes.detach().cpu().numpy()[:, 48:56].view(np.int32)
+    iroot = [int(r) for r in inst_root.cpu().numpy()]
+
+    def walk(starts, on_instance):
+        leaves, stack = [], [(int(r), ()) for r in starts]
+        while stack:
+            r, path = stack.pop()
+            for k in range(8):
+                e = int(ent[r, k])
+                if e == SLIM_EMPTY:
+                    continue
+                if e > SLIM_EMPTY:
+                    on_instance(e - SLIM_EMPTY - 1, path + ((r, k),))
+                elif e >= 0:
+                    stack.append((e, path + ((r, k),)))
+                else:
+                    leaves.append(-e - 1)
+        return leaves
+
+    paths = {}
+    world = walk(roots, paths.__setitem__)
+    blas = {r: _leaf_rows_records(ltris, walk([r], None)) for r in
+            set(iroot)}
+    boxes = {}
+    for i, path in paths.items():
+        rows = torch.as_tensor([r for r, _ in path], dtype=torch.int64,
+                               device=nodes.device)
+        cols = torch.as_tensor([6 * k for _, k in path], dtype=torch.int64,
+                               device=nodes.device)
+        boxes[i] = nodes[rows[:, None], cols[:, None]
+                         + torch.arange(6, device=nodes.device)]
+    return dict(world=_leaf_rows_records(ltris, world) if world else None,
+                boxes=boxes, blas=[blas[r] for r in iroot])
+
+
+def _slab_pass(box, o, inv, zero, t, at_t):
+    """Lanes whose ray (origin o, reciprocal direction inv, zero-direction
+    mask zero; 3-tuples of (N,)) enters the box (6,) [min, max] before t
+    (at t too with at_t): the slab test of csrc/pt_device.cuh
+    push_children, zero_slab's rule included."""
+    t1, t2 = [], []
+    for a in range(3):
+        lo, hi = box[a], box[3 + a]
+        a1 = (lo - o[a]) * inv[a]
+        a2 = (hi - o[a]) * inv[a]
+        inf = torch.full_like(a1, float("inf"))
+        a1 = torch.where(zero[a], torch.where(lo <= o[a], -inf, inf), a1)
+        a2 = torch.where(zero[a], torch.where(o[a] <= hi, inf, -inf), a2)
+        t1.append(a1)
+        t2.append(a2)
+    tmin = torch.fmax(torch.fmax(torch.fmin(t1[0], t2[0]),
+                                 torch.fmin(t1[1], t2[1])),
+                      torch.fmin(t1[2], t2[2]))
+    tmax = torch.fmin(torch.fmin(torch.fmax(t1[0], t2[0]),
+                                 torch.fmax(t1[1], t2[1])),
+                      torch.fmax(t1[2], t2[2]))
+    before = (tmin < t) | (at_t & (tmin == t)) if at_t else tmin < t
+    return (tmax >= tmin) & before & (tmax > 0.0)
+
+
+def closest_hit_instances_reference(nodes, ltris, roots, inst_inv,
+                                    inst_root, rays, t_init=None, *,
+                                    any_hit=False, records=None,
+                                    chunk=4096):
+    """The plain version of the instance arm of a walk (the object-space
+    TLAS machinery): the world-space records by brute force; then per
+    instance, on the lanes whose world ray passes every box of the
+    instance's TLAS path, the ray moved into its object space by its
+    inst_inv row (the kernel's arithmetic) against every record of its
+    BLAS.  The nearest hit closer than t_init wins, exact ties to the
+    lowest original id, then the lowest instance -- the kernel's rule.
+    Returns (t, tri, obj, nx, ny, nz, iid); the normal of an instance hit
+    is in object space.  With any_hit the same nearest hit, one valid
+    answer of an any-hit query.  `records` reuses instance_records."""
+    rc = records if records is not None else instance_records(
+        nodes, ltris, roots, inst_root)
+    ox, oy, oz, dx, dy, dz = rays
+    n = ox.shape[0]
+    dev = ox.device
+    if t_init is None:
+        t_init = torch.full_like(ox, RAY_TMAX)
+    m1 = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    if rc["world"] is not None:
+        t, tri, obj, nx, ny, nz = closest_hit_reference(
+            ltris, rays, t_init=t_init, records=rc["world"], chunk=chunk)
+    else:
+        zero = torch.zeros_like(ox)
+        t, tri, obj, nx, ny, nz = t_init.clone(), m1, m1.clone(), zero, \
+            zero.clone(), zero.clone()
+    iid = m1.clone()
+    o = (ox, oy, oz)
+    inv = tuple(torch.where(c == 0.0, torch.full_like(c, BIG), 1.0 / c)
+                for c in (dx, dy, dz))
+    zero_dir = tuple(c == 0.0 for c in (dx, dy, dz))
+    for i in range(inst_root.shape[0]):
+        if i not in rc["boxes"]:
+            continue  # no TLAS entry reaches the instance
+        cand = torch.ones(n, dtype=torch.bool, device=dev)
+        for box in rc["boxes"][i]:
+            cand &= _slab_pass(box, o, inv, zero_dir, t_init, not any_hit)
+        lanes = cand.nonzero().squeeze(1)
+        if lanes.numel() == 0:
+            continue
+        m = inst_inv[i]
+        wo = [c[lanes] for c in (ox, oy, oz, dx, dy, dz)]
+        obj_rays = (
+            m[0] * wo[0] + m[1] * wo[1] + m[2] * wo[2] + m[3],
+            m[4] * wo[0] + m[5] * wo[1] + m[6] * wo[2] + m[7],
+            m[8] * wo[0] + m[9] * wo[1] + m[10] * wo[2] + m[11],
+            m[0] * wo[3] + m[1] * wo[4] + m[2] * wo[5],
+            m[4] * wo[3] + m[5] * wo[4] + m[6] * wo[5],
+            m[8] * wo[3] + m[9] * wo[4] + m[10] * wo[5],
+        )
+        h = closest_hit_reference(ltris, obj_rays, t_init=t_init[lanes],
+                                  records=rc["blas"][i], chunk=chunk)
+        tl, tril = t[lanes], tri[lanes]
+        better = (h[1] >= 0) & ((h[0] < tl) | ((h[0] == tl) & (h[1] < tril)))
+        sel = lanes[better]
+        t[sel] = h[0][better]
+        tri[sel] = h[1][better]
+        obj[sel] = h[2][better]
+        nx[sel], ny[sel], nz[sel] = (h[3][better], h[4][better],
+                                     h[5][better])
+        iid[sel] = i
+    return t, tri, obj, nx, ny, nz, iid
+
+
+def instance_normal(inst_nrm, iid, nx, ny, nz):
+    """World normal of instance hits: normalize(inst_nrm[iid] @ n) where
+    iid >= 0 and the image is not zero, else n unchanged -- the explicit
+    arithmetic of the JAX package's hit_surface and of the kernel's
+    shade_extend epilogue.  inst_nrm (I, 9); the rest (N,) columns."""
+    nm = inst_nrm[torch.clamp(iid, min=0).long()]
+    wx = nm[:, 0] * nx + nm[:, 1] * ny + nm[:, 2] * nz
+    wy = nm[:, 3] * nx + nm[:, 4] * ny + nm[:, 5] * nz
+    wz = nm[:, 6] * nx + nm[:, 7] * ny + nm[:, 8] * nz
+    wl = sqrt(wx * wx + wy * wy + wz * wz)
+    winst = (iid >= 0) & (wl > 0.0)
+    wls = torch.where(winst, wl, torch.ones_like(wl))
+    return (torch.where(winst, wx / wls, nx), torch.where(winst, wy / wls, ny),
+            torch.where(winst, wz / wls, nz))
 
 
 def _sphere_t(s, ox, oy, oz, dx, dy, dz):

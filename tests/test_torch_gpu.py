@@ -13,7 +13,10 @@ against the whole-frame route bitwise.  traverse_packet_slim's closest
 hits equal its plain version's bitwise and its any hits in existence;
 whitted_frame equals its plain version bitwise (energy, state, traced);
 the two Whitted routes agree on state and traced exactly and on energy
-bitwise."""
+bitwise.  On an instanced scene on the object-space machinery the
+instance arms of traverse_packet_slim, shade_extend and shadow_resolve
+equal their plain versions bitwise, and a refit on the card equals a
+fresh build bitwise."""
 
 import numpy as np
 import pytest
@@ -206,7 +209,7 @@ def test_per_depth_route_bitwise(card, sort):
     before = dict(mk.launches)
     s2, two = integrators.trace_advanced_mega(dev, settings, o, d, st,
                                               idx=idx)
-    for name in before:
+    for name in ("shade_extend", "shadow_resolve"):
         assert mk.launches[name] == before[name] + settings.max_ray_depth + 1
     ptf.check_status("cuda")
     assert torch.equal(one.energy, two.energy)
@@ -218,7 +221,7 @@ def test_megakernel_wrappers_refuse_bad_inputs(card):
     dev, o, d, st = card
     args, kw = _depth0(dev, o, d, st)
     inst = torch.zeros((1, 12), device="cuda")
-    with pytest.raises(NotImplementedError, match="inst_inv"):
+    with pytest.raises(ValueError, match="inst_root"):
         mk.shade_extend(*args, inst_inv=inst, **kw)
     with pytest.raises(NotImplementedError, match="width=16"):
         mk.shade_extend(*args, width=16, **kw)
@@ -231,7 +234,7 @@ def test_megakernel_wrappers_refuse_bad_inputs(card):
     sargs = [dev.poccl_nodes, dev.poccl_ltris, dev.mk_sph, dev.mk_pln, so,
              sd, stm, fl, en, contrib]
     skw = integrators.shadow_kwargs(dev)
-    with pytest.raises(NotImplementedError, match="inst_inv"):
+    with pytest.raises(ValueError, match="inst_root"):
         mk.shadow_resolve(*sargs, inst_inv=inst, **skw)
     sargs[7] = fl.to(torch.int64)
     with pytest.raises(ValueError, match="flags"):
@@ -302,3 +305,138 @@ def test_whitted_routes_agree(whitted_card):
     assert int(one.traced_rays) == int(two.traced_rays)
     assert torch.equal(s1, s2)
     assert torch.equal(one.energy, two.energy)
+
+
+def _instanced_scene():
+    """Three scaled, rotated icospheres under a TLAS, a floor quad and a
+    sphere light (tests/test_packet_instances.py's render scene)."""
+    s = Scene()
+    white = s.add_material(matlib.Material.diffuse((0.8, 0.8, 0.8)))
+    glass = s.add_material(matlib.Material.dielectric(
+        (0.9, 0.9, 0.9), 0.1, 0.8, (0.1, 0.2, 0.2), 1.5))
+    tf = np.zeros((3, 4, 4), np.float32)
+    for i in range(3):
+        ang = 2.1 * i + 0.4
+        c, sn = np.cos(ang), np.sin(ang)
+        sc = 0.6 + 0.2 * i
+        tf[i] = [[c * sc, 0, sn * sc, 2.2 * (i - 1)], [0, sc, 0, 0.3 * i],
+                 [-sn * sc, 0, c * sc, 0.5], [0, 0, 0, 1]]
+    s.add_instanced_mesh("balls", meshlib.icosphere(subdivisions=2), glass,
+                         tf)
+    s.add_mesh("floor", meshlib.ground_quad(half_extent=20.0, y=-2.0), white)
+    light = s.add_material(matlib.Material.light((1.0, 1.0, 1.0), 20.0))
+    s.mark_light(s.add_sphere("light", (6.0, 8.0, 6.0), 2.0, light))
+    return s
+
+
+@pytest.fixture()
+def inst_card(monkeypatch):
+    """The instanced scene on the object-space machinery on the card, and
+    camera rays and seeds for it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    monkeypatch.setenv("CPUGPU_NO_FLATTEN", "1")
+    s = _instanced_scene()
+    dev = s.device("cuda")
+    assert dev.machinery
+    cam = camlib.to_arrays(CameraConfig(pos=(0.0, 0.5, 7.0), aspect=2.0),
+                           "cuda")
+    lane = torch.arange(W * H, device="cuda")
+    o, d = camlib.lane_rays(cam, lane, W, H)
+    st = rnglib.seed_lanes(lane, 0, salt=5)
+    return s, dev, o, d, st
+
+
+def _bits(cols):
+    return [c.view(torch.int32) if c.dtype == torch.float32 else c
+            for c in cols]
+
+
+@pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any"])
+def test_traverse_instance_arm_matches_plain(inst_card, any_hit):
+    """traverse_packet_slim's instance arm on the card equals its plain
+    version: closest hits bitwise (t, id, object, object-space normal,
+    instance), any hits in existence."""
+    _, dev, o, d, _ = inst_card
+    rays = _rays(o, d)
+    t0 = torch.full((W * H,), 1e34, device="cuda")
+    act = torch.arange(W * H, device="cuda") % 3 != 0
+    before = tps.launches_inst
+    got = tps.traverse_packet_slim(rays[:3], rays[3:], t0, dev.pnodes,
+                                   dev.pltris, dev.proots, active=act,
+                                   any_hit=any_hit,
+                                   **dev.inst_kwargs(nrm=False))
+    assert tps.launches_inst == before + 1
+    ref = tps.traverse_packet_slim_reference(
+        rays, t0, dev.pltris, active=act, any_hit=any_hit,
+        inst=(dev.pnodes, dev.proots, dev.inst_inv,
+              dev.inst_blas_root_packet))
+    ptf.check_status("cuda")
+    if any_hit:
+        assert torch.equal(got[1] >= 0, ref[1] >= 0)
+        return
+    for a_, b_ in zip(_bits((got[0], got[1], got[2], *got[3], got[4])),
+                      _bits((ref[0], ref[1], ref[2], *ref[3], ref[4]))):
+        assert torch.equal(a_, b_)
+    assert int((got[4] >= 0).sum()) > 100
+
+
+def test_megakernel_instance_arms_match_plain(inst_card):
+    """shade_extend's and shadow_resolve's instance arms on the card
+    equal their plain versions bitwise (every output column of
+    shade_extend; shadow_resolve's energy)."""
+    _, dev, o, d, st = inst_card
+    n = W * H
+    one = torch.ones(n, device="cuda")
+    zero = torch.zeros(n, device="cuda")
+    kw = dict(integrators.extend_kwargs(dev, RenderSettings()),
+              **dev.inst_kwargs())
+    args = (*dev.tables(), 0, _rays(o, d), st, (one, one, one),
+            (zero, zero, zero), torch.ones(n, dtype=torch.int32,
+                                           device="cuda"))
+    got = mk.shade_extend(*args, **kw)
+    keys = ("num_lights", "num_sph", "num_pln", "nee", "rr", "cosine",
+            "ref_pdf", "light_tri_meta")
+    ref = mk.shade_extend_reference(
+        args[1], *args[2:], **{k: kw[k] for k in keys},
+        inst=(dev.pnodes, dev.proots, dev.inst_inv, dev.inst_nrm,
+              dev.inst_blas_root_packet))
+
+    def flat(x):
+        return [c for v in x for c in (v if isinstance(v, tuple) else (v,))]
+
+    for a_, b_ in zip(_bits(flat(got)), _bits(flat(ref))):
+        assert torch.equal(a_, b_)
+    nodes, ltris, skw = integrators.shadow_tables(dev)
+    sargs = (nodes, ltris, dev.mk_sph, dev.mk_pln, got[5], got[6], got[7],
+             got[4], got[3], got[8])
+    e_k = mk.shadow_resolve(*sargs, **skw)
+    e_p = mk.shadow_resolve_reference(
+        *sargs[1:], num_sph=dev.num_sph, num_pln=dev.num_pln,
+        inst=(nodes, dev.proots, dev.inst_inv, dev.inst_blas_root_packet))
+    ptf.check_status("cuda")
+    for a_, b_ in zip(_bits(e_k), _bits(e_p)):
+        assert torch.equal(a_, b_)
+    assert int(((got[4] >> 2) & 1).sum()) > 100
+
+
+def test_refit_on_card_equals_fresh_build(inst_card):
+    """A transform edit refits the snapshot on the card, in place; it
+    then equals a fresh build at the same transforms bitwise, and the
+    object-space per-depth route runs its instance arms on it."""
+    s, dev, o, d, st = inst_card
+    m = s.objects[0].instances[1].copy()
+    m[0, 3] += 0.7
+    s.set_instance_transform(0, 1, m)
+    assert s.device("cuda") is dev
+    fresh_scene = _instanced_scene()
+    fresh_scene.set_instance_transform(0, 1, m)
+    fresh = fresh_scene.device("cuda")
+    from cpugpupathtracing_tpu_torch.models.scene import TABLE_FIELDS
+    for name, _ in TABLE_FIELDS:
+        assert torch.equal(*_bits((getattr(dev, name), getattr(fresh, name))))
+    before = dict(mk.launches)
+    integrators.trace_advanced_mega(dev, RenderSettings(), o, d, st)
+    for name in ("shade_extend_inst", "shadow_resolve_inst"):
+        assert mk.launches[name] == before[name] + 6
+    ptf.check_status("cuda")

@@ -77,3 +77,16 @@ def test_reset_and_unsupported_modes():
         Renderer(golden_scene(tscene, tmat, tmesh),
                  settings=RenderSettings(render_mode=RenderMode.BRUTE_FORCE),
                  device="cpu")
+
+
+def test_renderer_keeps_camera_arrays():
+    """The camera's device arrays are made once per camera, not per
+    frame: on the card each upload from pageable memory would wait for
+    the stream."""
+    r = _render(CASES["advanced"], frames=1)
+    first = r._camera_arrays()
+    r.render_frame()
+    assert r._camera_arrays() is first
+    r.camera = CameraConfig(pos=(0.0, 0.5, 6.0))
+    moved = r._camera_arrays()
+    assert moved is not first and float(moved.pos[2]) == 6.0

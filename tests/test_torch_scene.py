@@ -82,7 +82,9 @@ def jax_tables(jdev):
                 num_lights=jdev.num_lights,
                 num_sph=int(jdev.sph_center.shape[0]),
                 num_pln=int(jdev.pln_point.shape[0]),
-                has_mesh_lights=bool(jdev.has_mesh_lights))
+                has_mesh_lights=bool(jdev.has_mesh_lights),
+                num_instances=jdev.num_instances,
+                packet_flattened=bool(jdev.packet_flattened))
     return arrays, meta
 
 

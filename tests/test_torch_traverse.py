@@ -129,16 +129,20 @@ def test_kernel_body_host_build_vs_plain(queries, any_hit):
 def test_wrapper_refusals(queries):
     """The arguments of the JAX function the port has no kernel arm for
     raise, naming the ROADMAP item; so does the BVH depth count in
-    intersect_scene."""
+    intersect_scene.  The instance arm takes both of its tables, of the
+    kernel's types."""
     _, tdev, o, d, t0, _ = queries
     rays = _cols(o, d)
     args = (rays[:3], rays[3:], torch.from_numpy(t0), tdev.pnodes,
             tdev.pltris, tdev.proots)
     for kw, item in ((dict(count_depth=True), "A9"),
-                     (dict(inst_inv=torch.zeros(1, 12),
-                           inst_root=torch.zeros(1)), "A8"),
-                     (dict(fused_nn=3), "A8"), (dict(width=16), "A8")):
+                     (dict(fused_nn=3), "A14"), (dict(width=16), "A14")):
         with pytest.raises(NotImplementedError, match=item):
+            tps.traverse_packet_slim(*args, **kw)
+    for kw, item in ((dict(inst_inv=torch.zeros(1, 12)), "inst_root"),
+                     (dict(inst_inv=torch.zeros(1, 12),
+                           inst_root=torch.zeros(1)), "inst_root")):
+        with pytest.raises(ValueError, match=item):
             tps.traverse_packet_slim(*args, **kw)
     with pytest.raises(NotImplementedError, match="A9"):
         tscene.intersect_scene(tdev, torch.from_numpy(o), torch.from_numpy(d),
