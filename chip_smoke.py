@@ -15,10 +15,14 @@ WHITTED, depth 4) at 800x600 through the whole-frame Whitted kernel
 5, 1280x720) on its three routes: flattened whole-frame, flattened
 per-depth, and object-space per-depth (CPUGPU_NO_FLATTEN=1, the instance
 arms of `shade_extend` and `shadow_resolve`), plus one WHITTED frame of
-its object-space scene (the instance arm of `traverse_packet_slim`) --
-and holds every CUDA kernel of those paths against its plain PyTorch
-version on the card.  Phases, one line each; any failure raises and
-exits non-zero:
+its object-space scene (the instance arm of `traverse_packet_slim`);
+the XLA integrator (`trace_advanced`, `traverse_packet_slim` per scene
+query, its count_depth arm with AOVs) on config 3 with AOVs off and on
+and in the RAY_DEPTH and BVH_DEPTH views, on config 5's object-space
+scene with AOVs, on a mesh light over the light table and on config 1
+in ADVANCED mode -- and holds every CUDA kernel of those paths against
+its plain PyTorch version on the card.  Phases, one line each; any
+failure raises and exits non-zero:
 
   1. device      the card's name and power limit (nvidia-smi)
   2. build       nvcc build of the kernels from the checkout, one nvcc per
@@ -58,6 +62,20 @@ exits non-zero:
                  4, through Renderer (trace_whitted): 5 closest-hit and 10
                  any-hit launches and 5 morton5 sorts per frame, every
                  256th lane of each launch against the plain version
+ 11a. frame_xla  config 3 at 1920x1080 through Renderer on the XLA
+                 integrator, AOVs off (CPUGPU_NO_MEGAKERNEL=1) and on
+                 (track_aovs): 6 closest-hit launches (the count_depth arm
+                 with AOVs), 6 shadow any-hit launches and 6 morton5 sorts
+                 per frame; each run's frame from reset against the
+                 whole-frame route's (traced exact, energy under the
+                 megakernel contract); every 256th lane of each launch of
+                 the AOV run against its plain version (the walk for
+                 count_depth, bitwise); timed frames; [xla_l<k>_<kind>]
+                 per launch
+ 11b. frame_views  the RAY_DEPTH and BVH_DEPTH views of config 3 at
+                 1920x1080: the accumulator is unchanged across a view
+                 frame; ray_depth in [0, depth + 1] and bvh_depth >= 1 on
+                 every lane whose primary ray hits a mesh; timed frames
  12. scene5      config 5 built flattened (default) and object-space
                  (CPUGPU_NO_FLATTEN=1, sharing the trees): seconds, table
                  bytes, flat_bytes against the budget, tree rows, TLAS
@@ -84,12 +102,27 @@ exits non-zero:
                  WHITTED frame of the object-space scene: 15 launches of
                  traverse_packet_slim's instance arm, every 256th lane
                  against the plain version
+ 17a. check_depth  B4's count_depth arm on the 8192 check lanes of
+                 config 3 (plain arm) and config 5's object-space scene
+                 (instance arm), closest and any hits, against the walk
+                 (traverse_walk_reference), bitwise on every output
+ 17b. frame5_aov  config 5 object-space at 1280x720 with AOVs, the hook
+                 before every frame: 6 launches of the instance arm's
+                 count_depth arm and 6 of its shadow any-hit per frame,
+                 every 256th lane of each against its plain version
+ 17c-d. frame_meshlight, frame_meshless  the tests' mesh-light scene (a
+                 mesh light of 80 triangles, over the light table) at
+                 1920x1080 and config 1 in ADVANCED mode at 800x600: the
+                 gates refuse both, trace_advanced runs every frame (12
+                 traversal launches and 6 sorts, and none), timed frames
  18. the {"kernels": [...]} line: per kernel its check's numbers, and per
      main-path launch its lanes, ms, bound and sampled error; the
-     instance arms as entries of their own (`*_inst`)
+     instance arms and the count_depth arms as entries of their own
+     (`*_inst`, `*_depth`)
  19. the last line {"ok": true, "device": {...}}
 
---profile adds, after phases 6, 7, 10, 11 and 14-16, a torch.profiler
+--profile adds, after phases 6, 7, 10, 11, 11a-b, 14-16 and 17b-d, a
+torch.profiler
 table of two frames' device time by kernel, the device-busy share of the
 frame time and the host-to-device copies from pageable memory per frame,
 per route.
@@ -195,12 +228,14 @@ def ptxas_lines(log: str) -> list:
     out, name, frame = [], None, ""
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '.*?"
-                      r"([A-Za-z]+(?:_[A-Za-z]+)*_kernel)(?:ILb([01])EE|E)",
+                      r"([A-Za-z]+(?:_[A-Za-z]+)*_kernel)(?:I((?:Lb[01]E)+)E|E)",
                       ln)
         if m:
             name, frame = m.group(1), ""
-            if m.group(2) is not None:  # the kInst template argument
-                name += "<true>" if m.group(2) == "1" else "<false>"
+            if m.group(2) is not None:  # the kInst (, kDepth) arguments
+                name += "<" + ",".join(
+                    "true" if b == "1" else "false"
+                    for b in re.findall(r"Lb([01])E", m.group(2))) + ">"
         elif "spill" in ln:
             frame = ln.strip()
         elif "registers" in ln and name:
@@ -364,6 +399,8 @@ def counts() -> dict:
     return dict(pt_frame=ptf.launches, **mk.launches,
                 traverse_packet_slim=tps.launches,
                 traverse_packet_slim_inst=tps.launches_inst,
+                traverse_packet_slim_depth=tps.launches_depth,
+                traverse_packet_slim_inst_depth=tps.launches_inst_depth,
                 whitted_frame=wk.launches, sorts=integrators.sorts)
 
 
@@ -377,6 +414,7 @@ def reset_counts() -> None:
     from cpugpupathtracing_tpu_torch.ops import whitted_kernel as wk
 
     ptf.launches = tps.launches = tps.launches_inst = wk.launches = 0
+    tps.launches_depth = tps.launches_inst_depth = 0
     integrators.sorts = 0
     for name in mk.launches:
         mk.launches[name] = 0
@@ -747,6 +785,7 @@ def check_traverse(ds, o, d) -> dict:
     for name, qr, t0, act, any_hit in queries:
         args = (qr[:3], qr[3:], t0, ds.pnodes, ds.pltris, ds.proots)
         *got, it = tps.traverse_packet_slim(*args, active=act, any_hit=any_hit,
+                                            count_depth=False,
                                             count_iters=True)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
@@ -776,7 +815,8 @@ def check_traverse(ds, o, d) -> dict:
             max_abs_err=float((got[0] - ref[0]).abs().max()) if not any_hit
             else 0.0,
             **kernel_ms(lambda: tps.traverse_packet_slim(
-                *args, active=act, any_hit=any_hit), "traverse_kernel"),
+                *args, active=act, any_hit=any_hit, count_depth=False),
+                "traverse_kernel"),
             plain_ms=plain_ms, iters=it,
             bound=bound_ms(it, trav_bytes(n, it["ray"], True, True), 0,
                            shade_ops=0))
@@ -1001,13 +1041,12 @@ def frame_whitted_mesh(scene, cam_cfg, settings, width, height,
                        profile: bool):
     """Phase 11: WHITTED on config 3's scene through Renderer, i.e.
     trace_whitted with one closest-hit and one any-hit launch per light
-    of traverse_packet_slim per depth and a morton5 sort after each.
-    Returns (main-path entries, counts)."""
+    of traverse_packet_slim per depth and a morton5 sort after each; each
+    launch timed and its sampled lanes held against the plain version
+    (traverse_main_path).  Returns (main-path entries, counts)."""
     import torch
     from cpugpupathtracing_tpu_torch.config import RenderConfig
     from cpugpupathtracing_tpu_torch.models.renderer import Renderer
-    from cpugpupathtracing_tpu_torch.ops import pt_frame as ptf
-    from cpugpupathtracing_tpu_torch.ops import traverse_packet_slim as tps
 
     dev = torch.device("cuda")
     ds = scene.device(dev)
@@ -1017,70 +1056,15 @@ def frame_whitted_mesh(scene, cam_cfg, settings, width, height,
                  config=RenderConfig(width=width, height=height),
                  settings=settings, device=dev)
     r.render_frame()  # warm-up
-    dev_ms = launch_ms(r.render_frame, "traverse_kernel")
-    call_ms = wrapper_ms(tps, ("traverse_packet_slim",), r.render_frame)
-    launches = []
-
-    def counted(entry):
-        def call(*a, active=None, any_hit=False, **k):
-            *out, iters = entry(*a, active=active, any_hit=any_hit,
-                                count_iters=True, **k)
-            n = a[2].shape[0]
-            sel = torch.arange(0, n, SAMPLE_STRIDE, device=dev)
-            launches.append(dict(
-                lanes=n, iters=iters, any_hit=any_hit,
-                given_active=active is not None,
-                rays=tuple(x[sel] for x in a[0] + a[1]), t_init=a[2][sel],
-                active=None if active is None else active[sel],
-                got=(out[0][sel], out[1][sel], out[2][sel])
-                + tuple(x[sel] for x in out[3])))
-            return tuple(out)
-        return call
-
-    instrument(tps, "traverse_packet_slim", counted, r.render_frame)
-    if not (len(launches) == len(dev_ms) == len(call_ms)
-            == depths * per_depth):
-        raise AssertionError(f"{len(launches)} traversal launches in a "
+    main_path = traverse_main_path(r.render_frame, "WHITTED mesh frame",
+                                   per_depth)
+    if len(main_path) != depths * per_depth:
+        raise AssertionError(f"{len(main_path)} traversal launches in a "
                              f"frame, expected {depths * per_depth}")
-    rec = ptf.leaf_records(ds.pltris)
-    main_path = []
-    for k, (ln, ms_k, c_ms) in enumerate(zip(launches, dev_ms, call_ms)):
-        ref = tps.traverse_packet_slim_reference(
-            ln["rays"], ln["t_init"], ds.pltris, active=ln["active"],
-            records=rec)
-        ref = (ref[0], ref[1], ref[2]) + ref[3]
-        got = ln["got"]
-        if ln["any_hit"]:
-            mism = int(((got[1] >= 0) != (ref[1] >= 0)).sum())
-            err = 0.0
-        else:
-            bad = torch.zeros_like(got[1], dtype=torch.bool)
-            for a_, b_ in zip(got, ref):
-                bad |= a_.view(torch.int32) != b_.view(torch.int32)
-            mism = int(bad.sum())
-            err = float((got[0] - ref[0]).abs().max())
-        if mism:
-            raise AssertionError(f"traversal launch {k + 1}: {mism} sampled "
-                                 "lanes differ from the plain version")
-        it = dict(zip(ptf.COUNTERS, (int(v) for v in ln["iters"])))
-        b = bound_ms(it, trav_bytes(ln["lanes"], it["ray"], True,
-                                    ln["given_active"]), 0, shade_ops=0)
-        main_path.append(dict(
-            depth=k // per_depth, kind="any" if ln["any_hit"] else "closest",
-            lanes=ln["lanes"], active=it["ray"],
-            ms=ms_k, call_ms=c_ms, bound_ms=b[0], bound_by=b[1],
-            sampled_lanes=int(got[0].shape[0]), max_abs_err=err,
-            mismatches=mism, iters=it))
-    ptf.check_status(dev)
     ms, traced, rate, got = timed_frames(
         r, "whitted mesh frames", profile, "whitted-mesh",
         traverse_packet_slim=depths * per_depth, sorts=depths)
-    energy = r.mean_energy
-    img = r.image_u32()
-    if not (math.isfinite(energy) and energy > 0.0):
-        raise AssertionError(f"mean energy {energy}")
-    if img.shape != (height, width) or not (img != 0xFF000000).any():
-        raise AssertionError("the Whitted mesh frame is black")
+    energy = frame_checks(r, "the Whitted mesh frame", height, width)
     say("frame_whitted_mesh", width=width, height=height,
         frames=TIMED_FRAMES, depths=depths, ms_per_frame=ms,
         kernel_share=sum(mp["ms"] for mp in main_path) / ms,
@@ -1181,14 +1165,20 @@ def inst_args(ds) -> tuple:
     return ds.pnodes, ds.proots, ds.inst_inv, ds.inst_blas_root_packet
 
 
+def as_bits(*cols):
+    """The columns with every f32 one viewed as its i32 bits."""
+    import torch
+
+    return [c.view(torch.int32) if c.dtype == torch.float32 else c
+            for c in cols]
+
+
 def bits_differ(got, ref):
     """Lanes where any column differs bit for bit."""
     import torch
 
     bad = torch.zeros_like(got[1], dtype=torch.bool)
-    for a_, b_ in zip(got, ref):
-        a_ = a_.view(torch.int32) if a_.dtype == torch.float32 else a_
-        b_ = b_.view(torch.int32) if b_.dtype == torch.float32 else b_
+    for a_, b_ in zip(as_bits(*got), as_bits(*ref)):
         bad |= a_ != b_
     return bad
 
@@ -1244,7 +1234,6 @@ def check_inst(s5, dev) -> dict:
     fresh build at the same transforms, every table bitwise."""
     import torch
     from cpugpupathtracing_tpu_torch.config import RenderConfig
-    from cpugpupathtracing_tpu_torch.models import camera as camlib
     from cpugpupathtracing_tpu_torch.models import integrators
     from cpugpupathtracing_tpu_torch.models import scene as scenelib
     from cpugpupathtracing_tpu_torch.ops import megakernel as mk
@@ -1253,12 +1242,7 @@ def check_inst(s5, dev) -> dict:
     from cpugpupathtracing_tpu_torch.utils import rng as rnglib
 
     ds, settings = s5["obj"]["ds"], s5["settings"]
-    w, h = s5["width"], s5["height"]
-    cam = camlib.to_arrays(s5["cam"], dev)
-    lo = w * h // 2 - CHECK_LANES // 2
-    lane = torch.arange(lo, lo + CHECK_LANES, dtype=torch.int64, device=dev)
-    o, d, pix = camlib.blocked_lane_rays(cam, lane, w, h,
-                                         *camlib.block_shape(w, h))
+    o, d, pix = middle_lanes(s5["cam"], s5["width"], s5["height"], dev)
     n = CHECK_LANES
     rays = columns(o, d)
     far = torch.full((n,), 1e34, device=dev)
@@ -1269,7 +1253,7 @@ def check_inst(s5, dev) -> dict:
 
     # B4: closest hits of the camera rays, any hits toward light 0
     *hk, it = tps.traverse_packet_slim(rays[:3], rays[3:], far, ds.pnodes,
-                                       ds.pltris, ds.proots,
+                                       ds.pltris, ds.proots, count_depth=False,
                                        count_iters=True, **ikw)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1277,8 +1261,8 @@ def check_inst(s5, dev) -> dict:
                                             inst=inst_args(ds), records=rec)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
-    hk = (hk[0], hk[1], hk[2]) + hk[3] + (hk[4],)
-    hp = (hp[0], hp[1], hp[2]) + hp[3] + (hp[4],)
+    hk = (hk[0], hk[1], hk[2]) + hk[3] + (hk[5],)
+    hp = (hp[0], hp[1], hp[2]) + hp[3] + (hp[5],)
     mism = int(bits_differ(hk, hp).sum())
     if mism:
         raise AssertionError(f"traverse_packet_slim instance arm: {mism} "
@@ -1287,7 +1271,7 @@ def check_inst(s5, dev) -> dict:
     out["traverse_packet_slim_inst"] = dict(
         **kernel_ms(lambda: tps.traverse_packet_slim(
             rays[:3], rays[3:], far, ds.pnodes, ds.pltris, ds.proots,
-            **ikw), "traverse_kernel"),
+            count_depth=False, **ikw), "traverse_kernel"),
         plain_ms=plain_ms, max_abs_err=float((hk[0] - hp[0]).abs().max()),
         iters=it, bound=bound_ms(it, trav_bytes(n, it["ray"], True, False)
                                  + n * 4, 0, shade_ops=0),
@@ -1300,7 +1284,8 @@ def check_inst(s5, dev) -> dict:
     tmax = dist - ds.mk_lights[0, 3] - 0.002
     act = hk[1] >= 0
     ak = tps.traverse_packet_slim(sq[:3], sq[3:], tmax, ds.pnodes, ds.pltris,
-                                  ds.proots, active=act, any_hit=True, **ikw)
+                                  ds.proots, active=act, any_hit=True,
+                                  count_depth=False, **ikw)
     ap = tps.traverse_packet_slim_reference(sq, tmax, ds.pltris, active=act,
                                             any_hit=True, inst=inst_args(ds),
                                             records=rec)
@@ -1364,7 +1349,7 @@ def check_inst(s5, dev) -> dict:
     # the flattened scene's hits against the object-space ones
     fds = s5["flat"]["ds"]
     hf = tps.traverse_packet_slim(rays[:3], rays[3:], far, fds.pnodes,
-                                  fds.pltris, fds.proots)
+                                  fds.pltris, fds.proots, count_depth=False)
     hf = (hf[0], hf[1], hf[2]) + hf[3]
     ex = explain_flattened(s5, rec, d, hk, hf)
     if ex["unexplained"] > FLAT_UNEXPLAINED_MAX or \
@@ -1383,9 +1368,8 @@ def check_inst(s5, dev) -> dict:
             fresh = fresh_scene.device(dev)
         torch.cuda.synchronize()
         bad = [name for name, _ in scenelib.TABLE_FIELDS
-               if not torch.equal(
-                   getattr(refit, name).view(torch.int32),
-                   getattr(fresh, name).view(torch.int32))]
+               if not torch.equal(*as_bits(getattr(refit, name),
+                                           getattr(fresh, name)))]
         if bad or refit.proots != fresh.proots:
             raise AssertionError(f"{route}: the refit differs from a fresh "
                                  f"build in {bad}")
@@ -1658,17 +1642,15 @@ def whitted5(s5) -> list:
     """Phase 17: a WHITTED frame (depth 4) of config 5's object-space
     scene through Renderer (trace_whitted), whose scene queries run
     traverse_packet_slim's instance arm: 1 closest-hit and 1 any-hit
-    launch per light per depth; one frame timing each launch (device and
-    call), one counting its work and holding every SAMPLE_STRIDE-th lane
-    against the plain version.  Returns (its main-path entries, the
-    counts of the frame)."""
+    launch per light per depth, each timed and its sampled lanes held
+    against the plain version (traverse_main_path), then one frame with
+    every count from 0.  Returns (its main-path entries, the counts of
+    that frame)."""
     import torch
     from cpugpupathtracing_tpu_torch.config import (RenderConfig,
                                                     RenderMode,
                                                     RenderSettings)
     from cpugpupathtracing_tpu_torch.models.renderer import Renderer
-    from cpugpupathtracing_tpu_torch.ops import pt_frame as ptf
-    from cpugpupathtracing_tpu_torch.ops import traverse_packet_slim as tps
 
     dev = torch.device("cuda")
     scene, hook = s5["obj"]["scene"], s5["obj"]["hook"]
@@ -1683,78 +1665,512 @@ def whitted5(s5) -> list:
                                          height=s5["height"]),
                      settings=settings, device=dev)
         hook(200, r)
-        ds = scene.device(dev)
         r.render_frame()  # warm-up
-        dev_ms = launch_ms(r.render_frame, "traverse_kernel")
-        call_ms = wrapper_ms(tps, ("traverse_packet_slim",), r.render_frame)
-        launches = []
-
-        def counted(entry):
-            def call(*a, active=None, any_hit=False, **k):
-                *out, iters = entry(*a, active=active, any_hit=any_hit,
-                                    count_iters=True, **k)
-                n = a[2].shape[0]
-                sel = torch.arange(0, n, SAMPLE_STRIDE, device=dev)
-                launches.append(dict(
-                    lanes=n, iters=iters, any_hit=any_hit,
-                    given_active=active is not None,
-                    rays=tuple(x[sel] for x in a[0] + a[1]),
-                    t_init=a[2][sel],
-                    active=None if active is None else active[sel],
-                    got=(out[0][sel], out[1][sel], out[2][sel])
-                    + tuple(x[sel] for x in out[3]) + (out[4][sel],)))
-                return tuple(out)
-            return call
-
+        main_path = traverse_main_path(r.render_frame,
+                                       "config-5 WHITTED frame", per_depth)
         reset_counts()
-        instrument(tps, "traverse_packet_slim", counted, r.render_frame)
+        r.render_frame()
         got_counts = counts()
     expect_counts(got_counts, "config-5 WHITTED frame",
                   traverse_packet_slim_inst=depths * per_depth, sorts=depths)
-    if not len(launches) == len(dev_ms) == len(call_ms):
-        raise AssertionError(f"{len(launches)} traversal launches, "
-                             f"{len(dev_ms)} timed")
-    rec = ptf.instance_records(ds.pnodes, ds.pltris, ds.proots,
-                               ds.inst_blas_root_packet)
-    main_path = []
-    for k, (ln, ms_k, c_ms) in enumerate(zip(launches, dev_ms, call_ms)):
-        ref = tps.traverse_packet_slim_reference(
-            ln["rays"], ln["t_init"], ds.pltris, active=ln["active"],
-            any_hit=ln["any_hit"], inst=inst_args(ds), records=rec)
-        ref = (ref[0], ref[1], ref[2]) + ref[3] + (ref[4],)
-        got = ln["got"]
-        if ln["any_hit"]:
-            mism = int(((got[1] >= 0) != (ref[1] >= 0)).sum())
-        else:
-            mism = int(bits_differ(got, ref).sum())
-        if mism:
-            raise AssertionError(f"config-5 WHITTED launch {k + 1}: {mism} "
-                                 "sampled lanes differ from the plain version")
-        it = dict(zip(ptf.COUNTERS, (int(v) for v in ln["iters"])))
-        # the instance column is one more i32 output per lane
-        b = bound_ms(it, trav_bytes(ln["lanes"], it["ray"], True,
-                                    ln["given_active"]) + 4 * ln["lanes"],
-                     0, shade_ops=0)
-        main_path.append(dict(
-            depth=k // per_depth, kind="any" if ln["any_hit"] else "closest",
-            lanes=ln["lanes"], active=it["ray"], ms=ms_k, call_ms=c_ms,
-            bound_ms=b[0], bound_by=b[1], sampled_lanes=int(got[0].shape[0]),
-            mismatches=mism, instance_hits=int((got[6] >= 0).sum()),
-            iters=it))
-    ptf.check_status(dev)
-    img = r.image_u32()
-    if not (math.isfinite(r.mean_energy) and r.mean_energy > 0.0) or \
-            not (img != 0xFF000000).any():
-        raise AssertionError("the config-5 WHITTED frame is black")
+    energy = frame_checks(r, "the config-5 WHITTED frame", s5["height"],
+                          s5["width"])
     say("whitted5", width=s5["width"], height=s5["height"], depths=depths,
         launches=got_counts["traverse_packet_slim_inst"],
-        sorts=got_counts["sorts"], mean_energy=r.mean_energy,
+        sorts=got_counts["sorts"], mean_energy=energy,
         sampled_mismatches=sum(mp["mismatches"] for mp in main_path),
         instance_hits_sampled=sum(mp["instance_hits"] for mp in main_path),
         traverse_ms=sum(mp["ms"] for mp in main_path))
     for mp in main_path:
         say(f"whitted5_d{mp['depth']}_{mp['kind']}", **mp)
     return main_path, got_counts
+
+
+# ---- the XLA integrator route (count_depth) -------------------------------
+
+
+def middle_lanes(cam_cfg, width, height, dev):
+    """(origin, direction, pixel) of the CHECK_LANES lanes from the middle
+    of the width x height frame's blocked camera order."""
+    import torch
+    from cpugpupathtracing_tpu_torch.models import camera as camlib
+
+    cam = camlib.to_arrays(cam_cfg, dev)
+    lo = width * height // 2 - CHECK_LANES // 2
+    lane = torch.arange(lo, lo + CHECK_LANES, dtype=torch.int64, device=dev)
+    return camlib.blocked_lane_rays(cam, lane, width, height,
+                                    *camlib.block_shape(width, height))
+
+
+def trav_plain(tps, rays, t_init, nodes, ltris, roots, active, any_hit,
+               count_depth, inst_kw):
+    """traverse_packet_slim's plain version on the arguments of a call
+    (with count_depth the walk, else brute force)."""
+    inst = ((nodes, roots, inst_kw["inst_inv"], inst_kw["inst_root"])
+            if inst_kw else None)
+    return tps.traverse_packet_slim_reference(
+        rays, t_init, ltris, active=active, any_hit=any_hit,
+        count_depth=count_depth, nodes=nodes, roots=roots, inst=inst)
+
+
+def flat_hit(res) -> tuple:
+    """A traverse_packet_slim result as flat columns: t, id, object,
+    normal x3, bvh_depth (and the instance)."""
+    return (res[0], res[1], res[2]) + tuple(res[3]) + tuple(res[4:])
+
+
+def check_depth(cases) -> dict:
+    """Phase [check_depth]: traverse_packet_slim's count_depth arm on the
+    8192 check lanes of each case (name, scene, origin, direction): the
+    closest hits of the camera rays (even lanes active) and the any hits
+    of shadow rays from them toward light 0 (odd lanes that hit
+    active) against the walk, bitwise on every output (t, id, object,
+    normal, bvh_depth, and the instance on the instance arm).  Returns
+    each query's numbers."""
+    import torch
+    from cpugpupathtracing_tpu_torch.ops import pt_frame as ptf
+    from cpugpupathtracing_tpu_torch.ops import traverse_packet_slim as tps
+
+    out = {}
+    for arm, ds, o, d in cases:
+        dev, n = o.device, o.shape[0]
+        ikw = ds.inst_kwargs(nrm=False)
+        rays = columns(o, d)
+        even = torch.arange(n, device=dev) % 2 == 0
+        far = torch.full((n,), 1e34, device=dev)
+        cam = tps.traverse_packet_slim(rays[:3], rays[3:], far, ds.pnodes,
+                                       ds.pltris, ds.proots,
+                                       count_depth=False, **ikw)
+        pos = o + d * cam[0][:, None]
+        to_l = ds.mk_lights[0, 0:3][None, :] - pos
+        dist = torch.sqrt((to_l * to_l).sum(dim=1))
+        to_l = to_l / dist[:, None]
+        for query, qr, t0, act, any_hit in (
+                ("closest", rays, far, even, False),
+                ("any", columns(pos + to_l * 0.001, to_l),
+                 dist - ds.mk_lights[0, 3] - 0.002, ~even & (cam[1] >= 0),
+                 True)):
+            args = (qr[:3], qr[3:], t0, ds.pnodes, ds.pltris, ds.proots)
+            *got, it = tps.traverse_packet_slim(*args, active=act,
+                                                any_hit=any_hit,
+                                                count_iters=True, **ikw)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            ref = trav_plain(tps, qr, t0, ds.pnodes, ds.pltris, ds.proots,
+                             act, any_hit, True, ikw)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t1) * 1e3
+            ptf.check_status(dev)
+            mism = int(bits_differ(flat_hit(got), flat_hit(ref)).sum())
+            if mism:
+                raise AssertionError(f"count_depth {arm} {query}: {mism} "
+                                     "lanes differ from the walk")
+            hit = got[1] >= 0
+            if not bool((got[4][hit] >= 1).all()):
+                raise AssertionError(f"count_depth {arm} {query}: a hit lane "
+                                     "has bvh_depth 0")
+            it = dict(zip(ptf.COUNTERS, (int(v) for v in it)))
+            # the depth column (and the instance) one more i32 per lane
+            extra = 4 * n * (1 + bool(ikw))
+            out[f"{arm}_{query}"] = dict(
+                active=int(act.sum()), hits=int(hit.sum()), mismatches=mism,
+                depth_mean=float(got[4][act].float().mean()),
+                depth_max=int(got[4].max()),
+                max_abs_err=float((got[0] - ref[0]).abs().max()),
+                **kernel_ms(lambda: tps.traverse_packet_slim(
+                    *args, active=act, any_hit=any_hit, **ikw),
+                    "traverse_kernel"),
+                plain_ms=plain_ms, iters=it,
+                bound=bound_ms(it, trav_bytes(n, it["ray"], True, True)
+                               + extra, 0, shade_ops=0))
+    say("check_depth", lanes=CHECK_LANES, **{
+        f"{q}_{k}": v[k] for q, v in out.items()
+        for k in ("active", "hits", "mismatches", "depth_mean", "depth_max",
+                  "ms", "call_ms", "plain_ms")},
+        **{f"{q}_bound_ms": v["bound"][0] for q, v in out.items()},
+        **{f"{q}_bound_by": v["bound"][1] for q, v in out.items()})
+    return out
+
+
+def traverse_main_path(frame_fn, what: str, per_depth: int) -> list:
+    """One frame of frame_fn() timing each traverse_packet_slim launch
+    (device ms and call ms), then one counting each launch's work and
+    holding every SAMPLE_STRIDE-th lane against the plain version: a
+    count_depth launch against the walk bitwise on every output, another
+    closest-hit launch against brute force bitwise, an any-hit launch in
+    existence.  Returns the main-path entries in launch order, each with
+    its depth (per_depth launches per depth)."""
+    import torch
+    from cpugpupathtracing_tpu_torch.ops import pt_frame as ptf
+    from cpugpupathtracing_tpu_torch.ops import traverse_packet_slim as tps
+
+    dev = torch.device("cuda")
+    dev_ms = launch_ms(frame_fn, "traverse_kernel")
+    call_ms = wrapper_ms(tps, ("traverse_packet_slim",), frame_fn)
+    launches = []
+
+    def counted(entry):
+        def call(*a, active=None, any_hit=False, count_depth=True, **k):
+            *out, iters = entry(*a, active=active, any_hit=any_hit,
+                                count_depth=count_depth, count_iters=True,
+                                **k)
+            n = a[2].shape[0]
+            sel = torch.arange(0, n, SAMPLE_STRIDE, device=dev)
+            launches.append(dict(
+                lanes=n, iters=iters, any_hit=any_hit,
+                count_depth=count_depth, given_active=active is not None,
+                tree=a[3:6], inst={k_: v for k_, v in k.items()
+                                   if k_.startswith("inst_")},
+                rays=tuple(x[sel] for x in a[0] + a[1]), t_init=a[2][sel],
+                active=None if active is None else active[sel],
+                got=tuple(x[sel] for x in flat_hit(out))))
+            return tuple(out)
+        return call
+
+    instrument(tps, "traverse_packet_slim", counted, frame_fn)
+    if not len(launches) == len(dev_ms) == len(call_ms):
+        raise AssertionError(f"{what}: {len(launches)} traversal launches, "
+                             f"{len(dev_ms)} timed")
+    main_path = []
+    for k, (ln, ms_k, c_ms) in enumerate(zip(launches, dev_ms, call_ms)):
+        nodes, ltris, roots = ln["tree"]
+        inst = ln["inst"]
+        got = ln["got"]
+        ref = flat_hit(trav_plain(tps, ln["rays"], ln["t_init"], nodes,
+                                  ltris, roots, ln["active"], ln["any_hit"],
+                                  ln["count_depth"], inst))
+        if ln["any_hit"] and not ln["count_depth"]:
+            mism = int(((got[1] >= 0) != (ref[1] >= 0)).sum())
+        else:
+            mism = int(bits_differ(got, ref).sum())
+        if mism:
+            raise AssertionError(f"{what} launch {k + 1}: {mism} sampled "
+                                 "lanes differ from the plain version")
+        it = dict(zip(ptf.COUNTERS, (int(v) for v in ln["iters"])))
+        extra = 4 * ln["lanes"] * (bool(ln["count_depth"]) + bool(inst))
+        b = bound_ms(it, trav_bytes(ln["lanes"], it["ray"], True,
+                                    ln["given_active"]) + extra, 0,
+                     shade_ops=0)
+        main_path.append(dict(
+            launch=k + 1, depth=k // per_depth,
+            kind="any" if ln["any_hit"] else "closest",
+            count_depth=ln["count_depth"], instance_arm=bool(inst),
+            lanes=ln["lanes"], active=it["ray"], ms=ms_k, call_ms=c_ms,
+            bound_ms=b[0], bound_by=b[1], sampled_lanes=int(got[0].shape[0]),
+            max_abs_err=float((got[0] - ref[0]).abs().max())
+            if not ln["any_hit"] else 0.0, mismatches=mism,
+            hits=int((got[1] >= 0).sum()),
+            instance_hits=int((got[-1] >= 0).sum()) if inst else 0,
+            iters=it))
+    ptf.check_status(dev)
+    return main_path
+
+
+def frame_checks(r, what: str, height: int, width: int) -> float:
+    """Raise unless r's image is a lit frame of the right shape with a
+    finite, non-zero mean energy; returns the mean energy."""
+    img = r.image_u32()
+    energy = r.mean_energy
+    if not (math.isfinite(energy) and energy > 0.0):
+        raise AssertionError(f"{what}: mean energy {energy}")
+    if img.shape != (height, width) or not (img != 0xFF000000).any():
+        raise AssertionError(f"{what}: the frame is black")
+    return energy
+
+
+def frame_xla(scene, cam_cfg, settings, width, height, profile: bool):
+    """Phase [frame_xla]: config 3 at 1920x1080 through Renderer on the
+    XLA integrator, with AOVs off (CPUGPU_NO_MEGAKERNEL=1) and with
+    track_aovs=True: per frame one closest-hit launch per depth (the
+    count_depth arm with AOVs), one any-hit launch of its shadow rays and
+    a morton5 sort, no other kernel.  Each run's frame from reset against
+    the whole-frame route's at the same seed: traced exact, energy under
+    the megakernel contract.  The AOV run holds every SAMPLE_STRIDE-th
+    lane of each launch against its plain version; TIMED_FRAMES timed
+    frames each.  Returns (main-path entries of the AOV run, its counts,
+    the numbers of each run)."""
+    import torch
+    from cpugpupathtracing_tpu_torch.config import RenderConfig
+    from cpugpupathtracing_tpu_torch.models.renderer import Renderer
+
+    dev = torch.device("cuda")
+    config = RenderConfig(width=width, height=height)
+    depths = settings.max_ray_depth + 1
+    ref = Renderer(scene, camera=cam_cfg, config=config, settings=settings,
+                   device=dev)
+    reset_counts()
+    ref.render_frame()
+    expect_counts(counts(), "whole-frame reference frame", pt_frame=2,
+                  sorts=1)
+    runs, main_path, aov_counts = {}, [], None
+    for run, env, st, want in (
+            ("aovs_off", dict(CPUGPU_NO_MEGAKERNEL="1"), settings,
+             dict(traverse_packet_slim=2 * depths, sorts=depths)),
+            ("aovs_on", {}, settings.replace(track_aovs=True),
+             dict(traverse_packet_slim_depth=depths,
+                  traverse_packet_slim=depths, sorts=depths))):
+        with environ(**env):
+            r = Renderer(scene, camera=cam_cfg, config=config, settings=st,
+                         device=dev)
+            reset_counts()
+            r.render_frame()
+            expect_counts(counts(), f"XLA route ({run}), first frame",
+                          **want)
+            flips, dmax, dmean = contract(ref._accumulator[:, :3],
+                                          r._accumulator[:, :3],
+                                          f"XLA route ({run}) vs whole-frame")
+            bitwise = bool(torch.equal(ref._accumulator, r._accumulator))
+            if r.stats.traced_rays != ref.stats.traced_rays:
+                raise AssertionError(
+                    f"XLA route ({run}) traced {r.stats.traced_rays}, the "
+                    f"whole-frame route {ref.stats.traced_rays}")
+            energy = frame_checks(r, f"XLA route ({run})", height, width)
+            if run == "aovs_on":
+                main_path = traverse_main_path(r.render_frame,
+                                               "XLA route with AOVs", 2)
+            ms, traced, rate, got = timed_frames(
+                r, f"XLA route ({run}) frames", profile, f"xla-{run}",
+                **want)
+        runs[run] = dict(ms_per_frame=ms, mrays_per_s=rate / 1e6,
+                         traced_per_frame=traced,
+                         launches_per_frame={k: v / TIMED_FRAMES
+                                             for k, v in got.items()
+                                             if v and k != "sorts"},
+                         sorts_per_frame=got["sorts"] / TIMED_FRAMES,
+                         mean_energy=energy,
+                         bitwise_whole_frame=bitwise,
+                         flip_share=flips, max_abs_err=dmax, mean_err=dmean)
+        if run == "aovs_on":
+            aov_counts = got
+    for run, v in runs.items():
+        say("frame_xla", run=run, width=width, height=height,
+            frames=TIMED_FRAMES, traced_equal_whole_frame=True, **v)
+    for mp in main_path:
+        say(f"xla_l{mp['launch']}_{mp['kind']}", **mp)
+    return main_path, aov_counts, runs
+
+
+def frame_views(scene, cam_cfg, settings, width, height, profile: bool):
+    """Phase [frame_views]: config 3 at 1920x1080 in the RAY_DEPTH and
+    BVH_DEPTH views through Renderer, after one plain frame: a view frame
+    leaves the accumulator bitwise unchanged; RAY_DEPTH launches per
+    depth the count_depth arm, the shadow any-hit and a sort, BVH_DEPTH
+    one count_depth launch.  On the whole frame's rays (trace_sample):
+    ray_depth in [0, max depth + 1], bvh_depth >= 1 on every lane whose
+    primary ray hits a mesh, and equal to the AOV run's bvh_depth.
+    TIMED_FRAMES timed frames per view.  Returns each view's numbers."""
+    import torch
+    from cpugpupathtracing_tpu_torch.config import (DebugRenderMode,
+                                                    RenderConfig)
+    from cpugpupathtracing_tpu_torch.models import camera as camlib
+    from cpugpupathtracing_tpu_torch.models import renderer as rendlib
+    from cpugpupathtracing_tpu_torch.models import scene as scenelib
+    from cpugpupathtracing_tpu_torch.utils import rng as rnglib
+
+    dev = torch.device("cuda")
+    depths = settings.max_ray_depth + 1
+    config = RenderConfig(width=width, height=height)
+    r = rendlib.Renderer(scene, camera=cam_cfg, config=config,
+                         settings=settings, device=dev)
+    r.render_frame()
+    out = {}
+    for view, want in (
+            (DebugRenderMode.RAY_DEPTH,
+             dict(traverse_packet_slim_depth=depths,
+                  traverse_packet_slim=depths, sorts=depths)),
+            (DebugRenderMode.BVH_DEPTH,
+             dict(traverse_packet_slim_depth=1))):
+        acc = r._accumulator.clone()
+        r.set_debug_mode(view)
+        reset_counts()
+        r.render_frame()
+        expect_counts(counts(), f"{view.name} view frame", **want)
+        if not torch.equal(acc, r._accumulator):
+            raise AssertionError(f"the {view.name} view changed the "
+                                 "accumulator")
+        ms, traced, rate, _ = timed_frames(r, f"{view.name} frames", profile,
+                                           f"view-{view.name}", **want)
+        out[view.name] = dict(ms_per_frame=ms, mrays_per_s=rate / 1e6,
+                              traced_per_frame=traced,
+                              accumulator_unchanged=True)
+    r.set_debug_mode(DebugRenderMode.NONE)
+
+    # per-lane AOV bounds on the whole frame's rays
+    ds = scene.device(dev)
+    n = width * height
+    lane = torch.arange(n, dtype=torch.int64, device=dev)
+    cam = camlib.to_arrays(cam_cfg, dev)
+    o, d, pix = camlib.blocked_lane_rays(cam, lane, width, height,
+                                         *camlib.block_shape(width, height))
+    st = rnglib.seed_lanes(pix, 0, salt=config.seed)
+    res = {}
+    for name, s in (
+            ("ray_depth", settings.replace(
+                debug_render_mode=DebugRenderMode.RAY_DEPTH)),
+            ("bvh_depth", settings.replace(
+                debug_render_mode=DebugRenderMode.BVH_DEPTH)),
+            ("aovs", settings.replace(track_aovs=True))):
+        res[name] = rendlib.trace_sample(ds, s, o, d, st, lane)[1]
+    h = scenelib.intersect_scene(ds, o, d, torch.full((n,), 1e34,
+                                                      device=dev),
+                                 count_depth=False)
+    mesh = (h.obj >= 0) & (h.kind == scenelib.PRIM_MESH)
+    rd = res["ray_depth"].ray_depth
+    bd = res["bvh_depth"].bvh_depth
+    checks = dict(
+        ray_depth_in_range=bool(((rd >= 0) & (rd <= depths)).all()),
+        bvh_depth_hit_lanes_ge1=bool((bd[mesh] >= 1).all()),
+        bvh_depth_nonnegative=bool((bd >= 0).all()),
+        bvh_depth_equal_aov_run=bool(torch.equal(bd, res["aovs"].bvh_depth)),
+        ray_depth_equal_aov_run=bool(torch.equal(rd, res["aovs"].ray_depth)))
+    if not all(checks.values()):
+        raise AssertionError(f"AOV bounds broken: {checks}")
+    for view, v in out.items():
+        say("frame_views", view=view, width=width, height=height,
+            frames=TIMED_FRAMES, **v)
+    say("frame_views", lanes=n, mesh_hit_lanes=int(mesh.sum()),
+        ray_depth_histogram=torch.bincount(rd.long(),
+                                           minlength=depths + 1).tolist(),
+        bvh_depth_mean_hit=float(bd[mesh].float().mean()),
+        bvh_depth_max=int(bd.max()), **checks)
+    return out
+
+
+def frame5_aov(s5, profile: bool):
+    """Phase [frame5_aov]: config 5's object-space scene at 1280x720 on the
+    XLA integrator with track_aovs=True, the hook (new transforms, a
+    refit) before every frame: per frame the instance arm's count_depth
+    launch and the instance arm's shadow any-hit per depth and a sort;
+    one frame holding every SAMPLE_STRIDE-th lane of each launch against
+    its plain version (the instance walk for count_depth); TIMED_FRAMES
+    timed frames.  Returns (main-path entries, counts, numbers)."""
+    import torch
+    from cpugpupathtracing_tpu_torch.config import RenderConfig
+    from cpugpupathtracing_tpu_torch.models.renderer import Renderer
+
+    dev = torch.device("cuda")
+    scene, hook = s5["obj"]["scene"], s5["obj"]["hook"]
+    settings = s5["settings"].replace(track_aovs=True)
+    w, h = s5["width"], s5["height"]
+    depths = settings.max_ray_depth + 1
+    want = dict(traverse_packet_slim_inst_depth=depths,
+                traverse_packet_slim_inst=depths, sorts=depths)
+    with environ(CPUGPU_NO_FLATTEN="1"):
+        r = Renderer(scene, camera=s5["cam"],
+                     config=RenderConfig(width=w, height=h),
+                     settings=settings, device=dev)
+        frame_no = [300]
+
+        def frame(sync=True):
+            hook(frame_no[0], r)
+            frame_no[0] += 1
+            return r.render_frame(sync=sync)
+
+        reset_counts()
+        frame()
+        expect_counts(counts(), "config-5 AOV frame", **want)
+        main_path = traverse_main_path(frame, "config-5 AOV frame", 2)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        traced = 0
+        for _ in range(TIMED_FRAMES):
+            traced = traced + frame(sync=False)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        got = counts()
+        expect_counts(got, "config-5 AOV frames",
+                      **{k: v * TIMED_FRAMES for k, v in want.items()})
+        ms = dt * 1e3 / TIMED_FRAMES
+        if profile:
+            profile_frames(r, ms, "xla-config5-aovs", step=lambda: hook(
+                frame_no[0], r))
+        r.render_frame()
+        energy = frame_checks(r, "config-5 AOV frame", h, w)
+    num = dict(ms_per_frame=ms, mrays_per_s=int(traced) / dt / 1e6,
+               traced_per_frame=int(traced) // TIMED_FRAMES,
+               launches_per_frame={k: v / TIMED_FRAMES for k, v in got.items()
+                                   if v and k != "sorts"},
+               sorts_per_frame=got["sorts"] / TIMED_FRAMES,
+               mean_energy=energy)
+    say("frame5_aov", width=w, height=h, frames=TIMED_FRAMES, **num)
+    for mp in main_path:
+        say(f"frame5_aov_l{mp['launch']}_{mp['kind']}", **mp)
+    return main_path, got, num
+
+
+def meshlight_scene():
+    """The CPU tests' mesh-light scene (tests/test_torch_xla.py): the
+    golden scene of tests/test_golden.py with its sphere light replaced
+    by an emissive icosphere of 80 triangles in its place, a mesh light
+    over the 64-row light table."""
+    from cpugpupathtracing_tpu_torch.models import materials as matlib
+    from cpugpupathtracing_tpu_torch.models import mesh as meshlib
+    from cpugpupathtracing_tpu_torch.models.scene import Scene
+
+    s = Scene()
+    white = s.add_material(matlib.Material.diffuse((0.9, 0.9, 0.9)))
+    blue = s.add_material(matlib.Material.diffuse((0.2, 0.2, 0.8)))
+    light = s.add_material(matlib.Material.light((1.0, 0.95, 0.8), 10.0))
+    glass = s.add_material(matlib.Material.dielectric(
+        (1.0, 1.0, 1.0), 0.0, 1.0, (0.2, 0.8, 0.8), 1.517))
+    s.add_mesh("ico", meshlib.icosphere(radius=1.5, subdivisions=2), glass)
+    s.add_mesh("cube", meshlib.cube(center=(2.8, -0.5, -1.0), half=0.9), blue)
+    s.add_plane("floor", (0.0, -2.0, 0.0), (0.0, 1.0, 0.0), white)
+    s.mark_light(s.add_mesh("light", meshlib.icosphere(
+        center=(8.0, 9.0, 7.0), radius=4.0, subdivisions=1), light))
+    return s
+
+
+def frame_xla_scene(phase, scene, cam_cfg, settings, width, height, want,
+                    profile: bool) -> dict:
+    """Phases [frame_meshlight] and [frame_meshless]: a scene no kernel
+    route takes, through Renderer: the XLA integrator runs every frame
+    (counted) with the launches and sorts of `want`; the frame is lit;
+    TIMED_FRAMES timed frames.  Returns the numbers."""
+    import torch
+    from cpugpupathtracing_tpu_torch.config import RenderConfig
+    from cpugpupathtracing_tpu_torch.models import integrators
+    from cpugpupathtracing_tpu_torch.models import scene as scenelib
+    from cpugpupathtracing_tpu_torch.models.renderer import Renderer
+
+    dev = torch.device("cuda")
+    ds = scene.device(dev)
+    reason = scenelib.megakernel_gate_reason(ds, settings)
+    if reason is None:
+        raise AssertionError(f"{phase}: a kernel route takes the scene")
+    r = Renderer(scene, camera=cam_cfg,
+                 config=RenderConfig(width=width, height=height),
+                 settings=settings, device=dev)
+    calls = []
+    entry = integrators.trace_advanced
+
+    def spy(*a, **k):
+        calls.append(1)
+        return entry(*a, **k)
+
+    integrators.trace_advanced = spy
+    try:
+        r.render_frame()  # warm-up
+        ms, traced, rate, got = timed_frames(r, f"{phase} frames", profile,
+                                             phase, **want)
+    finally:
+        integrators.trace_advanced = entry
+    # the warm-up, the timed frames and --profile's two frames
+    if len(calls) != 1 + TIMED_FRAMES + 2 * profile:
+        raise AssertionError(f"{phase}: trace_advanced ran {len(calls)} "
+                             "times")
+    energy = frame_checks(r, phase, height, width)
+    num = dict(ms_per_frame=ms, mrays_per_s=rate / 1e6,
+               traced_per_frame=traced,
+               launches_per_frame={k: v / TIMED_FRAMES
+                                   for k, v in got.items()
+                                   if v and k != "sorts"},
+               sorts_per_frame=got["sorts"] / TIMED_FRAMES,
+               mean_energy=energy)
+    say(phase, width=width, height=height, frames=TIMED_FRAMES,
+        gate_reason=f"'{reason}'", **num)
+    return num
 
 
 def main() -> int:
@@ -1764,7 +2180,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     from cpugpupathtracing_tpu_torch import benchscenes
-    from cpugpupathtracing_tpu_torch.config import RenderConfig
+    from cpugpupathtracing_tpu_torch.config import CameraConfig, RenderConfig
     from cpugpupathtracing_tpu_torch.models import camera as camlib
     from cpugpupathtracing_tpu_torch.models import integrators
     from cpugpupathtracing_tpu_torch.models.renderer import Renderer
@@ -1806,12 +2222,7 @@ def main() -> int:
     small_bytes = sum(v for k, v in tb.items() if k.startswith("mk_"))
 
     # 4. kernel vs plain on 8192 lanes of the blocked camera order
-    cam = camlib.to_arrays(cam_cfg, dev)
-    n_all = width * height
-    lo = n_all // 2 - CHECK_LANES // 2
-    lane = torch.arange(lo, lo + CHECK_LANES, dtype=torch.int64, device=dev)
-    bh, bw = camlib.block_shape(width, height)
-    o, d, pix = camlib.blocked_lane_rays(cam, lane, width, height, bh, bw)
+    o, d, pix = middle_lanes(cam_cfg, width, height, dev)
     st = rnglib.seed_lanes(pix, 0, salt=RenderConfig().seed)
     rays = columns(o, d)
     kw = integrators.frame_kwargs(ds, settings)
@@ -1986,6 +2397,11 @@ def main() -> int:
     mesh_path, mesh_counts = frame_whitted_mesh(
         scene, cam_cfg, settings1, width, height, profile)
 
+    # 11a-b. the XLA integrator on config 3: AOVs off and on, the views
+    xla_path, xla_counts, _ = frame_xla(scene, cam_cfg, settings, width,
+                                        height, profile)
+    frame_views(scene, cam_cfg, settings, width, height, profile)
+
     # 12-17. config 5: the scene (flattened and object-space), the
     # instance arms on 8192 lanes and the refit, the three routes, the
     # routes' frames compared, one WHITTED frame on the instance arm
@@ -1996,6 +2412,24 @@ def main() -> int:
         paths5[phase], counts5[phase] = frame5(s5, phase, profile)
     compare_routes5(s5)
     whit5_path, whit5_counts = whitted5(s5)
+
+    # 17a-b. B4's count_depth arm on the check lanes of config 3 and of
+    # config 5's object-space scene; config 5 on the XLA route with AOVs
+    o5, d5, _ = middle_lanes(s5["cam"], s5["width"], s5["height"], dev)
+    depth_chk = check_depth([("plain", ds, o, d),
+                             ("inst", s5["obj"]["ds"], o5, d5)])
+    aov5_path, aov5_counts, _ = frame5_aov(s5, profile)
+
+    # 17c-d. scenes no kernel route takes: a mesh light over the light
+    # table (the tests' scene at 1920x1080) and config 1 in ADVANCED mode
+    depths = settings.max_ray_depth + 1
+    frame_xla_scene(
+        "frame_meshlight", meshlight_scene(),
+        CameraConfig(pos=(0.05, 0.5, 7.0), aspect=width / height), settings,
+        width, height, dict(traverse_packet_slim=2 * depths, sorts=depths),
+        profile)
+    frame_xla_scene("frame_meshless", scene1, cam1, settings, width1,
+                    height1, {}, profile)
 
     # 18. kernels line, one clock per field: ms (device time per launch,
     # launch_ms), call_ms (CUDA events around the wrapper calls,
@@ -2120,6 +2554,38 @@ def main() -> int:
             "library_ms": None,
             "check_lanes": CHECK_LANES,
             "main_path": path,
+        })
+    # B4's count_depth arms: their check lanes (check_depth), launches
+    # and sampled main-path lanes from config 3 (plain arm) and config 5
+    # (instance arm) on the XLA route with AOVs
+    for name, arm, launches, path in (
+            ("traverse_packet_slim_depth", "plain",
+             xla_counts["traverse_packet_slim_depth"], xla_path),
+            ("traverse_packet_slim_inst_depth", "inst",
+             aov5_counts["traverse_packet_slim_inst_depth"], aov5_path)):
+        m = depth_chk[f"{arm}_closest"]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "cpugpupathtracing_tpu_torch/csrc/traverse.cu",
+            "replaces": "cpugpupathtracing_tpu/ops/traverse_packet_slim.py"
+                        ":1485",
+            "launches": launches,
+            "max_abs_err": m["max_abs_err"],
+            "ms": m["ms"],
+            "call_ms": m["call_ms"],
+            "plain_ms": m["plain_ms"],
+            "bound_ms": m["bound"][0],
+            "bound_by": m["bound"][1],
+            "library_ms": None,
+            "check_lanes": CHECK_LANES,
+            "check_any_hit": {k: depth_chk[f"{arm}_any"][k] for k in (
+                "ms", "call_ms", "plain_ms", "mismatches")}
+            | {"bound_ms": depth_chk[f"{arm}_any"]["bound"][0]},
+            "main_path": [{key: mp[key] for key in (
+                "launch", "lanes", "active", "ms", "call_ms", "bound_ms",
+                "bound_by", "sampled_lanes", "max_abs_err", "mismatches")}
+                for mp in path if mp["count_depth"]],
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     # 19. last line

@@ -36,6 +36,7 @@
 #pragma once
 
 #include <cmath>
+#include <cstddef>
 #include <cstdint>
 #include <cstring>
 
@@ -221,9 +222,13 @@ PT_HD void zero_slab(float lo, float hi, float o, float& t1, float& t2) {
 // The 8 slab tests of one node row; pushes every child the ray enters
 // before `t` (at `t` too when `at_t`: a closest-hit walk must still visit
 // boxes that may hold an exact tie), in slot order.  Validity lives in
-// the entry, not the bounds.  Returns false if the stack is full.
+// the entry, not the bounds.  With kDepth, adds 1 to *depth when at
+// least one child passes (the per-ray reading of the Pallas kernel's
+// `depth += any(bm[k])`).  Returns false if the stack is full.
+template <bool kDepth = false>
 PT_HD bool push_children(const float* row, const SlabRay& r, float t,
-                         bool at_t, int* stack, int& sp) {
+                         bool at_t, int* stack, int& sp,
+                         int* depth = nullptr) {
   float b[48];
 #pragma unroll
   for (int q = 0; q < 12; ++q) {
@@ -237,6 +242,8 @@ PT_HD bool push_children(const float* row, const SlabRay& r, float t,
   int ent[8] = {as_int(e0.x), as_int(e0.y), as_int(e0.z), as_int(e0.w),
                 as_int(e1.x), as_int(e1.y), as_int(e1.z), as_int(e1.w)};
   bool ok = true;
+  bool passed = false;
+  (void)passed;
 #pragma unroll
   for (int k = 0; k < 8; ++k) {
     const float* c = b + 6 * k;  // min xyz, max xyz
@@ -255,6 +262,7 @@ PT_HD bool push_children(const float* row, const SlabRay& r, float t,
     float tmax = fminf(fminf(fmaxf(tx1, tx2), fmaxf(ty1, ty2)), fmaxf(tz1, tz2));
     bool before = tmin < t || (at_t && tmin == t);
     if (tmax >= tmin && before && tmax > 0.0f && ent[k] != SLIM_EMPTY) {
+      if constexpr (kDepth) passed = true;
       if (sp < PT_STACK) {
         stack[sp++] = ent[k];
       } else {
@@ -262,6 +270,7 @@ PT_HD bool push_children(const float* row, const SlabRay& r, float t,
       }
     }
   }
+  if constexpr (kDepth) *depth += passed ? 1 : 0;
   return ok;
 }
 
@@ -346,13 +355,15 @@ PT_HD int instance_entry(const Tree& tr, const WalkRay& w, WalkRay& cur,
 // instance): exact ties (a ray through a shared vertex or edge) then
 // resolve as the brute-force oracle resolves them, whatever order the
 // walk visits the leaves in, so hits are bitwise the oracle's on every
-// ray.  With kInst the walk runs the instance machinery.  Returns false
-// on a stack overflow.
-template <bool kInst = false>
+// ray.  With kInst the walk runs the instance machinery; with kDepth it
+// counts into *depth the node rows at which a child passed the push test
+// (instance entries and RESTORE are no node rows; a BLAS root is).
+// Returns false on a stack overflow.
+template <bool kInst = false, bool kDepth = false>
 PT_HD bool closest_hit(const Tree& tr, float ox, float oy, float oz,
                        float dx, float dy, float dz, Hit& h,
                        unsigned long long& it_node,
-                       unsigned long long& it_leaf) {
+                       unsigned long long& it_leaf, int* depth = nullptr) {
   const WalkRay w = world_ray(ox, oy, oz, dx, dy, dz);
   WalkRay cur = w;
   int stack[PT_STACK];
@@ -367,8 +378,8 @@ PT_HD bool closest_hit(const Tree& tr, float ox, float oy, float oz,
     } else if (e >= 0) {
       ++it_node;
       if (tr.seen_node) tr.seen_node[e] = 1;
-      ok &= push_children(tr.nodes + (size_t)e * 64, cur.sr, h.t, true,
-                          stack, sp);
+      ok &= push_children<kDepth>(tr.nodes + (size_t)e * 64, cur.sr, h.t,
+                                  true, stack, sp, depth);
     } else {
       ++it_leaf;
       if (tr.seen_leaf) tr.seen_leaf[-e - 1] = 1;
@@ -403,13 +414,13 @@ PT_HD bool closest_hit(const Tree& tr, float ox, float oy, float oz,
 // row) or a shading tree (8 records of 16 cols).  Sets `occluded`; with
 // kReport (shading trees only) also writes the record it found into
 // `found` (t, original id, object, flat normal, instance).  With kInst
-// the walk runs the instance machinery.  Returns false on a stack
-// overflow.
-template <bool kReport = false, bool kInst = false>
+// the walk runs the instance machinery; kDepth counts as in closest_hit,
+// up to the row that ends the walk.  Returns false on a stack overflow.
+template <bool kReport = false, bool kInst = false, bool kDepth = false>
 PT_HD bool any_hit(const Tree& tr, float ox, float oy, float oz, float dx,
                    float dy, float dz, float tmax, bool& occluded,
                    unsigned long long& it_node, unsigned long long& it_leaf,
-                   Hit* found = nullptr) {
+                   Hit* found = nullptr, int* depth = nullptr) {
   const WalkRay w = world_ray(ox, oy, oz, dx, dy, dz);
   WalkRay cur = w;
   int stack[PT_STACK];
@@ -425,8 +436,8 @@ PT_HD bool any_hit(const Tree& tr, float ox, float oy, float oz, float dx,
     } else if (e >= 0) {
       ++it_node;
       if (tr.seen_node) tr.seen_node[e] = 1;
-      ok &= push_children(tr.nodes + (size_t)e * 64, cur.sr, tmax, false,
-                          stack, sp);
+      ok &= push_children<kDepth>(tr.nodes + (size_t)e * 64, cur.sr, tmax,
+                                  false, stack, sp, depth);
     } else {
       ++it_leaf;
       if (tr.seen_leaf) tr.seen_leaf[-e - 1] = 1;
@@ -1088,6 +1099,7 @@ struct PtArgs {
   void* flags_out;
   void* tr_out;
   void* hit_out[7];   // traverse: t, tri, obj, nx, ny, nz, iid (or null)
+  void* depth_out;    // traverse: (n,) i32 bvh_depth (count_depth), or null
   const void* t_init;  // traverse: (n,) f32 per-lane t bound, or null
   const void* active;  // traverse: (n,) i32 lane mask, or null (all)
   void* shadow[10];   // Params::shadow: shade_extend out, shadow_resolve in
@@ -1105,6 +1117,16 @@ struct PtArgs {
   int num_sph, num_pln, num_lights, nroots, sh_nroots, mesh_lights, sh_occl;
   int n, depths, depth_base, nee, rr, cosine, ref_pdf, any_hit, num_inst;
 };
+
+// The layout of PtArgs as this compiler sees it: its size and the
+// offsets of depth_out and of its last field, which ops/pt_frame.py holds
+// against its ctypes mirror when it loads a build (a field out of step
+// would shift every later one silently).
+inline void args_layout(long long* out) {
+  out[0] = (long long)sizeof(PtArgs);
+  out[1] = (long long)offsetof(PtArgs, depth_out);
+  out[2] = (long long)offsetof(PtArgs, num_inst);
+}
 
 // Word offsets of the packed small tables: mats (M, 14), lights (L, 10),
 // light triangles (LT, 12), spheres (S, 6), planes (P, 7) as f32, then
@@ -1191,8 +1213,10 @@ PT_HD Params make_params(const PtArgs& a, const Tree& tree,
 // its normal in object space.  A lane that is not active, and a lane
 // that hits nothing, writes t_init, ids -1 and a zero normal.  Without
 // t_init / active columns every lane is active with t_init = RAY_TMAX
-// (the closest-hit test of ops/pt_frame.py).
-template <bool kInst = false>
+// (the closest-hit test of ops/pt_frame.py).  With kDepth (count_depth:
+// a.depth_out set) the lane also writes its walk's bvh_depth, 0 when it
+// is not active.
+template <bool kInst = false, bool kDepth = false>
 PT_HD bool traverse_lane(const PtArgs& a, const Tree& tree, int lane,
                          Counters& cnt) {
   const float* const* r = reinterpret_cast<const float* const*>(a.ray);
@@ -1200,20 +1224,23 @@ PT_HD bool traverse_lane(const PtArgs& a, const Tree& tree, int lane,
       a.t_init ? static_cast<const float*>(a.t_init)[lane] : RAY_TMAX;
   const bool act = !a.active || static_cast<const int*>(a.active)[lane] != 0;
   Hit h = {t0, -1, -1, 0.0f, 0.0f, 0.0f, -1};
+  int depth = 0;
   bool ok = true;
   if (act) {
     ++cnt.ray;
     if (a.any_hit) {
       bool occ = false;
-      ok = any_hit<true, kInst>(tree, r[0][lane], r[1][lane], r[2][lane],
-                                r[3][lane], r[4][lane], r[5][lane], t0, occ,
-                                cnt.node, cnt.leaf, &h);
+      ok = any_hit<true, kInst, kDepth>(
+          tree, r[0][lane], r[1][lane], r[2][lane], r[3][lane], r[4][lane],
+          r[5][lane], t0, occ, cnt.node, cnt.leaf, &h, &depth);
     } else {
-      ok = closest_hit<kInst>(tree, r[0][lane], r[1][lane], r[2][lane],
-                              r[3][lane], r[4][lane], r[5][lane], h,
-                              cnt.node, cnt.leaf);
+      ok = closest_hit<kInst, kDepth>(tree, r[0][lane], r[1][lane],
+                                      r[2][lane], r[3][lane], r[4][lane],
+                                      r[5][lane], h, cnt.node, cnt.leaf,
+                                      &depth);
     }
   }
+  if constexpr (kDepth) static_cast<int*>(a.depth_out)[lane] = depth;
   static_cast<float*>(a.hit_out[0])[lane] = h.t;
   static_cast<int*>(a.hit_out[1])[lane] = h.tri;
   static_cast<int*>(a.hit_out[2])[lane] = h.obj;

@@ -15,6 +15,11 @@ using LaneFn = bool (*)(const pt::Params&, const pt::Tables&, int,
 
 bool traverse_body(const pt::Params& p, const pt::Tables&, int lane,
                    pt::Counters& cnt, const pt::PtArgs& a) {
+  if (a.depth_out) {
+    return a.num_inst > 0
+               ? pt::traverse_lane<true, true>(a, p.tree, lane, cnt)
+               : pt::traverse_lane<false, true>(a, p.tree, lane, cnt);
+  }
   return a.num_inst > 0 ? pt::traverse_lane<true>(a, p.tree, lane, cnt)
                         : pt::traverse_lane<false>(a, p.tree, lane, cnt);
 }
@@ -65,4 +70,9 @@ extern "C" int mk_shade_extend_host(const pt::PtArgs* a) {
 extern "C" int mk_shadow_resolve_host(const pt::PtArgs* a) {
   return run(a, a->num_inst > 0 ? pt::shadow_resolve_lane<true>
                                 : pt::shadow_resolve_lane<false>);
+}
+
+extern "C" int pt_args_layout(long long* out) {
+  pt::args_layout(out);
+  return 0;
 }

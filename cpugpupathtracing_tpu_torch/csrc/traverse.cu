@@ -2,14 +2,17 @@
 // a batch of rays over the slim 8-wide closest-hit tables.
 //
 // Replaces the JAX package's Pallas kernel ops/traverse_packet_slim.py
-// (_traverse_kernel, launched by traverse_packet_slim) without the
-// BVH-depth count, its TLAS instance machinery (instanced=True: inst_inv,
-// inst_root, the RESTORE marker, the hit's instance id) included.  models/scene.intersect_scene calls
-// it for the mesh arm of every scene query of the Whitted integrator: the
-// closest hit of each depth's rays and the any-hit of each light's shadow
-// rays.  Per lane: t_init bounds the hit; a lane that is not active writes
-// t_init and ids -1.  Returns t, original triangle id, object and flat
-// normal (the shading payload of the leaf records).
+// (_traverse_kernel, launched by traverse_packet_slim), its TLAS instance
+// machinery (instanced=True: inst_inv, inst_root, the RESTORE marker, the
+// hit's instance id) and its BVH-depth count (count_depth: bvh_depth, the
+// node rows at which a child passed the push test) included.
+// models/scene.intersect_scene calls it for the mesh arm of every scene
+// query of the Whitted integrator and of the XLA integrator
+// (models/integrators.trace_advanced): the closest hit of each depth's
+// rays, counting depth when AOVs are on, and the any-hit of each shadow
+// ray.  Per lane: t_init bounds the hit; a lane that is not active writes
+// t_init, ids -1 and depth 0.  Returns t, original triangle id, object
+// and flat normal (the shading payload of the leaf records).
 //
 // What bounds it on this card: neither HBM bytes (an active lane reads
 // 32 bytes, one that is not active 8, and each writes 24) nor f32
@@ -25,7 +28,9 @@
 // an any-hit that stops at the first hit; the roots ride in shared memory
 // with the launch's small tables.  Lanes that are not active exit at
 // once, so a shadow launch's cost follows its shadow rays; the caller's
-// morton sort of the wavefront groups coherent rays into warps.
+// morton sort of the wavefront groups coherent rays into warps.  The
+// depth count is one register and one store, built as its own template
+// arm so the walks without it compile as before.
 //
 // Build: as pt_frame.cu (ops/pt_frame.py builds every unit).
 
@@ -33,8 +38,9 @@
 
 namespace {
 
-// kInst: the instance arm (object-space TLAS machinery), built both ways
-template <bool kInst>
+// kInst: the instance arm (object-space TLAS machinery); kDepth: the
+// count_depth arm (bvh_depth out); built all four ways
+template <bool kInst, bool kDepth>
 __global__ void __launch_bounds__(pt::kBlock)
     traverse_kernel(const pt::PtArgs a) {
   extern __shared__ float smem[];
@@ -43,7 +49,7 @@ __global__ void __launch_bounds__(pt::kBlock)
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   pt::Counters cnt;
   const bool ok =
-      lane >= a.n || pt::traverse_lane<kInst>(a, p.tree, lane, cnt);
+      lane >= a.n || pt::traverse_lane<kInst, kDepth>(a, p.tree, lane, cnt);
   pt::finish(a, ok, cnt);
 }
 
@@ -52,6 +58,16 @@ __global__ void __launch_bounds__(pt::kBlock)
 // Returns cudaGetLastError() after the launch (or -1 when the packed small
 // tables do not match the layout); never synchronises.
 extern "C" int traverse_launch(const pt::PtArgs* a) {
-  return a->num_inst > 0 ? pt::launch(traverse_kernel<true>, a)
-                         : pt::launch(traverse_kernel<false>, a);
+  if (a->depth_out) {
+    return a->num_inst > 0 ? pt::launch(traverse_kernel<true, true>, a)
+                           : pt::launch(traverse_kernel<false, true>, a);
+  }
+  return a->num_inst > 0 ? pt::launch(traverse_kernel<true, false>, a)
+                         : pt::launch(traverse_kernel<false, false>, a);
+}
+
+// PtArgs' size and offsets (pt::args_layout), for the ctypes mirror check.
+extern "C" int pt_args_layout(long long* out) {
+  pt::args_layout(out);
+  return 0;
 }

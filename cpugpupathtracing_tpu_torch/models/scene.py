@@ -32,7 +32,9 @@ ops/megakernel.py, listed at `_mk_tables`.
 `intersect_scene` and `hit_surface` are the nearest hit over every object
 (the mesh trees through ops/traverse_packet_slim.py, then the analytic
 spheres and planes) and its surface, as the Whitted integrator
-(models/whitted.py) uses them.  The route gates of the kernels live here
+(models/whitted.py) and the XLA integrator (models/integrators.py
+trace_advanced) use them; the tables of the latter's light sampling
+(`tris9`, `tri_normal`, `light_*`) are here too.  The route gates of the kernels live here
 too, as in the JAX package.
 """
 
@@ -66,8 +68,6 @@ PRIM_MESH, PRIM_SPHERE, PRIM_PLANE = 0, 1, 2
 MESH_LIGHT_MAX_TRIS = 64
 # the 8-bit-per-axis morton key of the split-span wavefront sort
 MORTON_BITS = 8
-# analytic sphere / plane tests run as a per-object loop up to this many
-# objects and in the batched (N, S) form beyond (bitwise the same hits);
 # the Whitted kernel's gate takes scenes of at most this many analytic
 # objects and materials (the JAX package's limit, kept for parity)
 ANALYTIC_UNROLL_MAX = 16
@@ -94,6 +94,20 @@ TABLE_FIELDS = (
     ("inst_nrm", torch.float32),      # (I, 9) normal matrix inv(M)^T
     ("inst_blas_root_packet", torch.int32),  # (I,) slim row of the BLAS root
     ("inst_obj", torch.int32),        # (I,) owning object
+    # the XLA integrator's tables (models/integrators.trace_advanced), in
+    # the JAX package's names: every mesh's triangles once, in global
+    # original order and in object space (an instanced mesh's too, so a
+    # refit leaves them as they are), and one row per light
+    ("tris9", torch.float32),         # (T, 9) [v0, e1, e2]
+    ("tri_normal", torch.float32),    # (T, 3) flat normal
+    ("light_obj", torch.int32),       # (L,) light -> object
+    ("light_is_sphere", torch.bool),  # (L,)
+    ("light_sph_center", torch.float32),  # (L, 3) center (mesh: centroid)
+    ("light_sph_radius", torch.float32),  # (L,) radius (mesh: 0)
+    ("light_sph_radius_sq", torch.float32),  # (L,)
+    ("light_tri_start", torch.int32),  # (L,) first triangle in tris9
+    ("light_tri_count", torch.int32),  # (L,) triangles (sphere: 0)
+    ("light_half_area", torch.float32),  # (L,) mesh total_area / 2
 )
 META_FIELDS = ("proots", "poccl_roots", "light_tri_meta", "num_lights",
                "num_sph", "num_pln", "has_mesh_lights", "num_instances",
@@ -127,6 +141,16 @@ class DeviceScene:
     inst_nrm: torch.Tensor
     inst_blas_root_packet: torch.Tensor
     inst_obj: torch.Tensor
+    tris9: torch.Tensor
+    tri_normal: torch.Tensor
+    light_obj: torch.Tensor
+    light_is_sphere: torch.Tensor
+    light_sph_center: torch.Tensor
+    light_sph_radius: torch.Tensor
+    light_sph_radius_sq: torch.Tensor
+    light_tri_start: torch.Tensor
+    light_tri_count: torch.Tensor
+    light_half_area: torch.Tensor
     proots: tuple
     poccl_roots: tuple
     # per-light (start, count) into mk_light_tris; (0, 0) for spheres
@@ -157,6 +181,10 @@ class DeviceScene:
     @property
     def num_objs(self) -> int:
         return int(self.mk_objmat.shape[0])
+
+    @property
+    def num_triangles(self) -> int:
+        return int(self.tris9.shape[0])
 
     @property
     def machinery(self) -> bool:
@@ -582,6 +610,8 @@ class Scene:
             inst_nrm=np.zeros((num_instances, 9), f32),
             inst_blas_root_packet=np.asarray(inst_root_l, i32),
             inst_obj=np.asarray(inst_obj_l, i32),
+            tris9=rows(tris9_l, 9),
+            tri_normal=rows(tnrm_l, 3),
             **mk,
         )
         if num_instances:
@@ -629,7 +659,11 @@ class Scene:
                     triangle, light_tri_meta (start, count) per light,
                     (0, 0) for every light when the mesh lights' triangles
                     exceed MESH_LIGHT_MAX_TRIS (the gates then refuse the
-                    scene), and whether any light is a mesh."""
+                    scene), and whether any light is a mesh;
+        and the XLA integrator's light tables (the JAX package's light_*
+        fields): per light its object, whether it is a sphere, center and
+        radius (a mesh light's centroid and 0), radius^2, a mesh light's
+        triangle range in tris9 and half total area (0 for a sphere)."""
         f32, i32 = np.float32, np.int32
         M = len(self.materials)
         mk_mats = np.zeros((max(M, 1), 14), f32)
@@ -709,7 +743,19 @@ class Scene:
             mk_pln[pi, 0:3] = pln["point"][pi]
             mk_pln[pi, 3:6] = pln["normal"][pi]
             mk_pln[pi, 6] = self.objects[pln["obj"][pi]].mat_index
+        l_is_sph = mk_lights[:L, 9] > 0.5
+        l_radius = mk_lights[:L, 3].copy()
         mk = dict(
+            light_obj=np.asarray(self.light_indices, i32).reshape(L),
+            light_is_sphere=l_is_sph,
+            light_sph_center=mk_lights[:L, 0:3].copy(),
+            light_sph_radius=l_radius,
+            light_sph_radius_sq=l_radius * l_radius,
+            light_tri_start=np.asarray([s0 for s0, _ in l_tri],
+                                       i32).reshape(L),
+            light_tri_count=np.asarray([c for _, c in l_tri], i32).reshape(L),
+            light_half_area=np.where(l_is_sph, f32(0.0),
+                                     mk_lights[:L, 4]).astype(f32),
             mk_mats=mk_mats,
             mk_lights=mk_lights,
             mk_light_tris=mk_light_tris,
@@ -1117,8 +1163,8 @@ def _log_once(reason: str, what: str) -> None:
 
 def megakernel_gate_reason(dev: DeviceScene, settings) -> str | None:
     """Why the per-depth pipeline (models/integrators.trace_advanced_mega)
-    cannot run, or None when it can.  Where the JAX package then falls
-    back to its XLA integrator, the port has no route yet."""
+    cannot run, or None when it can; ADVANCED mode then takes the XLA
+    integrator (integrators.trace_advanced), as in the JAX package."""
     if os.environ.get("CPUGPU_NO_MEGAKERNEL") == "1":
         return "CPUGPU_NO_MEGAKERNEL=1"
     if not dev.proots:
@@ -1195,15 +1241,18 @@ def pt_frame_active(dev: DeviceScene, settings) -> bool:
 
 
 class Hit(NamedTuple):
-    """Nearest hit per lane: t, object index (-1 = miss), PRIM_* kind,
-    primitive index (original triangle id, sphere or plane index), the
-    instance id (-1 = a world-space hit) and the mesh hit's flat normal
-    (3 (N,) columns; in the instance's object space when inst >= 0)."""
+    """Nearest hit per lane, in the JAX package's field order: t, object
+    index (-1 = miss), PRIM_* kind, primitive index (original triangle
+    id, sphere or plane index), bvh_depth (the traversal's count_depth;
+    0 without it), the instance id (-1 = a world-space hit) and the mesh
+    hit's flat normal (3 (N,) columns; in the instance's object space when
+    inst >= 0)."""
 
     t: torch.Tensor
     obj: torch.Tensor
     kind: torch.Tensor
     prim: torch.Tensor
+    bvh_depth: torch.Tensor
     inst: torch.Tensor
     normal: tuple | None
 
@@ -1211,27 +1260,19 @@ class Hit(NamedTuple):
 def _analytic_arm(origin, direction, t, obj, kind, prim, points, params,
                   objs, test, prim_kind):
     """Nearest analytic primitive of one kind closer than t: a strict <
-    per-object loop (ties keep the lowest index) up to ANALYTIC_UNROLL_MAX
-    objects, the batched (N, S) first-min form beyond; bitwise the same
-    hits either way."""
+    per-object loop, ties keep the lowest index (the JAX package's
+    batched form beyond ANALYTIC_UNROLL_MAX objects, kept there for TPU
+    compile time, gives the same hits and is not ported)."""
     count = points.shape[0]
     if count == 0:
         return t, obj, kind, prim
-    if count <= ANALYTIC_UNROLL_MAX:
-        best = torch.full_like(t, float("inf"))
-        bj = torch.zeros_like(obj)
-        for j in range(count):
-            valid, tj = test(origin, direction, points[j], params[j])
-            closer = valid & (tj < t) & (tj < best)
-            best = torch.where(closer, tj, best)
-            bj = torch.where(closer, torch.full_like(bj, j), bj)
-    else:
-        valid, ts = test(origin[:, None, :], direction[:, None, :],
-                         points[None], params[None])
-        ts = torch.where(valid & (ts < t[:, None]), ts,
-                         torch.full_like(ts, float("inf")))
-        bj = torch.argmin(ts, dim=1).to(obj.dtype)  # the first minimum
-        best = torch.gather(ts, 1, bj[:, None].long())[:, 0]
+    best = torch.full_like(t, float("inf"))
+    bj = torch.zeros_like(obj)
+    for j in range(count):
+        valid, tj = test(origin, direction, points[j], params[j])
+        closer = valid & (tj < t) & (tj < best)
+        best = torch.where(closer, tj, best)
+        bj = torch.where(closer, torch.full_like(bj, j), bj)
     closer = torch.isfinite(best)
     return (torch.where(closer, best, t),
             torch.where(closer, objs[bj.long()], obj),
@@ -1241,7 +1282,7 @@ def _analytic_arm(origin, direction, t, obj, kind, prim, points, params,
 
 def intersect_scene(dev: DeviceScene, origin, direction, t_init, *,
                     any_hit: bool = False, active=None,
-                    count_depth: bool = False) -> Hit:
+                    count_depth: bool = True) -> Hit:
     """Nearest hit closer than t_init across every object
     (IntersectScene, Source/Main.cpp:299-316): the mesh trees through
     ops/traverse_packet_slim (closest or any hit; `active` masks lanes
@@ -1255,13 +1296,12 @@ def intersect_scene(dev: DeviceScene, origin, direction, t_init, *,
     `inst` holds the instance of each mesh hit; a flattened scene's
     tables are world-space already and `inst` stays -1.
 
-    origin/direction: (N, 3) tensors or 3-tuples of (N,) columns.  The
-    JAX function's BVH depth count (count_depth, the debug AOVs) waits
-    for ROADMAP.md A9 and raises."""
-    if count_depth:
-        raise NotImplementedError(
-            "intersect_scene: count_depth (the BVH_DEPTH AOV) is not ported; "
-            "see ROADMAP.md A9")
+    count_depth (the default, as in the JAX function) has the traversal
+    count each lane's bvh_depth (traverse_packet_slim); a caller that
+    reads no count passes False, which also keeps the CPU plain version
+    on its brute-force path.  Lanes without a mesh tree get 0.
+
+    origin/direction: (N, 3) tensors or 3-tuples of (N,) columns."""
     if isinstance(origin, tuple):
         o_c, d_c = origin, direction
         origin = torch.stack(origin, dim=1)
@@ -1276,17 +1316,19 @@ def intersect_scene(dev: DeviceScene, origin, direction, t_init, *,
     kind = torch.full_like(obj, PRIM_MESH)
     prim = torch.full_like(obj, -1)
     inst = torch.full_like(obj, -1)
+    depth = torch.zeros_like(obj)
     normal = None
     if dev.proots:
         res = tps.traverse_packet_slim(
             o_c, d_c, t_init, dev.pnodes, dev.pltris, dev.proots,
-            active=active, any_hit=any_hit, **dev.inst_kwargs(nrm=False))
-        t, tri, mobj, normal = res[:4]
+            active=active, any_hit=any_hit, count_depth=count_depth,
+            **dev.inst_kwargs(nrm=False))
+        t, tri, mobj, normal, depth = res[:5]
         mesh_hit = tri >= 0
         obj = torch.where(mesh_hit, mobj, obj)
         prim = torch.where(mesh_hit, tri, prim)
         if dev.machinery:
-            inst = torch.where(mesh_hit, res[4], inst)
+            inst = torch.where(mesh_hit, res[5], inst)
     t, obj, kind, prim = _analytic_arm(
         origin, direction, t, obj, kind, prim, dev.mk_sph[:dev.num_sph, 0:3],
         dev.mk_sph[:dev.num_sph, 3], dev.sph_obj, intersect.intersect_sphere,
@@ -1295,7 +1337,8 @@ def intersect_scene(dev: DeviceScene, origin, direction, t_init, *,
         origin, direction, t, obj, kind, prim, dev.mk_pln[:dev.num_pln, 0:3],
         dev.mk_pln[:dev.num_pln, 3:6], dev.pln_obj, intersect.intersect_plane,
         PRIM_PLANE)
-    return Hit(t=t, obj=obj, kind=kind, prim=prim, inst=inst, normal=normal)
+    return Hit(t=t, obj=obj, kind=kind, prim=prim, bvh_depth=depth,
+               inst=inst, normal=normal)
 
 
 def hit_surface(dev: DeviceScene, hit: Hit, origin, direction):

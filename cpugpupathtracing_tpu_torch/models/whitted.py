@@ -19,9 +19,11 @@ Two routes, chosen by models/renderer.trace_sample as in the JAX package:
   intersect_scene: per depth one closest-hit query and one any-hit
   shadow query per light (the mesh arm of each launches the
   traverse_packet_slim kernel), with a morton5 wavefront sort after
-  every depth on the card;
+  every depth on the card.  It tracks the AOVs (final depth, the primary
+  ray's BVH depth) and draws the debug views: RAY_DEPTH overwrites the
+  energy with its heatmap, BVH_DEPTH takes integrators.debug_bvh_result;
 * `trace_whitted_kernel`, the whole frame in one whitted_frame launch
-  (ops/whitted_kernel.py) on all-analytic scenes
+  (ops/whitted_kernel.py) on all-analytic scenes without AOVs
   (scene.whitted_kernel_active).
 RNG state and traced counts of the two are equal; energy meets the
 megakernel contract.
@@ -36,6 +38,9 @@ from cpugpupathtracing_tpu_torch.models.integrators import (
     TraceResult,
     _dielectric,
     _gather_material,
+    debug_bvh_result,
+    heatmap,
+    kernel_result,
     restore_lane_order,
     sort_wavefront,
 )
@@ -54,32 +59,26 @@ from cpugpupathtracing_tpu_torch.utils.vecmath import (
     length,
 )
 
-# the per-light shadow queries run one per light up to this many lights;
-# beyond it the fans go into ONE (L*N) any-hit query (the same image
-# bitwise: the per-light accumulation order is the same in both)
-_UNROLL_MAX_LIGHTS = 4
-
-
-def _check_supported(settings: RenderSettings) -> None:
-    if settings.debug_render_mode != DebugRenderMode.NONE or \
-            settings.aovs_active:
-        raise NotImplementedError(
-            "Whitted debug views (RAY_DEPTH, BVH_DEPTH) and AOVs are not "
-            "ported; see ROADMAP.md A9")
-
-
 def trace_whitted(dev: DeviceScene, settings: RenderSettings, origin,
                   direction, state, idx=None):
     """Whitted trace of rays origin/direction (N, 3) f32 with RNG state
-    (N,) (int64 carrying u32), depth by depth.  Every lane steps its RNG
-    once per depth, dead or alive.  With lane identities `idx` (N,), depth
-    + 1 <= 255 and the meshes traced on the card (scene.packet_path_active)
-    the carry is sorted by the morton5 key after every depth and returns
-    to lane order at the end.  Returns (state', TraceResult)."""
-    _check_supported(settings)
+    (N,) (int64 carrying u32), depth by depth, one shadow query per light
+    (the JAX package's batched form for more than 4 lights, kept there
+    for TPU compile time, gives the same image and is not ported).  Every
+    lane steps its RNG once per depth, dead or alive.  With AOVs it
+    tracks each lane's final depth and its primary ray's bvh_depth; the
+    RAY_DEPTH view overwrites the energy with the heatmap of final depth
+    / max depth, BVH_DEPTH takes debug_bvh_result.  With lane identities
+    `idx` (N,), depth + 1 <= 255 and the meshes traced on the card
+    (scene.packet_path_active) the carry is sorted by the morton5 key
+    after every depth and returns to lane order at the end.  Returns
+    (state', TraceResult)."""
+    if settings.debug_render_mode == DebugRenderMode.BVH_DEPTH:
+        return debug_bvh_result(dev, origin, direction, state)
     n = origin.shape[0]
     dv = origin.device
     f32 = torch.float32
+    aovs = settings.aovs_active
     do_sort = (idx is not None and settings.max_ray_depth + 1 <= 0xFF
                and packet_path_active(dev))
     one = torch.ones(n, dtype=f32, device=dv)
@@ -89,6 +88,9 @@ def trace_whitted(dev: DeviceScene, settings: RenderSettings, origin,
         + tuple(direction[:, k].contiguous() for k in range(3)),
         state=state, tp=(one, one, one), en=(zero, zero, zero),
         active=torch.ones(n, dtype=torch.int32, device=dv))
+    if aovs:
+        c["final_depth"] = torch.zeros(n, dtype=torch.int32, device=dv)
+        c["bvh_depth0"] = torch.zeros(n, dtype=torch.int32, device=dv)
     if do_sort:
         c["lane"] = idx.to(torch.int32)
     traced = torch.zeros((), dtype=torch.int64, device=dv)
@@ -97,17 +99,23 @@ def trace_whitted(dev: DeviceScene, settings: RenderSettings, origin,
     l_radius = dev.mk_lights[:L, 3]
     l_emission = dev.mk_lights[:L, 5:8]  # emissive * intensity
 
-    for _ in range(settings.max_ray_depth + 1):
+    for depth in range(settings.max_ray_depth + 1):
         state = c["state"]
         active = c["active"] != 0
         throughput = torch.stack(c["tp"], dim=1)
         energy = torch.stack(c["en"], dim=1)
         ray_o = torch.stack(c["ray"][0:3], dim=1)
         ray_d = torch.stack(c["ray"][3:6], dim=1)
+        final_depth = c.get("final_depth")
 
         traced = traced + active.sum(dtype=torch.int64)
         hit = intersect_scene(dev, c["ray"][0:3], c["ray"][3:6],
-                              torch.full_like(one, RAY_TMAX), active=active)
+                              torch.full_like(one, RAY_TMAX), active=active,
+                              count_depth=aovs)
+        if aovs:
+            bvh_depth0 = hit.bvh_depth if depth == 0 else c["bvh_depth0"]
+            final_depth = torch.where(active & (hit.obj < 0), depth,
+                                      final_depth)
         active = active & (hit.obj >= 0)
 
         pos, normal, mat_idx = hit_surface(dev, hit, ray_o, ray_d)
@@ -118,60 +126,34 @@ def trace_whitted(dev: DeviceScene, settings: RenderSettings, origin,
         energy = energy + torch.where(
             hit_light[:, None],
             throughput * mat["emissive"] * mat["intensity"][:, None], fzero)
+        if aovs:
+            final_depth = torch.where(hit_light, depth, final_depth)
         active = active & ~hit_light
 
         diffuse_weight = torch.clamp(
             1.0 - mat["specular"] - mat["refractivity"], min=0.0)
 
         # direct lighting: every light a point light, hard shadows
-        def light_geom(li):
+        direct = fzero
+        for li in range(L):
             to_l = l_center[li][None, :] - pos
             dist = length(to_l)
             to_l = to_l / torch.clamp(dist[:, None], min=1e-20)
             ndotl = dot3(normal, to_l)
             want = active & (diffuse_weight > 0.0) & (ndotl > 0.0)
+            traced = traced + want.sum(dtype=torch.int64)
             # the shadow ray stops at the light sphere's surface so the
             # light does not occlude itself (mesh lights have radius 0)
-            shadow_tmax = dist - l_radius[li] - 2.0 * RAY_NUDGE
-            return to_l, dist, ndotl, want, shadow_tmax
-
-        def accumulate(li, vis, dist, ndotl, direct):
-            atten = 1.0 / torch.clamp(dist * dist, min=1e-20)
-            return direct + torch.where(
-                vis[:, None],
-                (ndotl * atten)[:, None] * l_emission[li][None, :], fzero)
-
-        def shadow_origin(to_l):
-            return tuple((pos[:, k] + to_l[:, k] * RAY_NUDGE).contiguous()
-                         for k in range(3))
-
-        direct = fzero
-        if L <= _UNROLL_MAX_LIGHTS:
-            for li in range(L):
-                to_l, dist, ndotl, want, shadow_tmax = light_geom(li)
-                traced = traced + want.sum(dtype=torch.int64)
-                sh = intersect_scene(
-                    dev, shadow_origin(to_l),
-                    tuple(to_l[:, k].contiguous() for k in range(3)),
-                    shadow_tmax, any_hit=True, active=want)
-                direct = accumulate(li, want & (sh.obj < 0), dist, ndotl,
-                                    direct)
-        else:
-            # many lights: ONE batched (L*N) any-hit query; the per-light
-            # accumulation stays sequential, so the sum order (and the
-            # image) is the unrolled form's
-            geoms = [light_geom(li) for li in range(L)]
-            for g in geoms:
-                traced = traced + g[3].sum(dtype=torch.int64)
-            so = torch.cat([torch.stack(shadow_origin(g[0]), dim=1)
-                            for g in geoms])
-            sd = torch.cat([g[0] for g in geoms])
             sh = intersect_scene(
-                dev, so, sd, torch.cat([g[4] for g in geoms]), any_hit=True,
-                active=torch.cat([g[3] for g in geoms]))
-            clear = (sh.obj < 0).reshape(L, n)
-            for li, (_, dist, ndotl, want, _) in enumerate(geoms):
-                direct = accumulate(li, want & clear[li], dist, ndotl, direct)
+                dev, tuple((pos[:, k] + to_l[:, k] * RAY_NUDGE).contiguous()
+                           for k in range(3)),
+                tuple(to_l[:, k].contiguous() for k in range(3)),
+                dist - l_radius[li] - 2.0 * RAY_NUDGE, any_hit=True,
+                active=want, count_depth=False)
+            atten = 1.0 / torch.clamp(dist * dist, min=1e-20)
+            direct = direct + torch.where(
+                (want & (sh.obj < 0))[:, None],
+                (ndotl * atten)[:, None] * l_emission[li][None, :], fzero)
         energy = energy + torch.where(
             active[:, None],
             throughput * diffuse_weight[:, None] * mat["albedo"] * direct,
@@ -207,6 +189,8 @@ def trace_whitted(dev: DeviceScene, settings: RenderSettings, origin,
                               tp_mult)
         throughput = throughput * tp_mult
 
+        if aovs:
+            final_depth = torch.where(die, depth, final_depth)
         active = active & ~die
         bounced = (cont_spec | diel_refract | diel_reflect
                    | tir_reflect)[:, None]
@@ -219,14 +203,24 @@ def trace_whitted(dev: DeviceScene, settings: RenderSettings, origin,
             tp=tuple(throughput[:, k].contiguous() for k in range(3)),
             en=tuple(energy[:, k].contiguous() for k in range(3)),
             active=active.to(torch.int32))
+        if aovs:
+            nc.update(final_depth=final_depth, bvh_depth0=bvh_depth0)
         if do_sort:
             nc = sort_wavefront(dev, dict(nc, lane=c["lane"]), "morton5")
         c = nc
 
     cols = list(c["en"]) + [c["state"]]
+    if aovs:
+        cols += [torch.where(c["active"] != 0, settings.max_ray_depth + 1,
+                             c["final_depth"]), c["bvh_depth0"]]
+    else:
+        cols += [torch.zeros(n, dtype=torch.int32, device=dv)] * 2
     if do_sort:
         cols = restore_lane_order(c["lane"], cols)
-    return cols[3], TraceResult(torch.stack(cols[:3], dim=1), traced)
+    energy = torch.stack(cols[:3], dim=1)
+    if settings.debug_render_mode == DebugRenderMode.RAY_DEPTH:
+        energy = heatmap(cols[4], float(settings.max_ray_depth))
+    return cols[3], TraceResult(energy, traced, cols[4], cols[5])
 
 
 def trace_whitted_kernel(dev: DeviceScene, settings: RenderSettings, origin,
@@ -236,7 +230,6 @@ def trace_whitted_kernel(dev: DeviceScene, settings: RenderSettings, origin,
     state and traced equal trace_whitted's; energy within the megakernel
     contract.  `idx` is unused: analytic scenes are not sorted."""
     del idx
-    _check_supported(settings)
     rays = tuple(origin[:, k].contiguous() for k in range(3)) + tuple(
         direction[:, k].contiguous() for k in range(3))
     energy, state, traced = wk.whitted_frame(
@@ -244,7 +237,7 @@ def trace_whitted_kernel(dev: DeviceScene, settings: RenderSettings, origin,
         dev.mk_pln_mat, dev.mk_objmat, rays, state, num_mats=dev.num_mats,
         num_lights=dev.num_lights, num_sph=dev.num_sph,
         num_pln=dev.num_pln, depths=settings.max_ray_depth + 1)
-    return state, TraceResult(energy, traced)
+    return state, kernel_result(energy, traced)
 
 
 def make_whitted_scene():

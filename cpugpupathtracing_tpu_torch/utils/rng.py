@@ -69,3 +69,19 @@ def next_f32(state: torch.Tensor):
     """Uniform float in [0, 1): returns (state', value)."""
     s = xs32(state)
     return s, u2f(s)
+
+
+def next_u32_range(state: torch.Tensor, lo, hi):
+    """Uniform integer in [lo, hi] by modulo (RandomUInt32Range,
+    Include/Random.h:41-46): returns (state', lo + v % (hi + 1 - lo)), or
+    lo where that span is 0 (all of u32).  lo / hi: ints or tensors of
+    u32 values; the arithmetic wraps at 2**32 as the JAX package's
+    does.  Int bounds stay Python scalars (no host-to-device copy)."""
+    s, v = next_u32(state)
+    lo, hi = lo & M32, hi & M32
+    span = (hi + 1 - lo) & M32
+    if not isinstance(span, torch.Tensor):
+        return s, (torch.full_like(v, lo) if span == 0
+                   else (lo + v % span) & M32)
+    return s, torch.where(span == 0, lo + 0 * v,
+                          (lo + v % torch.clamp(span, min=1)) & M32)

@@ -16,7 +16,9 @@ the two Whitted routes agree on state and traced exactly and on energy
 bitwise.  On an instanced scene on the object-space machinery the
 instance arms of traverse_packet_slim, shade_extend and shadow_resolve
 equal their plain versions bitwise, and a refit on the card equals a
-fresh build bitwise."""
+fresh build bitwise.  traverse_packet_slim's count_depth arm (plain and
+instance) equals its plain version, the PyTorch walk, bitwise on every
+output, bvh_depth included."""
 
 import numpy as np
 import pytest
@@ -257,7 +259,8 @@ def test_traverse_matches_plain(card, any_hit):
     active = torch.rand(n, device="cuda", generator=g) < 0.5
     before = tps.launches
     got = tps.traverse_packet_slim(o, d, t_init, dev.pnodes, dev.pltris,
-                                   dev.proots, active=active, any_hit=any_hit)
+                                   dev.proots, active=active, any_hit=any_hit,
+                                   count_depth=False)
     assert tps.launches == before + 1
     ref = tps.traverse_packet_slim_reference(_rays(o, d), t_init, dev.pltris,
                                              active=active)
@@ -364,7 +367,7 @@ def test_traverse_instance_arm_matches_plain(inst_card, any_hit):
     before = tps.launches_inst
     got = tps.traverse_packet_slim(rays[:3], rays[3:], t0, dev.pnodes,
                                    dev.pltris, dev.proots, active=act,
-                                   any_hit=any_hit,
+                                   any_hit=any_hit, count_depth=False,
                                    **dev.inst_kwargs(nrm=False))
     assert tps.launches_inst == before + 1
     ref = tps.traverse_packet_slim_reference(
@@ -375,10 +378,46 @@ def test_traverse_instance_arm_matches_plain(inst_card, any_hit):
     if any_hit:
         assert torch.equal(got[1] >= 0, ref[1] >= 0)
         return
-    for a_, b_ in zip(_bits((got[0], got[1], got[2], *got[3], got[4])),
-                      _bits((ref[0], ref[1], ref[2], *ref[3], ref[4]))):
+    for a_, b_ in zip(_bits((got[0], got[1], got[2], *got[3], got[5])),
+                      _bits((ref[0], ref[1], ref[2], *ref[3], ref[5]))):
         assert torch.equal(a_, b_)
-    assert int((got[4] >= 0).sum()) > 100
+    assert int((got[5] >= 0).sum()) > 100
+
+
+@pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any"])
+@pytest.mark.parametrize("arm", ["plain", "instance"])
+def test_traverse_depth_arm_matches_walk(card, inst_card, arm, any_hit):
+    """traverse_packet_slim's count_depth arm on the card (plain and
+    instance arm) equals its plain version, the PyTorch walk, bitwise on
+    every output: t, id, object, normal, bvh_depth (and instance); every
+    lane with a mesh hit has bvh_depth >= 1."""
+    if arm == "plain":
+        dev, o, d, _ = card
+        kw = {}
+    else:
+        _, dev, o, d, _ = inst_card
+        kw = dev.inst_kwargs(nrm=False)
+    rays = _rays(o, d)
+    n = W * H
+    t0 = torch.full((n,), 1e34, device="cuda")
+    act = torch.arange(n, device="cuda") % 3 != 0
+    name = "launches_depth" if arm == "plain" else "launches_inst_depth"
+    before = getattr(tps, name)
+    got = tps.traverse_packet_slim(rays[:3], rays[3:], t0, dev.pnodes,
+                                   dev.pltris, dev.proots, active=act,
+                                   any_hit=any_hit, **kw)
+    assert getattr(tps, name) == before + 1
+    ref = tps.traverse_walk_reference(
+        rays, t0, dev.pnodes, dev.pltris, dev.proots, active=act,
+        any_hit=any_hit, inst_inv=kw.get("inst_inv"),
+        inst_root=kw.get("inst_root"))
+    ptf.check_status("cuda")
+    flat = lambda x: (x[0], x[1], x[2], *x[3], *x[4:])  # noqa: E731
+    for a_, b_ in zip(_bits(flat(got)), _bits(flat(ref))):
+        assert torch.equal(a_, b_)
+    hit = got[1] >= 0
+    assert int(hit.sum()) > 100 and (got[4][hit] >= 1).all()
+    assert not got[4][~act].any()
 
 
 def test_megakernel_instance_arms_match_plain(inst_card):

@@ -363,19 +363,20 @@ def test_instance_arm_host_build_vs_plain(packet_queries, any_hit):
     act = torch.from_numpy(rng.uniform(size=n) < 0.8)
     args = ((torch.from_numpy(o), torch.from_numpy(d), t_init, tdev.pnodes,
              tdev.pltris, tdev.proots))
-    kw = dict(active=act, any_hit=any_hit, **tdev.inst_kwargs(nrm=False))
+    kw = dict(active=act, any_hit=any_hit, count_depth=False,
+              **tdev.inst_kwargs(nrm=False))
     ref = tps.traverse_packet_slim(*args, **kw)
     host = tps.traverse_packet_slim_host(*args, **kw)
-    assert len(ref) == len(host) == 5
+    assert len(ref) == len(host) == 6
     if any_hit:
         assert torch.equal(ref[1] >= 0, host[1] >= 0)
         return
-    for a_, b_ in zip((ref[0], ref[1], ref[2], *ref[3], ref[4]),
-                      (host[0], host[1], host[2], *host[3], host[4])):
+    for a_, b_ in zip((ref[0], ref[1], ref[2], *ref[3], ref[5]),
+                      (host[0], host[1], host[2], *host[3], host[5])):
         assert torch.equal(a_.view(torch.int32) if a_.is_floating_point()
                            else a_, b_.view(torch.int32)
                            if b_.is_floating_point() else b_)
-    assert int((host[4] >= 0).sum()) > 40
+    assert int((host[5] >= 0).sum()) > 40
 
 
 def test_instance_arm_vs_jax_kernel(packet_queries):
@@ -400,11 +401,12 @@ def test_instance_arm_vs_jax_kernel(packet_queries):
     got = tps.traverse_packet_slim(rays[:3], rays[3:],
                                    torch.from_numpy(t0[:n]), tdev.pnodes,
                                    tdev.pltris, tdev.proots,
+                                   count_depth=False,
                                    **tdev.inst_kwargs(nrm=False))
     same = got[1].numpy() == np.asarray(tri)
     assert int((~same).sum()) <= PRIM_DIFF_MAX
-    assert int((got[4].numpy() >= 0).sum()) > 50
-    np.testing.assert_array_equal(got[4].numpy()[same], np.asarray(iid)[same])
+    assert int((got[5].numpy() >= 0).sum()) > 50
+    np.testing.assert_array_equal(got[5].numpy()[same], np.asarray(iid)[same])
     np.testing.assert_array_equal(got[2].numpy()[same], np.asarray(obj)[same])
     np.testing.assert_allclose(got[0].numpy()[same], np.asarray(t)[same],
                                rtol=T_TOL, atol=T_TOL)

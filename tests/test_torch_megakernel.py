@@ -377,11 +377,13 @@ def test_route_gates_match_jax(frame, monkeypatch, case):
 
 def test_routes_repaired(frame, monkeypatch):
     """trace_sample follows the gates (the whole-frame kernel, else the
-    per-depth pipeline, else NotImplementedError), and an unsorted frame
-    of a tree over the unsorted budget goes to trace_advanced_mega."""
+    per-depth pipeline, else the XLA integrator trace_advanced, as for
+    AOVs), and an unsorted frame of a tree over the unsorted budget goes
+    to trace_advanced_mega."""
     _, tdev, o, d, s = frame
     calls = []
-    for name in ("trace_advanced_frame", "trace_advanced_mega"):
+    for name in ("trace_advanced_frame", "trace_advanced_mega",
+                 "trace_advanced"):
         fn = getattr(tint, name)
 
         def spy(*a, _fn=fn, _name=name, **k):
@@ -397,18 +399,22 @@ def test_routes_repaired(frame, monkeypatch):
     monkeypatch.setenv("CPUGPU_PTFRAME_MAX_NODES", "2")
     monkeypatch.setenv("CPUGPU_FORCE_PTFRAME", "1")
     trend.trace_sample(tdev, settings, o, d, s, None)
+    _, res = trend.trace_sample(tdev, RenderSettings(track_aovs=True), o, d,
+                                s, idx)
     assert calls == [("trace_advanced_frame", True),
                      ("trace_advanced_mega", True),
                      ("trace_advanced_frame", False),
-                     ("trace_advanced_mega", False)]
-    with pytest.raises(NotImplementedError, match="A9"):
-        trend.trace_sample(tdev, RenderSettings(track_aovs=True), o, d, s,
-                           idx)
+                     ("trace_advanced_mega", False),
+                     ("trace_advanced", True)]
+    assert int(res.traced_rays) > N and (res.ray_depth > 0).any()
 
 
-def test_mesh_lights_over_budget_refused(monkeypatch):
+def test_mesh_lights_over_budget_refused(frame, monkeypatch):
     """A scene whose mesh lights exceed the light table builds, and the
-    gates refuse it (the JAX package's XLA-integrator arm, not ported)."""
+    kernel gates refuse it: trace_sample takes the XLA integrator, as in
+    the JAX package, whose sample_light draws the mesh light's triangles
+    from tris9."""
+    _, _, o, d, st = frame
     monkeypatch.setattr(tscene, "MESH_LIGHT_MAX_TRIS", 4)
     s = golden_scene(tscene, tmat, tmesh)
     light = s.add_material(tmat.Material.light((1.0, 1.0, 1.0), 5.0))
@@ -416,11 +422,17 @@ def test_mesh_lights_over_budget_refused(monkeypatch):
                                                 half=0.5), light))
     dev = s.build_device("cpu")
     assert dev.has_mesh_lights and not any(c for _, c in dev.light_tri_meta)
+    assert dev.light_tri_count.tolist() == [0, 12]
     settings = RenderSettings()
     assert not tscene.megakernel_active(dev, settings)
     assert not tscene.pt_frame_active(dev, settings)
-    with pytest.raises(NotImplementedError, match="mesh lights"):
-        trend.trace_sample(dev, settings, None, None, None, None)
+    calls = []
+    xla = tint.trace_advanced
+    monkeypatch.setattr(tint, "trace_advanced",
+                        lambda *a, **k: calls.append(1) or xla(*a, **k))
+    _, res = trend.trace_sample(dev, settings, o, d, st, None)
+    assert calls == [1]
+    assert torch.isfinite(res.energy).all() and float(res.energy.sum()) > 0
 
 
 def test_golden_advanced_per_depth_route(monkeypatch):

@@ -128,15 +128,16 @@ def test_kernel_body_host_build_vs_plain(queries, any_hit):
 
 def test_wrapper_refusals(queries):
     """The arguments of the JAX function the port has no kernel arm for
-    raise, naming the ROADMAP item; so does the BVH depth count in
-    intersect_scene.  The instance arm takes both of its tables, of the
-    kernel's types."""
-    _, tdev, o, d, t0, _ = queries
+    (fused and 16-wide tables) raise, naming the ROADMAP item; the BVH
+    depth count does not: it is the JAX function's default, in the
+    wrapper and in intersect_scene (bvh_depth, JAX's 5th output and Hit
+    field).  The instance arm takes both of its tables, of the kernel's
+    types."""
+    _, tdev, o, d, t0, act = queries
     rays = _cols(o, d)
     args = (rays[:3], rays[3:], torch.from_numpy(t0), tdev.pnodes,
             tdev.pltris, tdev.proots)
-    for kw, item in ((dict(count_depth=True), "A9"),
-                     (dict(fused_nn=3), "A14"), (dict(width=16), "A14")):
+    for kw, item in ((dict(fused_nn=3), "A14"), (dict(width=16), "A14")):
         with pytest.raises(NotImplementedError, match=item):
             tps.traverse_packet_slim(*args, **kw)
     for kw, item in ((dict(inst_inv=torch.zeros(1, 12)), "inst_root"),
@@ -144,15 +145,24 @@ def test_wrapper_refusals(queries):
                            inst_root=torch.zeros(1)), "inst_root")):
         with pytest.raises(ValueError, match=item):
             tps.traverse_packet_slim(*args, **kw)
-    with pytest.raises(NotImplementedError, match="A9"):
-        tscene.intersect_scene(tdev, torch.from_numpy(o), torch.from_numpy(d),
-                               torch.from_numpy(t0), count_depth=True)
+    counted = tps.traverse_packet_slim(*args)
+    bare = tps.traverse_packet_slim(*args, count_depth=False)
+    assert len(counted) == len(bare) == 5
+    assert not bare[4].any() and (counted[4][counted[1] >= 0] >= 1).all()
+    h = tscene.intersect_scene(tdev, torch.from_numpy(o), torch.from_numpy(d),
+                               torch.from_numpy(t0),
+                               active=torch.from_numpy(act))
+    assert tscene.Hit._fields.index("bvh_depth") == 4
+    mesh = torch.from_numpy(act) & (h.obj >= 0) & (h.kind == tscene.PRIM_MESH)
+    assert mesh.any() and (h.bvh_depth[mesh] >= 1).all()
+    assert (h.bvh_depth >= 0).all()
 
 
 def test_batched_analytic_form_vs_jax(rng_np):
-    """Over ANALYTIC_UNROLL_MAX spheres and planes the analytic tests take
-    the batched first-min form: bitwise the JAX package's (op by op) and
-    the per-object loop's."""
+    """Over ANALYTIC_UNROLL_MAX spheres and planes the JAX package's
+    analytic tests take their batched first-min form; the port's
+    per-object loop (its only form) gives the same hits bitwise (op by
+    op JAX)."""
     def scene(S, mat):
         s = S.Scene()
         white = s.add_material(mat.Material.diffuse((0.8, 0.8, 0.8)))
@@ -175,19 +185,11 @@ def test_batched_analytic_form_vs_jax(rng_np):
     with jax.disable_jit():
         jh = jscene.intersect_scene(jdev, jnp.asarray(o), jnp.asarray(d),
                                     jnp.asarray(t0), count_depth=False)
-    batched = tscene.intersect_scene(tdev, torch.from_numpy(o),
-                                     torch.from_numpy(d), torch.from_numpy(t0))
-    mp = pytest.MonkeyPatch()
-    mp.setattr(tscene, "ANALYTIC_UNROLL_MAX", 64)
-    try:
-        looped = tscene.intersect_scene(tdev, torch.from_numpy(o),
-                                        torch.from_numpy(d),
-                                        torch.from_numpy(t0))
-    finally:
-        mp.undo()
+    looped = tscene.intersect_scene(tdev, torch.from_numpy(o),
+                                    torch.from_numpy(d), torch.from_numpy(t0))
+    assert tdev.num_sph > tscene.ANALYTIC_UNROLL_MAX
     assert (np.asarray(jh.kind) == jscene.PRIM_SPHERE).any()
     assert (np.asarray(jh.kind) == jscene.PRIM_PLANE).any()
     for name in ("t", "obj", "kind", "prim"):
         ref = np.asarray(getattr(jh, name))
-        np.testing.assert_array_equal(getattr(batched, name).numpy(), ref)
         np.testing.assert_array_equal(getattr(looped, name).numpy(), ref)

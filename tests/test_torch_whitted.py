@@ -31,6 +31,7 @@ import pytest
 import torch
 
 from cpugpupathtracing_tpu.config import CameraConfig as JCameraConfig
+from cpugpupathtracing_tpu.config import DebugRenderMode as JDebugRenderMode
 from cpugpupathtracing_tpu.config import RenderMode as JRenderMode
 from cpugpupathtracing_tpu.config import RenderSettings as JRenderSettings
 from cpugpupathtracing_tpu.models import camera as jcam
@@ -208,19 +209,6 @@ def test_kernel_body_host_build(config1):
     torch.testing.assert_close(host[0], plain[0], rtol=1e-6, atol=0.0)
 
 
-@pytest.mark.parametrize("case", ["config1", "mesh_scene"])
-def test_batched_shadow_form_bitwise(case, request, monkeypatch):
-    """The batched (L*N) shadow query that trace_whitted takes beyond 4
-    lights equals the per-light form bitwise."""
-    _, tdev, rays, _, _, depth = request.getfixturevalue(case)
-    unrolled = _trace_port(tdev, rays, depth, False, monkeypatch)
-    monkeypatch.setattr(tw, "_UNROLL_MAX_LIGHTS", 1)
-    batched = _trace_port(tdev, rays, depth, False, monkeypatch)
-    assert torch.equal(unrolled[0], batched[0])
-    assert torch.equal(unrolled[1].energy, batched[1].energy)
-    assert int(unrolled[1].traced_rays) == int(batched[1].traced_rays)
-
-
 def test_routes_and_gate(config1, monkeypatch):
     """On config 1 trace_sample takes the whole-frame kernel when the gate
     allows (CPUGPU_FORCE_WHITTED_KERNEL=1 on the CPU), else
@@ -276,7 +264,7 @@ def test_meshless_scene_build_and_refusals(config1):
     Scene.device()'s bitwise (empty trees, no roots), scene_from_numpy
     carries the JAX scene across and round-trips the port's own, and the
     ADVANCED gates refuse the scene by reason."""
-    jdev, tport, *_ = config1
+    jdev, tport, (o, d, st), *_ = config1
     tdev = tw.make_whitted_scene().build_device("cpu")
     assert tdev.proots == () and tdev.poccl_roots == ()
     assert tuple(tdev.pnodes.shape) == (0, 64)
@@ -297,19 +285,53 @@ def test_meshless_scene_build_and_refusals(config1):
     adv = RenderSettings(render_mode=RenderMode.ADVANCED)
     assert "no mesh" in tscene.megakernel_gate_reason(tdev, adv)
     assert "no mesh" in tscene.pt_frame_gate_reason(tdev, adv)
-    n = 8
-    with pytest.raises(NotImplementedError, match="A9"):
-        trenderer.trace_sample(
-            tdev, adv, torch.zeros(n, 3), torch.ones(n, 3),
-            torch.ones(n, dtype=torch.int64), None)
+    # the kernel routes refuse it; trace_sample takes the XLA integrator
+    _, res = trenderer.trace_sample(tdev, adv, _t(o), _t(d),
+                                    _t(st, torch.int64), None)
+    assert torch.isfinite(res.energy).all() and float(res.energy.sum()) > 0
+    assert not res.bvh_depth.any()
 
 
-def test_debug_views_and_aovs_raise(config1):
-    _, tdev, (o, d, st), *_ = config1
-    for s in (SETTINGS.replace(debug_render_mode=DebugRenderMode.RAY_DEPTH),
-              SETTINGS.replace(track_aovs=True)):
-        with pytest.raises(NotImplementedError, match="A9"):
-            tw.trace_whitted(tdev, s, _t(o), _t(d), _t(st, torch.int64))
+def test_debug_views_and_aovs_raise(config1, mesh_scene):
+    """The Whitted views and AOVs: config 1's RAY_DEPTH view against JAX
+    trace_whitted op by op (energy, the heatmap, and ray_depth bitwise;
+    state and traced exact); on the mesh scene AOVs leave the energy
+    bitwise unchanged, ray_depth lies in [0, depth + 1], bvh_depth >= 1
+    on every lane with a mesh hit, and the BVH_DEPTH view's green
+    channel dominates."""
+    jdev, tdev, (o, d, st), *_ = config1
+    js = JSETTINGS.replace(debug_render_mode=JDebugRenderMode.RAY_DEPTH)
+    with jax.disable_jit():
+        j_st, j_res = jw.trace_whitted(jdev, js, o, d, st)
+    s_t, res = tw.trace_whitted(
+        tdev, SETTINGS.replace(debug_render_mode=DebugRenderMode.RAY_DEPTH),
+        _t(o), _t(d), _t(st, torch.int64))
+    np.testing.assert_array_equal(res.energy.numpy(), np.asarray(j_res.energy))
+    np.testing.assert_array_equal(res.ray_depth.numpy(),
+                                  np.asarray(j_res.ray_depth))
+    np.testing.assert_array_equal(s_t.numpy(), np.asarray(j_st).astype(np.int64))
+    assert int(res.traced_rays) == int(j_res.traced_rays)
+    assert len(set(res.ray_depth.tolist())) > 2
+
+    _, tdev, rays, _, _, depth = mesh_scene
+    o, d, st = (_t(a) for a in rays)
+    st = st.to(torch.int64)
+    base = SETTINGS.replace(max_ray_depth=depth)
+    _, plain = tw.trace_whitted(tdev, base, o, d, st)
+    _, aov = tw.trace_whitted(tdev, base.replace(track_aovs=True), o, d, st)
+    assert torch.equal(plain.energy, aov.energy)
+    assert int(aov.ray_depth.min()) >= 0
+    assert int(aov.ray_depth.max()) <= depth + 1
+    h = tscene.intersect_scene(tdev, o, d, torch.full((o.shape[0],), 1e34),
+                               count_depth=False)
+    mesh = (h.obj >= 0) & (h.kind == tscene.PRIM_MESH)
+    assert mesh.any() and (aov.bvh_depth[mesh] >= 1).all()
+    _, view = tw.trace_whitted(
+        tdev, base.replace(debug_render_mode=DebugRenderMode.BVH_DEPTH), o,
+        d, st)
+    assert torch.equal(view.bvh_depth, aov.bvh_depth)
+    assert int(view.traced_rays) == o.shape[0]
+    assert float(view.energy[:, 1].mean()) > float(view.energy[:, 0].mean())
 
 
 def test_sort_wavefront_morton5_vs_jax(mesh_scene, rng_np):
