@@ -115,11 +115,38 @@ failure raises and exits non-zero:
                  1920x1080 and config 1 in ADVANCED mode at 800x600: the
                  gates refuse both, trace_advanced runs every frame (12
                  traversal launches and 6 sorts, and none), timed frames
+ 20. layout3      config 3 at 1920x1080 under every node-table layout:
+                 the default (CPUGPU_SMEMTREE=48: 48-col rows and the entry
+                 side tables), CPUGPU_SMEMTREE=1 (64-col rows with them),
+                 CPUGPU_SMEMTREE=0 (plain rows), CPUGPU_PACKET_TREE=w16,
+                 CPUGPU_FUSED=1 and both; each built from the checkout
+                 (seconds), its arms on the check lanes ([check_<layout>]:
+                 pt_frame bitwise against the plain 64-col arm, every arm
+                 against its plain version, count_depth against the walk),
+                 the whole-frame route (the fused tables through it too,
+                 lifting the gate's refusal) and the per-depth route with
+                 every launch timed, bounded and sampled, TIMED_FRAMES
+                 timed frames and the device-busy share of each, the
+                 traversal's main paths ([b4_<layout>]: one XLA frame with
+                 AOVs, one WHITTED frame); then the per-depth route
+                 without the any-hit tables (CPUGPU_OCCL=0) under w16 and
+                 the fused tables.  Every layout's frame from reset equals
+                 the default's bitwise on both routes.
+ 21. layout5      config 5 flattened at 1280x720 under the default, w16,
+                 fused and fused w16: flatten bytes against the budget,
+                 both routes with the hook before every frame, the refit's
+                 ms, a refit against a fresh build (every table, the fused
+                 one included, bitwise), frames from reset equal across
+                 layouts.
  18. the {"kernels": [...]} line: per kernel its check's numbers, and per
      main-path launch its lanes, ms, bound and sampled error; the
-     instance arms and the count_depth arms as entries of their own
-     (`*_inst`, `*_depth`)
+     instance arms, the count_depth arms and the variant arms as entries
+     of their own (`*_inst`, `*_depth`, `*_<layout>`)
  19. the last line {"ok": true, "device": {...}}
+
+Phases 3-17 run the plain 64-col arms (CPUGPU_SMEMTREE=0 for their
+scenes); the port's default tables (the JAX benchmark's) are the "48"
+layout of phase 20.
 
 --profile adds, after phases 6, 7, 10, 11, 11a-b, 14-16 and 17b-d, a
 torch.profiler
@@ -154,7 +181,7 @@ PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 # f32 operations per unit of the kernel's work, counted from
 # csrc/pt_device.cuh: one node row = 8 slab tests of 26 ops
-# (push_children); one triangle test = 55 ops (tri_test); shading one
+# (push_row); one triangle test = 55 ops (tri_test); shading one
 # path vertex ~300 ops (shade_surface with NEE sampling, ~20 divisions,
 # ~8 square roots, 2 sin/cos pairs and 3 exp counted as one op each)
 OPS_NODE = 8 * 26
@@ -162,10 +189,19 @@ OPS_TRI = 55
 OPS_SHADE = 300
 LEAF_TRIS, OCCL_TRIS = 8, 14
 # bytes the kernel loads from one row (csrc/pt_device.cuh): a node row's
-# 12 float4 of bounds and 2 of entries (push_children), a leaf row's 8
+# 12 float4 of bounds and 2 of entries (push_row), a leaf row's 8
 # records of 16 f32 (closest_hit), an occlusion leaf row's 14 of 9
 # (any_hit)
 NODE_ROW_BYTES = 14 * 16
+# node rows of the variant layouts (ops/pt_frame.py LAYOUTS), as push_node
+# loads them: 48 f32 of bounds and 8 entries per block of 8 slots, from
+# the row or the side table -- 224 B for every 8-wide layout (a fused
+# node row's other 72 columns are never read), 448 B and 16 slab tests for
+# a 16-wide row (its counts at cols 112..127 are never read); a fused
+# leaf row is a leaf row (LEAF_ROW_BYTES)
+ROW_COSTS = {
+    **{k: (NODE_ROW_BYTES, OPS_NODE) for k in ("64", "ents", "48", "fused")},
+    **{k: (2 * NODE_ROW_BYTES, 2 * OPS_NODE) for k in ("w16", "fused_w16")}}
 LEAF_ROW_BYTES = LEAF_TRIS * 16 * 4
 OCCL_ROW_BYTES = OCCL_TRIS * 9 * 4
 # per-lane bytes of a pt_frame launch: rays + RNG state in; the carry in
@@ -339,7 +375,7 @@ def lane_bytes(carry_in: bool, carry_out: bool) -> int:
 
 
 def bound_ms(iters: dict, lane_bytes_total: int, small_bytes: int,
-             shade_ops: int = OPS_SHADE):
+             shade_ops: int = OPS_SHADE, layouts=("64", "64")):
     """Least time of one launch's work on this run's data: the larger of
     bytes over HBM bandwidth and f32 operations over the f32 peak.  The
     bytes are each lane's input read once and output written once
@@ -347,18 +383,34 @@ def bound_ms(iters: dict, lane_bytes_total: int, small_bytes: int,
     row the launch read (the distinct rows of count_iters), not whole
     tables.  iters: a kernel's count_iters counters by name
     (ptf.COUNTERS); shade_ops: operations per closest-hit ray beyond its
-    walk (0 for a bare traversal)."""
+    walk (0 for a bare traversal); layouts: the closest-hit and the
+    shadow tree's node layout (ROW_COSTS; launch_layouts)."""
     c = iters
-    ops = (OPS_NODE * (c["node"] + c["snode"])
+    (nb, nops), (sb, sops) = ROW_COSTS[layouts[0]], ROW_COSTS[layouts[1]]
+    ops = (nops * c["node"] + sops * c["snode"]
            + OPS_TRI * LEAF_TRIS * c["leaf"]
            + OPS_TRI * OCCL_TRIS * c["sleaf"] + shade_ops * c["ray"])
-    rows = (NODE_ROW_BYTES * (c["node_rows"] + c["snode_rows"])
+    rows = (nb * c["node_rows"] + sb * c["snode_rows"]
             + LEAF_ROW_BYTES * c["leaf_rows"]
             + OCCL_ROW_BYTES * c["sleaf_rows"])
     t_bytes = (lane_bytes_total + rows + small_bytes) / PEAK_BYTES_PER_S
     t_ops = ops / PEAK_F32_FLOPS
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops
                                        else "operations")
+
+
+def launch_layouts(nodes, kw) -> tuple:
+    """(closest-hit, shadow) node layouts of a kernel call: its node
+    table and keyword arguments (pt_frame's shadow tree is sh_nodes when
+    given, else the closest-hit tree; shadow_resolve's and the
+    traversal's one tree is both)."""
+    from cpugpupathtracing_tpu_torch.ops import pt_frame as ptf
+
+    ch = ptf.table_layout(nodes, kw.get("ents"), kw.get("fused_nn", 0),
+                          kw.get("width", 8))
+    if kw.get("sh_nodes") is None:
+        return ch, ch
+    return ch, ptf.table_layout(kw["sh_nodes"], kw.get("sh_ents"))
 
 
 def trav_bytes(lanes: int, live: int, t_init: bool, active: bool) -> int:
@@ -389,40 +441,75 @@ def whitted_bound(iters: dict, lanes: int, ds):
 
 
 def counts() -> dict:
-    """Every kernel's launch count, and the wavefront sorts."""
+    """Every kernel arm's launch count (ops/pt_frame.py launches, keyed by
+    launch_key), and the wavefront sorts."""
     from cpugpupathtracing_tpu_torch.models import integrators
-    from cpugpupathtracing_tpu_torch.ops import megakernel as mk
     from cpugpupathtracing_tpu_torch.ops import pt_frame as ptf
-    from cpugpupathtracing_tpu_torch.ops import traverse_packet_slim as tps
-    from cpugpupathtracing_tpu_torch.ops import whitted_kernel as wk
 
-    return dict(pt_frame=ptf.launches, **mk.launches,
-                traverse_packet_slim=tps.launches,
-                traverse_packet_slim_inst=tps.launches_inst,
-                traverse_packet_slim_depth=tps.launches_depth,
-                traverse_packet_slim_inst_depth=tps.launches_inst_depth,
-                whitted_frame=wk.launches, sorts=integrators.sorts)
+    return dict(ptf.launches, sorts=integrators.sorts)
 
 
 def reset_counts() -> None:
     """Every kernel's launch count and the sort count to 0, just before a
     main path runs."""
     from cpugpupathtracing_tpu_torch.models import integrators
-    from cpugpupathtracing_tpu_torch.ops import megakernel as mk
     from cpugpupathtracing_tpu_torch.ops import pt_frame as ptf
-    from cpugpupathtracing_tpu_torch.ops import traverse_packet_slim as tps
-    from cpugpupathtracing_tpu_torch.ops import whitted_kernel as wk
 
-    ptf.launches = tps.launches = tps.launches_inst = wk.launches = 0
-    tps.launches_depth = tps.launches_inst_depth = 0
+    ptf.launches.clear()
     integrators.sorts = 0
-    for name in mk.launches:
-        mk.launches[name] = 0
+
+
+# the launch-count keys of the arms a layout phase runs (arm_keys): a
+# phase names the kernels of its route by their plain arm's key, and
+# expect_counts reads each through this map
+ARM: dict = {}
+
+
+def arm(name: str) -> str:
+    return ARM.get(name, name)
+
+
+def arm_keys(ds, settings) -> dict:
+    """The launch-count key (ptf.launch_key) of each route's kernel on the
+    snapshot ds under the current flags: pt_frame on the whole-frame
+    route's tables, shade_extend / shadow_resolve on the per-depth route's
+    and the traversal (with and without count_depth) on
+    intersect_scene's."""
+    from cpugpupathtracing_tpu_torch.models import integrators
+    from cpugpupathtracing_tpu_torch.ops import pt_frame as ptf
+
+    key, layout = ptf.launch_key, ptf.table_layout
+    tables, kw = integrators.frame_args(ds, settings)
+    ch = layout(tables[0], kw["ents"], kw["fused_nn"], kw["width"])
+    sh = layout(kw["sh_nodes"], kw["sh_ents"]) if kw.get("occl") else ch
+    tables, tkw = integrators.route_tables(ds)
+    lay = layout(tables[0], tkw["ents"], tkw["fused_nn"], tkw["width"])
+    sn, _, skw = integrators.shadow_tables(ds)
+    slay = layout(sn, skw.get("ents"), skw.get("fused_nn", 0),
+                  skw.get("width", 8))
+    return dict(pt_frame=key("pt_frame", ptf.arm_key(ch, sh)),
+                shade_extend=key("shade_extend", lay),
+                shadow_resolve=key("shadow_resolve", slay),
+                traverse_packet_slim=key("traverse_packet_slim", lay),
+                traverse_packet_slim_depth=key("traverse_packet_slim", lay,
+                                               depth=True))
+
+
+@contextlib.contextmanager
+def arms(ds, settings):
+    """ARM for the block: the arms ds's routes run."""
+    ARM.update(arm_keys(ds, settings))
+    try:
+        yield dict(ARM)
+    finally:
+        ARM.clear()
 
 
 def expect_counts(got: dict, what: str, **want) -> None:
-    """Raise unless the counts are `want` and 0 for every other kernel."""
-    full = {k: want.get(k, 0) for k in got}
+    """Raise unless the counts are `want` (each kernel's key read through
+    ARM) and 0 for every other kernel."""
+    full = {k: 0 for k in got}
+    full.update({arm(k): v for k, v in want.items() if v or arm(k) in got})
     if got != full:
         raise AssertionError(f"{what}: launched {got}, expected {full}")
 
@@ -471,6 +558,7 @@ def profile_frames(r, ms_per_frame: float, route: str,
     for ms, count, key in rows[:12]:
         print(f"  {ms:8.3f} ms/frame {count:5d}/frame  {key[:100]}",
               flush=True)
+    return busy / ms_per_frame
 
 
 def plain(ptf, tables, rays, state, **kw):
@@ -610,10 +698,13 @@ def contract(ref, got, what: str):
 
 
 def frame_mega(scene, cam_cfg, settings, width, height, small_bytes,
-               profile: bool) -> list:
+               profile: bool, phase: str = "frame_mega"):
     """Phase 7: config 3 through Renderer on the per-depth route
-    (CPUGPU_NO_PTFRAME=1, restored afterwards).  Returns the main-path
-    entries of every launch of one frame, and prints the frame line."""
+    (CPUGPU_NO_PTFRAME=1, restored afterwards); the kernels' arms are
+    ARM's.  Returns (the main-path entries of every launch of one frame,
+    the timed frames' counts, and a dict of the frame time, rate, the
+    per-depth renderer and the from-reset images and traced counts of
+    both routes), and prints the [<phase>] line."""
     import os
 
     import torch
@@ -693,19 +784,26 @@ def frame_mega(scene, cam_cfg, settings, width, height, small_bytes,
                 if not torch.equal(ref[4], ln["got"][1]):
                     raise AssertionError(f"{what}: flags differ")
                 e_ref, e_got = ref[3], ln["got"][0]
-                b = bound_ms(it, ln["lanes"] * SE_LANE, small_bytes)
+                b = bound_ms(it, ln["lanes"] * SE_LANE, small_bytes,
+                             layouts=launch_layouts(ln["args"][0], ln["kw"]))
             else:
-                e_ref = resolve_plain(mk, ln["args"], ln["kw"], orec)
+                e_ref = resolve_plain(mk, ln["args"], ln["kw"],
+                                      orec if ln["kw"]["occl"] else rec)
                 e_got = ln["got"][0]
                 b = bound_ms(it, ln["lanes"] * SR_LANE
-                             + it["sray"] * SR_SHADOW, sr_small)
+                             + it["sray"] * SR_SHADOW, sr_small,
+                             layouts=launch_layouts(ln["args"][0], ln["kw"]))
             flips, err, mean = contract(torch.stack(e_ref, 1),
                                         torch.stack(e_got, 1), what)
             main_path.append(dict(
-                name=ln["name"], depth=k // 2, lanes=ln["lanes"], ms=ms,
+                name=ln["name"], depth=k // 2,
+                layout=launch_layouts(ln["args"][0], ln["kw"])[0],
+                lanes=ln["lanes"], ms=ms,
                 call_ms=c_ms, bound_ms=b[0], bound_by=b[1],
                 sampled_lanes=int(e_got[0].shape[0]), max_abs_err=err,
-                flip_share=flips, mean_err=mean, iters=it))
+                flip_share=flips, mean_err=mean,
+                energy_bit_mismatches=int(bits_differ(
+                    tuple(e_got), tuple(e_ref)).sum()), iters=it))
         ptf.check_status(dev)
 
         # the main path: timed frames, every count from 0
@@ -725,9 +823,9 @@ def frame_mega(scene, cam_cfg, settings, width, height, small_bytes,
             os.environ["CPUGPU_NO_PTFRAME"] = prev
     r_whole = Renderer(scene, camera=cam_cfg, config=config,
                        settings=settings, device=dev)
-    before = ptf.launches
+    before = counts().get(arm("pt_frame"), 0)
     r_whole.render_frame()
-    if ptf.launches != before + 2:
+    if counts().get(arm("pt_frame"), 0) != before + 2:
         raise AssertionError("the whole-frame route did not take pt_frame")
     img = r_mega.image_u32()
     same_image = bool((img == r_whole.image_u32()).all())
@@ -740,7 +838,7 @@ def frame_mega(scene, cam_cfg, settings, width, height, small_bytes,
         raise AssertionError(f"mean energy {energy}")
     if img.shape != (height, width) or not (img != 0xFF000000).any():
         raise AssertionError("the per-depth frame is black")
-    say("frame_mega", width=width, height=height, frames=TIMED_FRAMES,
+    say(phase, width=width, height=height, frames=TIMED_FRAMES,
         ms_per_frame=ms_per_frame,
         kernel_share=sum(dev_ms) / ms_per_frame,
         mrays_per_s=rate / 1e6, traced_per_frame=traced,
@@ -750,8 +848,13 @@ def frame_mega(scene, cam_cfg, settings, width, height, small_bytes,
         image_equal_whole_frame=same_image,
         traced_equal_whole_frame=same_traced)
     for mp in main_path:
-        say(f"mega_d{mp['depth']}_{mp['name']}", **mp)
-    return main_path, got
+        say(f"mega_d{mp['depth']}_{mp['name']}" if phase == "frame_mega"
+            else f"{phase}_d{mp['depth']}_{mp['name']}", **mp)
+    return main_path, got, dict(
+        ms_per_frame=ms_per_frame, mrays_per_s=rate / 1e6, renderer=r,
+        image=img, traced=r_mega.stats.traced_rays,
+        whole_image=r_whole.image_u32(),
+        whole_traced=r_whole.stats.traced_rays)
 
 
 def check_traverse(ds, o, d) -> dict:
@@ -1002,11 +1105,11 @@ def frame_whitted(scene, cam_cfg, settings, width, height, profile: bool):
     prev = os.environ.get("CPUGPU_NO_WHITTED_KERNEL")
     os.environ["CPUGPU_NO_WHITTED_KERNEL"] = "1"
     try:
-        before = wk.launches
+        before = counts().get("whitted_frame", 0)
         r_t = Renderer(scene, camera=cam_cfg, config=config,
                        settings=settings, device=dev)
         r_t.render_frame()
-        if wk.launches != before:
+        if counts().get("whitted_frame", 0) != before:
             raise AssertionError("CPUGPU_NO_WHITTED_KERNEL=1 still took the "
                                  "kernel")
     finally:
@@ -1401,7 +1504,7 @@ FRAME5_ROUTES = {
 }
 
 
-def frame5(s5, phase: str, profile: bool):
+def frame5(s5, phase: str, profile: bool, label: str | None = None):
     """Phases 14-16: config 5 at 1280x720 through Renderer on one route,
     with the hook (new transforms, hence a refit) before every frame: one
     frame timing each launch on the device and one with CUDA events
@@ -1410,7 +1513,9 @@ def frame5(s5, phase: str, profile: bool):
     (state and flags exact; energy bitwise on the instance arms, under
     the megakernel contract on the plain arms); TIMED_FRAMES timed frames with
     every count from 0; the refit's own time over TIMED_FRAMES refits.
-    Returns (main-path entries, counts, the renderer)."""
+    The kernels' arms are ARM's; `label` names the printed lines
+    (phase by default).  Returns (main-path entries, counts, a dict of
+    the frame time, rate, refit time and the renderer)."""
     import torch
     from cpugpupathtracing_tpu_torch.config import RenderConfig
     from cpugpupathtracing_tpu_torch.models.renderer import Renderer
@@ -1418,6 +1523,7 @@ def frame5(s5, phase: str, profile: bool):
     from cpugpupathtracing_tpu_torch.ops import pt_frame as ptf
 
     which, env, wrappers, want = FRAME5_ROUTES[phase]
+    label = label or phase
     scene, hook = s5[which]["scene"], s5[which]["hook"]
     settings, w, h = s5["settings"], s5["width"], s5["height"]
     dev = torch.device("cuda")
@@ -1520,21 +1626,23 @@ def frame5(s5, phase: str, profile: bool):
                     e_ref, e_got = ref[0], got[0][sel]
                 b = bound_ms(it, ln["lanes"] * lane_bytes(
                     ln["carry_in"] is not None, bool(kk.get("carry_out"))),
-                    small)
+                    small, layouts=launch_layouts(ln["tables"][0], kk))
             elif ln["name"] == "shade_extend":
                 ref = shade_plain(mk, ln["args"], ln["kw"], rec)
                 exact = [(ref[4], ln["got"][1]), (ref[1], ln["got"][2])]
                 e_ref = torch.stack(ref[3], 1)
                 e_got = torch.stack(ln["got"][0], 1)
-                b = bound_ms(it, ln["lanes"] * SE_LANE, small)
+                b = bound_ms(it, ln["lanes"] * SE_LANE, small,
+                             layouts=launch_layouts(ln["args"][0], ln["kw"]))
             else:
                 ref = resolve_plain(mk, ln["args"], ln["kw"],
-                                    rec if ds.machinery else orec)
+                                    orec if ln["kw"]["occl"] else rec)
                 exact = []
                 e_ref = torch.stack(ref, 1)
                 e_got = torch.stack(ln["got"][0], 1)
                 b = bound_ms(it, ln["lanes"] * SR_LANE
-                             + it["sray"] * SR_SHADOW, sr_small)
+                             + it["sray"] * SR_SHADOW, sr_small,
+                             layouts=launch_layouts(ln["args"][0], ln["kw"]))
             if any(not torch.equal(x, y) for x, y in exact):
                 raise AssertionError(f"{what}: state or flags differ from "
                                      "the plain version")
@@ -1545,6 +1653,9 @@ def frame5(s5, phase: str, profile: bool):
             contract(e_ref, e_got, what)
             main_path.append(dict(
                 name=ln["name"] + ("_inst" if ds.machinery else ""),
+                layout=launch_layouts(
+                    (ln["tables"] if ln["name"] == "pt_frame"
+                     else ln["args"])[0], ln["kw"])[0],
                 launch=k + 1, lanes=ln["lanes"], ms=ms, call_ms=c_ms,
                 bound_ms=b[0], bound_by=b[1],
                 sampled_lanes=int(e_got.shape[0]),
@@ -1585,7 +1696,7 @@ def frame5(s5, phase: str, profile: bool):
         if profile:
             profile_frames(r, ms_frame, phase,
                            step=lambda: hook(frame_no[0], r))
-    say(phase, route=which, width=w, height=h, frames=TIMED_FRAMES,
+    say(label, route=which, width=w, height=h, frames=TIMED_FRAMES,
         depths=depths, ms_per_frame=ms_frame,
         kernel_share=sum(dev_ms) / ms_frame,
         mrays_per_s=int(traced) / dt / 1e6,
@@ -1596,8 +1707,11 @@ def frame5(s5, phase: str, profile: bool):
         refit_ms=sum(refit_ms) / len(refit_ms),
         refit_host_ms=sum(refit_host_ms) / len(refit_host_ms))
     for mp in main_path:
-        say(f"{phase}_{mp['launch']}_{mp['name']}", **mp)
-    return main_path, got
+        say(f"{label}_{mp['launch']}_{mp['name']}", **mp)
+    return main_path, got, dict(
+        ms_per_frame=ms_frame, mrays_per_s=int(traced) / dt / 1e6,
+        traced_per_frame=int(traced) // TIMED_FRAMES,
+        refit_ms=sum(refit_ms) / len(refit_ms), renderer=r)
 
 
 def compare_routes5(s5) -> dict:
@@ -1703,14 +1817,16 @@ def middle_lanes(cam_cfg, width, height, dev):
 
 
 def trav_plain(tps, rays, t_init, nodes, ltris, roots, active, any_hit,
-               count_depth, inst_kw):
+               count_depth, inst_kw, layout_kw=None):
     """traverse_packet_slim's plain version on the arguments of a call
-    (with count_depth the walk, else brute force)."""
+    (with count_depth the walk on the call's node layout, layout_kw:
+    ents / fused_nn / width; else brute force)."""
     inst = ((nodes, roots, inst_kw["inst_inv"], inst_kw["inst_root"])
             if inst_kw else None)
     return tps.traverse_packet_slim_reference(
         rays, t_init, ltris, active=active, any_hit=any_hit,
-        count_depth=count_depth, nodes=nodes, roots=roots, inst=inst)
+        count_depth=count_depth, nodes=nodes, roots=roots, inst=inst,
+        **(layout_kw or {}))
 
 
 def flat_hit(res) -> tuple:
@@ -1821,6 +1937,8 @@ def traverse_main_path(frame_fn, what: str, per_depth: int) -> list:
                 count_depth=count_depth, given_active=active is not None,
                 tree=a[3:6], inst={k_: v for k_, v in k.items()
                                    if k_.startswith("inst_")},
+                layout={k_: v for k_, v in k.items()
+                        if k_ in ("ents", "fused_nn", "width")},
                 rays=tuple(x[sel] for x in a[0] + a[1]), t_init=a[2][sel],
                 active=None if active is None else active[sel],
                 got=tuple(x[sel] for x in flat_hit(out))))
@@ -1838,7 +1956,7 @@ def traverse_main_path(frame_fn, what: str, per_depth: int) -> list:
         got = ln["got"]
         ref = flat_hit(trav_plain(tps, ln["rays"], ln["t_init"], nodes,
                                   ltris, roots, ln["active"], ln["any_hit"],
-                                  ln["count_depth"], inst))
+                                  ln["count_depth"], inst, ln["layout"]))
         if ln["any_hit"] and not ln["count_depth"]:
             mism = int(((got[1] >= 0) != (ref[1] >= 0)).sum())
         else:
@@ -1850,9 +1968,11 @@ def traverse_main_path(frame_fn, what: str, per_depth: int) -> list:
         extra = 4 * ln["lanes"] * (bool(ln["count_depth"]) + bool(inst))
         b = bound_ms(it, trav_bytes(ln["lanes"], it["ray"], True,
                                     ln["given_active"]) + extra, 0,
-                     shade_ops=0)
+                     shade_ops=0,
+                     layouts=launch_layouts(nodes, ln["layout"]))
         main_path.append(dict(
             launch=k + 1, depth=k // per_depth,
+            layout=launch_layouts(nodes, ln["layout"])[0],
             kind="any" if ln["any_hit"] else "closest",
             count_depth=ln["count_depth"], instance_arm=bool(inst),
             lanes=ln["lanes"], active=it["ray"], ms=ms_k, call_ms=c_ms,
@@ -2173,6 +2293,677 @@ def frame_xla_scene(phase, scene, cam_cfg, settings, width, height, want,
     return num
 
 
+def frame_whole(scene, cam_cfg, settings, width, height, small_bytes,
+                profile: bool, phase: str = "frame"):
+    """Phase 6: config 3 through Renderer on the whole-frame route: one
+    warm-up frame; one frame timing each kernel launch; one frame
+    counting each launch's work and holding every SAMPLE_STRIDE-th lane
+    of both launches (their real inputs: 2 depths with the carry out,
+    then 4 sorted depths with the carry in) against the plain version;
+    then timed frames through Renderer.  The pt_frame arm is ARM's.
+    Returns (main-path entries, counts, a dict of the frame time, rate
+    and the renderer); prints the [<phase>] line and one
+    [<phase>_launch<k>] line per launch ([launch<k>] for phase 6)."""
+    import torch
+    from cpugpupathtracing_tpu_torch.config import RenderConfig
+    from cpugpupathtracing_tpu_torch.models.renderer import Renderer
+    from cpugpupathtracing_tpu_torch.ops import pt_frame as ptf
+
+    dev = torch.device("cuda")
+    r = Renderer(scene, camera=cam_cfg,
+                 config=RenderConfig(width=width, height=height),
+                 settings=settings, device=dev)
+    r.render_frame()  # warm-up
+    entry = ptf.pt_frame
+
+    # one frame timing each launch on the device, one with CUDA events
+    # around each wrapper call
+    span_ms = launch_ms(r.render_frame, "pt_frame_kernel")
+    span_call_ms = wrapper_ms(ptf, ("pt_frame",), r.render_frame)
+
+    # one frame counting each launch's work and keeping every
+    # SAMPLE_STRIDE-th lane's inputs and energy for the plain version
+    spans = []
+
+    def counted(*a, **k):
+        *out, iters = entry(*a, count_iters=True, **k)
+        rays_, state_ = a[-2], a[-1]
+        sel = torch.arange(0, state_.shape[0], SAMPLE_STRIDE, device=dev)
+        ci = k.get("carry_in")
+        energy_ = torch.stack(out[3], 1) if k.get("carry_out") else out[0]
+        spans.append(dict(
+            lanes=state_.shape[0], iters=iters, tables=a[:-2],
+            rays=tuple(x[sel] for x in rays_), state=state_[sel],
+            carry_in=None if ci is None else (
+                tuple(x[sel] for x in ci[0]), tuple(x[sel] for x in ci[1]),
+                ci[2][sel]),
+            energy=energy_[sel], kw=k))
+        return tuple(out)
+
+    instrument(ptf, "pt_frame", lambda _: counted, r.render_frame)
+    if not len(spans) == len(span_ms) == len(span_call_ms) == 2:
+        raise AssertionError(f"{len(spans)} launches in a frame, expected 2")
+    main_path = []
+    for sp, ms, c_ms in zip(spans, span_ms, span_call_ms):
+        k = dict(sp["kw"], carry_in=sp["carry_in"])
+        res = plain(ptf, sp["tables"], sp["rays"], sp["state"], **k)
+        e_ref = torch.stack(res[3], 1) if k.get("carry_out") else res[0]
+        what = f"{phase} launch {len(main_path) + 1}, sampled lanes"
+        s_flips, s_max, s_mean = contract(e_ref, sp["energy"], what)
+        it = dict(zip(ptf.COUNTERS, (int(v) for v in sp["iters"])))
+        layouts = launch_layouts(sp["tables"][0], k)
+        sb_ms, sb_by = bound_ms(
+            it, sp["lanes"] * lane_bytes(sp["carry_in"] is not None,
+                                         bool(k.get("carry_out"))),
+            small_bytes, layouts=layouts)
+        main_path.append(dict(
+            lanes=sp["lanes"], depths=k["depths"],
+            depth_base=k.get("depth_base", 0), layouts=layouts, ms=ms,
+            call_ms=c_ms, bound_ms=sb_ms,
+            bound_by=sb_by, sampled_lanes=sp["state"].shape[0],
+            max_abs_err=s_max, flip_share=s_flips, mean_err=s_mean,
+            energy_bit_mismatches=int((sp["energy"].view(torch.int32)
+                                       != e_ref.view(torch.int32))
+                                      .any(dim=1).sum()),
+            iters=it))
+    ptf.check_status(dev)
+
+    # the main path: timed frames, every count from 0
+    frame_ms, traced, rate, frame_counts = timed_frames(
+        r, f"{phase} frames", False, "whole-frame", pt_frame=2, sorts=1)
+    ptf.check_status(dev)
+    r.total_energy_received = 0.0
+    r.num_accumulated = 0
+    r.render_frame()
+    energy = frame_checks(r, phase, height, width)
+    say(phase, width=width, height=height, frames=TIMED_FRAMES,
+        ms_per_frame=frame_ms, kernel_share=sum(span_ms) / frame_ms,
+        mrays_per_s=rate / 1e6, traced_per_frame=traced,
+        launches_per_frame=frame_counts[arm("pt_frame")] / TIMED_FRAMES,
+        arm=arm("pt_frame"), mean_energy=energy)
+    for k, mp in enumerate(main_path, 1):
+        say(f"launch{k}" if phase == "frame" else f"{phase}_launch{k}",
+            **mp)
+    if profile:
+        profile_frames(r, frame_ms, "whole-frame")
+    return main_path, frame_counts, dict(ms_per_frame=frame_ms,
+                                         mrays_per_s=rate / 1e6, renderer=r)
+
+
+# The node-table layouts the layout phases run (ops/pt_frame.py LAYOUTS):
+# (name, the environment that selects it).  An unset variable takes the
+# JAX benchmark's value, so "48" is the port's default.
+LAYOUT_RUNS = (
+    ("48", {}),
+    ("ents", {"CPUGPU_SMEMTREE": "1"}),
+    ("64", {"CPUGPU_SMEMTREE": "0"}),
+    ("w16", {"CPUGPU_PACKET_TREE": "w16"}),
+    ("fused", {"CPUGPU_FUSED": "1"}),
+    ("fused_w16", {"CPUGPU_FUSED": "1", "CPUGPU_PACKET_TREE": "w16"}),
+)
+# without the any-hit tables (CPUGPU_OCCL=0) shadow rays walk the shading
+# tables: shadow_resolve's arms over 16-wide and fused rows
+SHARED_RUNS = (
+    ("w16_shared", {"CPUGPU_PACKET_TREE": "w16", "CPUGPU_OCCL": "0"}),
+    ("fused_shared", {"CPUGPU_FUSED": "1", "CPUGPU_OCCL": "0"}),
+    ("fused_w16_shared", {"CPUGPU_FUSED": "1", "CPUGPU_PACKET_TREE": "w16",
+                          "CPUGPU_OCCL": "0"}),
+)
+# config 5 (flattened: instances build the side tables, not 48-col rows)
+LAYOUT5_RUNS = (
+    ("ents", {}),
+    ("w16", {"CPUGPU_PACKET_TREE": "w16"}),
+    ("fused", {"CPUGPU_FUSED": "1"}),
+    ("fused_w16", {"CPUGPU_FUSED": "1", "CPUGPU_PACKET_TREE": "w16"}),
+)
+
+
+@contextlib.contextmanager
+def fused_whole_frame():
+    """Lift, for the block, the whole-frame gate's refusal of fused tables
+    (the JAX gate's rule: a fused scene takes the per-depth route), so
+    that the layout phases run pt_frame's fused arms on the whole-frame
+    route too; every other reason of the gate stands."""
+    from cpugpupathtracing_tpu_torch.models import renderer
+    from cpugpupathtracing_tpu_torch.models import scene as scenelib
+
+    orig = renderer.pt_frame_active
+
+    def active(dev, settings):
+        return orig(dev, settings) or (
+            dev.pfused is not None and scenelib.pt_frame_gate_reason(
+                dev, settings) == "fused packet tables")
+
+    renderer.pt_frame_active = active
+    try:
+        yield
+    finally:
+        renderer.pt_frame_active = orig
+
+
+def check_variant(ds, settings, o, d, st, small_bytes, name: str,
+                  ref64) -> dict:
+    """Phase [check_<layout>]: each arm of the snapshot's layout on the
+    8192 check lanes -- pt_frame on the whole-frame route's tables (all
+    depths), shade_extend at depth 0 and shadow_resolve on its outputs on
+    the per-depth route's, and traverse_packet_slim's closest hits of the
+    camera rays (even lanes) and any hits toward light 0 (odd lanes that
+    hit) with count_depth -- against their plain versions (the walk for
+    count_depth: bitwise on every output; closest hits without it against
+    brute force, bitwise), pt_frame also against the plain 64-col arm's
+    run `ref64` (energy, state, traced) bitwise.  Returns each arm's
+    numbers by kernel."""
+    import torch
+    from cpugpupathtracing_tpu_torch.models import integrators
+    from cpugpupathtracing_tpu_torch.ops import megakernel as mk
+    from cpugpupathtracing_tpu_torch.ops import pt_frame as ptf
+    from cpugpupathtracing_tpu_torch.ops import traverse_packet_slim as tps
+
+    dev, n = st.device, st.shape[0]
+    rays = columns(o, d)
+    depths = settings.max_ray_depth + 1
+    out = {}
+
+    def timed_plain(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, (time.perf_counter() - t0) * 1e3
+
+    def energy_bits(a, b):
+        return int((a.reshape(a.shape[0], -1).view(torch.int32)
+                    != b.reshape(b.shape[0], -1).view(torch.int32))
+                   .any(dim=1).sum())
+
+    # B1: pt_frame
+    tables, kw = integrators.frame_args(ds, settings)
+    *fk, it = ptf.pt_frame(*tables, rays, st, depths=depths,
+                           count_iters=True, **kw)
+    fp, p_ms = timed_plain(lambda: plain(ptf, tables, rays, st,
+                                         depths=depths, **kw))
+    ptf.check_status(dev)
+    if int(fk[2]) != int(fp[2]):
+        raise AssertionError(f"pt_frame {name}: traced {int(fk[2])}, plain "
+                             f"{int(fp[2])}")
+    if not (torch.equal(fk[0], ref64[0]) and torch.equal(fk[1], ref64[1])
+            and int(fk[2]) == int(ref64[2])):
+        raise AssertionError(f"pt_frame {name}: differs from the 64-col arm")
+    _, err, _ = contract(fp[0], fk[0], f"pt_frame {name} vs plain")
+    it = dict(zip(ptf.COUNTERS, (int(v) for v in it)))
+    lay = launch_layouts(tables[0], kw)
+    out["pt_frame"] = dict(
+        layouts=lay, max_abs_err=err, plain_ms=p_ms, iters=it,
+        energy_bit_mismatches=energy_bits(fk[0], fp[0]),
+        state_mismatches=int((fk[1] != fp[1]).sum()),
+        bound=bound_ms(it, n * lane_bytes(False, False), small_bytes,
+                       layouts=lay),
+        **kernel_ms(lambda: ptf.pt_frame(*tables, rays, st, depths=depths,
+                                         **kw), "pt_frame_kernel"))
+
+    # B2, B3: shade_extend at depth 0, shadow_resolve on its shadow rays
+    tables, tkw = integrators.route_tables(ds)
+    ekw = dict(integrators.extend_kwargs(ds, settings), **tkw)
+    one = torch.ones(n, device=dev)
+    zero = torch.zeros(n, device=dev)
+    a = (*tables, 0, rays, st, (one, one, one), (zero, zero, zero),
+         torch.ones(n, dtype=torch.int32, device=dev))
+    *se, it = mk.shade_extend(*a, count_iters=True, **ekw)
+    sp, p_ms = timed_plain(lambda: shade_plain(mk, a, ekw))
+    if not (torch.equal(se[4], sp[4]) and torch.equal(se[1], sp[1])):
+        raise AssertionError(f"shade_extend {name}: flags or state differ "
+                             "from the plain version")
+    _, err, _ = contract(torch.stack(sp[3], 1), torch.stack(se[3], 1),
+                         f"shade_extend {name} vs plain")
+    it = dict(zip(ptf.COUNTERS, (int(v) for v in it)))
+    lay = launch_layouts(tables[0], ekw)
+    out["shade_extend"] = dict(
+        layouts=lay, max_abs_err=err, plain_ms=p_ms, iters=it,
+        energy_bit_mismatches=energy_bits(torch.stack(se[3], 1),
+                                          torch.stack(sp[3], 1)),
+        bound=bound_ms(it, n * SE_LANE, small_bytes, layouts=lay),
+        **kernel_ms(lambda: mk.shade_extend(*a, **ekw),
+                    "shade_extend_kernel"))
+    sn, sl, skw = integrators.shadow_tables(ds)
+    sa = (sn, sl, ds.mk_sph, ds.mk_pln, se[5], se[6], se[7], se[4], se[3],
+          se[8])
+    *sr, it = mk.shadow_resolve(*sa, count_iters=True, **skw)
+    rp, p_ms = timed_plain(lambda: resolve_plain(mk, sa, skw))
+    ptf.check_status(dev)
+    _, err, _ = contract(torch.stack(rp, 1), torch.stack(sr, 1),
+                         f"shadow_resolve {name} vs plain")
+    it = dict(zip(ptf.COUNTERS, (int(v) for v in it)))
+    lay = launch_layouts(sn, skw)
+    out["shadow_resolve"] = dict(
+        layouts=lay, max_abs_err=err, plain_ms=p_ms, iters=it,
+        energy_bit_mismatches=energy_bits(torch.stack(sr, 1),
+                                          torch.stack(rp, 1)),
+        bound=bound_ms(it, n * SR_LANE + it["sray"] * SR_SHADOW,
+                       4 * (ds.mk_sph.numel() + ds.mk_pln.numel()),
+                       layouts=lay),
+        **kernel_ms(lambda: mk.shadow_resolve(*sa, **skw),
+                    "shadow_resolve_kernel"))
+
+    # B4: closest and any hits, count_depth against the walk
+    nodes, ltris, fused_nn, ents = tables[0], tables[1], tkw["fused_nn"], \
+        tkw["ents"]
+    lkw = dict(fused_nn=fused_nn, width=tkw["width"], ents=ents)
+    even = torch.arange(n, device=dev) % 2 == 0
+    far = torch.full((n,), 1e34, device=dev)
+    cam = tps.traverse_packet_slim(rays[:3], rays[3:], far, nodes, ltris,
+                                   ds.proots, count_depth=False, **lkw)
+    brute = tps.traverse_packet_slim_reference(rays, far, ltris)
+    b_mism = int(bits_differ(flat_hit(cam), flat_hit(brute)).sum())
+    if b_mism:
+        raise AssertionError(f"traverse {name}: {b_mism} closest hits differ "
+                             "from brute force")
+    *_, it = tps.traverse_packet_slim(rays[:3], rays[3:], far, nodes, ltris,
+                                      ds.proots, count_depth=False,
+                                      count_iters=True, **lkw)
+    _, p_ms = timed_plain(lambda: tps.traverse_packet_slim_reference(
+        rays, far, ltris))
+    it = dict(zip(ptf.COUNTERS, (int(v) for v in it)))
+    lay = launch_layouts(nodes, lkw)
+    out["traverse"] = dict(
+        layouts=lay, hits=int((cam[1] >= 0).sum()), mismatches=b_mism,
+        max_abs_err=float((cam[0] - brute[0]).abs().max()), plain_ms=p_ms,
+        iters=it, bound=bound_ms(it, trav_bytes(n, it["ray"], True, False),
+                                 0, shade_ops=0, layouts=lay),
+        **kernel_ms(lambda: tps.traverse_packet_slim(
+            rays[:3], rays[3:], far, nodes, ltris, ds.proots,
+            count_depth=False, **lkw), "traverse_kernel"))
+    pos = o + d * cam[0][:, None]
+    to_l = ds.mk_lights[0, 0:3][None, :] - pos
+    dist = torch.sqrt((to_l * to_l).sum(dim=1))
+    to_l = to_l / dist[:, None]
+    for query, qr, t0, act, any_hit in (
+            ("closest", rays, far, even, False),
+            ("any", columns(pos + to_l * 0.001, to_l),
+             dist - ds.mk_lights[0, 3] - 0.002, ~even & (cam[1] >= 0), True)):
+        args = (qr[:3], qr[3:], t0, nodes, ltris, ds.proots)
+        *got, it = tps.traverse_packet_slim(*args, active=act,
+                                            any_hit=any_hit,
+                                            count_iters=True, **lkw)
+        ref, p_ms = timed_plain(lambda: trav_plain(
+            tps, qr, t0, nodes, ltris, ds.proots, act, any_hit, True, {},
+            lkw))
+        ptf.check_status(dev)
+        mism = int(bits_differ(flat_hit(got), flat_hit(ref)).sum())
+        if mism:
+            raise AssertionError(f"traverse {name} {query}: {mism} lanes "
+                                 "differ from the walk")
+        it = dict(zip(ptf.COUNTERS, (int(v) for v in it)))
+        fin = torch.isfinite(ref[0])  # lanes whose camera ray missed: inf
+        out[f"traverse_{query}"] = dict(
+            layouts=lay, active=int(act.sum()), hits=int((got[1] >= 0).sum()),
+            mismatches=mism, brute_force_mismatches=b_mism,
+            depth_max=int(got[4].max()),
+            max_abs_err=float((got[0] - ref[0])[fin].abs().max()),
+            plain_ms=p_ms, iters=it,
+            bound=bound_ms(it, trav_bytes(n, it["ray"], True, True) + 4 * n,
+                           0, shade_ops=0, layouts=lay),
+            **kernel_ms(lambda: tps.traverse_packet_slim(
+                *args, active=act, any_hit=any_hit, **lkw),
+                "traverse_kernel"))
+    bad = {k: v["energy_bit_mismatches"] for k, v in out.items()
+           if v.get("energy_bit_mismatches", 0)}
+    if bad or out["pt_frame"]["state_mismatches"]:
+        raise AssertionError(
+            f"check {name}: lanes whose energy differs from the plain "
+            f"version bitwise {bad}, pt_frame states differing "
+            f"{out['pt_frame']['state_mismatches']}")
+    say(f"check_{name}", lanes=n, **{
+        f"{k}_{f}": v[f] for k, v in out.items()
+        for f in ("layouts", "ms", "call_ms", "plain_ms", "max_abs_err")},
+        **{f"{k}_bound_ms": v["bound"][0] for k, v in out.items()},
+        **{f"{k}_energy_bit_mismatches": v["energy_bit_mismatches"]
+           for k, v in out.items() if "energy_bit_mismatches" in v},
+        pt_frame_equal_64=True)
+    return out
+
+
+def b4_frames(scene, cam_cfg, settings, whitted_settings, width, height,
+              name: str) -> dict:
+    """Phase [b4_<layout>]: the traversal's main paths on config 3 under
+    the current flags: one XLA-route frame with AOVs (per depth one
+    count_depth closest-hit launch, one any-hit launch and a sort) and one
+    WHITTED frame (per depth one closest-hit launch and one any-hit launch
+    per light, a sort), each launch timed and every SAMPLE_STRIDE-th lane
+    against its plain version (traverse_main_path).  Returns the counts
+    and main-path entries of both."""
+    import torch
+    from cpugpupathtracing_tpu_torch.config import RenderConfig
+    from cpugpupathtracing_tpu_torch.models.renderer import Renderer
+
+    dev = torch.device("cuda")
+    config = RenderConfig(width=width, height=height)
+    out = {}
+    depths = settings.max_ray_depth + 1
+    wdepths = whitted_settings.max_ray_depth + 1
+    per_light = 1 + scene.device(dev).num_lights
+    for run, st, want, per in (
+            ("xla", settings.replace(track_aovs=True),
+             dict(traverse_packet_slim_depth=depths,
+                  traverse_packet_slim=depths, sorts=depths), 2),
+            ("whitted", whitted_settings,
+             dict(traverse_packet_slim=wdepths * per_light, sorts=wdepths),
+             per_light)):
+        r = Renderer(scene, camera=cam_cfg, config=config, settings=st,
+                     device=dev)
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r.render_frame()
+        ms = (time.perf_counter() - t0) * 1e3
+        got = counts()
+        expect_counts(got, f"{run} frame ({name})", **want)
+        path = traverse_main_path(r.render_frame, f"{run} frame ({name})",
+                                  per)
+        frame_checks(r, f"{run} frame ({name})", height, width)
+        out[run] = dict(counts=got, path=path, first_frame_ms=ms)
+        say(f"b4_{name}", run=run, launches=sum(
+            v for k, v in got.items() if k != "sorts"),
+            first_frame_ms=ms, kernel_ms=sum(mp["ms"] for mp in path),
+            sampled_mismatches=sum(mp["mismatches"] for mp in path),
+            arms=sorted(k for k, v in got.items() if v and k != "sorts"))
+    return out
+
+
+def bitwise_path(path, what: str) -> None:
+    """Raise unless every sampled main-path lane of `path` equals its
+    plain version bit for bit (the layout phases' rule)."""
+    bad = [mp for mp in path if mp.get("energy_bit_mismatches", 0)
+           or mp.get("mismatches", 0)]
+    if bad:
+        raise AssertionError(f"{what}: sampled lanes differ from the plain "
+                             f"version bitwise in {len(bad)} launches")
+
+
+def layouts3(scene, cam_cfg, settings, whitted_settings, width, height, o,
+             d, st, ref64) -> dict:
+    """Phase [layout3]: config 3 at 1920x1080 under every node-table
+    layout (LAYOUT_RUNS: the default 48-col rows and side tables, the
+    64-col rows with side tables, the plain rows, 16-wide rows, the fused
+    table, fused 16-wide rows), each built from the checkout (seconds):
+    its arms on the check lanes (check_variant), the whole-frame route
+    (frame_whole; fused tables through fused_whole_frame) and the
+    per-depth route (frame_mega) with every launch timed, bounded and
+    sampled against the plain version, TIMED_FRAMES timed frames each and
+    two profiled ones (device-busy share), and the traversal's main paths
+    (b4_frames).  Then the per-depth route without the any-hit tables
+    (SHARED_RUNS).  Every layout's from-reset frame equals the default's
+    bitwise on both routes (image and traced count).  Returns the numbers
+    by layout."""
+    import torch
+
+    dev = torch.device("cuda")
+    out, ref = {}, None
+    for name, env in LAYOUT_RUNS + SHARED_RUNS:
+        shared = name.endswith("_shared")
+        with environ(**env), fused_whole_frame():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ds = scene.device(dev)
+            torch.cuda.synchronize()
+            build_s = time.perf_counter() - t0
+            small = sum(v for k, v in ds.table_bytes().items()
+                        if k.startswith("mk_"))
+            res = dict(build_seconds=build_s, node_rows=ds.pnodes.shape[0],
+                       width=ds.packet_width,
+                       stack_need=scene.build_info["stack_need"])
+            with arms(ds, settings) as keys:
+                res["arms"] = keys
+                res["check"] = check_variant(ds, settings, o, d, st, small,
+                                             name, ref64)
+                if not shared:
+                    path, got, whole = frame_whole(
+                        scene, cam_cfg, settings, width, height, small, False,
+                        phase=f"layout3_{name}_whole")
+                    whole["busy"] = profile_frames(
+                        whole.pop("renderer"), whole["ms_per_frame"],
+                        f"whole-frame {name}")
+                    res["whole"] = dict(whole, path=path, counts=got)
+                    bitwise_path(path, f"layout {name}, whole-frame")
+                path, got, mega = frame_mega(
+                    scene, cam_cfg, settings, width, height, small, False,
+                    phase=f"layout3_{name}_mega")
+                with environ(CPUGPU_NO_PTFRAME="1"):
+                    mega["busy"] = profile_frames(
+                        mega.pop("renderer"), mega["ms_per_frame"],
+                        f"per-depth {name}")
+                res["mega"] = dict(mega, path=path, counts=got)
+                bitwise_path(path, f"layout {name}, per-depth")
+                if not shared:
+                    res["b4"] = b4_frames(scene, cam_cfg, settings,
+                                          whitted_settings, width, height,
+                                          name)
+        if ref is None:
+            ref = {k: mega[k] for k in ("image", "traced", "whole_image",
+                                        "whole_traced")}
+        for route, key in (("per-depth", "image"), ("whole-frame",
+                                                    "whole_image")):
+            traced = "traced" if key == "image" else "whole_traced"
+            if not (bool((mega[key] == ref[key]).all())
+                    and mega[traced] == ref[traced]):
+                raise AssertionError(f"layout {name}: the {route} frame "
+                                     "differs from the default layout's")
+        for k in ("image", "whole_image"):
+            mega.pop(k)
+        out[name] = res
+        say("layout3", layout=name, build_seconds=round(build_s, 2),
+            node_rows=res["node_rows"], width=res["width"],
+            stack_need=res["stack_need"],
+            whole_ms_per_frame=res.get("whole", {}).get("ms_per_frame"),
+            whole_mrays_per_s=res.get("whole", {}).get("mrays_per_s"),
+            whole_busy=res.get("whole", {}).get("busy"),
+            mega_ms_per_frame=mega["ms_per_frame"],
+            mega_mrays_per_s=mega["mrays_per_s"], mega_busy=mega["busy"],
+            traced_per_frame=mega["traced"],
+            image_equal_default=True, traced_equal_default=True,
+            arms=res["arms"])
+    return out
+
+
+def layouts5(s5) -> dict:
+    """Phase [layout5]: config 5 flattened at 1280x720, the hook before
+    every frame, under LAYOUT5_RUNS (the default side tables, 16-wide
+    rows, the fused table, fused 16-wide rows): the flatten decision on
+    the layout's tables (bytes against the budget), both routes through
+    frame5 (every launch sampled against its plain version, timed frames,
+    the refit's ms), a refit against a fresh build at the same transforms
+    (every table, the fused table included, bitwise), and one frame from
+    reset per route at the same transforms equal to the default layout's
+    (image and traced count).  Returns the numbers by layout."""
+    import torch
+    from cpugpupathtracing_tpu_torch.config import RenderConfig
+    from cpugpupathtracing_tpu_torch.models import scene as scenelib
+    from cpugpupathtracing_tpu_torch.models.renderer import Renderer
+
+    dev = torch.device("cuda")
+    base = s5["flat"]["scene"]
+    out, ref = {}, {}
+    for name, env in LAYOUT5_RUNS:
+        with environ(**env, CPUGPU_NO_FLATTEN=None), fused_whole_frame():
+            scene, cam, settings, w, h, hook = config5(share=base)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ds = scene.device(dev)
+            torch.cuda.synchronize()
+            info = dict(scene.build_info,
+                        seconds=time.perf_counter() - t0)
+            res = dict(flattened=ds.packet_flattened,
+                       width=ds.packet_width,
+                       flat_bytes=info["flat_bytes"],
+                       budget_bytes=int(info["flatten_budget_mb"] * 1e6),
+                       build_seconds=info["seconds"],
+                       stack_need=info["stack_need"],
+                       node_rows=ds.pnodes.shape[0])
+            if not ds.packet_flattened:
+                say("layout5", layout=name, **res,
+                    note="over the flatten budget: the 8-wide object-space "
+                    "path, not timed here")
+                out[name] = res
+                continue
+            s5l = dict(flat=dict(scene=scene, hook=hook), cam=cam,
+                       settings=settings, width=w, height=h)
+            with arms(ds, settings) as keys:
+                res["arms"] = keys
+                for route, phase in (("whole", "frame5"),
+                                     ("mega", "frame5_mega")):
+                    path, got, fr = frame5(s5l, phase, False,
+                                           label=f"layout5_{name}_{route}")
+                    rr = fr.pop("renderer")
+                    with environ(**FRAME5_ROUTES[phase][1]):
+                        fr["busy"] = profile_frames(
+                            rr, fr["ms_per_frame"], f"config 5 {name} {route}",
+                            step=lambda: hook(99, rr))
+                    res[route] = dict(fr, path=path, counts=got)
+                    bitwise_path(path, f"config 5 {name}, {route}")
+                # a refit against a fresh build at the same transforms
+                fresh, *_ = config5(share=base)
+                for ob, oa in zip(fresh.objects, scene.objects):
+                    if oa.instances is not None:
+                        ob.instances = oa.instances.copy()
+                fds = fresh.device(dev)
+                cur = scene.device(dev)
+                bad = [f for f, _ in scenelib.TABLE_FIELDS
+                       + scenelib.VARIANT_FIELDS
+                       if (getattr(cur, f) is None) != (getattr(fds, f) is None)
+                       or (getattr(cur, f) is not None and not torch.equal(
+                           getattr(cur, f).view(torch.int32)
+                           if getattr(cur, f).dtype == torch.float32
+                           else getattr(cur, f),
+                           getattr(fds, f).view(torch.int32)
+                           if getattr(fds, f).dtype == torch.float32
+                           else getattr(fds, f)))]
+                if bad:
+                    raise AssertionError(f"config 5 {name}: the refit differs "
+                                         f"from a fresh build in {bad}")
+                # one frame from reset per route at frame 2's transforms
+                for route, renv in (("whole", {}),
+                                    ("mega", {"CPUGPU_NO_PTFRAME": "1"})):
+                    with environ(**renv):
+                        r = Renderer(scene, camera=cam,
+                                     config=RenderConfig(width=w, height=h),
+                                     settings=settings, device=dev)
+                        hook(2, r)
+                        r.render_frame()
+                    img, tr = r.image_u32(), r.stats.traced_rays
+                    if route not in ref:
+                        ref[route] = (img, tr)
+                    elif not (bool((img == ref[route][0]).all())
+                              and tr == ref[route][1]):
+                        raise AssertionError(
+                            f"config 5 {name}: the {route} frame differs "
+                            "from the default layout's")
+        out[name] = res
+        say("layout5", layout=name, **{k: v for k, v in res.items()
+                                        if k not in ("whole", "mega")},
+            whole_ms_per_frame=res["whole"]["ms_per_frame"],
+            whole_mrays_per_s=res["whole"]["mrays_per_s"],
+            whole_busy=res["whole"]["busy"],
+            mega_ms_per_frame=res["mega"]["ms_per_frame"],
+            mega_mrays_per_s=res["mega"]["mrays_per_s"],
+            mega_busy=res["mega"]["busy"],
+            refit_ms=res["whole"]["refit_ms"], refit_bitwise=True,
+            image_equal_default=True)
+    return out
+
+
+def variant_entries(lay3: dict, lay5: dict) -> list:
+    """The kernels line's entries of the variant arms: per layout of
+    LAYOUT_RUNS but the plain one, pt_frame's, shade_extend's,
+    shadow_resolve's (over 16-wide and fused rows from the run without
+    the any-hit tables) and the traversal's with and without count_depth,
+    each with its check-lane numbers (check_<layout>), its launches on
+    config 3's main paths in that layout (the whole-frame route's timed
+    frames, the per-depth route's, the traversal's XLA and WHITTED
+    frames) and those main paths' launches; config 5's launches per
+    layout beside them."""
+    src = "cpugpupathtracing_tpu_torch/csrc/"
+    rep = "cpugpupathtracing_tpu/ops/"
+    out = []
+    for name, _ in LAYOUT_RUNS:
+        if name == "64":
+            continue
+        res = lay3[name]
+        shadow = lay3.get(f"{name}_shared", res) \
+            if name in ("w16", "fused", "fused_w16") else res
+        b4 = res["b4"]
+
+        def b4_launches(key):
+            return sum(b4[run]["counts"].get(key, 0) for run in b4)
+
+        def b4_path(depth):
+            return [dict(mp, run=run) for run in b4 for mp in b4[run]["path"]
+                    if mp["count_depth"] == depth]
+
+        rows = (
+            ("pt_frame", res["arms"]["pt_frame"], res["check"]["pt_frame"],
+             "pt_frame.cu", "pt_frame_kernel.py:419",
+             res["whole"]["counts"].get(res["arms"]["pt_frame"], 0),
+             res["whole"]["path"]),
+            ("shade_extend", res["arms"]["shade_extend"],
+             res["check"]["shade_extend"], "megakernel.cu",
+             "megakernel.py:1713",
+             res["mega"]["counts"].get(res["arms"]["shade_extend"], 0),
+             [mp for mp in res["mega"]["path"]
+              if mp["name"] == "shade_extend"]),
+            ("shadow_resolve", shadow["arms"]["shadow_resolve"],
+             shadow["check"]["shadow_resolve"], "megakernel.cu",
+             "megakernel.py:1847",
+             shadow["mega"]["counts"].get(shadow["arms"]["shadow_resolve"], 0),
+             [mp for mp in shadow["mega"]["path"]
+              if mp["name"] == "shadow_resolve"]),
+            ("traverse_packet_slim", res["arms"]["traverse_packet_slim"],
+             res["check"]["traverse"], "traverse.cu",
+             "traverse_packet_slim.py:1485",
+             b4_launches(res["arms"]["traverse_packet_slim"]),
+             b4_path(False)),
+            ("traverse_packet_slim", res["arms"]["traverse_packet_slim_depth"],
+             res["check"]["traverse_closest"], "traverse.cu",
+             "traverse_packet_slim.py:1485",
+             b4_launches(res["arms"]["traverse_packet_slim_depth"]),
+             b4_path(True)),
+        )
+        for kernel, key, chk, unit, line, launches, path in rows:
+            entry = {
+                "name": key,
+                "route": "cuda",
+                "source": src + unit,
+                "replaces": rep + line,
+                "launches": launches,
+                "max_abs_err": chk["max_abs_err"],
+                "ms": chk["ms"],
+                "call_ms": chk["call_ms"],
+                "plain_ms": chk["plain_ms"],
+                "bound_ms": chk["bound"][0],
+                "bound_by": chk["bound"][1],
+                "library_ms": None,
+                "check_lanes": CHECK_LANES,
+                "layouts": chk["layouts"],
+                "main_path": [{k: mp[k] for k in mp if k in (
+                    "launch", "depth", "kind", "run", "lanes", "ms",
+                    "call_ms", "bound_ms", "bound_by", "sampled_lanes",
+                    "max_abs_err", "mismatches", "energy_bit_mismatches")}
+                    for mp in path],
+            }
+            if "energy_bit_mismatches" in chk:
+                entry["check_energy_bit_mismatches"] = \
+                    chk["energy_bit_mismatches"]
+            if key.endswith("_depth"):
+                entry["check_any_hit"] = {
+                    k: res["check"]["traverse_any"][k]
+                    for k in ("ms", "call_ms", "plain_ms", "mismatches")} | {
+                    "bound_ms": res["check"]["traverse_any"]["bound"][0]}
+            r5 = lay5.get(name, {})
+            route = "whole" if kernel == "pt_frame" else "mega"
+            if route in r5 and kernel != "traverse_packet_slim":
+                entry["config5_launches"] = r5[route]["counts"].get(key, 0)
+            out.append(entry)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2205,6 +2996,11 @@ def main() -> int:
         units=",".join(f"csrc/{u}" for u, _ in ptf._UNITS))
     for ln in ptxas:
         print("  ptxas:", ln, flush=True)
+
+    # phases 3-17: the plain 64-col arms (CPUGPU_SMEMTREE=0); the node-
+    # table layouts, the default among them, follow in phases 20-21
+    plain_tables = contextlib.ExitStack()
+    plain_tables.enter_context(environ(CPUGPU_SMEMTREE="0"))
 
     # 3. scene
     scene, cam_cfg, settings, width, height, _ = \
@@ -2279,94 +3075,12 @@ def main() -> int:
                       small_bytes)
 
     # 6. frame (whole-frame route)
-    r = Renderer(scene, camera=cam_cfg,
-                 config=RenderConfig(width=width, height=height),
-                 settings=settings, device=dev)
-    r.render_frame()  # warm-up
-    entry = ptf.pt_frame
-
-    def instrumented_frame(wrapped) -> None:
-        ptf.pt_frame = wrapped
-        try:
-            r.render_frame()
-        finally:
-            ptf.pt_frame = entry
-        torch.cuda.synchronize()
-
-    # one frame timing each launch on the device, one with CUDA events
-    # around each wrapper call
-    span_ms = launch_ms(r.render_frame, "pt_frame_kernel")
-    span_call_ms = wrapper_ms(ptf, ("pt_frame",), r.render_frame)
-
-    # one frame counting each launch's work and keeping every
-    # SAMPLE_STRIDE-th lane's inputs and energy for the plain version
-    spans = []
-
-    def counted(*a, **k):
-        *out, iters = entry(*a, count_iters=True, **k)
-        rays_, state_ = a[-2], a[-1]
-        sel = torch.arange(0, state_.shape[0], SAMPLE_STRIDE, device=dev)
-        ci = k.get("carry_in")
-        energy_ = torch.stack(out[3], 1) if k.get("carry_out") else out[0]
-        spans.append(dict(
-            lanes=state_.shape[0], iters=iters, tables=a[:-2],
-            rays=tuple(x[sel] for x in rays_), state=state_[sel],
-            carry_in=None if ci is None else (
-                tuple(x[sel] for x in ci[0]), tuple(x[sel] for x in ci[1]),
-                ci[2][sel]),
-            energy=energy_[sel], kw=k))
-        return tuple(out)
-
-    instrumented_frame(counted)
-    if not len(spans) == len(span_ms) == len(span_call_ms) == 2:
-        raise AssertionError(f"{len(spans)} launches in a frame, expected 2")
-    main_path = []
-    for sp, ms, c_ms in zip(spans, span_ms, span_call_ms):
-        k = dict(sp["kw"], carry_in=sp["carry_in"])
-        res = plain(ptf, sp["tables"], sp["rays"], sp["state"], **k)
-        e_ref = torch.stack(res[3], 1) if k.get("carry_out") else res[0]
-        what = f"main-path launch {len(main_path) + 1}, sampled lanes"
-        s_flips, s_max, s_mean = contract(e_ref, sp["energy"], what)
-        it = dict(zip(ptf.COUNTERS, (int(v) for v in sp["iters"])))
-        sb_ms, sb_by = bound_ms(
-            it, sp["lanes"] * lane_bytes(sp["carry_in"] is not None,
-                                         bool(k.get("carry_out"))),
-            small_bytes)
-        main_path.append(dict(
-            lanes=sp["lanes"], depths=k["depths"],
-            depth_base=k.get("depth_base", 0), ms=ms, call_ms=c_ms,
-            bound_ms=sb_ms,
-            bound_by=sb_by, sampled_lanes=sp["state"].shape[0],
-            max_abs_err=s_max, flip_share=s_flips, mean_err=s_mean,
-            iters=it))
-    ptf.check_status(dev)
-
-    # the main path: timed frames, every count from 0
-    frame_ms, traced, rate, frame_counts = timed_frames(
-        r, "whole-frame frames", False, "whole-frame", pt_frame=2, sorts=1)
-    ptf.check_status(dev)
-    r.total_energy_received = 0.0
-    r.num_accumulated = 0
-    r.render_frame()
-    energy = r.mean_energy
-    img = r.image_u32()
-    if not (math.isfinite(energy) and energy > 0.0):
-        raise AssertionError(f"mean energy {energy}")
-    if img.shape != (height, width) or not (img != 0xFF000000).any():
-        raise AssertionError("the frame is black")
-    say("frame", width=width, height=height, frames=TIMED_FRAMES,
-        ms_per_frame=frame_ms, kernel_share=sum(span_ms) / frame_ms,
-        mrays_per_s=rate / 1e6, traced_per_frame=traced,
-        launches_per_frame=frame_counts["pt_frame"] / TIMED_FRAMES,
-        mean_energy=energy)
-    for k, mp in enumerate(main_path, 1):
-        say(f"launch{k}", **mp)
-    if "--profile" in sys.argv[1:]:
-        profile_frames(r, frame_ms, "whole-frame")
+    profile = "--profile" in sys.argv[1:]
+    main_path, frame_counts, _ = frame_whole(
+        scene, cam_cfg, settings, width, height, small_bytes, profile)
 
     # 7. frame_mega (per-depth route)
-    profile = "--profile" in sys.argv[1:]
-    mega_path, mega_counts = frame_mega(
+    mega_path, mega_counts, _ = frame_mega(
         scene, cam_cfg, settings, width, height, small_bytes, profile)
 
     # 8. traverse_packet_slim on the config-3 check lanes
@@ -2409,7 +3123,7 @@ def main() -> int:
     inst = check_inst(s5, dev)
     paths5, counts5 = {}, {}
     for phase in FRAME5_ROUTES:
-        paths5[phase], counts5[phase] = frame5(s5, phase, profile)
+        paths5[phase], counts5[phase], _ = frame5(s5, phase, profile)
     compare_routes5(s5)
     whit5_path, whit5_counts = whitted5(s5)
 
@@ -2430,6 +3144,13 @@ def main() -> int:
         profile)
     frame_xla_scene("frame_meshless", scene1, cam1, settings, width1,
                     height1, {}, profile)
+    plain_tables.close()
+
+    # 20-21. the node-table layouts on config 3 (both routes, the check
+    # lanes, the traversal's main paths) and on config 5 flattened
+    lay3 = layouts3(scene, cam_cfg, settings, settings1, width, height, o, d,
+                    st, (e_k, s_k, tr_k))
+    lay5 = layouts5(s5)
 
     # 18. kernels line, one clock per field: ms (device time per launch,
     # launch_ms), call_ms (CUDA events around the wrapper calls,
@@ -2587,6 +3308,7 @@ def main() -> int:
                 "bound_by", "sampled_lanes", "max_abs_err", "mismatches")}
                 for mp in path if mp["count_depth"]],
         })
+    kernels += variant_entries(lay3, lay5)
     print(json.dumps({"kernels": kernels}), flush=True)
     # 19. last line
     print(json.dumps({"ok": True, "device": {

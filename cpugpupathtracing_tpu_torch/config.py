@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import dataclasses
 import enum
+import os
 
 
 class RenderMode(enum.IntEnum):
@@ -118,3 +119,68 @@ class RenderConfig:
 
     def replace(self, **kwargs) -> "RenderConfig":
         return dataclasses.replace(self, **kwargs)
+
+
+# The node-table variables of the JAX package (its models/scene.py and
+# ops/traverse_packet_slim.py), read by models/scene.py whenever a scene
+# is built.  A variable that is unset takes the value of the JAX
+# package's benchmark flags (bench_flags_default.json, which its bench.py
+# applies), kept here as constants: the port's default tables are those
+# of the JAX benchmark.
+PACKET_FLAG_DEFAULTS = {
+    "CPUGPU_PACKET_TREE": "sweep_dp",
+    "CPUGPU_OCCL": "1",
+    "CPUGPU_SMEMTREE": "48",
+    "CPUGPU_FRAMESTACK": "1",
+}
+PACKET_TREE_MODES = ("fat", "dp", "sweep", "sweep_dp", "w16")
+
+
+@dataclasses.dataclass(frozen=True)
+class PacketFlags:
+    """The node-table choices of one scene build.
+
+    tree: how each mesh's closest-hit tree is built (CPUGPU_PACKET_TREE;
+      "" means fat, as in the JAX package): fat / sweep = greedy collapse
+      of a fat-leaf binary build (the object's heuristic / full-sweep
+      SAH), dp / sweep_dp = SAH-cost DP collapse, w16 = full-sweep SAH and
+      a 16-wide DP collapse, kept only on scenes without the object-space
+      instance machinery.
+    occl: occlusion any-hit tables beside the shading tables (CPUGPU_OCCL).
+    fused: one node|leaf table (CPUGPU_FUSED).
+    smemtree: "1" = entry side tables, "48" = side tables and 48-col
+      bounds-only rows, else off (CPUGPU_SMEMTREE).
+    smem_min_nodes: trees of fewer node rows hand the side tables to the
+      whole-frame kernel only (CPUGPU_SMEMTREE_MIN_NODES).
+    framestack, rowx: the JAX package's TPU schedule flags
+      (CPUGPU_FRAMESTACK, CPUGPU_ROWX), read only for its condition on
+      the 48-col rows; the port has no schedule they select."""
+
+    tree: str = "sweep_dp"
+    occl: bool = True
+    fused: bool = False
+    smemtree: str = "48"
+    smem_min_nodes: int = 2048
+    framestack: bool = True
+    rowx: int = 1
+
+
+def packet_flags() -> PacketFlags:
+    """The PacketFlags of the environment as it is now."""
+    def env(name):
+        v = os.environ.get(name)
+        return PACKET_FLAG_DEFAULTS.get(name, "") if v is None else v
+
+    tree = env("CPUGPU_PACKET_TREE") or "fat"
+    if tree not in PACKET_TREE_MODES:
+        raise ValueError(f"unknown CPUGPU_PACKET_TREE '{tree}' (one of "
+                         f"{', '.join(PACKET_TREE_MODES)})")
+    return PacketFlags(
+        tree=tree,
+        occl=env("CPUGPU_OCCL") == "1",
+        fused=env("CPUGPU_FUSED") == "1",
+        smemtree=env("CPUGPU_SMEMTREE"),
+        smem_min_nodes=int(env("CPUGPU_SMEMTREE_MIN_NODES") or "2048"),
+        framestack=env("CPUGPU_FRAMESTACK") == "1",
+        rowx=int(env("CPUGPU_ROWX") or "1"),
+    )

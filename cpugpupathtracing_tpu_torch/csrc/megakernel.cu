@@ -25,6 +25,11 @@
 // dependent, scattered 256- and 512-byte row loads (mostly L2 hits) and
 // divergent branches: load latency and warp divergence bound them.
 //
+// The node-table variants (kVar: the entry side tables with 64- or
+// 48-col rows, 16-wide rows, the fused table; pt_device.cuh push_node)
+// are the JAX kernels' arms over those tables, built for the plain
+// (non-instanced) arm only, as in the JAX package.
+//
 // What the design does about it, in this first version: one thread per
 // lane with its own stack in local memory; a lane with nothing to do
 // (not active, or no shadow ray) only copies its columns, so a depth's
@@ -43,8 +48,9 @@ namespace {
 
 // kInst: the instance arm (the TLAS machinery of the object-space
 // instanced scene; the instance tables ride in PtArgs, not in the
-// shared-memory pack); each kernel is built both ways.
-template <bool kInst>
+// shared-memory pack); kVar: the variant walks (pt::variant).  Each
+// kernel is built <false, false>, <true, false> and <false, true>.
+template <bool kInst, bool kVar>
 __global__ void __launch_bounds__(pt::kBlock)
     shade_extend_kernel(const pt::PtArgs a) {
   extern __shared__ float smem[];
@@ -53,11 +59,11 @@ __global__ void __launch_bounds__(pt::kBlock)
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   pt::Counters cnt;
   const bool ok =
-      lane >= a.n || pt::shade_extend_lane<kInst>(p, tb, lane, cnt);
+      lane >= a.n || pt::shade_extend_lane<kInst, kVar>(p, tb, lane, cnt);
   pt::finish(a, ok, cnt);
 }
 
-template <bool kInst>
+template <bool kInst, bool kVar>
 __global__ void __launch_bounds__(pt::kBlock)
     shadow_resolve_kernel(const pt::PtArgs a) {
   extern __shared__ float smem[];
@@ -66,20 +72,28 @@ __global__ void __launch_bounds__(pt::kBlock)
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   pt::Counters cnt;
   const bool ok =
-      lane >= a.n || pt::shadow_resolve_lane<kInst>(p, tb, lane, cnt);
+      lane >= a.n || pt::shadow_resolve_lane<kInst, kVar>(p, tb, lane, cnt);
   pt::finish(a, ok, cnt);
 }
 
 }  // namespace
 
 // Both entries return cudaGetLastError() after the launch (or -1 when the
-// packed small tables do not match the layout); they never synchronise.
+// packed small tables do not match the layout, or an instance arm is
+// asked for over variant tables); they never synchronise.
 extern "C" int mk_shade_extend_launch(const pt::PtArgs* a) {
-  return a->num_inst > 0 ? pt::launch(shade_extend_kernel<true>, a)
-                         : pt::launch(shade_extend_kernel<false>, a);
+  if (a->num_inst > 0) {
+    return pt::variant(*a) ? -1 : pt::launch(shade_extend_kernel<true, false>, a);
+  }
+  return pt::variant(*a) ? pt::launch(shade_extend_kernel<false, true>, a)
+                         : pt::launch(shade_extend_kernel<false, false>, a);
 }
 
 extern "C" int mk_shadow_resolve_launch(const pt::PtArgs* a) {
-  return a->num_inst > 0 ? pt::launch(shadow_resolve_kernel<true>, a)
-                         : pt::launch(shadow_resolve_kernel<false>, a);
+  if (a->num_inst > 0) {
+    return pt::variant(*a) ? -1
+                           : pt::launch(shadow_resolve_kernel<true, false>, a);
+  }
+  return pt::variant(*a) ? pt::launch(shadow_resolve_kernel<false, true>, a)
+                         : pt::launch(shadow_resolve_kernel<false, false>, a);
 }

@@ -19,8 +19,16 @@
 // expf, rsqrtf) may differ from XLA's by ULPs (the megakernel contract).
 //
 // One thread traces one ray with its own stack; the packet machinery of
-// the TPU kernels (shared row stacks, frame stacks, SMEM side tables) is
-// a schedule for that machine and is not ported.  The TLAS instance
+// the TPU kernels (shared row stacks, frame stacks, SMEM staging) is a
+// schedule for that machine and is not ported.  The node tables it reads
+// are: the variant walks (kVar) read every layout of the JAX package's
+// CPUGPU_SMEMTREE, CPUGPU_PACKET_TREE=w16 and CPUGPU_FUSED -- 64-col rows
+// with the entries in a side table, 48-col bounds-only rows with the
+// side table, 128-col 16-wide rows, and the fused node|leaf table of
+// 128-col rows whose entries >= fused_nn are leaf rows of the same table
+// (Tree::ents, cols, width, fused_nn) -- while the plain walks
+// (kVar = false) read the 64-col rows with the entries at cols 48..55
+// only, and compile as they did before the variants.  The TLAS instance
 // machinery of ops/traverse_packet_slim.py is: with kInst, an entry above
 // SLIM_EMPTY (SLIM_EMPTY + 1 + instance id) moves the ray into the
 // instance's object space by its 3x4 inst_inv row (the direction stays
@@ -49,6 +57,10 @@
 namespace pt {
 
 constexpr int PT_STACK = 64;  // ops/pt_frame.py PT_STACK mirrors it
+// the variant walks' stack: a 16-wide row leaves up to 15 siblings
+// pending per level (ops/pt_frame.py PT_STACK_W16 mirrors it; the scene
+// build refuses a tree whose worst case would not fit)
+constexpr int PT_STACK_W16 = 128;
 constexpr int SLIM_EMPTY = 0x40000000;
 // stack marker: leave instance space (below SLIM_EMPTY, far above any
 // real node row)
@@ -178,6 +190,12 @@ struct Tree {  // one slim 8-wide tree: (B, 64) nodes, (NL, 128) leaf rows
   const float* inst_nrm;
   const int* inst_root;
   int num_inst;
+  // the node layout, read by the variant walks (kVar) only: the side
+  // table of 8 entries per node row or null (entries in the row), the
+  // row length in f32 (48, 64 or 128), the arity (8 or 16), and for a
+  // fused node|leaf table its node-row count (0 otherwise)
+  const int* ents;
+  int cols, width, fused_nn;
 };
 
 struct Counters {  // work done: node / leaf rows visited, rays traversed
@@ -219,31 +237,32 @@ PT_HD void zero_slab(float lo, float hi, float o, float& t1, float& t2) {
   t2 = o <= hi ? INF_F : -INF_F;
 }
 
-// The 8 slab tests of one node row; pushes every child the ray enters
-// before `t` (at `t` too when `at_t`: a closest-hit walk must still visit
-// boxes that may hold an exact tie), in slot order.  Validity lives in
-// the entry, not the bounds.  With kDepth, adds 1 to *depth when at
-// least one child passes (the per-ray reading of the Pallas kernel's
-// `depth += any(bm[k])`).  Returns false if the stack is full.
-template <bool kDepth = false>
-PT_HD bool push_children(const float* row, const SlabRay& r, float t,
-                         bool at_t, int* stack, int& sp,
-                         int* depth = nullptr) {
+// The 8 slab tests of one block of child slots: bounds at `bnd` (48 f32:
+// a 48- or 64-col row, or one half of a 16-wide row), entries at `ent_p`
+// (8 i32, in the row or in a side table).  Pushes every child the ray
+// enters before `t` (at `t` too when `at_t`: a closest-hit walk must
+// still visit boxes that may hold an exact tie), in slot order, onto a
+// stack of kCap entries.  Validity lives in the entry (ent != SLIM_EMPTY),
+// never the bounds: a 48-col table's empty slot has NaN bounds, which
+// fminf / fmaxf would drop.  Sets `passed` when a child passes.  Returns
+// false if the stack is full.
+template <int kCap>
+PT_HD bool push_row(const float* bnd, const int* ent_p, const SlabRay& r,
+                    float t, bool at_t, int* stack, int& sp, bool& passed) {
   float b[48];
 #pragma unroll
   for (int q = 0; q < 12; ++q) {
-    F4 v = ld4(row + 4 * q);
+    F4 v = ld4(bnd + 4 * q);
     b[4 * q] = v.x;
     b[4 * q + 1] = v.y;
     b[4 * q + 2] = v.z;
     b[4 * q + 3] = v.w;
   }
-  F4 e0 = ld4(row + 48), e1 = ld4(row + 52);
+  const float* ef = reinterpret_cast<const float*>(ent_p);
+  F4 e0 = ld4(ef), e1 = ld4(ef + 4);
   int ent[8] = {as_int(e0.x), as_int(e0.y), as_int(e0.z), as_int(e0.w),
                 as_int(e1.x), as_int(e1.y), as_int(e1.z), as_int(e1.w)};
   bool ok = true;
-  bool passed = false;
-  (void)passed;
 #pragma unroll
   for (int k = 0; k < 8; ++k) {
     const float* c = b + 6 * k;  // min xyz, max xyz
@@ -262,16 +281,69 @@ PT_HD bool push_children(const float* row, const SlabRay& r, float t,
     float tmax = fminf(fminf(fmaxf(tx1, tx2), fmaxf(ty1, ty2)), fmaxf(tz1, tz2));
     bool before = tmin < t || (at_t && tmin == t);
     if (tmax >= tmin && before && tmax > 0.0f && ent[k] != SLIM_EMPTY) {
-      if constexpr (kDepth) passed = true;
-      if (sp < PT_STACK) {
+      passed = true;
+      if (sp < kCap) {
         stack[sp++] = ent[k];
       } else {
         ok = false;
       }
     }
   }
+  return ok;
+}
+
+// The plain walks' node step: one row of a 64-col table, the entries at
+// cols 48..55, onto a stack of PT_STACK entries.  With kDepth, adds 1 to
+// *depth when at least one child passes (the per-ray reading of the
+// Pallas kernel's `depth += any(bm[k])`).  Returns false if the stack is
+// full.
+template <bool kDepth = false>
+PT_HD bool push_children(const float* row, const SlabRay& r, float t,
+                         bool at_t, int* stack, int& sp,
+                         int* depth = nullptr) {
+  bool passed = false;
+  bool ok = push_row<PT_STACK>(row, reinterpret_cast<const int*>(row + 48),
+                               r, t, at_t, stack, sp, passed);
   if constexpr (kDepth) *depth += passed ? 1 : 0;
   return ok;
+}
+
+// The variant walks' node step of row `e` of any layout (Tree::ents,
+// cols, width): one block of 8 slots, two for a 16-wide row (slots 0..7,
+// then 8..15, so children are pushed in slot order).  With kDepth adds 1
+// to *depth when at least one child passes.  Returns false if the stack
+// is full.
+template <bool kDepth = false>
+PT_HD bool push_node(const Tree& tr, int e, const SlabRay& r, float t,
+                     bool at_t, int* stack, int& sp, int* depth = nullptr) {
+  const float* row = tr.nodes + (size_t)e * tr.cols;
+  const int* ent = tr.ents ? tr.ents + (size_t)e * 8
+                           : reinterpret_cast<const int*>(row + 6 * tr.width);
+  bool passed = false;
+  bool ok = push_row<PT_STACK_W16>(row, ent, r, t, at_t, stack, sp, passed);
+  if (tr.width == 16) {
+    ok &= push_row<PT_STACK_W16>(row + 48, ent + 8, r, t, at_t, stack, sp,
+                                  passed);
+  }
+  if constexpr (kDepth) *depth += passed ? 1 : 0;
+  return ok;
+}
+
+// An entry of a variant walk: a node row (fused: below fused_nn; split
+// tables: >= 0), else a leaf; its leaf row (the byte map's index: fused
+// e - fused_nn, split -e - 1) and the row's records (fused: row e of the
+// fused table itself).
+PT_HD bool var_is_node(const Tree& tr, int e) {
+  return tr.fused_nn ? e < tr.fused_nn : e >= 0;
+}
+
+PT_HD int var_leaf_row(const Tree& tr, int e) {
+  return tr.fused_nn ? e - tr.fused_nn : -e - 1;
+}
+
+PT_HD const float* var_leaf(const Tree& tr, int e) {
+  return tr.fused_nn ? tr.nodes + (size_t)e * 128
+                     : tr.ltris + (size_t)(-e - 1) * 128;
 }
 
 // Moller-Trumbore in the association of traverse_packet_slim._leaf_tests
@@ -358,15 +430,17 @@ PT_HD int instance_entry(const Tree& tr, const WalkRay& w, WalkRay& cur,
 // ray.  With kInst the walk runs the instance machinery; with kDepth it
 // counts into *depth the node rows at which a child passed the push test
 // (instance entries and RESTORE are no node rows; a BLAS root is).
-// Returns false on a stack overflow.
-template <bool kInst = false, bool kDepth = false>
+// With kVar the walk reads the tree's layout (push_node, var_*; never
+// with kInst).  Returns false on a stack overflow.
+template <bool kInst = false, bool kDepth = false, bool kVar = false>
 PT_HD bool closest_hit(const Tree& tr, float ox, float oy, float oz,
                        float dx, float dy, float dz, Hit& h,
                        unsigned long long& it_node,
                        unsigned long long& it_leaf, int* depth = nullptr) {
+  static_assert(!(kInst && kVar), "the instance arms walk 64-col rows");
   const WalkRay w = world_ray(ox, oy, oz, dx, dy, dz);
   WalkRay cur = w;
-  int stack[PT_STACK];
+  int stack[kVar ? PT_STACK_W16 : PT_STACK];
   int sp = 0;
   bool ok = true;
   for (int i = 1; i < tr.nroots; ++i) stack[sp++] = tr.roots[i];
@@ -375,15 +449,20 @@ PT_HD bool closest_hit(const Tree& tr, float ox, float oy, float oz,
     if (kInst && instance_entry(tr, w, cur, e, stack, sp, ok) == 1) continue;
     if (kInst && e == RESTORE) {
       // the world ray is back; pop below
-    } else if (e >= 0) {
+    } else if (kVar ? var_is_node(tr, e) : e >= 0) {
       ++it_node;
       if (tr.seen_node) tr.seen_node[e] = 1;
-      ok &= push_children<kDepth>(tr.nodes + (size_t)e * 64, cur.sr, h.t,
-                                  true, stack, sp, depth);
+      if constexpr (kVar) {
+        ok &= push_node<kDepth>(tr, e, cur.sr, h.t, true, stack, sp, depth);
+      } else {
+        ok &= push_children<kDepth>(tr.nodes + (size_t)e * 64, cur.sr, h.t,
+                                    true, stack, sp, depth);
+      }
     } else {
       ++it_leaf;
-      if (tr.seen_leaf) tr.seen_leaf[-e - 1] = 1;
-      const float* row = tr.ltris + (size_t)(-e - 1) * 128;
+      if (tr.seen_leaf) tr.seen_leaf[kVar ? var_leaf_row(tr, e) : -e - 1] = 1;
+      const float* row =
+          kVar ? var_leaf(tr, e) : tr.ltris + (size_t)(-e - 1) * 128;
 #pragma unroll 2
       for (int c = 0; c < LEAF_TRIS; ++c) {
         const float* r = row + 16 * c;
@@ -415,15 +494,18 @@ PT_HD bool closest_hit(const Tree& tr, float ox, float oy, float oz,
 // kReport (shading trees only) also writes the record it found into
 // `found` (t, original id, object, flat normal, instance).  With kInst
 // the walk runs the instance machinery; kDepth counts as in closest_hit,
-// up to the row that ends the walk.  Returns false on a stack overflow.
-template <bool kReport = false, bool kInst = false, bool kDepth = false>
+// up to the row that ends the walk; kVar reads the tree's layout.
+// Returns false on a stack overflow.
+template <bool kReport = false, bool kInst = false, bool kDepth = false,
+          bool kVar = false>
 PT_HD bool any_hit(const Tree& tr, float ox, float oy, float oz, float dx,
                    float dy, float dz, float tmax, bool& occluded,
                    unsigned long long& it_node, unsigned long long& it_leaf,
                    Hit* found = nullptr, int* depth = nullptr) {
+  static_assert(!(kInst && kVar), "the instance arms walk 64-col rows");
   const WalkRay w = world_ray(ox, oy, oz, dx, dy, dz);
   WalkRay cur = w;
-  int stack[PT_STACK];
+  int stack[kVar ? PT_STACK_W16 : PT_STACK];
   int sp = 0;
   bool ok = true;
   occluded = false;
@@ -433,15 +515,20 @@ PT_HD bool any_hit(const Tree& tr, float ox, float oy, float oz, float dx,
     if (kInst && instance_entry(tr, w, cur, e, stack, sp, ok) == 1) continue;
     if (kInst && e == RESTORE) {
       // the world ray is back; pop below
-    } else if (e >= 0) {
+    } else if (kVar ? var_is_node(tr, e) : e >= 0) {
       ++it_node;
       if (tr.seen_node) tr.seen_node[e] = 1;
-      ok &= push_children<kDepth>(tr.nodes + (size_t)e * 64, cur.sr, tmax,
-                                  false, stack, sp, depth);
+      if constexpr (kVar) {
+        ok &= push_node<kDepth>(tr, e, cur.sr, tmax, false, stack, sp, depth);
+      } else {
+        ok &= push_children<kDepth>(tr.nodes + (size_t)e * 64, cur.sr, tmax,
+                                    false, stack, sp, depth);
+      }
     } else {
       ++it_leaf;
-      if (tr.seen_leaf) tr.seen_leaf[-e - 1] = 1;
-      const float* row = tr.ltris + (size_t)(-e - 1) * 128;
+      if (tr.seen_leaf) tr.seen_leaf[kVar ? var_leaf_row(tr, e) : -e - 1] = 1;
+      const float* row =
+          kVar ? var_leaf(tr, e) : tr.ltris + (size_t)(-e - 1) * 128;
       const int ntri = tr.occl ? OCCL_TRIS : LEAF_TRIS;
       const int stride = tr.occl ? OCCL_STRIDE : 16;
       for (int c = 0; c < ntri; ++c) {
@@ -873,15 +960,15 @@ PT_HD Shadow shade_surface(const Tables& tb, const Mode& md, Path& ps,
 // body.  With kInst the hit's object-space normal first becomes
 // normalize(inst_nrm @ n) (megakernel.py's instanced epilogue, the
 // arithmetic of models/scene.hit_surface).  Updates `ps` and returns the
-// NEE shadow ray (all zero unless sneed).  Clears `ok` on a stack
-// overflow.
-template <bool kInst = false>
+// NEE shadow ray (all zero unless sneed).  kVar: the variant walk.
+// Clears `ok` on a stack overflow.
+template <bool kInst = false, bool kVar = false>
 PT_HD Shadow extend(const Tree& tree, const Tables& tb, const Mode& md,
                     Path& ps, bool depth0, Counters& cnt, bool& ok) {
   ++cnt.ray;
   Hit h = {RAY_TMAX, -1, -1, 0.0f, 0.0f, 0.0f, -1};
-  ok &= closest_hit<kInst>(tree, ps.ox, ps.oy, ps.oz, ps.dx, ps.dy, ps.dz, h,
-                           cnt.node, cnt.leaf);
+  ok &= closest_hit<kInst, false, kVar>(tree, ps.ox, ps.oy, ps.oz, ps.dx,
+                                        ps.dy, ps.dz, h, cnt.node, cnt.leaf);
   if (kInst && h.iid >= 0) {
     const float* m = tree.inst_nrm + 9 * h.iid;
     const float n0 = h.nx, n1 = h.ny, n2 = h.nz;
@@ -900,14 +987,15 @@ PT_HD Shadow extend(const Tree& tree, const Tables& tb, const Mode& md,
 
 // The NEE shadow test of a shadow ray with sneed set: any hit over the
 // any-hit tree, then the analytic occluders.  True when the light is
-// visible.  Clears `ok` on a stack overflow.
-template <bool kInst = false>
+// visible.  kVar: the variant walk.  Clears `ok` on a stack overflow.
+template <bool kInst = false, bool kVar = false>
 PT_HD bool unoccluded(const Tree& sh_tree, const Tables& tb, const Shadow& sh,
                       Counters& cnt, bool& ok) {
   ++cnt.sray;
   bool occ = false;
-  ok &= any_hit<false, kInst>(sh_tree, sh.ox, sh.oy, sh.oz, sh.dx, sh.dy,
-                              sh.dz, sh.tmax, occ, cnt.snode, cnt.sleaf);
+  ok &= any_hit<false, kInst, false, kVar>(sh_tree, sh.ox, sh.oy, sh.oz,
+                                           sh.dx, sh.dy, sh.dz, sh.tmax, occ,
+                                           cnt.snode, cnt.sleaf);
   if (!occ) {
     occ = analytic_occluded(tb, sh.ox, sh.oy, sh.oz, sh.dx, sh.dy, sh.dz,
                             sh.tmax);
@@ -999,8 +1087,9 @@ PT_HD void store_path(const Params& p, int lane, const Path& ps, bool sneed) {
 // ---- one lane of each kernel -----------------------------------------------
 
 // pt_frame: every depth of one lane; the lane leaves the loop when its
-// path dies (its RNG state then stays as it is).  Returns false on a
-// stack overflow.
+// path dies (its RNG state then stays as it is).  kVar: both walks read
+// their tree's layout.  Returns false on a stack overflow.
+template <bool kVar = false>
 PT_HD bool trace_lane(const Params& p, const Tables& tb, int lane,
                       Counters& cnt) {
   Path ps = load_path(p, lane);
@@ -1008,10 +1097,11 @@ PT_HD bool trace_lane(const Params& p, const Tables& tb, int lane,
   bool ok = true;
   for (int d = 0; d < p.depths && ps.active; ++d) {
     tr += 1;
-    Shadow sh = extend(p.tree, tb, p.mode, ps, d + p.depth_base == 0, cnt, ok);
+    Shadow sh = extend<false, kVar>(p.tree, tb, p.mode, ps,
+                                    d + p.depth_base == 0, cnt, ok);
     if (sh.sneed) {
       tr += 1;
-      if (unoccluded(p.sh_tree, tb, sh, cnt, ok)) {
+      if (unoccluded<false, kVar>(p.sh_tree, tb, sh, cnt, ok)) {
         add_light(ps.enx, ps.eny, ps.enz, sh);
       }
     }
@@ -1027,15 +1117,16 @@ PT_HD bool trace_lane(const Params& p, const Tables& tb, int lane,
 // shadow columns (the per-lane form of the Pallas kernel's dead-tile
 // rule); a live lane writes its next ray and carry, flags with bit 2 =
 // sneed, and its shadow ray (zero unless sneed, so tmax = sneed ? tmax :
-// 0).  Returns false on a stack overflow.
-template <bool kInst = false>
+// 0).  kVar: the variant walk.  Returns false on a stack overflow.
+template <bool kInst = false, bool kVar = false>
 PT_HD bool shade_extend_lane(const Params& p, const Tables& tb, int lane,
                              Counters& cnt) {
   Path ps = load_path(p, lane);
   Shadow sh = {false, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
   bool ok = true;
   if (ps.active) {
-    sh = extend<kInst>(p.tree, tb, p.mode, ps, p.depth_base == 0, cnt, ok);
+    sh = extend<kInst, kVar>(p.tree, tb, p.mode, ps, p.depth_base == 0, cnt,
+                             ok);
   }
   store_path(p, lane, ps, sh.sneed);
   const float cols[10] = {sh.ox, sh.oy, sh.oz, sh.dx, sh.dy,
@@ -1048,8 +1139,9 @@ PT_HD bool shade_extend_lane(const Params& p, const Tables& tb, int lane,
 // shadow_resolve: a lane with sneed (flags bit 2) runs the shadow test
 // of its shadow ray over p.sh_tree (kInst: on the instance machinery)
 // and adds the contribution when the light is visible; every other lane
-// copies its energy.  Returns false on a stack overflow.
-template <bool kInst = false>
+// copies its energy.  kVar: the variant walk.  Returns false on a stack
+// overflow.
+template <bool kInst = false, bool kVar = false>
 PT_HD bool shadow_resolve_lane(const Params& p, const Tables& tb, int lane,
                                Counters& cnt) {
   float enx = p.en_in[0][lane], eny = p.en_in[1][lane],
@@ -1068,7 +1160,7 @@ PT_HD bool shadow_resolve_lane(const Params& p, const Tables& tb, int lane,
     sh.cr = p.shadow[7][lane];
     sh.cg = p.shadow[8][lane];
     sh.cb = p.shadow[9][lane];
-    if (unoccluded<kInst>(p.sh_tree, tb, sh, cnt, ok)) {
+    if (unoccluded<kInst, kVar>(p.sh_tree, tb, sh, cnt, ok)) {
       add_light(enx, eny, enz, sh);
     }
   }
@@ -1110,22 +1202,37 @@ struct PtArgs {
   const void* inst_inv;
   const void* inst_nrm;
   const void* inst_root;
+  // the entry side tables (B + V, 8) i32 of both trees, or null
+  const void* ents;
+  const void* sh_ents;
   void* status;       // i32, bit 0 set on a traversal stack overflow
   void* stream;
   int small_words;
   int mat_rows, light_rows, ltri_rows, sph_rows, pln_rows, obj_rows;
   int num_sph, num_pln, num_lights, nroots, sh_nroots, mesh_lights, sh_occl;
   int n, depths, depth_base, nee, rr, cosine, ref_pdf, any_hit, num_inst;
+  // the node layout (Tree::fused_nn, width, cols; the shadow tree's
+  // width and fused_nn are the closest-hit tree's unless sh_occl, when
+  // it is 8-wide and split)
+  int fused_nn, width, cols, sh_cols;
 };
 
+// True when a launch needs the variant walks (kVar): a side table, or
+// node rows other than the plain 64-col, 8-wide, split ones.
+PT_HD bool variant(const PtArgs& a) {
+  return a.ents || a.sh_ents || a.fused_nn || a.width != 8 || a.cols != 64 ||
+         a.sh_cols != 64;
+}
+
 // The layout of PtArgs as this compiler sees it: its size and the
-// offsets of depth_out and of its last field, which ops/pt_frame.py holds
-// against its ctypes mirror when it loads a build (a field out of step
-// would shift every later one silently).
+// offsets of depth_out, ents and its last field, which ops/pt_frame.py
+// holds against its ctypes mirror when it loads a build (a field out of
+// step would shift every later one silently).
 inline void args_layout(long long* out) {
   out[0] = (long long)sizeof(PtArgs);
   out[1] = (long long)offsetof(PtArgs, depth_out);
-  out[2] = (long long)offsetof(PtArgs, num_inst);
+  out[2] = (long long)offsetof(PtArgs, ents);
+  out[3] = (long long)offsetof(PtArgs, sh_cols);
 }
 
 // Word offsets of the packed small tables: mats (M, 14), lights (L, 10),
@@ -1171,11 +1278,14 @@ PT_HD void unpack(const PtArgs& a, const float* small, Tables& tb, Tree& tree,
   const float* nrm = static_cast<const float*>(a.inst_nrm);
   const int* iroot = static_cast<const int*>(a.inst_root);
   tree = {static_cast<const float*>(a.nodes), static_cast<const float*>(a.ltris),
-          w, a.nroots, false, seen[0], seen[1], inv, nrm, iroot, a.num_inst};
+          w, a.nroots, false, seen[0], seen[1], inv, nrm, iroot, a.num_inst,
+          static_cast<const int*>(a.ents), a.cols, a.width, a.fused_nn};
   w += a.nroots;
   sh_tree = {static_cast<const float*>(a.sh_nodes),
              static_cast<const float*>(a.sh_ltris), w, a.sh_nroots,
-             a.sh_occl != 0, seen[2], seen[3], inv, nrm, iroot, a.num_inst};
+             a.sh_occl != 0, seen[2], seen[3], inv, nrm, iroot, a.num_inst,
+             static_cast<const int*>(a.sh_ents), a.sh_cols,
+             a.sh_occl ? 8 : a.width, a.sh_occl ? 0 : a.fused_nn};
 }
 
 PT_HD Params make_params(const PtArgs& a, const Tree& tree,
@@ -1215,8 +1325,8 @@ PT_HD Params make_params(const PtArgs& a, const Tree& tree,
 // t_init / active columns every lane is active with t_init = RAY_TMAX
 // (the closest-hit test of ops/pt_frame.py).  With kDepth (count_depth:
 // a.depth_out set) the lane also writes its walk's bvh_depth, 0 when it
-// is not active.
-template <bool kInst = false, bool kDepth = false>
+// is not active.  kVar: the variant walk.
+template <bool kInst = false, bool kDepth = false, bool kVar = false>
 PT_HD bool traverse_lane(const PtArgs& a, const Tree& tree, int lane,
                          Counters& cnt) {
   const float* const* r = reinterpret_cast<const float* const*>(a.ray);
@@ -1230,14 +1340,14 @@ PT_HD bool traverse_lane(const PtArgs& a, const Tree& tree, int lane,
     ++cnt.ray;
     if (a.any_hit) {
       bool occ = false;
-      ok = any_hit<true, kInst, kDepth>(
+      ok = any_hit<true, kInst, kDepth, kVar>(
           tree, r[0][lane], r[1][lane], r[2][lane], r[3][lane], r[4][lane],
           r[5][lane], t0, occ, cnt.node, cnt.leaf, &h, &depth);
     } else {
-      ok = closest_hit<kInst, kDepth>(tree, r[0][lane], r[1][lane],
-                                      r[2][lane], r[3][lane], r[4][lane],
-                                      r[5][lane], h, cnt.node, cnt.leaf,
-                                      &depth);
+      ok = closest_hit<kInst, kDepth, kVar>(tree, r[0][lane], r[1][lane],
+                                            r[2][lane], r[3][lane],
+                                            r[4][lane], r[5][lane], h,
+                                            cnt.node, cnt.leaf, &depth);
     }
   }
   if constexpr (kDepth) static_cast<int*>(a.depth_out)[lane] = depth;

@@ -6,7 +6,13 @@
 // shading body, the NEE shadow any-hit over the occlusion tables plus the
 // analytic occluders, and the energy add -- in one launch.  Span mode
 // (depth_base, carry in / carry out) serves the split-span schedule of
-// models/integrators.py.
+// models/integrators.py.  pt_frame_kernel<false> walks the
+// plain 64-col tables; pt_frame_kernel<true> (kVar) walks the node-table
+// variants of the JAX kernel's arms -- the entry side tables (ents,
+// sh_ents) with 64- or 48-col rows, the 16-wide 128-col rows (width=16)
+// and the fused node|leaf table (fused_nn) -- on the closest-hit tree,
+// and 64- or 48-col rows with or without sh_ents on the 8-wide shadow
+// tree.
 //
 // What bounds it on this card: neither HBM bytes nor f32 operations.
 // A lane reads 32 bytes and writes 24 (64 with the span carry), while its
@@ -15,6 +21,10 @@
 // 50 MB L2) and data-dependent branches.  The kernel is bound by load
 // latency and warp divergence: on config 3 at 1920x1080 it runs tens of
 // times above the larger of its byte and operation bounds (PERF.md).
+//
+// The variant rows change the bytes per node visit (224 B loaded from
+// every 8-wide layout's row and side table, fused included; 448 B from a
+// 16-wide row), not what bounds the kernel.
 //
 // What the design does about it, in this first version: one thread per
 // ray with its own stack in local memory (no shared-stack packets, which
@@ -35,6 +45,8 @@
 
 namespace {
 
+// kVar: the variant walks (pt::variant); built both ways
+template <bool kVar>
 __global__ void __launch_bounds__(pt::kBlock)
     pt_frame_kernel(const pt::PtArgs a) {
   extern __shared__ float smem[];
@@ -42,7 +54,7 @@ __global__ void __launch_bounds__(pt::kBlock)
   const pt::Params p = pt::setup(a, smem, tb);
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   pt::Counters cnt;
-  const bool ok = lane >= a.n || pt::trace_lane(p, tb, lane, cnt);
+  const bool ok = lane >= a.n || pt::trace_lane<kVar>(p, tb, lane, cnt);
   pt::finish(a, ok, cnt);
 }
 
@@ -51,5 +63,6 @@ __global__ void __launch_bounds__(pt::kBlock)
 // Returns cudaGetLastError() after the launch (or -1 when the packed small
 // tables do not match the layout); never synchronises.
 extern "C" int pt_frame_launch(const pt::PtArgs* a) {
-  return pt::launch(pt_frame_kernel, a);
+  return pt::variant(*a) ? pt::launch(pt_frame_kernel<true>, a)
+                         : pt::launch(pt_frame_kernel<false>, a);
 }

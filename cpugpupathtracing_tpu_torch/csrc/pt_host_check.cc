@@ -15,17 +15,22 @@ using LaneFn = bool (*)(const pt::Params&, const pt::Tables&, int,
 
 bool traverse_body(const pt::Params& p, const pt::Tables&, int lane,
                    pt::Counters& cnt, const pt::PtArgs& a) {
-  if (a.depth_out) {
-    return a.num_inst > 0
-               ? pt::traverse_lane<true, true>(a, p.tree, lane, cnt)
-               : pt::traverse_lane<false, true>(a, p.tree, lane, cnt);
+  if (a.num_inst > 0) {
+    return a.depth_out ? pt::traverse_lane<true, true>(a, p.tree, lane, cnt)
+                       : pt::traverse_lane<true>(a, p.tree, lane, cnt);
   }
-  return a.num_inst > 0 ? pt::traverse_lane<true>(a, p.tree, lane, cnt)
-                        : pt::traverse_lane<false>(a, p.tree, lane, cnt);
+  if (pt::variant(a)) {
+    return a.depth_out
+               ? pt::traverse_lane<false, true, true>(a, p.tree, lane, cnt)
+               : pt::traverse_lane<false, false, true>(a, p.tree, lane, cnt);
+  }
+  return a.depth_out ? pt::traverse_lane<false, true>(a, p.tree, lane, cnt)
+                     : pt::traverse_lane<false>(a, p.tree, lane, cnt);
 }
 
 int run(const pt::PtArgs* a, LaneFn fn) {
   if (a->small_words != pt::small_words(*a)) return -1;
+  if (a->num_inst > 0 && pt::variant(*a)) return -1;
   pt::Tables tb;
   pt::Tree tree, sh_tree;
   pt::unpack(*a, static_cast<const float*>(a->small), tb, tree, sh_tree);
@@ -51,7 +56,7 @@ int run(const pt::PtArgs* a, LaneFn fn) {
 }  // namespace
 
 extern "C" int pt_frame_host(const pt::PtArgs* a) {
-  return run(a, pt::trace_lane);
+  return run(a, pt::variant(*a) ? pt::trace_lane<true> : pt::trace_lane<false>);
 }
 
 extern "C" int traverse_host(const pt::PtArgs* a) {
@@ -63,13 +68,15 @@ extern "C" int whitted_host(const pt::PtArgs* a) {
 }
 
 extern "C" int mk_shade_extend_host(const pt::PtArgs* a) {
-  return run(a, a->num_inst > 0 ? pt::shade_extend_lane<true>
-                                : pt::shade_extend_lane<false>);
+  return run(a, a->num_inst > 0     ? pt::shade_extend_lane<true>
+                : pt::variant(*a) ? pt::shade_extend_lane<false, true>
+                                  : pt::shade_extend_lane<false>);
 }
 
 extern "C" int mk_shadow_resolve_host(const pt::PtArgs* a) {
-  return run(a, a->num_inst > 0 ? pt::shadow_resolve_lane<true>
-                                : pt::shadow_resolve_lane<false>);
+  return run(a, a->num_inst > 0     ? pt::shadow_resolve_lane<true>
+                : pt::variant(*a) ? pt::shadow_resolve_lane<false, true>
+                                  : pt::shadow_resolve_lane<false>);
 }
 
 extern "C" int pt_args_layout(long long* out) {

@@ -21,6 +21,11 @@
 // of each ray's walk (mostly L2 hits) and warp divergence between rays
 // that walk different subtrees.
 //
+// The node-table variants (kVar: the entry side tables with 64- or
+// 48-col rows, 16-wide rows, the fused table) are the JAX kernel's arms
+// over those tables, with and without the depth count, for the plain
+// (non-instanced) arm, as in the JAX package.
+//
 // What the design does about it, in this first version: one thread per
 // ray with its own stack in local memory, the walk of pt_device.cuh that
 // pt_frame and the per-depth kernels also run (16-byte row loads through
@@ -39,8 +44,9 @@
 namespace {
 
 // kInst: the instance arm (object-space TLAS machinery); kDepth: the
-// count_depth arm (bvh_depth out); built all four ways
-template <bool kInst, bool kDepth>
+// count_depth arm (bvh_depth out); kVar: the variant walks
+// (pt::variant, never with kInst); built six ways
+template <bool kInst, bool kDepth, bool kVar>
 __global__ void __launch_bounds__(pt::kBlock)
     traverse_kernel(const pt::PtArgs a) {
   extern __shared__ float smem[];
@@ -49,21 +55,29 @@ __global__ void __launch_bounds__(pt::kBlock)
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   pt::Counters cnt;
   const bool ok =
-      lane >= a.n || pt::traverse_lane<kInst, kDepth>(a, p.tree, lane, cnt);
+      lane >= a.n ||
+      pt::traverse_lane<kInst, kDepth, kVar>(a, p.tree, lane, cnt);
   pt::finish(a, ok, cnt);
 }
 
 }  // namespace
 
 // Returns cudaGetLastError() after the launch (or -1 when the packed small
-// tables do not match the layout); never synchronises.
+// tables do not match the layout, or an instance arm is asked for over
+// variant tables); never synchronises.
 extern "C" int traverse_launch(const pt::PtArgs* a) {
-  if (a->depth_out) {
-    return a->num_inst > 0 ? pt::launch(traverse_kernel<true, true>, a)
-                           : pt::launch(traverse_kernel<false, true>, a);
+  const bool var = pt::variant(*a);
+  if (a->num_inst > 0) {
+    if (var) return -1;
+    return a->depth_out ? pt::launch(traverse_kernel<true, true, false>, a)
+                        : pt::launch(traverse_kernel<true, false, false>, a);
   }
-  return a->num_inst > 0 ? pt::launch(traverse_kernel<true, false>, a)
-                         : pt::launch(traverse_kernel<false, false>, a);
+  if (var) {
+    return a->depth_out ? pt::launch(traverse_kernel<false, true, true>, a)
+                        : pt::launch(traverse_kernel<false, false, true>, a);
+  }
+  return a->depth_out ? pt::launch(traverse_kernel<false, true, false>, a)
+                      : pt::launch(traverse_kernel<false, false, false>, a);
 }
 
 // PtArgs' size and offsets (pt::args_layout), for the ctypes mirror check.

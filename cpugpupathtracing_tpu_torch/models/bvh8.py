@@ -1,11 +1,15 @@
 """8-wide BVH: host-side collapse of the binary BVH into the slim tables
 the path-tracing kernel walks (ops/pt_frame.py, csrc/pt_device.cuh).
 
-A copy of the JAX package's models/bvh8.py, cut to the one tree shape
-the port builds: the SAH-cost DP collapse at width 8 (`collapse_sah`),
-re-encoded into shading-complete leaf rows (`to_slim`) and bare any-hit
-leaf rows (`to_slim_occl`).  The tables are bitwise those of the JAX
-package, so both packages trace the same trees.
+A copy of the JAX package's models/bvh8.py, cut to the tree shapes the
+port builds (models/scene.py's CPUGPU_PACKET_TREE modes): the greedy
+collapse (`collapse`, modes fat / sweep) and the SAH-cost DP collapse at
+width 8 or 16 (`collapse_sah`, modes dp / sweep_dp / w16), re-encoded
+into shading-complete leaf rows (`to_slim`) and bare any-hit leaf rows
+(`to_slim_occl`), plus the entry side tables (`slim_side_tables`) and
+48-col bounds-only rows (`slim_bounds48`) of CPUGPU_SMEMTREE.  The
+tables are bitwise those of the JAX package, so both packages trace the
+same trees.
 
 Hit results are identical to the binary tree (any valid BVH returns the
 same nearest hit).
@@ -53,8 +57,115 @@ class BVH8:
     def num_nodes(self) -> int:
         return len(self.nodes)
 
+    @property
+    def width(self) -> int:
+        """Node arity, encoded in the row size (64 cols = 8-wide, 128
+        cols = 16-wide)."""
+        return self.nodes.shape[1] // 8
 
-def collapse_sah(b: BVH, leaf_max: int = 8) -> BVH8:
+
+def collapse(b: BVH, leaf_max: int = 8) -> BVH8:
+    """Greedy collapse of a binary BVH into an 8-wide one (modes fat and
+    sweep): the children of a wide node start from the binary node's two
+    children, and the interior candidate with the largest half-area is
+    expanded until 8 slots are used or only leaves remain."""
+    if int(b.prim_count.max()) > leaf_max:
+        raise ValueError(
+            f"binary BVH has leaves > {leaf_max} tris; build with "
+            f"max_leaf_size={leaf_max} for device traversal"
+        )
+
+    left_first = b.left_first
+    prim_count = b.prim_count
+    nmin, nmax = b.nodes_min, b.nodes_max
+
+    rows: list[np.ndarray] = []
+    leaf_order: list[np.ndarray] = []
+    leaf_cursor = 0
+    max_depth = 0
+
+    def area(i: int) -> float:
+        # GetAABBVolume (Source/Primitives.cpp:280-284): xy + yz + zx, f32
+        e = (nmax[i] - nmin[i]).astype(np.float32)
+        return float(e[0] * e[1] + e[1] * e[2] + e[2] * e[0])
+
+    def wide_children(i: int) -> list[int]:
+        """Binary node -> up to 8 binary descendants (leaves or subtrees)."""
+        if prim_count[i] > 0:
+            return [i]  # root is a single leaf
+        slots = [int(left_first[i]), int(left_first[i]) + 1]
+        while len(slots) < WIDTH:
+            # expand the interior slot with the largest half-area
+            best, best_a = -1, -1.0
+            for s_idx, s in enumerate(slots):
+                if prim_count[s] == 0:
+                    a = area(s)
+                    if a > best_a:
+                        best, best_a = s_idx, a
+            if best < 0:
+                break
+            s = slots.pop(best)
+            slots.append(int(left_first[s]))
+            slots.append(int(left_first[s]) + 1)
+        return slots
+
+    # rows emitted through an explicit stack of (binary node, row, depth);
+    # row 0 = root
+    rows.append(np.zeros(64, np.float32))
+    stack = [(0, 0, 0)]
+    while stack:
+        bin_node, row_idx, depth = stack.pop()
+        max_depth = max(max_depth, depth)
+        slots = wide_children(bin_node)
+        bmin = np.full((WIDTH, 3), 1e30, np.float32)
+        bmax = np.full((WIDTH, 3), -1e30, np.float32)
+        cidx = np.zeros(WIDTH, np.int32)
+        ccnt = np.full(WIDTH, -1, np.int32)
+        for k, s in enumerate(slots):
+            bmin[k] = nmin[s]
+            bmax[k] = nmax[s]
+            if prim_count[s] > 0:
+                first, cnt = int(left_first[s]), int(prim_count[s])
+                seg = b.tri_indices[first : first + cnt]
+                cidx[k] = leaf_cursor
+                ccnt[k] = cnt
+                leaf_order.append(seg)
+                leaf_cursor += cnt
+            else:
+                child_row = len(rows)
+                rows.append(np.zeros(64, np.float32))
+                cidx[k] = child_row
+                ccnt[k] = 0
+                stack.append((s, child_row, depth + 1))
+        row = np.empty(64, np.float32)
+        row[0:48] = np.concatenate([bmin, bmax], axis=1).reshape(-1)
+        row[48:56] = cidx.view(np.float32)
+        row[56:64] = ccnt.view(np.float32)
+        rows[row_idx] = row
+
+    return _bvh8(b, rows, leaf_order, max_depth)
+
+
+def _bvh8(b: BVH, rows, leaf_order, max_depth) -> BVH8:
+    """A BVH8 from emitted node rows and the leaves' triangle segments."""
+    leaf_ids = (
+        np.concatenate(leaf_order).astype(np.int32)
+        if leaf_order
+        else np.zeros(0, np.int32)
+    )
+    tris9 = np.empty((len(leaf_ids), 9), np.float32)
+    tris9[:, 0:3] = b.tri_v0[leaf_ids]
+    tris9[:, 3:6] = b.tri_v1[leaf_ids] - b.tri_v0[leaf_ids]
+    tris9[:, 6:9] = b.tri_v2[leaf_ids] - b.tri_v0[leaf_ids]
+    return BVH8(
+        nodes=np.stack(rows),
+        tris9=tris9,
+        leaf_tri_id=leaf_ids,
+        max_depth=max_depth,
+    )
+
+
+def collapse_sah(b: BVH, leaf_max: int = 8, width: int = WIDTH) -> BVH8:
     """SAH-cost dynamic-programming collapse (the wide-BVH construction
     of Ylitie et al. 2017).
 
@@ -64,6 +175,11 @@ def collapse_sah(b: BVH, leaf_max: int = 8) -> BVH8:
     (c) distribute its two halves across the parent's slots.  Expected
     iterations ~ sum over emitted child entries of SA(entry bounds)
     (the probability a random ray's slab test pushes that entry).
+
+    `width` selects the node arity: 8 emits (B, 64) rows, 16 emits
+    (B, 128) rows -- 16 x (min, max).xyz bounds in cols 0..95, child
+    indices in 96..111, counts in 112..127 (mode w16).  The recurrence is
+    the same; only the slot budget changes.
 
     Input: a binary BVH with subtree-contiguous tri_indices (both the
     numpy and native builders partition in place, so every subtree owns
@@ -99,7 +215,9 @@ def collapse_sah(b: BVH, leaf_max: int = 8) -> BVH8:
             ), "tri_indices not subtree-contiguous"
             t_first[n], t_count[n] = first, count
 
-    W1 = WIDTH  # slots per wide node
+    if width not in (8, 16):
+        raise ValueError(f"collapse width must be 8 or 16, got {width}")
+    W1 = width  # slots per wide node
     INF = np.float64(np.inf)
     # C[n, i-1]: min cost of subtree n distributed into i slots
     C = np.full((n_nodes, W1), INF)
@@ -155,7 +273,7 @@ def collapse_sah(b: BVH, leaf_max: int = 8) -> BVH8:
         l, r = int(lf[n]), int(lf[n]) + 1
         return decompose(l, j) + decompose(r, i - j)
 
-    ncol = 8 * WIDTH
+    ncol = 8 * width
     rows.append(np.zeros(ncol, np.float32))
     # root always emits a wide node (the kernel's entry is a node row)
     root_slots = [0] if is_leaf[0] else decompose(0, W1)
@@ -163,10 +281,10 @@ def collapse_sah(b: BVH, leaf_max: int = 8) -> BVH8:
     while stack:
         slots, row_idx, depth = stack.pop()
         max_depth = max(max_depth, depth)
-        bmin = np.full((WIDTH, 3), 1e30, np.float32)
-        bmax = np.full((WIDTH, 3), -1e30, np.float32)
-        cidx = np.zeros(WIDTH, np.int32)
-        ccnt = np.full(WIDTH, -1, np.int32)
+        bmin = np.full((width, 3), 1e30, np.float32)
+        bmax = np.full((width, 3), -1e30, np.float32)
+        cidx = np.zeros(width, np.int32)
+        ccnt = np.full(width, -1, np.int32)
         for k, s in enumerate(slots):
             bmin[k] = nmin[s]
             bmax[k] = nmax[s]
@@ -184,26 +302,12 @@ def collapse_sah(b: BVH, leaf_max: int = 8) -> BVH8:
                 ccnt[k] = 0
                 stack.append((decompose(s, W1), child_row, depth + 1))
         row = np.empty(ncol, np.float32)
-        row[0 : 6 * WIDTH] = np.concatenate([bmin, bmax], axis=1).reshape(-1)
-        row[6 * WIDTH : 7 * WIDTH] = cidx.view(np.float32)
-        row[7 * WIDTH : 8 * WIDTH] = ccnt.view(np.float32)
+        row[0 : 6 * width] = np.concatenate([bmin, bmax], axis=1).reshape(-1)
+        row[6 * width : 7 * width] = cidx.view(np.float32)
+        row[7 * width : 8 * width] = ccnt.view(np.float32)
         rows[row_idx] = row
 
-    leaf_ids = (
-        np.concatenate(leaf_order).astype(np.int32)
-        if leaf_order
-        else np.zeros(0, np.int32)
-    )
-    tris9 = np.empty((len(leaf_ids), 9), np.float32)
-    tris9[:, 0:3] = b.tri_v0[leaf_ids]
-    tris9[:, 3:6] = b.tri_v1[leaf_ids] - b.tri_v0[leaf_ids]
-    tris9[:, 6:9] = b.tri_v2[leaf_ids] - b.tri_v0[leaf_ids]
-    return BVH8(
-        nodes=np.stack(rows),
-        tris9=tris9,
-        leaf_tri_id=leaf_ids,
-        max_depth=max_depth,
-    )
+    return _bvh8(b, rows, leaf_order, max_depth)
 
 
 def _half_area_rows(nmin: np.ndarray, nmax: np.ndarray) -> np.ndarray:
@@ -235,9 +339,11 @@ class BVH8Slim:
                    inverted bounds, so validity lives in the entry)
       cols 56..63: bitcast int32 child_count (host-side bookkeeping; the
                    kernel never reads it)
+    At width 16 (collapse_sah(width=16)) the rows are (B, 128): bounds
+    0..95, entries 96..111, counts 112..127, with the same encoding.
     """
 
-    nodes: np.ndarray     # (B, 64) f32
+    nodes: np.ndarray     # (B, 64) f32 -- (B, 128) at width 16
     ltris: np.ndarray     # (NL, 128) f32 leaf records
     max_depth: int
 
@@ -248,6 +354,10 @@ class BVH8Slim:
     @property
     def num_leaf_rows(self) -> int:
         return len(self.ltris)
+
+    @property
+    def width(self) -> int:
+        return self.nodes.shape[1] // 8
 
 
 def to_slim_occl(w: BVH8) -> BVH8Slim:
@@ -289,10 +399,14 @@ def to_slim(w: BVH8, tri_normal: np.ndarray) -> BVH8Slim:
     """Re-encode a BVH8 (built with leaf_max=8) into leaf-blocked form.
 
     tri_normal: (T, 3) flat per-triangle normals in ORIGINAL order.
-    The object-index column is left 0; the scene build stamps it."""
+    The object-index column is left 0; the scene build stamps it.  Width
+    follows the input tree: a width-16 BVH8 keeps its (B, 128) node rows
+    (bounds 0..95, entries 96..111) with the same leaf / EMPTY entry
+    encoding; leaf records are the same at both widths."""
+    width = w.width
     nodes = w.nodes.copy()
-    cidx = nodes[:, 48:56].view(np.int32)
-    ccnt = nodes[:, 56:64].view(np.int32)
+    cidx = nodes[:, 6 * width : 7 * width].view(np.int32)
+    ccnt = nodes[:, 7 * width : 8 * width].view(np.int32)
     is_leaf = ccnt > 0
     if is_leaf.any() and int(ccnt[is_leaf].max()) > 8:
         raise ValueError("slim tables need leaf_max <= 8")
@@ -317,3 +431,43 @@ def to_slim(w: BVH8, tri_normal: np.ndarray) -> BVH8Slim:
     cidx[is_leaf] = -(leaf_rows + 1)
     cidx[ccnt == -1] = SLIM_EMPTY
     return BVH8Slim(nodes=nodes, ltris=ltris, max_depth=w.max_depth)
+
+
+def slim_side_tables(nodes: np.ndarray,
+                     roots: tuple[int, ...]) -> tuple[np.ndarray, int]:
+    """The entry side table of a slim 8-wide node table (CPUGPU_SMEMTREE):
+    (ents, nvirt), ents (B + nvirt, 8) i32 holding each node row's 8
+    pre-encoded child entries (the bits of node cols 48..55), then
+    `nvirt` virtual rows of the extra roots roots[1:] in chunks of 8
+    (padded with SLIM_EMPTY).  The JAX package's TPU kernels seed their
+    frame stack from the virtual rows; the port's kernels take the roots
+    from their launch arguments and read the real rows only."""
+    if nodes.shape[1] != 64:
+        raise ValueError("side tables are for 8-wide 64-col slim nodes")
+    ents = np.ascontiguousarray(nodes.view(np.int32)[:, 48:56])
+    extra = [int(r) for r in roots[1:]]
+    vrows = []
+    while extra:
+        chunk, extra = extra[:8], extra[8:]
+        row = np.full((8,), SLIM_EMPTY, np.int32)
+        row[: len(chunk)] = chunk
+        vrows.append(row)
+    if vrows:
+        ents = np.concatenate([ents, np.stack(vrows)], axis=0)
+    return ents, len(vrows)
+
+
+def slim_bounds48(nodes: np.ndarray) -> np.ndarray:
+    """(B, 48) bounds-only node table (CPUGPU_SMEMTREE=48): the entry and
+    count columns move to the side table and the row shrinks from 256 to
+    192 bytes.  Empty child slots get NaN bounds.  The JAX package relies
+    on every slab comparison against NaN being False; the port's kernels
+    keep validity in the entry (ents[k] != SLIM_EMPTY), because CUDA's
+    fminf / fmaxf drop a NaN operand."""
+    if nodes.shape[1] != 64:
+        raise ValueError("bounds48 is derived from 8-wide 64-col nodes")
+    b = np.ascontiguousarray(nodes[:, :48])
+    empty = nodes.view(np.int32)[:, 48:56] == SLIM_EMPTY
+    for k in range(8):
+        b[empty[:, k], 6 * k : 6 * k + 6] = np.nan
+    return b

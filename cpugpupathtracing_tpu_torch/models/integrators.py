@@ -47,7 +47,9 @@ from cpugpupathtracing_tpu_torch.models.scene import (
     active_bit,
     hit_surface,
     intersect_scene,
+    occl_tables,
     packet_path_active,
+    packet_tables,
     ptframe_max_nodes,
     ptframe_split,
     reorder_key,
@@ -123,27 +125,61 @@ def extend_kwargs(dev: DeviceScene, settings: RenderSettings) -> dict:
 
 
 def frame_kwargs(dev: DeviceScene, settings: RenderSettings) -> dict:
-    """The static keyword arguments of pt_frame for this scene/settings."""
-    return dict(
-        extend_kwargs(dev, settings),
-        sh_nodes=dev.poccl_nodes,
-        sh_ltris=dev.poccl_ltris,
-        sh_roots=dev.poccl_roots,
-        occl=True,
-    )
+    """The static keyword arguments of pt_frame over dev.tables() of an
+    8-wide scene, without layout keywords (the plain arm): the any-hit
+    tables' 64-col rows as the shadow tree when the scene has them.
+    frame_args gives the whole-frame route's tables and keywords."""
+    kw = extend_kwargs(dev, settings)
+    if dev.poccl_roots:
+        kw.update(sh_nodes=dev.poccl_nodes, sh_ltris=dev.poccl_ltris,
+                  sh_roots=dev.poccl_roots, occl=True)
+    return kw
+
+
+def route_tables(dev: DeviceScene, whole_frame: bool = False) -> tuple:
+    """(the ten tables of the kernels' positional arguments, the node
+    layout keywords fused_nn / width / ents) that a route hands its
+    closest-hit kernel: the tables of scene.packet_tables, as the JAX
+    package's routes pass them (no side table on the object-space
+    machinery)."""
+    nodes, ltris, fused_nn, ents = packet_tables(dev, whole_frame)
+    return (nodes, ltris) + dev.tables()[2:], dict(
+        fused_nn=fused_nn, width=dev.packet_width,
+        ents=None if dev.machinery else ents)
+
+
+def frame_args(dev: DeviceScene, settings: RenderSettings) -> tuple:
+    """(tables, keyword arguments) of the whole-frame route's pt_frame
+    launches: route_tables(whole_frame=True), and the any-hit tree of
+    scene.occl_tables(whole_frame=True) with its side table as the shadow
+    tree when the scene has one (the JAX package's
+    trace_advanced_frame)."""
+    tables, kw = route_tables(dev, whole_frame=True)
+    kw.update(extend_kwargs(dev, settings))
+    occl = occl_tables(dev, whole_frame=True)
+    if occl is not None:
+        sh_nodes, sh_ltris, sh_roots, sh_ents = occl
+        kw.update(sh_nodes=sh_nodes, sh_ltris=sh_ltris, sh_roots=sh_roots,
+                  sh_ents=sh_ents, occl=True)
+    return tables, kw
 
 
 def shadow_tables(dev: DeviceScene) -> tuple:
-    """(nodes, ltris, keyword arguments) of shadow_resolve: the occlusion
-    tables, or on the object-space instance machinery the shading tables
-    with the instance tables (the JAX package's instanced arm, which
-    builds no occlusion tables)."""
+    """(nodes, ltris, keyword arguments) of the per-depth route's
+    shadow_resolve: the any-hit tables of scene.occl_tables (with their
+    side table), or the shading tables in their route layout
+    (route_tables) -- on the object-space instance machinery with the
+    instance tables (the JAX package's instanced arm, which builds no
+    any-hit tables)."""
     kw = dict(num_sph=dev.num_sph, num_pln=dev.num_pln)
-    if dev.machinery:
-        return dev.pnodes, dev.pltris, dict(
-            kw, roots=dev.proots, occl=False, **dev.inst_kwargs(nrm=False))
-    return dev.poccl_nodes, dev.poccl_ltris, dict(kw, roots=dev.poccl_roots,
-                                                   occl=True)
+    occl = occl_tables(dev)
+    if occl is None:
+        tables, tkw = route_tables(dev)
+        return tables[0], tables[1], dict(
+            kw, **tkw, roots=dev.proots, occl=False,
+            **dev.inst_kwargs(nrm=False))
+    nodes, ltris, roots, ents = occl
+    return nodes, ltris, dict(kw, roots=roots, occl=True, ents=ents)
 
 
 def shadow_kwargs(dev: DeviceScene) -> dict:
@@ -563,9 +599,9 @@ def trace_advanced_mega(dev: DeviceScene, settings: RenderSettings, origin,
     each; the host never synchronises.  Returns (state', TraceResult)."""
     n = origin.shape[0]
     dv = origin.device
-    kw = dict(extend_kwargs(dev, settings), **dev.inst_kwargs())
+    tables, tkw = route_tables(dev)
+    kw = dict(extend_kwargs(dev, settings), **tkw, **dev.inst_kwargs())
     nee = kw["nee"]
-    tables = dev.tables()
     sh_nodes, sh_ltris, sh_kw = shadow_tables(dev)
     do_sort = idx is not None
     shadow_sort = do_sort and os.environ.get("CPUGPU_SHADOW_SORT") == "1"
@@ -618,8 +654,7 @@ def trace_advanced_frame(dev: DeviceScene, settings: RenderSettings, origin,
     frame goes to trace_advanced_mega(idx=None) instead, as in the JAX
     package.  Returns (state', TraceResult); state' is that of the last
     span, in lane order."""
-    kw = frame_kwargs(dev, settings)
-    tables = dev.tables()
+    tables, kw = frame_args(dev, settings)
     rays = tuple(origin[:, k].contiguous() for k in range(3)) + tuple(
         direction[:, k].contiguous() for k in range(3))
     depths = settings.max_ray_depth + 1

@@ -1,19 +1,39 @@
 """Scene model: host-side object list and the device tables the
-path-tracing kernel reads.
+path-tracing kernels read.
 
 The port of the JAX package's `Scene._build_device` and `_refit_device`
 (models/scene.py there), for scenes of meshes, instanced meshes, spheres
-and planes.  Every mesh gets two slim 8-wide trees over a full-sweep SAH
-binary build (SAH_SPLIT_PRIMITIVES, leaf <= 8):
-  * the closest-hit tables `pnodes`/`pltris`: the SAH-cost DP collapse
-    at leaf_max 8, shading-complete leaf records (bvh8.to_slim);
-  * the any-hit tables `poccl_nodes`/`poccl_ltris`: the same collapse
-    at leaf_max 14, bare 14-record leaf rows (bvh8.to_slim_occl).
-Objects are concatenated into one table per kind, with one root per
-object (`proots`, `poccl_roots`).  These are the tables the JAX package
-builds under its benchmark flags (CPUGPU_PACKET_TREE=sweep_dp,
-CPUGPU_OCCL=1), bitwise.  A scene without meshes (benchmark config 1)
-gets empty trees and no roots.
+and planes.  Every mesh gets a slim closest-hit tree `pnodes`/`pltris`
+(shading-complete leaf records, bvh8.to_slim) and, with CPUGPU_OCCL, an
+any-hit tree `poccl_nodes`/`poccl_ltris` (the SAH-cost DP collapse at
+leaf_max 14 of a full-sweep SAH binary build, bare 14-record leaf rows,
+bvh8.to_slim_occl).  Objects are concatenated into one table per kind,
+with one root per object (`proots`, `poccl_roots`).
+
+The node tables follow the JAX package's variables, read from the
+environment whenever a scene is built (config.packet_flags), and are
+bitwise the JAX package's under the same values:
+  * CPUGPU_PACKET_TREE: how the closest-hit tree is built -- fat, dp,
+    sweep, sweep_dp (8-wide (B, 64) rows) or w16 (16-wide (B, 128) rows,
+    kept only when no instance needs the object-space machinery; such a
+    scene falls back to sweep_dp);
+  * CPUGPU_OCCL=1: the any-hit tables;
+  * CPUGPU_FUSED=1: `pfused`, one (BP + NL, 128) node|leaf table whose
+    leaf entries are nn + leaf row (not on the object-space machinery);
+  * CPUGPU_SMEMTREE=1|48 (with CPUGPU_SMEMTREE_MIN_NODES): the entry side
+    tables `pents`/`poccl_ents` (8-wide, not fused, not on the
+    machinery), and in mode 48, on scenes without instances and under
+    the JAX condition CPUGPU_FRAMESTACK=1, CPUGPU_ROWX=1, the 48-col
+    bounds-only rows `pnodes48`/`poccl_nodes48`.  A tree under the
+    minimum (`smem_small`) hands them to the whole-frame kernel only.
+An unset variable takes the JAX package's benchmark value
+(bench_flags_default.json): CPUGPU_PACKET_TREE=sweep_dp, CPUGPU_OCCL=1,
+CPUGPU_SMEMTREE=48, CPUGPU_FRAMESTACK=1 -- so by default the port builds
+and walks the tables the JAX benchmark does (the 48-col rows and side
+tables on config 3).  CPUGPU_SMEMTREE=0 gives the plain 64-col tables.
+`packet_tables` / `occl_tables` pick what each kernel walks, as in the
+JAX package.  A scene without meshes (benchmark config 1) gets empty
+trees and no roots.
 
 Instanced meshes (one BLAS, many object-to-world transforms) sit under a
 TLAS whose root is the last root.  When the world-space copies of their
@@ -47,7 +67,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from cpugpupathtracing_tpu_torch.config import BuildOption
+from cpugpupathtracing_tpu_torch.config import BuildOption, packet_flags
 from cpugpupathtracing_tpu_torch.models import bvh as bvhlib
 from cpugpupathtracing_tpu_torch.models import bvh8 as bvh8lib
 from cpugpupathtracing_tpu_torch.models import materials as matlib
@@ -55,7 +75,7 @@ from cpugpupathtracing_tpu_torch.models.mesh import Mesh
 from cpugpupathtracing_tpu_torch.ops import intersect
 from cpugpupathtracing_tpu_torch.ops import pt_frame as ptf
 from cpugpupathtracing_tpu_torch.ops import traverse_packet_slim as tps
-from cpugpupathtracing_tpu_torch.ops.pt_frame import PT_STACK
+from cpugpupathtracing_tpu_torch.ops.pt_frame import PT_STACK, PT_STACK_W16
 from cpugpupathtracing_tpu_torch.utils.device import resolve_device
 from cpugpupathtracing_tpu_torch.utils.log import except_error, log_warn
 from cpugpupathtracing_tpu_torch.utils.vecmath import normalize, sqrt
@@ -109,9 +129,19 @@ TABLE_FIELDS = (
     ("light_tri_count", torch.int32),  # (L,) triangles (sphere: 0)
     ("light_half_area", torch.float32),  # (L,) mesh total_area / 2
 )
+# the node-table variants, None when the scene's flags build none
+# (the JAX package's names)
+VARIANT_FIELDS = (
+    ("pents", torch.int32),          # (BP + V, 8) closest-hit entries
+    ("pnodes48", torch.float32),     # (BP, 48) bounds, NaN empty slots
+    ("poccl_ents", torch.int32),     # (BO + V, 8) any-hit entries
+    ("poccl_nodes48", torch.float32),  # (BO, 48)
+    ("pfused", torch.float32),       # (BP + NL, 128) node|leaf rows
+)
 META_FIELDS = ("proots", "poccl_roots", "light_tri_meta", "num_lights",
                "num_sph", "num_pln", "has_mesh_lights", "num_instances",
-               "packet_flattened")
+               "packet_flattened", "pfused_nn", "packet_width",
+               "smem_small")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -165,6 +195,18 @@ class DeviceScene:
     # instanced BLASes replicated into world space (the kernels' plain
     # arms run); False with instances = the object-space TLAS machinery
     packet_flattened: bool = False
+    # the node-table variants (VARIANT_FIELDS) and their metadata: node
+    # rows of pfused (0 without it), the closest-hit arity (8: (BP, 64)
+    # rows, 16: (BP, 128)), and whether the side tables go to the
+    # whole-frame kernel only (a tree under CPUGPU_SMEMTREE_MIN_NODES)
+    pents: torch.Tensor | None = None
+    pnodes48: torch.Tensor | None = None
+    poccl_ents: torch.Tensor | None = None
+    poccl_nodes48: torch.Tensor | None = None
+    pfused: torch.Tensor | None = None
+    pfused_nn: int = 0
+    packet_width: int = 8
+    smem_small: bool = False
     # what a refit needs (Scene._refit_device); None for a snapshot made
     # from numpy tables
     refit: dict | None = dataclasses.field(default=None, compare=False,
@@ -211,12 +253,14 @@ class DeviceScene:
     def table_bytes(self) -> dict:
         return {name: int(getattr(self, name).numel()
                           * getattr(self, name).element_size())
-                for name, _ in TABLE_FIELDS}
+                for name, _ in TABLE_FIELDS + VARIANT_FIELDS
+                if getattr(self, name) is not None}
 
     def to_numpy(self) -> tuple[dict, dict]:
         """(arrays, meta): the inverse of scene_from_numpy."""
-        arrays = {name: getattr(self, name).cpu().numpy()
-                  for name, _ in TABLE_FIELDS}
+        arrays = {name: None if getattr(self, name) is None
+                  else getattr(self, name).cpu().numpy()
+                  for name, _ in TABLE_FIELDS + VARIANT_FIELDS}
         meta = {name: getattr(self, name) for name in META_FIELDS}
         return arrays, meta
 
@@ -224,11 +268,12 @@ class DeviceScene:
 def scene_from_numpy(arrays: dict, meta: dict, device="cuda") -> DeviceScene:
     """DeviceScene from numpy tables named like TABLE_FIELDS (e.g. the
     leaves of a JAX package DeviceScene, np.asarray(getattr(dev, name)))
-    and the static `meta` of META_FIELDS.  Used by the tests to hand both
-    packages the same tables.  A missing any-hit tree (None: the JAX
-    package builds none for a scene without meshes, nor for one on the
-    object-space instance machinery) becomes an empty one, missing
-    instance tables empty ones."""
+    and the static `meta` of META_FIELDS; the variant tables of
+    VARIANT_FIELDS are carried where given (None or absent: not built).
+    Used by the tests to hand both packages the same tables.  A missing
+    any-hit tree (None: the JAX package builds none for a scene without
+    meshes, nor for one on the object-space instance machinery) becomes
+    an empty one, missing instance tables empty ones."""
     dev = resolve_device(device)
     empty = {"poccl_nodes": (0, 64), "poccl_ltris": (0, 128),
              "inst_inv": (0, 12), "inst_nrm": (0, 9),
@@ -245,6 +290,10 @@ def scene_from_numpy(arrays: dict, meta: dict, device="cuda") -> DeviceScene:
         name: torch.from_numpy(table(name, dtype)).to(device=dev, dtype=dtype)
         for name, dtype in TABLE_FIELDS
     }
+    for name, dtype in VARIANT_FIELDS:
+        a = arrays.get(name)
+        tensors[name] = None if a is None else torch.from_numpy(
+            np.array(a, order="C")).to(device=dev, dtype=dtype)
     return DeviceScene(
         **tensors,
         proots=tuple(int(r) for r in meta["proots"]),
@@ -257,6 +306,9 @@ def scene_from_numpy(arrays: dict, meta: dict, device="cuda") -> DeviceScene:
         has_mesh_lights=bool(meta.get("has_mesh_lights", False)),
         num_instances=int(meta.get("num_instances", 0)),
         packet_flattened=bool(meta.get("packet_flattened", False)),
+        pfused_nn=int(meta.get("pfused_nn", 0)),
+        packet_width=int(meta.get("packet_width", 8)),
+        smem_small=bool(meta.get("smem_small", False)),
     )
 
 
@@ -271,35 +323,63 @@ class SceneObject:
     # instanced mesh: (I, 4, 4) object-to-world transforms; one BLAS is
     # built and referenced from the TLAS once per instance
     instances: np.ndarray | None = None
-    # (mesh, binary BVH, slim tree, occlusion collapse, occlusion tree)
-    # of the mesh, kept across snapshots (_blas)
+    # (mesh, _Blas) of the mesh, kept across snapshots (_blas)
     blas: tuple | None = None
 
 
 class _Blas(NamedTuple):
-    """The trees of one mesh: its binary SAH build, the slim closest-hit
-    tree (leaf_max 8), the occlusion collapse (leaf_max 14) and its slim
-    any-hit tree."""
+    """The trees of one mesh: its full-sweep SAH binary build (leaf <= 8),
+    the occlusion collapse (leaf_max 14) and its slim any-hit tree, and
+    the slim closest-hit tree of each CPUGPU_PACKET_TREE mode built so
+    far (`pw`, filled by _packet_tree)."""
 
     b: bvhlib.BVH
-    pw: bvh8lib.BVH8Slim
     wo: bvh8lib.BVH8
     po: bvh8lib.BVH8Slim
+    pw: dict
 
 
 def _blas(obj: SceneObject) -> _Blas:
     """The object's trees, built once per mesh (full-sweep SAH binary
-    build, leaf <= 8; the SAH-cost DP collapses of bvh8)."""
+    build, leaf <= 8; the SAH-cost DP collapse of bvh8 for the any-hit
+    tree)."""
     if obj.blas is None or obj.blas[0] is not obj.mesh:
         m = obj.mesh
         b = bvhlib.build(m.positions, m.normals, m.indices,
                          BuildOption.SAH_SPLIT_PRIMITIVES, max_leaf_size=8)
         wo = bvh8lib.collapse_sah(b, leaf_max=bvh8lib.OCCL_TRIS)
-        obj.blas = (obj.mesh, _Blas(
-            b, bvh8lib.to_slim(bvh8lib.collapse_sah(b, leaf_max=8),
-                               b.tri_normal),
-            wo, bvh8lib.to_slim_occl(wo)))
+        obj.blas = (obj.mesh, _Blas(b, wo, bvh8lib.to_slim_occl(wo), {}))
     return obj.blas[1]
+
+
+def _packet_tree(obj: SceneObject, mode: str) -> bvh8lib.BVH8Slim:
+    """The object's slim closest-hit tree in CPUGPU_PACKET_TREE mode
+    `mode` (the JAX package's _build_wide_cache), cached per mode."""
+    t = _blas(obj)
+    if mode not in t.pw:
+        b = t.b
+        # modes fat and dp rebuild with a mesh's build option, which is
+        # SAH_SPLIT_INTERVALS unless a caller of the JAX package's add_mesh
+        # chose another (the port's callers take the default)
+        heuristic = BuildOption.SAH_SPLIT_INTERVALS
+        if mode == "fat":
+            # fat leaves: a slim leaf is one row, so under-filled SAH
+            # leaves would waste most of a leaf visit
+            pb = b.rebuild(heuristic, max_leaf_size=8, leaf_stop=8)
+            w = bvh8lib.collapse(pb, leaf_max=8)
+        elif mode == "dp":
+            pb = b.rebuild(heuristic, max_leaf_size=8)
+            w = bvh8lib.collapse_sah(pb, leaf_max=8)
+        elif mode == "sweep":
+            pb = b.rebuild(BuildOption.SAH_SPLIT_PRIMITIVES, max_leaf_size=8,
+                           leaf_stop=8)
+            w = bvh8lib.collapse(pb, leaf_max=8)
+        else:  # sweep_dp, w16: the full-sweep build b itself
+            pb = b
+            w = bvh8lib.collapse_sah(b, leaf_max=8,
+                                     width=16 if mode == "w16" else 8)
+        t.pw[mode] = bvh8lib.to_slim(w, pb.tri_normal)
+    return t.pw[mode]
 
 
 class Scene:
@@ -312,6 +392,7 @@ class Scene:
         self.materials: list[matlib.Material] = []
         self.light_indices: list[int] = []
         self._device: DeviceScene | None = None
+        self._flags = None  # the packet_flags the snapshot was built under
         self._transforms_dirty = False
         # what the last build_device decided: flat_bytes against
         # flatten_budget_mb, flattened, tlas_rows / tlas_depth, and the
@@ -326,9 +407,10 @@ class Scene:
         return len(self.materials) - 1
 
     def add_mesh(self, name: str, mesh: Mesh, mat_index: int) -> int:
-        """Add a triangle mesh.  Its device trees are always built with
-        the full-sweep SAH (BuildOption.SAH_SPLIT_PRIMITIVES); hits are
-        exact for any valid tree."""
+        """Add a triangle mesh.  Its any-hit tree is always built with the
+        full-sweep SAH (BuildOption.SAH_SPLIT_PRIMITIVES), its closest-hit
+        tree as CPUGPU_PACKET_TREE says (_packet_tree); hits are exact for
+        any valid tree."""
         self.objects.append(SceneObject(name, mat_index, PRIM_MESH, mesh=mesh))
         self._device = None
         return len(self.objects) - 1
@@ -377,9 +459,15 @@ class Scene:
     # -- device snapshot --
 
     def device(self, device="cuda") -> DeviceScene:
+        """The snapshot on `device`, built anew when there is none on that
+        device or the node-table flags (config.packet_flags) changed since
+        it was built, refit when only instance transforms changed."""
         dev = resolve_device(device)
-        if self._device is None or self._device.device != dev:
+        flags = packet_flags()
+        if (self._device is None or self._device.device != dev
+                or self._flags != flags):
             self._device = self.build_device(dev)
+            self._flags = flags
             self._transforms_dirty = False
         elif self._transforms_dirty:
             self._refit_device(self._device)
@@ -406,6 +494,8 @@ class Scene:
         dev = resolve_device(device)
         f32, i32 = np.float32, np.int32
         has_instances = any(o.instances is not None for o in self.objects)
+        flags = packet_flags()
+        mode = flags.tree
         trees = {oi: _blas(o) for oi, o in enumerate(self.objects)
                  if o.kind == PRIM_MESH}
 
@@ -418,19 +508,27 @@ class Scene:
         budget = float(os.environ.get("CPUGPU_FLATTEN_BUDGET_MB") or "64")
         if has_instances:
             flat_bytes = sum(
-                len(o.instances) * (trees[oi].pw.nodes.nbytes
-                                    + trees[oi].pw.ltris.nbytes)
-                for oi, o in enumerate(self.objects)
-                if o.instances is not None)
+                len(o.instances) * (_packet_tree(o, mode).nodes.nbytes
+                                    + _packet_tree(o, mode).ltris.nbytes)
+                for o in self.objects if o.instances is not None)
             flatten = (flat_bytes <= budget * 1e6
                        and os.environ.get("CPUGPU_NO_FLATTEN") != "1")
             if not flatten and flat_bytes > budget * 1e6:
                 log_warn("Scene", "flattened instance tables {:.0f} MB exceed "
                          "the {:.0f} MB budget; using the object-space TLAS "
                          "machinery", flat_bytes / 1e6, budget)
-        # the any-hit tables: for non-instanced and flattened scenes; the
-        # object-space machinery keeps shadow rays on the shading tables
-        build_occl = not has_instances or flatten
+            if mode == "w16" and not flatten:
+                # the object-space instance machinery walks 8-wide trees
+                log_warn("Scene", "CPUGPU_PACKET_TREE=w16 does not support "
+                         "the object-space instance machinery; building "
+                         "sweep_dp 8-wide packet tables")
+                mode = "sweep_dp"
+        width = 16 if mode == "w16" else 8
+        ncol = 8 * width
+        # the any-hit tables (CPUGPU_OCCL): for non-instanced and
+        # flattened scenes; the object-space machinery keeps shadow rays
+        # on the shading tables
+        build_occl = flags.occl and (not has_instances or flatten)
 
         pnodes_l, ptris_l, proots = [], [], []
         onodes_l, oltris_l, oroots = [], [], []
@@ -450,7 +548,8 @@ class Scene:
 
         for oi, obj in enumerate(self.objects):
             if obj.kind == PRIM_MESH:
-                b, pw, wo, po = trees[oi]
+                b, wo, po = trees[oi].b, trees[oi].wo, trees[oi].po
+                pw = _packet_tree(obj, mode)
                 inst = obj.instances
                 tris9_l.append(_pack_tris(b.tri_v0, b.tri_v1, b.tri_v2))
                 tnrm_l.append(b.tri_normal)
@@ -478,7 +577,8 @@ class Scene:
                     flat_meta.append(dict(
                         first=len(inst_obj_l), count=len(inst),
                         node_base=pnode_off, ltris_base=pleaf_off,
-                        src_bounds=pw.nodes[:, :48].copy(), src_ltris=lt))
+                        src_bounds=pw.nodes[:, :6 * width].copy(),
+                        src_ltris=lt))
                 blas_root = pnode_off
                 for _ in range(copies):
                     pnodes_l.append(_rebase(pw.nodes, pnode_off, pleaf_off))
@@ -550,38 +650,46 @@ class Scene:
             # its root is the last closest-hit (and any-hit) root
             refit = dict(inst_objs=inst_objs, num_instances=num_instances,
                          static_lo=wlo.copy(),
-                         static_hi=whi.copy(), flatten=flatten,
+                         static_hi=whi.copy(), flatten=flatten, width=width,
                          p_tlas_off=pnode_off, p_flat_roots=p_flat_roots,
                          o_tlas_off=onode_off if build_occl else None,
                          o_flat_roots=o_flat_roots)
             _, tlas_rows, tlas_depth = _transform_pack(self.objects, refit)
             refit["tlas_count"] = len(tlas_rows)
-            pnodes_l.append(np.zeros((len(tlas_rows), 64), f32))
+            # the TLAS rows' entries now (the side tables read them); their
+            # bounds come with the transforms (_apply_transforms)
+            pnodes_l.append(_slim_tlas_rows(
+                tlas_rows, pnode_off, p_flat_roots if flatten else None,
+                width))
             proots.append(pnode_off)
             pnode_off += len(tlas_rows)
             if build_occl:
-                onodes_l.append(np.zeros((len(tlas_rows), 64), f32))
+                onodes_l.append(_slim_tlas_rows(tlas_rows, onode_off,
+                                                o_flat_roots))
                 oroots.append(onode_off)
                 onode_off += len(tlas_rows)
 
-        # the kernel's per-ray stack holds at most 7 pending siblings per
-        # level of the TLAS and the deepest tree below it, the RESTORE
-        # marker of an instance and the extra roots; refuse a tree that
-        # could overflow it
+        # the kernels' per-ray stack holds at most width - 1 pending
+        # siblings per level of the TLAS and the deepest tree below it, the
+        # RESTORE marker of an instance and the extra roots; refuse a tree
+        # that could overflow it (the 8-wide walks' PT_STACK, the 16-wide
+        # walks' PT_STACK_W16)
         stack_need = {}
-        for kind, depth, roots in (("closest-hit", pdepth, proots),
-                                   ("any-hit", odepth, oroots)):
-            need = 7 * (tlas_depth + depth + 1) + 1 + max(len(roots), 1)
+        for kind, depth, roots, w in (("closest-hit", pdepth, proots, width),
+                                      ("any-hit", odepth, oroots, 8)):
+            need = (w - 1) * (tlas_depth + depth + 1) + 1 + max(len(roots), 1)
+            bound = PT_STACK if w == 8 else PT_STACK_W16
             stack_need[kind] = need
-            if need > PT_STACK:
+            if need > bound:
                 except_error(
                     "Scene", "{} tree needs a {}-entry traversal stack, "
-                    "more than the kernel's {}", kind, need, PT_STACK)
+                    "more than the kernel's {}", kind, need, bound)
 
         self.build_info = dict(
             flat_bytes=flat_bytes, flatten_budget_mb=budget,
             flattened=flatten, tlas_rows=refit["tlas_count"] if refit else 0,
-            tlas_depth=tlas_depth, stack_need=stack_need)
+            tlas_depth=tlas_depth, stack_need=stack_need, packet_tree=mode,
+            packet_width=width, tree_depth=pdepth)
         if not np.isfinite(wlo).all():
             wlo = np.zeros(3, f32)
             whi = np.ones(3, f32)
@@ -598,7 +706,7 @@ class Scene:
             return np.concatenate(parts) if parts else np.zeros((0, width), f32)
 
         arrays = dict(
-            pnodes=rows(pnodes_l, 64),
+            pnodes=rows(pnodes_l, ncol),
             pltris=rows(ptris_l, 128),
             poccl_nodes=rows(onodes_l, 64),
             poccl_ltris=rows(oltris_l, 128),
@@ -634,6 +742,7 @@ class Scene:
             has_mesh_lights=has_mesh_lights,
             num_instances=num_instances,
             packet_flattened=flatten,
+            packet_width=width,
             refit=refit,
         )
         if num_instances:
@@ -641,7 +750,12 @@ class Scene:
             # a refit to the same transforms gives the same bits
             pack, _, _ = _transform_pack(self.objects, refit)
             _apply_transforms(ds, refit, _upload(pack, dev))
-        return ds
+        if flags.fused and proots and (num_instances == 0 or flatten):
+            ds = dataclasses.replace(
+                ds, pfused=fuse_packet_tables(ds.pnodes, ds.pltris),
+                pfused_nn=int(ds.pnodes.shape[0]))
+        return _side_tables(ds, flags, arrays["pnodes"],
+                            arrays["poccl_nodes"])
 
     def _mk_tables(self, sph, pln, mesh_tri_range, mesh_bvh, tris9_l,
                    tnrm_l):
@@ -780,11 +894,12 @@ def _pack_tris(v0, v1, v2) -> np.ndarray:
 
 
 def _rebase(rows: np.ndarray, node_off: int, leaf_off: int) -> np.ndarray:
-    """A copy of slim node rows with interior entries moved by node_off
-    rows and leaf entries -(row + 1) by leaf_off rows."""
+    """A copy of slim node rows (8- or 16-wide) with interior entries
+    moved by node_off rows and leaf entries -(row + 1) by leaf_off rows."""
     out = rows.copy()
-    cidx = out[:, 48:56].view(np.int32)
-    ccnt = out[:, 56:64].view(np.int32)
+    w = rows.shape[1] // 8
+    cidx = out[:, 6 * w:7 * w].view(np.int32)
+    ccnt = out[:, 7 * w:8 * w].view(np.int32)
     cidx[ccnt == 0] += node_off
     cidx[ccnt > 0] -= leaf_off
     return out
@@ -882,11 +997,30 @@ def _build_tlas_rows(imin: np.ndarray, imax: np.ndarray):
     return np.stack(rows), depth
 
 
-def _slim_tlas_rows(tlas_rows: np.ndarray, p_off: int, inst_roots=None):
+def _widen_slim_rows(rows: np.ndarray) -> np.ndarray:
+    """8-wide slim node rows (bounds 0..47, entries 48..55) in the 16-wide
+    (B, 128) layout (bounds 0..95, entries 96..111, counts 112..127): pad
+    slots 8..15 get inverted boxes and SLIM_EMPTY entries (the JAX
+    package's _widen_slim_rows, which splices the 8-wide TLAS over the
+    16-wide flattened tables)."""
+    out = np.zeros((len(rows), 128), np.float32)
+    out[:, :48] = rows[:, :48]
+    out[:, 48:96] = np.tile(
+        np.array([1e30, 1e30, 1e30, -1e30, -1e30, -1e30], np.float32), 8)
+    oi = out.view(np.int32)
+    oi[:, 96:104] = rows[:, 48:56].view(np.int32)
+    oi[:, 104:112] = bvh8lib.SLIM_EMPTY
+    oi[:, 112:128] = -1
+    return out
+
+
+def _slim_tlas_rows(tlas_rows: np.ndarray, p_off: int, inst_roots=None,
+                    width: int = 8):
     """TLAS rows in the slim encoding at row p_off: interior children ->
     global row, empty -> SLIM_EMPTY, instance children -> SLIM_EMPTY + 1 +
     instance id (the object-space machinery) or, with `inst_roots`, the
-    root row of the instance's world-space BLAS copy (flattened)."""
+    root row of the instance's world-space BLAS copy (flattened); at
+    width 16 widened to (K, 128) rows (_widen_slim_rows)."""
     rows = tlas_rows.copy()
     cidx = rows[:, 48:56].view(np.int32)
     ccnt = rows[:, 56:64].view(np.int32)
@@ -898,7 +1032,7 @@ def _slim_tlas_rows(tlas_rows: np.ndarray, p_off: int, inst_roots=None):
     cidx[ccnt == 0] += p_off
     cidx[ccnt == -1] = bvh8lib.SLIM_EMPTY
     ccnt[:] = -1  # the kernels never read counts
-    return rows
+    return _widen_slim_rows(rows) if width == 16 else rows
 
 
 def _instance_world_aabb(nmin, nmax, m4):
@@ -917,8 +1051,9 @@ def _transform_pack(objects, rf: dict):
     """The host part of a refit from the current instance transforms:
     (words, tlas_rows, tlas_depth), words one f32 array of inst_inv
     (I, 12), inst_nrm (I, 9), the linear parts A (I, 9) and translations
-    b (I, 3) of the transforms, the slim TLAS rows (K, 64), those of the
-    any-hit TLAS (K, 64, when the scene has any-hit tables), world_lo and
+    b (I, 3) of the transforms, the slim TLAS rows (K, 8 * width), those
+    of the any-hit TLAS (K, 64, when the scene has any-hit tables),
+    world_lo and
     world_inv_extent -- the layout _apply_transforms reads.  Raises when
     a refit (rf with tlas_count) would change the TLAS topology."""
     f32 = np.float32
@@ -944,7 +1079,8 @@ def _transform_pack(objects, rf: dict):
     flat = rf["flatten"]
     parts = [np.stack(inv_l), np.stack(nrm_l), np.stack(a_l), np.stack(b_l),
              _slim_tlas_rows(tlas_rows, rf["p_tlas_off"],
-                             rf["p_flat_roots"] if flat else None)]
+                             rf["p_flat_roots"] if flat else None,
+                             rf["width"])]
     if rf["o_tlas_off"] is not None:
         parts.append(_slim_tlas_rows(tlas_rows, rf["o_tlas_off"],
                                      rf["o_flat_roots"]))
@@ -983,23 +1119,23 @@ def _lin(m, v, t=None):
 
 
 def world_boxes(src_bounds, A, b):
-    """(I * B, 48) world child boxes of (B, 48) object-space slim node
-    bounds under every instance: center' = A c + b, extent' = |A| e, so
-    boxes only grow (conservative culling, the JAX package's
-    _flatten_tables and _flatten_splice_occl)."""
-    B = src_bounds.shape[0]
-    bx = src_bounds.reshape(B, 8, 6)
+    """(I * B, 6W) world child boxes of (B, 6W) object-space slim node
+    bounds (W = 8 or 16 slots) under every instance: center' = A c + b,
+    extent' = |A| e, so boxes only grow (conservative culling, the JAX
+    package's _flatten_tables and _flatten_splice_occl)."""
+    B, cols = src_bounds.shape
+    bx = src_bounds.reshape(B, cols // 6, 6)
     mn, mx = bx[..., 0:3], bx[..., 3:6]
     c = (mn + mx) * 0.5
     e = (mx - mn) * 0.5
     cw = _lin(A, c, b)
     ew = _lin(torch.abs(A), e)
-    return torch.cat([cw - ew, cw + ew], dim=-1).reshape(-1, 48)
+    return torch.cat([cw - ew, cw + ew], dim=-1).reshape(-1, cols)
 
 
 def flatten_tables(src_bounds, src_ltris, A, b, nrm):
     """World-space copies of one instanced BLAS (the JAX package's
-    _flatten_tables, width 8): ((I * B, 48) world child boxes,
+    _flatten_tables): ((I * B, 6W) world child boxes,
     (I * Lr, 128) world leaf records).  Records transform exactly (v0
     affine, e1 / e2 linear); the flat normal becomes the normalised
     nrm (I, 3, 3) image, as the object-space machinery's shading
@@ -1037,9 +1173,16 @@ def _apply_transforms(ds: DeviceScene, rf: dict, words: torch.Tensor) -> None:
     """Write the transforms' part of the tables in place from the words
     of _transform_pack on the scene's device: the TLAS rows, on a
     flattened scene the world-space BLAS copies and the repacked
-    occlusion rows, inst_inv, inst_nrm and the world bounds."""
+    occlusion rows, the fused table (rebuilt from the new rows, as the
+    JAX package's refit does), the TLAS rows' entries in the side tables,
+    inst_inv, inst_nrm and the world bounds.  The BLAS rows' entries never
+    move, but the TLAS assigns its child slots by the instances' world
+    positions, so a move can permute them; the JAX package's refit leaves
+    pents as built, and a refit here must equal a fresh build.  48-col
+    rows exist only without instances."""
     I, K = ds.num_instances, rf["tlas_count"]
-    sizes = [12 * I, 9 * I, 9 * I, 3 * I, 64 * K]
+    ncol = 8 * rf["width"]
+    sizes = [12 * I, 9 * I, 9 * I, 3 * I, ncol * K]
     if rf["o_tlas_off"] is not None:
         sizes.append(64 * K)
     sizes += [3, 3]
@@ -1047,17 +1190,23 @@ def _apply_transforms(ds: DeviceScene, rf: dict, words: torch.Tensor) -> None:
     inv, nrm, A, b, prow = parts[:5]
     wlo, wie = parts[-2:]
     A, b, nrm3 = A.view(I, 3, 3), b.view(I, 3), nrm.view(I, 3, 3)
-    ds.pnodes[rf["p_tlas_off"]:rf["p_tlas_off"] + K].copy_(prow.view(K, 64))
+    o = rf["p_tlas_off"]
+    ds.pnodes[o:o + K].copy_(prow.view(K, ncol))
+    if ds.pents is not None:  # 8-wide only
+        ds.pents[o:o + K].copy_(ds.pnodes[o:o + K, 48:56].view(torch.int32))
     for fm in rf["flat_meta"]:
         sl = slice(fm["first"], fm["first"] + fm["count"])
         bounds, recs = flatten_tables(fm["src_bounds"], fm["src_ltris"],
                                       A[sl], b[sl], nrm3[sl])
         nb, lb = fm["node_base"], fm["ltris_base"]
-        ds.pnodes[nb:nb + bounds.shape[0], :48] = bounds
+        ds.pnodes[nb:nb + bounds.shape[0], :bounds.shape[1]] = bounds
         ds.pltris[lb:lb + recs.shape[0]] = recs
     if rf["o_tlas_off"] is not None:
         o = rf["o_tlas_off"]
         ds.poccl_nodes[o:o + K].copy_(parts[5].view(K, 64))
+        if ds.poccl_ents is not None:
+            ds.poccl_ents[o:o + K].copy_(
+                ds.poccl_nodes[o:o + K, 48:56].view(torch.int32))
         for ofm in rf["oflat_meta"]:
             sl = slice(ofm["first"], ofm["first"] + ofm["count"])
             bounds = world_boxes(ofm["src_bounds"], A[sl], b[sl])
@@ -1065,10 +1214,98 @@ def _apply_transforms(ds: DeviceScene, rf: dict, words: torch.Tensor) -> None:
             ds.poccl_nodes[nb:nb + bounds.shape[0], :48] = bounds
         if rf["operm"] is not None:
             ds.poccl_ltris.copy_(_occl_repack(ds.pltris, rf["operm"]))
+    if ds.pfused is not None:
+        ds.pfused.copy_(fuse_packet_tables(ds.pnodes, ds.pltris))
     ds.inst_inv.copy_(inv.view(I, 12))
     ds.inst_nrm.copy_(nrm.view(I, 9))
     ds.world_lo.copy_(wlo)
     ds.world_inv_extent.copy_(wie)
+
+
+def fuse_packet_tables(pnodes: torch.Tensor,
+                       pltris: torch.Tensor) -> torch.Tensor:
+    """The fused node|leaf table (CPUGPU_FUSED, the JAX package's
+    _fuse_packet_tables) on the tables' device: node rows padded to 128
+    cols (16-wide rows already are), leaf entries -(lrow + 1) re-encoded
+    as nn + lrow -- the row of the leaf in this table -- and the leaf
+    rows appended; SLIM_EMPTY and the interior entries stay."""
+    nn, w = pnodes.shape[0], pnodes.shape[1] // 8
+    ci = pnodes[:, 6 * w:7 * w].contiguous().view(torch.int32)
+    ci = torch.where(ci < 0, nn + (-ci - 1), ci)
+    parts = [pnodes[:, :6 * w], ci.view(torch.float32),
+             pnodes[:, 7 * w:8 * w]]
+    if 8 * w < 128:
+        parts.append(torch.zeros((nn, 128 - 8 * w), dtype=pnodes.dtype,
+                                 device=pnodes.device))
+    return torch.cat([torch.cat(parts, dim=1), pltris], dim=0)
+
+
+def _side_tables(ds: DeviceScene, flags, pnodes: np.ndarray,
+                 onodes: np.ndarray) -> DeviceScene:
+    """CPUGPU_SMEMTREE=1|48 (the JAX package's _build_smem_side_tables):
+    the entry side tables of the 8-wide split tables (bvh8.slim_side_
+    tables, from the host rows `pnodes` / `onodes`, whose entries are the
+    device rows'), and in mode 48 on a scene without instances, under the
+    JAX condition CPUGPU_FRAMESTACK=1 and CPUGPU_ROWX=1, the 48-col
+    bounds-only rows (bvh8.slim_bounds48).  None for 16-wide or fused
+    tables and on the object-space machinery; a tree of fewer than
+    CPUGPU_SMEMTREE_MIN_NODES rows is marked smem_small (packet_tables
+    hands its side tables to the whole-frame kernel only)."""
+    if (flags.smemtree not in ("1", "48") or not ds.proots
+            or ds.packet_width != 8 or ds.pfused is not None
+            or ds.machinery):
+        return ds
+    dev = ds.device
+
+    def t(a, dtype):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device=dev,
+                                                            dtype=dtype)
+
+    upd = dict(smem_small=pnodes.shape[0] < flags.smem_min_nodes,
+               pents=t(bvh8lib.slim_side_tables(pnodes, ds.proots)[0],
+                       torch.int32))
+    if ds.poccl_roots:
+        upd["poccl_ents"] = t(bvh8lib.slim_side_tables(
+            onodes, ds.poccl_roots)[0], torch.int32)
+    if (flags.smemtree == "48" and flags.framestack and flags.rowx == 1
+            and ds.num_instances == 0):
+        upd["pnodes48"] = t(bvh8lib.slim_bounds48(pnodes), torch.float32)
+        if ds.poccl_roots:
+            upd["poccl_nodes48"] = t(bvh8lib.slim_bounds48(onodes),
+                                     torch.float32)
+    return dataclasses.replace(ds, **upd)
+
+
+def packet_tables(dev: DeviceScene, whole_frame: bool = False) -> tuple:
+    """(nodes, ltris, fused_nn, ents) of the closest-hit walks (the JAX
+    package's packet_tables): the fused table when the scene built one
+    (ltris then holds the leaf records the plain versions read), the
+    48-col rows with the side table when built (CPUGPU_SMEMTREE=48), the
+    64-col (or 16-wide) rows with the side table or none otherwise.  A
+    small tree (smem_small) gives its side tables to whole-frame callers
+    only."""
+    if dev.pfused is not None:
+        return dev.pfused, dev.pltris, dev.pfused_nn, None
+    if dev.smem_small and not whole_frame:
+        return dev.pnodes, dev.pltris, 0, None
+    if dev.pnodes48 is not None:
+        return dev.pnodes48, dev.pltris, 0, dev.pents
+    return dev.pnodes, dev.pltris, 0, dev.pents
+
+
+def occl_tables(dev: DeviceScene, whole_frame: bool = False):
+    """(nodes, ltris, roots, ents) of the any-hit tree (the JAX package's
+    occl_tables), or None when shadow rays walk the shading tables (no
+    any-hit tables: CPUGPU_OCCL off, the object-space machinery, or no
+    mesh).  The 48-col rows when built; the same small-tree policy as
+    packet_tables."""
+    if not dev.poccl_roots:
+        return None
+    if dev.smem_small and not whole_frame:
+        return dev.poccl_nodes, dev.poccl_ltris, dev.poccl_roots, None
+    nodes = (dev.poccl_nodes48 if dev.poccl_nodes48 is not None
+             else dev.poccl_nodes)
+    return nodes, dev.poccl_ltris, dev.poccl_roots, dev.poccl_ents
 
 
 def reorder_key(dev: DeviceScene, origin, direction, act,
@@ -1115,10 +1352,10 @@ def active_bit(mode: str) -> int:
 # ---- route gates (the JAX package's scene.py:1915-2141) ----------------------
 #
 # The environment is read at every call: the port has no trace cache.
-# The JAX gates' arms for the leaf-14, fused and 16-wide tables have no
-# counterpart here (one thread per ray over 8-wide trees), nor has the
-# ADVANCED gates' budget of 16 analytic primitives (a TPU compile-time
-# limit of unrolled tests).
+# The JAX gates' arms for the leaf-14 and 16-wide occlusion tables have
+# no counterpart here yet (the port builds neither), nor has the ADVANCED
+# gates' budget of 16 analytic primitives (a TPU compile-time limit of
+# unrolled tests).
 # Where the JAX package asks for the TPU backend, the port asks for a
 # scene on the card.
 
@@ -1207,7 +1444,11 @@ def ptframe_max_nodes(split_on: bool) -> int:
 def pt_frame_gate_reason(dev: DeviceScene, settings) -> str | None:
     """Why ADVANCED mode must leave the whole-frame kernel
     (integrators.trace_advanced_frame) for the per-depth pipeline, or
-    None when it can run.  CPUGPU_NO_PTFRAME=1 opts out (A/B runs);
+    None when it can run.  As in the JAX package the fused tables go to
+    the per-depth pipeline (pt_frame has a fused arm all the same, which
+    trace_advanced_frame runs when called directly), and the tree-size
+    bound counts the closest-hit node rows (`pnodes`; the 48-col rows
+    have as many).  CPUGPU_NO_PTFRAME=1 opts out (A/B runs);
     CPUGPU_FORCE_PTFRAME=1 lifts the tree-size bound."""
     if os.environ.get("CPUGPU_NO_PTFRAME") == "1":
         return "CPUGPU_NO_PTFRAME=1"
@@ -1216,6 +1457,8 @@ def pt_frame_gate_reason(dev: DeviceScene, settings) -> str | None:
         return reason
     if dev.machinery:
         return "TLAS instance machinery (flattened scenes qualify)"
+    if dev.pfused is not None:
+        return "fused packet tables"
     if settings.max_ray_depth > 32:
         return "max_ray_depth > 32"
     split_on = ptframe_split(settings) > 0
@@ -1319,9 +1562,11 @@ def intersect_scene(dev: DeviceScene, origin, direction, t_init, *,
     depth = torch.zeros_like(obj)
     normal = None
     if dev.proots:
+        nodes, ltris, fused_nn, ents = packet_tables(dev)
         res = tps.traverse_packet_slim(
-            o_c, d_c, t_init, dev.pnodes, dev.pltris, dev.proots,
+            o_c, d_c, t_init, nodes, ltris, dev.proots,
             active=active, any_hit=any_hit, count_depth=count_depth,
+            fused_nn=fused_nn, width=dev.packet_width, ents=ents,
             **dev.inst_kwargs(nrm=False))
         t, tri, mobj, normal, depth = res[:5]
         mesh_hit = tri >= 0

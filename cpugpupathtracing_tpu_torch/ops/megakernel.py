@@ -31,8 +31,14 @@ an instance hit's object-space normal into normalize(inst_nrm @ n) before
 shading.  The plain versions then take their hits from
 pt_frame.closest_hit_instances_reference; the kernels equal them bitwise.
 
-The JAX functions' leaf-14 payload tables, fused tables and 16-wide tables
-are not ported (ROADMAP.md A14): the wrappers raise on them.
+Node-table variants (the JAX kernels' arms): `ents` (the entry side
+table, with 64- or 48-col rows), `width=16` and `fused_nn` (the fused
+node|leaf table) launch the kernels' variant arm, counted per layout in
+ops/pt_frame.py `launches` (launch_key) as every arm is; the plain
+versions are brute force, which no layout changes.  As in the JAX
+package a side table given with the instance arm is dropped (16-wide and
+fused tables raise there).  The leaf-14 payload (`pay`), 2-row occlusion
+leaves (`occl_rows=2`) and 16-wide occlusion tables raise: port slice 7.
 """
 
 from __future__ import annotations
@@ -44,28 +50,7 @@ from cpugpupathtracing_tpu_torch.ops.intersect import (
     brute_force_nearest_triangle,
 )
 
-# kernel launches per wrapper, the instance arms apart (comparisons
-# against the plain version and CPU calls are not counted)
-launches = {"shade_extend": 0, "shadow_resolve": 0, "shade_extend_inst": 0,
-            "shadow_resolve_inst": 0}
-
 _F32, _I32, _I64 = torch.float32, torch.int32, torch.int64
-
-
-def _refuse(what: str, pay=None, fused_nn=0, width=8) -> None:
-    """Raise on the JAX arguments the port has no kernel arm for: the
-    leaf-14 payload, fused or 16-wide tables."""
-    given = []
-    if pay is not None:
-        given.append("pay")
-    if fused_nn:
-        given.append(f"fused_nn={fused_nn}")
-    if width != 8:
-        given.append(f"width={width}")
-    if given:
-        raise NotImplementedError(
-            f"{what}: {', '.join(given)} not ported (the kernels walk "
-            "8-wide tables); see ROADMAP.md A14")
 
 
 def _cols(name, cols, count, dtype, dev, n):
@@ -84,7 +69,7 @@ def shade_extend(
     *, roots, num_mats, num_lights, num_sph, num_pln, num_objs,
     nee, rr, cosine, ref_pdf, light_tri_meta=(), count_iters=False,
     inst_inv=None, inst_nrm=None, inst_root=None, pay=None, fused_nn=0,
-    width=8,
+    width=8, ents=None,
 ):
     """One depth (`depth`, the absolute depth: the NEE double-count guard
     adds emission at depth 0) of the wavefront, minus the shadow resolve.
@@ -96,13 +81,16 @@ def shade_extend(
     shadow tmax, contribution (3)), the JAX function's tuple; with
     count_iters=True (CUDA only) also pt_frame's ten work counters
     (ops/pt_frame.py COUNTERS; the shadow ones 0).  inst_inv (I, 12),
-    inst_nrm (I, 9), inst_root (I,): the instance arm."""
+    inst_nrm (I, 9), inst_root (I,): the instance arm; ents, fused_nn,
+    width: the node-table variants (module docstring)."""
     del num_mats, num_objs  # read from the table shapes
-    _refuse("shade_extend", pay, fused_nn, width)
+    ptf.refuse_slice7("shade_extend", pay=pay)
     nee = nee and num_lights > 0
     tables = (mats, lights, ltri, sph, pln, sphmat, plnmat, objmat)
     dev = state.device
     inst = ptf.check_instances(dev, inst_inv, inst_root, inst_nrm)
+    ents = ptf.resolve_tables("shade_extend", nodes, ents, fused_nn, width,
+                              instanced=inst is not None)
     if inst is not None and inst_nrm is None:
         raise ValueError("shade_extend: the instance arm needs inst_nrm")
     if dev.type == "cpu":
@@ -121,8 +109,11 @@ def shade_extend(
         int(depth), rays, state, throughput, energy, flags, roots=roots,
         num_lights=num_lights, num_sph=num_sph, num_pln=num_pln, nee=nee,
         rr=rr, cosine=cosine, ref_pdf=ref_pdf, light_tri_meta=light_tri_meta,
-        count_iters=count_iters, inst=inst)
-    launches["shade_extend" if inst is None else "shade_extend_inst"] += 1
+        count_iters=count_iters, inst=inst, ents=ents, fused_nn=fused_nn,
+        width=width)
+    ptf.count_launch("shade_extend",
+                     ptf.table_layout(nodes, ents, fused_nn, width),
+                     inst=inst is not None)
     return out
 
 
@@ -130,25 +121,30 @@ def shade_extend_host(
     nodes, ltris, mats, lights, ltri, sph, pln, sphmat, plnmat, objmat,
     depth, rays, state, throughput, energy, flags, *, roots, num_lights,
     num_sph, num_pln, nee, rr, cosine, ref_pdf, light_tri_meta=(),
-    count_iters=False, inst_inv=None, inst_nrm=None, inst_root=None, **_,
+    count_iters=False, inst_inv=None, inst_nrm=None, inst_root=None,
+    ents=None, fused_nn=0, width=8, **_,
 ):
     """`shade_extend` through the g++ build of the kernel body, on CPU
     tensors: a test of the device code without a card."""
     dev = torch.device("cpu")
+    inst = ptf.check_instances(dev, inst_inv, inst_root, inst_nrm)
     return _shade_extend_launch(
         ptf.build_host().mk_shade_extend_host, dev, nodes,
         ltris, (mats, lights, ltri, sph, pln, sphmat, plnmat, objmat),
         int(depth), rays, state, throughput, energy, flags, roots=roots,
         num_lights=num_lights, num_sph=num_sph, num_pln=num_pln,
         nee=nee and num_lights > 0, rr=rr, cosine=cosine, ref_pdf=ref_pdf,
-        light_tri_meta=light_tri_meta, count_iters=count_iters,
-        inst=ptf.check_instances(dev, inst_inv, inst_root, inst_nrm))
+        light_tri_meta=light_tri_meta, count_iters=count_iters, inst=inst,
+        ents=ptf.resolve_tables("shade_extend", nodes, ents, fused_nn, width,
+                                instanced=inst is not None),
+        fused_nn=fused_nn, width=width)
 
 
 def _shade_extend_launch(entry, dev, nodes, ltris, tables, depth, rays, state,
                          throughput, energy, flags, *, roots, num_lights,
                          num_sph, num_pln, nee, rr, cosine, ref_pdf,
-                         light_tri_meta, count_iters, inst=None):
+                         light_tri_meta, count_iters, inst=None, ents=None,
+                         fused_nn=0, width=8):
     n = state.shape[0]
     ptf._check("state", state, _I64, dev, (n,))
     _cols("throughput", throughput, 3, _F32, dev, n)
@@ -158,7 +154,8 @@ def _shade_extend_launch(entry, dev, nodes, ltris, tables, depth, rays, state,
         dev, nodes, ltris, nodes, ltris, tables, rays, n=n, roots=roots,
         sh_roots=roots, light_tri_meta=light_tri_meta, num_sph=num_sph,
         num_pln=num_pln, num_lights=num_lights, nee=nee, rr=rr,
-        cosine=cosine, ref_pdf=ref_pdf, depth_base=depth, inst=inst)
+        cosine=cosine, ref_pdf=ref_pdf, depth_base=depth, inst=inst,
+        ents=ents, sh_ents=ents, fused_nn=fused_nn, width=width)
     a.state, a.flags_in = state.data_ptr(), flags.data_ptr()
     for c in range(3):
         a.tp_in[c] = throughput[c].data_ptr()
@@ -261,7 +258,8 @@ def shade_extend_reference(
 def shadow_resolve(
     nodes, ltris, sph, pln, shadow_o, shadow_d, shadow_tmax, flags, energy,
     contrib, *, roots, num_sph, num_pln, occl=False, count_iters=False,
-    inst_inv=None, inst_root=None, fused_nn=0, width=8,
+    inst_inv=None, inst_root=None, fused_nn=0, width=8, ents=None,
+    occl_rows=1,
 ):
     """The NEE shadow any-hit of every lane with sneed (flags bit 2) over
     the tree (nodes, ltris, roots) -- the occlusion tables
@@ -269,13 +267,21 @@ def shadow_resolve(
     analytic occluders, then energy + (visible ? contrib : 0).  Returns
     energy' (3 (N,) f32 columns); with count_iters=True (CUDA only) also
     the ten work counters (the closest-hit ones 0).  inst_inv (I, 12),
-    inst_root (I,): the instance arm (over the shading tables)."""
-    _refuse("shadow_resolve", fused_nn=fused_nn, width=width)
+    inst_root (I,): the instance arm (over the shading tables); ents,
+    fused_nn, width: the node-table variants (module docstring; fused and
+    16-wide tables are shading tables, occl=False)."""
+    ptf.refuse_slice7("shadow_resolve", occl_rows=occl_rows,
+                      occl_width=width if occl else 8)
     dev = flags.device
     inst = ptf.check_instances(dev, inst_inv, inst_root)
     if inst is not None and occl:
         raise ValueError("shadow_resolve: the instance arm walks the "
                          "shading tables, not the occlusion tables")
+    if occl and fused_nn:
+        raise ValueError("shadow_resolve: occlusion tables are split, not "
+                         "fused")
+    ents = ptf.resolve_tables("shadow_resolve", nodes, ents, fused_nn, width,
+                              instanced=inst is not None)
     if dev.type == "cpu":
         if count_iters:
             raise ValueError("count_iters needs the CUDA kernel")
@@ -291,30 +297,35 @@ def shadow_resolve(
         ptf.build().mk_shadow_resolve_launch, dev, nodes, ltris, sph, pln,
         shadow_o, shadow_d, shadow_tmax, flags, energy, contrib, roots=roots,
         num_sph=num_sph, num_pln=num_pln, occl=occl, count_iters=count_iters,
-        inst=inst)
-    launches["shadow_resolve" if inst is None
-             else "shadow_resolve_inst"] += 1
+        inst=inst, ents=ents, fused_nn=fused_nn, width=width)
+    ptf.count_launch("shadow_resolve",
+                     ptf.table_layout(nodes, ents, fused_nn, width),
+                     inst=inst is not None)
     return out
 
 
 def shadow_resolve_host(nodes, ltris, sph, pln, shadow_o, shadow_d,
                         shadow_tmax, flags, energy, contrib, *, roots,
                         num_sph, num_pln, occl=False, count_iters=False,
-                        inst_inv=None, inst_root=None, **_):
+                        inst_inv=None, inst_root=None, ents=None, fused_nn=0,
+                        width=8, **_):
     """`shadow_resolve` through the g++ build of the kernel body (CPU)."""
     dev = torch.device("cpu")
+    inst = ptf.check_instances(dev, inst_inv, inst_root)
     return _shadow_resolve_launch(
         ptf.build_host().mk_shadow_resolve_host, dev, nodes,
         ltris, sph, pln, shadow_o, shadow_d, shadow_tmax, flags, energy,
         contrib, roots=roots, num_sph=num_sph, num_pln=num_pln, occl=occl,
-        count_iters=count_iters,
-        inst=ptf.check_instances(dev, inst_inv, inst_root))
+        count_iters=count_iters, inst=inst,
+        ents=ptf.resolve_tables("shadow_resolve", nodes, ents, fused_nn,
+                                width, instanced=inst is not None),
+        fused_nn=fused_nn, width=width)
 
 
 def _shadow_resolve_launch(entry, dev, nodes, ltris, sph, pln, shadow_o,
                            shadow_d, shadow_tmax, flags, energy, contrib, *,
                            roots, num_sph, num_pln, occl, count_iters,
-                           inst=None):
+                           inst=None, ents=None, fused_nn=0, width=8):
     n = flags.shape[0]
     ptf._check("flags", flags, _I32, dev, (n,))
     _cols("shadow_o", shadow_o, 3, _F32, dev, n)
@@ -329,7 +340,8 @@ def _shadow_resolve_launch(entry, dev, nodes, ltris, sph, pln, shadow_o,
     a = ptf.launch_args(dev, nodes, ltris, nodes, ltris, tables,
                         tuple(shadow_o) + tuple(shadow_d), n=n, roots=roots,
                         sh_roots=roots, occl=occl, num_sph=num_sph,
-                        num_pln=num_pln, inst=inst)
+                        num_pln=num_pln, inst=inst, ents=ents, sh_ents=ents,
+                        fused_nn=fused_nn, width=width)
     a.flags_in = flags.data_ptr()
     cols = tuple(shadow_o) + tuple(shadow_d) + (shadow_tmax,) + tuple(contrib)
     for c in range(10):

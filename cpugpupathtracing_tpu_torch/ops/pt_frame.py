@@ -30,6 +30,16 @@ flags)` continues paths of an earlier span and `carry_out=True` returns
 the whole carry: (rays6, state, throughput3, energy3, flags, traced)
 with flags = active | is_specular << 1.
 
+Node tables: `nodes` is the closest-hit tree's 64-col 8-wide slim rows,
+or a variant of the JAX kernel's arms -- `ents` (the entry side table,
+with 64- or 48-col rows), `width=16` (128-col rows), `fused_nn` (the
+fused node|leaf table; `ltris` then holds the same leaf rows for the
+plain version) -- and the shadow tree's rows 64- or 48-col with or
+without `sh_ents`.  The plain 64-col tables launch the kernel's plain arm,
+every other layout its variant arm, each counted apart in `launches`
+(launch_key).  The plain version is brute force, which no layout
+changes.
+
 RNG states are u32 values carried in int64 tensors (utils/rng.py).
 """
 
@@ -63,8 +73,10 @@ from cpugpupathtracing_tpu_torch.utils.vecmath import (
     sqrt,
 )
 
-# kernel launches of `pt_frame`
-launches = 0
+# kernel launches of every wrapper of the port, by arm (launch_key; added
+# at an arm's first launch).  Comparisons against the plain versions and
+# CPU calls are not counted.
+launches: dict = {}
 # work counters of count_iters: the kernel's visits (pt::Counters: node,
 # leaf, shadow node and shadow leaf rows read, closest-hit and shadow rays
 # traversed), then the distinct node, leaf, shadow node and shadow leaf
@@ -76,6 +88,11 @@ COUNTERS = ("node", "leaf", "snode", "sleaf", "ray", "sray",
 # wrappers refuse more roots than it holds, and the scene build
 # (models/scene.py) refuses trees whose worst-case walk would not fit
 PT_STACK = 64
+# the variant arms' stack (csrc/pt_device.cuh PT_STACK_W16): room for the
+# 15 siblings a 16-wide row leaves pending per level
+PT_STACK_W16 = 128
+# the layouts of a node table (table_layout), the first the plain arm's
+LAYOUTS = ("64", "ents", "48", "w16", "fused", "fused_w16")
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
@@ -143,6 +160,8 @@ class _PtArgs(ctypes.Structure):
         ("inst_inv", ctypes.c_void_p),
         ("inst_nrm", ctypes.c_void_p),
         ("inst_root", ctypes.c_void_p),
+        ("ents", ctypes.c_void_p),
+        ("sh_ents", ctypes.c_void_p),
         ("status", ctypes.c_void_p),
         ("stream", ctypes.c_void_p),
     ] + [(name, ctypes.c_int) for name in (
@@ -153,21 +172,22 @@ class _PtArgs(ctypes.Structure):
         "mesh_lights", "sh_occl",
         "n", "depths", "depth_base", "nee", "rr", "cosine", "ref_pdf",
         "any_hit", "num_inst",
+        "fused_nn", "width", "cols", "sh_cols",
     )]
 
 
 def _check_layout(fns: dict, what: str) -> None:
     """Raise unless the build's struct pt::PtArgs has _PtArgs' size and
-    field offsets (pt::args_layout: size, depth_out, num_inst): a field
-    out of step would shift every later one silently."""
-    got = (ctypes.c_longlong * 3)()
+    field offsets (pt::args_layout: size, depth_out, ents, sh_cols): a
+    field out of step would shift every later one silently."""
+    got = (ctypes.c_longlong * 4)()
     fns["pt_args_layout"](ctypes.addressof(got))
     want = (ctypes.sizeof(_PtArgs), _PtArgs.depth_out.offset,
-            _PtArgs.num_inst.offset)
+            _PtArgs.ents.offset, _PtArgs.sh_cols.offset)
     if tuple(got) != want:
         raise RuntimeError(f"{what}: PtArgs layout {tuple(got)} (size, "
-                           f"depth_out, num_inst) differs from the ctypes "
-                           f"mirror's {want}")
+                           f"depth_out, ents, sh_cols) differs from the "
+                           f"ctypes mirror's {want}")
 
 
 def _bind(lib, names) -> dict:
@@ -308,33 +328,145 @@ def _small_tables(tables, light_tri_meta, roots, sh_roots) -> torch.Tensor:
     return hit[1]
 
 
-def _check_tree(prefix, nodes, ltris, roots, dev) -> None:
-    """A slim 8-wide tree as the kernels take it: (B, 64) f32 node rows,
-    (NL, 128) f32 leaf rows, 1 to PT_STACK roots."""
+def _check_tree(prefix, nodes, ltris, roots, dev, ents=None,
+                fused_nn=0) -> None:
+    """A slim tree as the kernels take it: (B, 48 | 64 | 128) f32 node
+    rows (resolve_tables has checked the columns against the layout),
+    (NL, 128) f32 leaf rows, 1 to PT_STACK roots; a side table (R, 8) i32
+    of at least B rows; a fused table of fused_nn node rows and then the
+    NL leaf rows."""
     _check_roots(f"{prefix}roots", roots)
     _check(f"{prefix}nodes", nodes, torch.float32, dev)
-    if nodes.dim() != 2 or nodes.shape[1] != 64:
-        raise ValueError(f"{prefix}nodes: need (B, 64) slim 8-wide node rows")
+    if nodes.dim() != 2 or nodes.shape[1] not in (48, 64, 128):
+        raise ValueError(f"{prefix}nodes: need (B, 48 | 64 | 128) slim node "
+                         "rows")
     _check(f"{prefix}ltris", ltris, torch.float32, dev)
     if ltris.dim() != 2 or ltris.shape[1] != 128:
         raise ValueError(f"{prefix}ltris: need (NL, 128) leaf rows")
+    if ents is not None:
+        _check(f"{prefix}ents", ents, torch.int32, dev)
+        if ents.dim() != 2 or ents.shape[1] != 8 or \
+                ents.shape[0] < nodes.shape[0]:
+            raise ValueError(f"{prefix}ents: need (R >= {nodes.shape[0]}, 8) "
+                             "entries, one row per node row")
+    if fused_nn and nodes.shape[0] != fused_nn + ltris.shape[0]:
+        raise ValueError(f"{prefix}nodes: a fused table holds fused_nn="
+                         f"{fused_nn} node rows and the {ltris.shape[0]} "
+                         f"leaf rows, not {nodes.shape[0]} rows")
+
+
+def table_layout(nodes, ents=None, fused_nn=0, width=8) -> str:
+    """The layout of a (resolved) node table, one of LAYOUTS: "64" plain
+    rows, "ents" 64-col rows with the side table, "48" bounds-only rows
+    with it, "w16" 16-wide rows, "fused" / "fused_w16" the fused table."""
+    if fused_nn:
+        return "fused" if width == 8 else "fused_w16"
+    if width == 16:
+        return "w16"
+    if ents is not None:
+        return "48" if nodes.shape[1] == 48 else "ents"
+    return "64"
+
+
+def arm_key(layout: str, sh_layout: str) -> str:
+    """A variant arm's key in the launch counts: the closest-hit tree's
+    layout, then "+sh" and the shadow tree's where it differs and is not
+    the plain 64-col one."""
+    if sh_layout in (layout, "64"):
+        return layout
+    return f"{layout}+sh{sh_layout}"
+
+
+def launch_key(wrapper: str, layout: str = "64", inst: bool = False,
+               depth: bool = False) -> str:
+    """An arm's key in `launches`: "<wrapper>[_inst][_<layout>][_depth]",
+    the layout (table_layout; pt_frame's arm_key) left out for the plain
+    64-col tables."""
+    return "_".join([wrapper] + ["inst"] * inst
+                    + [layout] * (layout != "64") + ["depth"] * depth)
+
+
+def count_launch(wrapper: str, layout: str = "64", inst: bool = False,
+                 depth: bool = False) -> None:
+    """Add one to the arm's count in `launches`, where its kernel ran."""
+    key = launch_key(wrapper, layout, inst, depth)
+    launches[key] = launches.get(key, 0) + 1
+
+
+def resolve_tables(what, nodes, ents=None, fused_nn=0, width=8,
+                   instanced=False):
+    """The JAX wrappers' checks of a node table (traverse_packet_slim.py
+    _resolve_width_flags, _resolve_smem and _check_table_width): width 8
+    or 16; 16-wide and fused tables never on the instance machinery; a
+    side table only on the plain 8-wide split-table arm -- dropped from a
+    64-col table where it does not apply, refused with a 48-col one, which
+    cannot be walked without it; then the columns the layout needs (64,
+    48 with a side table, 128 at width 16 or fused).  Returns the side
+    table to use (or None)."""
+    if width not in (8, 16):
+        raise ValueError(f"{what}: packet node width must be 8 or 16, got "
+                         f"{width}")
+    if instanced and (width == 16 or fused_nn):
+        raise ValueError(f"{what}: 16-wide and fused packet tables do not "
+                         "support the instance machinery (flatten the scene)")
+    if ents is None:
+        if nodes.shape[1] == 48:
+            raise ValueError(f"{what}: a 48-col bounds-only node table "
+                             "requires the entry side table (ents)")
+    elif instanced or fused_nn or width != 8:
+        if nodes.shape[1] == 48:
+            raise ValueError(f"{what}: 48-col node tables need the "
+                             "non-instanced 8-wide split-table kernel")
+        ents = None
+    expect = 128 if (width == 16 or fused_nn) else (
+        48 if ents is not None and nodes.shape[1] == 48 else 64)
+    if nodes.dim() != 2 or nodes.shape[1] != expect:
+        raise ValueError(
+            f"{what}: packet node table has {tuple(nodes.shape)} but width="
+            f"{width} fused_nn={fused_nn} expects {expect} cols")
+    return ents
+
+
+def refuse_slice7(what: str, pay=None, occl_rows=1,
+                  occl_width=8) -> None:
+    """Raise on the JAX arguments of the leaf-side and occlusion variants
+    that have no kernel arm yet: the leaf-14 payload (CPUGPU_LEAF14),
+    2-row occlusion leaves (CPUGPU_OCCL2) and 16-wide occlusion tables
+    (CPUGPU_OCCL_W16) -- port slice 7 (ROADMAP.md)."""
+    given = []
+    if pay is not None:
+        given.append("pay")
+    if occl_rows != 1:
+        given.append(f"occl_rows={occl_rows}")
+    if occl_width != 8:
+        given.append("16-wide occlusion tables")
+    if given:
+        raise NotImplementedError(
+            f"{what}: {', '.join(given)} not ported yet (port slice 7 in "
+            "ROADMAP.md)")
 
 
 def launch_args(dev, nodes, ltris, sh_nodes, sh_ltris, tables, rays, *, n,
                 roots, sh_roots, occl=False, light_tri_meta=(), num_sph=0,
                 num_pln=0, num_lights=0, nee=False, rr=False, cosine=False,
                 ref_pdf=False, depths=1, depth_base=0,
-                inst=None) -> _PtArgs:
+                inst=None, ents=None, sh_ents=None, fused_nn=0,
+                width=8) -> _PtArgs:
     """Checked launch arguments of any kernel of csrc/ over n lanes: the
     closest-hit tree, the shadow tree (both None, with no roots, for the
     Whitted kernel, which walks none), the eight small tables (f32 mats,
     lights, light triangles, spheres, planes; i32 sphmat, plnmat,
     objmat), six (n,) f32 ray columns, the mode and the stream; `inst`
     the instance tables (check_instances) of a walk on the object-space
-    machinery.  The caller sets the per-lane column pointers."""
+    machinery; the node layout of the closest-hit tree (ents, fused_nn,
+    width, as resolve_tables resolved them) and the shadow tree's side
+    table (the shadow tree is the closest-hit tree's layout unless occl,
+    when it is 8-wide and split).  The caller sets the per-lane column
+    pointers."""
     if nodes is not None:
-        _check_tree("", nodes, ltris, roots, dev)
-        _check_tree("sh_", sh_nodes, sh_ltris, sh_roots, dev)
+        _check_tree("", nodes, ltris, roots, dev, ents, fused_nn)
+        _check_tree("sh_", sh_nodes, sh_ltris, sh_roots, dev, sh_ents,
+                    0 if occl else fused_nn)
     elif roots or sh_roots:
         raise ValueError("roots given without a tree")
     for k, t in enumerate(tables):
@@ -371,6 +503,15 @@ def launch_args(dev, nodes, ltris, sh_nodes, sh_ltris, tables, rays, *, n,
         if inst_nrm is not None:
             a.inst_nrm = inst_nrm.data_ptr()
         a.num_inst = inst_root.shape[0]
+    if nodes is not None:
+        a.cols, a.sh_cols = nodes.shape[1], sh_nodes.shape[1]
+        a.fused_nn, a.width = fused_nn, width
+        if ents is not None:
+            a.ents = ents.data_ptr()
+        if sh_ents is not None:
+            a.sh_ents = sh_ents.data_ptr()
+    else:
+        a.width = 8
     a.status = _status_tensor(dev).data_ptr()
     if dev.type == "cuda":
         a.stream = torch.cuda.current_stream(dev).cuda_stream
@@ -464,11 +605,15 @@ def pt_frame(
     nee, rr, cosine, ref_pdf, depths,
     sh_nodes=None, sh_ltris=None, sh_roots=None, occl=False,
     count_iters=False, light_tri_meta=(), depth_base=0, carry_in=None,
-    carry_out=False,
+    carry_out=False, fused_nn=0, width=8, ents=None, sh_ents=None,
+    occl_rows=1,
 ):
     """Full advanced path trace of rays (6-tuple of (N,) f32) with RNG
     state (N,) (int64 carrying u32).  The arguments are those of the JAX
-    package's pt_frame without its TPU schedule flags.
+    package's pt_frame without its TPU schedule flags: the node-table
+    variants fused_nn, width, ents (closest-hit tree) and sh_ents (the
+    8-wide shadow tree) as the module docstring says; occl_rows=2 and
+    16-wide shadow tables raise (port slice 7).
 
     Returns (energy (N, 3) f32, state' (N,), traced () int64), or with
     carry_out=True (rays6, state', throughput3, energy3, flags (N,) i32,
@@ -483,6 +628,11 @@ def pt_frame(
     sh_* are the any-hit tables (bvh8.to_slim_occl when occl=True); when
     absent the shadow rays walk the closest-hit tables."""
     del num_mats, num_objs  # read from the table shapes
+    refuse_slice7("pt_frame", occl_rows=occl_rows,
+                  occl_width=16 if sh_nodes is not None
+                  and sh_nodes.shape[1] == 128 else 8)
+    layout_kw = _frame_layouts("pt_frame", nodes, sh_nodes, ents, sh_ents,
+                               fused_nn, width, occl)
     sh_nodes, sh_ltris, sh_roots = _shadow_tables(
         nodes, ltris, roots, sh_nodes, sh_ltris, sh_roots, occl)
     nee = nee and num_lights > 0
@@ -498,10 +648,15 @@ def pt_frame(
         return pt_frame_reference(ltris, *tables, rays, state, **kw)
     if dev.type != "cuda":
         raise ValueError(f"pt_frame runs on cuda or cpu tensors, not {dev}")
-    return _launch(build().pt_frame_launch, dev, nodes, ltris, sh_nodes,
-                   sh_ltris, tables, rays, state, roots=roots,
-                   sh_roots=sh_roots, occl=occl, count_iters=count_iters,
-                   **kw)
+    out = _launch(build().pt_frame_launch, dev, nodes, ltris, sh_nodes,
+                  sh_ltris, tables, rays, state, roots=roots,
+                  sh_roots=sh_roots, occl=occl, count_iters=count_iters,
+                  **layout_kw, **kw)
+    count_launch("pt_frame", arm_key(
+        table_layout(nodes, layout_kw["ents"], fused_nn, width),
+        table_layout(sh_nodes, layout_kw["sh_ents"], 0 if occl else fused_nn,
+                     8 if occl else width)))
+    return out
 
 
 def pt_frame_host(
@@ -509,10 +664,13 @@ def pt_frame_host(
     rays, state, *, roots, num_lights, num_sph, num_pln, nee, rr, cosine,
     ref_pdf, depths, sh_nodes=None, sh_ltris=None, sh_roots=None,
     occl=False, light_tri_meta=(), depth_base=0, carry_in=None,
-    carry_out=False, count_iters=False, **_,
+    carry_out=False, count_iters=False, fused_nn=0, width=8, ents=None,
+    sh_ents=None, **_,
 ):
     """`pt_frame` through the g++ build of the kernel body, on CPU
     tensors: a test of the device code without a card."""
+    layout_kw = _frame_layouts("pt_frame", nodes, sh_nodes, ents, sh_ents,
+                               fused_nn, width, occl)
     sh_nodes, sh_ltris, sh_roots = _shadow_tables(
         nodes, ltris, roots, sh_nodes, sh_ltris, sh_roots, occl)
     return _launch(
@@ -523,7 +681,21 @@ def pt_frame_host(
         light_tri_meta=light_tri_meta, num_sph=num_sph, num_pln=num_pln,
         num_lights=num_lights, nee=nee and num_lights > 0, rr=rr,
         cosine=cosine, ref_pdf=ref_pdf, depths=depths, depth_base=depth_base,
-        carry_in=carry_in, carry_out=carry_out, count_iters=count_iters)
+        carry_in=carry_in, carry_out=carry_out, count_iters=count_iters,
+        **layout_kw)
+
+
+def _frame_layouts(what, nodes, sh_nodes, ents, sh_ents, fused_nn, width,
+                   occl) -> dict:
+    """pt_frame's node layouts resolved (resolve_tables) for the launch:
+    the closest-hit tree's, and the shadow tree's -- 8-wide and split
+    when it is its own (occl), else the closest-hit tree itself."""
+    ents = resolve_tables(what, nodes, ents, fused_nn, width)
+    if sh_nodes is not None:
+        sh_ents = resolve_tables(f"{what} sh_", sh_nodes, sh_ents)
+    else:
+        sh_ents = ents
+    return dict(ents=ents, sh_ents=sh_ents, fused_nn=fused_nn, width=width)
 
 
 def _shadow_tables(nodes, ltris, roots, sh_nodes, sh_ltris, sh_roots, occl):
@@ -546,8 +718,8 @@ def _check_roots(name, roots):
 def _launch(entry, dev, nodes, ltris, sh_nodes, sh_ltris, tables, rays,
             state, *, roots, sh_roots, occl=False, light_tri_meta=(),
             num_sph, num_pln, num_lights, nee, rr, cosine, ref_pdf, depths,
-            depth_base=0, carry_in=None, carry_out=False, count_iters=False):
-    global launches
+            depth_base=0, carry_in=None, carry_out=False, count_iters=False,
+            ents=None, sh_ents=None, fused_nn=0, width=8):
     n = state.shape[0]
     f32, i32, i64 = torch.float32, torch.int32, torch.int64
     _check("state", state, i64, dev, (n,))
@@ -556,7 +728,8 @@ def _launch(entry, dev, nodes, ltris, sh_nodes, sh_ltris, tables, rays,
                     light_tri_meta=light_tri_meta, num_sph=num_sph,
                     num_pln=num_pln, num_lights=num_lights, nee=nee, rr=rr,
                     cosine=cosine, ref_pdf=ref_pdf, depths=depths,
-                    depth_base=depth_base)
+                    depth_base=depth_base, ents=ents, sh_ents=sh_ents,
+                    fused_nn=fused_nn, width=width)
     a.state = state.data_ptr()
     if carry_in is not None:
         tp_in, en_in, flags_in = carry_in
@@ -587,8 +760,6 @@ def _launch(entry, dev, nodes, ltris, sh_nodes, sh_ltris, tables, rays,
         counted = count_rows(a, dev, {0: (nodes, ltris),
                                       1: (sh_nodes, sh_ltris)})
     run_launch(entry, a, "pt_frame")
-    if dev.type == "cuda":
-        launches += 1
     traced = tr.sum(dtype=i64)
     if carry_out:
         out = (tuple(rays_out), st_out, tuple(tp_out), tuple(en), flags,

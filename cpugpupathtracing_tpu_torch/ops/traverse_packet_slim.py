@@ -37,8 +37,15 @@ candidate lanes over the TLAS in world space and tests the instance's
 BLAS records in its object space (pt_frame.closest_hit_instances_
 reference); the kernel equals it bitwise.
 
-The JAX function's fused and 16-wide tables are not ported: the wrapper
-raises on them (ROADMAP.md A14).
+Node-table variants (the JAX kernel's arms): `ents` (the entry side
+table, with 64- or 48-col rows), `width=16` and `fused_nn` (the fused
+node|leaf table; `ltris` then holds its leaf rows for the plain versions)
+launch the kernel's variant arm, with and without count_depth, counted
+per layout in ops/pt_frame.py `launches` (launch_key) as every arm is.
+The walk `traverse_walk_reference` reads every layout.  As in the JAX
+package a side table given with the instance arm is dropped (16-wide and
+fused tables raise there).  The leaf-14 payload (`pay`) raises: port
+slice 7.
 """
 
 from __future__ import annotations
@@ -47,14 +54,6 @@ import torch
 
 from cpugpupathtracing_tpu_torch.ops import pt_frame as ptf
 from cpugpupathtracing_tpu_torch.ops.intersect import intersect_triangle
-
-# kernel launches of `traverse_packet_slim`, of its instance arm and of
-# its count_depth arms apart (the closest-hit test of ops/pt_frame.py and
-# comparisons against the plain version not counted)
-launches = 0
-launches_inst = 0
-launches_depth = 0
-launches_inst_depth = 0
 
 # the kernel's stack marker of an instance's end (csrc/pt_device.cuh)
 RESTORE = 0x3FFFFFFF
@@ -73,27 +72,25 @@ def traverse_packet_slim(
     origin, direction, t_init, nodes, ltris, roots, *, active=None,
     any_hit: bool = False, count_depth: bool = True, inst_inv=None,
     inst_root=None, fused_nn: int = 0, width: int = 8,
-    count_iters: bool = False,
+    count_iters: bool = False, ents=None, pay=None,
 ):
     """Hits of the rays origin/direction ((N, 3) or 3-tuples of (N,) f32)
-    closer than t_init (N,) f32 over the tree (nodes (B, 64), ltris
-    (NL, 128), roots), for the lanes where `active` (N,) is set (all when
+    closer than t_init (N,) f32 over the tree (nodes (B, 64) or a variant
+    layout with ents / fused_nn / width, ltris (NL, 128), roots), for the
+    lanes where `active` (N,) is set (all when
     None).  Returns (t, original triangle id (N,) i32, object (N,) i32,
     (nx, ny, nz) flat normal columns, bvh_depth (N,) i32, 0 without
     count_depth) -- the JAX function's order -- and with inst_inv (I, 12)
     / inst_root (I,) also the instance id (N,) i32; with count_iters=True
     (CUDA only) then ops/pt_frame.py's ten work counters (the shadow ones
     0)."""
-    given = [k for k, v in ((f"fused_nn={fused_nn}", fused_nn),
-                            (f"width={width}", width != 8)) if v]
-    if given:
-        raise NotImplementedError(
-            f"traverse_packet_slim: {', '.join(given)} not ported (the kernel "
-            "walks 8-wide tables); see ROADMAP.md A14")
-    global launches, launches_inst, launches_depth, launches_inst_depth
+    ptf.refuse_slice7("traverse_packet_slim", pay=pay)
     rays = _columns(origin) + _columns(direction)
     dev = t_init.device
     inst = ptf.check_instances(dev, inst_inv, inst_root)
+    ents = ptf.resolve_tables("traverse_packet_slim", nodes, ents, fused_nn,
+                              width, instanced=inst is not None)
+    layout = dict(ents=ents, fused_nn=fused_nn, width=width)
     if dev.type == "cpu":
         if count_iters:
             raise ValueError("count_iters needs the CUDA kernel")
@@ -101,49 +98,53 @@ def traverse_packet_slim(
             rays, t_init, ltris, active=active, any_hit=any_hit,
             count_depth=count_depth, nodes=nodes, roots=roots,
             inst=None if inst is None else (nodes, roots, inst_inv,
-                                            inst_root))
+                                            inst_root), **layout)
     if dev.type != "cuda":
         raise ValueError(
             f"traverse_packet_slim runs on cuda or cpu tensors, not {dev}")
     out = launch(ptf.build().traverse_launch, dev, rays, t_init, nodes, ltris,
                  roots, active=active, any_hit=any_hit,
-                 count_depth=count_depth, count_iters=count_iters, inst=inst)
-    if inst is None and not count_depth:
-        launches += 1
-    elif inst is None:
-        launches_depth += 1
-    elif not count_depth:
-        launches_inst += 1
-    else:
-        launches_inst_depth += 1
+                 count_depth=count_depth, count_iters=count_iters, inst=inst,
+                 **layout)
+    ptf.count_launch("traverse_packet_slim",
+                     ptf.table_layout(nodes, ents, fused_nn, width),
+                     inst=inst is not None, depth=count_depth)
     return out
 
 
 def traverse_packet_slim_host(origin, direction, t_init, nodes, ltris, roots,
                               *, active=None, any_hit=False,
                               count_depth=True, count_iters=False,
-                              inst_inv=None, inst_root=None):
+                              inst_inv=None, inst_root=None, ents=None,
+                              fused_nn=0, width=8):
     """`traverse_packet_slim` through the g++ build of the kernel body, on
     CPU tensors: a test of the device code without a card."""
     dev = torch.device("cpu")
+    inst = ptf.check_instances(dev, inst_inv, inst_root)
     return launch(ptf.build_host().traverse_host, dev,
                   _columns(origin) + _columns(direction), t_init, nodes,
                   ltris, roots, active=active, any_hit=any_hit,
-                  count_depth=count_depth, count_iters=count_iters,
-                  inst=ptf.check_instances(dev, inst_inv, inst_root))
+                  count_depth=count_depth, count_iters=count_iters, inst=inst,
+                  ents=ptf.resolve_tables("traverse_packet_slim", nodes, ents,
+                                          fused_nn, width,
+                                          instanced=inst is not None),
+                  fused_nn=fused_nn, width=width)
 
 
 def launch(entry, dev, rays, t_init, nodes, ltris, roots, *, active=None,
-           any_hit=False, count_depth=False, count_iters=False, inst=None):
+           any_hit=False, count_depth=False, count_iters=False, inst=None,
+           ents=None, fused_nn=0, width=8):
     """One launch of the traversal entry over 6 ray columns; t_init None
     means 1e34 and active None every lane; `inst` the checked instance
     tables (ptf.check_instances) of the instance arm, which adds the hit
     instance column to the outputs; count_depth sets the kernel's
-    bvh_depth output (else the column is zeros)."""
+    bvh_depth output (else the column is zeros); ents, fused_nn, width
+    the node layout, resolved (ptf.resolve_tables)."""
     n = rays[0].shape[0]
     a = ptf.launch_args(dev, nodes, ltris, nodes, ltris,
                         ptf.dummy_tables(dev), rays, n=n, roots=roots,
-                        sh_roots=roots, inst=inst)
+                        sh_roots=roots, inst=inst, ents=ents, sh_ents=ents,
+                        fused_nn=fused_nn, width=width)
     if t_init is not None:
         ptf._check("t_init", t_init, _F32, dev, (n,))
         a.t_init = t_init.data_ptr()
@@ -174,10 +175,12 @@ def launch(entry, dev, rays, t_init, nodes, ltris, roots, *, active=None,
 def traverse_packet_slim_reference(rays, t_init, ltris, *, active=None,
                                    any_hit=False, records=None, inst=None,
                                    chunk=4096, count_depth=False, nodes=None,
-                                   roots=None):
+                                   roots=None, ents=None, fused_nn=0,
+                                   width=8):
     """The plain version, in the wrapper's output order.  With count_depth
     the walk of the kernel, `traverse_walk_reference` over (nodes, ltris,
-    roots).  Else brute force over every leaf record of `ltris` (or
+    roots) in their layout (ents, fused_nn, width).  Else brute force over
+    every leaf record of `ltris` (or
     `records`, pt_frame.leaf_records(ltris)) on the active lanes, the
     nearest hit closer than t_init with ties to the lowest original id,
     and a zero bvh_depth; with any_hit the same nearest hit, one valid
@@ -191,7 +194,8 @@ def traverse_packet_slim_reference(rays, t_init, ltris, *, active=None,
         return traverse_walk_reference(
             rays, t_init, nodes, ltris, roots, active=active, any_hit=any_hit,
             inst_inv=None if inst is None else inst[2],
-            inst_root=None if inst is None else inst[3])
+            inst_root=None if inst is None else inst[3], ents=ents,
+            fused_nn=fused_nn, width=width)
     n = t_init.shape[0]
     dev = t_init.device
     t = t_init.clone()
@@ -229,7 +233,7 @@ def _slab_ray(d):
 
 def traverse_walk_reference(rays, t_init, nodes, ltris, roots, *,
                             active=None, any_hit=False, inst_inv=None,
-                            inst_root=None):
+                            inst_root=None, ents=None, fused_nn=0, width=8):
     """The kernel's walk (csrc/pt_device.cuh closest_hit / any_hit over a
     shading tree, with the count_depth arm) on every lane at once: each
     step takes one entry per live lane.  roots[1:] are pushed and
@@ -242,10 +246,16 @@ def traverse_walk_reference(rays, t_init, nodes, ltris, roots, *,
     and the first hit ending an any-hit walk; with inst_inv / inst_root
     an instance entry moves the ray by its inst_inv row (instance_entry's
     association), pushes RESTORE and descends to inst_root without a pop,
-    and RESTORE brings the world ray back.  Returns the wrapper's outputs
-    with bvh_depth (and the instance column with inst_inv); every output
-    equals the kernel's bitwise, and t, id, object, normal and instance
-    of a closest hit equal the brute-force plain version's."""
+    and RESTORE brings the world ray back.  Every node layout of the kernel's
+    variant walk: the entries from the side table `ents` or the row, the
+    bounds of `width` slots per row (a 16-wide row's 16 slot tests push
+    in slot order, as the kernel's two blocks of 8 do), and on a fused
+    table (fused_nn) the entries from fused_nn on as leaf rows e -
+    fused_nn of `ltris`, with the variant walk's PT_STACK_W16-entry
+    stack.  Returns the wrapper's outputs with bvh_depth (and the
+    instance column with inst_inv); every output equals the kernel's
+    bitwise, and t, id, object, normal and instance of a closest hit
+    equal the brute-force plain version's."""
     n = t_init.shape[0]
     dev = t_init.device
     kinst = inst_inv is not None
@@ -262,14 +272,17 @@ def traverse_walk_reference(rays, t_init, nodes, ltris, roots, *,
     hiid = htri.clone()
     hn = [torch.zeros(n, dtype=_F32, device=dev) for _ in range(3)]
     dep = torch.zeros(n, dtype=_I32, device=dev)
-    stack = torch.zeros((n, ptf.PT_STACK), dtype=_I32, device=dev)
+    variant = ptf.table_layout(nodes, ents, fused_nn, width) != "64"
+    cap = ptf.PT_STACK_W16 if variant else ptf.PT_STACK
+    stack = torch.zeros((n, cap), dtype=_I32, device=dev)
     if len(roots) > 1:
         stack[:, :len(roots) - 1] = torch.tensor(roots[1:], dtype=_I32,
                                                  device=dev)
     sp = torch.full((n,), len(roots) - 1, dtype=torch.int64, device=dev)
     e = torch.full((n,), roots[0], dtype=_I32, device=dev)
-    bounds = nodes[:, :48].reshape(-1, 8, 6)
-    ents = nodes[:, 48:56].contiguous().view(_I32)
+    bounds = nodes[:, :6 * width].reshape(-1, width, 6)
+    if ents is None:
+        ents = nodes[:, 6 * width:7 * width].contiguous().view(_I32)
     recs = ltris.reshape(-1, 8, 16)
     num_inst = 0 if not kinst else inst_root.shape[0]
     while bool(alive.any()):
@@ -294,12 +307,13 @@ def traverse_walk_reference(rays, t_init, nodes, ltris, roots, *,
             inv, zero = _slab_ray(cur[3:])
             ciid = torch.where(enter, k.to(_I32),
                                torch.where(restore, -1, ciid))
-            push = enter & (sp < ptf.PT_STACK)
+            push = enter & (sp < cap)
             stack[ar[push], sp[push]] = RESTORE
             sp = sp + push.long()
             e = torch.where(enter, inst_root[k], e)
-        node = alive & ~enter & ~restore & (e0 >= 0)
-        leaf = alive & (e0 < 0)
+        is_node = (e0 < fused_nn) if fused_nn else (e0 >= 0)
+        node = alive & ~enter & ~restore & is_node
+        leaf = alive & ~enter & ~restore & ~is_node
 
         # node rows: 8 slab tests, passing children pushed in slot order
         ec = torch.where(node, e0, 0).long()
@@ -312,12 +326,13 @@ def traverse_walk_reference(rays, t_init, nodes, ltris, roots, *,
             bound_t, not any_hit) & (ent != ptf.SLIM_EMPTY) & node[:, None]
         dep = dep + passed.any(dim=1).to(_I32)
         pos = sp[:, None] + torch.cumsum(passed.long(), dim=1) - 1
-        fits = passed & (pos < ptf.PT_STACK)
-        stack[ar[:, None].expand(n, 8)[fits], pos[fits]] = ent[fits]
+        fits = passed & (pos < cap)
+        stack[ar[:, None].expand(n, width)[fits], pos[fits]] = ent[fits]
         sp = sp + fits.sum(dim=1)
 
         # leaf rows: 8 records in slot order
-        lc = torch.where(leaf, -e0.long() - 1, 0)
+        lrow = e0.long() - fused_nn if fused_nn else -e0.long() - 1
+        lc = torch.where(leaf, lrow, 0)
         r = recs[lc]
         valid, tt = intersect_triangle(
             torch.stack(cur[:3], dim=1)[:, None, :],
@@ -355,7 +370,7 @@ def traverse_walk_reference(rays, t_init, nodes, ltris, roots, *,
         alive = alive & ~found & ~(pop & (sp == 0))
         go = pop & (sp > 0)
         sp = sp - go.long()
-        top = stack[ar, torch.clamp(sp, 0, ptf.PT_STACK - 1)]
+        top = stack[ar, torch.clamp(sp, 0, cap - 1)]
         e = torch.where(go, top, e)
     out = (ht, htri, hobj, tuple(hn), dep)
     return out + (hiid,) if kinst else out

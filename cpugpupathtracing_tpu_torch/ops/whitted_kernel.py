@@ -30,10 +30,6 @@ from cpugpupathtracing_tpu_torch.ops import sampling
 from cpugpupathtracing_tpu_torch.utils.rng import u2f, xs32
 from cpugpupathtracing_tpu_torch.utils.vecmath import RAY_NUDGE, RAY_TMAX, sqrt
 
-# kernel launches of `whitted_frame` (comparisons against the plain
-# version and CPU calls are not counted)
-launches = 0
-
 
 def whitted_frame(
     mats, lights, sph, pln, sphmat, plnmat, objmat, rays, state,
@@ -47,7 +43,6 @@ def whitted_frame(
     ops/pt_frame.py's ten work counters, of which `ray` (live depths) and
     `sray` (shadow rays) count."""
     del num_mats  # read from the table shape
-    global launches
     tables = (mats, lights, sph, pln, sphmat, plnmat, objmat)
     dev = state.device
     kw = dict(num_lights=num_lights, num_sph=num_sph, num_pln=num_pln,
@@ -60,7 +55,7 @@ def whitted_frame(
         raise ValueError(f"whitted_frame runs on cuda or cpu tensors, not {dev}")
     out = launch(ptf.build().whitted_launch, dev, tables, rays, state,
                  count_iters=count_iters, **kw)
-    launches += 1
+    ptf.count_launch("whitted_frame")
     return out
 
 

@@ -18,7 +18,10 @@ instance arms of traverse_packet_slim, shade_extend and shadow_resolve
 equal their plain versions bitwise, and a refit on the card equals a
 fresh build bitwise.  traverse_packet_slim's count_depth arm (plain and
 instance) equals its plain version, the PyTorch walk, bitwise on every
-output, bvh_depth included."""
+output, bvh_depth included.  The variant arms of every node-table
+layout (side tables with 64- or 48-col rows, 16-wide rows, the fused
+table) equal the plain 64-col arms bitwise, and their count_depth arms
+the walk on the same tables."""
 
 import numpy as np
 import pytest
@@ -45,10 +48,7 @@ pytestmark = pytest.mark.gpu
 W, H = 128, 64
 
 
-@pytest.fixture()
-def card():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
+def _card_scene() -> Scene:
     s = Scene()
     white = s.add_material(matlib.Material.diffuse((0.8, 0.8, 0.8)))
     glass = s.add_material(matlib.Material.dielectric(
@@ -63,13 +63,25 @@ def card():
     for k, c in enumerate([(6.0, 6.0, 6.0), (-6.0, 6.0, -4.0),
                            (0.0, 8.0, 0.0)]):
         s.mark_light(s.add_sphere(f"light{k}", c, 1.5, light))
-    dev = s.build_device("cuda")
+    return s
+
+
+@pytest.fixture()
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = _card_scene().build_device("cuda")
     cam = camlib.to_arrays(CameraConfig(pos=(0.0, 0.0, 6.0), aspect=2.0),
                            "cuda")
     lane = torch.arange(W * H, device="cuda")
     o, d = camlib.lane_rays(cam, lane, W, H)
     st = rnglib.seed_lanes(lane, 0, salt=0x7777)
     return dev, o, d, st
+
+
+def _launched(key: str) -> int:
+    """The launch count of one kernel arm (ops/pt_frame.py launches)."""
+    return ptf.launches.get(key, 0)
 
 
 def _rays(o, d):
@@ -96,10 +108,10 @@ def test_kernel_matches_plain(card, settings):
     kw = integrators.frame_kwargs(dev, settings)
     rays = _rays(o, d)
     depths = settings.max_ray_depth + 1
-    before = ptf.launches
+    before = _launched("pt_frame")
     e_k, s_k, tr_k = ptf.pt_frame(*dev.tables(), rays, st, depths=depths,
                                   **kw)
-    assert ptf.launches == before + 1
+    assert _launched("pt_frame") == before + 1
     e_p, s_p, tr_p = ptf.pt_frame_reference(
         dev.pltris, *dev.tables()[2:], rays, st,
         num_lights=kw["num_lights"], num_sph=kw["num_sph"],
@@ -169,9 +181,9 @@ def _shade_plain(dev, args, kw):
 def test_shade_extend_matches_plain(card):
     dev, o, d, st = card
     args, kw = _depth0(dev, o, d, st)
-    before = mk.launches["shade_extend"]
+    before = _launched("shade_extend")
     got = mk.shade_extend(*args, **kw)
-    assert mk.launches["shade_extend"] == before + 1
+    assert _launched("shade_extend") == before + 1
     ref = _shade_plain(dev, args, kw)
     ptf.check_status("cuda")
     assert torch.equal(got[4], ref[4])  # flags, sneed included
@@ -191,9 +203,9 @@ def test_shadow_resolve_matches_plain(card):
     _, _, _, en, fl, so, sd, stm, contrib = _shade_plain(dev, args, kw)
     sargs = (dev.poccl_nodes, dev.poccl_ltris, dev.mk_sph, dev.mk_pln, so,
              sd, stm, fl, en, contrib)
-    before = mk.launches["shadow_resolve"]
+    before = _launched("shadow_resolve")
     got = mk.shadow_resolve(*sargs, **integrators.shadow_kwargs(dev))
-    assert mk.launches["shadow_resolve"] == before + 1
+    assert _launched("shadow_resolve") == before + 1
     ref = mk.shadow_resolve_reference(
         dev.poccl_ltris, dev.mk_sph, dev.mk_pln, so, sd, stm, fl, en,
         contrib, num_sph=dev.num_sph, num_pln=dev.num_pln, occl=True)
@@ -208,11 +220,12 @@ def test_per_depth_route_bitwise(card, sort):
     idx = torch.arange(W * H, dtype=torch.int32, device="cuda") if sort \
         else None
     s1, one = integrators.trace_advanced_frame(dev, settings, o, d, st)
-    before = dict(mk.launches)
+    before = dict(ptf.launches)
     s2, two = integrators.trace_advanced_mega(dev, settings, o, d, st,
                                               idx=idx)
     for name in ("shade_extend", "shadow_resolve"):
-        assert mk.launches[name] == before[name] + settings.max_ray_depth + 1
+        assert (_launched(name) == before.get(name, 0)
+                + settings.max_ray_depth + 1)
     ptf.check_status("cuda")
     assert torch.equal(one.energy, two.energy)
     assert int(one.traced_rays) == int(two.traced_rays)
@@ -225,8 +238,11 @@ def test_megakernel_wrappers_refuse_bad_inputs(card):
     inst = torch.zeros((1, 12), device="cuda")
     with pytest.raises(ValueError, match="inst_root"):
         mk.shade_extend(*args, inst_inv=inst, **kw)
-    with pytest.raises(NotImplementedError, match="width=16"):
+    with pytest.raises(ValueError, match="width=16"):
         mk.shade_extend(*args, width=16, **kw)
+    with pytest.raises(NotImplementedError, match="slice 7"):
+        mk.shade_extend(*args, pay=torch.zeros((1, 128), device="cuda"),
+                        **kw)
     bad = list(args)
     bad[12] = st.to(torch.int32)
     with pytest.raises(ValueError, match="state"):
@@ -257,11 +273,11 @@ def test_traverse_matches_plain(card, any_hit):
                          1.0 + 10.0 * torch.rand(n, device="cuda",
                                                  generator=g))
     active = torch.rand(n, device="cuda", generator=g) < 0.5
-    before = tps.launches
+    before = _launched("traverse_packet_slim")
     got = tps.traverse_packet_slim(o, d, t_init, dev.pnodes, dev.pltris,
                                    dev.proots, active=active, any_hit=any_hit,
                                    count_depth=False)
-    assert tps.launches == before + 1
+    assert _launched("traverse_packet_slim") == before + 1
     ref = tps.traverse_packet_slim_reference(_rays(o, d), t_init, dev.pltris,
                                              active=active)
     ptf.check_status("cuda")
@@ -290,9 +306,9 @@ def test_whitted_frame_matches_plain(whitted_card):
             dev.mk_sph_mat, dev.mk_pln_mat, dev.mk_objmat, _rays(o, d), st)
     kw = dict(num_lights=dev.num_lights, num_sph=dev.num_sph,
               num_pln=dev.num_pln, depths=5)
-    before = wk.launches
+    before = _launched("whitted_frame")
     got = wk.whitted_frame(*args, num_mats=dev.num_mats, **kw)
-    assert wk.launches == before + 1
+    assert _launched("whitted_frame") == before + 1
     ref = wk.whitted_frame_reference(*args, **kw)
     assert int(got[2]) == int(ref[2]) > W * H
     assert torch.equal(got[1], ref[1])
@@ -364,12 +380,12 @@ def test_traverse_instance_arm_matches_plain(inst_card, any_hit):
     rays = _rays(o, d)
     t0 = torch.full((W * H,), 1e34, device="cuda")
     act = torch.arange(W * H, device="cuda") % 3 != 0
-    before = tps.launches_inst
+    before = _launched("traverse_packet_slim_inst")
     got = tps.traverse_packet_slim(rays[:3], rays[3:], t0, dev.pnodes,
                                    dev.pltris, dev.proots, active=act,
                                    any_hit=any_hit, count_depth=False,
                                    **dev.inst_kwargs(nrm=False))
-    assert tps.launches_inst == before + 1
+    assert _launched("traverse_packet_slim_inst") == before + 1
     ref = tps.traverse_packet_slim_reference(
         rays, t0, dev.pltris, active=act, any_hit=any_hit,
         inst=(dev.pnodes, dev.proots, dev.inst_inv,
@@ -401,12 +417,13 @@ def test_traverse_depth_arm_matches_walk(card, inst_card, arm, any_hit):
     n = W * H
     t0 = torch.full((n,), 1e34, device="cuda")
     act = torch.arange(n, device="cuda") % 3 != 0
-    name = "launches_depth" if arm == "plain" else "launches_inst_depth"
-    before = getattr(tps, name)
+    name = ptf.launch_key("traverse_packet_slim", inst=arm == "instance",
+                          depth=True)
+    before = _launched(name)
     got = tps.traverse_packet_slim(rays[:3], rays[3:], t0, dev.pnodes,
                                    dev.pltris, dev.proots, active=act,
                                    any_hit=any_hit, **kw)
-    assert getattr(tps, name) == before + 1
+    assert _launched(name) == before + 1
     ref = tps.traverse_walk_reference(
         rays, t0, dev.pnodes, dev.pltris, dev.proots, active=act,
         any_hit=any_hit, inst_inv=kw.get("inst_inv"),
@@ -474,8 +491,115 @@ def test_refit_on_card_equals_fresh_build(inst_card):
     from cpugpupathtracing_tpu_torch.models.scene import TABLE_FIELDS
     for name, _ in TABLE_FIELDS:
         assert torch.equal(*_bits((getattr(dev, name), getattr(fresh, name))))
-    before = dict(mk.launches)
+    before = dict(ptf.launches)
     integrators.trace_advanced_mega(dev, RenderSettings(), o, d, st)
     for name in ("shade_extend_inst", "shadow_resolve_inst"):
-        assert mk.launches[name] == before[name] + 6
+        assert _launched(name) == before.get(name, 0) + 6
     ptf.check_status("cuda")
+
+
+# the node-table layouts of the variant arms (ops/pt_frame.py LAYOUTS),
+# each with the any-hit tables (occl) and, for the 16-wide and fused
+# tables, without them (shadow rays then walk the shading tables)
+VARIANT_ENV = {
+    "ents": dict(CPUGPU_SMEMTREE="1"),
+    "48": dict(CPUGPU_SMEMTREE="48"),
+    "w16": dict(CPUGPU_PACKET_TREE="w16"),
+    "fused": dict(CPUGPU_FUSED="1"),
+    "fused_w16": dict(CPUGPU_FUSED="1", CPUGPU_PACKET_TREE="w16"),
+}
+VARIANT_CASES = [(k, True) for k in VARIANT_ENV] + [("w16", False),
+                                                   ("fused", False)]
+
+
+def _variant_scene(monkeypatch, env, occl=True):
+    """The card fixture's scene built under node-table flags (side tables
+    for every tree size)."""
+    for k in ("CPUGPU_PACKET_TREE", "CPUGPU_FUSED", "CPUGPU_SMEMTREE",
+              "CPUGPU_OCCL"):
+        monkeypatch.delenv(k, raising=False)
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    monkeypatch.setenv("CPUGPU_SMEMTREE_MIN_NODES", "1")
+    monkeypatch.setenv("CPUGPU_OCCL", "1" if occl else "0")
+    return _card_scene().build_device("cuda")
+
+
+@pytest.mark.parametrize("layout,occl", VARIANT_CASES,
+                         ids=[f"{k}{'' if o else '_shared'}"
+                              for k, o in VARIANT_CASES])
+def test_variant_arms_match_plain_arms(card, layout, occl, monkeypatch):
+    """Every variant arm on the card equals the plain 64-col arm on the
+    same scene bitwise: pt_frame (energy, state, traced) on the
+    whole-frame route's tables, shade_extend (every output) and
+    shadow_resolve on the per-depth route's; traverse_packet_slim's
+    closest hits equal brute force bitwise and its count_depth arm the
+    walk on the same tables bitwise, bvh_depth included.  Each launch is
+    counted under its layout."""
+    _, o, d, st = card
+    settings = RenderSettings()
+    depths = settings.max_ray_depth + 1
+    rays = _rays(o, d)
+    base = _variant_scene(monkeypatch, dict(CPUGPU_SMEMTREE="0"), occl)
+    dev = _variant_scene(monkeypatch, VARIANT_ENV[layout], occl)
+    runs = []
+    for ds in (base, dev):
+        tables, kw = integrators.frame_args(ds, settings)
+        frame = ptf.pt_frame(*tables, rays, st, depths=depths, **kw)
+        args, ekw = _depth0(ds, o, d, st)
+        tables, tkw = integrators.route_tables(ds)
+        args = (*tables, *args[10:])
+        ext = mk.shade_extend(*args, **ekw, **tkw)
+        sn, sl, skw = integrators.shadow_tables(ds)
+        en = mk.shadow_resolve(sn, sl, ds.mk_sph, ds.mk_pln, ext[5], ext[6],
+                               ext[7], ext[4], ext[3], ext[8], **skw)
+        runs.append((frame, ext, en))
+    ptf.check_status("cuda")
+
+    def flat(x):
+        return ([c for v in x for c in flat(v)] if isinstance(x, tuple)
+                else [x.reshape(-1)])
+
+    got, ref = flat(runs[1]), flat(runs[0])
+    assert len(got) == len(ref) == 3 + 24 + 3
+    for a_, b_ in zip(_bits(got), _bits(ref)):
+        assert torch.equal(a_, b_)
+    key = ptf.arm_key(ptf.table_layout(*_layout_of(dev)),
+                      "48" if layout == "48" else
+                      "ents" if layout == "ents" else "64")
+    assert _launched(ptf.launch_key("pt_frame", key)) >= 1
+    assert _launched(ptf.launch_key("shade_extend", layout)) >= 1
+    nodes, ltris, fused_nn, ents = _packet(dev)
+    n = W * H
+    t0 = torch.full((n,), 1e34, device="cuda")
+    act = torch.arange(n, device="cuda") % 3 != 0
+    lkw = dict(fused_nn=fused_nn, width=dev.packet_width, ents=ents)
+    for any_hit in (False, True):
+        name = ptf.launch_key("traverse_packet_slim", layout, depth=True)
+        before = _launched(name)
+        got = tps.traverse_packet_slim(rays[:3], rays[3:], t0, nodes, ltris,
+                                       dev.proots, active=act,
+                                       any_hit=any_hit, **lkw)
+        assert _launched(name) == before + 1
+        ref = tps.traverse_walk_reference(rays, t0, nodes, ltris, dev.proots,
+                                          active=act, any_hit=any_hit, **lkw)
+        ptf.check_status("cuda")
+        fl = lambda x: (x[0], x[1], x[2], *x[3], *x[4:])  # noqa: E731
+        for a_, b_ in zip(_bits(fl(got)), _bits(fl(ref))):
+            assert torch.equal(a_, b_)
+    got = tps.traverse_packet_slim(rays[:3], rays[3:], t0, nodes, ltris,
+                                   dev.proots, count_depth=False, **lkw)
+    ref = tps.traverse_packet_slim_reference(rays, t0, ltris)
+    for a_, b_ in zip(_bits(fl(got)), _bits(fl(ref))):
+        assert torch.equal(a_, b_)
+
+
+def _packet(dev):
+    from cpugpupathtracing_tpu_torch.models.scene import packet_tables
+
+    return packet_tables(dev)
+
+
+def _layout_of(dev):
+    nodes, _, fused_nn, ents = _packet(dev)
+    return nodes, ents, fused_nn, dev.packet_width

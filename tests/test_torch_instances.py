@@ -9,7 +9,8 @@ Scenes: tests/test_golden.py's `_instanced_scene` (3 icospheres, a floor
 plane, a sphere light), tests/test_packet_instances.py's (3 icospheres
 and a floor quad) and tests/test_flatten.py's (3 anisotropically scaled
 icospheres), all under the benchmark's tree flags
-(CPUGPU_PACKET_TREE=sweep_dp, CPUGPU_OCCL=1, patched on the JAX module).
+(CPUGPU_PACKET_TREE=sweep_dp, CPUGPU_OCCL=1, CPUGPU_SMEMTREE=48,
+CPUGPU_FRAMESTACK=1, patched on the JAX modules).
 
 Tolerances, per test:
   * scene tables: bitwise against JAX Scene.device() built op by op
@@ -62,7 +63,7 @@ from cpugpupathtracing_tpu_torch.utils import rng as trng
 
 from tests.test_torch_renderer import EQUAL_SHARE_MIN, GOLDENS, MAX_MAX, \
     MEAN_MAX
-from tests.test_torch_scene import jax_tables
+from tests.test_torch_scene import jax_tables, patch_bench_flags
 
 # the JAX package's bound for two instance traversals (hit triangle may
 # differ on this many lanes; t within T_TOL absolute and relative)
@@ -158,8 +159,7 @@ def jax_builds():
     """JAX Scene.device() of every scene, flattened and object-space,
     built op by op under the benchmark's tree flags."""
     mp = pytest.MonkeyPatch()
-    mp.setattr(jscene, "PACKET_TREE", "sweep_dp")
-    mp.setattr(jscene, "PACKET_OCCL", True)
+    patch_bench_flags(mp)
     out = {}
     try:
         for name, make in SCENES.items():
@@ -199,11 +199,12 @@ def test_instanced_build_bitwise(jax_builds, monkeypatch, name, flat):
     arrays, meta = jax_tables(jdev)
     assert tdev.packet_flattened == flat == jdev.packet_flattened
     assert tdev.machinery == (not flat)
-    for field, dtype in tscene.TABLE_FIELDS:
+    for field, dtype in tscene.TABLE_FIELDS + tscene.VARIANT_FIELDS:
         ref = arrays[field]
         got = getattr(tdev, field)
-        if ref is None:  # the object-space machinery builds no any-hit tree
-            assert not flat and got.numel() == 0, field
+        if ref is None:  # the object-space machinery builds no any-hit
+            # tree; no scene here builds a variant table it does not need
+            assert got is None or (not flat and got.numel() == 0), field
             continue
         assert got.dtype == dtype and tuple(got.shape) == ref.shape, field
         assert _bits(got) == ref.tobytes(), field
@@ -447,11 +448,11 @@ def test_mega_objspace_vs_flattened(render_inputs):
     devs, o, d, state = render_inputs
     settings = RenderSettings(max_ray_depth=3)
     lane = torch.arange(o.shape[0], dtype=torch.int32)
-    before = dict(tmk.launches)
+    before = dict(ptf.launches)
     res = {flat: tint.trace_advanced_mega(dev, settings, o, d, state.clone(),
                                           idx=lane)
            for flat, dev in devs.items()}
-    assert tmk.launches == before  # CPU tensors: the plain versions
+    assert ptf.launches == before  # CPU tensors: the plain versions
     assert int(res[True][1].traced_rays) == int(res[False][1].traced_rays)
     contract(res[True][1].energy, res[False][1].energy)
     assert torch.equal(res[True][0], res[False][0])

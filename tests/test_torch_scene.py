@@ -1,8 +1,10 @@
 """The port's scene build (cpugpupathtracing_tpu_torch/models/scene.py)
 against the JAX package's Scene.device() under the benchmark's tree flags
-(CPUGPU_PACKET_TREE=sweep_dp, CPUGPU_OCCL=1, patched on the module as
-tests/test_golden.py patches PACKET_TREE): every table the path-tracing
-kernel reads is bitwise equal.  Also: the morton8 sort key, the numpy
+(CPUGPU_PACKET_TREE=sweep_dp, CPUGPU_OCCL=1, CPUGPU_SMEMTREE=48,
+CPUGPU_FRAMESTACK=1 -- the port's defaults -- patched on the JAX modules
+as tests/test_golden.py patches PACKET_TREE): every table the
+path-tracing kernels read, the side tables and 48-col rows included, is
+bitwise equal.  Also: the morton8 sort key, the numpy
 round trip, the port's independence from JAX and the device default."""
 
 import os
@@ -17,6 +19,7 @@ import torch
 from cpugpupathtracing_tpu.models import materials as jmat
 from cpugpupathtracing_tpu.models import mesh as jmesh
 from cpugpupathtracing_tpu.models import scene as jscene
+from cpugpupathtracing_tpu.ops import traverse_packet_slim as jtps
 from cpugpupathtracing_tpu_torch.models import materials as tmat
 from cpugpupathtracing_tpu_torch.models import mesh as tmesh
 from cpugpupathtracing_tpu_torch.models import scene as tscene
@@ -30,10 +33,19 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 torch.set_num_threads(1)
 
 
+def patch_bench_flags(mp):
+    """The JAX package's module constants as its benchmark flags set them
+    (bench_flags_default.json): the values the port takes when the
+    variables are unset."""
+    mp.setattr(jscene, "PACKET_TREE", "sweep_dp")
+    mp.setattr(jscene, "PACKET_OCCL", True)
+    mp.setattr(jtps, "SMEMTREE_DEFAULT", "48")
+    mp.setattr(jtps, "FRAMESTACK_DEFAULT", True)
+
+
 @pytest.fixture()
 def bench_tree_flags(monkeypatch):
-    monkeypatch.setattr(jscene, "PACKET_TREE", "sweep_dp")
-    monkeypatch.setattr(jscene, "PACKET_OCCL", True)
+    patch_bench_flags(monkeypatch)
 
 
 def golden_scene(S, mat, mesh):
@@ -76,7 +88,8 @@ def jax_tables(jdev):
     """The JAX DeviceScene's leaves and static metadata for
     scene_from_numpy."""
     arrays = {n: None if getattr(jdev, n) is None
-              else np.asarray(getattr(jdev, n)) for n, _ in tscene.TABLE_FIELDS}
+              else np.asarray(getattr(jdev, n))
+              for n, _ in tscene.TABLE_FIELDS + tscene.VARIANT_FIELDS}
     meta = dict(proots=jdev.proots, poccl_roots=jdev.poccl_roots,
                 light_tri_meta=jdev.light_tri_meta,
                 num_lights=jdev.num_lights,
@@ -84,7 +97,9 @@ def jax_tables(jdev):
                 num_pln=int(jdev.pln_point.shape[0]),
                 has_mesh_lights=bool(jdev.has_mesh_lights),
                 num_instances=jdev.num_instances,
-                packet_flattened=bool(jdev.packet_flattened))
+                packet_flattened=bool(jdev.packet_flattened),
+                pfused_nn=jdev.pfused_nn, packet_width=jdev.packet_width,
+                smem_small=bool(jdev.smem_small))
     return arrays, meta
 
 
@@ -101,13 +116,17 @@ def test_build_device_bitwise(bench_tree_flags, make):
     jdev = make(jscene, jmat, jmesh).device()
     tdev = make(tscene, tmat, tmesh).build_device("cpu")
     arrays, meta = jax_tables(jdev)
-    for name, dtype in tscene.TABLE_FIELDS:
+    for name, dtype in tscene.TABLE_FIELDS + tscene.VARIANT_FIELDS:
         ref, got = arrays[name], getattr(tdev, name)
+        if ref is None:  # no fused table under the benchmark's flags
+            assert got is None, name
+            continue
         assert got.dtype == dtype, name
         assert tuple(got.shape) == ref.shape, name
         assert got.numpy().tobytes() == ref.tobytes(), name
     for name in tscene.META_FIELDS:
         assert getattr(tdev, name) == meta[name], name
+    assert tdev.pents is not None  # the side tables are the default
     assert tdev.num_mats == int(jdev.mk_mats.shape[0])
     assert tdev.num_objs == int(jdev.mk_objmat.shape[0])
 
@@ -140,8 +159,11 @@ def test_scene_from_numpy_round_trip():
     tdev = megakernel_scene(tscene, tmat, tmesh).build_device("cpu")
     arrays, meta = tdev.to_numpy()
     back = tscene.scene_from_numpy(arrays, meta, "cpu")
-    for name, _ in tscene.TABLE_FIELDS:
+    for name, _ in tscene.TABLE_FIELDS + tscene.VARIANT_FIELDS:
         # bytes: the int32 entries bitcast into the f32 rows read as NaNs
+        if getattr(tdev, name) is None:
+            assert getattr(back, name) is None, name
+            continue
         assert getattr(back, name).numpy().tobytes() == \
             getattr(tdev, name).numpy().tobytes(), name
     for name in tscene.META_FIELDS:

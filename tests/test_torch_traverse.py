@@ -127,18 +127,21 @@ def test_kernel_body_host_build_vs_plain(queries, any_hit):
 
 
 def test_wrapper_refusals(queries):
-    """The arguments of the JAX function the port has no kernel arm for
-    (fused and 16-wide tables) raise, naming the ROADMAP item; the BVH
-    depth count does not: it is the JAX function's default, in the
-    wrapper and in intersect_scene (bvh_depth, JAX's 5th output and Hit
-    field).  The instance arm takes both of its tables, of the kernel's
-    types."""
+    """The argument of the JAX function the port has no kernel arm for
+    yet (the leaf-14 payload) raises, naming port slice 7; fused and
+    16-wide layouts are ported, and a table of the wrong width for them
+    raises as in the JAX wrapper; the BVH depth count does not: it is
+    the JAX function's default, in the wrapper and in intersect_scene
+    (bvh_depth, JAX's 5th output and Hit field).  The instance arm takes
+    both of its tables, of the kernel's types."""
     _, tdev, o, d, t0, act = queries
     rays = _cols(o, d)
     args = (rays[:3], rays[3:], torch.from_numpy(t0), tdev.pnodes,
             tdev.pltris, tdev.proots)
-    for kw, item in ((dict(fused_nn=3), "A14"), (dict(width=16), "A14")):
-        with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(NotImplementedError, match="slice 7"):
+        tps.traverse_packet_slim(*args, pay=torch.zeros(1, 128))
+    for kw in (dict(fused_nn=3), dict(width=16)):
+        with pytest.raises(ValueError, match="expects 128 cols"):
             tps.traverse_packet_slim(*args, **kw)
     for kw, item in ((dict(inst_inv=torch.zeros(1, 12)), "inst_root"),
                      (dict(inst_inv=torch.zeros(1, 12),
