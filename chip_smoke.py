@@ -20,13 +20,17 @@ the XLA integrator (`trace_advanced`, `traverse_packet_slim` per scene
 query, its count_depth arm with AOVs) on config 3 with AOVs off and on
 and in the RAY_DEPTH and BVH_DEPTH views, on config 5's object-space
 scene with AOVs, on a mesh light over the light table and on config 1
-in ADVANCED mode -- and holds every CUDA kernel of those paths against
+in ADVANCED mode; and configs 3 and 5 under every node-table layout and
+leaf-side / occlusion variant (CPUGPU_LEAF14, CPUGPU_OCCL2,
+CPUGPU_OCCL_W16) -- and holds every CUDA kernel of those paths against
 its plain PyTorch version on the card.  Phases, one line each; any
 failure raises and exits non-zero:
 
   1. device      the card's name and power limit (nvidia-smi)
   2. build       nvcc build of the kernels from the checkout, one nvcc per
-                 unit in parallel (seconds, ptxas per kernel)
+                 unit in parallel (seconds, ptxas per kernel arm: its
+                 template arguments, the leaf arm last -- 0 shading
+                 leaves, 1 and 2 occlusion leaves of one and two rows)
   3. scene       the JAX-free config-3 scene build (seconds, table bytes)
   4. check       8192 lanes from the middle of the 1920x1080 blocked camera
                  order through pt_frame (single span, split span) and its
@@ -121,8 +125,9 @@ failure raises and exits non-zero:
                  CPUGPU_SMEMTREE=0 (plain rows), CPUGPU_PACKET_TREE=w16,
                  CPUGPU_FUSED=1 and both; each built from the checkout
                  (seconds), its arms on the check lanes ([check_<layout>]:
-                 pt_frame bitwise against the plain 64-col arm, every arm
-                 against its plain version, count_depth against the walk),
+                 every output of every arm bitwise against its plain
+                 version, pt_frame also against the plain 64-col arm, B4's
+                 closest and any hits with and without count_depth),
                  the whole-frame route (the fused tables through it too,
                  lifting the gate's refusal) and the per-depth route with
                  every launch timed, bounded and sampled, TIMED_FRAMES
@@ -138,10 +143,32 @@ failure raises and exits non-zero:
                  ms, a refit against a fresh build (every table, the fused
                  one included, bitwise), frames from reset equal across
                  layouts.
+ 22. leaf3        config 3 at 1920x1080 under CPUGPU_LEAF14, CPUGPU_OCCL2
+                 and CPUGPU_OCCL_W16 (the default 48-col node layout): each
+                 built from the checkout (seconds, the any-hit tree's rows,
+                 depth and stack), its arms on the check lanes
+                 ([check_leaf_<flag>], phase 20's check with B4 over the
+                 any-hit tree: every output bitwise against the plain
+                 version, pt_frame's 2-row arm also against the plain
+                 64-col arm, shade_extend's leaf-14 arm against the
+                 shading tables' arm), the routes the gate allows (OCCL2
+                 both, LEAF14 and OCCL_W16 per depth) with every launch
+                 timed, bounded and sampled bitwise and LEAF_FRAMES timed
+                 frames, and B4 over the any-hit tree at
+                 full frame ([leaf3_b4_<flag>]: the closest hits of every
+                 camera ray with count_depth, the any hits toward light 0
+                 of those that hit).  Each flag's frames from reset equal
+                 the default layout's bitwise (image and traced count).
+ 23. leaf5        config 5 flattened at 1280x720 under LEAF14 and OCCL2, as
+                 phase 21 runs a layout (LEAF_FRAMES timed frames, not
+                 profiled): the routes the gate allows, a refit against a
+                 fresh build (the payload rows included) bitwise, frames
+                 from reset equal the default's.
  18. the {"kernels": [...]} line: per kernel its check's numbers, and per
      main-path launch its lanes, ms, bound and sampled error; the
-     instance arms, the count_depth arms and the variant arms as entries
-     of their own (`*_inst`, `*_depth`, `*_<layout>`)
+     instance arms, the count_depth arms, the variant arms and the leaf
+     arms as entries of their own (`*_inst`, `*_depth`, `*_<layout>`,
+     `*_<layout>_<occl|occl2|pay|ow16>`)
  19. the last line {"ok": true, "device": {...}}
 
 Phases 3-17 run the plain 64-col arms (CPUGPU_SMEMTREE=0 for their
@@ -170,6 +197,9 @@ import time
 
 CHECK_LANES = 8192
 TIMED_FRAMES = 5
+# timed frames per route of the leaf phases (22, 23): their arms' numbers
+# come from the check lanes and the sampled launches
+LEAF_FRAMES = 2
 # profiling sessions launch_ms makes before it gives up on seeing a launch
 PROFILE_ATTEMPTS = 3
 # every SAMPLE_STRIDE-th lane of a main-path launch is held against the
@@ -204,6 +234,18 @@ ROW_COSTS = {
     **{k: (2 * NODE_ROW_BYTES, 2 * OPS_NODE) for k in ("w16", "fused_w16")}}
 LEAF_ROW_BYTES = LEAF_TRIS * 16 * 4
 OCCL_ROW_BYTES = OCCL_TRIS * 9 * 4
+# per leaf visit the triangle tests and per distinct leaf row the bytes a
+# walk loads (csrc/pt_device.cuh): shading rows (8 records of 16 f32),
+# occlusion rows (14 of 9), a 2-row occlusion leaf (28 tests per visit,
+# both rows marked read), a leaf-14 row (14 of 9); the leaf-14 arm reads
+# a record's payload (its normal, object and id: 5 f32) only when the
+# record passes the triangle test, so its payload bytes are charged per
+# distinct payload record read (count_iters' pay_recs)
+PAY_REC_BYTES = 5 * 4
+LEAF_KINDS = {"shade": (LEAF_TRIS, LEAF_ROW_BYTES),
+              "occl": (OCCL_TRIS, OCCL_ROW_BYTES),
+              "occl2": (2 * OCCL_TRIS, OCCL_ROW_BYTES),
+              "pay": (OCCL_TRIS, OCCL_ROW_BYTES)}
 # per-lane bytes of a pt_frame launch: rays + RNG state in; the carry in
 # (throughput, energy, flags); energy + state + traced out, or the whole
 # carry out (rays, state, throughput, energy, flags, traced)
@@ -245,9 +287,14 @@ W_OPS_DEPTH, W_OPS_LIGHT, W_OPS_SHADOW = 150, 28, 9
 W_OPS_SPH, W_OPS_PLN, W_OPS_OCC_SPH, W_OPS_OCC_PLN = 27, 18, 26, 17
 
 
+# the script's start on the host clock: every phase line carries its
+# seconds since (t=)
+T0 = time.perf_counter()
+
+
 def say(phase: str, **kw) -> None:
-    print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in kw.items()),
-          flush=True)
+    print(f"[{phase}] t={time.perf_counter() - T0:.1f} "
+          + " ".join(f"{k}={v}" for k, v in kw.items()), flush=True)
 
 
 def nvidia_smi() -> str:
@@ -264,14 +311,17 @@ def ptxas_lines(log: str) -> list:
     out, name, frame = [], None, ""
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '.*?"
-                      r"([A-Za-z]+(?:_[A-Za-z]+)*_kernel)(?:I((?:Lb[01]E)+)E|E)",
-                      ln)
+                      r"([A-Za-z]+(?:_[A-Za-z]+)*_kernel)"
+                      r"(?:I((?:L[bi]\d+E)+)E|E)", ln)
         if m:
             name, frame = m.group(1), ""
-            if m.group(2) is not None:  # the kInst (, kDepth) arguments
+            if m.group(2) is not None:  # the template arguments: the bool
+                # arms, then the leaf arm (0: shading leaves; 1, 2: 1- and
+                # 2-row occlusion leaves)
                 name += "<" + ",".join(
-                    "true" if b == "1" else "false"
-                    for b in re.findall(r"Lb([01])E", m.group(2))) + ">"
+                    v if t == "i" else ("true" if v == "1" else "false")
+                    for t, v in re.findall(r"L([bi])(\d+)E", m.group(2))
+                ) + ">"
         elif "spill" in ln:
             frame = ln.strip()
         elif "registers" in ln and name:
@@ -294,13 +344,14 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def launch_ms(fn, kernels, reps: int = 1) -> list:
+def launch_ms(fn, kernels, reps: int = 1, expect: int | None = None) -> list:
     """Device milliseconds of every launch of the CUDA kernels named in
     `kernels` (a name or a tuple of names of functions in csrc/) while
-    fn() runs reps times, in launch order (torch.profiler).  Unlike CUDA
-    events around a call, this leaves out the time the device waits for
-    the host to enqueue the launch.  Every `ms` of the kernels line is
-    this clock."""
+    fn() runs reps times, in launch order (torch.profiler); `expect`, the
+    number of launches fn() makes reps times, when the caller knows it.
+    Unlike CUDA events around a call, this leaves out the time the device
+    waits for the host to enqueue the launch.  Every `ms` of the kernels
+    line is this clock."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -310,6 +361,10 @@ def launch_ms(fn, kernels, reps: int = 1) -> list:
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            # one device operation before fn's first launch (profiling
+            # sessions have missed launches, the first of a session among
+            # them; a miss the caller can see is retried below)
+            torch.ones(1, device="cuda").add_(1)
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
@@ -317,12 +372,14 @@ def launch_ms(fn, kernels, reps: int = 1) -> list:
                       if e.device_type == DeviceType.CUDA
                       and any(k in e.name for k in kernels)),
                      key=lambda e: e.time_range.start)
-        if evs:
+        if evs and (expect is None or len(evs) == expect):
             return [(e.time_range.end - e.time_range.start) / 1e3
                     for e in evs]
         # a profiling session now and then records no device activity
-        # at all (seen after --profile's tables); the next one does
+        # at all (seen after --profile's tables), or misses a launch
+        # (seen after many sessions in one process); the next one does not
         say("profiler_retry", kernels=",".join(kernels), attempt=attempt + 1,
+            launches_seen=len(evs), launches_expected=expect,
             device_events=sum(1 for e in prof.events()
                               if e.device_type == DeviceType.CUDA))
     raise AssertionError(f"the profiler saw no launch of {kernels}")
@@ -360,6 +417,17 @@ def wrapper_ms(module, names, fn) -> list:
     return [e0.elapsed_time(e1) for e0, e1 in events]
 
 
+def timed_plain(fn):
+    """(fn(), its milliseconds on the host clock, synchronised)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    return res, (time.perf_counter() - t0) * 1e3
+
+
 def kernel_ms(fn, kernel: str, reps: int = 20) -> dict:
     """A check's timing of one wrapper call fn(): `ms`, the kernel's mean
     device time per launch (launch_ms), and `call_ms`, CUDA events around
@@ -375,24 +443,27 @@ def lane_bytes(carry_in: bool, carry_out: bool) -> int:
 
 
 def bound_ms(iters: dict, lane_bytes_total: int, small_bytes: int,
-             shade_ops: int = OPS_SHADE, layouts=("64", "64")):
+             shade_ops: int = OPS_SHADE, layouts=("64", "64"),
+             leaves=("shade", "occl")):
     """Least time of one launch's work on this run's data: the larger of
     bytes over HBM bandwidth and f32 operations over the f32 peak.  The
     bytes are each lane's input read once and output written once
     (lane_bytes_total), the small scene tables once, and once each table
-    row the launch read (the distinct rows of count_iters), not whole
-    tables.  iters: a kernel's count_iters counters by name
+    row and leaf-14 payload record the launch read (the distinct rows and
+    records of count_iters), not whole tables.  iters: a kernel's count_iters counters by name
     (ptf.COUNTERS); shade_ops: operations per closest-hit ray beyond its
     walk (0 for a bare traversal); layouts: the closest-hit and the
-    shadow tree's node layout (ROW_COSTS; launch_layouts)."""
+    shadow tree's node layout (ROW_COSTS; launch_layouts); leaves: their
+    leaf kinds (LEAF_KINDS; leaf_kinds)."""
     c = iters
     (nb, nops), (sb, sops) = ROW_COSTS[layouts[0]], ROW_COSTS[layouts[1]]
+    (lt, lb), (st, sbytes) = LEAF_KINDS[leaves[0]], LEAF_KINDS[leaves[1]]
     ops = (nops * c["node"] + sops * c["snode"]
-           + OPS_TRI * LEAF_TRIS * c["leaf"]
-           + OPS_TRI * OCCL_TRIS * c["sleaf"] + shade_ops * c["ray"])
+           + OPS_TRI * lt * c["leaf"]
+           + OPS_TRI * st * c["sleaf"] + shade_ops * c["ray"])
     rows = (nb * c["node_rows"] + sb * c["snode_rows"]
-            + LEAF_ROW_BYTES * c["leaf_rows"]
-            + OCCL_ROW_BYTES * c["sleaf_rows"])
+            + lb * c["leaf_rows"] + sbytes * c["sleaf_rows"]
+            + PAY_REC_BYTES * c["pay_recs"])
     t_bytes = (lane_bytes_total + rows + small_bytes) / PEAK_BYTES_PER_S
     t_ops = ops / PEAK_F32_FLOPS
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops
@@ -411,6 +482,21 @@ def launch_layouts(nodes, kw) -> tuple:
     if kw.get("sh_nodes") is None:
         return ch, ch
     return ch, ptf.table_layout(kw["sh_nodes"], kw.get("sh_ents"))
+
+
+def leaf_kinds(kw, tree_occl: bool = False) -> tuple:
+    """(closest-hit, shadow) leaf kinds (LEAF_KINDS) of a kernel call's
+    keyword arguments: the leaf-14 payload (pay) or, with tree_occl (a
+    traversal's occl), occlusion leaves of occl_rows rows on the walked
+    tree; 2-row occlusion leaves on the shadow tree with occl_rows=2."""
+    rows2 = kw.get("occl_rows", 1) == 2
+    if kw.get("pay") is not None:
+        first = "pay"
+    elif tree_occl and kw.get("occl"):
+        first = "occl2" if rows2 else "occl"
+    else:
+        first = "shade"
+    return first, "occl2" if rows2 and not tree_occl else "occl"
 
 
 def trav_bytes(lanes: int, live: int, t_init: bool, active: bool) -> int:
@@ -478,20 +564,28 @@ def arm_keys(ds, settings) -> dict:
     from cpugpupathtracing_tpu_torch.models import integrators
     from cpugpupathtracing_tpu_torch.ops import pt_frame as ptf
 
-    key, layout = ptf.launch_key, ptf.table_layout
+    from cpugpupathtracing_tpu_torch.models import scene as scenelib
+
+    key, layout, leaf = ptf.launch_key, ptf.table_layout, ptf.leaf_arm
     tables, kw = integrators.frame_args(ds, settings)
     ch = layout(tables[0], kw["ents"], kw["fused_nn"], kw["width"])
     sh = layout(kw["sh_nodes"], kw["sh_ents"]) if kw.get("occl") else ch
     tables, tkw = integrators.route_tables(ds)
     lay = layout(tables[0], tkw["ents"], tkw["fused_nn"], tkw["width"])
     sn, _, skw = integrators.shadow_tables(ds)
+    sleaf = leaf(occl_rows=skw.get("occl_rows", 1),
+                 occl_width=skw.get("width", 8) if skw.get("occl") else 8)
     slay = layout(sn, skw.get("ents"), skw.get("fused_nn", 0),
                   skw.get("width", 8))
-    return dict(pt_frame=key("pt_frame", ptf.arm_key(ch, sh)),
-                shade_extend=key("shade_extend", lay),
-                shadow_resolve=key("shadow_resolve", slay),
-                traverse_packet_slim=key("traverse_packet_slim", lay),
-                traverse_packet_slim_depth=key("traverse_packet_slim", lay,
+    pn, _, pf, pe = scenelib.packet_tables(ds)
+    play = layout(pn, None if ds.machinery else pe, pf, ds.packet_width)
+    return dict(pt_frame=key("pt_frame", ptf.arm_key(ch, sh),
+                             leaf=leaf(occl_rows=kw.get("occl_rows", 1))),
+                shade_extend=key("shade_extend", lay,
+                                 leaf=leaf(pay=tkw.get("pay"))),
+                shadow_resolve=key("shadow_resolve", slay, leaf=sleaf),
+                traverse_packet_slim=key("traverse_packet_slim", play),
+                traverse_packet_slim_depth=key("traverse_packet_slim", play,
                                                depth=True))
 
 
@@ -566,16 +660,24 @@ def plain(ptf, tables, rays, state, **kw):
     keys = ("num_lights", "num_sph", "num_pln", "nee", "rr", "cosine",
             "ref_pdf", "depths", "light_tri_meta", "depth_base", "carry_in",
             "carry_out")
+    sh_records = (ptf.leaf_records(kw["sh_ltris"], occl=True)
+                  if kw.get("occl") else None)
     return ptf.pt_frame_reference(tables[1], *tables[2:], rays, state,
+                                  sh_records=sh_records,
                                   **{k: v for k, v in kw.items() if k in keys})
 
 
 def shade_plain(mk, a, kw, records=None):
     """shade_extend's plain version on the arguments of a shade_extend
     call (a: ten tables, depth, rays, state, throughput, energy,
-    flags), its instance arm when kw has the instance tables."""
+    flags), its instance arm when kw has the instance tables, brute force
+    over the payload records when it has the leaf-14 payload."""
+    from cpugpupathtracing_tpu_torch.ops import pt_frame as ptf
+
     keys = ("num_lights", "num_sph", "num_pln", "nee", "rr", "cosine",
             "ref_pdf", "light_tri_meta")
+    if kw.get("pay") is not None:
+        records = ptf.leaf_records(a[1], occl=True, pay=kw["pay"])
     inst = None
     if kw.get("inst_inv") is not None:
         inst = (a[0], kw["roots"], kw["inst_inv"], kw["inst_nrm"],
@@ -698,13 +800,15 @@ def contract(ref, got, what: str):
 
 
 def frame_mega(scene, cam_cfg, settings, width, height, small_bytes,
-               profile: bool, phase: str = "frame_mega"):
+               profile: bool, phase: str = "frame_mega", whole: bool = True):
     """Phase 7: config 3 through Renderer on the per-depth route
     (CPUGPU_NO_PTFRAME=1, restored afterwards); the kernels' arms are
     ARM's.  Returns (the main-path entries of every launch of one frame,
     the timed frames' counts, and a dict of the frame time, rate, the
     per-depth renderer and the from-reset images and traced counts of
-    both routes), and prints the [<phase>] line."""
+    both routes -- of the per-depth route alone when `whole` is False: the
+    scene's tables are ones the whole-frame gate refuses), and prints the
+    [<phase>] line."""
     import os
 
     import torch
@@ -738,7 +842,8 @@ def frame_mega(scene, cam_cfg, settings, width, height, small_bytes,
         # one frame timing each launch on the device, one with CUDA events
         # around each wrapper call
         dev_ms = launch_ms(r.render_frame,
-                           tuple(f"{name}_kernel" for name in MEGA_KERNELS))
+                           tuple(f"{name}_kernel" for name in MEGA_KERNELS),
+                           expect=2 * depths)
         call_ms = wrapper_ms(mk, MEGA_KERNELS, r.render_frame)
 
         # one frame counting each launch's work and keeping every
@@ -773,7 +878,7 @@ def frame_mega(scene, cam_cfg, settings, width, height, small_bytes,
                                  f"frame, expected {2 * depths}")
         main_path = []
         rec = ptf.leaf_records(scene.device(dev).pltris)
-        orec = mk.occl_records(scene.device(dev).poccl_ltris)
+        orec = ptf.leaf_records(scene.device(dev).poccl_ltris, occl=True)
         sr_small = 4 * (scene.device(dev).mk_sph.numel()
                         + scene.device(dev).mk_pln.numel())
         for k, (ln, ms, c_ms) in enumerate(zip(launches, dev_ms, call_ms)):
@@ -785,14 +890,16 @@ def frame_mega(scene, cam_cfg, settings, width, height, small_bytes,
                     raise AssertionError(f"{what}: flags differ")
                 e_ref, e_got = ref[3], ln["got"][0]
                 b = bound_ms(it, ln["lanes"] * SE_LANE, small_bytes,
-                             layouts=launch_layouts(ln["args"][0], ln["kw"]))
+                             layouts=launch_layouts(ln["args"][0], ln["kw"]),
+                             leaves=leaf_kinds(ln["kw"]))
             else:
                 e_ref = resolve_plain(mk, ln["args"], ln["kw"],
                                       orec if ln["kw"]["occl"] else rec)
                 e_got = ln["got"][0]
                 b = bound_ms(it, ln["lanes"] * SR_LANE
                              + it["sray"] * SR_SHADOW, sr_small,
-                             layouts=launch_layouts(ln["args"][0], ln["kw"]))
+                             layouts=launch_layouts(ln["args"][0], ln["kw"]),
+                             leaves=leaf_kinds(ln["kw"]))
             flips, err, mean = contract(torch.stack(e_ref, 1),
                                         torch.stack(e_got, 1), what)
             main_path.append(dict(
@@ -821,18 +928,21 @@ def frame_mega(scene, cam_cfg, settings, width, height, small_bytes,
             os.environ.pop("CPUGPU_NO_PTFRAME", None)
         else:
             os.environ["CPUGPU_NO_PTFRAME"] = prev
-    r_whole = Renderer(scene, camera=cam_cfg, config=config,
-                       settings=settings, device=dev)
-    before = counts().get(arm("pt_frame"), 0)
-    r_whole.render_frame()
-    if counts().get(arm("pt_frame"), 0) != before + 2:
-        raise AssertionError("the whole-frame route did not take pt_frame")
     img = r_mega.image_u32()
-    same_image = bool((img == r_whole.image_u32()).all())
-    same_traced = r_mega.stats.traced_rays == r_whole.stats.traced_rays
-    if not (same_image and same_traced):
-        raise AssertionError("the per-depth route's frame differs from the "
-                             "whole-frame route's")
+    same_image = same_traced = None
+    if whole:
+        r_whole = Renderer(scene, camera=cam_cfg, config=config,
+                           settings=settings, device=dev)
+        before = counts().get(arm("pt_frame"), 0)
+        r_whole.render_frame()
+        if counts().get(arm("pt_frame"), 0) != before + 2:
+            raise AssertionError("the whole-frame route did not take "
+                                 "pt_frame")
+        same_image = bool((img == r_whole.image_u32()).all())
+        same_traced = r_mega.stats.traced_rays == r_whole.stats.traced_rays
+        if not (same_image and same_traced):
+            raise AssertionError("the per-depth route's frame differs from "
+                                 "the whole-frame route's")
     energy = r_mega.mean_energy
     if not (math.isfinite(energy) and energy > 0.0):
         raise AssertionError(f"mean energy {energy}")
@@ -853,8 +963,8 @@ def frame_mega(scene, cam_cfg, settings, width, height, small_bytes,
     return main_path, got, dict(
         ms_per_frame=ms_per_frame, mrays_per_s=rate / 1e6, renderer=r,
         image=img, traced=r_mega.stats.traced_rays,
-        whole_image=r_whole.image_u32(),
-        whole_traced=r_whole.stats.traced_rays)
+        whole_image=r_whole.image_u32() if whole else None,
+        whole_traced=r_whole.stats.traced_rays if whole else None)
 
 
 def check_traverse(ds, o, d) -> dict:
@@ -1021,6 +1131,17 @@ def image_delta(a, b) -> dict:
                    - b.view(np.uint8).astype(np.int64))
     return dict(equal_share=float((delta == 0).mean()),
                 mean=float(delta.mean()), max=int(delta.max()))
+
+
+@contextlib.contextmanager
+def frame_count(k: int):
+    """TIMED_FRAMES = k for the block."""
+    global TIMED_FRAMES
+    old, TIMED_FRAMES = TIMED_FRAMES, k
+    try:
+        yield
+    finally:
+        TIMED_FRAMES = old
 
 
 def timed_frames(r, what: str, profile: bool, route: str, **want):
@@ -1545,7 +1666,8 @@ def frame5(s5, phase: str, profile: bool, label: str | None = None):
             return r.render_frame(sync=sync)
 
         frame()  # warm-up
-        dev_ms = launch_ms(frame, kernels)
+        dev_ms = launch_ms(frame, kernels, expect=sum(
+            v for k, v in want.items() if k != "sorts"))
         call_ms = wrapper_ms(module, names, frame)
         launches = []
         entries = {name: getattr(module, name) for name in names}
@@ -1604,7 +1726,8 @@ def frame5(s5, phase: str, profile: bool, label: str | None = None):
         rec = (ptf.instance_records(ds.pnodes, ds.pltris, ds.proots,
                                     ds.inst_blas_root_packet)
                if ds.machinery else ptf.leaf_records(ds.pltris))
-        orec = None if ds.machinery else mk.occl_records(ds.poccl_ltris)
+        orec = None if ds.machinery else ptf.leaf_records(ds.poccl_ltris,
+                                                          occl=True)
         small = sum(v for k, v in ds.table_bytes().items()
                     if k.startswith("mk_"))
         sr_small = 4 * (ds.mk_sph.numel() + ds.mk_pln.numel())
@@ -1626,14 +1749,16 @@ def frame5(s5, phase: str, profile: bool, label: str | None = None):
                     e_ref, e_got = ref[0], got[0][sel]
                 b = bound_ms(it, ln["lanes"] * lane_bytes(
                     ln["carry_in"] is not None, bool(kk.get("carry_out"))),
-                    small, layouts=launch_layouts(ln["tables"][0], kk))
+                    small, layouts=launch_layouts(ln["tables"][0], kk),
+                    leaves=leaf_kinds(kk))
             elif ln["name"] == "shade_extend":
                 ref = shade_plain(mk, ln["args"], ln["kw"], rec)
                 exact = [(ref[4], ln["got"][1]), (ref[1], ln["got"][2])]
                 e_ref = torch.stack(ref[3], 1)
                 e_got = torch.stack(ln["got"][0], 1)
                 b = bound_ms(it, ln["lanes"] * SE_LANE, small,
-                             layouts=launch_layouts(ln["args"][0], ln["kw"]))
+                             layouts=launch_layouts(ln["args"][0], ln["kw"]),
+                             leaves=leaf_kinds(ln["kw"]))
             else:
                 ref = resolve_plain(mk, ln["args"], ln["kw"],
                                     orec if ln["kw"]["occl"] else rec)
@@ -1642,7 +1767,8 @@ def frame5(s5, phase: str, profile: bool, label: str | None = None):
                 e_got = torch.stack(ln["got"][0], 1)
                 b = bound_ms(it, ln["lanes"] * SR_LANE
                              + it["sray"] * SR_SHADOW, sr_small,
-                             layouts=launch_layouts(ln["args"][0], ln["kw"]))
+                             layouts=launch_layouts(ln["args"][0], ln["kw"]),
+                             leaves=leaf_kinds(ln["kw"]))
             if any(not torch.equal(x, y) for x, y in exact):
                 raise AssertionError(f"{what}: state or flags differ from "
                                      "the plain version")
@@ -1914,7 +2040,10 @@ def traverse_main_path(frame_fn, what: str, per_depth: int) -> list:
     holding every SAMPLE_STRIDE-th lane against the plain version: a
     count_depth launch against the walk bitwise on every output, another
     closest-hit launch against brute force bitwise, an any-hit launch in
-    existence.  Returns the main-path entries in launch order, each with
+    existence (at once: a frame_fn that refits the scene's tables in place
+    must not run between the counted frame and its plain versions).  When
+    the profiler missed a launch of the timed frame, one more frame is
+    timed afterwards.  Returns the main-path entries in launch order, each with
     its depth (per_depth launches per depth)."""
     import torch
     from cpugpupathtracing_tpu_torch.ops import pt_frame as ptf
@@ -1938,7 +2067,8 @@ def traverse_main_path(frame_fn, what: str, per_depth: int) -> list:
                 tree=a[3:6], inst={k_: v for k_, v in k.items()
                                    if k_.startswith("inst_")},
                 layout={k_: v for k_, v in k.items()
-                        if k_ in ("ents", "fused_nn", "width")},
+                        if k_ in ("ents", "fused_nn", "width", "occl", "pay",
+                                  "occl_rows")},
                 rays=tuple(x[sel] for x in a[0] + a[1]), t_init=a[2][sel],
                 active=None if active is None else active[sel],
                 got=tuple(x[sel] for x in flat_hit(out))))
@@ -1946,11 +2076,11 @@ def traverse_main_path(frame_fn, what: str, per_depth: int) -> list:
         return call
 
     instrument(tps, "traverse_packet_slim", counted, frame_fn)
-    if not len(launches) == len(dev_ms) == len(call_ms):
+    if len(launches) != len(call_ms):
         raise AssertionError(f"{what}: {len(launches)} traversal launches, "
-                             f"{len(dev_ms)} timed")
+                             f"{len(call_ms)} timed")
     main_path = []
-    for k, (ln, ms_k, c_ms) in enumerate(zip(launches, dev_ms, call_ms)):
+    for k, (ln, c_ms) in enumerate(zip(launches, call_ms)):
         nodes, ltris, roots = ln["tree"]
         inst = ln["inst"]
         got = ln["got"]
@@ -1969,13 +2099,14 @@ def traverse_main_path(frame_fn, what: str, per_depth: int) -> list:
         b = bound_ms(it, trav_bytes(ln["lanes"], it["ray"], True,
                                     ln["given_active"]) + extra, 0,
                      shade_ops=0,
-                     layouts=launch_layouts(nodes, ln["layout"]))
+                     layouts=launch_layouts(nodes, ln["layout"]),
+                     leaves=leaf_kinds(ln["layout"], tree_occl=True))
         main_path.append(dict(
             launch=k + 1, depth=k // per_depth,
             layout=launch_layouts(nodes, ln["layout"])[0],
             kind="any" if ln["any_hit"] else "closest",
             count_depth=ln["count_depth"], instance_arm=bool(inst),
-            lanes=ln["lanes"], active=it["ray"], ms=ms_k, call_ms=c_ms,
+            lanes=ln["lanes"], active=it["ray"], ms=None, call_ms=c_ms,
             bound_ms=b[0], bound_by=b[1], sampled_lanes=int(got[0].shape[0]),
             max_abs_err=float((got[0] - ref[0]).abs().max())
             if not ln["any_hit"] else 0.0, mismatches=mism,
@@ -1983,6 +2114,10 @@ def traverse_main_path(frame_fn, what: str, per_depth: int) -> list:
             instance_hits=int((got[-1] >= 0).sum()) if inst else 0,
             iters=it))
     ptf.check_status(dev)
+    if len(dev_ms) != len(launches):
+        dev_ms = launch_ms(frame_fn, "traverse_kernel", expect=len(launches))
+    for mp, ms_k in zip(main_path, dev_ms):
+        mp["ms"] = ms_k
     return main_path
 
 
@@ -2318,7 +2453,7 @@ def frame_whole(scene, cam_cfg, settings, width, height, small_bytes,
 
     # one frame timing each launch on the device, one with CUDA events
     # around each wrapper call
-    span_ms = launch_ms(r.render_frame, "pt_frame_kernel")
+    span_ms = launch_ms(r.render_frame, "pt_frame_kernel", expect=2)
     span_call_ms = wrapper_ms(ptf, ("pt_frame",), r.render_frame)
 
     # one frame counting each launch's work and keeping every
@@ -2355,7 +2490,7 @@ def frame_whole(scene, cam_cfg, settings, width, height, small_bytes,
         sb_ms, sb_by = bound_ms(
             it, sp["lanes"] * lane_bytes(sp["carry_in"] is not None,
                                          bool(k.get("carry_out"))),
-            small_bytes, layouts=layouts)
+            small_bytes, layouts=layouts, leaves=leaf_kinds(k))
         main_path.append(dict(
             lanes=sp["lanes"], depths=k["depths"],
             depth_base=k.get("depth_base", 0), layouts=layouts, ms=ms,
@@ -2441,20 +2576,27 @@ def fused_whole_frame():
         renderer.pt_frame_active = orig
 
 
-def check_variant(ds, settings, o, d, st, small_bytes, name: str,
-                  ref64) -> dict:
-    """Phase [check_<layout>]: each arm of the snapshot's layout on the
-    8192 check lanes -- pt_frame on the whole-frame route's tables (all
-    depths), shade_extend at depth 0 and shadow_resolve on its outputs on
-    the per-depth route's, and traverse_packet_slim's closest hits of the
-    camera rays (even lanes) and any hits toward light 0 (odd lanes that
-    hit) with count_depth -- against their plain versions (the walk for
-    count_depth: bitwise on every output; closest hits without it against
-    brute force, bitwise), pt_frame also against the plain 64-col arm's
-    run `ref64` (energy, state, traced) bitwise.  Returns each arm's
-    numbers by kernel."""
+def check_variant(ds, settings, o, d, st, small_bytes, name: str, ref64,
+                  whole: bool = True, b4: bool = True,
+                  occl_b4: bool = False) -> dict:
+    """Phase [check_<name>]: each arm the snapshot's tables select, on the
+    8192 check lanes, against its plain version bitwise on every output:
+    pt_frame on the whole-frame route's tables (all depths; with `whole`,
+    the routes the gate allows), also against the plain 64-col arm's run
+    `ref64`; shade_extend at depth 0 on the per-depth route's tables (with
+    the leaf-14 payload also against the shading tables' arm) and
+    shadow_resolve on its shadow rays; with `b4` traverse_packet_slim
+    over the shading tree, or with occl_b4 over the any-hit tree
+    (b4_tables) --
+    the closest hits of the camera rays (leaf-14 with the payload, also
+    against the shading records' hits) and the any hits toward light 0 of
+    the lanes that hit, each without count_depth against brute force (any
+    hits: existence) and with it against the walk.  Returns each arm's
+    numbers by kernel (traverse_<closest|any>[_depth]), each with its
+    launch key (ptf.launch_key) and the columns that differ (0)."""
     import torch
     from cpugpupathtracing_tpu_torch.models import integrators
+    from cpugpupathtracing_tpu_torch.models import scene as scenelib
     from cpugpupathtracing_tpu_torch.ops import megakernel as mk
     from cpugpupathtracing_tpu_torch.ops import pt_frame as ptf
     from cpugpupathtracing_tpu_torch.ops import traverse_packet_slim as tps
@@ -2462,44 +2604,39 @@ def check_variant(ds, settings, o, d, st, small_bytes, name: str,
     dev, n = st.device, st.shape[0]
     rays = columns(o, d)
     depths = settings.max_ray_depth + 1
-    out = {}
+    out, bad = {}, {}
 
-    def timed_plain(fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        res = fn()
-        torch.cuda.synchronize()
-        return res, (time.perf_counter() - t0) * 1e3
+    def numbers(kernel, fn, it, lay, leaves, lanes, small, p_ms, err,
+                shade_ops=OPS_SHADE, **extra):
+        """An arm's entry: its work counts, bound, kernel times and the
+        plain version's; `lanes` maps the counts to the lane bytes."""
+        it = dict(zip(ptf.COUNTERS, (int(v) for v in it)))
+        return dict(extra, layouts=lay, max_abs_err=err, plain_ms=p_ms,
+                    iters=it, bound=bound_ms(it, lanes(it), small,
+                                             shade_ops=shade_ops,
+                                             layouts=lay, leaves=leaves),
+                    **kernel_ms(fn, kernel))
 
-    def energy_bits(a, b):
-        return int((a.reshape(a.shape[0], -1).view(torch.int32)
-                    != b.reshape(b.shape[0], -1).view(torch.int32))
-                   .any(dim=1).sum())
+    def err(a, b):
+        return float((torch.stack(tuple(a), 1)
+                      - torch.stack(tuple(b), 1)).abs().max())
 
     # B1: pt_frame
-    tables, kw = integrators.frame_args(ds, settings)
-    *fk, it = ptf.pt_frame(*tables, rays, st, depths=depths,
-                           count_iters=True, **kw)
-    fp, p_ms = timed_plain(lambda: plain(ptf, tables, rays, st,
-                                         depths=depths, **kw))
-    ptf.check_status(dev)
-    if int(fk[2]) != int(fp[2]):
-        raise AssertionError(f"pt_frame {name}: traced {int(fk[2])}, plain "
-                             f"{int(fp[2])}")
-    if not (torch.equal(fk[0], ref64[0]) and torch.equal(fk[1], ref64[1])
-            and int(fk[2]) == int(ref64[2])):
-        raise AssertionError(f"pt_frame {name}: differs from the 64-col arm")
-    _, err, _ = contract(fp[0], fk[0], f"pt_frame {name} vs plain")
-    it = dict(zip(ptf.COUNTERS, (int(v) for v in it)))
-    lay = launch_layouts(tables[0], kw)
-    out["pt_frame"] = dict(
-        layouts=lay, max_abs_err=err, plain_ms=p_ms, iters=it,
-        energy_bit_mismatches=energy_bits(fk[0], fp[0]),
-        state_mismatches=int((fk[1] != fp[1]).sum()),
-        bound=bound_ms(it, n * lane_bytes(False, False), small_bytes,
-                       layouts=lay),
-        **kernel_ms(lambda: ptf.pt_frame(*tables, rays, st, depths=depths,
-                                         **kw), "pt_frame_kernel"))
+    if whole:
+        tables, kw = integrators.frame_args(ds, settings)
+        *fk, it = ptf.pt_frame(*tables, rays, st, depths=depths,
+                               count_iters=True, **kw)
+        fp, p_ms = timed_plain(lambda: plain(ptf, tables, rays, st,
+                                             depths=depths, **kw))
+        ptf.check_status(dev)
+        bad["pt_frame"] = cols_differ(fk, fp)
+        bad["pt_frame_vs_64"] = cols_differ(fk, ref64)
+        out["pt_frame"] = numbers(
+            "pt_frame_kernel", lambda: ptf.pt_frame(
+                *tables, rays, st, depths=depths, **kw), it,
+            launch_layouts(tables[0], kw), leaf_kinds(kw),
+            lambda _: n * lane_bytes(False, False), small_bytes, p_ms,
+            float((fk[0] - fp[0]).abs().max()), mismatches=bad["pt_frame"])
 
     # B2, B3: shade_extend at depth 0, shadow_resolve on its shadow rays
     tables, tkw = integrators.route_tables(ds)
@@ -2510,115 +2647,87 @@ def check_variant(ds, settings, o, d, st, small_bytes, name: str,
          torch.ones(n, dtype=torch.int32, device=dev))
     *se, it = mk.shade_extend(*a, count_iters=True, **ekw)
     sp, p_ms = timed_plain(lambda: shade_plain(mk, a, ekw))
-    if not (torch.equal(se[4], sp[4]) and torch.equal(se[1], sp[1])):
-        raise AssertionError(f"shade_extend {name}: flags or state differ "
-                             "from the plain version")
-    _, err, _ = contract(torch.stack(sp[3], 1), torch.stack(se[3], 1),
-                         f"shade_extend {name} vs plain")
-    it = dict(zip(ptf.COUNTERS, (int(v) for v in it)))
-    lay = launch_layouts(tables[0], ekw)
-    out["shade_extend"] = dict(
-        layouts=lay, max_abs_err=err, plain_ms=p_ms, iters=it,
-        energy_bit_mismatches=energy_bits(torch.stack(se[3], 1),
-                                          torch.stack(sp[3], 1)),
-        bound=bound_ms(it, n * SE_LANE, small_bytes, layouts=lay),
-        **kernel_ms(lambda: mk.shade_extend(*a, **ekw),
-                    "shade_extend_kernel"))
+    bad["shade_extend"] = cols_differ(se, sp)
+    if tkw.get("pay") is not None:
+        pn, pl, pf, pe = scenelib.packet_tables(ds)
+        shading = mk.shade_extend(
+            pn, pl, *a[2:], **dict(integrators.extend_kwargs(ds, settings),
+                                   fused_nn=pf, width=ds.packet_width,
+                                   ents=pe))
+        bad["shade_extend_vs_shading"] = cols_differ(se, shading)
+    out["shade_extend"] = numbers(
+        "shade_extend_kernel", lambda: mk.shade_extend(*a, **ekw), it,
+        launch_layouts(tables[0], ekw), leaf_kinds(ekw),
+        lambda _: n * SE_LANE, small_bytes, p_ms, err(se[3], sp[3]),
+        mismatches=bad["shade_extend"])
     sn, sl, skw = integrators.shadow_tables(ds)
     sa = (sn, sl, ds.mk_sph, ds.mk_pln, se[5], se[6], se[7], se[4], se[3],
           se[8])
     *sr, it = mk.shadow_resolve(*sa, count_iters=True, **skw)
     rp, p_ms = timed_plain(lambda: resolve_plain(mk, sa, skw))
     ptf.check_status(dev)
-    _, err, _ = contract(torch.stack(rp, 1), torch.stack(sr, 1),
-                         f"shadow_resolve {name} vs plain")
-    it = dict(zip(ptf.COUNTERS, (int(v) for v in it)))
-    lay = launch_layouts(sn, skw)
-    out["shadow_resolve"] = dict(
-        layouts=lay, max_abs_err=err, plain_ms=p_ms, iters=it,
-        energy_bit_mismatches=energy_bits(torch.stack(sr, 1),
-                                          torch.stack(rp, 1)),
-        bound=bound_ms(it, n * SR_LANE + it["sray"] * SR_SHADOW,
-                       4 * (ds.mk_sph.numel() + ds.mk_pln.numel()),
-                       layouts=lay),
-        **kernel_ms(lambda: mk.shadow_resolve(*sa, **skw),
-                    "shadow_resolve_kernel"))
+    bad["shadow_resolve"] = cols_differ(sr, rp)
+    out["shadow_resolve"] = numbers(
+        "shadow_resolve_kernel", lambda: mk.shadow_resolve(*sa, **skw), it,
+        launch_layouts(sn, skw), leaf_kinds(skw),
+        lambda c: n * SR_LANE + c["sray"] * SR_SHADOW,
+        4 * (ds.mk_sph.numel() + ds.mk_pln.numel()), p_ms, err(sr, rp),
+        mismatches=bad["shadow_resolve"])
 
-    # B4: closest and any hits, count_depth against the walk
-    nodes, ltris, fused_nn, ents = tables[0], tables[1], tkw["fused_nn"], \
-        tkw["ents"]
-    lkw = dict(fused_nn=fused_nn, width=tkw["width"], ents=ents)
-    even = torch.arange(n, device=dev) % 2 == 0
-    far = torch.full((n,), 1e34, device=dev)
-    cam = tps.traverse_packet_slim(rays[:3], rays[3:], far, nodes, ltris,
-                                   ds.proots, count_depth=False, **lkw)
-    brute = tps.traverse_packet_slim_reference(rays, far, ltris)
-    b_mism = int(bits_differ(flat_hit(cam), flat_hit(brute)).sum())
-    if b_mism:
-        raise AssertionError(f"traverse {name}: {b_mism} closest hits differ "
-                             "from brute force")
-    *_, it = tps.traverse_packet_slim(rays[:3], rays[3:], far, nodes, ltris,
-                                      ds.proots, count_depth=False,
-                                      count_iters=True, **lkw)
-    _, p_ms = timed_plain(lambda: tps.traverse_packet_slim_reference(
-        rays, far, ltris))
-    it = dict(zip(ptf.COUNTERS, (int(v) for v in it)))
-    lay = launch_layouts(nodes, lkw)
-    out["traverse"] = dict(
-        layouts=lay, hits=int((cam[1] >= 0).sum()), mismatches=b_mism,
-        max_abs_err=float((cam[0] - brute[0]).abs().max()), plain_ms=p_ms,
-        iters=it, bound=bound_ms(it, trav_bytes(n, it["ray"], True, False),
-                                 0, shade_ops=0, layouts=lay),
-        **kernel_ms(lambda: tps.traverse_packet_slim(
-            rays[:3], rays[3:], far, nodes, ltris, ds.proots,
-            count_depth=False, **lkw), "traverse_kernel"))
-    pos = o + d * cam[0][:, None]
-    to_l = ds.mk_lights[0, 0:3][None, :] - pos
-    dist = torch.sqrt((to_l * to_l).sum(dim=1))
-    to_l = to_l / dist[:, None]
-    for query, qr, t0, act, any_hit in (
-            ("closest", rays, far, even, False),
-            ("any", columns(pos + to_l * 0.001, to_l),
-             dist - ds.mk_lights[0, 3] - 0.002, ~even & (cam[1] >= 0), True)):
-        args = (qr[:3], qr[3:], t0, nodes, ltris, ds.proots)
-        *got, it = tps.traverse_packet_slim(*args, active=act,
-                                            any_hit=any_hit,
-                                            count_iters=True, **lkw)
-        ref, p_ms = timed_plain(lambda: trav_plain(
-            tps, qr, t0, nodes, ltris, ds.proots, act, any_hit, True, {},
-            lkw))
-        ptf.check_status(dev)
-        mism = int(bits_differ(flat_hit(got), flat_hit(ref)).sum())
-        if mism:
-            raise AssertionError(f"traverse {name} {query}: {mism} lanes "
-                                 "differ from the walk")
-        it = dict(zip(ptf.COUNTERS, (int(v) for v in it)))
-        fin = torch.isfinite(ref[0])  # lanes whose camera ray missed: inf
-        out[f"traverse_{query}"] = dict(
-            layouts=lay, active=int(act.sum()), hits=int((got[1] >= 0).sum()),
-            mismatches=mism, brute_force_mismatches=b_mism,
-            depth_max=int(got[4].max()),
-            max_abs_err=float((got[0] - ref[0])[fin].abs().max()),
-            plain_ms=p_ms, iters=it,
-            bound=bound_ms(it, trav_bytes(n, it["ray"], True, True) + 4 * n,
-                           0, shade_ops=0, layouts=lay),
-            **kernel_ms(lambda: tps.traverse_packet_slim(
-                *args, active=act, any_hit=any_hit, **lkw),
-                "traverse_kernel"))
-    bad = {k: v["energy_bit_mismatches"] for k, v in out.items()
-           if v.get("energy_bit_mismatches", 0)}
-    if bad or out["pt_frame"]["state_mismatches"]:
-        raise AssertionError(
-            f"check {name}: lanes whose energy differs from the plain "
-            f"version bitwise {bad}, pt_frame states differing "
-            f"{out['pt_frame']['state_mismatches']}")
+    # B4: closest and any hits, with and without count_depth
+    if b4:
+        nodes, ltris, roots, ckw, akw = b4_tables(ds, occl_b4)
+        far = torch.full((n,), 1e34, device=dev)
+        cam = tps.traverse_packet_slim(rays[:3], rays[3:], far, nodes, ltris,
+                                       roots, count_depth=False, **ckw)
+        if ckw.get("pay") is not None:
+            shade = ptf.closest_hit_reference(ds.pltris, rays)
+            bad["traverse_pay_vs_shading"] = int(bits_differ(
+                flat_hit(cam)[:6], shade).sum())
+        qs = shadow_query(ds, o, d, cam[0], cam[1] >= 0)
+        for query, qr, t0, act, kw, any_hit in (
+                ("closest", rays, far, None, ckw, False),
+                ("any", qs[0], qs[1], qs[2], akw, True)):
+            pkw = {k: v for k, v in kw.items() if k != "ents"}
+            for depth in (False, True):
+                args = (qr[:3], qr[3:], t0, nodes, ltris, roots)
+                *got, it = tps.traverse_packet_slim(
+                    *args, active=act, any_hit=any_hit, count_depth=depth,
+                    count_iters=True, **kw)
+                ref, p_ms = timed_plain(
+                    lambda: tps.traverse_packet_slim_reference(
+                        qr, t0, ltris, active=act, any_hit=any_hit,
+                        count_depth=depth, nodes=nodes, roots=roots,
+                        ents=kw["ents"], **pkw))
+                ptf.check_status(dev)
+                if any_hit and not depth:
+                    mism = int(((got[1] >= 0) != (ref[1] >= 0)).sum())
+                else:
+                    mism = int(bits_differ(flat_hit(got), flat_hit(ref)).sum())
+                arm_name = f"traverse_{query}{'_depth' * depth}"
+                bad[arm_name] = mism
+                fin = torch.isfinite(ref[0]) & (ref[1] >= 0)
+                out[arm_name] = numbers(
+                    "traverse_kernel", lambda: tps.traverse_packet_slim(
+                        *args, active=act, any_hit=any_hit, count_depth=depth,
+                        **kw), it, launch_layouts(nodes, kw),
+                    leaf_kinds(kw, tree_occl=True),
+                    lambda c: trav_bytes(n, c["ray"], True, act is not None)
+                    + 4 * n * depth, 0, p_ms,
+                    0.0 if any_hit or not fin.any() else float(
+                        (got[0] - ref[0])[fin].abs().max()), shade_ops=0,
+                    key=b4_key(nodes, kw, depth), active=int(it[4]),
+                    hits=int((got[1] >= 0).sum()), mismatches=mism,
+                    depth_max=int(got[4].max()))
+    if any(bad.values()):
+        raise AssertionError(f"check {name}: outputs differing from the "
+                             f"plain versions bitwise {bad}")
     say(f"check_{name}", lanes=n, **{
         f"{k}_{f}": v[f] for k, v in out.items()
         for f in ("layouts", "ms", "call_ms", "plain_ms", "max_abs_err")},
         **{f"{k}_bound_ms": v["bound"][0] for k, v in out.items()},
-        **{f"{k}_energy_bit_mismatches": v["energy_bit_mismatches"]
-           for k, v in out.items() if "energy_bit_mismatches" in v},
-        pt_frame_equal_64=True)
+        **{f"{k}_key": v["key"] for k, v in out.items() if "key" in v},
+        mismatches=bad)
     return out
 
 
@@ -2713,8 +2822,10 @@ def layouts3(scene, cam_cfg, settings, whitted_settings, width, height, o,
                        stack_need=scene.build_info["stack_need"])
             with arms(ds, settings) as keys:
                 res["arms"] = keys
+                # B4 walks the shading tree, which CPUGPU_OCCL=0 leaves
+                # as it is: the shared runs check the other arms only
                 res["check"] = check_variant(ds, settings, o, d, st, small,
-                                             name, ref64)
+                                             name, ref64, b4=not shared)
                 if not shared:
                     path, got, whole = frame_whole(
                         scene, cam_cfg, settings, width, height, small, False,
@@ -2750,6 +2861,7 @@ def layouts3(scene, cam_cfg, settings, whitted_settings, width, height, o,
         for k in ("image", "whole_image"):
             mega.pop(k)
         out[name] = res
+        out["ref_frames"] = ref
         say("layout3", layout=name, build_seconds=round(build_s, 2),
             node_rows=res["node_rows"], width=res["width"],
             stack_need=res["stack_need"],
@@ -2764,25 +2876,31 @@ def layouts3(scene, cam_cfg, settings, whitted_settings, width, height, o,
     return out
 
 
-def layouts5(s5) -> dict:
+def layouts5(s5, runs=LAYOUT5_RUNS, ref=None, phase: str = "layout5",
+             profile: bool = True) -> dict:
     """Phase [layout5]: config 5 flattened at 1280x720, the hook before
-    every frame, under LAYOUT5_RUNS (the default side tables, 16-wide
-    rows, the fused table, fused 16-wide rows): the flatten decision on
-    the layout's tables (bytes against the budget), both routes through
-    frame5 (every launch sampled against its plain version, timed frames,
-    the refit's ms), a refit against a fresh build at the same transforms
-    (every table, the fused table included, bitwise), and one frame from
-    reset per route at the same transforms equal to the default layout's
-    (image and traced count).  Returns the numbers by layout."""
+    every frame, under `runs` (LAYOUT5_RUNS: the default side tables,
+    16-wide rows, the fused table, fused 16-wide rows): the flatten
+    decision on the layout's tables (bytes against the budget), the
+    routes through frame5 (both, or the per-depth route alone where the
+    whole-frame gate refuses the tables; every launch sampled against its
+    plain version, timed frames, the refit's ms), a refit against a fresh
+    build at the same transforms (every table, the fused and leaf-14
+    tables included, bitwise), and one frame from reset per route at the
+    same transforms equal to the first run's (image and traced count;
+    `ref` keeps them across calls); with `profile` two profiled frames
+    per route (the device-busy share).  Returns the numbers by layout."""
     import torch
     from cpugpupathtracing_tpu_torch.config import RenderConfig
+    from cpugpupathtracing_tpu_torch.models import renderer
     from cpugpupathtracing_tpu_torch.models import scene as scenelib
     from cpugpupathtracing_tpu_torch.models.renderer import Renderer
 
     dev = torch.device("cuda")
     base = s5["flat"]["scene"]
-    out, ref = {}, {}
-    for name, env in LAYOUT5_RUNS:
+    out = {}
+    ref = {} if ref is None else ref
+    for name, env in runs:
         with environ(**env, CPUGPU_NO_FLATTEN=None), fused_whole_frame():
             scene, cam, settings, w, h, hook = config5(share=base)
             torch.cuda.synchronize()
@@ -2799,24 +2917,34 @@ def layouts5(s5) -> dict:
                        stack_need=info["stack_need"],
                        node_rows=ds.pnodes.shape[0])
             if not ds.packet_flattened:
-                say("layout5", layout=name, **res,
+                say(phase, layout=name, **res,
                     note="over the flatten budget: the 8-wide object-space "
                     "path, not timed here")
                 out[name] = res
                 continue
             s5l = dict(flat=dict(scene=scene, hook=hook), cam=cam,
                        settings=settings, width=w, height=h)
+            # the routes Renderer takes (fused tables through
+            # fused_whole_frame): the per-depth one alone where the gate
+            # refuses the whole-frame route
+            whole = renderer.pt_frame_active(ds, settings)
+            res["gate"] = scenelib.pt_frame_gate_reason(ds, settings)
             with arms(ds, settings) as keys:
                 res["arms"] = keys
-                for route, phase in (("whole", "frame5"),
-                                     ("mega", "frame5_mega")):
-                    path, got, fr = frame5(s5l, phase, False,
-                                           label=f"layout5_{name}_{route}")
+                for route, rphase in (("whole", "frame5"),
+                                      ("mega", "frame5_mega")):
+                    if route == "whole" and not whole:
+                        continue
+                    path, got, fr = frame5(s5l, rphase, False,
+                                           label=f"{phase}_{name}_{route}")
                     rr = fr.pop("renderer")
-                    with environ(**FRAME5_ROUTES[phase][1]):
-                        fr["busy"] = profile_frames(
-                            rr, fr["ms_per_frame"], f"config 5 {name} {route}",
-                            step=lambda: hook(99, rr))
+                    fr["busy"] = None
+                    with environ(**FRAME5_ROUTES[rphase][1]):
+                        if profile:
+                            fr["busy"] = profile_frames(
+                                rr, fr["ms_per_frame"],
+                                f"config 5 {name} {route}",
+                                step=lambda: hook(99, rr))
                     res[route] = dict(fr, path=path, counts=got)
                     bitwise_path(path, f"config 5 {name}, {route}")
                 # a refit against a fresh build at the same transforms
@@ -2857,16 +2985,317 @@ def layouts5(s5) -> dict:
                             f"config 5 {name}: the {route} frame differs "
                             "from the default layout's")
         out[name] = res
-        say("layout5", layout=name, **{k: v for k, v in res.items()
-                                        if k not in ("whole", "mega")},
-            whole_ms_per_frame=res["whole"]["ms_per_frame"],
-            whole_mrays_per_s=res["whole"]["mrays_per_s"],
-            whole_busy=res["whole"]["busy"],
+        whole = res.get("whole", {})
+        say(phase, layout=name, **{k: v for k, v in res.items()
+                                    if k not in ("whole", "mega")},
+            whole_ms_per_frame=whole.get("ms_per_frame"),
+            whole_mrays_per_s=whole.get("mrays_per_s"),
+            whole_busy=whole.get("busy"),
             mega_ms_per_frame=res["mega"]["ms_per_frame"],
             mega_mrays_per_s=res["mega"]["mrays_per_s"],
             mega_busy=res["mega"]["busy"],
-            refit_ms=res["whole"]["refit_ms"], refit_bitwise=True,
+            refit_ms=res.get("whole", res["mega"])["refit_ms"],
+            refit_bitwise=True,
             image_equal_default=True)
+    return out
+
+
+# The leaf-side and occlusion flags of the leaf phases (the JAX package's
+# CPUGPU_LEAF14, CPUGPU_OCCL2 and CPUGPU_OCCL_W16), each over the default
+# node layout (48-col rows and side tables)
+LEAF_RUNS = (
+    ("leaf14", {"CPUGPU_LEAF14": "1"}),
+    ("occl2", {"CPUGPU_OCCL2": "1"}),
+    ("occl_w16", {"CPUGPU_OCCL_W16": "1"}),
+)
+# config 5 flattened (its instances keep the any-hit tree 8-wide, so
+# CPUGPU_OCCL_W16 builds config 5's default tables)
+LEAF5_RUNS = (
+    ("leaf14", {"CPUGPU_LEAF14": "1"}),
+    ("occl2", {"CPUGPU_OCCL2": "1"}),
+)
+
+
+def flat_cols(x) -> list:
+    """Every column of nested tuples of tensors, flattened."""
+    if isinstance(x, (tuple, list)):
+        return [c for v in x for c in flat_cols(v)]
+    return [x.reshape(-1)]
+
+
+def cols_differ(got, ref) -> int:
+    """Columns of two nested outputs that differ bit for bit."""
+    import torch
+
+    return sum(not torch.equal(a, b) for a, b in zip(
+        as_bits(*flat_cols(got)), as_bits(*flat_cols(ref))))
+
+
+def b4_tables(ds, occl: bool = False) -> tuple:
+    """(nodes, ltris, roots, closest-hit keywords, any-hit keywords) of
+    traverse_packet_slim on the snapshot: over the shading tree of
+    scene.packet_tables (the tree intersect_scene walks), or with occl
+    over the any-hit tree -- the closest hit with the leaf-14 payload
+    where there is one (else the t-only query), the any hit without
+    it."""
+    from cpugpupathtracing_tpu_torch.models import scene as scenelib
+
+    if not occl:
+        nodes, ltris, fused_nn, ents = scenelib.packet_tables(ds)
+        kw = dict(fused_nn=fused_nn, width=ds.packet_width,
+                  ents=None if ds.machinery else ents)
+        return nodes, ltris, ds.proots, kw, kw
+    nodes, ltris, roots, ents = scenelib.occl_tables(ds)
+    ckw = dict(occl=True, pay=ds.poccl_pay, occl_rows=ds.poccl_rows,
+               width=ds.poccl_width, ents=ents)
+    return nodes, ltris, roots, ckw, dict(ckw, pay=None)
+
+
+def b4_key(nodes, kw, depth: bool) -> str:
+    """The launch key of traverse_packet_slim over (nodes, kw)."""
+    from cpugpupathtracing_tpu_torch.ops import pt_frame as ptf
+
+    return ptf.launch_key(
+        "traverse_packet_slim",
+        ptf.table_layout(nodes, kw["ents"], kw.get("fused_nn", 0),
+                         kw["width"]), depth=depth,
+        leaf=ptf.leaf_arm(kw.get("occl", False), kw.get("pay"),
+                          kw.get("occl_rows", 1)))
+
+
+def shadow_query(ds, o, d, t, hit):
+    """Shadow rays toward light 0 from the hit points o + d t of the lanes
+    that hit: (ray columns, tmax, active)."""
+    import torch
+
+    pos = o + d * torch.where(hit, t, torch.zeros_like(t))[:, None]
+    to_l = ds.mk_lights[0, 0:3][None, :] - pos
+    dist = torch.sqrt((to_l * to_l).sum(dim=1))
+    to_l = to_l / dist[:, None]
+    return (columns(pos + to_l * 0.001, to_l),
+            dist - ds.mk_lights[0, 3] - 0.002, hit)
+
+
+def leaf_b4(ds, cam_cfg, width, height, name: str) -> dict:
+    """Phase [leaf3_b4_<flag>]: traverse_packet_slim over the any-hit tree
+    at full frame: the camera rays of the width x height frame made on
+    the card (row-major), their closest hits (the leaf-14 closest hit with the
+    payload, else the t-only query; count_depth, the JAX function's
+    default) and the any hits toward light 0 of the rays that hit, each
+    launch timed and every SAMPLE_STRIDE-th lane against its plain
+    version (traverse_main_path: the walk bitwise, brute force in
+    existence), with the launch counts of the two arms from 0."""
+    import torch
+    from cpugpupathtracing_tpu_torch.models import camera as camlib
+    from cpugpupathtracing_tpu_torch.ops import traverse_packet_slim as tps
+
+    dev = torch.device("cuda")
+    cam = camlib.to_arrays(cam_cfg, dev)
+    nodes, ltris, roots, ckw, akw = b4_tables(ds, occl=True)
+
+    def frame_fn():
+        lane = torch.arange(width * height, device=dev)
+        o, d = camlib.lane_rays(cam, lane, width, height)
+        rays = columns(o, d)
+        far = torch.full((width * height,), 1e34, device=dev)
+        h = tps.traverse_packet_slim(rays[:3], rays[3:], far, nodes, ltris,
+                                     roots, **ckw)
+        qr, t0, act = shadow_query(ds, o, d, h[0], h[1] >= 0)
+        tps.traverse_packet_slim(qr[:3], qr[3:], t0, nodes, ltris, roots,
+                                 active=act, any_hit=True, count_depth=False,
+                                 **akw)
+
+    frame_fn()  # warm-up
+    keys = (b4_key(nodes, ckw, True), b4_key(nodes, akw, False))
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    frame_fn()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    got = counts()
+    expect_counts(got, f"leaf3 b4 {name}", **{k: 1 for k in keys})
+    path = traverse_main_path(frame_fn, f"leaf3 b4 {name}", 2)
+    bitwise_path(path, f"leaf3 b4 {name}")
+    say(f"leaf3_b4_{name}", lanes=width * height, ms=ms, counts=got,
+        kernel_ms=sum(mp["ms"] for mp in path), keys=keys)
+    for mp in path:
+        say(f"leaf3_b4_{name}_{mp['kind']}", **mp)
+    return dict(counts=got, path=path, ms=ms, keys=keys)
+
+
+def leaf3(scene, cam_cfg, settings, width, height, o, d, st, ref64,
+          ref_frames) -> dict:
+    """Phase [leaf3]: config 3 at 1920x1080 under CPUGPU_LEAF14,
+    CPUGPU_OCCL2 and CPUGPU_OCCL_W16 (LEAF_RUNS), each built from the
+    checkout (seconds): its arms on the check lanes (check_variant, B4
+    over the any-hit tree), the
+    routes its gate allows -- the whole-frame route (OCCL2: pt_frame's
+    2-row arm) and the per-depth route (shade_extend's leaf-14 arm,
+    shadow_resolve's 2-row and 16-wide arms) -- with every launch timed,
+    bounded and sampled against the plain version bitwise and
+    LEAF_FRAMES timed frames, and B4's arms over the any-hit tree at full
+    frame (leaf_b4).  Each flag's frames from reset equal the default
+    layout's (`ref_frames`, phase 20) bitwise: image and traced count.
+    Returns the numbers by flag."""
+    import torch
+    from cpugpupathtracing_tpu_torch.models import scene as scenelib
+
+    dev = torch.device("cuda")
+    out = {}
+    for name, env in LEAF_RUNS:
+        with environ(**env):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ds = scene.device(dev)
+            torch.cuda.synchronize()
+            build_s = time.perf_counter() - t0
+            small = sum(v for k, v in ds.table_bytes().items()
+                        if k.startswith("mk_"))
+            gate = scenelib.pt_frame_gate_reason(ds, settings)
+            res = dict(build_seconds=build_s, gate=gate,
+                       occl_rows=ds.poccl_rows, occl_width=ds.poccl_width,
+                       occl_node_rows=ds.poccl_nodes.shape[0],
+                       occl_leaf_rows=ds.poccl_ltris.shape[0],
+                       payload=ds.poccl_pay is not None,
+                       stack_need=scene.build_info["stack_need"],
+                       occl_depth=scene.build_info["occl_depth"])
+            with arms(ds, settings) as keys:
+                res["arms"] = keys
+                res["check"] = check_variant(ds, settings, o, d, st, small,
+                                             f"leaf_{name}", ref64,
+                                             whole=gate is None, occl_b4=True)
+                if gate is None:
+                    path, got, whole = frame_whole(
+                        scene, cam_cfg, settings, width, height, small, False,
+                        phase=f"leaf3_{name}_whole")
+                    whole.pop("renderer")
+                    res["whole"] = dict(whole, path=path, counts=got)
+                    bitwise_path(path, f"leaf {name}, whole-frame")
+                path, got, mega = frame_mega(
+                    scene, cam_cfg, settings, width, height, small, False,
+                    phase=f"leaf3_{name}_mega", whole=gate is None)
+                mega.pop("renderer")
+                bitwise_path(path, f"leaf {name}, per-depth")
+            frames = [("per-depth", mega.pop("image"), mega["traced"],
+                       "image", "traced")]
+            whole_img = mega.pop("whole_image")
+            if gate is None:
+                frames.append(("whole-frame", whole_img,
+                               mega["whole_traced"], "whole_image",
+                               "whole_traced"))
+            for route, img, traced, ik, tk in frames:
+                if not (bool((img == ref_frames[ik]).all())
+                        and traced == ref_frames[tk]):
+                    raise AssertionError(f"leaf {name}: the {route} frame "
+                                         "differs from the default layout's")
+            res["mega"] = dict(mega, path=path, counts=got)
+            res["b4"] = leaf_b4(ds, cam_cfg, width, height, name)
+        out[name] = res
+        say("leaf3", flag=name, build_seconds=round(build_s, 2),
+            gate=gate, occl_rows=res["occl_rows"],
+            occl_width=res["occl_width"],
+            occl_node_rows=res["occl_node_rows"],
+            occl_leaf_rows=res["occl_leaf_rows"], occl_depth=res["occl_depth"],
+            stack_need=res["stack_need"],
+            whole_ms_per_frame=res.get("whole", {}).get("ms_per_frame"),
+            whole_mrays_per_s=res.get("whole", {}).get("mrays_per_s"),
+            mega_ms_per_frame=res["mega"]["ms_per_frame"],
+            mega_mrays_per_s=res["mega"]["mrays_per_s"],
+            traced_per_frame=res["mega"]["traced"],
+            image_equal_default=True, traced_equal_default=True,
+            arms=res["arms"])
+    return out
+
+
+# each kernel's CUDA unit (csrc/) and the TPU kernel it replaces
+# (cpugpupathtracing_tpu/ops/, the pallas_call line)
+KERNEL_SOURCES = {
+    "pt_frame": ("pt_frame.cu", "pt_frame_kernel.py:419"),
+    "shade_extend": ("megakernel.cu", "megakernel.py:1713"),
+    "shadow_resolve": ("megakernel.cu", "megakernel.py:1847"),
+    "traverse_packet_slim": ("traverse.cu", "traverse_packet_slim.py:1485"),
+}
+
+
+def arm_entry(kernel: str, key: str, chk: dict, launches: int, path: list,
+              **extra) -> dict:
+    """A kernels-line entry of an arm: its check-lane numbers (`chk`, an
+    entry of check_variant), its launches on the main path and those
+    launches' numbers, and `extra`."""
+    unit, line = KERNEL_SOURCES[kernel]
+    return dict({
+        "name": key,
+        "route": "cuda",
+        "source": "cpugpupathtracing_tpu_torch/csrc/" + unit,
+        "replaces": "cpugpupathtracing_tpu/ops/" + line,
+        "launches": launches,
+        "max_abs_err": chk["max_abs_err"],
+        "ms": chk["ms"],
+        "call_ms": chk["call_ms"],
+        "plain_ms": chk["plain_ms"],
+        "bound_ms": chk["bound"][0],
+        "bound_by": chk["bound"][1],
+        "library_ms": None,
+        "check_lanes": CHECK_LANES,
+        "check_mismatches": chk["mismatches"],
+        "layouts": chk["layouts"],
+        "main_path": [{k: mp[k] for k in mp if k in (
+            "launch", "depth", "kind", "run", "lanes", "active", "ms",
+            "call_ms", "bound_ms", "bound_by", "sampled_lanes",
+            "max_abs_err", "mismatches", "energy_bit_mismatches")}
+            for mp in path],
+    }, **extra)
+
+
+def check_summary(chk: dict) -> dict:
+    """The few numbers of a check entry that stand beside another arm's."""
+    return {"name": chk["key"], "ms": chk["ms"], "call_ms": chk["call_ms"],
+            "plain_ms": chk["plain_ms"], "bound_ms": chk["bound"][0],
+            "mismatches": chk["mismatches"]}
+
+
+def leaf_entries(leaf: dict, leaf5: dict) -> list:
+    """The kernels line's entries of the leaf arms: per flag of LEAF_RUNS
+    the arms it adds (those whose launch key names a leaf arm) --
+    pt_frame's 2-row arm (OCCL2), shade_extend's leaf-14 arm (LEAF14),
+    shadow_resolve's 2-row (OCCL2) and 16-wide (OCCL_W16) arms, and
+    traverse_packet_slim's arms over the any-hit tree (the closest hit
+    with count_depth, the any hit without, each with the other arm's
+    check beside it) -- each with its check-lane numbers
+    (check_leaf_<flag>), its launches on config 3's main paths under the
+    flag (the routes' timed frames; B4's full-frame queries) and config
+    5's launches of the arm under the flag beside them."""
+    out = []
+    for name, res in leaf.items():
+        chk, b4, r5 = res["check"], res["b4"], leaf5.get(name, {})
+        for kernel, route in (("pt_frame", "whole"), ("shade_extend", "mega"),
+                              ("shadow_resolve", "mega")):
+            key = res["arms"][kernel]
+            if kernel not in chk or not ({"pay", "occl", "occl2", "ow16"}
+                                         & set(key.split("_"))):
+                continue
+            path = [mp for mp in res[route]["path"]
+                    if kernel == "pt_frame" or mp["name"] == kernel]
+            extra = dict(flag=name)
+            if route in r5:
+                k5 = r5["arms"][kernel]
+                extra["config5"] = {"name": k5, "launches":
+                                    r5[route]["counts"].get(k5, 0)}
+            out.append(arm_entry(kernel, key, chk[kernel],
+                                 res[route]["counts"].get(key, 0), path,
+                                 **extra))
+        # the arm each query's main path launches (leaf_b4): the closest
+        # hit with count_depth, the any hit without
+        for query, main, other in (("closest", "_depth", ""),
+                                   ("any", "", "_depth")):
+            c = chk[f"traverse_{query}{main}"]
+            out.append(arm_entry(
+                "traverse_packet_slim", c["key"], c,
+                b4["counts"].get(c["key"], 0),
+                [mp for mp in b4["path"] if mp["kind"] == query], flag=name,
+                check_other_arm=check_summary(
+                    chk[f"traverse_{query}{other}"])))
     return out
 
 
@@ -2874,14 +3303,12 @@ def variant_entries(lay3: dict, lay5: dict) -> list:
     """The kernels line's entries of the variant arms: per layout of
     LAYOUT_RUNS but the plain one, pt_frame's, shade_extend's,
     shadow_resolve's (over 16-wide and fused rows from the run without
-    the any-hit tables) and the traversal's with and without count_depth,
-    each with its check-lane numbers (check_<layout>), its launches on
-    config 3's main paths in that layout (the whole-frame route's timed
-    frames, the per-depth route's, the traversal's XLA and WHITTED
-    frames) and those main paths' launches; config 5's launches per
-    layout beside them."""
-    src = "cpugpupathtracing_tpu_torch/csrc/"
-    rep = "cpugpupathtracing_tpu/ops/"
+    the any-hit tables) and the traversal's with and without count_depth
+    (the any hit with count_depth beside the latter), each with its
+    check-lane numbers (check_<layout>), its launches on config 3's main
+    paths in that layout (the whole-frame route's timed frames, the
+    per-depth route's, the traversal's XLA and WHITTED frames) and those
+    main paths' launches; config 5's launches per layout beside them."""
     out = []
     for name, _ in LAYOUT_RUNS:
         if name == "64":
@@ -2890,77 +3317,28 @@ def variant_entries(lay3: dict, lay5: dict) -> list:
         shadow = lay3.get(f"{name}_shared", res) \
             if name in ("w16", "fused", "fused_w16") else res
         b4 = res["b4"]
-
-        def b4_launches(key):
-            return sum(b4[run]["counts"].get(key, 0) for run in b4)
-
-        def b4_path(depth):
-            return [dict(mp, run=run) for run in b4 for mp in b4[run]["path"]
-                    if mp["count_depth"] == depth]
-
-        rows = (
-            ("pt_frame", res["arms"]["pt_frame"], res["check"]["pt_frame"],
-             "pt_frame.cu", "pt_frame_kernel.py:419",
-             res["whole"]["counts"].get(res["arms"]["pt_frame"], 0),
-             res["whole"]["path"]),
-            ("shade_extend", res["arms"]["shade_extend"],
-             res["check"]["shade_extend"], "megakernel.cu",
-             "megakernel.py:1713",
-             res["mega"]["counts"].get(res["arms"]["shade_extend"], 0),
-             [mp for mp in res["mega"]["path"]
-              if mp["name"] == "shade_extend"]),
-            ("shadow_resolve", shadow["arms"]["shadow_resolve"],
-             shadow["check"]["shadow_resolve"], "megakernel.cu",
-             "megakernel.py:1847",
-             shadow["mega"]["counts"].get(shadow["arms"]["shadow_resolve"], 0),
-             [mp for mp in shadow["mega"]["path"]
-              if mp["name"] == "shadow_resolve"]),
-            ("traverse_packet_slim", res["arms"]["traverse_packet_slim"],
-             res["check"]["traverse"], "traverse.cu",
-             "traverse_packet_slim.py:1485",
-             b4_launches(res["arms"]["traverse_packet_slim"]),
-             b4_path(False)),
-            ("traverse_packet_slim", res["arms"]["traverse_packet_slim_depth"],
-             res["check"]["traverse_closest"], "traverse.cu",
-             "traverse_packet_slim.py:1485",
-             b4_launches(res["arms"]["traverse_packet_slim_depth"]),
-             b4_path(True)),
-        )
-        for kernel, key, chk, unit, line, launches, path in rows:
-            entry = {
-                "name": key,
-                "route": "cuda",
-                "source": src + unit,
-                "replaces": rep + line,
-                "launches": launches,
-                "max_abs_err": chk["max_abs_err"],
-                "ms": chk["ms"],
-                "call_ms": chk["call_ms"],
-                "plain_ms": chk["plain_ms"],
-                "bound_ms": chk["bound"][0],
-                "bound_by": chk["bound"][1],
-                "library_ms": None,
-                "check_lanes": CHECK_LANES,
-                "layouts": chk["layouts"],
-                "main_path": [{k: mp[k] for k in mp if k in (
-                    "launch", "depth", "kind", "run", "lanes", "ms",
-                    "call_ms", "bound_ms", "bound_by", "sampled_lanes",
-                    "max_abs_err", "mismatches", "energy_bit_mismatches")}
-                    for mp in path],
-            }
-            if "energy_bit_mismatches" in chk:
-                entry["check_energy_bit_mismatches"] = \
-                    chk["energy_bit_mismatches"]
-            if key.endswith("_depth"):
-                entry["check_any_hit"] = {
-                    k: res["check"]["traverse_any"][k]
-                    for k in ("ms", "call_ms", "plain_ms", "mismatches")} | {
-                    "bound_ms": res["check"]["traverse_any"]["bound"][0]}
-            r5 = lay5.get(name, {})
-            route = "whole" if kernel == "pt_frame" else "mega"
-            if route in r5 and kernel != "traverse_packet_slim":
-                entry["config5_launches"] = r5[route]["counts"].get(key, 0)
-            out.append(entry)
+        r5 = lay5.get(name, {})
+        for kernel, run, route in (("pt_frame", res, "whole"),
+                                   ("shade_extend", res, "mega"),
+                                   ("shadow_resolve", shadow, "mega")):
+            key = run["arms"][kernel]
+            extra = ({"config5_launches": r5[route]["counts"].get(key, 0)}
+                     if route in r5 else {})
+            out.append(arm_entry(
+                kernel, key, run["check"][kernel],
+                run[route]["counts"].get(key, 0),
+                [mp for mp in run[route]["path"]
+                 if kernel == "pt_frame" or mp["name"] == kernel], **extra))
+        for depth in (False, True):
+            chk = res["check"]["traverse_closest" + "_depth" * depth]
+            key = res["arms"]["traverse_packet_slim" + "_depth" * depth]
+            extra = ({"check_any_hit": check_summary(
+                res["check"]["traverse_any_depth"])} if depth else {})
+            out.append(arm_entry(
+                "traverse_packet_slim", key, chk,
+                sum(b4[run]["counts"].get(key, 0) for run in b4),
+                [dict(mp, run=run) for run in b4 for mp in b4[run]["path"]
+                 if mp["count_depth"] == depth], **extra))
     return out
 
 
@@ -3150,7 +3528,16 @@ def main() -> int:
     # lanes, the traversal's main paths) and on config 5 flattened
     lay3 = layouts3(scene, cam_cfg, settings, settings1, width, height, o, d,
                     st, (e_k, s_k, tr_k))
-    lay5 = layouts5(s5)
+    ref5: dict = {}
+    lay5 = layouts5(s5, LAYOUT5_RUNS, ref5)
+
+    # 22-23. the leaf-side and occlusion flags on config 3 (the check
+    # lanes, the routes the gate allows, B4 over the any-hit tree) and on
+    # config 5 flattened
+    with frame_count(LEAF_FRAMES):
+        leaf = leaf3(scene, cam_cfg, settings, width, height, o, d, st,
+                     (e_k, s_k, tr_k), lay3["ref_frames"])
+        leaf5 = layouts5(s5, LEAF5_RUNS, ref5, phase="leaf5", profile=False)
 
     # 18. kernels line, one clock per field: ms (device time per launch,
     # launch_ms), call_ms (CUDA events around the wrapper calls,
@@ -3309,6 +3696,7 @@ def main() -> int:
                 for mp in path if mp["count_depth"]],
         })
     kernels += variant_entries(lay3, lay5)
+    kernels += leaf_entries(leaf, leaf5)
     print(json.dumps({"kernels": kernels}), flush=True)
     # 19. last line
     print(json.dumps({"ok": True, "device": {

@@ -152,6 +152,13 @@ class PacketFlags:
       bounds-only rows, else off (CPUGPU_SMEMTREE).
     smem_min_nodes: trees of fewer node rows hand the side tables to the
       whole-frame kernel only (CPUGPU_SMEMTREE_MIN_NODES).
+    leaf14: the closest-hit walk runs over the occlusion tree's 14-record
+      leaves with their payload rows (CPUGPU_LEAF14; builds the occlusion
+      tables).
+    occl2: occlusion leaves of two rows, up to 28 records (CPUGPU_OCCL2;
+      implies occl).
+    occl_w16: 16-wide occlusion trees where no mesh is instanced
+      (CPUGPU_OCCL_W16; implies occl).
     framestack, rowx: the JAX package's TPU schedule flags
       (CPUGPU_FRAMESTACK, CPUGPU_ROWX), read only for its condition on
       the 48-col rows; the port has no schedule they select."""
@@ -161,6 +168,9 @@ class PacketFlags:
     fused: bool = False
     smemtree: str = "48"
     smem_min_nodes: int = 2048
+    leaf14: bool = False
+    occl2: bool = False
+    occl_w16: bool = False
     framestack: bool = True
     rowx: int = 1
 
@@ -175,12 +185,30 @@ def packet_flags() -> PacketFlags:
     if tree not in PACKET_TREE_MODES:
         raise ValueError(f"unknown CPUGPU_PACKET_TREE '{tree}' (one of "
                          f"{', '.join(PACKET_TREE_MODES)})")
+    occl = env("CPUGPU_OCCL") == "1"
+    leaf14 = env("CPUGPU_LEAF14") == "1"
+    occl2 = env("CPUGPU_OCCL2") == "1"
+    occl_w16 = env("CPUGPU_OCCL_W16") == "1"
+    if occl2:
+        occl = True
+        if leaf14:
+            raise RuntimeError("CPUGPU_OCCL2 (2-row any-hit leaves) cannot "
+                               "combine with CPUGPU_LEAF14 (closest-hit "
+                               "payload rows)")
+    if occl_w16:
+        occl = True
+        if occl2 or leaf14:
+            raise RuntimeError("CPUGPU_OCCL_W16 cannot combine with "
+                               "CPUGPU_OCCL2 or CPUGPU_LEAF14")
     return PacketFlags(
         tree=tree,
-        occl=env("CPUGPU_OCCL") == "1",
+        occl=occl,
         fused=env("CPUGPU_FUSED") == "1",
         smemtree=env("CPUGPU_SMEMTREE"),
         smem_min_nodes=int(env("CPUGPU_SMEMTREE_MIN_NODES") or "2048"),
+        leaf14=leaf14,
+        occl2=occl2,
+        occl_w16=occl_w16,
         framestack=env("CPUGPU_FRAMESTACK") == "1",
         rowx=int(env("CPUGPU_ROWX") or "1"),
     )

@@ -28,7 +28,12 @@
 // The node-table variants (kVar: the entry side tables with 64- or
 // 48-col rows, 16-wide rows, the fused table; pt_device.cuh push_node)
 // are the JAX kernels' arms over those tables, built for the plain
-// (non-instanced) arm only, as in the JAX package.
+// (non-instanced) arm only, as in the JAX package.  So are the leaf arms
+// (pt_device.cuh kLeaf): shade_extend's leaf-14 closest hit over the
+// occlusion tree with its payload rows (pay, CPUGPU_LEAF14) and
+// shadow_resolve's any hit over 2-row occlusion leaves (occl_rows=2,
+// CPUGPU_OCCL2); shadow_resolve over 16-wide occlusion rows
+// (CPUGPU_OCCL_W16) is its variant arm at sh_width 16.
 //
 // What the design does about it, in this first version: one thread per
 // lane with its own stack in local memory; a lane with nothing to do
@@ -48,9 +53,11 @@ namespace {
 
 // kInst: the instance arm (the TLAS machinery of the object-space
 // instanced scene; the instance tables ride in PtArgs, not in the
-// shared-memory pack); kVar: the variant walks (pt::variant).  Each
-// kernel is built <false, false>, <true, false> and <false, true>.
-template <bool kInst, bool kVar>
+// shared-memory pack); kVar: the variant walks (pt::variant); kLeaf: the
+// walk's leaf arm (variant only).  Each kernel is built <false, false>,
+// <true, false> and <false, true>, shade_extend also <false, true,
+// kLeafOccl> (pay) and shadow_resolve <false, true, kLeafOccl2>.
+template <bool kInst, bool kVar, int kLeaf = pt::kLeafShade>
 __global__ void __launch_bounds__(pt::kBlock)
     shade_extend_kernel(const pt::PtArgs a) {
   extern __shared__ float smem[];
@@ -59,11 +66,12 @@ __global__ void __launch_bounds__(pt::kBlock)
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   pt::Counters cnt;
   const bool ok =
-      lane >= a.n || pt::shade_extend_lane<kInst, kVar>(p, tb, lane, cnt);
+      lane >= a.n ||
+      pt::shade_extend_lane<kInst, kVar, kLeaf>(p, tb, lane, cnt);
   pt::finish(a, ok, cnt);
 }
 
-template <bool kInst, bool kVar>
+template <bool kInst, bool kVar, int kLeaf = pt::kLeafShade>
 __global__ void __launch_bounds__(pt::kBlock)
     shadow_resolve_kernel(const pt::PtArgs a) {
   extern __shared__ float smem[];
@@ -72,7 +80,8 @@ __global__ void __launch_bounds__(pt::kBlock)
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   pt::Counters cnt;
   const bool ok =
-      lane >= a.n || pt::shadow_resolve_lane<kInst, kVar>(p, tb, lane, cnt);
+      lane >= a.n ||
+      pt::shadow_resolve_lane<kInst, kVar, kLeaf>(p, tb, lane, cnt);
   pt::finish(a, ok, cnt);
 }
 
@@ -80,19 +89,28 @@ __global__ void __launch_bounds__(pt::kBlock)
 
 // Both entries return cudaGetLastError() after the launch (or -1 when the
 // packed small tables do not match the layout, or an instance arm is
-// asked for over variant tables); they never synchronise.
+// asked for over variant tables or with a leaf arm); they never
+// synchronise.
 extern "C" int mk_shade_extend_launch(const pt::PtArgs* a) {
-  if (a->num_inst > 0) {
-    return pt::variant(*a) ? -1 : pt::launch(shade_extend_kernel<true, false>, a);
+  if (pt::refused(*a)) return -1;
+  if (a->num_inst > 0) return pt::launch(shade_extend_kernel<true, false>, a);
+  switch (pt::leaf_arm(*a)) {
+    case pt::kLeafOccl:
+      return pt::launch(shade_extend_kernel<false, true, pt::kLeafOccl>, a);
+    case pt::kLeafOccl2:
+      return -1;  // the leaf-14 payload has 1-row leaves only
   }
   return pt::variant(*a) ? pt::launch(shade_extend_kernel<false, true>, a)
                          : pt::launch(shade_extend_kernel<false, false>, a);
 }
 
 extern "C" int mk_shadow_resolve_launch(const pt::PtArgs* a) {
+  if (pt::refused(*a)) return -1;
   if (a->num_inst > 0) {
-    return pt::variant(*a) ? -1
-                           : pt::launch(shadow_resolve_kernel<true, false>, a);
+    return pt::launch(shadow_resolve_kernel<true, false>, a);
+  }
+  if (pt::sh_leaf_arm(*a) == pt::kLeafOccl2) {
+    return pt::launch(shadow_resolve_kernel<false, true, pt::kLeafOccl2>, a);
   }
   return pt::variant(*a) ? pt::launch(shadow_resolve_kernel<false, true>, a)
                          : pt::launch(shadow_resolve_kernel<false, false>, a);

@@ -28,7 +28,13 @@
 // 128-col rows whose entries >= fused_nn are leaf rows of the same table
 // (Tree::ents, cols, width, fused_nn) -- while the plain walks
 // (kVar = false) read the 64-col rows with the entries at cols 48..55
-// only, and compile as they did before the variants.  The TLAS instance
+// only, and compile as they did before the variants.  The leaf arms
+// (kLeaf, variant walks only) read the occlusion tree's leaves of the JAX
+// package's CPUGPU_LEAF14 and CPUGPU_OCCL2: a closest hit over the
+// 14-record occlusion rows with the id, object and normal from a payload
+// row at the same offset (Tree::pay), and an any hit over leaves of two
+// rows (28 records).  The 16-wide occlusion rows of CPUGPU_OCCL_W16 are
+// the variant walks' 16-wide rows.  The TLAS instance
 // machinery of ops/traverse_packet_slim.py is: with kInst, an entry above
 // SLIM_EMPTY (SLIM_EMPTY + 1 + instance id) moves the ray into the
 // instance's object space by its 3x4 inst_inv row (the direction stays
@@ -68,6 +74,12 @@ constexpr int RESTORE = 0x3FFFFFFF;
 constexpr int LEAF_TRIS = 8;
 constexpr int OCCL_TRIS = 14;
 constexpr int OCCL_STRIDE = 9;
+// the leaf layout of a walk (template argument kLeaf): kLeafShade reads
+// the rows Tree::occl names (8 shading records of 16 cols, or 14 bare
+// occlusion records of 9 cols); kLeafOccl / kLeafOccl2 read occlusion
+// leaves of one / two rows (bvh8.to_slim_occl rows_per_leaf: leaf entry
+// -(k + 1) owns rows R k .. R k + R - 1)
+constexpr int kLeafShade = 0, kLeafOccl = 1, kLeafOccl2 = 2;
 constexpr float TRI_DET_EPS = 0.001f;
 constexpr float PLANE_DENOM_EPS = 1e-6f;
 constexpr float BIG = 1e30f;
@@ -196,6 +208,14 @@ struct Tree {  // one slim 8-wide tree: (B, 64) nodes, (NL, 128) leaf rows
   // fused node|leaf table its node-row count (0 otherwise)
   const int* ents;
   int cols, width, fused_nn;
+  // the leaf-14 payload rows (NO, 128) parallel to the occlusion leaf
+  // rows (bvh8.occl_payload: [nx, ny, nz, obj, id] at each record's
+  // offset), read by the closest hit of the leaf arms; null otherwise
+  const float* pay;
+  // with count_iters: one byte per payload record (row * OCCL_TRIS +
+  // record), set to 1 when the leaf-14 closest hit reads its payload (a
+  // record that passes the triangle test); else null
+  unsigned char* seen_pay;
 };
 
 struct Counters {  // work done: node / leaf rows visited, rays traversed
@@ -371,6 +391,21 @@ PT_HD float tri_test(float ox, float oy, float oz, float dx, float dy,
   return ok ? tt : -1.0f;
 }
 
+// Rows per leaf of a leaf arm's occlusion leaves.
+template <int kLeaf>
+constexpr int kOcclRows = kLeaf == kLeafOccl2 ? 2 : 1;
+
+// The first leaf row of occlusion leaf entry e under a leaf arm, with
+// every row of the leaf marked in seen_leaf.
+template <int kLeaf>
+PT_HD int occl_leaf_row(const Tree& tr, int e) {
+  const int r0 = kOcclRows<kLeaf> * (-e - 1);
+  if (tr.seen_leaf) {
+    for (int q = 0; q < kOcclRows<kLeaf>; ++q) tr.seen_leaf[r0 + q] = 1;
+  }
+  return r0;
+}
+
 // The ray of a walk in its current space: world space, or after an
 // instance entry that instance's object space (kInst walks).
 struct WalkRay {
@@ -382,6 +417,14 @@ struct WalkRay {
 PT_HD WalkRay world_ray(float ox, float oy, float oz, float dx, float dy,
                         float dz) {
   return {ox, oy, oz, dx, dy, dz, slab_ray(ox, oy, oz, dx, dy, dz), -1};
+}
+
+// tri_test of the ray against the 9-col [v0, e1, e2] occlusion record at r
+// (scalar loads: a record at stride 9 is not 16-byte aligned).
+PT_HD float occl_tri_test(const WalkRay& c, const float* r) {
+  return tri_test(c.ox, c.oy, c.oz, c.dx, c.dy, c.dz, ld(r), ld(r + 1),
+                  ld(r + 2), ld(r + 3), ld(r + 4), ld(r + 5), ld(r + 6),
+                  ld(r + 7), ld(r + 8));
 }
 
 // One control entry of a kInst walk, before the node / leaf cases: on
@@ -431,13 +474,20 @@ PT_HD int instance_entry(const Tree& tr, const WalkRay& w, WalkRay& cur,
 // counts into *depth the node rows at which a child passed the push test
 // (instance entries and RESTORE are no node rows; a BLAS root is).
 // With kVar the walk reads the tree's layout (push_node, var_*; never
-// with kInst).  Returns false on a stack overflow.
-template <bool kInst = false, bool kDepth = false, bool kVar = false>
+// with kInst).  With a leaf arm (kLeafOccl, kLeafOccl2; kVar only) the
+// leaves are occlusion leaves of 14 records per row, tested in order with
+// the same rule: a record's id, object and normal come from the payload
+// row at its offset (CPUGPU_LEAF14), or, without payload rows, the hit
+// keeps only its t and takes id 1 (the JAX function's t-only query).
+// Returns false on a stack overflow.
+template <bool kInst = false, bool kDepth = false, bool kVar = false,
+          int kLeaf = kLeafShade>
 PT_HD bool closest_hit(const Tree& tr, float ox, float oy, float oz,
                        float dx, float dy, float dz, Hit& h,
                        unsigned long long& it_node,
                        unsigned long long& it_leaf, int* depth = nullptr) {
   static_assert(!(kInst && kVar), "the instance arms walk 64-col rows");
+  static_assert(kLeaf == kLeafShade || kVar, "the leaf arms are variant");
   const WalkRay w = world_ray(ox, oy, oz, dx, dy, dz);
   WalkRay cur = w;
   int stack[kVar ? PT_STACK_W16 : PT_STACK];
@@ -457,6 +507,29 @@ PT_HD bool closest_hit(const Tree& tr, float ox, float oy, float oz,
       } else {
         ok &= push_children<kDepth>(tr.nodes + (size_t)e * 64, cur.sr, h.t,
                                     true, stack, sp, depth);
+      }
+    } else if constexpr (kLeaf != kLeafShade) {
+      ++it_leaf;
+      const int r0 = occl_leaf_row<kLeaf>(tr, e);
+      for (int q = 0; q < kOcclRows<kLeaf>; ++q) {
+        const float* row = tr.ltris + (size_t)(r0 + q) * 128;
+        const float* prow = tr.pay ? tr.pay + (size_t)(r0 + q) * 128 : nullptr;
+        for (int c = 0; c < OCCL_TRIS; ++c) {
+          const float tt = occl_tri_test(cur, row + OCCL_STRIDE * c);
+          if (tt >= 0.0f && tt <= h.t) {
+            const float* p = prow ? prow + OCCL_STRIDE * c : nullptr;
+            if (p && tr.seen_pay) tr.seen_pay[(r0 + q) * OCCL_TRIS + c] = 1;
+            const int id = p ? as_int(ld(p + 4)) : 1;
+            if (tt < h.t || id < h.tri) {
+              h.t = tt;
+              h.tri = id;
+              h.obj = p ? as_int(ld(p + 3)) : -1;
+              h.nx = p ? ld(p) : 0.0f;
+              h.ny = p ? ld(p + 1) : 0.0f;
+              h.nz = p ? ld(p + 2) : 0.0f;
+            }
+          }
+        }
       }
     } else {
       ++it_leaf;
@@ -494,15 +567,19 @@ PT_HD bool closest_hit(const Tree& tr, float ox, float oy, float oz,
 // kReport (shading trees only) also writes the record it found into
 // `found` (t, original id, object, flat normal, instance).  With kInst
 // the walk runs the instance machinery; kDepth counts as in closest_hit,
-// up to the row that ends the walk; kVar reads the tree's layout.
+// up to the row that ends the walk; kVar reads the tree's layout.  A leaf
+// arm (kLeafOccl, kLeafOccl2; kVar only) reads occlusion leaves of one or
+// two rows (14 or 28 records in order), and with kReport writes the t of
+// the record it found and id 1 (the occlusion bit of the JAX function).
 // Returns false on a stack overflow.
 template <bool kReport = false, bool kInst = false, bool kDepth = false,
-          bool kVar = false>
+          bool kVar = false, int kLeaf = kLeafShade>
 PT_HD bool any_hit(const Tree& tr, float ox, float oy, float oz, float dx,
                    float dy, float dz, float tmax, bool& occluded,
                    unsigned long long& it_node, unsigned long long& it_leaf,
                    Hit* found = nullptr, int* depth = nullptr) {
   static_assert(!(kInst && kVar), "the instance arms walk 64-col rows");
+  static_assert(kLeaf == kLeafShade || kVar, "the leaf arms are variant");
   const WalkRay w = world_ray(ox, oy, oz, dx, dy, dz);
   WalkRay cur = w;
   int stack[kVar ? PT_STACK_W16 : PT_STACK];
@@ -523,6 +600,23 @@ PT_HD bool any_hit(const Tree& tr, float ox, float oy, float oz, float dx,
       } else {
         ok &= push_children<kDepth>(tr.nodes + (size_t)e * 64, cur.sr, tmax,
                                     false, stack, sp, depth);
+      }
+    } else if constexpr (kLeaf != kLeafShade) {
+      ++it_leaf;
+      const int r0 = occl_leaf_row<kLeaf>(tr, e);
+      for (int q = 0; q < kOcclRows<kLeaf>; ++q) {
+        const float* row = tr.ltris + (size_t)(r0 + q) * 128;
+        for (int c = 0; c < OCCL_TRIS; ++c) {
+          const float tt = occl_tri_test(cur, row + OCCL_STRIDE * c);
+          if (tt >= 0.0f && tt < tmax) {
+            occluded = true;
+            if constexpr (kReport) {
+              found->t = tt;
+              found->tri = 1;
+            }
+            return ok;
+          }
+        }
       }
     } else {
       ++it_leaf;
@@ -960,15 +1054,17 @@ PT_HD Shadow shade_surface(const Tables& tb, const Mode& md, Path& ps,
 // body.  With kInst the hit's object-space normal first becomes
 // normalize(inst_nrm @ n) (megakernel.py's instanced epilogue, the
 // arithmetic of models/scene.hit_surface).  Updates `ps` and returns the
-// NEE shadow ray (all zero unless sneed).  kVar: the variant walk.
-// Clears `ok` on a stack overflow.
-template <bool kInst = false, bool kVar = false>
+// NEE shadow ray (all zero unless sneed).  kVar: the variant walk; kLeaf:
+// its leaf arm (kLeafOccl: the leaf-14 walk with payload rows).  Clears
+// `ok` on a stack overflow.
+template <bool kInst = false, bool kVar = false, int kLeaf = kLeafShade>
 PT_HD Shadow extend(const Tree& tree, const Tables& tb, const Mode& md,
                     Path& ps, bool depth0, Counters& cnt, bool& ok) {
   ++cnt.ray;
   Hit h = {RAY_TMAX, -1, -1, 0.0f, 0.0f, 0.0f, -1};
-  ok &= closest_hit<kInst, false, kVar>(tree, ps.ox, ps.oy, ps.oz, ps.dx,
-                                        ps.dy, ps.dz, h, cnt.node, cnt.leaf);
+  ok &= closest_hit<kInst, false, kVar, kLeaf>(tree, ps.ox, ps.oy, ps.oz,
+                                               ps.dx, ps.dy, ps.dz, h,
+                                               cnt.node, cnt.leaf);
   if (kInst && h.iid >= 0) {
     const float* m = tree.inst_nrm + 9 * h.iid;
     const float n0 = h.nx, n1 = h.ny, n2 = h.nz;
@@ -987,15 +1083,16 @@ PT_HD Shadow extend(const Tree& tree, const Tables& tb, const Mode& md,
 
 // The NEE shadow test of a shadow ray with sneed set: any hit over the
 // any-hit tree, then the analytic occluders.  True when the light is
-// visible.  kVar: the variant walk.  Clears `ok` on a stack overflow.
-template <bool kInst = false, bool kVar = false>
+// visible.  kVar: the variant walk; kLeaf: its leaf arm (kLeafOccl2:
+// 2-row occlusion leaves).  Clears `ok` on a stack overflow.
+template <bool kInst = false, bool kVar = false, int kLeaf = kLeafShade>
 PT_HD bool unoccluded(const Tree& sh_tree, const Tables& tb, const Shadow& sh,
                       Counters& cnt, bool& ok) {
   ++cnt.sray;
   bool occ = false;
-  ok &= any_hit<false, kInst, false, kVar>(sh_tree, sh.ox, sh.oy, sh.oz,
-                                           sh.dx, sh.dy, sh.dz, sh.tmax, occ,
-                                           cnt.snode, cnt.sleaf);
+  ok &= any_hit<false, kInst, false, kVar, kLeaf>(
+      sh_tree, sh.ox, sh.oy, sh.oz, sh.dx, sh.dy, sh.dz, sh.tmax, occ,
+      cnt.snode, cnt.sleaf);
   if (!occ) {
     occ = analytic_occluded(tb, sh.ox, sh.oy, sh.oz, sh.dx, sh.dy, sh.dz,
                             sh.tmax);
@@ -1088,8 +1185,9 @@ PT_HD void store_path(const Params& p, int lane, const Path& ps, bool sneed) {
 
 // pt_frame: every depth of one lane; the lane leaves the loop when its
 // path dies (its RNG state then stays as it is).  kVar: both walks read
-// their tree's layout.  Returns false on a stack overflow.
-template <bool kVar = false>
+// their tree's layout; kShLeaf: the shadow walk's leaf arm (kLeafOccl2).
+// Returns false on a stack overflow.
+template <bool kVar = false, int kShLeaf = kLeafShade>
 PT_HD bool trace_lane(const Params& p, const Tables& tb, int lane,
                       Counters& cnt) {
   Path ps = load_path(p, lane);
@@ -1101,7 +1199,7 @@ PT_HD bool trace_lane(const Params& p, const Tables& tb, int lane,
                                     d + p.depth_base == 0, cnt, ok);
     if (sh.sneed) {
       tr += 1;
-      if (unoccluded<false, kVar>(p.sh_tree, tb, sh, cnt, ok)) {
+      if (unoccluded<false, kVar, kShLeaf>(p.sh_tree, tb, sh, cnt, ok)) {
         add_light(ps.enx, ps.eny, ps.enz, sh);
       }
     }
@@ -1117,16 +1215,17 @@ PT_HD bool trace_lane(const Params& p, const Tables& tb, int lane,
 // shadow columns (the per-lane form of the Pallas kernel's dead-tile
 // rule); a live lane writes its next ray and carry, flags with bit 2 =
 // sneed, and its shadow ray (zero unless sneed, so tmax = sneed ? tmax :
-// 0).  kVar: the variant walk.  Returns false on a stack overflow.
-template <bool kInst = false, bool kVar = false>
+// 0).  kVar: the variant walk; kLeaf: its leaf arm (kLeafOccl: the leaf-14
+// walk).  Returns false on a stack overflow.
+template <bool kInst = false, bool kVar = false, int kLeaf = kLeafShade>
 PT_HD bool shade_extend_lane(const Params& p, const Tables& tb, int lane,
                              Counters& cnt) {
   Path ps = load_path(p, lane);
   Shadow sh = {false, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
   bool ok = true;
   if (ps.active) {
-    sh = extend<kInst, kVar>(p.tree, tb, p.mode, ps, p.depth_base == 0, cnt,
-                             ok);
+    sh = extend<kInst, kVar, kLeaf>(p.tree, tb, p.mode, ps,
+                                    p.depth_base == 0, cnt, ok);
   }
   store_path(p, lane, ps, sh.sneed);
   const float cols[10] = {sh.ox, sh.oy, sh.oz, sh.dx, sh.dy,
@@ -1139,9 +1238,9 @@ PT_HD bool shade_extend_lane(const Params& p, const Tables& tb, int lane,
 // shadow_resolve: a lane with sneed (flags bit 2) runs the shadow test
 // of its shadow ray over p.sh_tree (kInst: on the instance machinery)
 // and adds the contribution when the light is visible; every other lane
-// copies its energy.  kVar: the variant walk.  Returns false on a stack
-// overflow.
-template <bool kInst = false, bool kVar = false>
+// copies its energy.  kVar: the variant walk; kLeaf: its leaf arm
+// (kLeafOccl2).  Returns false on a stack overflow.
+template <bool kInst = false, bool kVar = false, int kLeaf = kLeafShade>
 PT_HD bool shadow_resolve_lane(const Params& p, const Tables& tb, int lane,
                                Counters& cnt) {
   float enx = p.en_in[0][lane], eny = p.en_in[1][lane],
@@ -1160,7 +1259,7 @@ PT_HD bool shadow_resolve_lane(const Params& p, const Tables& tb, int lane,
     sh.cr = p.shadow[7][lane];
     sh.cg = p.shadow[8][lane];
     sh.cb = p.shadow[9][lane];
-    if (unoccluded<kInst, kVar>(p.sh_tree, tb, sh, cnt, ok)) {
+    if (unoccluded<kInst, kVar, kLeaf>(p.sh_tree, tb, sh, cnt, ok)) {
       add_light(enx, eny, enz, sh);
     }
   }
@@ -1196,8 +1295,9 @@ struct PtArgs {
   const void* active;  // traverse: (n,) i32 lane mask, or null (all)
   void* shadow[10];   // Params::shadow: shade_extend out, shadow_resolve in
   void* iters;        // NUM_COUNTERS u64 work counters (Counters order), or null
-  void* seen[4];      // u8 row bitmaps (Tree::seen_*): node, leaf, shadow
-                      // node, shadow leaf rows; null unless counting
+  void* seen[5];      // u8 bitmaps (Tree::seen_*): node, leaf, shadow node,
+                      // shadow leaf rows, payload records; null unless
+                      // counting
   // the instance machinery of both trees (Tree::inst_*), or null
   const void* inst_inv;
   const void* inst_nrm;
@@ -1205,6 +1305,8 @@ struct PtArgs {
   // the entry side tables (B + V, 8) i32 of both trees, or null
   const void* ents;
   const void* sh_ents;
+  // the closest-hit tree's leaf-14 payload rows (Tree::pay), or null
+  const void* pay;
   void* status;       // i32, bit 0 set on a traversal stack overflow
   void* stream;
   int small_words;
@@ -1212,9 +1314,12 @@ struct PtArgs {
   int num_sph, num_pln, num_lights, nroots, sh_nroots, mesh_lights, sh_occl;
   int n, depths, depth_base, nee, rr, cosine, ref_pdf, any_hit, num_inst;
   // the node layout (Tree::fused_nn, width, cols; the shadow tree's
-  // width and fused_nn are the closest-hit tree's unless sh_occl, when
-  // it is 8-wide and split)
+  // fused_nn is the closest-hit tree's unless sh_occl, when it is split)
   int fused_nn, width, cols, sh_cols;
+  // occl: the closest-hit tree holds occlusion leaves (traverse's occl
+  // arms); occl_rows: the rows per leaf of the launch's occlusion tree (1
+  // or 2, CPUGPU_OCCL2); sh_width: the shadow tree's arity (8 or 16)
+  int occl, occl_rows, sh_width;
 };
 
 // True when a launch needs the variant walks (kVar): a side table, or
@@ -1224,15 +1329,38 @@ PT_HD bool variant(const PtArgs& a) {
          a.sh_cols != 64;
 }
 
+// The leaf arm (kLeaf) of a launch's walk over its closest-hit tree: an
+// occlusion tree (shade_extend's leaf-14 payload, traverse_packet_slim's
+// occl) of 2-row leaves (kLeafOccl2) or 1-row ones (kLeafOccl), else
+// shading leaves.
+PT_HD int leaf_arm(const PtArgs& a) {
+  if (!a.occl) return kLeafShade;
+  return a.occl_rows == 2 ? kLeafOccl2 : kLeafOccl;
+}
+
+// The leaf arm of a launch's walk over its shadow tree: kLeafOccl2 for an
+// occlusion tree of 2-row leaves; the 1-row occlusion leaves are read by
+// the default arm (Tree::occl).
+PT_HD int sh_leaf_arm(const PtArgs& a) {
+  return a.sh_occl && a.occl_rows == 2 ? kLeafOccl2 : kLeafShade;
+}
+
+// True when a launch asks for an arm that is not built: the instance
+// machinery over variant tables or with a leaf arm.
+PT_HD bool refused(const PtArgs& a) {
+  return a.num_inst > 0 && (variant(a) || leaf_arm(a) != kLeafShade ||
+                            sh_leaf_arm(a) != kLeafShade);
+}
+
 // The layout of PtArgs as this compiler sees it: its size and the
-// offsets of depth_out, ents and its last field, which ops/pt_frame.py
+// offsets of depth_out, pay and its last field, which ops/pt_frame.py
 // holds against its ctypes mirror when it loads a build (a field out of
 // step would shift every later one silently).
 inline void args_layout(long long* out) {
   out[0] = (long long)sizeof(PtArgs);
   out[1] = (long long)offsetof(PtArgs, depth_out);
-  out[2] = (long long)offsetof(PtArgs, ents);
-  out[3] = (long long)offsetof(PtArgs, sh_cols);
+  out[2] = (long long)offsetof(PtArgs, pay);
+  out[3] = (long long)offsetof(PtArgs, sh_width);
 }
 
 // Word offsets of the packed small tables: mats (M, 14), lights (L, 10),
@@ -1279,13 +1407,14 @@ PT_HD void unpack(const PtArgs& a, const float* small, Tables& tb, Tree& tree,
   const int* iroot = static_cast<const int*>(a.inst_root);
   tree = {static_cast<const float*>(a.nodes), static_cast<const float*>(a.ltris),
           w, a.nroots, false, seen[0], seen[1], inv, nrm, iroot, a.num_inst,
-          static_cast<const int*>(a.ents), a.cols, a.width, a.fused_nn};
+          static_cast<const int*>(a.ents), a.cols, a.width, a.fused_nn,
+          static_cast<const float*>(a.pay), seen[4]};
   w += a.nroots;
   sh_tree = {static_cast<const float*>(a.sh_nodes),
              static_cast<const float*>(a.sh_ltris), w, a.sh_nroots,
              a.sh_occl != 0, seen[2], seen[3], inv, nrm, iroot, a.num_inst,
-             static_cast<const int*>(a.sh_ents), a.sh_cols,
-             a.sh_occl ? 8 : a.width, a.sh_occl ? 0 : a.fused_nn};
+             static_cast<const int*>(a.sh_ents), a.sh_cols, a.sh_width,
+             a.sh_occl ? 0 : a.fused_nn, nullptr, nullptr};
 }
 
 PT_HD Params make_params(const PtArgs& a, const Tree& tree,
@@ -1325,8 +1454,11 @@ PT_HD Params make_params(const PtArgs& a, const Tree& tree,
 // t_init / active columns every lane is active with t_init = RAY_TMAX
 // (the closest-hit test of ops/pt_frame.py).  With kDepth (count_depth:
 // a.depth_out set) the lane also writes its walk's bvh_depth, 0 when it
-// is not active.  kVar: the variant walk.
-template <bool kInst = false, bool kDepth = false, bool kVar = false>
+// is not active.  kVar: the variant walk; kLeaf: its leaf arm over an
+// occlusion tree (traverse_packet_slim's occl: the any hit, the leaf-14
+// closest hit with payload rows, or the t-only closest hit).
+template <bool kInst = false, bool kDepth = false, bool kVar = false,
+          int kLeaf = kLeafShade>
 PT_HD bool traverse_lane(const PtArgs& a, const Tree& tree, int lane,
                          Counters& cnt) {
   const float* const* r = reinterpret_cast<const float* const*>(a.ray);
@@ -1340,14 +1472,13 @@ PT_HD bool traverse_lane(const PtArgs& a, const Tree& tree, int lane,
     ++cnt.ray;
     if (a.any_hit) {
       bool occ = false;
-      ok = any_hit<true, kInst, kDepth, kVar>(
+      ok = any_hit<true, kInst, kDepth, kVar, kLeaf>(
           tree, r[0][lane], r[1][lane], r[2][lane], r[3][lane], r[4][lane],
           r[5][lane], t0, occ, cnt.node, cnt.leaf, &h, &depth);
     } else {
-      ok = closest_hit<kInst, kDepth, kVar>(tree, r[0][lane], r[1][lane],
-                                            r[2][lane], r[3][lane],
-                                            r[4][lane], r[5][lane], h,
-                                            cnt.node, cnt.leaf, &depth);
+      ok = closest_hit<kInst, kDepth, kVar, kLeaf>(
+          tree, r[0][lane], r[1][lane], r[2][lane], r[3][lane], r[4][lane],
+          r[5][lane], h, cnt.node, cnt.leaf, &depth);
     }
   }
   if constexpr (kDepth) static_cast<int*>(a.depth_out)[lane] = depth;

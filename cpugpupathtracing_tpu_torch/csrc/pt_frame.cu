@@ -12,7 +12,9 @@
 // sh_ents) with 64- or 48-col rows, the 16-wide 128-col rows (width=16)
 // and the fused node|leaf table (fused_nn) -- on the closest-hit tree,
 // and 64- or 48-col rows with or without sh_ents on the 8-wide shadow
-// tree.
+// tree.  pt_frame_kernel<true, kLeafOccl2> is the JAX kernel's
+// occl_rows=2 arm (CPUGPU_OCCL2): the shadow walk reads occlusion leaves
+// of two rows, 28 records, over any of those layouts.
 //
 // What bounds it on this card: neither HBM bytes nor f32 operations.
 // A lane reads 32 bytes and writes 24 (64 with the span carry), while its
@@ -45,8 +47,10 @@
 
 namespace {
 
-// kVar: the variant walks (pt::variant); built both ways
-template <bool kVar>
+// kVar: the variant walks (pt::variant); kShLeaf: the shadow walk's leaf
+// arm (pt::kLeafOccl2 for 2-row occlusion leaves, variant walks only);
+// built <false>, <true> and <true, kLeafOccl2>
+template <bool kVar, int kShLeaf = pt::kLeafShade>
 __global__ void __launch_bounds__(pt::kBlock)
     pt_frame_kernel(const pt::PtArgs a) {
   extern __shared__ float smem[];
@@ -54,7 +58,8 @@ __global__ void __launch_bounds__(pt::kBlock)
   const pt::Params p = pt::setup(a, smem, tb);
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   pt::Counters cnt;
-  const bool ok = lane >= a.n || pt::trace_lane<kVar>(p, tb, lane, cnt);
+  const bool ok =
+      lane >= a.n || pt::trace_lane<kVar, kShLeaf>(p, tb, lane, cnt);
   pt::finish(a, ok, cnt);
 }
 
@@ -63,6 +68,9 @@ __global__ void __launch_bounds__(pt::kBlock)
 // Returns cudaGetLastError() after the launch (or -1 when the packed small
 // tables do not match the layout); never synchronises.
 extern "C" int pt_frame_launch(const pt::PtArgs* a) {
+  if (pt::sh_leaf_arm(*a) == pt::kLeafOccl2) {
+    return pt::launch(pt_frame_kernel<true, pt::kLeafOccl2>, a);
+  }
   return pt::variant(*a) ? pt::launch(pt_frame_kernel<true>, a)
                          : pt::launch(pt_frame_kernel<false>, a);
 }

@@ -13,24 +13,36 @@ namespace {
 using LaneFn = bool (*)(const pt::Params&, const pt::Tables&, int,
                         pt::Counters&);
 
+// The variant walk of one lane under leaf arm kLeaf, with or without
+// count_depth.
+template <int kLeaf>
+bool variant_lane(const pt::Params& p, int lane, pt::Counters& cnt,
+                  const pt::PtArgs& a) {
+  return a.depth_out
+             ? pt::traverse_lane<false, true, true, kLeaf>(a, p.tree, lane, cnt)
+             : pt::traverse_lane<false, false, true, kLeaf>(a, p.tree, lane,
+                                                            cnt);
+}
+
 bool traverse_body(const pt::Params& p, const pt::Tables&, int lane,
                    pt::Counters& cnt, const pt::PtArgs& a) {
   if (a.num_inst > 0) {
     return a.depth_out ? pt::traverse_lane<true, true>(a, p.tree, lane, cnt)
                        : pt::traverse_lane<true>(a, p.tree, lane, cnt);
   }
-  if (pt::variant(a)) {
-    return a.depth_out
-               ? pt::traverse_lane<false, true, true>(a, p.tree, lane, cnt)
-               : pt::traverse_lane<false, false, true>(a, p.tree, lane, cnt);
+  switch (pt::leaf_arm(a)) {
+    case pt::kLeafOccl2:
+      return variant_lane<pt::kLeafOccl2>(p, lane, cnt, a);
+    case pt::kLeafOccl:
+      return variant_lane<pt::kLeafOccl>(p, lane, cnt, a);
   }
+  if (pt::variant(a)) return variant_lane<pt::kLeafShade>(p, lane, cnt, a);
   return a.depth_out ? pt::traverse_lane<false, true>(a, p.tree, lane, cnt)
                      : pt::traverse_lane<false>(a, p.tree, lane, cnt);
 }
 
 int run(const pt::PtArgs* a, LaneFn fn) {
-  if (a->small_words != pt::small_words(*a)) return -1;
-  if (a->num_inst > 0 && pt::variant(*a)) return -1;
+  if (a->small_words != pt::small_words(*a) || pt::refused(*a)) return -1;
   pt::Tables tb;
   pt::Tree tree, sh_tree;
   pt::unpack(*a, static_cast<const float*>(a->small), tb, tree, sh_tree);
@@ -56,7 +68,10 @@ int run(const pt::PtArgs* a, LaneFn fn) {
 }  // namespace
 
 extern "C" int pt_frame_host(const pt::PtArgs* a) {
-  return run(a, pt::variant(*a) ? pt::trace_lane<true> : pt::trace_lane<false>);
+  return run(a, pt::sh_leaf_arm(*a) == pt::kLeafOccl2
+                    ? pt::trace_lane<true, pt::kLeafOccl2>
+                : pt::variant(*a) ? pt::trace_lane<true>
+                                  : pt::trace_lane<false>);
 }
 
 extern "C" int traverse_host(const pt::PtArgs* a) {
@@ -68,15 +83,21 @@ extern "C" int whitted_host(const pt::PtArgs* a) {
 }
 
 extern "C" int mk_shade_extend_host(const pt::PtArgs* a) {
-  return run(a, a->num_inst > 0     ? pt::shade_extend_lane<true>
+  if (pt::leaf_arm(*a) == pt::kLeafOccl2) return -1;
+  return run(a, a->num_inst > 0 ? pt::shade_extend_lane<true>
+                : pt::leaf_arm(*a) == pt::kLeafOccl
+                    ? pt::shade_extend_lane<false, true, pt::kLeafOccl>
                 : pt::variant(*a) ? pt::shade_extend_lane<false, true>
                                   : pt::shade_extend_lane<false>);
 }
 
 extern "C" int mk_shadow_resolve_host(const pt::PtArgs* a) {
-  return run(a, a->num_inst > 0     ? pt::shadow_resolve_lane<true>
-                : pt::variant(*a) ? pt::shadow_resolve_lane<false, true>
-                                  : pt::shadow_resolve_lane<false>);
+  return run(a,
+             a->num_inst > 0 ? pt::shadow_resolve_lane<true>
+             : pt::sh_leaf_arm(*a) == pt::kLeafOccl2
+                 ? pt::shadow_resolve_lane<false, true, pt::kLeafOccl2>
+             : pt::variant(*a) ? pt::shadow_resolve_lane<false, true>
+                               : pt::shadow_resolve_lane<false>);
 }
 
 extern "C" int pt_args_layout(long long* out) {

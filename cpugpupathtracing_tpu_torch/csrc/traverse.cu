@@ -24,7 +24,12 @@
 // The node-table variants (kVar: the entry side tables with 64- or
 // 48-col rows, 16-wide rows, the fused table) are the JAX kernel's arms
 // over those tables, with and without the depth count, for the plain
-// (non-instanced) arm, as in the JAX package.
+// (non-instanced) arm, as in the JAX package.  So are the occl arms
+// (pt_device.cuh kLeaf, the JAX function's occl / pay / occl_rows): the
+// walk over an occlusion tree of 1-row leaves (kLeafOccl: the any hit,
+// the leaf-14 closest hit with the payload rows of CPUGPU_LEAF14, the
+// t-only closest hit) or 2-row leaves (kLeafOccl2, CPUGPU_OCCL2), 8- or
+// 16-wide, with and without the depth count.
 //
 // What the design does about it, in this first version: one thread per
 // ray with its own stack in local memory, the walk of pt_device.cuh that
@@ -45,8 +50,9 @@ namespace {
 
 // kInst: the instance arm (object-space TLAS machinery); kDepth: the
 // count_depth arm (bvh_depth out); kVar: the variant walks
-// (pt::variant, never with kInst); built six ways
-template <bool kInst, bool kDepth, bool kVar>
+// (pt::variant, never with kInst); kLeaf: the occl arms (variant only);
+// built ten ways
+template <bool kInst, bool kDepth, bool kVar, int kLeaf = pt::kLeafShade>
 __global__ void __launch_bounds__(pt::kBlock)
     traverse_kernel(const pt::PtArgs a) {
   extern __shared__ float smem[];
@@ -56,26 +62,37 @@ __global__ void __launch_bounds__(pt::kBlock)
   pt::Counters cnt;
   const bool ok =
       lane >= a.n ||
-      pt::traverse_lane<kInst, kDepth, kVar>(a, p.tree, lane, cnt);
+      pt::traverse_lane<kInst, kDepth, kVar, kLeaf>(a, p.tree, lane, cnt);
   pt::finish(a, ok, cnt);
+}
+
+// The variant walk's launch under leaf arm kLeaf, with or without
+// count_depth as the launch's depth column asks.
+template <int kLeaf>
+int launch_variant(const pt::PtArgs* a) {
+  return a->depth_out
+             ? pt::launch(traverse_kernel<false, true, true, kLeaf>, a)
+             : pt::launch(traverse_kernel<false, false, true, kLeaf>, a);
 }
 
 }  // namespace
 
 // Returns cudaGetLastError() after the launch (or -1 when the packed small
 // tables do not match the layout, or an instance arm is asked for over
-// variant tables); never synchronises.
+// variant or occlusion tables); never synchronises.
 extern "C" int traverse_launch(const pt::PtArgs* a) {
-  const bool var = pt::variant(*a);
+  if (pt::refused(*a)) return -1;
   if (a->num_inst > 0) {
-    if (var) return -1;
     return a->depth_out ? pt::launch(traverse_kernel<true, true, false>, a)
                         : pt::launch(traverse_kernel<true, false, false>, a);
   }
-  if (var) {
-    return a->depth_out ? pt::launch(traverse_kernel<false, true, true>, a)
-                        : pt::launch(traverse_kernel<false, false, true>, a);
+  switch (pt::leaf_arm(*a)) {
+    case pt::kLeafOccl2:
+      return launch_variant<pt::kLeafOccl2>(a);
+    case pt::kLeafOccl:
+      return launch_variant<pt::kLeafOccl>(a);
   }
+  if (pt::variant(*a)) return launch_variant<pt::kLeafShade>(a);
   return a->depth_out ? pt::launch(traverse_kernel<false, true, false>, a)
                       : pt::launch(traverse_kernel<false, false, false>, a);
 }

@@ -6,8 +6,10 @@ port builds (models/scene.py's CPUGPU_PACKET_TREE modes): the greedy
 collapse (`collapse`, modes fat / sweep) and the SAH-cost DP collapse at
 width 8 or 16 (`collapse_sah`, modes dp / sweep_dp / w16), re-encoded
 into shading-complete leaf rows (`to_slim`) and bare any-hit leaf rows
-(`to_slim_occl`), plus the entry side tables (`slim_side_tables`) and
-48-col bounds-only rows (`slim_bounds48`) of CPUGPU_SMEMTREE.  The
+(`to_slim_occl`: 1- or 2-row leaves, 8- or 16-wide) with their leaf-14
+payload rows (`occl_payload`), plus the entry side tables
+(`slim_side_tables`) and 48-col bounds-only rows (`slim_bounds48`) of
+CPUGPU_SMEMTREE.  The
 tables are bitwise those of the JAX package, so both packages trace the
 same trees.
 
@@ -360,9 +362,9 @@ class BVH8Slim:
         return self.nodes.shape[1] // 8
 
 
-def to_slim_occl(w: BVH8) -> BVH8Slim:
-    """Re-encode a BVH8 (leaf_max <= OCCL_TRIS) into occlusion-only
-    leaf-blocked tables for any-hit shadow traversal.
+def to_slim_occl(w: BVH8, rows_per_leaf: int = 1) -> BVH8Slim:
+    """Re-encode a BVH8 (leaf_max <= OCCL_TRIS * rows_per_leaf) into
+    occlusion-only leaf-blocked tables for any-hit shadow traversal.
 
     Shadow rays (the NEE occlusion test, Source/Main.cpp:452-453) only
     need a boolean "does any triangle intersect with t < tmax", so the
@@ -373,26 +375,70 @@ def to_slim_occl(w: BVH8) -> BVH8Slim:
     like to_slim's).  Occlusion results are bitwise identical to the
     shading tree's any-hit (same Moller-Trumbore arithmetic on the same
     float v0/e1/e2 values; the occluded bit is an OR over the same
-    triangle set)."""
+    triangle set).
+
+    rows_per_leaf=2 (CPUGPU_OCCL2): each leaf owns two consecutive rows
+    (up to 28 records: 0..13 in row 2k, 14..27 in row 2k+1) and its
+    entry is -(k + 1), 8-wide only.  Width follows the input tree: a
+    width-16 collapse (CPUGPU_OCCL_W16) keeps its (B, 128) node rows
+    with entries at cols 96..111; the leaf rows do not depend on it."""
+    if w.width not in (8, 16):
+        raise ValueError("occlusion tables are 8- or 16-wide")
+    if rows_per_leaf not in (1, 2):
+        raise ValueError("rows_per_leaf must be 1 or 2")
+    if rows_per_leaf == 2 and w.width != 8:
+        raise ValueError("2-row occlusion leaves are 8-wide only")
+    max_tris = OCCL_TRIS * rows_per_leaf
     nodes = w.nodes.copy()
-    cidx = nodes[:, 48:56].view(np.int32)
-    ccnt = nodes[:, 56:64].view(np.int32)
+    wd = w.width
+    cidx = nodes[:, 6 * wd : 7 * wd].view(np.int32)
+    ccnt = nodes[:, 7 * wd : 8 * wd].view(np.int32)
     is_leaf = ccnt > 0
-    if is_leaf.any() and int(ccnt[is_leaf].max()) > OCCL_TRIS:
-        raise ValueError(f"occlusion tables need leaf_max <= {OCCL_TRIS}")
+    if is_leaf.any() and int(ccnt[is_leaf].max()) > max_tris:
+        raise ValueError(f"occlusion tables need leaf_max <= {max_tris}")
 
     starts = cidx[is_leaf]
     counts = ccnt[is_leaf]
     nl = len(starts)
-    ltris = np.zeros((max(nl, 1), 128), np.float32)
+    ltris = np.zeros((max(nl, 1) * rows_per_leaf, 128), np.float32)
     for leaf, (st, c) in enumerate(zip(starts, counts)):
         for k in range(int(c)):
-            base = OCCL_STRIDE * k
-            ltris[leaf, base : base + 9] = w.tris9[st + k]
+            row = leaf * rows_per_leaf + k // OCCL_TRIS
+            base = OCCL_STRIDE * (k % OCCL_TRIS)
+            ltris[row, base : base + 9] = w.tris9[st + k]
     leaf_rows = np.arange(nl, dtype=np.int32)
     cidx[is_leaf] = -(leaf_rows + 1)
     cidx[ccnt == -1] = SLIM_EMPTY
     return BVH8Slim(nodes=nodes, ltris=ltris, max_depth=w.max_depth)
+
+
+def occl_payload(w: BVH8, tri_normal: np.ndarray) -> np.ndarray:
+    """(NO, 128) payload rows parallel to `to_slim_occl(w)`'s leaf rows
+    (CPUGPU_LEAF14): record k of a row carries [nx, ny, nz, obj (i32,
+    stamped 0; the scene build stamps it), id (i32), 0, 0, 0, 0] at the
+    same stride-9 offset as its geometry record, so the leaf-14
+    closest-hit walk reads one geometry row and one payload row per leaf
+    visit and returns to_slim's flat normal, object and original
+    triangle id.  Padding records carry id -1 (the determinant test
+    rejects them anyway).  8-wide trees only."""
+    nodes = w.nodes
+    cidx = nodes[:, 48:56].view(np.int32)
+    ccnt = nodes[:, 56:64].view(np.int32)
+    is_leaf = ccnt > 0
+    starts, counts = cidx[is_leaf], ccnt[is_leaf]
+    nl = max(len(starts), 1)
+    pay = np.zeros((nl, 128), np.float32)
+    pid = pay.view(np.int32)
+    for row in range(nl):
+        for k in range(OCCL_TRIS):
+            base = OCCL_STRIDE * k
+            if row < len(starts) and k < counts[row]:
+                orig = int(w.leaf_tri_id[starts[row] + k])
+                pay[row, base : base + 3] = tri_normal[orig]
+                pid[row, base + 4] = orig
+            else:
+                pid[row, base + 4] = -1
+    return pay
 
 
 def to_slim(w: BVH8, tri_normal: np.ndarray) -> BVH8Slim:

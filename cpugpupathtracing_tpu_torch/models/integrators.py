@@ -132,7 +132,8 @@ def frame_kwargs(dev: DeviceScene, settings: RenderSettings) -> dict:
     kw = extend_kwargs(dev, settings)
     if dev.poccl_roots:
         kw.update(sh_nodes=dev.poccl_nodes, sh_ltris=dev.poccl_ltris,
-                  sh_roots=dev.poccl_roots, occl=True)
+                  sh_roots=dev.poccl_roots, occl=True,
+                  occl_rows=dev.poccl_rows)
     return kw
 
 
@@ -141,7 +142,19 @@ def route_tables(dev: DeviceScene, whole_frame: bool = False) -> tuple:
     layout keywords fused_nn / width / ents) that a route hands its
     closest-hit kernel: the tables of scene.packet_tables, as the JAX
     package's routes pass them (no side table on the object-space
-    machinery)."""
+    machinery).  With the leaf-14 payload rows (CPUGPU_LEAF14; the
+    per-depth route only, whose gate takes them) the any-hit tree and
+    `pay`, as the JAX package's trace_advanced_mega takes them: its
+    48-col rows and side table when built, none for a small tree."""
+    if dev.poccl_pay is not None and not whole_frame:
+        nodes, ents = dev.poccl_nodes, dev.poccl_ents
+        if dev.smem_small:
+            ents = None
+        elif dev.poccl_nodes48 is not None:
+            nodes = dev.poccl_nodes48
+        return (nodes, dev.poccl_ltris) + dev.tables()[2:], dict(
+            fused_nn=0, width=8, ents=ents, pay=dev.poccl_pay,
+            roots=dev.poccl_roots)
     nodes, ltris, fused_nn, ents = packet_tables(dev, whole_frame)
     return (nodes, ltris) + dev.tables()[2:], dict(
         fused_nn=fused_nn, width=dev.packet_width,
@@ -160,7 +173,7 @@ def frame_args(dev: DeviceScene, settings: RenderSettings) -> tuple:
     if occl is not None:
         sh_nodes, sh_ltris, sh_roots, sh_ents = occl
         kw.update(sh_nodes=sh_nodes, sh_ltris=sh_ltris, sh_roots=sh_roots,
-                  sh_ents=sh_ents, occl=True)
+                  sh_ents=sh_ents, occl=True, occl_rows=dev.poccl_rows)
     return tables, kw
 
 
@@ -170,7 +183,8 @@ def shadow_tables(dev: DeviceScene) -> tuple:
     side table), or the shading tables in their route layout
     (route_tables) -- on the object-space instance machinery with the
     instance tables (the JAX package's instanced arm, which builds no
-    any-hit tables)."""
+    any-hit tables).  The any-hit tree's arity and rows per leaf ride
+    along (CPUGPU_OCCL_W16, CPUGPU_OCCL2)."""
     kw = dict(num_sph=dev.num_sph, num_pln=dev.num_pln)
     occl = occl_tables(dev)
     if occl is None:
@@ -179,7 +193,9 @@ def shadow_tables(dev: DeviceScene) -> tuple:
             kw, **tkw, roots=dev.proots, occl=False,
             **dev.inst_kwargs(nrm=False))
     nodes, ltris, roots, ents = occl
-    return nodes, ltris, dict(kw, roots=roots, occl=True, ents=ents)
+    return nodes, ltris, dict(kw, roots=roots, occl=True, ents=ents,
+                              width=dev.poccl_width,
+                              occl_rows=dev.poccl_rows)
 
 
 def shadow_kwargs(dev: DeviceScene) -> dict:

@@ -18,11 +18,22 @@ bitwise the JAX package's under the same values:
     kept only when no instance needs the object-space machinery; such a
     scene falls back to sweep_dp);
   * CPUGPU_OCCL=1: the any-hit tables;
+  * CPUGPU_OCCL2=1 (implies CPUGPU_OCCL): any-hit leaves of two rows, up
+    to 28 records (`poccl_rows` 2); CPUGPU_OCCL_W16=1 (implies it too):
+    a 16-wide any-hit tree ((BO, 128) rows, `poccl_width` 16) where no
+    mesh is instanced; CPUGPU_LEAF14=1 (builds the any-hit tables): the
+    leaf-14 payload rows `poccl_pay` (bvh8.occl_payload; on a flattened
+    scene repacked from the shading records like the geometry), over
+    which the per-depth route's closest hits walk the any-hit tree.  The
+    any-hit tables are kept only where the JAX kernels' shadow stack
+    holds them (as in the JAX package), and the JAX package's conflicts
+    of these flags raise (config.packet_flags);
   * CPUGPU_FUSED=1: `pfused`, one (BP + NL, 128) node|leaf table whose
     leaf entries are nn + leaf row (not on the object-space machinery);
   * CPUGPU_SMEMTREE=1|48 (with CPUGPU_SMEMTREE_MIN_NODES): the entry side
     tables `pents`/`poccl_ents` (8-wide, not fused, not on the
-    machinery), and in mode 48, on scenes without instances and under
+    machinery; `poccl_ents` of an 8-wide any-hit tree only), and in mode
+    48, on scenes without instances and under
     the JAX condition CPUGPU_FRAMESTACK=1, CPUGPU_ROWX=1, the 48-col
     bounds-only rows `pnodes48`/`poccl_nodes48`.  A tree under the
     minimum (`smem_small`) hands them to the whole-frame kernel only.
@@ -91,6 +102,14 @@ MORTON_BITS = 8
 # the Whitted kernel's gate takes scenes of at most this many analytic
 # objects and materials (the JAX package's limit, kept for parity)
 ANALYTIC_UNROLL_MAX = 16
+# the JAX kernels' shadow-walk stacks: frames of its frame-stack schedule
+# (CPUGPU_FRAMESTACK, forced at width 16) and slots of the linear one
+# (its traverse_packet_slim FSTACK_FRAMES, STACK).  JAX keeps the any-hit
+# tables only where its shadow walk's stack holds them; the port copies
+# the rule so that its tables are JAX's, and refuses on its own what its
+# kernels' stacks (PT_STACK, PT_STACK_W16) cannot hold.
+JAX_FSTACK_FRAMES = 24
+JAX_SLOT_STACK = 64
 
 # (name, dtype) of every tensor field of DeviceScene, in order
 TABLE_FIELDS = (
@@ -137,11 +156,12 @@ VARIANT_FIELDS = (
     ("poccl_ents", torch.int32),     # (BO + V, 8) any-hit entries
     ("poccl_nodes48", torch.float32),  # (BO, 48)
     ("pfused", torch.float32),       # (BP + NL, 128) node|leaf rows
+    ("poccl_pay", torch.float32),    # (NO, 128) leaf-14 payload rows
 )
 META_FIELDS = ("proots", "poccl_roots", "light_tri_meta", "num_lights",
                "num_sph", "num_pln", "has_mesh_lights", "num_instances",
                "packet_flattened", "pfused_nn", "packet_width",
-               "smem_small")
+               "smem_small", "poccl_width", "poccl_rows")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -207,6 +227,11 @@ class DeviceScene:
     pfused_nn: int = 0
     packet_width: int = 8
     smem_small: bool = False
+    # the any-hit tree's leaf payload rows (CPUGPU_LEAF14), its arity (8:
+    # (BO, 64) rows, 16: (BO, 128)) and rows per leaf (2: CPUGPU_OCCL2)
+    poccl_pay: torch.Tensor | None = None
+    poccl_width: int = 8
+    poccl_rows: int = 1
     # what a refit needs (Scene._refit_device); None for a snapshot made
     # from numpy tables
     refit: dict | None = dataclasses.field(default=None, compare=False,
@@ -309,6 +334,8 @@ def scene_from_numpy(arrays: dict, meta: dict, device="cuda") -> DeviceScene:
         pfused_nn=int(meta.get("pfused_nn", 0)),
         packet_width=int(meta.get("packet_width", 8)),
         smem_small=bool(meta.get("smem_small", False)),
+        poccl_width=int(meta.get("poccl_width", 8)),
+        poccl_rows=int(meta.get("poccl_rows", 1)),
     )
 
 
@@ -329,27 +356,53 @@ class SceneObject:
 
 class _Blas(NamedTuple):
     """The trees of one mesh: its full-sweep SAH binary build (leaf <= 8),
-    the occlusion collapse (leaf_max 14) and its slim any-hit tree, and
     the slim closest-hit tree of each CPUGPU_PACKET_TREE mode built so
-    far (`pw`, filled by _packet_tree)."""
+    far (`pw`, filled by _packet_tree) and the any-hit trees of each leaf
+    size and arity built so far (`po`, filled by _occl_tree)."""
 
     b: bvhlib.BVH
+    pw: dict
+    po: dict
+
+
+class _Occl(NamedTuple):
+    """One any-hit tree of a mesh: the collapse, its slim tables, and its
+    leaf-14 payload rows (8-wide 1-row leaves; built when first asked)."""
+
     wo: bvh8lib.BVH8
     po: bvh8lib.BVH8Slim
-    pw: dict
+    pay: np.ndarray | None
 
 
 def _blas(obj: SceneObject) -> _Blas:
     """The object's trees, built once per mesh (full-sweep SAH binary
-    build, leaf <= 8; the SAH-cost DP collapse of bvh8 for the any-hit
-    tree)."""
+    build, leaf <= 8)."""
     if obj.blas is None or obj.blas[0] is not obj.mesh:
         m = obj.mesh
         b = bvhlib.build(m.positions, m.normals, m.indices,
                          BuildOption.SAH_SPLIT_PRIMITIVES, max_leaf_size=8)
-        wo = bvh8lib.collapse_sah(b, leaf_max=bvh8lib.OCCL_TRIS)
-        obj.blas = (obj.mesh, _Blas(b, wo, bvh8lib.to_slim_occl(wo), {}))
+        obj.blas = (obj.mesh, _Blas(b, {}, {}))
     return obj.blas[1]
+
+
+def _occl_tree(obj: SceneObject, rows: int = 1, width: int = 8,
+               pay: bool = False) -> _Occl:
+    """The object's any-hit tree (the JAX package's _build_occl_cache):
+    the SAH-cost DP collapse at leaf_max 14 * rows and arity `width` of
+    the full-sweep build, bare 14-record leaf rows, `rows` per leaf
+    (bvh8.to_slim_occl), and with pay the leaf-14 payload rows
+    (bvh8.occl_payload), cached per (rows, width)."""
+    t = _blas(obj)
+    key = (rows, width)
+    if key not in t.po:
+        wo = bvh8lib.collapse_sah(t.b, leaf_max=bvh8lib.OCCL_TRIS * rows,
+                                  width=width)
+        t.po[key] = _Occl(wo, bvh8lib.to_slim_occl(wo, rows_per_leaf=rows),
+                          None)
+    if pay and t.po[key].pay is None:
+        t.po[key] = t.po[key]._replace(
+            pay=bvh8lib.occl_payload(t.po[key].wo, t.b.tri_normal))
+    return t.po[key]
 
 
 def _packet_tree(obj: SceneObject, mode: str) -> bvh8lib.BVH8Slim:
@@ -525,13 +578,19 @@ class Scene:
                 mode = "sweep_dp"
         width = 16 if mode == "w16" else 8
         ncol = 8 * width
-        # the any-hit tables (CPUGPU_OCCL): for non-instanced and
-        # flattened scenes; the object-space machinery keeps shadow rays
-        # on the shading tables
-        build_occl = flags.occl and (not has_instances or flatten)
+        # the any-hit tables (CPUGPU_OCCL, CPUGPU_LEAF14): for non-instanced
+        # and flattened scenes; the object-space machinery keeps shadow
+        # rays on the shading tables.  Leaves of orows rows (CPUGPU_OCCL2);
+        # one arity for the whole table, 16 (CPUGPU_OCCL_W16) only where no
+        # mesh is instanced; the leaf-14 payload rows with CPUGPU_LEAF14
+        build_occl = (flags.occl or flags.leaf14) and (not has_instances
+                                                        or flatten)
+        orows = 2 if flags.occl2 else 1
+        owidth = 16 if flags.occl_w16 and not has_instances else 8
+        leaf14 = flags.leaf14
 
         pnodes_l, ptris_l, proots = [], [], []
-        onodes_l, oltris_l, oroots = [], [], []
+        onodes_l, oltris_l, oroots, opay_l = [], [], [], []
         pnode_off = pleaf_off = onode_off = oleaf_off = 0
         pdepth = odepth = 0
         tri_off = 0
@@ -548,7 +607,7 @@ class Scene:
 
         for oi, obj in enumerate(self.objects):
             if obj.kind == PRIM_MESH:
-                b, wo, po = trees[oi].b, trees[oi].wo, trees[oi].po
+                b = trees[oi].b
                 pw = _packet_tree(obj, mode)
                 inst = obj.instances
                 tris9_l.append(_pack_tris(b.tri_v0, b.tri_v1, b.tri_v2))
@@ -593,20 +652,36 @@ class Scene:
 
                 if build_occl:
                     # any-hit tables over the same binary build; on a
-                    # flattened scene their leaf rows are repacked from
-                    # the shading records (_occl_repack), so operm maps
-                    # every occlusion record to a shading record
-                    seg = (_occl_seg(lt, wo, b.num_triangles, tri_off)
-                           if flatten else None)
+                    # flattened scene their leaf rows (and payload rows)
+                    # are repacked from the shading records
+                    # (_occl_repack), so operm maps every occlusion record
+                    # to a shading record
+                    oc = _occl_tree(obj, orows, owidth, leaf14)
+                    po = oc.po
+                    seg = (_occl_seg(lt, oc.wo, b.num_triangles, tri_off,
+                                     orows) if flatten else None)
                     if inst is not None:
                         oflat_meta.append(dict(
                             first=len(inst_obj_l), count=len(inst),
                             node_base=onode_off,
                             src_bounds=po.nodes[:, :48].copy()))
+                    opay = oc.pay
+                    if leaf14 and inst is None:
+                        # object index stamped and ids made global, as in
+                        # the shading records
+                        opay = oc.pay.copy()
+                        pv = opay.view(i32)
+                        for krec in range(bvh8lib.OCCL_TRIS):
+                            pv[:, bvh8lib.OCCL_STRIDE * krec + 3] = oi
+                            idc = pv[:, bvh8lib.OCCL_STRIDE * krec + 4]
+                            idc[idc >= 0] += tri_off
                     for k in range(copies):
+                        # leaf entries hold the leaf index (row / orows)
                         onodes_l.append(_rebase(po.nodes, onode_off,
-                                                oleaf_off))
+                                                oleaf_off // orows))
                         oltris_l.append(po.ltris)
+                        if leaf14:
+                            opay_l.append(opay)
                         if inst is None:
                             oroots.append(onode_off)
                             base = pleaf_off - pw.num_leaf_rows
@@ -669,6 +744,30 @@ class Scene:
                 oroots.append(onode_off)
                 onode_off += len(tlas_rows)
 
+        if build_occl and oroots:
+            # the JAX package keeps the any-hit tables only where its
+            # shadow walk's stack holds the tree (its frame stack, forced
+            # at width 16, or its slot stack); else shadow rays keep the
+            # shading tables
+            if flags.framestack or owidth == 16:
+                o_need = (tlas_depth + odepth + 2
+                          + (len(oroots) - 1 + owidth - 1) // owidth + 1)
+                o_bound = JAX_FSTACK_FRAMES
+            else:
+                o_need = 7 * (tlas_depth + odepth + 1) + 1 + len(oroots)
+                o_bound = JAX_SLOT_STACK
+            if o_need > o_bound:
+                log_warn("Scene", "occlusion-table stack bound exceeded "
+                         "(need {} > {}); shadow rays keep the shading "
+                         "tables", o_need, o_bound)
+                build_occl = False
+                onodes_l, oltris_l, oroots, opay_l = [], [], [], []
+                operm_l, oflat_meta, odepth = [], [], 0
+                if refit is not None:
+                    refit["o_tlas_off"] = None
+        if not build_occl:
+            owidth, orows = 8, 1
+
         # the kernels' per-ray stack holds at most width - 1 pending
         # siblings per level of the TLAS and the deepest tree below it, the
         # RESTORE marker of an instance and the extra roots; refuse a tree
@@ -676,7 +775,7 @@ class Scene:
         # walks' PT_STACK_W16)
         stack_need = {}
         for kind, depth, roots, w in (("closest-hit", pdepth, proots, width),
-                                      ("any-hit", odepth, oroots, 8)):
+                                      ("any-hit", odepth, oroots, owidth)):
             need = (w - 1) * (tlas_depth + depth + 1) + 1 + max(len(roots), 1)
             bound = PT_STACK if w == 8 else PT_STACK_W16
             stack_need[kind] = need
@@ -689,7 +788,7 @@ class Scene:
             flat_bytes=flat_bytes, flatten_budget_mb=budget,
             flattened=flatten, tlas_rows=refit["tlas_count"] if refit else 0,
             tlas_depth=tlas_depth, stack_need=stack_need, packet_tree=mode,
-            packet_width=width, tree_depth=pdepth)
+            packet_width=width, tree_depth=pdepth, occl_depth=odepth)
         if not np.isfinite(wlo).all():
             wlo = np.zeros(3, f32)
             whi = np.ones(3, f32)
@@ -708,7 +807,7 @@ class Scene:
         arrays = dict(
             pnodes=rows(pnodes_l, ncol),
             pltris=rows(ptris_l, 128),
-            poccl_nodes=rows(onodes_l, 64),
+            poccl_nodes=rows(onodes_l, 8 * owidth),
             poccl_ltris=rows(oltris_l, 128),
             sph_obj=np.asarray(sph["obj"], i32),
             pln_obj=np.asarray(pln["obj"], i32),
@@ -743,6 +842,10 @@ class Scene:
             num_instances=num_instances,
             packet_flattened=flatten,
             packet_width=width,
+            poccl_pay=(t(rows(opay_l, 128), torch.float32)
+                       if build_occl and leaf14 else None),
+            poccl_width=owidth,
+            poccl_rows=orows,
             refit=refit,
         )
         if num_instances:
@@ -906,19 +1009,21 @@ def _rebase(rows: np.ndarray, node_off: int, leaf_off: int) -> np.ndarray:
 
 
 def _occl_seg(lt: np.ndarray, wo: bvh8lib.BVH8, num_tris: int,
-              tri_off: int) -> np.ndarray:
-    """Per occlusion record of one object (14 per leaf row, leaf order of
-    bvh8.to_slim_occl) the index row * 8 + slot of a shading record of
-    the same triangle in the object's leaf rows `lt` (ids global from
-    tri_off); padding records take the record of local triangle 0.  The
-    gather of _occl_repack (the JAX package's _build_occl_cache rec_tid
-    and operm)."""
+              tri_off: int, rows: int = 1) -> np.ndarray:
+    """Per occlusion record of one object (14 per leaf row, `rows` rows
+    per leaf, leaf order of bvh8.to_slim_occl) the index row * 8 + slot
+    of a shading record of the same triangle in the object's leaf rows
+    `lt` (ids global from tri_off); padding records take the record of
+    local triangle 0.  The gather of _occl_repack (the JAX package's
+    _build_occl_cache rec_tid and operm)."""
     i32 = np.int32
-    cidx = wo.nodes[:, 48:56].view(i32)
-    ccnt = wo.nodes[:, 56:64].view(i32)
+    w, per = wo.width, bvh8lib.OCCL_TRIS
+    cidx = wo.nodes[:, 6 * w:7 * w].view(i32)
+    ccnt = wo.nodes[:, 7 * w:8 * w].view(i32)
     is_leaf = ccnt > 0
     starts, counts = cidx[is_leaf], ccnt[is_leaf]
-    rec_tid = np.full((max(len(starts), 1), bvh8lib.OCCL_TRIS), -1, i32)
+    # record k of a leaf sits in its row k // 14 at slot k % 14
+    rec_tid = np.full((max(len(starts), 1), rows * per), -1, i32)
     for leaf, (st, c) in enumerate(zip(starts, counts)):
         rec_tid[leaf, :c] = wo.leaf_tri_id[st:st + c]
     ltv = lt.view(i32)
@@ -1155,27 +1260,34 @@ def flatten_tables(src_bounds, src_ltris, A, b, nrm):
     return world_boxes(src_bounds, A, b), recs
 
 
-def _occl_repack(pltris, perm):
+def _occl_repack(pltris, perm, with_pay: bool = False):
     """Occlusion leaf rows gathered from the (world-space) shading records
     (the JAX package's _occl_repack): perm (NO * 14,) record indices
     row * 8 + slot; each row takes the [v0, e1, e2] of its 14 records,
-    so the any-hit floats are the shading floats bit for bit.  The
-    gather runs on the int32 bits (some id columns are NaN payloads as
-    f32)."""
-    rec = pltris.view(torch.int32).reshape(-1, 16)[perm, :9]
+    so the any-hit floats are the shading floats bit for bit.  With
+    with_pay also the leaf-14 payload rows, [normal, obj, id, 0 x 4] of
+    the same records: (geometry, payload).  The gather runs on the int32
+    bits (some id columns are NaN payloads as f32)."""
+    rec = pltris.view(torch.int32).reshape(-1, 16)[perm]
     no = perm.shape[0] // bvh8lib.OCCL_TRIS
-    body = rec.reshape(no, 126)
-    return torch.cat([body, torch.zeros_like(body[:, :2])],
-                     dim=1).view(torch.float32)
+    zeros2 = torch.zeros_like(rec[:no, :2])
+    geo = torch.cat([rec[:, :9].reshape(no, 126), zeros2],
+                    dim=1).view(torch.float32)
+    if not with_pay:
+        return geo
+    pay9 = torch.cat([rec[:, 9:14], torch.zeros_like(rec[:, :4])], dim=1)
+    return geo, torch.cat([pay9.reshape(no, 126), zeros2],
+                          dim=1).view(torch.float32)
 
 
 def _apply_transforms(ds: DeviceScene, rf: dict, words: torch.Tensor) -> None:
     """Write the transforms' part of the tables in place from the words
     of _transform_pack on the scene's device: the TLAS rows, on a
     flattened scene the world-space BLAS copies and the repacked
-    occlusion rows, the fused table (rebuilt from the new rows, as the
-    JAX package's refit does), the TLAS rows' entries in the side tables,
-    inst_inv, inst_nrm and the world bounds.  The BLAS rows' entries never
+    occlusion rows (with the leaf-14 payload rows), the fused table
+    (rebuilt from the new rows, as the JAX package's refit does), the
+    TLAS rows' entries in the side tables, inst_inv, inst_nrm and the
+    world bounds.  The BLAS rows' entries never
     move, but the TLAS assigns its child slots by the instances' world
     positions, so a move can permute them; the JAX package's refit leaves
     pents as built, and a refit here must equal a fresh build.  48-col
@@ -1212,8 +1324,12 @@ def _apply_transforms(ds: DeviceScene, rf: dict, words: torch.Tensor) -> None:
             bounds = world_boxes(ofm["src_bounds"], A[sl], b[sl])
             nb = ofm["node_base"]
             ds.poccl_nodes[nb:nb + bounds.shape[0], :48] = bounds
-        if rf["operm"] is not None:
+        if rf["operm"] is not None and ds.poccl_pay is None:
             ds.poccl_ltris.copy_(_occl_repack(ds.pltris, rf["operm"]))
+        elif rf["operm"] is not None:  # and the leaf-14 payload rows
+            geo, pay = _occl_repack(ds.pltris, rf["operm"], with_pay=True)
+            ds.poccl_ltris.copy_(geo)
+            ds.poccl_pay.copy_(pay)
     if ds.pfused is not None:
         ds.pfused.copy_(fuse_packet_tables(ds.pnodes, ds.pltris))
     ds.inst_inv.copy_(inv.view(I, 12))
@@ -1248,9 +1364,13 @@ def _side_tables(ds: DeviceScene, flags, pnodes: np.ndarray,
     device rows'), and in mode 48 on a scene without instances, under the
     JAX condition CPUGPU_FRAMESTACK=1 and CPUGPU_ROWX=1, the 48-col
     bounds-only rows (bvh8.slim_bounds48).  None for 16-wide or fused
-    tables and on the object-space machinery; a tree of fewer than
-    CPUGPU_SMEMTREE_MIN_NODES rows is marked smem_small (packet_tables
-    hands its side tables to the whole-frame kernel only)."""
+    tables and on the object-space machinery; the any-hit tree's only at
+    width 8 (CPUGPU_OCCL_W16: the JAX package builds no poccl_ents for a
+    16-wide any-hit tree, and under CPUGPU_SMEMTREE=48 its build then
+    fails on the 48-col any-hit rows; the port builds none of them); a
+    tree of fewer than CPUGPU_SMEMTREE_MIN_NODES rows is marked
+    smem_small (packet_tables hands its side tables to the whole-frame
+    kernel only)."""
     if (flags.smemtree not in ("1", "48") or not ds.proots
             or ds.packet_width != 8 or ds.pfused is not None
             or ds.machinery):
@@ -1264,13 +1384,14 @@ def _side_tables(ds: DeviceScene, flags, pnodes: np.ndarray,
     upd = dict(smem_small=pnodes.shape[0] < flags.smem_min_nodes,
                pents=t(bvh8lib.slim_side_tables(pnodes, ds.proots)[0],
                        torch.int32))
-    if ds.poccl_roots:
+    occl8 = bool(ds.poccl_roots) and ds.poccl_width == 8
+    if occl8:
         upd["poccl_ents"] = t(bvh8lib.slim_side_tables(
             onodes, ds.poccl_roots)[0], torch.int32)
     if (flags.smemtree == "48" and flags.framestack and flags.rowx == 1
             and ds.num_instances == 0):
         upd["pnodes48"] = t(bvh8lib.slim_bounds48(pnodes), torch.float32)
-        if ds.poccl_roots:
+        if occl8:
             upd["poccl_nodes48"] = t(bvh8lib.slim_bounds48(onodes),
                                      torch.float32)
     return dataclasses.replace(ds, **upd)
@@ -1457,8 +1578,12 @@ def pt_frame_gate_reason(dev: DeviceScene, settings) -> str | None:
         return reason
     if dev.machinery:
         return "TLAS instance machinery (flattened scenes qualify)"
+    if dev.poccl_pay is not None:
+        return "leaf-14 closest-hit tables (CPUGPU_LEAF14)"
     if dev.pfused is not None:
         return "fused packet tables"
+    if dev.poccl_width != 8:
+        return "16-wide occlusion tables (CPUGPU_OCCL_W16 lab)"
     if settings.max_ray_depth > 32:
         return "max_ray_depth > 32"
     split_on = ptframe_split(settings) > 0

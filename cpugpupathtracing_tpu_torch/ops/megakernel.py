@@ -37,8 +37,17 @@ node|leaf table) launch the kernels' variant arm, counted per layout in
 ops/pt_frame.py `launches` (launch_key) as every arm is; the plain
 versions are brute force, which no layout changes.  As in the JAX
 package a side table given with the instance arm is dropped (16-wide and
-fused tables raise there).  The leaf-14 payload (`pay`), 2-row occlusion
-leaves (`occl_rows=2`) and 16-wide occlusion tables raise: port slice 7.
+fused tables raise there).
+
+Leaf arms (the JAX kernels' CPUGPU_LEAF14 and CPUGPU_OCCL2 arms):
+shade_extend with `pay` walks the occlusion tree (8-wide, 64- or 48-col
+rows, with or without its side table) for the closest hit, with the
+leaf-14 payload rows giving each record's normal, object and id; its
+plain version is brute force over those records (pt_frame.leaf_records
+with pay).  shadow_resolve with `occl_rows=2` walks occlusion leaves of
+two rows, and over 16-wide occlusion rows (`width=16`, occl;
+CPUGPU_OCCL_W16) its variant arm; their plain version is brute force
+over every occlusion row.  Each is counted apart (pt_frame.leaf_arm).
 """
 
 from __future__ import annotations
@@ -79,20 +88,27 @@ def shade_extend(
     is_specular.  Returns (rays', state', throughput', energy', flags'
     (bit 2 = shadow needed), shadow origin (3), shadow direction (3),
     shadow tmax, contribution (3)), the JAX function's tuple; with
-    count_iters=True (CUDA only) also pt_frame's ten work counters
+    count_iters=True (CUDA only) also pt_frame's eleven work counters
     (ops/pt_frame.py COUNTERS; the shadow ones 0).  inst_inv (I, 12),
     inst_nrm (I, 9), inst_root (I,): the instance arm; ents, fused_nn,
-    width: the node-table variants (module docstring)."""
+    width: the node-table variants; pay (NO, 128): the leaf-14 payload
+    rows of an occlusion tree (nodes, ltris) (module docstring)."""
     del num_mats, num_objs  # read from the table shapes
-    ptf.refuse_slice7("shade_extend", pay=pay)
     nee = nee and num_lights > 0
     tables = (mats, lights, ltri, sph, pln, sphmat, plnmat, objmat)
     dev = state.device
     inst = ptf.check_instances(dev, inst_inv, inst_root, inst_nrm)
+    if pay is not None and (inst is not None or fused_nn or width != 8):
+        raise ValueError(
+            "shade_extend: leaf-14 tables (bvh8.to_slim_occl + "
+            "occl_payload) require the plain non-instanced 8-wide "
+            "split-table kernel")
     ents = ptf.resolve_tables("shade_extend", nodes, ents, fused_nn, width,
                               instanced=inst is not None)
     if inst is not None and inst_nrm is None:
         raise ValueError("shade_extend: the instance arm needs inst_nrm")
+    if pay is not None:
+        ptf.check_pay("shade_extend", pay, ltris, dev)
     if dev.type == "cpu":
         if count_iters:
             raise ValueError("count_iters needs the CUDA kernel")
@@ -101,6 +117,8 @@ def shade_extend(
             num_lights=num_lights, num_sph=num_sph, num_pln=num_pln, nee=nee,
             rr=rr, cosine=cosine, ref_pdf=ref_pdf,
             light_tri_meta=light_tri_meta,
+            records=None if pay is None else ptf.leaf_records(
+                ltris, occl=True, pay=pay),
             inst=None if inst is None else (nodes, roots, *inst))
     if dev.type != "cuda":
         raise ValueError(f"shade_extend runs on cuda or cpu tensors, not {dev}")
@@ -110,10 +128,10 @@ def shade_extend(
         num_lights=num_lights, num_sph=num_sph, num_pln=num_pln, nee=nee,
         rr=rr, cosine=cosine, ref_pdf=ref_pdf, light_tri_meta=light_tri_meta,
         count_iters=count_iters, inst=inst, ents=ents, fused_nn=fused_nn,
-        width=width)
+        width=width, pay=pay)
     ptf.count_launch("shade_extend",
                      ptf.table_layout(nodes, ents, fused_nn, width),
-                     inst=inst is not None)
+                     inst=inst is not None, leaf=ptf.leaf_arm(pay=pay))
     return out
 
 
@@ -122,12 +140,14 @@ def shade_extend_host(
     depth, rays, state, throughput, energy, flags, *, roots, num_lights,
     num_sph, num_pln, nee, rr, cosine, ref_pdf, light_tri_meta=(),
     count_iters=False, inst_inv=None, inst_nrm=None, inst_root=None,
-    ents=None, fused_nn=0, width=8, **_,
+    ents=None, fused_nn=0, width=8, pay=None, **_,
 ):
     """`shade_extend` through the g++ build of the kernel body, on CPU
     tensors: a test of the device code without a card."""
     dev = torch.device("cpu")
     inst = ptf.check_instances(dev, inst_inv, inst_root, inst_nrm)
+    if pay is not None:
+        ptf.check_pay("shade_extend", pay, ltris, dev)
     return _shade_extend_launch(
         ptf.build_host().mk_shade_extend_host, dev, nodes,
         ltris, (mats, lights, ltri, sph, pln, sphmat, plnmat, objmat),
@@ -137,14 +157,14 @@ def shade_extend_host(
         light_tri_meta=light_tri_meta, count_iters=count_iters, inst=inst,
         ents=ptf.resolve_tables("shade_extend", nodes, ents, fused_nn, width,
                                 instanced=inst is not None),
-        fused_nn=fused_nn, width=width)
+        fused_nn=fused_nn, width=width, pay=pay)
 
 
 def _shade_extend_launch(entry, dev, nodes, ltris, tables, depth, rays, state,
                          throughput, energy, flags, *, roots, num_lights,
                          num_sph, num_pln, nee, rr, cosine, ref_pdf,
                          light_tri_meta, count_iters, inst=None, ents=None,
-                         fused_nn=0, width=8):
+                         fused_nn=0, width=8, pay=None):
     n = state.shape[0]
     ptf._check("state", state, _I64, dev, (n,))
     _cols("throughput", throughput, 3, _F32, dev, n)
@@ -155,7 +175,8 @@ def _shade_extend_launch(entry, dev, nodes, ltris, tables, depth, rays, state,
         sh_roots=roots, light_tri_meta=light_tri_meta, num_sph=num_sph,
         num_pln=num_pln, num_lights=num_lights, nee=nee, rr=rr,
         cosine=cosine, ref_pdf=ref_pdf, depth_base=depth, inst=inst,
-        ents=ents, sh_ents=ents, fused_nn=fused_nn, width=width)
+        ents=ents, sh_ents=ents, fused_nn=fused_nn, width=width,
+        tree_occl=pay is not None, pay=pay)
     a.state, a.flags_in = state.data_ptr(), flags.data_ptr()
     for c in range(3):
         a.tp_in[c] = throughput[c].data_ptr()
@@ -177,7 +198,7 @@ def _shade_extend_launch(entry, dev, nodes, ltris, tables, depth, rays, state,
         a.shadow[c] = shadow[c].data_ptr()
     a.state_out, a.flags_out = st_o.data_ptr(), fl_o.data_ptr()
     if count_iters:
-        counted = ptf.count_rows(a, dev, {0: (nodes, ltris)})
+        counted = ptf.count_rows(a, dev, {0: (nodes, ltris)}, pay=pay)
     ptf.run_launch(entry, a, "shade_extend")
     out = (rays_o, st_o, tp_o, en_o, fl_o, shadow[0:3], shadow[3:6],
            shadow[6], shadow[7:10])
@@ -199,7 +220,8 @@ def shade_extend_reference(
     inst_inv, inst_nrm, inst_root) the instance arm: the hits of
     pt_frame.closest_hit_instances_reference (`records` then from
     pt_frame.instance_records), instance normals made world normals by
-    pt_frame.instance_normal."""
+    pt_frame.instance_normal.  The leaf-14 arm passes the records of
+    pt_frame.leaf_records(ltris, occl=True, pay=pay)."""
     n = state.shape[0]
     dev = state.device
     tb = dict(mats=mats, lights=lights, ltri=ltri, sph=sph, pln=pln,
@@ -266,20 +288,19 @@ def shadow_resolve(
     (bvh8.to_slim_occl) with occl=True, else shading tables -- and the
     analytic occluders, then energy + (visible ? contrib : 0).  Returns
     energy' (3 (N,) f32 columns); with count_iters=True (CUDA only) also
-    the ten work counters (the closest-hit ones 0).  inst_inv (I, 12),
+    the eleven work counters (the closest-hit ones 0).  inst_inv (I, 12),
     inst_root (I,): the instance arm (over the shading tables); ents,
     fused_nn, width: the node-table variants (module docstring; fused and
-    16-wide tables are shading tables, occl=False)."""
-    ptf.refuse_slice7("shadow_resolve", occl_rows=occl_rows,
-                      occl_width=width if occl else 8)
+    16-wide tables are shading tables, occl=False, or occlusion tables of
+    CPUGPU_OCCL_W16); occl_rows: the rows per occlusion leaf (1 or 2,
+    CPUGPU_OCCL2)."""
     dev = flags.device
     inst = ptf.check_instances(dev, inst_inv, inst_root)
-    if inst is not None and occl:
-        raise ValueError("shadow_resolve: the instance arm walks the "
-                         "shading tables, not the occlusion tables")
-    if occl and fused_nn:
-        raise ValueError("shadow_resolve: occlusion tables are split, not "
-                         "fused")
+    if occl and (inst is not None or fused_nn or width not in (8, 16)):
+        raise ValueError(
+            "shadow_resolve: occlusion tables require the plain "
+            "non-instanced split-table kernel (width 8 or 16)")
+    ptf.check_occl_rows("shadow_resolve", occl_rows, occl)
     ents = ptf.resolve_tables("shadow_resolve", nodes, ents, fused_nn, width,
                               instanced=inst is not None)
     if dev.type == "cpu":
@@ -297,10 +318,13 @@ def shadow_resolve(
         ptf.build().mk_shadow_resolve_launch, dev, nodes, ltris, sph, pln,
         shadow_o, shadow_d, shadow_tmax, flags, energy, contrib, roots=roots,
         num_sph=num_sph, num_pln=num_pln, occl=occl, count_iters=count_iters,
-        inst=inst, ents=ents, fused_nn=fused_nn, width=width)
+        inst=inst, ents=ents, fused_nn=fused_nn, width=width,
+        occl_rows=occl_rows)
+    leaf = ptf.leaf_arm(occl_rows=occl_rows,
+                        occl_width=width if occl else 8)
     ptf.count_launch("shadow_resolve",
                      ptf.table_layout(nodes, ents, fused_nn, width),
-                     inst=inst is not None)
+                     inst=inst is not None, leaf=leaf)
     return out
 
 
@@ -308,9 +332,10 @@ def shadow_resolve_host(nodes, ltris, sph, pln, shadow_o, shadow_d,
                         shadow_tmax, flags, energy, contrib, *, roots,
                         num_sph, num_pln, occl=False, count_iters=False,
                         inst_inv=None, inst_root=None, ents=None, fused_nn=0,
-                        width=8, **_):
+                        width=8, occl_rows=1, **_):
     """`shadow_resolve` through the g++ build of the kernel body (CPU)."""
     dev = torch.device("cpu")
+    ptf.check_occl_rows("shadow_resolve", occl_rows, occl)
     inst = ptf.check_instances(dev, inst_inv, inst_root)
     return _shadow_resolve_launch(
         ptf.build_host().mk_shadow_resolve_host, dev, nodes,
@@ -319,13 +344,14 @@ def shadow_resolve_host(nodes, ltris, sph, pln, shadow_o, shadow_d,
         count_iters=count_iters, inst=inst,
         ents=ptf.resolve_tables("shadow_resolve", nodes, ents, fused_nn,
                                 width, instanced=inst is not None),
-        fused_nn=fused_nn, width=width)
+        fused_nn=fused_nn, width=width, occl_rows=occl_rows)
 
 
 def _shadow_resolve_launch(entry, dev, nodes, ltris, sph, pln, shadow_o,
                            shadow_d, shadow_tmax, flags, energy, contrib, *,
                            roots, num_sph, num_pln, occl, count_iters,
-                           inst=None, ents=None, fused_nn=0, width=8):
+                           inst=None, ents=None, fused_nn=0, width=8,
+                           occl_rows=1):
     n = flags.shape[0]
     ptf._check("flags", flags, _I32, dev, (n,))
     _cols("shadow_o", shadow_o, 3, _F32, dev, n)
@@ -341,7 +367,8 @@ def _shadow_resolve_launch(entry, dev, nodes, ltris, sph, pln, shadow_o,
                         tuple(shadow_o) + tuple(shadow_d), n=n, roots=roots,
                         sh_roots=roots, occl=occl, num_sph=num_sph,
                         num_pln=num_pln, inst=inst, ents=ents, sh_ents=ents,
-                        fused_nn=fused_nn, width=width)
+                        fused_nn=fused_nn, width=width, sh_width=width,
+                        occl_rows=occl_rows)
     a.flags_in = flags.data_ptr()
     cols = tuple(shadow_o) + tuple(shadow_d) + (shadow_tmax,) + tuple(contrib)
     for c in range(10):
@@ -357,22 +384,14 @@ def _shadow_resolve_launch(entry, dev, nodes, ltris, sph, pln, shadow_o,
     return en_o
 
 
-def occl_records(ltris: torch.Tensor) -> dict:
-    """The triangle records of occlusion leaf rows (14 x 9-col [v0, e1,
-    e2], bvh8.to_slim_occl), all-zero padding records dropped (they fail
-    the determinant test anyway)."""
-    rec = ltris[:, :14 * 9].reshape(-1, 9)
-    rec = rec[(rec[:, 3:9] != 0).any(dim=1)]
-    return dict(v0=rec[:, 0:3], e1=rec[:, 3:6], e2=rec[:, 6:9])
-
-
 def shadow_resolve_reference(ltris, sph, pln, shadow_o, shadow_d,
                              shadow_tmax, flags, energy, contrib, *, num_sph,
                              num_pln, occl=False, records=None, inst=None,
                              chunk=4096):
     """The plain version of `shadow_resolve`: the shadow rays of the
     lanes with sneed against every triangle record of `ltris` (occlusion
-    rows when occl, else shading rows; or `records`) by brute force --
+    rows when occl -- every row, so 1- and 2-row leaves alike -- else
+    shading rows; or `records`) by brute force --
     the same triangle set as any tree over them, so the same occluded
     bit -- then the analytic occluders and the energy add.  With inst =
     (nodes, roots, inst_inv, inst_root) the instance arm: a hit of
@@ -388,7 +407,7 @@ def shadow_resolve_reference(ltris, sph, pln, shadow_o, shadow_d,
     if inst is None:
         rc = records
         if rc is None:
-            rc = occl_records(ltris) if occl else ptf.leaf_records(ltris)
+            rc = ptf.leaf_records(ltris, occl=occl)
         _, k = brute_force_nearest_triangle(
             torch.stack(so, dim=1), torch.stack(sd, dim=1), rc["v0"],
             rc["e1"], rc["e2"], tmax, chunk=chunk)

@@ -37,8 +37,13 @@ fused node|leaf table; `ltris` then holds the same leaf rows for the
 plain version) -- and the shadow tree's rows 64- or 48-col with or
 without `sh_ents`.  The plain 64-col tables launch the kernel's plain arm,
 every other layout its variant arm, each counted apart in `launches`
-(launch_key).  The plain version is brute force, which no layout
-changes.
+(launch_key).  `occl_rows=2` (the JAX package's CPUGPU_OCCL2) says the
+shadow tree's leaves are two rows of 14 records each; it launches the
+kernel's 2-row arm.  The plain version is brute force, which no layout
+changes: the closest hits over the shading records, the shadow test
+over the shadow tree's records (every row of every leaf).  A 16-wide
+shadow tree raises, as in the JAX wrapper (its gate sends
+CPUGPU_OCCL_W16 scenes to the per-depth route).
 
 RNG states are u32 values carried in int64 tensors (utils/rng.py).
 """
@@ -80,10 +85,12 @@ launches: dict = {}
 # work counters of count_iters: the kernel's visits (pt::Counters: node,
 # leaf, shadow node and shadow leaf rows read, closest-hit and shadow rays
 # traversed), then the distinct node, leaf, shadow node and shadow leaf
-# rows the launch read (pt::Tree::seen_*)
+# rows and leaf-14 payload records the launch read (pt::Tree::seen_*)
 NUM_COUNTERS = 6
 COUNTERS = ("node", "leaf", "snode", "sleaf", "ray", "sray",
-            "node_rows", "leaf_rows", "snode_rows", "sleaf_rows")
+            "node_rows", "leaf_rows", "snode_rows", "sleaf_rows", "pay_recs")
+# records per occlusion leaf row (models/bvh8.py OCCL_TRIS)
+OCCL_TRIS = 14
 # per-ray traversal stack of the kernel (csrc/pt_device.cuh PT_STACK): the
 # wrappers refuse more roots than it holds, and the scene build
 # (models/scene.py) refuses trees whose worst-case walk would not fit
@@ -156,12 +163,13 @@ class _PtArgs(ctypes.Structure):
         ("active", ctypes.c_void_p),
         ("shadow", ctypes.c_void_p * 10),
         ("iters", ctypes.c_void_p),
-        ("seen", ctypes.c_void_p * 4),
+        ("seen", ctypes.c_void_p * 5),
         ("inst_inv", ctypes.c_void_p),
         ("inst_nrm", ctypes.c_void_p),
         ("inst_root", ctypes.c_void_p),
         ("ents", ctypes.c_void_p),
         ("sh_ents", ctypes.c_void_p),
+        ("pay", ctypes.c_void_p),
         ("status", ctypes.c_void_p),
         ("stream", ctypes.c_void_p),
     ] + [(name, ctypes.c_int) for name in (
@@ -173,20 +181,21 @@ class _PtArgs(ctypes.Structure):
         "n", "depths", "depth_base", "nee", "rr", "cosine", "ref_pdf",
         "any_hit", "num_inst",
         "fused_nn", "width", "cols", "sh_cols",
+        "occl", "occl_rows", "sh_width",
     )]
 
 
 def _check_layout(fns: dict, what: str) -> None:
     """Raise unless the build's struct pt::PtArgs has _PtArgs' size and
-    field offsets (pt::args_layout: size, depth_out, ents, sh_cols): a
+    field offsets (pt::args_layout: size, depth_out, pay, sh_width): a
     field out of step would shift every later one silently."""
     got = (ctypes.c_longlong * 4)()
     fns["pt_args_layout"](ctypes.addressof(got))
     want = (ctypes.sizeof(_PtArgs), _PtArgs.depth_out.offset,
-            _PtArgs.ents.offset, _PtArgs.sh_cols.offset)
+            _PtArgs.pay.offset, _PtArgs.sh_width.offset)
     if tuple(got) != want:
         raise RuntimeError(f"{what}: PtArgs layout {tuple(got)} (size, "
-                           f"depth_out, ents, sh_cols) differs from the "
+                           f"depth_out, pay, sh_width) differs from the "
                            f"ctypes mirror's {want}")
 
 
@@ -378,18 +387,37 @@ def arm_key(layout: str, sh_layout: str) -> str:
 
 
 def launch_key(wrapper: str, layout: str = "64", inst: bool = False,
-               depth: bool = False) -> str:
-    """An arm's key in `launches`: "<wrapper>[_inst][_<layout>][_depth]",
-    the layout (table_layout; pt_frame's arm_key) left out for the plain
-    64-col tables."""
+               depth: bool = False, leaf: str = "") -> str:
+    """An arm's key in `launches`:
+    "<wrapper>[_inst][_<layout>][_<leaf>][_depth]", the layout
+    (table_layout; pt_frame's arm_key) left out for the plain 64-col
+    tables and for the 16-wide occlusion rows, whose leaf name "ow16"
+    says it; `leaf` names the leaf arms (leaf_arm)."""
     return "_".join([wrapper] + ["inst"] * inst
-                    + [layout] * (layout != "64") + ["depth"] * depth)
+                    + [layout] * (layout != "64" and leaf != "ow16")
+                    + [leaf] * bool(leaf) + ["depth"] * depth)
+
+
+def leaf_arm(occl=False, pay=None, occl_rows=1, occl_width=8) -> str:
+    """The leaf arm's name in launch_key: "occl2" for 2-row occlusion
+    leaves (CPUGPU_OCCL2), "pay" for the leaf-14 closest hit with payload
+    rows (CPUGPU_LEAF14), "occl" for traverse_packet_slim's other walks
+    over occlusion leaves, "ow16" for a shadow walk over 16-wide
+    occlusion rows (CPUGPU_OCCL_W16); "" for the arms over the shading
+    tables and 8-wide 1-row shadow trees, whose keys are as before."""
+    if occl_rows == 2:
+        return "occl2"
+    if pay is not None:
+        return "pay"
+    if occl_width == 16:
+        return "ow16"
+    return "occl" if occl else ""
 
 
 def count_launch(wrapper: str, layout: str = "64", inst: bool = False,
-                 depth: bool = False) -> None:
+                 depth: bool = False, leaf: str = "") -> None:
     """Add one to the arm's count in `launches`, where its kernel ran."""
-    key = launch_key(wrapper, layout, inst, depth)
+    key = launch_key(wrapper, layout, inst, depth, leaf)
     launches[key] = launches.get(key, 0) + 1
 
 
@@ -427,23 +455,24 @@ def resolve_tables(what, nodes, ents=None, fused_nn=0, width=8,
     return ents
 
 
-def refuse_slice7(what: str, pay=None, occl_rows=1,
-                  occl_width=8) -> None:
-    """Raise on the JAX arguments of the leaf-side and occlusion variants
-    that have no kernel arm yet: the leaf-14 payload (CPUGPU_LEAF14),
-    2-row occlusion leaves (CPUGPU_OCCL2) and 16-wide occlusion tables
-    (CPUGPU_OCCL_W16) -- port slice 7 (ROADMAP.md)."""
-    given = []
-    if pay is not None:
-        given.append("pay")
-    if occl_rows != 1:
-        given.append(f"occl_rows={occl_rows}")
-    if occl_width != 8:
-        given.append("16-wide occlusion tables")
-    if given:
-        raise NotImplementedError(
-            f"{what}: {', '.join(given)} not ported yet (port slice 7 in "
-            "ROADMAP.md)")
+def check_occl_rows(what: str, occl_rows: int, occl: bool) -> None:
+    """The JAX wrappers' checks of occl_rows: 1 or 2, and 2 (CPUGPU_OCCL2)
+    only with occlusion tables."""
+    if occl_rows not in (1, 2):
+        raise ValueError(f"{what}: occl_rows must be 1 or 2")
+    if occl_rows == 2 and not occl:
+        raise ValueError(f"{what}: occl_rows=2 (CPUGPU_OCCL2) requires "
+                         "occl tables")
+
+
+def check_pay(what: str, pay, ltris, dev) -> None:
+    """The leaf-14 payload rows: (NO, 128) f32 on the leaf rows' device,
+    one row per occlusion leaf row."""
+    _check(f"{what} pay", pay, torch.float32, dev)
+    if tuple(pay.shape) != tuple(ltris.shape):
+        raise ValueError(f"{what}: pay needs one (128,) row per occlusion "
+                         f"leaf row, {tuple(ltris.shape)}, got "
+                         f"{tuple(pay.shape)}")
 
 
 def launch_args(dev, nodes, ltris, sh_nodes, sh_ltris, tables, rays, *, n,
@@ -451,7 +480,8 @@ def launch_args(dev, nodes, ltris, sh_nodes, sh_ltris, tables, rays, *, n,
                 num_pln=0, num_lights=0, nee=False, rr=False, cosine=False,
                 ref_pdf=False, depths=1, depth_base=0,
                 inst=None, ents=None, sh_ents=None, fused_nn=0,
-                width=8) -> _PtArgs:
+                width=8, sh_width=None, tree_occl=False, occl_rows=1,
+                pay=None) -> _PtArgs:
     """Checked launch arguments of any kernel of csrc/ over n lanes: the
     closest-hit tree, the shadow tree (both None, with no roots, for the
     Whitted kernel, which walks none), the eight small tables (f32 mats,
@@ -461,7 +491,10 @@ def launch_args(dev, nodes, ltris, sh_nodes, sh_ltris, tables, rays, *, n,
     machinery; the node layout of the closest-hit tree (ents, fused_nn,
     width, as resolve_tables resolved them) and the shadow tree's side
     table (the shadow tree is the closest-hit tree's layout unless occl,
-    when it is 8-wide and split).  The caller sets the per-lane column
+    when it is split and sh_width wide, 8 by default); `tree_occl` when
+    the closest-hit tree is an occlusion tree (traverse_packet_slim's
+    occl arms), `occl_rows` the rows per leaf of the occlusion tree, `pay`
+    its leaf-14 payload rows.  The caller sets the per-lane column
     pointers."""
     if nodes is not None:
         _check_tree("", nodes, ltris, roots, dev, ents, fused_nn)
@@ -493,7 +526,9 @@ def launch_args(dev, nodes, ltris, sh_nodes, sh_ltris, tables, rays, *, n,
     a.num_sph, a.num_pln, a.num_lights = num_sph, num_pln, num_lights
     a.nroots, a.sh_nroots = len(roots), len(sh_roots)
     a.mesh_lights = int(any(c for _, c in light_tri_meta))
-    a.sh_occl = int(occl)
+    a.sh_occl, a.occl, a.occl_rows = int(occl), int(tree_occl), occl_rows
+    if pay is not None:
+        a.pay = pay.data_ptr()
     a.n, a.depths, a.depth_base = n, depths, depth_base
     a.nee, a.rr, a.cosine, a.ref_pdf = int(nee), int(rr), int(cosine), \
         int(ref_pdf)
@@ -506,12 +541,13 @@ def launch_args(dev, nodes, ltris, sh_nodes, sh_ltris, tables, rays, *, n,
     if nodes is not None:
         a.cols, a.sh_cols = nodes.shape[1], sh_nodes.shape[1]
         a.fused_nn, a.width = fused_nn, width
+        a.sh_width = sh_width or (8 if occl else width)
         if ents is not None:
             a.ents = ents.data_ptr()
         if sh_ents is not None:
             a.sh_ents = sh_ents.data_ptr()
     else:
-        a.width = 8
+        a.width = a.sh_width = 8
     a.status = _status_tensor(dev).data_ptr()
     if dev.type == "cuda":
         a.stream = torch.cuda.current_stream(dev).cuda_stream
@@ -537,15 +573,19 @@ def check_instances(dev, inst_inv, inst_root, inst_nrm=None):
     return inst_inv, inst_nrm, inst_root
 
 
-def count_rows(a: _PtArgs, dev, trees):
+def count_rows(a: _PtArgs, dev, trees, pay=None):
     """count_iters: zeroed work counters and one byte map per row of each
     walked tree's nodes and leaves, set into `a`.  `trees` maps slot 0
     (closest-hit) and/or 1 (shadow) to (nodes, ltris); a shadow walk over
-    the closest-hit tables shares its maps.  Returns the (iters, maps)
+    the closest-hit tables shares its maps.  With the leaf-14 payload rows
+    `pay`, one byte per payload record too.  Returns the (iters, maps)
     that `counters` reads after the launch."""
     iters = torch.zeros(NUM_COUNTERS, dtype=torch.int64, device=dev)
     a.iters = iters.data_ptr()
-    maps = [None] * 4
+    maps = [None] * 5
+    if pay is not None:
+        maps[4] = torch.zeros(pay.shape[0] * OCCL_TRIS, dtype=torch.uint8,
+                              device=dev)
     for slot, (nodes, ltris) in trees.items():
         other = trees.get(1 - slot)
         if slot == 1 and other is not None and other[0] is nodes:
@@ -554,17 +594,17 @@ def count_rows(a: _PtArgs, dev, trees):
         sizes = [nodes.shape[0], ltris.shape[0]]
         maps[2 * slot], maps[2 * slot + 1] = torch.zeros(
             sum(sizes), dtype=torch.uint8, device=dev).split(sizes)
-    for k in range(4):
+    for k in range(5):
         if maps[k] is not None:
             a.seen[k] = maps[k].data_ptr()
     return iters, maps
 
 
 def counters(iters, maps) -> torch.Tensor:
-    """The ten counts of COUNTERS: the kernel's six visit counts, then the
-    distinct rows read of nodes, ltris, sh_nodes and sh_ltris (0 for a
+    """The eleven counts of COUNTERS: the kernel's six visit counts, then
+    the distinct rows read of nodes, ltris, sh_nodes and sh_ltris (0 for a
     tree not walked, and for the shadow tree when it is the closest-hit
-    tree, whose rows then count once)."""
+    tree, whose rows then count once) and the payload records read."""
     zero = torch.zeros((), dtype=torch.int64, device=iters.device)
     rows = [zero if m is None else m.sum(dtype=torch.int64) for m in maps]
     if maps[2] is maps[0] and maps[0] is not None:
@@ -612,25 +652,24 @@ def pt_frame(
     state (N,) (int64 carrying u32).  The arguments are those of the JAX
     package's pt_frame without its TPU schedule flags: the node-table
     variants fused_nn, width, ents (closest-hit tree) and sh_ents (the
-    8-wide shadow tree) as the module docstring says; occl_rows=2 and
-    16-wide shadow tables raise (port slice 7).
+    8-wide shadow tree) as the module docstring says, and occl_rows (1 or
+    2: the rows per leaf of the occlusion shadow tree).
 
     Returns (energy (N, 3) f32, state' (N,), traced () int64), or with
     carry_out=True (rays6, state', throughput3, energy3, flags (N,) i32,
     traced).  count_iters=True appends an int64 tensor of the kernel's
-    ten work counts (CUDA only; names in COUNTERS): closest-hit node rows
-    and leaf rows visited, shadow node rows and leaf rows visited,
+    eleven work counts (CUDA only; names in COUNTERS): closest-hit node
+    rows and leaf rows visited, shadow node rows and leaf rows visited,
     closest-hit rays and shadow rays traversed, then how many distinct
     rows of each of the four tables (nodes, ltris, sh_nodes, sh_ltris)
     the launch read (the shadow ones 0 when the shadow rays walk the
-    closest-hit tables, whose rows then count once).
+    closest-hit tables, whose rows then count once) and 0 payload
+    records.
 
     sh_* are the any-hit tables (bvh8.to_slim_occl when occl=True); when
     absent the shadow rays walk the closest-hit tables."""
     del num_mats, num_objs  # read from the table shapes
-    refuse_slice7("pt_frame", occl_rows=occl_rows,
-                  occl_width=16 if sh_nodes is not None
-                  and sh_nodes.shape[1] == 128 else 8)
+    check_occl_rows("pt_frame", occl_rows, occl)
     layout_kw = _frame_layouts("pt_frame", nodes, sh_nodes, ents, sh_ents,
                                fused_nn, width, occl)
     sh_nodes, sh_ltris, sh_roots = _shadow_tables(
@@ -645,17 +684,21 @@ def pt_frame(
     if dev.type == "cpu":
         if count_iters:
             raise ValueError("count_iters needs the CUDA kernel")
-        return pt_frame_reference(ltris, *tables, rays, state, **kw)
+        return pt_frame_reference(
+            ltris, *tables, rays, state,
+            sh_records=leaf_records(sh_ltris, occl=True) if occl else None,
+            **kw)
     if dev.type != "cuda":
         raise ValueError(f"pt_frame runs on cuda or cpu tensors, not {dev}")
     out = _launch(build().pt_frame_launch, dev, nodes, ltris, sh_nodes,
                   sh_ltris, tables, rays, state, roots=roots,
                   sh_roots=sh_roots, occl=occl, count_iters=count_iters,
-                  **layout_kw, **kw)
+                  occl_rows=occl_rows, **layout_kw, **kw)
     count_launch("pt_frame", arm_key(
         table_layout(nodes, layout_kw["ents"], fused_nn, width),
         table_layout(sh_nodes, layout_kw["sh_ents"], 0 if occl else fused_nn,
-                     8 if occl else width)))
+                     8 if occl else width)), leaf=leaf_arm(
+                         occl_rows=occl_rows))
     return out
 
 
@@ -665,10 +708,11 @@ def pt_frame_host(
     ref_pdf, depths, sh_nodes=None, sh_ltris=None, sh_roots=None,
     occl=False, light_tri_meta=(), depth_base=0, carry_in=None,
     carry_out=False, count_iters=False, fused_nn=0, width=8, ents=None,
-    sh_ents=None, **_,
+    sh_ents=None, occl_rows=1, **_,
 ):
     """`pt_frame` through the g++ build of the kernel body, on CPU
     tensors: a test of the device code without a card."""
+    check_occl_rows("pt_frame", occl_rows, occl)
     layout_kw = _frame_layouts("pt_frame", nodes, sh_nodes, ents, sh_ents,
                                fused_nn, width, occl)
     sh_nodes, sh_ltris, sh_roots = _shadow_tables(
@@ -682,7 +726,7 @@ def pt_frame_host(
         num_lights=num_lights, nee=nee and num_lights > 0, rr=rr,
         cosine=cosine, ref_pdf=ref_pdf, depths=depths, depth_base=depth_base,
         carry_in=carry_in, carry_out=carry_out, count_iters=count_iters,
-        **layout_kw)
+        occl_rows=occl_rows, **layout_kw)
 
 
 def _frame_layouts(what, nodes, sh_nodes, ents, sh_ents, fused_nn, width,
@@ -719,7 +763,7 @@ def _launch(entry, dev, nodes, ltris, sh_nodes, sh_ltris, tables, rays,
             state, *, roots, sh_roots, occl=False, light_tri_meta=(),
             num_sph, num_pln, num_lights, nee, rr, cosine, ref_pdf, depths,
             depth_base=0, carry_in=None, carry_out=False, count_iters=False,
-            ents=None, sh_ents=None, fused_nn=0, width=8):
+            ents=None, sh_ents=None, fused_nn=0, width=8, occl_rows=1):
     n = state.shape[0]
     f32, i32, i64 = torch.float32, torch.int32, torch.int64
     _check("state", state, i64, dev, (n,))
@@ -729,7 +773,7 @@ def _launch(entry, dev, nodes, ltris, sh_nodes, sh_ltris, tables, rays,
                     num_pln=num_pln, num_lights=num_lights, nee=nee, rr=rr,
                     cosine=cosine, ref_pdf=ref_pdf, depths=depths,
                     depth_base=depth_base, ents=ents, sh_ents=sh_ents,
-                    fused_nn=fused_nn, width=width)
+                    fused_nn=fused_nn, width=width, occl_rows=occl_rows)
     a.state = state.data_ptr()
     if carry_in is not None:
         tp_in, en_in, flags_in = carry_in
@@ -820,10 +864,33 @@ def dummy_tables(dev, sph_rows: int = 1, pln_rows: int = 1) -> tuple:
 # ---- the plain version -----------------------------------------------------
 
 
-def leaf_records(ltris: torch.Tensor) -> dict:
+def leaf_records(ltris: torch.Tensor, occl: bool = False,
+                 pay: torch.Tensor | None = None) -> dict:
     """Every real triangle record of slim leaf rows (8 x 16 cols), in
     original-id order: v0, e1, e2, flat normal (R, 3) f32, obj, id (R,)
-    i32."""
+    i32.  With occl, of occlusion leaf rows (14 x 9-col [v0, e1, e2],
+    bvh8.to_slim_occl; every row of every leaf, one or two rows each):
+    with their leaf-14 payload rows `pay` (bvh8.occl_payload) the records
+    of id >= 0 in id order with the payload's normal, object and id;
+    without them every record that is not all-zero padding, with id 1,
+    object -1 and a zero normal (a t and an occlusion bit are all they
+    give)."""
+    if occl:
+        rec = ltris[:, :14 * 9].reshape(-1, 9)
+        if pay is None:
+            rec = rec[(rec[:, 3:9] != 0).any(dim=1)]
+            m = torch.ones(rec.shape[0], dtype=torch.int32,
+                           device=rec.device)
+            return dict(v0=rec[:, 0:3], e1=rec[:, 3:6], e2=rec[:, 6:9],
+                        n=torch.zeros_like(rec[:, 0:3]), obj=-m, id=m)
+        p = pay[:, :14 * 9].reshape(-1, 9)
+        ids = p[:, 4].view(torch.int32)
+        keep = ids >= 0
+        order = torch.argsort(ids[keep].to(torch.int64), stable=True)
+        rec, p = rec[keep][order], p[keep][order]
+        return dict(v0=rec[:, 0:3], e1=rec[:, 3:6], e2=rec[:, 6:9],
+                    n=p[:, 0:3], obj=p[:, 3].view(torch.int32),
+                    id=p[:, 4].view(torch.int32))
     rec = ltris.reshape(-1, 16)
     ids = rec[:, 13].view(torch.int32)
     rec = rec[ids >= 0]
@@ -1304,16 +1371,19 @@ def pt_frame_reference(
     ltris, mats, lights, ltri, sph, pln, sphmat, plnmat, objmat, rays, state,
     *, num_lights, num_sph, num_pln, nee, rr, cosine, ref_pdf, depths,
     light_tri_meta=(), depth_base=0, carry_in=None, carry_out=False,
-    chunk=4096,
+    sh_records=None, chunk=4096,
 ):
     """The plain version of `pt_frame` (same returns): the depth loop of
     _pt_frame_kernel over the lanes still alive, with the hits taken by
     brute force over the leaf records of `ltris` and the shadow test as
-    an any-hit over the same records plus the analytic occluders.  A lane
-    leaves the loop when its path dies, as in the CUDA kernel."""
+    an any-hit over the same records -- or over `sh_records`, those of
+    the occlusion tree (leaf_records(sh_ltris, occl=True)) -- plus the
+    analytic occluders.  A lane leaves the loop when its path dies, as
+    in the CUDA kernel."""
     n = state.shape[0]
     f32 = torch.float32
     rec = leaf_records(ltris)
+    sh_rec = rec if sh_records is None else sh_records
     tb = dict(mats=mats, lights=lights, ltri=ltri, sph=sph, pln=pln,
               sphmat=sphmat, plnmat=plnmat, objmat=objmat,
               num_lights=num_lights, num_sph=num_sph, num_pln=num_pln,
@@ -1356,7 +1426,7 @@ def pt_frame_reference(
                 so_s = tuple(c[sl] for c in so)
                 sd_s = tuple(c[sl] for c in sd)
                 occ = closest_hit_reference(
-                    ltris, so_s + sd_s, t_init=stmax[sl], records=rec,
+                    ltris, so_s + sd_s, t_init=stmax[sl], records=sh_rec,
                     chunk=chunk)[1] >= 0
                 occ = occ | _analytic_occluded(
                     sph, pln, num_sph, num_pln, so_s, sd_s, stmax[sl])

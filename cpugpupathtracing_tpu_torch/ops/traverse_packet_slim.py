@@ -44,8 +44,20 @@ launch the kernel's variant arm, with and without count_depth, counted
 per layout in ops/pt_frame.py `launches` (launch_key) as every arm is.
 The walk `traverse_walk_reference` reads every layout.  As in the JAX
 package a side table given with the instance arm is dropped (16-wide and
-fused tables raise there).  The leaf-14 payload (`pay`) raises: port
-slice 7.
+fused tables raise there).
+
+Occlusion tables (the JAX function's occl / pay / occl_rows): with
+occl=True the tree is an occlusion tree (bvh8.to_slim_occl, 8- or
+16-wide, leaves of 14-record rows, `occl_rows` rows per leaf), walked by
+the kernel's occl arms.  Its any hit returns the t of a record it found
+and id 1 (the occlusion bit); without any_hit and without `pay` it is
+the t-only query: the exact nearest t, id 1, object -1 and a zero normal
+(the JAX function's hit flag, its shading payloads unset); with `pay`
+(bvh8.occl_payload rows, 1-row leaves only: CPUGPU_LEAF14) the closest
+hit returns the payload's id, object and normal, bitwise the shading
+tables' hit.  The plain version is brute force over those records
+(pt_frame.leaf_records with occl and pay), or the walk with count_depth,
+which reads the occlusion leaves as the kernel does.
 """
 
 from __future__ import annotations
@@ -72,7 +84,8 @@ def traverse_packet_slim(
     origin, direction, t_init, nodes, ltris, roots, *, active=None,
     any_hit: bool = False, count_depth: bool = True, inst_inv=None,
     inst_root=None, fused_nn: int = 0, width: int = 8,
-    count_iters: bool = False, ents=None, pay=None,
+    count_iters: bool = False, ents=None, occl: bool = False, pay=None,
+    occl_rows: int = 1,
 ):
     """Hits of the rays origin/direction ((N, 3) or 3-tuples of (N,) f32)
     closer than t_init (N,) f32 over the tree (nodes (B, 64) or a variant
@@ -82,15 +95,19 @@ def traverse_packet_slim(
     (nx, ny, nz) flat normal columns, bvh_depth (N,) i32, 0 without
     count_depth) -- the JAX function's order -- and with inst_inv (I, 12)
     / inst_root (I,) also the instance id (N,) i32; with count_iters=True
-    (CUDA only) then ops/pt_frame.py's ten work counters (the shadow ones
-    0)."""
-    ptf.refuse_slice7("traverse_packet_slim", pay=pay)
+    (CUDA only) then ops/pt_frame.py's eleven work counters (the shadow ones
+    0).  occl, pay, occl_rows: the occlusion tables (module docstring)."""
     rays = _columns(origin) + _columns(direction)
     dev = t_init.device
     inst = ptf.check_instances(dev, inst_inv, inst_root)
+    check_occl("traverse_packet_slim", inst is not None, fused_nn, width,
+               occl, pay, occl_rows)
     ents = ptf.resolve_tables("traverse_packet_slim", nodes, ents, fused_nn,
                               width, instanced=inst is not None)
-    layout = dict(ents=ents, fused_nn=fused_nn, width=width)
+    if pay is not None:
+        ptf.check_pay("traverse_packet_slim", pay, ltris, dev)
+    layout = dict(ents=ents, fused_nn=fused_nn, width=width, occl=occl,
+                  pay=pay, occl_rows=occl_rows)
     if dev.type == "cpu":
         if count_iters:
             raise ValueError("count_iters needs the CUDA kernel")
@@ -108,19 +125,43 @@ def traverse_packet_slim(
                  **layout)
     ptf.count_launch("traverse_packet_slim",
                      ptf.table_layout(nodes, ents, fused_nn, width),
-                     inst=inst is not None, depth=count_depth)
+                     inst=inst is not None, depth=count_depth,
+                     leaf=ptf.leaf_arm(occl, pay, occl_rows))
     return out
+
+
+def check_occl(what, instanced, fused_nn, width, occl, pay, occl_rows):
+    """The JAX function's checks of its occlusion arguments
+    (traverse_packet_slim.py there): occlusion tables on the plain
+    non-instanced split-table arm of width 8 or 16, payload rows only
+    with them, occl_rows 1 or 2 and 2 only over bare occlusion tables."""
+    if occl and (instanced or fused_nn or width not in (8, 16)):
+        raise ValueError(
+            f"{what}: occlusion tables (bvh8.to_slim_occl) require the "
+            "plain non-instanced split-table kernel (width 8 or 16)")
+    if pay is not None and not occl:
+        raise ValueError(f"{what}: the payload table (bvh8.occl_payload) "
+                         "rides the leaf-14 occl tables (occl=True)")
+    if occl_rows not in (1, 2):
+        raise ValueError(f"{what}: occl_rows must be 1 or 2")
+    if occl_rows == 2 and (not occl or pay is not None):
+        raise ValueError(
+            f"{what}: occl_rows=2 (CPUGPU_OCCL2 fat shadow leaves) requires "
+            "the bare occlusion tables (occl=True, no payload rows)")
 
 
 def traverse_packet_slim_host(origin, direction, t_init, nodes, ltris, roots,
                               *, active=None, any_hit=False,
                               count_depth=True, count_iters=False,
                               inst_inv=None, inst_root=None, ents=None,
-                              fused_nn=0, width=8):
+                              fused_nn=0, width=8, occl=False, pay=None,
+                              occl_rows=1):
     """`traverse_packet_slim` through the g++ build of the kernel body, on
     CPU tensors: a test of the device code without a card."""
     dev = torch.device("cpu")
     inst = ptf.check_instances(dev, inst_inv, inst_root)
+    check_occl("traverse_packet_slim", inst is not None, fused_nn, width,
+               occl, pay, occl_rows)
     return launch(ptf.build_host().traverse_host, dev,
                   _columns(origin) + _columns(direction), t_init, nodes,
                   ltris, roots, active=active, any_hit=any_hit,
@@ -128,23 +169,27 @@ def traverse_packet_slim_host(origin, direction, t_init, nodes, ltris, roots,
                   ents=ptf.resolve_tables("traverse_packet_slim", nodes, ents,
                                           fused_nn, width,
                                           instanced=inst is not None),
-                  fused_nn=fused_nn, width=width)
+                  fused_nn=fused_nn, width=width, occl=occl, pay=pay,
+                  occl_rows=occl_rows)
 
 
 def launch(entry, dev, rays, t_init, nodes, ltris, roots, *, active=None,
            any_hit=False, count_depth=False, count_iters=False, inst=None,
-           ents=None, fused_nn=0, width=8):
+           ents=None, fused_nn=0, width=8, occl=False, pay=None,
+           occl_rows=1):
     """One launch of the traversal entry over 6 ray columns; t_init None
     means 1e34 and active None every lane; `inst` the checked instance
     tables (ptf.check_instances) of the instance arm, which adds the hit
     instance column to the outputs; count_depth sets the kernel's
     bvh_depth output (else the column is zeros); ents, fused_nn, width
-    the node layout, resolved (ptf.resolve_tables)."""
+    the node layout, resolved (ptf.resolve_tables); occl, pay, occl_rows
+    the occlusion tree's leaves (checked, check_occl)."""
     n = rays[0].shape[0]
     a = ptf.launch_args(dev, nodes, ltris, nodes, ltris,
                         ptf.dummy_tables(dev), rays, n=n, roots=roots,
                         sh_roots=roots, inst=inst, ents=ents, sh_ents=ents,
-                        fused_nn=fused_nn, width=width)
+                        fused_nn=fused_nn, width=width, tree_occl=occl,
+                        occl_rows=occl_rows, pay=pay)
     if t_init is not None:
         ptf._check("t_init", t_init, _F32, dev, (n,))
         a.t_init = t_init.data_ptr()
@@ -164,7 +209,7 @@ def launch(entry, dev, rays, t_init, nodes, ltris, roots, *, active=None,
     else:
         depth = torch.zeros(n, dtype=_I32, device=dev)
     if count_iters:
-        counted = ptf.count_rows(a, dev, {0: (nodes, ltris)})
+        counted = ptf.count_rows(a, dev, {0: (nodes, ltris)}, pay=pay)
     ptf.run_launch(entry, a, "traverse")
     res = (out[0], out[1], out[2], tuple(out[3:6]), depth) + tuple(out[6:])
     if count_iters:
@@ -176,7 +221,8 @@ def traverse_packet_slim_reference(rays, t_init, ltris, *, active=None,
                                    any_hit=False, records=None, inst=None,
                                    chunk=4096, count_depth=False, nodes=None,
                                    roots=None, ents=None, fused_nn=0,
-                                   width=8):
+                                   width=8, occl=False, pay=None,
+                                   occl_rows=1):
     """The plain version, in the wrapper's output order.  With count_depth
     the walk of the kernel, `traverse_walk_reference` over (nodes, ltris,
     roots) in their layout (ents, fused_nn, width).  Else brute force over
@@ -187,7 +233,9 @@ def traverse_packet_slim_reference(rays, t_init, ltris, *, active=None,
     answer of an any-hit query (only its existence is defined).  rays: 6
     (N,) f32 columns.  With inst = (nodes, roots, inst_inv, inst_root) the
     instance arm (pt_frame.closest_hit_instances_reference; `records`
-    then from pt_frame.instance_records), and the instance column out."""
+    then from pt_frame.instance_records), and the instance column out.
+    occl, pay, occl_rows: an occlusion tree (the records of
+    pt_frame.leaf_records(ltris, occl=True, pay=pay))."""
     if count_depth:
         if inst is not None:
             nodes, roots = inst[0], inst[1]
@@ -195,7 +243,10 @@ def traverse_packet_slim_reference(rays, t_init, ltris, *, active=None,
             rays, t_init, nodes, ltris, roots, active=active, any_hit=any_hit,
             inst_inv=None if inst is None else inst[2],
             inst_root=None if inst is None else inst[3], ents=ents,
-            fused_nn=fused_nn, width=width)
+            fused_nn=fused_nn, width=width, occl=occl, pay=pay,
+            occl_rows=occl_rows)
+    if occl and records is None:
+        records = ptf.leaf_records(ltris, occl=True, pay=pay)
     n = t_init.shape[0]
     dev = t_init.device
     t = t_init.clone()
@@ -233,7 +284,8 @@ def _slab_ray(d):
 
 def traverse_walk_reference(rays, t_init, nodes, ltris, roots, *,
                             active=None, any_hit=False, inst_inv=None,
-                            inst_root=None, ents=None, fused_nn=0, width=8):
+                            inst_root=None, ents=None, fused_nn=0, width=8,
+                            occl=False, pay=None, occl_rows=1):
     """The kernel's walk (csrc/pt_device.cuh closest_hit / any_hit over a
     shading tree, with the count_depth arm) on every lane at once: each
     step takes one entry per live lane.  roots[1:] are pushed and
@@ -252,10 +304,14 @@ def traverse_walk_reference(rays, t_init, nodes, ltris, roots, *,
     in slot order, as the kernel's two blocks of 8 do), and on a fused
     table (fused_nn) the entries from fused_nn on as leaf rows e -
     fused_nn of `ltris`, with the variant walk's PT_STACK_W16-entry
-    stack.  Returns the wrapper's outputs with bvh_depth (and the
-    instance column with inst_inv); every output equals the kernel's
-    bitwise, and t, id, object, normal and instance of a closest hit
-    equal the brute-force plain version's."""
+    stack.  On an occlusion tree (occl; the kernel's occl arms) a leaf is
+    `occl_rows` rows of 14 records of 9 cols, tested in order: an any hit
+    ends the walk with its t and id 1, a closest hit takes id, object and
+    normal from `pay` at the record's offset (or id 1, object -1 and a
+    zero normal without it) under the same rules.  Returns the wrapper's
+    outputs with bvh_depth (and the instance column with inst_inv); every
+    output equals the kernel's bitwise, and t, id, object, normal and
+    instance of a closest hit equal the brute-force plain version's."""
     n = t_init.shape[0]
     dev = t_init.device
     kinst = inst_inv is not None
@@ -272,7 +328,7 @@ def traverse_walk_reference(rays, t_init, nodes, ltris, roots, *,
     hiid = htri.clone()
     hn = [torch.zeros(n, dtype=_F32, device=dev) for _ in range(3)]
     dep = torch.zeros(n, dtype=_I32, device=dev)
-    variant = ptf.table_layout(nodes, ents, fused_nn, width) != "64"
+    variant = occl or ptf.table_layout(nodes, ents, fused_nn, width) != "64"
     cap = ptf.PT_STACK_W16 if variant else ptf.PT_STACK
     stack = torch.zeros((n, cap), dtype=_I32, device=dev)
     if len(roots) > 1:
@@ -283,7 +339,21 @@ def traverse_walk_reference(rays, t_init, nodes, ltris, roots, *,
     bounds = nodes[:, :6 * width].reshape(-1, width, 6)
     if ents is None:
         ents = nodes[:, 6 * width:7 * width].contiguous().view(_I32)
-    recs = ltris.reshape(-1, 8, 16)
+    if occl:
+        # occl_rows rows of 14 records of 9 cols per leaf, as one leaf
+        # "row" of 14 * occl_rows records; the payload's normal, object
+        # and id at the same offsets, at cols 9..13 of each record here
+        rows = ltris[:, :126].reshape(-1, occl_rows * 14, 9)
+        if pay is None:
+            one = torch.ones(rows.shape[:2] + (1,), dtype=_I32, device=dev)
+            extra = torch.cat([torch.zeros_like(rows[..., :3]),
+                               (-one).view(_F32), one.view(_F32)], dim=2)
+        else:
+            extra = pay[:, :126].reshape(-1, occl_rows * 14, 9)[..., :5]
+        recs = torch.cat([rows, extra], dim=2)
+    else:
+        recs = ltris.reshape(-1, 8, 16)
+    nrec = recs.shape[1]
     num_inst = 0 if not kinst else inst_root.shape[0]
     while bool(alive.any()):
         e0 = e
@@ -347,12 +417,14 @@ def traverse_walk_reference(rays, t_init, nodes, ltris, roots, *,
             c = torch.argmax(hit.to(torch.int8), dim=1)
             take = (ar, c)
             ht = torch.where(found, tt[take], ht)
-            htri = torch.where(found, ids[take], htri)
-            hobj = torch.where(found, objs[take], hobj)
-            hn = [torch.where(found, r[ar, c, 9 + j], hn[j]) for j in range(3)]
+            htri = torch.where(found, 1 if occl else ids[take], htri)
+            if not occl:  # an occlusion any hit sets t and the bit alone
+                hobj = torch.where(found, objs[take], hobj)
+                hn = [torch.where(found, r[ar, c, 9 + j], hn[j])
+                      for j in range(3)]
             hiid = torch.where(found, ciid, hiid)
         else:
-            for c in range(8):
+            for c in range(nrec):
                 ttc, idc = tt[:, c], ids[:, c]
                 tie = (ttc == ht) & ((idc < htri) | (
                     kinst & (idc == htri) & (ciid < hiid)))

@@ -21,7 +21,8 @@ instance) equals its plain version, the PyTorch walk, bitwise on every
 output, bvh_depth included.  The variant arms of every node-table
 layout (side tables with 64- or 48-col rows, 16-wide rows, the fused
 table) equal the plain 64-col arms bitwise, and their count_depth arms
-the walk on the same tables."""
+the walk on the same tables.  The leaf arms (leaf-14 payload rows,
+2-row and 16-wide any-hit trees) equal their plain versions bitwise."""
 
 import numpy as np
 import pytest
@@ -240,9 +241,9 @@ def test_megakernel_wrappers_refuse_bad_inputs(card):
         mk.shade_extend(*args, inst_inv=inst, **kw)
     with pytest.raises(ValueError, match="width=16"):
         mk.shade_extend(*args, width=16, **kw)
-    with pytest.raises(NotImplementedError, match="slice 7"):
+    with pytest.raises(ValueError, match="leaf-14 tables"):
         mk.shade_extend(*args, pay=torch.zeros((1, 128), device="cuda"),
-                        **kw)
+                        **dict(kw, width=16))
     bad = list(args)
     bad[12] = st.to(torch.int32)
     with pytest.raises(ValueError, match="state"):
@@ -603,3 +604,126 @@ def _packet(dev):
 def _layout_of(dev):
     nodes, _, fused_nn, ents = _packet(dev)
     return nodes, ents, fused_nn, dev.packet_width
+
+
+LEAF_ENV = {"default": {}, "leaf14": dict(CPUGPU_LEAF14="1"),
+            "occl2": dict(CPUGPU_OCCL2="1"),
+            "occl_w16": dict(CPUGPU_OCCL_W16="1")}
+LEAF_ARMS = ["pt_frame-occl2", "shade_extend-leaf14", "shadow_resolve-occl2",
+             "shadow_resolve-occl_w16", "traverse-default", "traverse-occl2",
+             "traverse-occl_w16", "traverse-leaf14"]
+
+
+def _leaf_scene(monkeypatch, flag):
+    """The card fixture's scene under a leaf-side / occlusion flag (side
+    tables for every tree size, the default CPUGPU_SMEMTREE=48)."""
+    for k in ("CPUGPU_PACKET_TREE", "CPUGPU_FUSED", "CPUGPU_SMEMTREE",
+              "CPUGPU_OCCL", "CPUGPU_LEAF14", "CPUGPU_OCCL2",
+              "CPUGPU_OCCL_W16"):
+        monkeypatch.delenv(k, raising=False)
+    for k, v in LEAF_ENV[flag].items():
+        monkeypatch.setenv(k, v)
+    monkeypatch.setenv("CPUGPU_SMEMTREE_MIN_NODES", "1")
+    return _card_scene().build_device("cuda")
+
+
+@pytest.mark.parametrize("arm", LEAF_ARMS)
+def test_leaf_arms_match_plain(card, arm, monkeypatch):
+    """Each leaf arm on the card equals its plain version bitwise and is
+    counted under its own key: pt_frame's 2-row arm (energy, state,
+    traced; and the default tables' kernel), shade_extend's leaf-14 arm
+    (every output; brute force over the payload records),
+    shadow_resolve's 2-row and 16-wide arms; traverse_packet_slim's occl
+    arms (1-row, 2-row, 16-wide: any hits in existence, the t-only
+    closest hit bitwise; leaf-14: the closest hit bitwise) against brute
+    force, and their count_depth arms against the walk on every output."""
+    kernel, flag = arm.split("-")
+    _, o, d, st = card
+    rays = _rays(o, d)
+    settings = RenderSettings()
+    dev = _leaf_scene(monkeypatch, flag)
+    n = W * H
+
+    def flat(x):
+        return ([c for v in x for c in flat(v)] if isinstance(x, tuple)
+                else [x.reshape(-1)])
+
+    def same(a, b):
+        for a_, b_ in zip(_bits(flat(a)), _bits(flat(b))):
+            assert torch.equal(a_, b_)
+
+    if kernel == "pt_frame":
+        tables, kw = integrators.frame_args(dev, settings)
+        key = ptf.launch_key("pt_frame", "48", leaf="occl2")
+        before = _launched(key)
+        got = ptf.pt_frame(*tables, rays, st, depths=6, **kw)
+        assert _launched(key) == before + 1
+        ref = ptf.pt_frame_reference(
+            tables[1], *tables[2:], rays, st, depths=6,
+            sh_records=ptf.leaf_records(kw["sh_ltris"], occl=True),
+            **{k: kw[k] for k in ("num_lights", "num_sph", "num_pln", "nee",
+                                  "rr", "cosine", "ref_pdf",
+                                  "light_tri_meta")})
+        base = _leaf_scene(monkeypatch, "default")
+        btab, bkw = integrators.frame_args(base, settings)
+        same(got, ref)
+        same(got, ptf.pt_frame(*btab, rays, st, depths=6, **bkw))
+    elif kernel in ("shade_extend", "shadow_resolve"):
+        args, ekw = _depth0(dev, o, d, st)
+        tables, tkw = integrators.route_tables(dev)
+        args = (*tables, *args[10:])
+        ekw = dict(ekw, **tkw)
+        ext = mk.shade_extend(*args, **ekw)
+        if kernel == "shade_extend":
+            assert _launched(ptf.launch_key("shade_extend", "48",
+                                            leaf="pay")) >= 1
+            keys = ("num_lights", "num_sph", "num_pln", "nee", "rr",
+                    "cosine", "ref_pdf", "light_tri_meta")
+            same(ext, mk.shade_extend_reference(
+                tables[1], *args[2:], records=ptf.leaf_records(
+                    tables[1], occl=True, pay=tkw["pay"]),
+                **{k: ekw[k] for k in keys}))
+        else:
+            sn, sl, skw = integrators.shadow_tables(dev)
+            sargs = (sn, sl, dev.mk_sph, dev.mk_pln, ext[5], ext[6], ext[7],
+                     ext[4], ext[3], ext[8])
+            key = ptf.launch_key("shadow_resolve", "48" if flag == "occl2"
+                                 else "64", leaf="occl2" if flag == "occl2"
+                                 else "ow16")
+            before = _launched(key)
+            got = mk.shadow_resolve(*sargs, **skw)
+            assert _launched(key) == before + 1
+            same(got, mk.shadow_resolve_reference(
+                sl, dev.mk_sph, dev.mk_pln, *sargs[4:], num_sph=dev.num_sph,
+                num_pln=dev.num_pln, occl=True))
+            assert int(((ext[4] >> 2) & 1).sum()) > 100
+    else:
+        nodes, ltris, roots, ents = integrators.occl_tables(dev)
+        t0 = torch.full((n,), 1e34, device="cuda")
+        act = torch.arange(n, device="cuda") % 3 != 0
+        kw = dict(active=act, occl=True, pay=dev.poccl_pay,
+                  occl_rows=dev.poccl_rows, width=dev.poccl_width, ents=ents)
+        queries = ([False, True] if flag != "leaf14" else [False])
+        for any_hit in queries:
+            got = tps.traverse_packet_slim(rays[:3], rays[3:], t0, nodes,
+                                           ltris, roots, any_hit=any_hit,
+                                           count_depth=False, **kw)
+            ref = tps.traverse_packet_slim_reference(
+                rays, t0, ltris, any_hit=any_hit, **{
+                    k: v for k, v in kw.items() if k != "ents"})
+            assert torch.equal(got[1] >= 0, ref[1] >= 0)
+            assert int((got[1] >= 0).sum()) > n // 8
+            if not any_hit:
+                same(got, ref)
+            walk_kw = dict(kw, any_hit=any_hit)
+            got = tps.traverse_packet_slim(rays[:3], rays[3:], t0, nodes,
+                                           ltris, roots, **walk_kw)
+            same(got, tps.traverse_walk_reference(rays, t0, nodes, ltris,
+                                                  roots, **walk_kw))
+        layout = ptf.table_layout(nodes, ents, 0, dev.poccl_width)
+        leaf = ptf.leaf_arm(True, dev.poccl_pay, dev.poccl_rows)
+        assert _launched(ptf.launch_key("traverse_packet_slim", layout,
+                                        leaf=leaf)) >= 1
+        assert _launched(ptf.launch_key("traverse_packet_slim", layout,
+                                        depth=True, leaf=leaf)) >= 1
+    ptf.check_status("cuda")

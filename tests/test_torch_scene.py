@@ -99,7 +99,12 @@ def jax_tables(jdev):
                 num_instances=jdev.num_instances,
                 packet_flattened=bool(jdev.packet_flattened),
                 pfused_nn=jdev.pfused_nn, packet_width=jdev.packet_width,
-                smem_small=bool(jdev.smem_small))
+                smem_small=bool(jdev.smem_small),
+                poccl_width=jdev.poccl_width,
+                # the JAX snapshot does not say how many rows its any-hit
+                # leaves have: its scene module's CPUGPU_OCCL2 does
+                poccl_rows=2 if jscene.PACKET_OCCL2 and jdev.poccl_roots
+                else 1)
     return arrays, meta
 
 

@@ -127,9 +127,9 @@ def test_kernel_body_host_build_vs_plain(queries, any_hit):
 
 
 def test_wrapper_refusals(queries):
-    """The argument of the JAX function the port has no kernel arm for
-    yet (the leaf-14 payload) raises, naming port slice 7; fused and
-    16-wide layouts are ported, and a table of the wrong width for them
+    """The JAX function's checks of the leaf-14 payload (pay without occl,
+    or with 2-row leaves, or on the instance arm) raise as there; fused
+    and 16-wide layouts are ported, and a table of the wrong width for them
     raises as in the JAX wrapper; the BVH depth count does not: it is
     the JAX function's default, in the wrapper and in intersect_scene
     (bvh_depth, JAX's 5th output and Hit field).  The instance arm takes
@@ -138,8 +138,15 @@ def test_wrapper_refusals(queries):
     rays = _cols(o, d)
     args = (rays[:3], rays[3:], torch.from_numpy(t0), tdev.pnodes,
             tdev.pltris, tdev.proots)
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        tps.traverse_packet_slim(*args, pay=torch.zeros(1, 128))
+    pay = torch.zeros(1, 128)
+    with pytest.raises(ValueError, match="rides the leaf-14 occl tables"):
+        tps.traverse_packet_slim(*args, pay=pay)
+    with pytest.raises(ValueError, match="no payload rows"):
+        tps.traverse_packet_slim(*args, occl=True, pay=pay, occl_rows=2)
+    with pytest.raises(ValueError, match="non-instanced split-table"):
+        tps.traverse_packet_slim(*args, occl=True, pay=pay,
+                                 inst_inv=torch.zeros(1, 12),
+                                 inst_root=torch.zeros(1, dtype=torch.int32))
     for kw in (dict(fused_nn=3), dict(width=16)):
         with pytest.raises(ValueError, match="expects 128 cols"):
             tps.traverse_packet_slim(*args, **kw)

@@ -21,9 +21,9 @@ walk them.
     tables, and their state, flags and traced counts exactly the plain
     versions'.
   * The wrappers' checks (the JAX package's _resolve_smem and
-    _check_table_width), the refusals that wait for port slice 7, the
-    per-layout launch counts, the flag-keyed scene cache, the routes'
-    table choice, and the 16-wide stack bound.
+    _check_table_width, and its checks of the leaf-side and occlusion
+    arguments), the per-layout launch counts, the flag-keyed scene cache,
+    the routes' table choice, and the 16-wide stack bound.
 
 Scenes: tests/test_golden.py's (a 320-triangle icosphere, a cube, a floor
 plane, a sphere light) and tests/test_packet_instances.py's instanced
@@ -405,7 +405,9 @@ def test_wrapper_layout_checks(queries, monkeypatch):
     raises; a side table with a layout it does not apply to is dropped
     from a 64-col table and refused with a 48-col one; a table of the
     wrong width raises; the leaf-14 payload, 2-row occlusion leaves and
-    16-wide occlusion tables raise, naming port slice 7.  CPU calls (the
+    16-wide occlusion tables raise where the JAX wrappers raise: occl_rows=2
+    without occlusion tables, a 16-wide shadow tree in pt_frame, 16-wide
+    rows given as 48-col ones, a payload without occl.  CPU calls (the
     plain versions) count no launch."""
     rays, t0, act = queries
     dev, (nodes, ltris), kw = _layout_scene(monkeypatch, "48")
@@ -425,21 +427,28 @@ def test_wrapper_layout_checks(queries, monkeypatch):
     settings = RenderSettings(max_ray_depth=1)
     tables, fkw = tint.frame_args(dev, settings)
     st = torch.zeros(rays[0].shape[0], dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        ptf.pt_frame(*tables, rays, st, depths=1, occl_rows=2, **fkw)
+    bare = {k: v for k, v in fkw.items() if not k.startswith("sh_")}
+    with pytest.raises(ValueError, match="requires occl tables"):
+        ptf.pt_frame(*tables, rays, st, depths=1,
+                     **dict(bare, occl=False, occl_rows=2))
+    with pytest.raises(ValueError, match="occl_rows must be 1 or 2"):
+        ptf.pt_frame(*tables, rays, st, depths=1, **dict(fkw, occl_rows=3))
     wide = dict(fkw, sh_nodes=torch.zeros(4, 128), sh_ents=None)
-    with pytest.raises(NotImplementedError, match="16-wide occlusion"):
+    with pytest.raises(ValueError, match="expects 64 cols"):
         ptf.pt_frame(*tables, rays, st, depths=1, **wide)
     sn, sl, skw = tint.shadow_tables(dev)
     n = st.shape[0]
     z = tuple(torch.zeros(n) for _ in range(3))
     sargs = (sn, sl, dev.mk_sph, dev.mk_pln, z, z, torch.zeros(n),
              torch.zeros(n, dtype=torch.int32), z, z)
-    with pytest.raises(NotImplementedError, match="occl_rows=2"):
-        tmk.shadow_resolve(*sargs, occl_rows=2, **skw)
-    with pytest.raises(NotImplementedError, match="16-wide occlusion"):
-        tmk.shadow_resolve(*sargs, **dict(skw, width=16, ents=None))
-    with pytest.raises(NotImplementedError, match="pay"):
+    with pytest.raises(ValueError, match="requires occl tables"):
+        tmk.shadow_resolve(*sargs, **dict(skw, occl=False, occl_rows=2))
+    with pytest.raises(ValueError, match="split-table kernel"):
+        tmk.shadow_resolve(*sargs, **dict(skw, width=4))
+    with pytest.raises(ValueError, match="expects 128 cols"):
+        tmk.shadow_resolve(sn.new_zeros(4, 64), *sargs[1:],
+                           **dict(skw, width=16, ents=None))
+    with pytest.raises(ValueError, match="rides the leaf-14 occl tables"):
         tps.traverse_packet_slim(*args, nodes, ltris, dev.proots,
                                  pay=torch.zeros(1, 128), **kw)
     before = dict(ptf.launches)
