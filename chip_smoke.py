@@ -22,8 +22,9 @@ and in the RAY_DEPTH and BVH_DEPTH views, on config 5's object-space
 scene with AOVs, on a mesh light over the light table and on config 1
 in ADVANCED mode; and configs 3 and 5 under every node-table layout and
 leaf-side / occlusion variant (CPUGPU_LEAF14, CPUGPU_OCCL2,
-CPUGPU_OCCL_W16) -- and holds every CUDA kernel of those paths against
-its plain PyTorch version on the card.  Phases, one line each; any
+CPUGPU_OCCL_W16), and the traversal labs L1-L4 on config 3's bounce
+fan -- and holds every CUDA kernel of those paths against its plain
+PyTorch version on the card.  Phases, one line each; any
 failure raises and exits non-zero:
 
   1. device      the card's name and power limit (nvidia-smi)
@@ -119,6 +120,21 @@ failure raises and exits non-zero:
                  1920x1080 and config 1 in ADVANCED mode at 800x600: the
                  gates refuse both, trace_advanced runs every frame (12
                  traversal launches and 6 sorts, and none), timed frames
+ 17e. check_labs  the traversal labs L1-L4 (labs/: traverse_lab2,
+                 traverse_lab2p, traverse16, traverse_phase) on 8192 lanes
+                 from the middle of config 3's bounce fan
+                 (labs/bounce_fan.py: cosine-weighted bounces from the
+                 1920x1080 camera hits): every arm of each against its
+                 plain version, bitwise on every output, the per-tile trip
+                 counters and the rows read included; closest hits
+                 against traverse_packet_slim's bitwise, L3's any hit in
+                 its occlusion bit; L2's parent-pointer frames take the
+                 frame stack's trips exactly
+ 17f. labs       the labs' main path: the whole bounce fan (1.07M active
+                 lanes) through each of the 18 arms once -- hits against
+                 traverse_packet_slim's on every active lane, trips, leaf
+                 share, device ms, ns per warp trip, the bound from a
+                 count launch made before the launch counts are zeroed
  20. layout3      config 3 at 1920x1080 under every node-table layout:
                  the default (CPUGPU_SMEMTREE=48: 48-col rows and the entry
                  side tables), CPUGPU_SMEMTREE=1 (64-col rows with them),
@@ -168,7 +184,9 @@ failure raises and exits non-zero:
      main-path launch its lanes, ms, bound and sampled error; the
      instance arms, the count_depth arms, the variant arms and the leaf
      arms as entries of their own (`*_inst`, `*_depth`, `*_<layout>`,
-     `*_<layout>_<occl|occl2|pay|ow16>`)
+     `*_<layout>_<occl|occl2|pay|ow16>`); the four lab kernels with the
+     check-lane numbers of their default arm and, per arm, its numbers on
+     the fan (`arms`)
  19. the last line {"ok": true, "device": {...}}
 
 Phases 3-17 run the plain 64-col arms (CPUGPU_SMEMTREE=0 for their
@@ -3342,6 +3360,154 @@ def variant_entries(lay3: dict, lay5: dict) -> list:
     return out
 
 
+# the traversal labs (labs/): per lab its kernels-line name, CUDA unit and
+# the TPU kernel it replaces (the pallas_call line), and the arm whose
+# check-lane numbers head its entry (the JAX function's defaults)
+LAB_SOURCES = {
+    "L1": ("traverse_lab2", "lab2.cu", "tools/kernel_lab2.py:356"),
+    "L2": ("traverse_lab2p", "lab2.cu", "tools/kernel_lab2.py:753"),
+    "L3": ("traverse16", "lab3.cu", "tools/kernel_lab3.py:469"),
+    "L4": ("traverse_phase", "phase_lab.cu", "tools/phase_lab.py:415"),
+}
+LAB_DEFAULT = {"L1": "linear baseline", "L2": "pipelined fs+fused",
+               "L3": "W16 lab (fs+condpush)", "L4": "phase-split"}
+
+
+def check_labs(fan) -> dict:
+    """Phase 17e on CHECK_LANES lanes from the middle of config 3's bounce
+    fan: every arm of L1-L4 (labs/bounce_fan.py ARMS) against its plain
+    version on the card, bitwise on every output -- t, hit, object, the
+    per-tile trip counters and the count launch's work and rows read --
+    and its hits against the standalone traversal's (closest hits
+    bitwise, L3's any hit in its occlusion bit); the L2 invariant that
+    parent-pointer frames take the frame stack's trips exactly.  Returns
+    per arm label its numbers: device ms and call_ms (kernel_ms), plain
+    ms, the check lanes' bound."""
+    from cpugpupathtracing_tpu_torch.labs import bounce_fan as bf
+    from cpugpupathtracing_tpu_torch.ops import pt_frame as ptf
+
+    n = fan.t_init.numel()
+    lo = n // 2 - CHECK_LANES // 2
+    sl = slice(lo, lo + CHECK_LANES)
+    rays = tuple(c[sl].contiguous() for c in fan.rays)
+    t0, act = fan.t_init[sl].contiguous(), fan.active[sl].contiguous()
+    out = {}
+    for arm in bf.ARMS:
+        got = bf.call(fan, arm, rays, t0, act, count_rows=True)
+        ref, plain_ms = timed_plain(
+            lambda arm=arm: bf.plain(fan, arm, rays, t0, act,
+                                     count_rows=True))
+        ptf.check_status(t0.device)
+        mism = sum(int((a_ != b_).sum())
+                   for a_, b_ in (as_bits(a, b) for a, b in zip(got, ref)))
+        hits = bf.hit_mismatches(fan, arm, got, lanes=sl)
+        if mism or hits:
+            raise AssertionError(f"check_labs {arm.label}: {mism} output "
+                                 f"words differ from the plain version, "
+                                 f"{hits} hits from the standalone traversal")
+        out[arm.label] = dict(
+            key=bf.arm_key(arm), mismatches=mism, hit_mismatches=hits,
+            max_abs_err=float((got[0] - ref[0]).abs().max()),
+            iters=int(got[3].sum()),
+            counts=dict(zip(bf.cm.COUNTS, (int(v) for v in got[-1]))),
+            bound=bf.bound(fan, arm, got[-1], act), plain_ms=plain_ms,
+            **kernel_ms(lambda arm=arm: bf.call(fan, arm, rays, t0, act),
+                        bf.KERNELS[arm.kernel], reps=5))
+    for near in ("", "+nearest"):
+        fs = out["pipelined fs+fused" + near]["iters"]
+        par = out["pipe fs+fused+near+parent" if near
+                  else "pipelined fs+fused+parent"]["iters"]
+        if fs != par:
+            raise AssertionError(f"check_labs: parent frames took {par} "
+                                 f"trips, the frame stack {fs}")
+    say("check_labs", lanes=CHECK_LANES, active=int(act.sum()),
+        arms=len(out), mismatches=0, parent_iters_equal=True,
+        **{f"{v['key']}_ms": round(v["ms"], 4) for v in out.values()},
+        **{f"{v['key']}_plain_ms": round(v["plain_ms"], 1)
+           for v in out.values()})
+    return out
+
+
+def labs(fan) -> list:
+    """Phase 17f, the labs' main path: the bounce fan at full width
+    through every arm, one launch each (labs/bounce_fan.py run): hits
+    bitwise against the standalone traversal's, trips, device ms
+    (launch_ms) and ns per warp trip, and the bound from a count launch
+    of the arm made before the launch counts are zeroed; and one launch
+    of the standalone traversal's closest hit of the fan, the arms'
+    yardstick.  Fails on any launch of another kernel arm, or a second
+    launch of an arm that its timing did not make."""
+    from cpugpupathtracing_tpu_torch.labs import bounce_fan as bf
+
+    bounds = bf.count_pass(fan)
+    ran: dict = {}
+
+    def timer(fn, arm):
+        key = bf.arm_key(arm)
+
+        def counted():
+            ran[key] = ran.get(key, 0) + 1
+            fn()
+        return launch_ms(counted, bf.KERNELS[arm.kernel], expect=1)[0]
+
+    reset_counts()
+    rows = bf.run(fan, timer=timer, bounds=bounds)
+    got = counts()
+    expect_counts(got, "labs", **ran)
+    for row in rows:
+        row["launches"] = ran[row["key"]]
+        say("labs", **{k: (round(v, 4) if isinstance(v, float) else v)
+                       for k, v in row.items() if k != "counts"})
+    return rows
+
+
+def lab_entries(chk: dict, rows: list) -> list:
+    """The kernels line's entries of the four lab kernels: the check-lane
+    numbers of the kernel's default arm (LAB_DEFAULT) at the top, and per
+    arm its launches, device ms, ns per warp trip, trips and bound on the
+    full fan beside its check-lane numbers."""
+    from cpugpupathtracing_tpu_torch.labs import bounce_fan as bf
+
+    main = {r["label"]: r for r in rows}
+    b4_ms = main[bf.REF.label]["ms"]
+    out = []
+    for lab, (name, unit, replaces) in LAB_SOURCES.items():
+        labels = [a.label for a in bf.ARMS if a.kernel == lab]
+        c = chk[LAB_DEFAULT[lab]]
+        out.append({
+            "name": name,
+            "route": "cuda",
+            "source": "cpugpupathtracing_tpu_torch/csrc/" + unit,
+            "replaces": replaces,
+            "launches": sum(main[lb]["launches"] for lb in labels),
+            "max_abs_err": max(chk[lb]["max_abs_err"] for lb in labels),
+            "ms": c["ms"],
+            "call_ms": c["call_ms"],
+            "plain_ms": c["plain_ms"],
+            "bound_ms": c["bound"][0],
+            "bound_by": c["bound"][1],
+            "library_ms": None,
+            "check_lanes": CHECK_LANES,
+            "default_arm": LAB_DEFAULT[lab],
+            "fan_b4_closest_ms": b4_ms,
+            "arms": [{
+                "label": lb, "key": main[lb]["key"],
+                "launches": main[lb]["launches"], "ms": main[lb]["ms"],
+                "ns_per_trip": main[lb]["ns_per_trip"],
+                "iters": main[lb]["iters"],
+                "leaf_share": main[lb]["leaf_share"],
+                "bound_ms": main[lb]["bound_ms"],
+                "bound_by": main[lb]["bound_by"],
+                "hits_equal": main[lb]["hits_equal"],
+                "check_ms": chk[lb]["ms"], "check_call_ms": chk[lb]["call_ms"],
+                "check_plain_ms": chk[lb]["plain_ms"],
+                "check_bound_ms": chk[lb]["bound"][0],
+                "check_mismatches": chk[lb]["mismatches"]}
+                for lb in labels],
+        })
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3522,6 +3688,16 @@ def main() -> int:
         profile)
     frame_xla_scene("frame_meshless", scene1, cam1, settings, width1,
                     height1, {}, profile)
+
+    # 17e-f. the traversal labs L1-L4 on config 3's bounce fan: every arm
+    # on the check lanes against its plain version, then the fan at full
+    # width, one launch per arm
+    from cpugpupathtracing_tpu_torch.labs import bounce_fan
+    fan = bounce_fan.make_fan(dev, width, height, scene=scene)
+    say("lab_fan", **fan.info)
+    lab_chk = check_labs(fan)
+    lab_rows = labs(fan)
+    del fan
     plain_tables.close()
 
     # 20-21. the node-table layouts on config 3 (both routes, the check
@@ -3697,6 +3873,7 @@ def main() -> int:
         })
     kernels += variant_entries(lay3, lay5)
     kernels += leaf_entries(leaf, leaf5)
+    kernels += lab_entries(lab_chk, lab_rows)
     print(json.dumps({"kernels": kernels}), flush=True)
     # 19. last line
     print(json.dumps({"ok": True, "device": {

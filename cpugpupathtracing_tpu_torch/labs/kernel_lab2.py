@@ -1,0 +1,279 @@
+"""L1 `traverse_lab2` and L2 `traverse_lab2p`: closest hits over the
+slim 8-wide tables under the frame-stack and pipelined schedules of the
+JAX package's tools/kernel_lab2.py.
+
+On CUDA tensors each wrapper launches its hand-written kernel of
+csrc/lab2.cu (lab_frame_kernel, lab_pipe_kernel; built by ops/pt_frame.py
+with every unit); on CPU tensors it runs its plain version,
+`traverse_lab2_reference` / `traverse_lab2p_reference`, which steps every
+lane in lockstep through the kernel's state machine and equals it
+bitwise, counters included.  Nothing falls back from one to the other.
+
+The signatures are the JAX lab's: component-tuple rays, t_init, the
+tables, static roots, `active`, and the schedule flags -- L1's
+frame_stack (9-word frames, the lowest set bit popped first; else the
+linear stack), fused (the fused node|leaf table of `fuse_tables` with nn
+node rows; else 64-col node rows and leaf rows), gate_leaf (the leaf
+phase under a warp vote) and cond_push (a frame pushed only when its mask
+is non-zero); L2's frame_stack, nearest (the nearest child popped first)
+and parent (parent-pointer frames) over the fused table.  Each returns
+(t, hit, obj, iters, leafs): per lane the closest hit closer than t_init
+(a lane that is not active keeps t_init, ids -1), per tile of 1024 lanes
+the trips of its 32 warps and the trips in which a lane of the warp
+tested a leaf row.  The hits are bitwise the standalone traversal's
+(ops/traverse_packet_slim.py): the same slab and triangle arithmetic and
+the lowest-id tie rule, whatever the visit order.  The counters are the
+card's schedule, one ray per thread, and cannot equal the JAX lab's,
+which count 8-row packet trips.  count_rows=True appends the launch's
+work (common.COUNTS).
+
+gate_leaf and cond_push change what the kernel does on a trip, not what
+it computes, so the plain versions have no such options.  Each wrapper
+checks that the tree's deepest walk fits the kernel's stack
+(common.check_stack) and raises otherwise.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from cpugpupathtracing_tpu_torch.labs import common as cm
+from cpugpupathtracing_tpu_torch.models.scene import fuse_packet_tables
+
+_I32 = torch.int32
+
+
+def fuse_tables(nodes, ltris):
+    """The fused node|leaf table of tools/kernel_lab.py fuse_tables: node
+    rows padded to 128 cols, leaf rows appended, leaf entries -(lrow + 1)
+    re-encoded as nn + lrow.  It is the scene build's CPUGPU_FUSED table
+    (models/scene.py fuse_packet_tables), bitwise.  Returns (table, nn)."""
+    return fuse_packet_tables(nodes, ltris), int(nodes.shape[0])
+
+
+def lab2_key(frame_stack=False, fused=False, gate_leaf=False,
+             cond_push=False, **_) -> str:
+    """The launch key of an L1 arm (ops/pt_frame.py launches)."""
+    return cm.arm_key("traverse_lab2", dict(
+        fs=frame_stack, fused=fused, gate=gate_leaf, condpush=cond_push))
+
+
+def lab2p_key(frame_stack=True, nearest=False, parent=False, **_) -> str:
+    """The launch key of an L2 arm."""
+    return cm.arm_key("traverse_lab2p", dict(fs=frame_stack, near=nearest,
+                                             parent=parent))
+
+
+def _check_tree(what, nodes, roots, fused, nn, frames, parent=False):
+    cm.check_stack(what, nodes, roots, slice(48, 56), width=8,
+                   fused_nn=nn if fused else 0,
+                   frame_words=(2 if parent else cm.FRAME8) if frames else 0,
+                   capacity=cm.FSTACK8 if frames else cm.STACK)
+
+
+def _flags(*bits) -> int:
+    return sum(1 << k for k, b in enumerate(bits) if b)
+
+
+def traverse_lab2(origin, direction, t_init, nodes, ltris, roots, *, active,
+                  nn=0, frame_stack=False, fused=False, gate_leaf=False,
+                  cond_push=False, count_rows=False):
+    """L1 (module docstring).  nodes: (B, 64) node rows, or with fused the
+    (B + NL, 128) fused table and nn = B; ltris: (NL, 128) leaf rows (the
+    JAX lab takes a dummy row with fused; read only without)."""
+    roots = tuple(int(r) for r in roots)
+    rays = cm.columns(origin, direction)
+    if cond_push and not frame_stack:
+        raise ValueError("traverse_lab2: cond_push needs the frame stack")
+    if fused and not nn:
+        raise ValueError("traverse_lab2: a fused table needs nn")
+    _check_tree("traverse_lab2", nodes, roots, fused, nn, frame_stack)
+    node_rows = nn if fused else nodes.shape[0]
+    leaf_rows = nodes.shape[0] - nn if fused else ltris.shape[0]
+    dev = t_init.device
+    if dev.type == "cpu":
+        return traverse_lab2_reference(
+            rays, t_init, nodes, ltris, roots, active=active, nn=nn,
+            frame_stack=frame_stack, fused=fused, count_rows=count_rows)
+    if dev.type != "cuda":
+        raise ValueError(f"traverse_lab2 runs on cuda or cpu tensors, not "
+                         f"{dev}")
+    out = cm.launch(cm.build().lab2_launch, "traverse_lab2", rays, t_init,
+                    nodes, None if fused else ltris, roots, active,
+                    flags=_flags(frame_stack, fused, gate_leaf, cond_push),
+                    nn=nn if fused else 0, node_rows=node_rows,
+                    leaf_rows=leaf_rows, count_rows=count_rows)
+    cm.count_launch(lab2_key(frame_stack, fused, gate_leaf, cond_push))
+    return out
+
+
+def traverse_lab2_reference(rays, t_init, nodes, ltris, roots, *, active,
+                            nn=0, frame_stack=False, fused=False,
+                            count_rows=False):
+    """L1's plain version over the six ray columns (gate_leaf and
+    cond_push change no state: a frame with an empty mask sits above the
+    stack's top and is never read)."""
+    L = cm.Lanes(rays, t_init, active)
+    n, dev, ar = L.n, L.dev, L.ar
+    node_rows = nn if fused else nodes.shape[0]
+    if count_rows:
+        L.count_rows(nodes.shape[0] if fused else node_rows + ltris.shape[0])
+    bounds = nodes[:, :48].reshape(-1, 8, 6)
+    ents = nodes[:, 48:56].contiguous().view(_I32)
+    recs = (nodes if fused else ltris).reshape(-1, 8, 16)
+    cap = cm.FSTACK8 if frame_stack else cm.STACK
+    stack = torch.zeros((n, cap), dtype=_I32, device=dev)
+    sp = torch.zeros(n, dtype=torch.int64, device=dev)
+    if frame_stack:
+        cm.seed_frames(stack, sp, L.act, roots, cm.FRAME8, 8)
+    elif len(roots) > 1:
+        stack[L.act, :len(roots) - 1] = torch.tensor(roots[1:], dtype=_I32,
+                                                     device=dev)
+        sp[L.act] = len(roots) - 1
+    e = torch.where(L.act, roots[0], cm.DONE).to(torch.int64)
+    while True:
+        live = e != cm.DONE
+        if not L.trip(live):
+            break
+        leaf = live & ((e >= nn) if fused else (e < 0))
+        interior = live & ~leaf
+        L.leafs += cm.warp_any(leaf)
+        ec = torch.where(interior, e, 0)
+        passed, _ = cm.slab_rows(L, bounds, ents, ec, L.t, True, interior)
+        L.mark(ec[interior], 0)
+        lrow = torch.where(leaf, (e - nn) if fused else (-e - 1), 0)
+        L.mark(lrow[leaf] + node_rows, 1, cm.LEAF_TRIS * int(leaf.sum()))
+        cm.leaf_closest(L, recs[lrow + (nn if fused else 0)], leaf)
+        if frame_stack:
+            w = cm.mask_bits(passed)
+            push = live & (w != 0)
+            vals = torch.cat([ents[ec].to(torch.int64), w[:, None]], dim=1)
+            sp = cm.push_frames(stack, sp, push, vals)
+            can = live & (sp > 0)
+            kk, base, sp = cm.pop_frames(stack, sp, can, cm.FRAME8)
+            ent = stack[ar, base + kk].to(torch.int64)
+        else:
+            sp = cm.push_slots(stack, sp, passed & live[:, None], ents[ec])
+            can = live & (sp > 0)
+            sp = sp - can.to(torch.int64)
+            ent = stack[ar, torch.clamp(sp, min=0)].to(torch.int64)
+        e = torch.where(can, ent, torch.where(live, cm.DONE, e))
+    return L.outputs((L.iters, L.leafs), node_rows)
+
+
+def traverse_lab2p(origin, direction, t_init, nodes, ltris, roots, *, active,
+                   nn, frame_stack=True, nearest=False, parent=False,
+                   count_rows=False):
+    """L2 (module docstring) over the fused table `nodes` ((B + NL, 128),
+    nn = B); `ltris` is not read (the JAX lab takes a dummy row)."""
+    del ltris
+    roots = tuple(int(r) for r in roots)
+    rays = cm.columns(origin, direction)
+    if parent and not frame_stack:
+        raise ValueError("traverse_lab2p: parent frames require the frame "
+                         "stack")
+    if nodes.dim() != 2 or nodes.shape[1] != 128 or not 0 < nn < \
+            nodes.shape[0]:
+        raise ValueError("traverse_lab2p: the pipelined lab needs the fused "
+                         "table (fuse_tables) and its nn")
+    _check_tree("traverse_lab2p", nodes, roots, True, nn, frame_stack,
+                parent)
+    dev = t_init.device
+    if dev.type == "cpu":
+        return traverse_lab2p_reference(
+            rays, t_init, nodes, roots, active=active, nn=nn,
+            frame_stack=frame_stack, nearest=nearest, parent=parent,
+            count_rows=count_rows)
+    if dev.type != "cuda":
+        raise ValueError(f"traverse_lab2p runs on cuda or cpu tensors, not "
+                         f"{dev}")
+    out = cm.launch(cm.build().lab2p_launch, "traverse_lab2p", rays, t_init,
+                    nodes, None, roots, active,
+                    flags=_flags(frame_stack, nearest, parent), nn=nn,
+                    node_rows=nn, leaf_rows=nodes.shape[0] - nn,
+                    count_rows=count_rows)
+    cm.count_launch(lab2p_key(frame_stack, nearest, parent))
+    return out
+
+
+def traverse_lab2p_reference(rays, t_init, nodes, roots, *, active, nn,
+                             frame_stack=True, nearest=False, parent=False,
+                             count_rows=False):
+    """L2's plain version: per trip (1) every lane with a non-empty stack
+    pops its next entry, (2) the current entry's slab or leaf work, (3)
+    the current entry's children pushed and the next entry made current;
+    the loop runs while an entry or a frame is left."""
+    L = cm.Lanes(rays, t_init, active)
+    n, dev, ar = L.n, L.dev, L.ar
+    if count_rows:
+        L.count_rows(nodes.shape[0])
+    bounds = nodes[:, :48].reshape(-1, 8, 6)
+    ents = nodes[:, 48:56].contiguous().view(_I32)
+    recs = nodes.reshape(-1, 8, 16)
+    frame = 2 if parent else cm.FRAME8
+    cap = cm.FSTACK8 if frame_stack else cm.STACK
+    stack = torch.zeros((n, cap), dtype=_I32, device=dev)
+    sp = torch.zeros(n, dtype=torch.int64, device=dev)
+    extra = list(roots[1:])
+    if parent:
+        words = []
+        for g, pos in enumerate(range(0, len(extra), 8)):
+            words += [-(g + 1), (1 << len(extra[pos:pos + 8])) - 1]
+        if words:
+            stack[L.act, :len(words)] = torch.tensor(words, dtype=_I32,
+                                                     device=dev)
+            sp[L.act] = len(words)
+    elif frame_stack:
+        cm.seed_frames(stack, sp, L.act, roots, cm.FRAME8, 8)
+    elif extra:
+        stack[L.act, :len(extra)] = torch.tensor(extra, dtype=_I32,
+                                                 device=dev)
+        sp[L.act] = len(extra)
+    root_ents = torch.tensor(extra + [0], dtype=torch.int64, device=dev)
+    e = torch.where(L.act, roots[0], cm.DONE).to(torch.int64)
+    while True:
+        live = e != cm.DONE
+        if not L.trip(live | (sp > 0)):
+            break
+        leaf = live & (e >= nn)
+        interior = live & ~leaf
+        L.leafs += cm.warp_any(leaf)
+        # (1) pop the next entry
+        can = sp > 0
+        if frame_stack:
+            kk, base, sp2 = cm.pop_frames(stack, sp, can, frame,
+                                          near_shift=8 if nearest else 0)
+            if parent:
+                par = stack[ar, base].to(torch.int64)
+                from_row = ents[torch.clamp(par, min=0), kk].to(torch.int64)
+                seed = root_ents[torch.clamp(8 * (-par - 1) + kk, 0,
+                                             len(extra))]
+                ent = torch.where(par >= 0, from_row, seed)
+            else:
+                ent = stack[ar, base + kk].to(torch.int64)
+        else:
+            sp2 = sp - can.to(torch.int64)
+            ent = stack[ar, torch.clamp(sp2, min=0)].to(torch.int64)
+        nxt = torch.where(can, ent, cm.DONE)
+        # (2) slab or leaf of the current entry
+        ec = torch.where(interior, e, 0)
+        passed, tmin = cm.slab_rows(L, bounds, ents, ec, L.t, True, interior)
+        L.mark(ec[interior], 0)
+        w = cm.mask_bits(passed)
+        if nearest:
+            w = w | (cm.nearest_slot(passed, tmin) << 8)
+        lc = torch.where(leaf, e, 0)
+        L.mark(lc[leaf], 1, cm.LEAF_TRIS * int(leaf.sum()))
+        cm.leaf_closest(L, recs[lc], leaf)
+        # (3) push the current entry's children
+        push = interior & ((w & 0xFF) != 0)
+        if parent:
+            sp = cm.push_frames(stack, sp2, push,
+                                torch.stack([e, w], dim=1))
+        elif frame_stack:
+            vals = torch.cat([ents[ec].to(torch.int64), w[:, None]], dim=1)
+            sp = cm.push_frames(stack, sp2, push, vals)
+        else:
+            sp = cm.push_slots(stack, sp2, passed, ents[ec])
+        e = nxt
+    return L.outputs((L.iters, L.leafs), nn)

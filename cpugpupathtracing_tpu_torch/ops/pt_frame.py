@@ -109,12 +109,17 @@ HOST_FLAGS = ["-O2", "-std=c++17", "-shared", "-fPIC", "-ffp-contract=off"]
 # every source of the CUDA build (the build directory hashes them all),
 # and per compilation unit the C entry points of its shared library
 _SOURCES = ("pt_frame.cu", "megakernel.cu", "traverse.cu", "whitted.cu",
-            "pt_launch.cuh", "pt_device.cuh", "whitted.cuh")
+            "lab2.cu", "lab3.cu", "phase_lab.cu",
+            "pt_launch.cuh", "pt_device.cuh", "whitted.cuh", "lab_device.cuh")
 _UNITS = (
     ("pt_frame.cu", ("pt_frame_launch",)),
     ("megakernel.cu", ("mk_shade_extend_launch", "mk_shadow_resolve_launch")),
     ("traverse.cu", ("traverse_launch", "pt_args_layout")),
     ("whitted.cu", ("whitted_launch",)),
+    # the traversal labs (labs/)
+    ("lab2.cu", ("lab2_launch", "lab2p_launch", "lab_args_layout")),
+    ("lab3.cu", ("lab3_launch",)),
+    ("phase_lab.cu", ("phase_launch",)),
 )
 _HOST_SOURCES = ("pt_host_check.cc", "pt_device.cuh", "whitted.cuh")
 _HOST_ENTRIES = ("pt_frame_host", "traverse_host", "whitted_host",
@@ -224,7 +229,8 @@ def _nvcc() -> str:
 
 def build() -> types.SimpleNamespace:
     """Compile every kernel unit (csrc/pt_frame.cu, megakernel.cu,
-    traverse.cu, whitted.cu) for sm_90a, one nvcc per unit, all started together, into
+    traverse.cu, whitted.cu and the labs' lab2.cu, lab3.cu, phase_lab.cu)
+    for sm_90a, one nvcc per unit, all started together, into
     build/torch_kernels/<hash of all sources>/ and load them: a namespace
     of the C launch entries.  Raises if any nvcc fails."""
     global _lib, build_log, build_seconds
@@ -981,6 +987,11 @@ def _slab_pass(box, o, inv, zero, t, at_t):
     mask zero; 3-tuples of (N,)) enters the box (6,) [min, max] before t
     (at t too with at_t): the slab test of csrc/pt_device.cuh
     push_children, zero_slab's rule included."""
+    return slab_test(box, o, inv, zero, t, at_t)[0]
+
+
+def slab_test(box, o, inv, zero, t, at_t):
+    """_slab_pass, and the entry distance tmin of every test."""
     t1, t2 = [], []
     for a in range(3):
         lo, hi = box[a], box[3 + a]
@@ -998,7 +1009,7 @@ def _slab_pass(box, o, inv, zero, t, at_t):
                                  torch.fmax(t1[1], t2[1])),
                       torch.fmax(t1[2], t2[2]))
     before = (tmin < t) | (at_t & (tmin == t)) if at_t else tmin < t
-    return (tmax >= tmin) & before & (tmax > 0.0)
+    return (tmax >= tmin) & before & (tmax > 0.0), tmin
 
 
 def closest_hit_instances_reference(nodes, ltris, roots, inst_inv,

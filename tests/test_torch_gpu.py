@@ -22,7 +22,9 @@ output, bvh_depth included.  The variant arms of every node-table
 layout (side tables with 64- or 48-col rows, 16-wide rows, the fused
 table) equal the plain 64-col arms bitwise, and their count_depth arms
 the walk on the same tables.  The leaf arms (leaf-14 payload rows,
-2-row and 16-wide any-hit trees) equal their plain versions bitwise."""
+2-row and 16-wide any-hit trees) equal their plain versions bitwise.
+Every arm of the traversal labs L1-L4 (labs/) equals its plain version
+bitwise on a bounce fan of the card scene, counters included."""
 
 import numpy as np
 import pytest
@@ -727,3 +729,34 @@ def test_leaf_arms_match_plain(card, arm, monkeypatch):
         assert _launched(ptf.launch_key("traverse_packet_slim", layout,
                                         depth=True, leaf=leaf)) >= 1
     ptf.check_status("cuda")
+
+
+@pytest.fixture()
+def lab_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from cpugpupathtracing_tpu_torch.labs import bounce_fan
+    return bounce_fan, bounce_fan.make_fan("cuda", W, H, scene=_card_scene())
+
+
+@pytest.mark.parametrize("lab", ["L1", "L2", "L3", "L4"])
+def test_lab_kernels_match_plain(lab_card, lab):
+    """Every arm of the traversal lab on the card's bounce fan: the kernel
+    equals its plain version bitwise on every output (t, hit, object, the
+    per-tile trip counters, the count launch's work and rows read), its
+    hits equal traverse_packet_slim's, and each launch is counted."""
+    bf, fan = lab_card
+    for arm in (a for a in bf.ARMS if a.kernel == lab):
+        before = _launched(bf.arm_key(arm))
+        got = bf.call(fan, arm, count_rows=True)
+        assert _launched(bf.arm_key(arm)) == before + 1
+        ref = bf.plain(fan, arm, fan.rays, fan.t_init, fan.active,
+                       count_rows=True)
+        ptf.check_status("cuda")
+        assert len(got) == len(ref)
+        for a, b in zip(got, ref):
+            if a.dtype == torch.float32:
+                a, b = a.view(torch.int32), b.view(torch.int32)
+            assert torch.equal(a, b), arm.label
+        assert bf.hit_mismatches(fan, arm, got) == 0, arm.label
+        assert int(got[3].sum()) > 0
