@@ -22,10 +22,10 @@ and in the RAY_DEPTH and BVH_DEPTH views, on config 5's object-space
 scene with AOVs, on a mesh light over the light table and on config 1
 in ADVANCED mode; and configs 3 and 5 under every node-table layout and
 leaf-side / occlusion variant (CPUGPU_LEAF14, CPUGPU_OCCL2,
-CPUGPU_OCCL_W16), and the traversal labs L1-L4 on config 3's bounce
-fan -- and holds every CUDA kernel of those paths against its plain
-PyTorch version on the card.  Phases, one line each; any
-failure raises and exits non-zero:
+CPUGPU_OCCL_W16), the traversal labs L1-L4, L6 and L7 on config 3's
+bounce fan, and the TPU probes L5, L8 and L9 -- and holds every CUDA
+kernel of those paths against its plain PyTorch version on the card.
+Phases, one line each; any failure raises and exits non-zero:
 
   1. device      the card's name and power limit (nvidia-smi)
   2. build       nvcc build of the kernels from the checkout, one nvcc per
@@ -120,21 +120,31 @@ failure raises and exits non-zero:
                  1920x1080 and config 1 in ADVANCED mode at 800x600: the
                  gates refuse both, trace_advanced runs every frame (12
                  traversal launches and 6 sorts, and none), timed frames
- 17e. check_labs  the traversal labs L1-L4 (labs/: traverse_lab2,
-                 traverse_lab2p, traverse16, traverse_phase) on 8192 lanes
+ 17e. check_labs  the traversal labs L1-L4, L6, L7 (labs/: traverse_lab2,
+                 traverse_lab2p, traverse16, traverse_phase, traverse_lab,
+                 traverse_lab_dual) on 8192 lanes
                  from the middle of config 3's bounce fan
                  (labs/bounce_fan.py: cosine-weighted bounces from the
                  1920x1080 camera hits): every arm of each against its
                  plain version, bitwise on every output, the per-tile trip
                  counters and the rows read included; closest hits
                  against traverse_packet_slim's bitwise, L3's any hit in
-                 its occlusion bit; L2's parent-pointer frames take the
-                 frame stack's trips exactly
+                 its occlusion bit (L6's fma arm: mismatches counted;
+                 leaf skip: none; slab skip against its plain version on
+                 a small tree); L2's parent-pointer frames take the frame
+                 stack's trips exactly, L7's warps the max of their paired
+                 L6 warps' trips
  17f. labs       the labs' main path: the whole bounce fan (1.07M active
-                 lanes) through each of the 18 arms once -- hits against
+                 lanes) through each of the 36 arms once -- hits against
                  traverse_packet_slim's on every active lane, trips, leaf
                  share, device ms, ns per warp trip, the bound from a
                  count launch made before the launch counts are zeroed
+ 17g. check_floor  the floor probe L5 (labs/floor_probe.py) on the 8192
+                 check lanes at 16 trips: each of its ten stage sets
+                 against its plain version, bitwise on t and the entry
+ 17h. floor      L5's main path: each stage set once over the whole fan
+                 (2,073,600 lanes) at K = 2000 trips: device ms, ns per
+                 warp trip, the bound (slab and leaf operations)
  20. layout3      config 3 at 1920x1080 under every node-table layout:
                  the default (CPUGPU_SMEMTREE=48: 48-col rows and the entry
                  side tables), CPUGPU_SMEMTREE=1 (64-col rows with them),
@@ -180,13 +190,22 @@ failure raises and exits non-zero:
                  profiled): the routes the gate allows, a refit against a
                  fresh build (the payload rows included) bitwise, frames
                  from reset equal the default's.
+ 24. launch       L8 (labs/launch_probe.py): the trivial kernel once and
+                 twice chained against x * 2 and x * 4 bitwise, then host
+                 ms per call, device ms and call_ms of it, of x * 2, and
+                 of B4 on the cube and on config 3 at 1-64 tiles
+ 25. smem         L9 (labs/smem_probe.py): tables from 1,024 to 260,000
+                 words staged in one block's shared memory: OK exactly up
+                 to the opt-in limit, the right word read; a launch after
+                 the refusals
  18. the {"kernels": [...]} line: per kernel its check's numbers, and per
      main-path launch its lanes, ms, bound and sampled error; the
      instance arms, the count_depth arms, the variant arms and the leaf
      arms as entries of their own (`*_inst`, `*_depth`, `*_<layout>`,
-     `*_<layout>_<occl|occl2|pay|ow16>`); the four lab kernels with the
+     `*_<layout>_<occl|occl2|pay|ow16>`); the six lab kernels with the
      check-lane numbers of their default arm and, per arm, its numbers on
-     the fan (`arms`)
+     the fan (`arms`); the probes L5 (per stage set), L8 (per case) and
+     L9 (per size)
  19. the last line {"ok": true, "device": {...}}
 
 Phases 3-17 run the plain 64-col arms (CPUGPU_SMEMTREE=0 for their
@@ -208,6 +227,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -348,6 +368,35 @@ def ptxas_lines(log: str) -> list:
     return out
 
 
+def sass_twins(lib: str, kernel: str) -> list:
+    """Groups (two or more) of the instantiations of `kernel` in the
+    shared library `lib` that compiled to the same SASS (cuobjdump -sass,
+    each instruction's text), by their template arguments."""
+    import hashlib
+
+    from cpugpupathtracing_tpu_torch.ops import pt_frame as ptf
+
+    tool = os.path.join(os.path.dirname(ptf._nvcc()), "cuobjdump")
+    out = subprocess.run([tool, "-sass", lib], capture_output=True,
+                         text=True, timeout=120, check=True).stdout
+    bodies: dict = {}
+    name = None
+    for ln in out.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            name = m.group(1) if kernel in m.group(1) else None
+            if name:
+                bodies[name] = []
+        elif name and "*/" in ln and ";" in ln:
+            bodies[name].append(ln.split("*/", 1)[1].split(";", 1)[0].strip())
+    groups: dict = {}
+    for fn, ins in bodies.items():
+        args = ",".join(v for _, v in re.findall(r"L([bi])(\d+)E", fn))
+        digest = hashlib.sha1("\n".join(ins).encode()).hexdigest()
+        groups.setdefault(digest, []).append(f"{kernel}<{args}>")
+    return [sorted(g) for g in groups.values() if len(g) > 1]
+
+
 def cuda_ms(fn, reps: int) -> float:
     """Mean device milliseconds of fn() over reps calls (CUDA events)."""
     import torch
@@ -369,7 +418,9 @@ def launch_ms(fn, kernels, reps: int = 1, expect: int | None = None) -> list:
     number of launches fn() makes reps times, when the caller knows it.
     Unlike CUDA events around a call, this leaves out the time the device
     waits for the host to enqueue the launch.  Every `ms` of the kernels
-    line is this clock."""
+    line is this clock but those of the labs, L5, L8 and L9 (labs/common.py
+    busy_ms: CUDA events with the stream held busy, as the profiler misses
+    launches after many sessions in one process, then records none)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -827,8 +878,6 @@ def frame_mega(scene, cam_cfg, settings, width, height, small_bytes,
     both routes -- of the per-depth route alone when `whole` is False: the
     scene's tables are ones the whole-frame gate refuses), and prints the
     [<phase>] line."""
-    import os
-
     import torch
     from cpugpupathtracing_tpu_torch.config import RenderConfig
     from cpugpupathtracing_tpu_torch.models.renderer import Renderer
@@ -1187,8 +1236,6 @@ def timed_frames(r, what: str, profile: bool, route: str, **want):
 def frame_whitted(scene, cam_cfg, settings, width, height, profile: bool):
     """Phase 10: config 1 through Renderer on the whole-frame Whitted
     kernel.  Returns (main-path entries, counts)."""
-    import os
-
     import torch
     from cpugpupathtracing_tpu_torch.config import RenderConfig
     from cpugpupathtracing_tpu_torch.models.renderer import Renderer
@@ -1324,8 +1371,6 @@ def frame_whitted_mesh(scene, cam_cfg, settings, width, height,
 def environ(**kv):
     """Set (a value) or unset (None) environment variables for the block,
     then restore them."""
-    import os
-
     prev = {k: os.environ.get(k) for k in kv}
     for k, v in kv.items():
         if v is None:
@@ -3368,22 +3413,53 @@ LAB_SOURCES = {
     "L2": ("traverse_lab2p", "lab2.cu", "tools/kernel_lab2.py:753"),
     "L3": ("traverse16", "lab3.cu", "tools/kernel_lab3.py:469"),
     "L4": ("traverse_phase", "phase_lab.cu", "tools/phase_lab.py:415"),
+    "L6": ("traverse_lab", "kernel_lab.cu", "tools/kernel_lab.py:584"),
+    "L7": ("traverse_lab_dual", "kernel_lab.cu", "tools/kernel_lab.py:854"),
 }
 LAB_DEFAULT = {"L1": "linear baseline", "L2": "pipelined fs+fused",
-               "L3": "W16 lab (fs+condpush)", "L4": "phase-split"}
+               "L3": "W16 lab (fs+condpush)", "L4": "phase-split",
+               "L6": "base (seq phases)", "L7": "dual-tile"}
+# the small tree on which L6's slab="skip" arm is held against its plain
+# version (which takes one lockstep step per row of the tree, too many on
+# config 3's): an icosphere of subdivisions 1 and a ground quad at 32x32
+SKIP_CHECK_SIZE = (32, 32)
+
+
+def skip_scene():
+    """The small tree of SKIP_CHECK_SIZE's check (plain tables)."""
+    from cpugpupathtracing_tpu_torch.models import materials as matlib
+    from cpugpupathtracing_tpu_torch.models import mesh as meshlib
+    from cpugpupathtracing_tpu_torch.models.scene import Scene
+
+    s = Scene()
+    m = s.add_material(matlib.Material.diffuse((0.8, 0.8, 0.8)))
+    s.add_mesh("ball", meshlib.icosphere(subdivisions=1, radius=2.0), m)
+    s.add_mesh("floor", meshlib.ground_quad(half_extent=50.0, y=-2.0), m)
+    return s
 
 
 def check_labs(fan) -> dict:
     """Phase 17e on CHECK_LANES lanes from the middle of config 3's bounce
-    fan: every arm of L1-L4 (labs/bounce_fan.py ARMS) against its plain
-    version on the card, bitwise on every output -- t, hit, object, the
-    per-tile trip counters and the count launch's work and rows read --
-    and its hits against the standalone traversal's (closest hits
-    bitwise, L3's any hit in its occlusion bit); the L2 invariant that
-    parent-pointer frames take the frame stack's trips exactly.  Returns
-    per arm label its numbers: device ms and call_ms (kernel_ms), plain
-    ms, the check lanes' bound."""
+    fan: every arm of L1-L4, L6 and L7 (labs/bounce_fan.py ARMS) against
+    its plain version on the card, bitwise on every output -- t, hit,
+    object, L6's depth, the per-tile trip counters and the count launch's
+    work and rows read -- and its hits against the standalone traversal's
+    (closest hits bitwise, L3's any hit in its occlusion bit; fma's
+    mismatches counted, leaf skip's none); the L2 invariant that
+    parent-pointer frames take the frame stack's trips exactly; the L7
+    invariant that a warp's trips are the max of the two L6 (ilv, fixed)
+    warps it pairs.  L6's slab="skip" arm, whose plain version takes one
+    step per row of the tree, is held against its plain version on a small
+    tree (skip_scene's bounce fan of 1024 lanes) and on the check lanes
+    against the standalone traversal's hits only.  Returns per arm label
+    its numbers: device ms (CHECK_REPS launches with the stream held busy,
+    common.busy_ms) and call_ms (CUDA events), plain ms, the check lanes'
+    bound."""
+    import torch
+
     from cpugpupathtracing_tpu_torch.labs import bounce_fan as bf
+    from cpugpupathtracing_tpu_torch.labs import kernel_lab as kl
+    from cpugpupathtracing_tpu_torch.labs.common import busy_ms
     from cpugpupathtracing_tpu_torch.ops import pt_frame as ptf
 
     n = fan.t_init.numel()
@@ -3391,28 +3467,45 @@ def check_labs(fan) -> dict:
     sl = slice(lo, lo + CHECK_LANES)
     rays = tuple(c[sl].contiguous() for c in fan.rays)
     t0, act = fan.t_init[sl].contiguous(), fan.active[sl].contiguous()
+    small = bf.make_fan(t0.device, *SKIP_CHECK_SIZE, scene=skip_scene())
     out = {}
     for arm in bf.ARMS:
         got = bf.call(fan, arm, rays, t0, act, count_rows=True)
-        ref, plain_ms = timed_plain(
-            lambda arm=arm: bf.plain(fan, arm, rays, t0, act,
-                                     count_rows=True))
+        skip = arm.kw.get("slab") == "skip"
+        if skip:
+            s_got = bf.call(small, arm, count_rows=True)
+            ref, plain_ms = timed_plain(
+                lambda arm=arm: bf.plain(small, arm, small.rays,
+                                         small.t_init, small.active,
+                                         count_rows=True))
+            pairs = zip(s_got, ref)
+        else:
+            ref, plain_ms = timed_plain(
+                lambda arm=arm: bf.plain(fan, arm, rays, t0, act,
+                                         count_rows=True))
+            pairs = zip(got, ref)
         ptf.check_status(t0.device)
         mism = sum(int((a_ != b_).sum())
-                   for a_, b_ in (as_bits(a, b) for a, b in zip(got, ref)))
-        hits = bf.hit_mismatches(fan, arm, got, lanes=sl)
-        if mism or hits:
+                   for a_, b_ in (as_bits(a, b) for a, b in pairs))
+        hits = None if arm.hits == "skip" else \
+            bf.hit_mismatches(fan, arm, got, lanes=sl)
+        if mism or (hits and arm.hits == "equal"):
             raise AssertionError(f"check_labs {arm.label}: {mism} output "
                                  f"words differ from the plain version, "
                                  f"{hits} hits from the standalone traversal")
         out[arm.label] = dict(
             key=bf.arm_key(arm), mismatches=mism, hit_mismatches=hits,
-            max_abs_err=float((got[0] - ref[0]).abs().max()),
-            iters=int(got[3].sum()),
+            plain_check="small tree" if skip else "check lanes",
+            max_abs_err=float(((s_got if skip else got)[0]
+                               - ref[0]).abs().max()),
+            iters=bf.trips(arm, got)[0],
             counts=dict(zip(bf.cm.COUNTS, (int(v) for v in got[-1]))),
             bound=bf.bound(fan, arm, got[-1], act), plain_ms=plain_ms,
-            **kernel_ms(lambda arm=arm: bf.call(fan, arm, rays, t0, act),
-                        bf.KERNELS[arm.kernel], reps=5))
+            ms=busy_ms(lambda arm=arm: bf.call(fan, arm, rays, t0, act),
+                       CHECK_REPS),
+            call_ms=cuda_ms(lambda arm=arm: bf.call(fan, arm, rays, t0, act),
+                            CHECK_REPS))
+
     for near in ("", "+nearest"):
         fs = out["pipelined fs+fused" + near]["iters"]
         par = out["pipe fs+fused+near+parent" if near
@@ -3420,11 +3513,32 @@ def check_labs(fan) -> dict:
         if fs != par:
             raise AssertionError(f"check_labs: parent frames took {par} "
                                  f"trips, the frame stack {fs}")
+    # L7: per pair of tiles the sum over its warps of the max of the two
+    # L6 (ilv, fixed) warps it pairs, L6's per-warp trips from its plain
+    # version (equal to its kernel's per tile above)
+    l6 = kl.traverse_lab_reference(rays, t0, fan.nodes, fan.ltris, fan.roots,
+                                   active=act, slab="ilv", leaf="ilv",
+                                   order="fixed", warp_trips=True)
+    dual = bf.call(fan, next(a for a in bf.ARMS if a.kernel == "L7"), rays,
+                   t0, act)
+    pair_max = bool(torch.equal(dual[4].cpu(),
+                                kl.pair_trips(l6[-1], CHECK_LANES).cpu()))
+    if not pair_max:
+        raise AssertionError("check_labs: L7's trips are not the max of its "
+                             "paired L6 warps'")
+    # blocks per SM of L6's ilv + fixed arm with its entries from the row
+    # and from the shared-memory mirror of config 3's tree
+    fixed = dict(slab="ilv", leaf="ilv", order="fixed")
+    occupancy = {e: kl.occupancy(fan.nodes.shape[0], entries=e, **fixed)
+                 for e in ("vector", "smem")}
     say("check_labs", lanes=CHECK_LANES, active=int(act.sum()),
         arms=len(out), mismatches=0, parent_iters_equal=True,
-        **{f"{v['key']}_ms": round(v["ms"], 4) for v in out.values()},
-        **{f"{v['key']}_plain_ms": round(v["plain_ms"], 1)
-           for v in out.values()})
+        pair_max_equal=pair_max, blocks_per_sm=occupancy,
+        fma_hit_mismatches=[v["hit_mismatches"] for v in out.values()
+                            if v["key"].endswith("_fma")],
+        **{f"{k}_ms": round(v["ms"], 4) for k, v in out.items()},
+        **{f"{k}_plain_ms": round(v["plain_ms"], 1)
+           for k, v in out.items()})
     return out
 
 
@@ -3432,40 +3546,45 @@ def labs(fan) -> list:
     """Phase 17f, the labs' main path: the bounce fan at full width
     through every arm, one launch each (labs/bounce_fan.py run): hits
     bitwise against the standalone traversal's, trips, device ms
-    (launch_ms) and ns per warp trip, and the bound from a count launch
-    of the arm made before the launch counts are zeroed; and one launch
-    of the standalone traversal's closest hit of the fan, the arms'
-    yardstick.  Fails on any launch of another kernel arm, or a second
-    launch of an arm that its timing did not make."""
+    (common.busy_ms) and ns per warp trip, and the bound from a count launch of the arm made before
+    the launch counts are zeroed; and one launch of the standalone
+    traversal's closest hit of the fan, the arms' yardstick.  Fails on any
+    launch of another kernel arm, or a second launch of an arm that its
+    timing did not make."""
     from cpugpupathtracing_tpu_torch.labs import bounce_fan as bf
 
     bounds = bf.count_pass(fan)
-    ran: dict = {}
+    ran: dict = {}  # launches by arm label (the dp arm shares a key)
 
-    def timer(fn, arm):
-        key = bf.arm_key(arm)
-
-        def counted():
-            ran[key] = ran.get(key, 0) + 1
-            fn()
-        return launch_ms(counted, bf.KERNELS[arm.kernel], expect=1)[0]
+    def counting(call):
+        def counted(fan, arm, *a, **k):
+            ran[arm.label] = ran.get(arm.label, 0) + 1
+            return call(fan, arm, *a, **k)
+        return counted
 
     reset_counts()
-    rows = bf.run(fan, timer=timer, bounds=bounds)
-    got = counts()
-    expect_counts(got, "labs", **ran)
+    box = {}
+    instrument(bf, "call", counting,
+               lambda: box.update(rows=bf.run(fan, timed=True,
+                                              bounds=bounds)))
+    rows = box["rows"]
+    by_key: dict = {}
+    for arm in (bf.REF,) + bf.ARMS:
+        key = bf.arm_key(arm)
+        by_key[key] = by_key.get(key, 0) + ran[arm.label]
+    expect_counts(counts(), "labs", **by_key)
     for row in rows:
-        row["launches"] = ran[row["key"]]
+        row["launches"] = ran[row["label"]]
         say("labs", **{k: (round(v, 4) if isinstance(v, float) else v)
                        for k, v in row.items() if k != "counts"})
     return rows
 
 
 def lab_entries(chk: dict, rows: list) -> list:
-    """The kernels line's entries of the four lab kernels: the check-lane
+    """The kernels line's entries of the six lab kernels: the check-lane
     numbers of the kernel's default arm (LAB_DEFAULT) at the top, and per
-    arm its launches, device ms, ns per warp trip, trips and bound on the
-    full fan beside its check-lane numbers."""
+    arm its launches, device ms, ns per warp trip, trips, bound and hits
+    on the full fan beside its check-lane numbers."""
     from cpugpupathtracing_tpu_torch.labs import bounce_fan as bf
 
     main = {r["label"]: r for r in rows}
@@ -3499,13 +3618,236 @@ def lab_entries(chk: dict, rows: list) -> list:
                 "bound_ms": main[lb]["bound_ms"],
                 "bound_by": main[lb]["bound_by"],
                 "hits_equal": main[lb]["hits_equal"],
+                "hit_mismatches": main[lb]["hit_mismatches"],
                 "check_ms": chk[lb]["ms"], "check_call_ms": chk[lb]["call_ms"],
                 "check_plain_ms": chk[lb]["plain_ms"],
+                "check_plain": chk[lb]["plain_check"],
                 "check_bound_ms": chk[lb]["bound"][0],
-                "check_mismatches": chk[lb]["mismatches"]}
+                "check_mismatches": chk[lb]["mismatches"],
+                "check_hit_mismatches": chk[lb]["hit_mismatches"]}
                 for lb in labels],
         })
     return out
+
+
+# launches of each lab kernel and probe timed on the check lanes
+CHECK_REPS = 5
+# the floor probe's check: its trips per lane on the check lanes (the
+# plain version steps them all in lockstep); its stage set at the top of
+# the kernels line (tools/floor_probe.py's full body)
+FLOOR_CHECK_K = 16
+FLOOR_DEFAULT = ("ctrl", "loads", "slab", "leaf")
+
+
+def check_floor(fan) -> dict:
+    """Phase 17g: each of L5's stage sets (labs/floor_probe.py) on the
+    CHECK_LANES check lanes of the bounce fan at FLOOR_CHECK_K trips
+    against its plain version ("warp" layout), bitwise on t and the final
+    entry.  Returns per stage set its device ms (common.busy_ms) and
+    call_ms, plain ms and bound."""
+    from cpugpupathtracing_tpu_torch.labs import floor_probe as fp
+    from cpugpupathtracing_tpu_torch.labs.common import busy_ms
+
+    n = fan.t_init.numel()
+    lo = n // 2 - CHECK_LANES // 2
+    rays = tuple(c[lo:lo + CHECK_LANES].contiguous() for c in fan.rays)
+    out = {}
+    for stages in fp.STAGE_SETS:
+        def call(stages=stages):
+            return fp.floor_probe(stages, fan.nodes, fan.ltris, rays,
+                                  k_iters=FLOOR_CHECK_K)
+
+        got = call()
+        ref, plain_ms = timed_plain(
+            lambda stages=stages: fp.floor_probe_reference(
+                stages, fan.nodes, fan.ltris, rays, k_iters=FLOOR_CHECK_K))
+        mism = sum(int((a_ != b_).sum())
+                   for a_, b_ in (as_bits(a, b) for a, b in zip(got, ref)))
+        if mism:
+            raise AssertionError(f"check_floor {stages}: {mism} output words "
+                                 "differ from the plain version")
+        out[fp.launch_key(stages)] = dict(
+            mismatches=mism, max_abs_err=float((got[0] - ref[0]).abs().max()),
+            plain_ms=plain_ms,
+            bound=fp.bound(stages, CHECK_LANES, FLOOR_CHECK_K),
+            ms=busy_ms(call, CHECK_REPS), call_ms=cuda_ms(call, CHECK_REPS))
+    say("check_floor", lanes=CHECK_LANES, k_iters=FLOOR_CHECK_K,
+        stage_sets=len(out), mismatches=0,
+        **{f"{k}_ms": round(v["ms"], 4) for k, v in out.items()})
+    return out
+
+
+def floor(fan) -> list:
+    """Phase 17h, L5's main path: every stage set once on the whole bounce
+    fan (2,073,600 lanes) at the JAX probe's K = 2000 trips: device ms
+    (common.busy_ms), ns per warp trip and the bound
+    (labs/floor_probe.py run).  Fails on any other launch."""
+    from cpugpupathtracing_tpu_torch.labs import floor_probe as fp
+
+    reset_counts()
+    rows = fp.run(fan.nodes, fan.ltris, fan.rays, timed=True)
+    got = counts()
+    expect_counts(got, "floor", **{r["key"]: got.get(r["key"], 0)
+                                   for r in rows})
+    for row in rows:
+        row["launches"] = got[row["key"]]
+        say("floor", **{k: (round(v, 4) if isinstance(v, float) else v)
+                        for k, v in row.items()})
+    return rows
+
+
+def floor_entry(chk: dict, rows: list) -> dict:
+    """The kernels line's entry of L5: the check-lane numbers of the full
+    stage set at the top, per stage set its main-path numbers."""
+    from cpugpupathtracing_tpu_torch.labs import floor_probe as fp
+
+    c = chk[fp.launch_key(FLOOR_DEFAULT)]
+    return {
+        "name": "floor_probe", "route": "cuda",
+        "source": "cpugpupathtracing_tpu_torch/csrc/floor_probe.cu",
+        "replaces": "tools/floor_probe.py:193",
+        "launches": sum(r["launches"] for r in rows),
+        "max_abs_err": max(v["max_abs_err"] for v in chk.values()),
+        "ms": c["ms"], "call_ms": c["call_ms"], "plain_ms": c["plain_ms"],
+        "bound_ms": c["bound"][0], "bound_by": c["bound"][1],
+        "library_ms": None, "check_lanes": CHECK_LANES,
+        "check_k_iters": FLOOR_CHECK_K,
+        "default_stages": "+".join(FLOOR_DEFAULT),
+        "stage_sets": [dict(
+            {k: r[k] for k in ("stages", "key", "lanes", "k_iters",
+                               "launches", "ms", "ns_per_trip", "bound_ms",
+                               "bound_by")},
+            check_ms=chk[r["key"]]["ms"],
+            check_plain_ms=chk[r["key"]]["plain_ms"]) for r in rows],
+    }
+
+
+def launch_probe(ds3) -> dict:
+    """Phase 24, L8 (labs/launch_probe.py): trivial and trivial2 against
+    x * 2 and x * 4 bitwise, then every case of the JAX driver -- the
+    trivial kernel once and twice chained on 1024 f32, PyTorch's x * 2
+    beside them, B4 on the 12-triangle cube at 1024 rays and on config 3
+    (ds3, its plain-table snapshot) at 1, 4, 16 and 64 tiles -- with its
+    host ms per synchronised call, its device ms per call (common.busy_ms),
+    the profiler's ms per launch of its kernel (None where the profiler saw
+    none) and call_ms (CUDA events).  Fails on a launch the cases do not
+    make."""
+    import torch
+
+    from cpugpupathtracing_tpu_torch.labs import common as cm
+    from cpugpupathtracing_tpu_torch.labs import launch_probe as lp
+
+    dev = torch.device("cuda")
+    x = torch.randn(lp.N, device=dev)
+    exact = torch.equal(lp.trivial(x), x * 2) and \
+        torch.equal(lp.trivial2(x), x * 4)
+    if not exact:
+        raise AssertionError("launch: trivial / trivial2 differ from x * 2 / "
+                             "x * 4")
+    plain = timed_plain(lambda: lp.scale2_reference(x))[1]
+    cases = lp.cases(dev, ds3=ds3)
+    # launches per call of each case's function, by launch key
+    per_call = {"trivial": {"trivial": 1}, "trivial2": {"trivial2": 2}}
+    reset_counts()
+    ran: dict = {}
+    rows, timed = [], []
+    for label, kernel, lanes, fn in cases:
+        calls = [0]
+
+        def counted(fn=fn, calls=calls):
+            calls[0] += 1
+            return fn()
+        rows.append(dict(label=label, lanes=lanes,
+                         host_ms=lp.host_ms(counted),
+                         call_ms=cuda_ms(counted, lp.REPS)))
+        timed.append((kernel, counted, calls,
+                      per_call.get(label, {} if "library" in label
+                                   else {"traverse_packet_slim": 1})))
+    # device ms per call (CUDA events with the stream held busy), and the
+    # profiler's ms per launch beside it where it still records: after
+    # many sessions in one process it misses launches, then sees none
+    for r, (kernel, counted, _, _) in zip(rows, timed):
+        r["ms"] = cm.busy_ms(counted, lp.REPS)
+        r["profiler_ms"] = cm.profiled_ms(counted, kernel, lp.REPS)
+    for _, _, calls, keys in timed:
+        for k, v in keys.items():
+            ran[k] = ran.get(k, 0) + v * calls[0]
+    expect_counts(counts(), "launch", **ran)
+    for row in rows:
+        say("launch", **{k: (round(v, 5) if isinstance(v, float) else v)
+                         for k, v in row.items()})
+    return dict(rows=rows, launches=ran, plain_ms=plain, exact=exact)
+
+
+def smem_phase() -> dict:
+    """Phase 25, L9 (labs/smem_probe.py run): every size, OK exactly
+    when its bytes are at or below the device's opt-in shared memory per
+    block and the right word read, FAIL (refused) above it; then a small
+    table's launch.  Per launched size its device ms and bound; beside
+    config 3's entry mirror, torch.take's device ms (common.busy_ms) and
+    the plain version's host ms on the same table."""
+    import torch
+
+    from cpugpupathtracing_tpu_torch.labs import common as cm
+    from cpugpupathtracing_tpu_torch.labs import smem_probe as sp
+
+    dev = torch.device("cuda")
+    optin = sp.optin_bytes(dev)
+    reset_counts()
+    rows = sp.run(dev, timed=True)
+    launched = counts()
+    if set(launched) - {"smem_probe", "sorts"}:
+        raise AssertionError(f"smem: launched {launched}")
+    for r in rows:
+        if r["ok"] != (r["bytes"] <= optin):
+            raise AssertionError(f"smem: {r['label']} ({r['bytes']} B) "
+                                 f"{'OK' if r['ok'] else 'FAIL'} against "
+                                 f"the {optin} B limit")
+        say("smem", **{k: (round(v, 5) if isinstance(v, float) else v)
+                       for k, v in r.items()})
+    mirror = next(r for r in rows if r["label"] == "config 3 entry mirror")
+    tab = torch.arange(mirror["words"], dtype=torch.int32, device=dev)
+    idx = torch.full((1,), (mirror["words"] - 4) // 8, dtype=torch.int32,
+                     device=dev)
+    flat = idx.long() * 8 + 3
+    lib = cm.busy_ms(lambda: torch.take(tab, flat), reps=5)
+    plain = timed_plain(lambda: sp.smem_probe_reference(tab, idx))[1]
+    call = cuda_ms(lambda: sp.smem_probe(tab, idx), 5)
+    return dict(rows=rows, optin=optin, launches=launched["smem_probe"],
+                mirror=mirror, library_ms=lib, plain_ms=plain, call_ms=call)
+
+
+def probe_entries(launch: dict, smem: dict) -> list:
+    """The kernels line's entries of L8 and L9."""
+    from cpugpupathtracing_tpu_torch.labs import launch_probe as lp
+
+    rows = {r["label"]: r for r in launch["rows"]}
+    triv = rows["trivial"]
+    m = smem["mirror"]
+    return [{
+        "name": "trivial", "route": "cuda",
+        "source": "cpugpupathtracing_tpu_torch/csrc/probes.cu",
+        "replaces": "tools/profile_tpu2.py:41, :53, :59",
+        "launches": launch["launches"]["trivial"]
+        + launch["launches"]["trivial2"],
+        "max_abs_err": 0.0 if launch["exact"] else None,
+        "ms": triv["ms"], "call_ms": triv["call_ms"],
+        "host_ms": triv["host_ms"], "plain_ms": launch["plain_ms"],
+        "bound_ms": 2 * 4 * lp.N / PEAK_BYTES_PER_S * 1e3,
+        "bound_by": "bytes",
+        "library_ms": rows["x * 2 (library)"]["ms"],
+        "cases": launch["rows"],
+    }, {
+        "name": "smem_probe", "route": "cuda",
+        "source": "cpugpupathtracing_tpu_torch/csrc/probes.cu",
+        "replaces": "tools/smem_probe.py:53",
+        "launches": smem["launches"], "max_abs_err": 0.0,
+        "ms": m["ms"], "call_ms": smem["call_ms"],
+        "plain_ms": smem["plain_ms"], "bound_ms": m["bound_ms"],
+        "bound_by": "bytes", "library_ms": smem["library_ms"],
+        "words": m["words"], "optin_bytes": smem["optin"],
+        "sizes": smem["rows"],
+    }]
 
 
 def main() -> int:
@@ -3540,6 +3882,11 @@ def main() -> int:
         units=",".join(f"csrc/{u}" for u, _ in ptf._UNITS))
     for ln in ptxas:
         print("  ptxas:", ln, flush=True)
+    # L6's arms that are two instruction orders of one walk: which of them
+    # compiled to the same machine code
+    say("sass", lab_ablate_kernel_identical=sass_twins(
+        os.path.join(ptf.build_dir, "libkernel_lab.so"),
+        "lab_ablate_kernel"))
 
     # phases 3-17: the plain 64-col arms (CPUGPU_SMEMTREE=0); the node-
     # table layouts, the default among them, follow in phases 20-21
@@ -3689,14 +4036,18 @@ def main() -> int:
     frame_xla_scene("frame_meshless", scene1, cam1, settings, width1,
                     height1, {}, profile)
 
-    # 17e-f. the traversal labs L1-L4 on config 3's bounce fan: every arm
-    # on the check lanes against its plain version, then the fan at full
-    # width, one launch per arm
+    # 17e-f. the traversal labs L1-L4, L6 and L7 on config 3's bounce fan:
+    # every arm on the check lanes against its plain version, then the fan
+    # at full width, one launch per arm
     from cpugpupathtracing_tpu_torch.labs import bounce_fan
     fan = bounce_fan.make_fan(dev, width, height, scene=scene)
     say("lab_fan", **fan.info)
     lab_chk = check_labs(fan)
     lab_rows = labs(fan)
+    # 17g-h. the floor probe L5 on the fan's lanes (check lanes, then the
+    # whole fan at K = 2000)
+    floor_chk = check_floor(fan)
+    floor_rows = floor(fan)
     del fan
     plain_tables.close()
 
@@ -3714,6 +4065,12 @@ def main() -> int:
         leaf = leaf3(scene, cam_cfg, settings, width, height, o, d, st,
                      (e_k, s_k, tr_k), lay3["ref_frames"])
         leaf5 = layouts5(s5, LEAF5_RUNS, ref5, phase="leaf5", profile=False)
+
+    # 24-25. the launch and shared-memory probes L8, L9 (last: their
+    # device times are the profiler's, which misses launches after many
+    # sessions in one process)
+    launch_res = launch_probe(ds)
+    smem_res = smem_phase()
 
     # 18. kernels line, one clock per field: ms (device time per launch,
     # launch_ms), call_ms (CUDA events around the wrapper calls,
@@ -3874,6 +4231,8 @@ def main() -> int:
     kernels += variant_entries(lay3, lay5)
     kernels += leaf_entries(leaf, leaf5)
     kernels += lab_entries(lab_chk, lab_rows)
+    kernels.append(floor_entry(floor_chk, floor_rows))
+    kernels += probe_entries(launch_res, smem_res)
     print(json.dumps({"kernels": kernels}), flush=True)
     # 19. last line
     print(json.dumps({"ok": True, "device": {

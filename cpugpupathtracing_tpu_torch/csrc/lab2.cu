@@ -58,12 +58,7 @@ __global__ void __launch_bounds__(lab::kBlock)
     r = lab::load_ray(a, lane);
     e = a.roots[0];
     if constexpr (kFs) {
-      for (int pos = 1; pos < a.nroots; pos += 8) {
-        const int cnt = min(8, a.nroots - pos);
-        for (int i = 0; i < cnt; ++i) stack[sp + i] = a.roots[pos + i];
-        stack[sp + 8] = (1 << cnt) - 1;
-        sp += FRAME8;
-      }
+      lab::seed_frames8(a.roots, a.nroots, stack, sp);
     } else {
       for (int i = 1; i < a.nroots; ++i) stack[sp++] = a.roots[i];
     }
@@ -110,16 +105,7 @@ __global__ void __launch_bounds__(lab::kBlock)
         stack[sp + 8] = (int)w;
       }
       if (w != 0) sp += FRAME8;
-      if (sp > 0) {
-        const int base = sp - FRAME8;
-        const unsigned mw = (unsigned)stack[base + 8];
-        e = stack[base + lab::ctz(mw)];
-        const unsigned rem = mw & (mw - 1);
-        stack[base + 8] = (int)rem;
-        if (rem == 0) sp = base;
-      } else {
-        e = DONE;
-      }
+      e = sp > 0 ? lab::frame_pop8(stack, sp) : DONE;
     } else {
 #pragma unroll
       for (int k = 0; k < 8; ++k) {
@@ -135,7 +121,7 @@ __global__ void __launch_bounds__(lab::kBlock)
     }
   }
   lab::store(a, lane, h);
-  lab::finish(a, lane, trips, leaf_trips, cnt, ok);
+  lab::finish(a, lane / lab::kTile, trips, leaf_trips, cnt, ok);
 }
 
 // L2 over the fused table: kFs frame stack (else linear), kNear the
@@ -263,7 +249,7 @@ __global__ void __launch_bounds__(lab::kBlock)
     }
   }
   lab::store(a, lane, h);
-  lab::finish(a, lane, trips, leaf_trips, cnt, ok);
+  lab::finish(a, lane / lab::kTile, trips, leaf_trips, cnt, ok);
 }
 
 // kCond only with the frame stack (the linear stack pushes no frames)

@@ -139,7 +139,7 @@ __global__ void __launch_bounds__(lab::kBlock)
     }
   }
   lab::store(a, lane, h);
-  lab::finish(a, lane, trips, 0, cnt, ok);
+  lab::finish(a, lane / lab::kTile, trips, 0, cnt, ok);
 }
 
 }  // namespace

@@ -31,7 +31,6 @@
 namespace {
 
 using lab::DONE;
-using lab::FRAME8;
 using lab::FSTACK8;
 
 template <bool kDrain2>
@@ -47,28 +46,12 @@ __global__ void __launch_bounds__(lab::kBlock)
   if (act) {
     r = lab::load_ray(a, lane);
     e = a.roots[0];
-    for (int pos = 1; pos < a.nroots; pos += 8) {
-      const int cnt = min(8, a.nroots - pos);
-      for (int i = 0; i < cnt; ++i) stack[sp + i] = a.roots[pos + i];
-      stack[sp + 8] = (1 << cnt) - 1;
-      sp += FRAME8;
-    }
+    lab::seed_frames8(a.roots, a.nroots, stack, sp);
   }
   int trips = 0, leaf_trips = 0;
   lab::Counts cnt;
   // the lane's next frame-stack pop (phase_lab's pop: lowest set bit)
-  auto pop = [&]() {
-    if (sp > 0) {
-      const int base = sp - FRAME8;
-      const unsigned mw = (unsigned)stack[base + 8];
-      e = stack[base + lab::ctz(mw)];
-      const unsigned rem = mw & (mw - 1);
-      stack[base + 8] = (int)rem;
-      if (rem == 0) sp = base;
-    } else {
-      e = DONE;
-    }
-  };
+  auto pop = [&]() { e = sp > 0 ? lab::frame_pop8(stack, sp) : DONE; };
   auto drain = [&](int lrow) {
     lab::leaf_closest<false>(a.ltris + (size_t)lrow * 128, nullptr, r, h);
     lab::mark(a, a.node_rows + lrow);
@@ -105,15 +88,9 @@ __global__ void __launch_bounds__(lab::kBlock)
             lab::slab8<false>(b, ent, r.sr, h.t, true, 0, nullptr, nullptr);
         lab::mark(a, e);
         ++cnt.node;
-        if (w != 0) {
-          if (sp + FRAME8 > FSTACK8) {
-            ok = false;  // the wrapper's depth check rules this out
-          } else {
-#pragma unroll
-            for (int k = 0; k < 8; ++k) stack[sp + k] = ent[k];
-            stack[sp + 8] = (int)w;
-            sp += FRAME8;
-          }
+        // a full stack: the wrapper's depth check rules this out
+        if (w != 0 && !lab::frame_push8<FSTACK8>(ent, w, stack, sp)) {
+          ok = false;
         }
       }
       // a popped leaf waits in the slot (empty here: a full one would
@@ -123,7 +100,7 @@ __global__ void __launch_bounds__(lab::kBlock)
     }
   }
   lab::store(a, lane, h);
-  lab::finish(a, lane, trips, leaf_trips, cnt, ok);
+  lab::finish(a, lane / lab::kTile, trips, leaf_trips, cnt, ok);
 }
 
 }  // namespace

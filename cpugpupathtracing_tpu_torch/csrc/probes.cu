@@ -1,0 +1,126 @@
+// The TPU probes L8 and L9 for Hopper (sm_90a).
+//
+// L8 replaces tools/profile_tpu2.py's Pallas kernels `trivial` and
+// `trivial2` (copy_kernel: o = 2x, launched once and twice chained), a
+// launch-overhead probe: scale2_kernel writes o = 2x over n f32 with a
+// grid-stride loop.  What bounds it: at 1024 f32 nothing but the launch
+// (8 KB of traffic is ~2.4 ns at 3.35 TB/s).
+//
+// L9 replaces tools/smem_probe.py's Pallas kernel `probe` (_kernel), an
+// operand-size probe of the TPU's SMEM: one block stages an i32 table of
+// `words` words into dynamic shared memory and returns tab[i * 8 + 3]
+// (1-D) or tab[i][3] (the (words / 8, 8) 2-D view, whose rows need no
+// padding here).  A table above the block's opt-in limit of shared memory
+// is refused by cudaFuncSetAttribute: that refusal is the probe's answer
+// (smem_probe_launch's REFUSED code), and the error is cleared, so a
+// later launch runs.  What bounds it: reading the table once.
+//
+// labs/launch_probe.py and labs/smem_probe.py wrap them; their plain
+// versions are x * 2 and tab[i * 8 + 3] in PyTorch.
+//
+// Build: ops/pt_frame.py builds every unit (nvcc, sm_90a, --fmad=false).
+
+#include <cuda_runtime.h>
+
+#include <cstddef>
+
+namespace probes {
+
+// the launch arguments (labs/launch_probe.py ProbeArgs mirrors them)
+struct ProbeArgs {
+  const void* in;   // L8: (n,) f32; L9: (words,) i32 table
+  void* out;        // L8: (n,) f32; L9: (1,) i32
+  const int* idx;   // L9: (1,) i32 row index
+  void* stream;
+  int n;            // L8: elements; L9: table words
+  int two_d;        // L9: read through the (words / 8, 8) view
+};
+
+}  // namespace probes
+
+namespace {
+
+using probes::ProbeArgs;
+
+constexpr int kScaleBlock = 256;
+constexpr int kSmemBlock = 256;
+// smem_probe_launch's code for a table the device refuses to stage: the
+// CUDA error of cudaFuncSetAttribute in the low bits
+constexpr int REFUSED = 1 << 16;
+
+__global__ void __launch_bounds__(kScaleBlock)
+    scale2_kernel(const float* x, float* o, int n) {
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += gridDim.x * blockDim.x) {
+    o[i] = x[i] * 2.0f;
+  }
+}
+
+__global__ void __launch_bounds__(kSmemBlock)
+    smem_probe_kernel(const int* tab, const int* idx, int* out, int words,
+                      int two_d) {
+  extern __shared__ int4 smem4[];
+  int* s = reinterpret_cast<int*>(smem4);
+  for (int i = threadIdx.x; i < words; i += blockDim.x) s[i] = tab[i];
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const int i = idx[0];
+    out[0] = two_d ? reinterpret_cast<const int(*)[8]>(s)[i][3] : s[i * 8 + 3];
+  }
+}
+
+}  // namespace
+
+// L8: o = 2x on a->stream.  Returns cudaGetLastError(); never
+// synchronises.
+extern "C" int scale2_launch(const ProbeArgs* a) {
+  if (a->n <= 0) return 0;
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int want = (a->n + kScaleBlock - 1) / kScaleBlock;
+  const int grid = want < 4 * sms ? want : 4 * sms;
+  scale2_kernel<<<grid, kScaleBlock, 0, static_cast<cudaStream_t>(a->stream)>>>(
+      static_cast<const float*>(a->in), static_cast<float*>(a->out), a->n);
+  return (int)cudaGetLastError();
+}
+
+// L9: one block stages the a->n-word table and reads row *idx.  Returns
+// 0, REFUSED | error where the device refuses the table's shared memory
+// (the error cleared), or the launch's error; never synchronises.
+extern "C" int smem_probe_launch(const ProbeArgs* a) {
+  const size_t bytes = (size_t)a->n * sizeof(int);
+  const cudaError_t rc = cudaFuncSetAttribute(
+      smem_probe_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)bytes);
+  if (rc != cudaSuccess) {
+    cudaGetLastError();
+    return REFUSED | (int)rc;
+  }
+  smem_probe_kernel<<<1, kSmemBlock, bytes,
+                      static_cast<cudaStream_t>(a->stream)>>>(
+      static_cast<const int*>(a->in), a->idx, static_cast<int*>(a->out), a->n,
+      a->two_d);
+  return (int)cudaGetLastError();
+}
+
+// The current device's shared memory per block with the opt-in
+// attribute, bytes (or minus the CUDA error).
+extern "C" int smem_optin(const void*) {
+  int dev = 0, v = 0;
+  cudaError_t rc = cudaGetDevice(&dev);
+  if (rc == cudaSuccess) {
+    rc = cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                                dev);
+  }
+  return rc == cudaSuccess ? v : -(int)rc;
+}
+
+// ProbeArgs' size and the offsets of stream and two_d, for the ctypes
+// mirror's check.
+extern "C" int probe_args_layout(long long* out) {
+  out[0] = (long long)sizeof(ProbeArgs);
+  out[1] = (long long)offsetof(ProbeArgs, stream);
+  out[2] = (long long)offsetof(ProbeArgs, two_d);
+  return 0;
+}

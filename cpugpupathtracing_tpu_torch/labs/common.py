@@ -63,6 +63,8 @@ class LabArgs(ctypes.Structure):
         ("counts", ctypes.c_void_p),
         ("status", ctypes.c_void_p),
         ("stream", ctypes.c_void_p),
+        ("depth_out", ctypes.c_void_p),
+        ("ents", ctypes.c_void_p),
     ] + [(name, ctypes.c_int) for name in (
         "n", "nroots", "nn", "node_rows", "flags")]
 
@@ -85,6 +87,76 @@ def build():
                                f"{want}")
         _checked.append(True)
     return lib
+
+
+def smem_optin() -> int:
+    """The device's shared memory per block with the opt-in attribute
+    (cudaDevAttrMaxSharedMemoryPerBlockOptin, csrc/probes.cu), bytes."""
+    got = ptf.build().smem_optin(None)
+    if got < 0:
+        raise RuntimeError(f"smem_optin failed (error {-got})")
+    return got
+
+
+def busy_ms(fn, reps: int = 1, spin_cycles: int = 2_000_000,
+            attempts: int = 3) -> float:
+    """Mean device milliseconds per call of fn() over reps calls, from
+    CUDA events recorded while a spin kernel ahead of them holds the
+    stream busy, so the host's time between launches does not count (fn
+    must not synchronise).  Every kernel fn launches counts, the
+    wrapper's small ones (counters zeroed, a mask converted) too.  Where
+    the spin ended before the last call was enqueued (a slow host, or an
+    fn that synchronises), the stream idled inside the span: the spin is
+    made four times longer and the run made again, and after `attempts`
+    such runs this raises.  This is the labs' and probes' clock: a
+    process that opens many torch.profiler sessions sees the profiler
+    miss launches, then record none."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    held = torch.cuda.Event()
+    for _ in range(attempts):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(spin_cycles * (reps + 1))
+        held.record()
+        start.record()
+        for _ in range(reps):
+            fn()
+        idled = held.query()
+        end.record()
+        torch.cuda.synchronize()
+        if not idled:
+            return start.elapsed_time(end) / reps
+        spin_cycles *= 4
+    raise RuntimeError("busy_ms: the stream idled between launches in "
+                       f"{attempts} runs (does fn synchronise?)")
+
+
+def profiled_ms(fn, kernel: str, reps: int = 1,
+                attempts: int = 3) -> float | None:
+    """Mean device milliseconds per launch of the kernels whose name holds
+    `kernel` ("" for every kernel) while fn() runs reps times
+    (torch.profiler, one session): the mean over the launches the
+    profiler saw (it misses one now and then), a session that saw none
+    run again.  None ("not measured") where `attempts` sessions saw none:
+    after many sessions in one process the profiler records nothing, so
+    no check rests on this clock (busy_ms is the one that must answer)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(attempts):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        evs = [e for e in prof.events()
+               if e.device_type == DeviceType.CUDA and kernel in e.name
+               and "Memcpy" not in e.name and "Memset" not in e.name]
+        if evs:
+            return sum(e.time_range.end - e.time_range.start
+                       for e in evs) / len(evs) / 1e3
+    return None
 
 
 def count_launch(key: str) -> None:
@@ -176,12 +248,15 @@ def _roots_tensor(roots, dev) -> torch.Tensor:
 def launch(entry, what: str, rays, t_init, nodes, ltris, roots, active, *,
            flags: int, nn: int = 0, node_rows: int, leaf_rows: int,
            iters: bool = True, leafs: bool = True,
-           count_rows: bool = False) -> tuple:
+           count_rows: bool = False, depth: bool = False, ents=None,
+           counter_lanes: int = TILE) -> tuple:
     """One launch of a lab kernel over the six ray columns: checked
-    arguments, outputs (t, hit, obj), the per-tile `iters` and `leafs`
-    counters where asked, and with count_rows the COUNTS tensor.  `nodes`
+    arguments, outputs (t, hit, obj), with `depth` the per-lane depth
+    column, the `iters` and `leafs` counters (one per counter_lanes
+    lanes) where asked, and with count_rows the COUNTS tensor.  `nodes`
     the node table (or the fused table), `ltris` the leaf rows (None with
-    a fused table), node_rows / leaf_rows the seen map's two parts."""
+    a fused table), node_rows / leaf_rows the seen map's two parts,
+    `ents` the (node_rows, 8) i32 entry mirror where the arm reads it."""
     dev = t_init.device
     n = t_init.shape[0]
     for c in range(6):
@@ -203,11 +278,18 @@ def launch(entry, what: str, rays, t_init, nodes, ltris, roots, active, *,
         active = active.to(_I32).contiguous()
         ptf._check("active", active, _I32, dev, (n,))
         a.active = active.data_ptr()
+    if ents is not None:
+        ptf._check("ents", ents, _I32, dev, (node_rows, 8))
+        a.ents = ents.data_ptr()
     out = (torch.empty(n, dtype=_F32, device=dev),
            torch.empty(n, dtype=_I32, device=dev),
            torch.empty(n, dtype=_I32, device=dev))
-    a.t_out, a.hit_out, a.obj_out = (x.data_ptr() for x in out)
-    tiles = -(-n // TILE)
+    if depth:
+        out += (torch.empty(n, dtype=_I32, device=dev),)
+    a.t_out, a.hit_out, a.obj_out = (x.data_ptr() for x in out[:3])
+    if depth:
+        a.depth_out = out[3].data_ptr()
+    tiles = -(-n // counter_lanes)
     counters = []
     for want, field in ((iters, "iters"), (leafs, "leafs")):
         if want:

@@ -38,17 +38,12 @@ from __future__ import annotations
 import torch
 
 from cpugpupathtracing_tpu_torch.labs import common as cm
-from cpugpupathtracing_tpu_torch.models.scene import fuse_packet_tables
+# the fused table of tools/kernel_lab.py, the L1 / L2 arms' `fused`
+from cpugpupathtracing_tpu_torch.labs.kernel_lab import (  # noqa: F401
+    fuse_tables,
+)
 
 _I32 = torch.int32
-
-
-def fuse_tables(nodes, ltris):
-    """The fused node|leaf table of tools/kernel_lab.py fuse_tables: node
-    rows padded to 128 cols, leaf rows appended, leaf entries -(lrow + 1)
-    re-encoded as nn + lrow.  It is the scene build's CPUGPU_FUSED table
-    (models/scene.py fuse_packet_tables), bitwise.  Returns (table, nn)."""
-    return fuse_packet_tables(nodes, ltris), int(nodes.shape[0])
 
 
 def lab2_key(frame_stack=False, fused=False, gate_leaf=False,

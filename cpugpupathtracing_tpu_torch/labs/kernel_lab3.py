@@ -37,6 +37,7 @@ import torch
 from cpugpupathtracing_tpu_torch.labs import common as cm
 from cpugpupathtracing_tpu_torch.models.bvh8 import SLIM_EMPTY
 from cpugpupathtracing_tpu_torch.ops.intersect import intersect_triangle
+from cpugpupathtracing_tpu_torch.utils.device import resolve_device
 
 WIDTH = 16
 LEAF_TRIS = cm.LEAF_TRIS
@@ -176,12 +177,14 @@ def collapse16(b, leaf_max: int = 8):
     return nodes, ltris, max_depth
 
 
-def scene_tables16(objects, device="cpu"):
+def scene_tables16(objects, device="cuda"):
     """tools/kernel_lab3.py scene_tables16: the per-object 16-wide tables
     of `objects` (a list of (binary BVH, object index)) concatenated into
     one fused table, the object index stamped in every leaf record; node
     rows of all objects first, then their leaf rows.  Returns (fused
-    (B + NL, 128) f32 tensor on `device`, nn = B, roots tuple)."""
+    (B + NL, 128) f32 tensor on `device` (the card unless the caller asks
+    for the CPU), nn = B, roots tuple)."""
+    device = resolve_device(device)
     metas = [collapse16(b)[:2] + (oi,) for b, oi in objects]
     total_nodes = sum(len(n) for n, _, _ in metas)
     nodes_l, ltris_l, roots = [], [], []

@@ -109,7 +109,8 @@ HOST_FLAGS = ["-O2", "-std=c++17", "-shared", "-fPIC", "-ffp-contract=off"]
 # every source of the CUDA build (the build directory hashes them all),
 # and per compilation unit the C entry points of its shared library
 _SOURCES = ("pt_frame.cu", "megakernel.cu", "traverse.cu", "whitted.cu",
-            "lab2.cu", "lab3.cu", "phase_lab.cu",
+            "lab2.cu", "lab3.cu", "phase_lab.cu", "kernel_lab.cu",
+            "floor_probe.cu", "probes.cu",
             "pt_launch.cuh", "pt_device.cuh", "whitted.cuh", "lab_device.cuh")
 _UNITS = (
     ("pt_frame.cu", ("pt_frame_launch",)),
@@ -120,6 +121,12 @@ _UNITS = (
     ("lab2.cu", ("lab2_launch", "lab2p_launch", "lab_args_layout")),
     ("lab3.cu", ("lab3_launch",)),
     ("phase_lab.cu", ("phase_launch",)),
+    ("kernel_lab.cu", ("kernel_lab_launch", "kernel_lab_arms",
+                       "kernel_lab_occupancy", "kernel_lab_dual_launch")),
+    # the TPU probes (labs/floor_probe.py, launch_probe.py, smem_probe.py)
+    ("floor_probe.cu", ("floor_launch", "floor_args_layout")),
+    ("probes.cu", ("scale2_launch", "smem_probe_launch", "smem_optin",
+                   "probe_args_layout")),
 )
 _HOST_SOURCES = ("pt_host_check.cc", "pt_device.cuh", "whitted.cuh")
 _HOST_ENTRIES = ("pt_frame_host", "traverse_host", "whitted_host",
@@ -130,6 +137,7 @@ _MAX_SMALL_BYTES = 48 * 1024
 _lib = None
 build_log = ""      # nvcc's output of the last build (registers, spills)
 build_seconds = 0.0
+build_dir = ""      # the directory of the last build's shared libraries
 _host_lib = None
 # one i32 per device: bit 0 set once any launch overflowed a traversal stack
 _status: dict = {}
@@ -229,11 +237,12 @@ def _nvcc() -> str:
 
 def build() -> types.SimpleNamespace:
     """Compile every kernel unit (csrc/pt_frame.cu, megakernel.cu,
-    traverse.cu, whitted.cu and the labs' lab2.cu, lab3.cu, phase_lab.cu)
-    for sm_90a, one nvcc per unit, all started together, into
+    traverse.cu, whitted.cu, the labs' lab2.cu, lab3.cu, phase_lab.cu,
+    kernel_lab.cu and the probes' floor_probe.cu, probes.cu) for sm_90a,
+    one nvcc per unit, all started together, into
     build/torch_kernels/<hash of all sources>/ and load them: a namespace
     of the C launch entries.  Raises if any nvcc fails."""
-    global _lib, build_log, build_seconds
+    global _lib, build_log, build_seconds, build_dir
     if _lib is not None:
         return _lib
     out_dir = hashed_dir("torch_kernels",
@@ -261,6 +270,7 @@ def build() -> types.SimpleNamespace:
     if failed:
         raise RuntimeError(f"nvcc failed on {', '.join(failed)}:\n{build_log}")
     build_seconds = time.perf_counter() - t0
+    build_dir = out_dir
     fns = {}
     for unit, names in _UNITS:
         out = os.path.join(out_dir, "lib" + unit.replace(".cu", ".so"))

@@ -152,7 +152,7 @@ def test_collapse16_bitwise(case, sub):
 def test_scene_tables16_bitwise(case):
     objs = [(case["b2"], 0), (case["b2x"], 3)]
     fused, nn, roots = jlab3.scene_tables16(objs)
-    got, tnn, troots = l3.scene_tables16(objs)
+    got, tnn, troots = l3.scene_tables16(objs, "cpu")
     assert (tnn, troots) == (nn, roots)
     np.testing.assert_array_equal(got.numpy().view(np.int32),
                                   np.asarray(fused).view(np.int32))
@@ -160,7 +160,7 @@ def test_scene_tables16_bitwise(case):
 
 def _l3(c, two=False, **kw):
     objs = [(c["b2"], 0)] + ([(c["b2x"], 1)] if two else [])
-    fused, nn, roots = l3.scene_tables16(objs)
+    fused, nn, roots = l3.scene_tables16(objs, "cpu")
     return l3.traverse16(c["rays"][:3], c["rays"][3:], c["t0"], fused,
                          roots, active=c["tact"], nn=nn, count_iters=True,
                          count_rows=True, **kw)
