@@ -36,7 +36,13 @@ Phases, one line each; any failure raises and exits non-zero:
   4. check       8192 lanes from the middle of the 1920x1080 blocked camera
                  order through pt_frame (single span, split span) and its
                  plain version on the card; closest hits (t, id, object,
-                 normal) of the kernel's own traversal against brute force
+                 normal) of the kernel's own traversal against brute force;
+                 [check_refill]: the lanes repeated to twice the threads
+                 pt_frame's persistent launch keeps resident, one span and
+                 both spans with the carry, bitwise the 8192-lane launch;
+                 [c2_config3]: the camera lanes whose closest hit the
+                 conservative slab margin changed (ROADMAP C2; after phase
+                 12 [c2_config5] on config 5's flattened scene)
   5. check_mega  the same lanes: one shade_extend at depth 0 and one
                  shadow_resolve on its outputs against their plain
                  versions (flags and traced exact, energy under the
@@ -46,8 +52,10 @@ Phases, one line each; any failure raises and exits non-zero:
                  each kernel launch; one frame counting each launch's work
                  and holding every 256th lane of both launches (their real
                  inputs: 2 depths with the carry out, then 4 sorted depths
-                 with the carry in) against the plain version; then timed
-                 frames through Renderer
+                 with the carry in) against the plain version, with each
+                 launch's warp-trip share (lane_share: lane trips / 32
+                 warp trips of the walk loops); then timed frames through
+                 Renderer
   7. frame_mega  the same on the per-depth route (6 + 6 launches and 3
                  sorts per frame), then one frame from reset on each route
                  with the same seed: images and traced counts equal
@@ -2491,6 +2499,92 @@ def frame_xla_scene(phase, scene, cam_cfg, settings, width, height, want,
     return num
 
 
+def check_refill(ds, settings, rays, st, kw, single) -> dict:
+    """Phase 4's launch of more lanes than the card keeps resident (its
+    persistent threads refill finished paths): the check lanes repeated to
+    at least twice the resident threads, as one span and as the split
+    schedule's two spans with the carry (integrators.ptframe_split); every
+    copy of every output bitwise the single 8192-lane launch's (`single`:
+    its energy, state, traced), which is held against the plain version."""
+    import torch
+    from cpugpupathtracing_tpu_torch.models import integrators
+    from cpugpupathtracing_tpu_torch.ops import pt_frame as ptf
+
+    depths = settings.max_ray_depth + 1
+    split = integrators.ptframe_split(settings)
+    resident = ptf.resident_threads(*ds.tables(), rays, st, **kw)
+    resident_count = ptf.resident_threads(*ds.tables(), rays, st,
+                                          count_iters=True, **kw)
+    reps = -(-2 * resident // CHECK_LANES)
+    big = tuple(r.repeat(reps) for r in rays)
+    st_big = st.repeat(reps)
+
+    def same(a, b):
+        a = torch.stack(a, 1) if isinstance(a, tuple) else a
+        b = torch.stack(b, 1) if isinstance(b, tuple) else b
+        b = b.repeat((reps,) + (1,) * (b.dim() - 1))
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        return bool(torch.equal(a, b))
+
+    e_b, s_b, tr_b = ptf.pt_frame(*ds.tables(), big, st_big, depths=depths,
+                                  **kw)
+    e_k, s_k, tr_k = single
+    one_span = (same(e_b, e_k) and same(s_b, s_k)
+                and int(tr_b) == reps * int(tr_k))
+    c1 = ptf.pt_frame(*ds.tables(), big, st_big, depths=split,
+                      carry_out=True, **kw)
+    c1s = ptf.pt_frame(*ds.tables(), rays, st, depths=split, carry_out=True,
+                       **kw)
+    carry = (all(same(a, b) for a, b in zip(c1[:5], c1s[:5]))
+             and int(c1[5]) == reps * int(c1s[5]))
+    c2 = ptf.pt_frame(*ds.tables(), c1[0], c1[1], depths=depths - split,
+                      depth_base=split, carry_in=(c1[2], c1[3], c1[4]), **kw)
+    c2s = ptf.pt_frame(*ds.tables(), c1s[0], c1s[1], depths=depths - split,
+                       depth_base=split, carry_in=(c1s[2], c1s[3], c1s[4]),
+                       **kw)
+    span2 = (same(c2[0], c2s[0]) and same(c2[1], c2s[1])
+             and int(c2[2]) == reps * int(c2s[2]))
+    ptf.check_status(ds.pnodes.device)
+    res = dict(lanes=big[0].shape[0], resident=resident,
+               resident_count_arm=resident_count, copies=reps,
+               one_span_bitwise=one_span, span1_carry_bitwise=carry,
+               span2_bitwise=span2, single_span_traced=int(tr_b))
+    if not (one_span and carry and span2 and big[0].shape[0] > resident):
+        raise AssertionError(f"refilled launch differs: {res}")
+    return res
+
+
+def c2_lanes(phase: str, ds, cam_cfg, width, height) -> dict:
+    """The camera lanes of a frame whose closest hit the conservative slab
+    margin changed (ROADMAP C2): B4's kernel (pt_device.cuh slab_hit)
+    against the plain walk with slab_pad = 1, the slab test before the
+    margin, on every camera ray; how many of those gained a hit, lost
+    one, or moved."""
+    import torch
+    from cpugpupathtracing_tpu_torch.models import camera as camlib
+    from cpugpupathtracing_tpu_torch.ops import pt_frame as ptf
+    from cpugpupathtracing_tpu_torch.ops import traverse_packet_slim as tps
+
+    dev = ds.pnodes.device
+    cam = camlib.to_arrays(cam_cfg, dev)
+    lane = torch.arange(width * height, dtype=torch.int64, device=dev)
+    o, d = camlib.lane_rays(cam, lane, width, height)
+    rays = columns(o, d)
+    kern = ptf.closest_hit(ds.pnodes, ds.pltris, ds.proots, rays)
+    old = tps.traverse_walk_reference(
+        rays, torch.full_like(rays[0], ptf.RAY_TMAX), ds.pnodes, ds.pltris,
+        ds.proots, slab_pad=1.0)
+    moved = (kern[0].view(torch.int32) != old[0].view(torch.int32)) | (
+        kern[1] != old[1])
+    res = dict(lanes=width * height, changed=int(moved.sum()),
+               gained_hit=int((moved & (old[1] < 0)).sum()),
+               lost_hit=int((moved & (kern[1] < 0)).sum()),
+               hits=int((kern[1] >= 0).sum()))
+    say(phase, **res)
+    return res
+
+
 def frame_whole(scene, cam_cfg, settings, width, height, small_bytes,
                 profile: bool, phase: str = "frame"):
     """Phase 6: config 3 through Renderer on the whole-frame route: one
@@ -2558,7 +2652,8 @@ def frame_whole(scene, cam_cfg, settings, width, height, small_bytes,
             lanes=sp["lanes"], depths=k["depths"],
             depth_base=k.get("depth_base", 0), layouts=layouts, ms=ms,
             call_ms=c_ms, bound_ms=sb_ms,
-            bound_by=sb_by, sampled_lanes=sp["state"].shape[0],
+            bound_by=sb_by, lane_share=it["ltrip"] / (32 * it["wtrip"]),
+            sampled_lanes=sp["state"].shape[0],
             max_abs_err=s_max, flip_share=s_flips, mean_err=s_mean,
             energy_bit_mismatches=int((sp["energy"].view(torch.int32)
                                        != e_ref.view(torch.int32))
@@ -3951,6 +4046,8 @@ def main() -> int:
                       "pt_frame_kernel")
     b_ms, b_by = bound_ms(it_k, CHECK_LANES * lane_bytes(False, False),
                           small_bytes)
+    refill = check_refill(ds, settings, rays, st, kw, (e_k, s_k, tr_k))
+    say("check_refill", **refill)
     say("check", lanes=CHECK_LANES, depths=depths, traced_kernel=int(tr_k),
         traced_plain=int(tr_p), traced_split=int(res_sp.traced_rays),
         split_bitwise=split_same, flip_share=flips, max_abs_err=dmax,
@@ -3960,6 +4057,9 @@ def main() -> int:
         iters=it_k, kernel_ms=pt_ms["ms"], call_ms=pt_ms["call_ms"],
         plain_ms=plain_ms,
         bound_ms=b_ms, bound_by=b_by)
+
+    # the camera lanes whose hit the conservative slab margin changed
+    c2_lanes("c2_config3", ds, cam_cfg, width, height)
 
     # 5. the per-depth kernels and route on the same lanes
     mega = check_mega(ds, settings, o, d, st, (e_k, s_k, int(tr_k)),
@@ -4011,6 +4111,8 @@ def main() -> int:
     # instance arms on 8192 lanes and the refit, the three routes, the
     # routes' frames compared, one WHITTED frame on the instance arm
     s5 = scene5(dev)
+    c2_lanes("c2_config5", s5["flat"]["ds"], s5["cam"], s5["width"],
+             s5["height"])
     inst = check_inst(s5, dev)
     paths5, counts5 = {}, {}
     for phase in FRAME5_ROUTES:
@@ -4093,8 +4195,10 @@ def main() -> int:
         "bound_by": b_by,
         "library_ms": None,
         "check_lanes": CHECK_LANES,
+        "check_refill": refill,
         "main_path": [{key: mp[key] for key in (
             "lanes", "depths", "ms", "call_ms", "bound_ms", "bound_by",
+            "lane_share",
             "sampled_lanes", "max_abs_err")} for mp in main_path],
     }]
     for name, line in (("shade_extend", 1713), ("shadow_resolve", 1847)):

@@ -1,10 +1,11 @@
 // Shared device code of the traversal labs (lab2.cu, lab3.cu,
 // phase_lab.cu): the launch arguments, the row tests and the per-warp
 // counters.  The arithmetic is pt_device.cuh's (slab_ray, zero_slab,
-// tri_test), so every lab's closest hit is bitwise the standalone
-// traversal's (traverse.cu) whatever order its schedule visits the tree
-// in: the face-inclusive slab of a zero direction component, boxes at
-// exactly t still visited, an exact tie in t to the lower id.
+// slab_hit, tri_test), so every lab's closest hit is bitwise the
+// standalone traversal's (traverse.cu) whatever order its schedule visits
+// the tree in: the face-inclusive slab of a zero direction component, the
+// conservative slab margin, boxes at exactly t still visited, an exact
+// tie in t to the lower id.
 //
 // The labs are schedules of the TPU packet kernel (tools/kernel_lab2.py,
 // kernel_lab3.py, phase_lab.py).  On the TPU a row of 128 lanes shares
@@ -140,10 +141,10 @@ PT_HD void slab_span(const float* p, float& tmin, float& tmax) {
 }
 
 // Whether the ray enters the child (entry ent) before t (at t too with
-// at_t).  Validity lives in the entry, never the bounds.
+// at_t): pt_device.cuh's conservative slab_hit.  Validity lives in the
+// entry, never the bounds.
 PT_HD bool slab_pass(float tmin, float tmax, float t, bool at_t, int ent) {
-  const bool before = tmin < t || (at_t && tmin == t);
-  return tmax >= tmin && before && tmax > 0.0f && ent != pt::SLIM_EMPTY;
+  return pt::slab_hit(tmin, tmax, t, at_t) && ent != pt::SLIM_EMPTY;
 }
 
 // The lab's nearest child, folded slot by slot: slot k's entry distance

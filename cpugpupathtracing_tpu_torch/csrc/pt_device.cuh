@@ -12,10 +12,12 @@
 // Every RNG draw, predicate, epsilon and f32 association follows those
 // functions op for op; build with --fmad=false and without fast-math so
 // no product is contracted and division / sqrt stay IEEE.  Hits are then
-// bit-equal to the brute-force oracle on every ray, thanks to two rules
+// bit-equal to the brute-force oracle on every ray, thanks to three rules
 // that _emit_traversal lacks: an exact tie in t goes to the lower original
-// triangle id (closest_hit), and the slab of a zero direction component
-// includes the box's faces (zero_slab).  Transcendentals (sinf, cosf,
+// triangle id (closest_hit), the slab of a zero direction component
+// includes the box's faces (zero_slab), and the slab test is conservative
+// by 1 + 2 gamma_3 (slab_hit), so a ray grazing a flat box's edge keeps
+// the box.  Transcendentals (sinf, cosf,
 // expf, rsqrtf) may differ from XLA's by ULPs (the megakernel contract).
 //
 // One thread traces one ray with its own stack; the packet machinery of
@@ -216,6 +218,9 @@ struct Tree {  // one slim 8-wide tree: (B, 64) nodes, (NL, 128) leaf rows
   // record), set to 1 when the leaf-14 closest hit reads its payload (a
   // record that passes the triangle test); else null
   unsigned char* seen_pay;
+  // with count_iters: the launch's warp trips and lane trips of
+  // pt_frame's walk loops (count_trip), shared by both trees; else null
+  unsigned long long* trips;
 };
 
 struct Counters {  // work done: node / leaf rows visited, rays traversed
@@ -223,6 +228,28 @@ struct Counters {  // work done: node / leaf rows visited, rays traversed
                      sray = 0;
 };
 constexpr int NUM_COUNTERS = 6;
+
+// One trip of a walk loop under count_iters (trips non-null): a warp trip
+// counted once by the lowest lane of __activemask(), a lane trip once per
+// active lane (the lowest lane adds the mask's population), so that lane
+// trips / (32 warp trips) is the share of a warp's lanes that work in a
+// trip.  The host build runs one lane at a time: a warp of one lane.  Only
+// pt_frame's walks count, and only in the kernel arm of its count launches
+// (kTrips): even untaken, the check and the warp intrinsic in the loop
+// slowed the walk on the card (PERF.md).
+PT_HD void count_trip(unsigned long long* trips) {
+  if (!trips) return;
+#ifdef __CUDA_ARCH__
+  const unsigned m = __activemask();
+  if ((threadIdx.x & 31u) == (unsigned)(__ffs(m) - 1)) {
+    atomicAdd(trips, 1ull);
+    atomicAdd(trips + 1, (unsigned long long)__popc(m));
+  }
+#else
+  trips[0] += 1;
+  trips[1] += 1;
+#endif
+}
 
 struct Hit {
   float t;
@@ -255,6 +282,26 @@ PT_HD SlabRay slab_ray(float ox, float oy, float oz, float dx, float dy,
 PT_HD void zero_slab(float lo, float hi, float o, float& t1, float& t2) {
   t1 = lo <= o ? -INF_F : INF_F;
   t2 = o <= hi ? INF_F : -INF_F;
+}
+
+// The conservative slab test (Ize, "Robust BVH Ray Traversal", JCGT
+// 2(2), 2013): whether a ray whose entry and exit distances of a child
+// box are tmin and tmax enters it before t (at t too when at_t) in front
+// of its origin.  tmax and t are widened by 1 + 2 gamma_3 (gamma_n = n u
+// / (1 - n u), u = 2^-24; 1 + 3 * 2^-23 in f32) before the compares: each
+// plane distance (b - o) * inv carries up to three roundings, and without
+// the margin a ray that grazes the edge of a flat box (the ground quad's
+// box has zero height) can find tmax < tmin by one rounding while the
+// triangle test accepts the hit.  The margin only adds visits: hits stay
+// the triangle test's, so they can only move toward brute force.  Every
+// walk of the port takes its slab passes from here (the labs'
+// lab_device.cuh slab_pass, ops/pt_frame.py slab_pass).
+constexpr float SLAB_PAD = 0x1.000006p+0f;
+
+PT_HD bool slab_hit(float tmin, float tmax, float t, bool at_t) {
+  const float hi = tmax * SLAB_PAD, tp = t * SLAB_PAD;
+  const bool before = tmin < tp || (at_t && tmin == tp);
+  return hi >= tmin && before && tmax > 0.0f;
 }
 
 // The 8 slab tests of one block of child slots: bounds at `bnd` (48 f32:
@@ -299,8 +346,7 @@ PT_HD bool push_row(const float* bnd, const int* ent_p, const SlabRay& r,
     }
     float tmin = fmaxf(fmaxf(fminf(tx1, tx2), fminf(ty1, ty2)), fminf(tz1, tz2));
     float tmax = fminf(fminf(fmaxf(tx1, tx2), fmaxf(ty1, ty2)), fmaxf(tz1, tz2));
-    bool before = tmin < t || (at_t && tmin == t);
-    if (tmax >= tmin && before && tmax > 0.0f && ent[k] != SLIM_EMPTY) {
+    if (slab_hit(tmin, tmax, t, at_t) && ent[k] != SLIM_EMPTY) {
       passed = true;
       if (sp < kCap) {
         stack[sp++] = ent[k];
@@ -479,9 +525,10 @@ PT_HD int instance_entry(const Tree& tr, const WalkRay& w, WalkRay& cur,
 // the same rule: a record's id, object and normal come from the payload
 // row at its offset (CPUGPU_LEAF14), or, without payload rows, the hit
 // keeps only its t and takes id 1 (the JAX function's t-only query).
-// Returns false on a stack overflow.
+// kTrips (pt_frame's count launches): count the loop's trips
+// (count_trip).  Returns false on a stack overflow.
 template <bool kInst = false, bool kDepth = false, bool kVar = false,
-          int kLeaf = kLeafShade>
+          int kLeaf = kLeafShade, bool kTrips = false>
 PT_HD bool closest_hit(const Tree& tr, float ox, float oy, float oz,
                        float dx, float dy, float dz, Hit& h,
                        unsigned long long& it_node,
@@ -496,6 +543,7 @@ PT_HD bool closest_hit(const Tree& tr, float ox, float oy, float oz,
   for (int i = 1; i < tr.nroots; ++i) stack[sp++] = tr.roots[i];
   int e = tr.roots[0];
   for (;;) {
+    if constexpr (kTrips) count_trip(tr.trips);
     if (kInst && instance_entry(tr, w, cur, e, stack, sp, ok) == 1) continue;
     if (kInst && e == RESTORE) {
       // the world ray is back; pop below
@@ -571,9 +619,10 @@ PT_HD bool closest_hit(const Tree& tr, float ox, float oy, float oz,
 // arm (kLeafOccl, kLeafOccl2; kVar only) reads occlusion leaves of one or
 // two rows (14 or 28 records in order), and with kReport writes the t of
 // the record it found and id 1 (the occlusion bit of the JAX function).
-// Returns false on a stack overflow.
+// kTrips (pt_frame's count launches): count the loop's trips
+// (count_trip).  Returns false on a stack overflow.
 template <bool kReport = false, bool kInst = false, bool kDepth = false,
-          bool kVar = false, int kLeaf = kLeafShade>
+          bool kVar = false, int kLeaf = kLeafShade, bool kTrips = false>
 PT_HD bool any_hit(const Tree& tr, float ox, float oy, float oz, float dx,
                    float dy, float dz, float tmax, bool& occluded,
                    unsigned long long& it_node, unsigned long long& it_leaf,
@@ -589,6 +638,7 @@ PT_HD bool any_hit(const Tree& tr, float ox, float oy, float oz, float dx,
   for (int i = 1; i < tr.nroots; ++i) stack[sp++] = tr.roots[i];
   int e = tr.roots[0];
   for (;;) {
+    if constexpr (kTrips) count_trip(tr.trips);
     if (kInst && instance_entry(tr, w, cur, e, stack, sp, ok) == 1) continue;
     if (kInst && e == RESTORE) {
       // the world ray is back; pop below
@@ -1055,16 +1105,16 @@ PT_HD Shadow shade_surface(const Tables& tb, const Mode& md, Path& ps,
 // normalize(inst_nrm @ n) (megakernel.py's instanced epilogue, the
 // arithmetic of models/scene.hit_surface).  Updates `ps` and returns the
 // NEE shadow ray (all zero unless sneed).  kVar: the variant walk; kLeaf:
-// its leaf arm (kLeafOccl: the leaf-14 walk with payload rows).  Clears
-// `ok` on a stack overflow.
-template <bool kInst = false, bool kVar = false, int kLeaf = kLeafShade>
+// its leaf arm (kLeafOccl: the leaf-14 walk with payload rows); kTrips:
+// the walk counts its trips.  Clears `ok` on a stack overflow.
+template <bool kInst = false, bool kVar = false, int kLeaf = kLeafShade,
+          bool kTrips = false>
 PT_HD Shadow extend(const Tree& tree, const Tables& tb, const Mode& md,
                     Path& ps, bool depth0, Counters& cnt, bool& ok) {
   ++cnt.ray;
   Hit h = {RAY_TMAX, -1, -1, 0.0f, 0.0f, 0.0f, -1};
-  ok &= closest_hit<kInst, false, kVar, kLeaf>(tree, ps.ox, ps.oy, ps.oz,
-                                               ps.dx, ps.dy, ps.dz, h,
-                                               cnt.node, cnt.leaf);
+  ok &= closest_hit<kInst, false, kVar, kLeaf, kTrips>(
+      tree, ps.ox, ps.oy, ps.oz, ps.dx, ps.dy, ps.dz, h, cnt.node, cnt.leaf);
   if (kInst && h.iid >= 0) {
     const float* m = tree.inst_nrm + 9 * h.iid;
     const float n0 = h.nx, n1 = h.ny, n2 = h.nz;
@@ -1084,13 +1134,15 @@ PT_HD Shadow extend(const Tree& tree, const Tables& tb, const Mode& md,
 // The NEE shadow test of a shadow ray with sneed set: any hit over the
 // any-hit tree, then the analytic occluders.  True when the light is
 // visible.  kVar: the variant walk; kLeaf: its leaf arm (kLeafOccl2:
-// 2-row occlusion leaves).  Clears `ok` on a stack overflow.
-template <bool kInst = false, bool kVar = false, int kLeaf = kLeafShade>
+// 2-row occlusion leaves); kTrips: the walk counts its trips.  Clears
+// `ok` on a stack overflow.
+template <bool kInst = false, bool kVar = false, int kLeaf = kLeafShade,
+          bool kTrips = false>
 PT_HD bool unoccluded(const Tree& sh_tree, const Tables& tb, const Shadow& sh,
                       Counters& cnt, bool& ok) {
   ++cnt.sray;
   bool occ = false;
-  ok &= any_hit<false, kInst, false, kVar, kLeaf>(
+  ok &= any_hit<false, kInst, false, kVar, kLeaf, kTrips>(
       sh_tree, sh.ox, sh.oy, sh.oz, sh.dx, sh.dy, sh.dz, sh.tmax, occ,
       cnt.snode, cnt.sleaf);
   if (!occ) {
@@ -1183,29 +1235,67 @@ PT_HD void store_path(const Params& p, int lane, const Path& ps, bool sneed) {
 
 // ---- one lane of each kernel -----------------------------------------------
 
-// pt_frame: every depth of one lane; the lane leaves the loop when its
-// path dies (its RNG state then stays as it is).  kVar: both walks read
-// their tree's layout; kShLeaf: the shadow walk's leaf arm (kLeafOccl2).
-// Returns false on a stack overflow.
+// pt_frame: every depth of one lane, as a run of depth steps that a
+// thread can interleave with other lanes' (pt_frame.cu's persistent
+// warps): begin_lane, then step_lane while it returns true.  A lane leaves
+// when its path dies (its RNG state then stays as it is) or its span
+// ends, and then writes its outputs at its own index.
+struct LaneRun {
+  int lane, d, tr;  // the lane, the depths it has run, the rays it traced
+  Path ps;
+};
+
+// Start lane `lane`: its path from the carry-in columns.  Returns true
+// when the path runs a depth; else writes the lane's outputs (a dead
+// carry-in lane, or a span of no depths) and returns false.
+PT_HD bool begin_lane(const Params& p, int lane, LaneRun& run) {
+  run.lane = lane;
+  run.d = 0;
+  run.tr = 0;
+  run.ps = load_path(p, lane);
+  if (p.depths > 0 && run.ps.active) return true;
+  store_path(p, lane, run.ps, false);
+  p.tr_out[lane] = 0;
+  return false;
+}
+
+// One depth of a live lane: extend (closest hit and shading), then the
+// NEE shadow test and the light's add.  Returns true while the lane runs
+// more depths; else writes its outputs and returns false.  kVar: both
+// walks read their tree's layout; kShLeaf: the shadow walk's leaf arm
+// (kLeafOccl2); kTrips: the walks count their trips (count_iters' arm).
+// Clears `ok` on a stack overflow.
+template <bool kVar, int kShLeaf, bool kTrips>
+PT_HD bool step_lane(const Params& p, const Tables& tb, LaneRun& run,
+                     Counters& cnt, bool& ok) {
+  run.tr += 1;
+  Shadow sh = extend<false, kVar, kLeafShade, kTrips>(
+      p.tree, tb, p.mode, run.ps, run.d + p.depth_base == 0, cnt, ok);
+  if (sh.sneed) {
+    run.tr += 1;
+    if (unoccluded<false, kVar, kShLeaf, kTrips>(p.sh_tree, tb, sh, cnt, ok)) {
+      add_light(run.ps.enx, run.ps.eny, run.ps.enz, sh);
+    }
+  }
+  run.d += 1;
+  if (run.d < p.depths && run.ps.active) return true;
+  store_path(p, run.lane, run.ps, false);
+  p.tr_out[run.lane] = run.tr;
+  return false;
+}
+
+// pt_frame's lane body run to its end (the host build's schedule, which
+// counts trips whenever count_iters asks).  Returns false on a stack
+// overflow.
 template <bool kVar = false, int kShLeaf = kLeafShade>
 PT_HD bool trace_lane(const Params& p, const Tables& tb, int lane,
                       Counters& cnt) {
-  Path ps = load_path(p, lane);
-  int tr = 0;
+  LaneRun run;
   bool ok = true;
-  for (int d = 0; d < p.depths && ps.active; ++d) {
-    tr += 1;
-    Shadow sh = extend<false, kVar>(p.tree, tb, p.mode, ps,
-                                    d + p.depth_base == 0, cnt, ok);
-    if (sh.sneed) {
-      tr += 1;
-      if (unoccluded<false, kVar, kShLeaf>(p.sh_tree, tb, sh, cnt, ok)) {
-        add_light(ps.enx, ps.eny, ps.enz, sh);
-      }
+  if (begin_lane(p, lane, run)) {
+    while (step_lane<kVar, kShLeaf, true>(p, tb, run, cnt, ok)) {
     }
   }
-  store_path(p, lane, ps, false);
-  p.tr_out[lane] = tr;
   return ok;
 }
 
@@ -1294,7 +1384,8 @@ struct PtArgs {
   const void* t_init;  // traverse: (n,) f32 per-lane t bound, or null
   const void* active;  // traverse: (n,) i32 lane mask, or null (all)
   void* shadow[10];   // Params::shadow: shade_extend out, shadow_resolve in
-  void* iters;        // NUM_COUNTERS u64 work counters (Counters order), or null
+  void* iters;        // NUM_COUNTERS u64 work counters (Counters order),
+                      // then pt_frame's warp and lane trips, or null
   void* seen[5];      // u8 bitmaps (Tree::seen_*): node, leaf, shadow node,
                       // shadow leaf rows, payload records; null unless
                       // counting
@@ -1308,6 +1399,7 @@ struct PtArgs {
   // the closest-hit tree's leaf-14 payload rows (Tree::pay), or null
   const void* pay;
   void* status;       // i32, bit 0 set on a traversal stack overflow
+  void* next;         // pt_frame: i32 zeroed, the next lane to fetch
   void* stream;
   int small_words;
   int mat_rows, light_rows, ltri_rows, sph_rows, pln_rows, obj_rows;
@@ -1402,19 +1494,22 @@ PT_HD void unpack(const PtArgs& a, const float* small, Tables& tb, Tree& tree,
   tb.mesh_lights = a.mesh_lights;
   w += 2 * a.light_rows;
   unsigned char* const* seen = reinterpret_cast<unsigned char* const*>(a.seen);
+  unsigned long long* trips =
+      a.iters ? static_cast<unsigned long long*>(a.iters) + NUM_COUNTERS
+              : nullptr;
   const float* inv = static_cast<const float*>(a.inst_inv);
   const float* nrm = static_cast<const float*>(a.inst_nrm);
   const int* iroot = static_cast<const int*>(a.inst_root);
   tree = {static_cast<const float*>(a.nodes), static_cast<const float*>(a.ltris),
           w, a.nroots, false, seen[0], seen[1], inv, nrm, iroot, a.num_inst,
           static_cast<const int*>(a.ents), a.cols, a.width, a.fused_nn,
-          static_cast<const float*>(a.pay), seen[4]};
+          static_cast<const float*>(a.pay), seen[4], trips};
   w += a.nroots;
   sh_tree = {static_cast<const float*>(a.sh_nodes),
              static_cast<const float*>(a.sh_ltris), w, a.sh_nroots,
              a.sh_occl != 0, seen[2], seen[3], inv, nrm, iroot, a.num_inst,
              static_cast<const int*>(a.sh_ents), a.sh_cols, a.sh_width,
-             a.sh_occl ? 0 : a.fused_nn, nullptr, nullptr};
+             a.sh_occl ? 0 : a.fused_nn, nullptr, nullptr, trips};
 }
 
 PT_HD Params make_params(const PtArgs& a, const Tree& tree,

@@ -1,6 +1,8 @@
 // Launch code shared by the ADVANCED mode's kernels (pt_frame.cu,
-// megakernel.cu): one thread per lane in blocks of kBlock, the packed
-// small scene tables copied once per block into shared memory, the work
+// megakernel.cu): blocks of kBlock threads -- one thread per lane
+// (launch), or as many persistent blocks as the card keeps resident, whose
+// threads fetch lanes (launch_persistent, pt_frame) -- the packed small
+// scene tables copied once per block into shared memory, the work
 // counters reduced per warp, and the stack-overflow flag.
 
 #pragma once
@@ -60,6 +62,49 @@ inline int launch(void (*kernel)(const PtArgs), const PtArgs* a) {
   const size_t smem = sizeof(float) * (size_t)a->small_words;
   const int grid = (a->n + kBlock - 1) / kBlock;
   kernel<<<grid, kBlock, smem, static_cast<cudaStream_t>(a->stream)>>>(*a);
+  return (int)cudaGetLastError();
+}
+
+// The threads `kernel` keeps resident when launched with the arguments
+// `a` (its shared memory: the packed small tables): the card's SMs times
+// the kernel's blocks per SM at kBlock threads, times kBlock.  Returns a
+// CUDA error, else 0.  Nothing is launched.
+template <typename Kernel>
+inline int resident_threads(Kernel kernel, const PtArgs& a, int& threads) {
+  const size_t smem = sizeof(float) * (size_t)a.small_words;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        kBlock, smem);
+  }
+  threads = sms * per_sm * kBlock;
+  return (int)err;
+}
+
+// Launch pt_frame's `kernel` over a->n lanes on a->stream as persistent
+// blocks: as many as the card keeps resident (resident_threads), fewer
+// when the lanes fill fewer; its threads fetch lanes from the zeroed
+// counter a->next.  Returns cudaGetLastError() (or -1 when the packed
+// small tables do not match the layout, -2 without a fetch counter).
+// Never synchronises.
+template <typename Kernel>
+inline int launch_persistent(Kernel kernel, const PtArgs* a) {
+  if (a->small_words != small_words(*a)) return -1;
+  if (!a->next) return -2;
+  int threads = 0;
+  const int err = resident_threads(kernel, *a, threads);
+  if (err) return err;
+  if (a->n <= 0) return 0;
+  const int need = (a->n + kBlock - 1) / kBlock;
+  const int blocks = threads / kBlock;
+  // grid 0 (a kernel that cannot be resident) is refused by the launch
+  kernel<<<need < blocks ? need : blocks, kBlock,
+           sizeof(float) * (size_t)a->small_words,
+           static_cast<cudaStream_t>(a->stream)>>>(*a);
   return (int)cudaGetLastError();
 }
 

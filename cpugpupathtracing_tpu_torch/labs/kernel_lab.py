@@ -55,6 +55,7 @@ import torch
 
 from cpugpupathtracing_tpu_torch.labs import common as cm
 from cpugpupathtracing_tpu_torch.models.scene import fuse_packet_tables
+from cpugpupathtracing_tpu_torch.ops import pt_frame as ptf
 
 _I32, _F32 = torch.int32, torch.float32
 PAIR = 2 * cm.TILE
@@ -318,8 +319,7 @@ def _slab_fma(L, bounds, ents, rows, t, mask):
     tmax = torch.fmin(torch.fmin(torch.fmax(t1[0], t2[0]),
                                  torch.fmax(t1[1], t2[1])),
                       torch.fmax(t1[2], t2[2]))
-    before = (tmin < t[:, None]) | (tmin == t[:, None])
-    passed = (tmax >= tmin) & before & (tmax > 0.0)
+    passed = ptf.slab_pass(tmin, tmax, t[:, None], True)
     return passed & (ents[rows] != cm.SLIM_EMPTY) & mask[:, None], tmin
 
 

@@ -84,11 +84,15 @@ from cpugpupathtracing_tpu_torch.utils.vecmath import (
 launches: dict = {}
 # work counters of count_iters: the kernel's visits (pt::Counters: node,
 # leaf, shadow node and shadow leaf rows read, closest-hit and shadow rays
-# traversed), then the distinct node, leaf, shadow node and shadow leaf
-# rows and leaf-14 payload records the launch read (pt::Tree::seen_*)
-NUM_COUNTERS = 6
-COUNTERS = ("node", "leaf", "snode", "sleaf", "ray", "sray",
-            "node_rows", "leaf_rows", "snode_rows", "sleaf_rows", "pay_recs")
+# traversed), the warp trips and lane trips of its walk loops
+# (pt::count_trip: lane trips / (32 warp trips) is the share of a warp's
+# lanes that work in a trip), then the distinct node, leaf, shadow node
+# and shadow leaf rows and leaf-14 payload records the launch read
+# (pt::Tree::seen_*)
+NUM_COUNTERS = 8
+COUNTERS = ("node", "leaf", "snode", "sleaf", "ray", "sray", "wtrip",
+            "ltrip", "node_rows", "leaf_rows", "snode_rows", "sleaf_rows",
+            "pay_recs")
 # records per occlusion leaf row (models/bvh8.py OCCL_TRIS)
 OCCL_TRIS = 14
 # per-ray traversal stack of the kernel (csrc/pt_device.cuh PT_STACK): the
@@ -113,7 +117,7 @@ _SOURCES = ("pt_frame.cu", "megakernel.cu", "traverse.cu", "whitted.cu",
             "floor_probe.cu", "probes.cu",
             "pt_launch.cuh", "pt_device.cuh", "whitted.cuh", "lab_device.cuh")
 _UNITS = (
-    ("pt_frame.cu", ("pt_frame_launch",)),
+    ("pt_frame.cu", ("pt_frame_launch", "pt_frame_resident")),
     ("megakernel.cu", ("mk_shade_extend_launch", "mk_shadow_resolve_launch")),
     ("traverse.cu", ("traverse_launch", "pt_args_layout")),
     ("whitted.cu", ("whitted_launch",)),
@@ -184,6 +188,7 @@ class _PtArgs(ctypes.Structure):
         ("sh_ents", ctypes.c_void_p),
         ("pay", ctypes.c_void_p),
         ("status", ctypes.c_void_p),
+        ("next", ctypes.c_void_p),
         ("stream", ctypes.c_void_p),
     ] + [(name, ctypes.c_int) for name in (
         "small_words",
@@ -617,10 +622,11 @@ def count_rows(a: _PtArgs, dev, trees, pay=None):
 
 
 def counters(iters, maps) -> torch.Tensor:
-    """The eleven counts of COUNTERS: the kernel's six visit counts, then
-    the distinct rows read of nodes, ltris, sh_nodes and sh_ltris (0 for a
-    tree not walked, and for the shadow tree when it is the closest-hit
-    tree, whose rows then count once) and the payload records read."""
+    """The thirteen counts of COUNTERS: the kernel's six visit counts
+    and two trip counts, then the distinct rows read of nodes, ltris,
+    sh_nodes and sh_ltris (0 for a tree not walked, and for the shadow
+    tree when it is the closest-hit tree, whose rows then count once) and
+    the payload records read."""
     zero = torch.zeros((), dtype=torch.int64, device=iters.device)
     rows = [zero if m is None else m.sum(dtype=torch.int64) for m in maps]
     if maps[2] is maps[0] and maps[0] is not None:
@@ -674,10 +680,11 @@ def pt_frame(
     Returns (energy (N, 3) f32, state' (N,), traced () int64), or with
     carry_out=True (rays6, state', throughput3, energy3, flags (N,) i32,
     traced).  count_iters=True appends an int64 tensor of the kernel's
-    eleven work counts (CUDA only; names in COUNTERS): closest-hit node
+    thirteen work counts (CUDA only; names in COUNTERS): closest-hit node
     rows and leaf rows visited, shadow node rows and leaf rows visited,
-    closest-hit rays and shadow rays traversed, then how many distinct
-    rows of each of the four tables (nodes, ltris, sh_nodes, sh_ltris)
+    closest-hit rays and shadow rays traversed, the walk loops' warp
+    trips and lane trips, then how many distinct rows of each of the four
+    tables (nodes, ltris, sh_nodes, sh_ltris)
     the launch read (the shadow ones 0 when the shadow rays walk the
     closest-hit tables, whose rows then count once) and 0 payload
     records.
@@ -743,6 +750,40 @@ def pt_frame_host(
         cosine=cosine, ref_pdf=ref_pdf, depths=depths, depth_base=depth_base,
         carry_in=carry_in, carry_out=carry_out, count_iters=count_iters,
         occl_rows=occl_rows, **layout_kw)
+
+
+def resident_threads(
+    nodes, ltris, mats, lights, ltri, sph, pln, sphmat, plnmat, objmat,
+    rays, state, *, roots, sh_nodes=None, sh_ltris=None, sh_roots=None,
+    occl=False, light_tri_meta=(), count_iters=False, fused_nn=0, width=8,
+    ents=None, sh_ents=None, occl_rows=1, **_,
+) -> int:
+    """The threads pt_frame's persistent launch on these arguments (CUDA
+    tensors; pt_frame's own) keeps resident: the card's SMs times the
+    blocks per SM of the kernel arm the launch takes (its count arm with
+    count_iters), times 128 (csrc/pt_frame.cu pt_frame_resident).  A
+    query: nothing is launched.  A launch of more lanes refills its
+    threads with lanes as their paths end."""
+    check_occl_rows("pt_frame", occl_rows, occl)
+    layout_kw = _frame_layouts("pt_frame", nodes, sh_nodes, ents, sh_ents,
+                               fused_nn, width, occl)
+    sh_nodes, sh_ltris, sh_roots = _shadow_tables(
+        nodes, ltris, roots, sh_nodes, sh_ltris, sh_roots, occl)
+    dev = state.device
+    if dev.type != "cuda":
+        raise ValueError(f"resident_threads needs cuda tensors, not {dev}")
+    a = launch_args(dev, nodes, ltris, sh_nodes, sh_ltris,
+                    (mats, lights, ltri, sph, pln, sphmat, plnmat, objmat),
+                    rays, n=state.shape[0], roots=roots, sh_roots=sh_roots,
+                    occl=occl, light_tri_meta=light_tri_meta,
+                    occl_rows=occl_rows, **layout_kw)
+    if count_iters:
+        iters = torch.zeros(NUM_COUNTERS, dtype=torch.int64, device=dev)
+        a.iters = iters.data_ptr()
+    got = build().pt_frame_resident(ctypes.addressof(a))
+    if got < 0:
+        raise RuntimeError(f"pt_frame_resident failed (error {-got})")
+    return got
 
 
 def _frame_layouts(what, nodes, sh_nodes, ents, sh_ents, fused_nn, width,
@@ -819,6 +860,9 @@ def _launch(entry, dev, nodes, ltris, sh_nodes, sh_ltris, tables, rays,
     if count_iters:
         counted = count_rows(a, dev, {0: (nodes, ltris),
                                       1: (sh_nodes, sh_ltris)})
+    # the persistent threads' lane counter (the host build ignores it)
+    fetch = torch.zeros(1, dtype=i32, device=dev)
+    a.next = fetch.data_ptr()
     run_launch(entry, a, "pt_frame")
     traced = tr.sum(dtype=i64)
     if carry_out:
@@ -992,15 +1036,32 @@ def instance_records(nodes, ltris, roots, inst_root) -> dict:
                 boxes=boxes, blas=[blas[r] for r in iroot])
 
 
-def _slab_pass(box, o, inv, zero, t, at_t):
+# csrc/pt_device.cuh SLAB_PAD: 1 + 2 gamma_3 in f32 (1 + 3 * 2^-23)
+SLAB_PAD = float(np.float32(1.0) + np.float32(3.0 * 2.0 ** -23))
+
+
+def slab_pass(tmin, tmax, t, at_t, pad=SLAB_PAD):
+    """csrc/pt_device.cuh slab_hit: the conservative slab test (Ize,
+    JCGT 2013) of entry and exit distances tmin / tmax against t (at t too
+    with at_t): tmax and t widened by pad (SLAB_PAD) before the compares,
+    so a ray grazing a flat box's edge keeps the box (ROADMAP C2); pad 1
+    is the exact test the port had before.  The products round in f32, as
+    the kernel's."""
+    hi, tp = tmax * pad, t * pad
+    before = (tmin < tp) | (tmin == tp) if at_t else tmin < tp
+    return (hi >= tmin) & before & (tmax > 0.0)
+
+
+def _slab_pass(box, o, inv, zero, t, at_t, pad=SLAB_PAD):
     """Lanes whose ray (origin o, reciprocal direction inv, zero-direction
     mask zero; 3-tuples of (N,)) enters the box (6,) [min, max] before t
     (at t too with at_t): the slab test of csrc/pt_device.cuh
-    push_children, zero_slab's rule included."""
-    return slab_test(box, o, inv, zero, t, at_t)[0]
+    push_children, zero_slab's rule and slab_hit's margin (pad)
+    included."""
+    return slab_test(box, o, inv, zero, t, at_t, pad)[0]
 
 
-def slab_test(box, o, inv, zero, t, at_t):
+def slab_test(box, o, inv, zero, t, at_t, pad=SLAB_PAD):
     """_slab_pass, and the entry distance tmin of every test."""
     t1, t2 = [], []
     for a in range(3):
@@ -1018,8 +1079,7 @@ def slab_test(box, o, inv, zero, t, at_t):
     tmax = torch.fmin(torch.fmin(torch.fmax(t1[0], t2[0]),
                                  torch.fmax(t1[1], t2[1])),
                       torch.fmax(t1[2], t2[2]))
-    before = (tmin < t) | (at_t & (tmin == t)) if at_t else tmin < t
-    return (tmax >= tmin) & before & (tmax > 0.0), tmin
+    return slab_pass(tmin, tmax, t, at_t, pad), tmin
 
 
 def closest_hit_instances_reference(nodes, ltris, roots, inst_inv,

@@ -95,7 +95,7 @@ def traverse_packet_slim(
     (nx, ny, nz) flat normal columns, bvh_depth (N,) i32, 0 without
     count_depth) -- the JAX function's order -- and with inst_inv (I, 12)
     / inst_root (I,) also the instance id (N,) i32; with count_iters=True
-    (CUDA only) then ops/pt_frame.py's eleven work counters (the shadow ones
+    (CUDA only) then ops/pt_frame.py's thirteen work counters (the shadow ones
     0).  occl, pay, occl_rows: the occlusion tables (module docstring)."""
     rays = _columns(origin) + _columns(direction)
     dev = t_init.device
@@ -285,7 +285,8 @@ def _slab_ray(d):
 def traverse_walk_reference(rays, t_init, nodes, ltris, roots, *,
                             active=None, any_hit=False, inst_inv=None,
                             inst_root=None, ents=None, fused_nn=0, width=8,
-                            occl=False, pay=None, occl_rows=1):
+                            occl=False, pay=None, occl_rows=1,
+                            slab_pad=ptf.SLAB_PAD):
     """The kernel's walk (csrc/pt_device.cuh closest_hit / any_hit over a
     shading tree, with the count_depth arm) on every lane at once: each
     step takes one entry per live lane.  roots[1:] are pushed and
@@ -311,7 +312,9 @@ def traverse_walk_reference(rays, t_init, nodes, ltris, roots, *,
     zero normal without it) under the same rules.  Returns the wrapper's
     outputs with bvh_depth (and the instance column with inst_inv); every
     output equals the kernel's bitwise, and t, id, object, normal and
-    instance of a closest hit equal the brute-force plain version's."""
+    instance of a closest hit equal the brute-force plain version's.
+    slab_pad: the slab test's margin (pt_frame.slab_pass; 1 is the exact
+    test of the port before ROADMAP C2's repair)."""
     n = t_init.shape[0]
     dev = t_init.device
     kinst = inst_inv is not None
@@ -393,7 +396,8 @@ def traverse_walk_reference(rays, t_init, nodes, ltris, roots, *,
         passed = ptf._slab_pass(
             box, tuple(c[:, None] for c in cur[:3]),
             tuple(c[:, None] for c in inv), tuple(c[:, None] for c in zero),
-            bound_t, not any_hit) & (ent != ptf.SLIM_EMPTY) & node[:, None]
+            bound_t, not any_hit, slab_pad) & (ent != ptf.SLIM_EMPTY) \
+            & node[:, None]
         dep = dep + passed.any(dim=1).to(_I32)
         pos = sp[:, None] + torch.cumsum(passed.long(), dim=1) - 1
         fits = passed & (pos < cap)

@@ -8,8 +8,10 @@ Each kernel (pt_frame, shade_extend, shadow_resolve) is held against its
 plain PyTorch version on the same card and inputs under the megakernel
 contract (traced exact, < 3% flipped lanes, flips < 0.02, mean within
 1e-4), pt_frame's closest hits against brute force bitwise, the
-split-span schedule against one span bitwise, and the per-depth route
-against the whole-frame route bitwise.  traverse_packet_slim's closest
+split-span schedule against one span bitwise, pt_frame on more lanes
+than its persistent launch keeps resident (so that its threads refill
+finished paths) against its single launch bitwise and the plain version,
+and the per-depth route against the whole-frame route bitwise.  traverse_packet_slim's closest
 hits equal its plain version's bitwise and its any hits in existence;
 whitted_frame equals its plain version bitwise (energy, state, traced);
 the two Whitted routes agree on state and traced exactly and on energy
@@ -154,6 +156,63 @@ def test_split_span_bitwise(card):
     assert torch.equal(one.energy, two.energy)
     assert int(one.traced_rays) == int(two.traced_rays)
     assert torch.equal(s1, s2)
+
+
+def test_pt_frame_refills_finished_paths(card):
+    """More lanes than pt_frame's persistent launch keeps resident, so its
+    threads refill lanes: the card scene's lanes repeated to twice the
+    resident threads, as one span and as the split schedule's two spans
+    with the carry.  Every copy of every output is bitwise the single
+    launch's, and the repeated launch holds against the plain version
+    under the megakernel contract, as test_kernel_matches_plain's."""
+    dev, o, d, st = card
+    settings = RenderSettings()
+    kw = integrators.frame_kwargs(dev, settings)
+    rays = _rays(o, d)
+    depths, split = settings.max_ray_depth + 1, 2
+    e_k, s_k, tr_k = ptf.pt_frame(*dev.tables(), rays, st, depths=depths,
+                                  **kw)
+    resident = ptf.resident_threads(*dev.tables(), rays, st, **kw)
+    reps = -(-2 * resident // (W * H))
+    big = tuple(r.repeat(reps) for r in rays)
+    assert big[0].shape[0] > resident > 0
+
+    def tile(x):
+        x = torch.stack(x, 1) if isinstance(x, tuple) else x
+        return x.repeat((reps,) + (1,) * (x.dim() - 1))
+
+    def same(a, b):
+        a = torch.stack(a, 1) if isinstance(a, tuple) else a
+        return torch.equal(a.view(torch.int32) if a.is_floating_point()
+                           else a, tile(b).view(torch.int32)
+                           if a.is_floating_point() else tile(b))
+
+    e_b, s_b, tr_b = ptf.pt_frame(*dev.tables(), big, st.repeat(reps),
+                                  depths=depths, **kw)
+    assert same(e_b, e_k) and same(s_b, s_k)
+    assert int(tr_b) == reps * int(tr_k)
+    c1 = ptf.pt_frame(*dev.tables(), big, st.repeat(reps), depths=split,
+                      carry_out=True, **kw)
+    c1s = ptf.pt_frame(*dev.tables(), rays, st, depths=split,
+                       carry_out=True, **kw)
+    for a, b in zip(c1[:5], c1s[:5]):
+        assert same(a, b)
+    c2 = ptf.pt_frame(*dev.tables(), c1[0], c1[1], depths=depths - split,
+                      depth_base=split, carry_in=c1[2:5], **kw)
+    c2s = ptf.pt_frame(*dev.tables(), c1s[0], c1s[1], depths=depths - split,
+                       depth_base=split, carry_in=c1s[2:5], **kw)
+    assert same(c2[0], c2s[0]) and same(c2[1], c2s[1])
+    assert int(c1[5] + c2[2]) == reps * int(c1s[5] + c2s[2])
+    ptf.check_status("cuda")
+    e_p, s_p, tr_p = ptf.pt_frame_reference(
+        dev.pltris, *dev.tables()[2:], big, st.repeat(reps),
+        num_lights=kw["num_lights"], num_sph=kw["num_sph"],
+        num_pln=kw["num_pln"], nee=kw["nee"], rr=kw["rr"],
+        cosine=kw["cosine"], ref_pdf=kw["ref_pdf"], depths=depths,
+        light_tri_meta=kw["light_tri_meta"])
+    assert int(tr_b) == int(tr_p)
+    assert float((s_b == s_p).float().mean()) > 0.97
+    _contract(e_p, e_b)
 
 
 def test_wrapper_refuses_bad_inputs(card):
