@@ -61,8 +61,13 @@ Phases, one line each; any failure raises and exits non-zero:
                  with the same seed: images and traced counts equal
   8. check_traverse  8192 config-3 lanes: traverse_packet_slim's closest
                  hits of camera rays and any hits of shadow rays toward
-                 both lights (half of the lanes inactive) against its
-                 plain version, bitwise (any hits: existence)
+                 both lights (half of the lanes inactive), and under one
+                 live lane in 32 and none, against its plain version,
+                 bitwise (any hits: existence; inactive lanes exact); the
+                 lanes repeated past the most threads the card keeps
+                 resident, bitwise the 8192-lane launch; each query's lane
+                 share, and for a closest hit with postponed leaves the
+                 bound from the slot-order walk's counts beside its own
   9. check_whitted  8192 config-1 lanes through whitted_frame against its
                  plain version (bitwise) and against trace_whitted (state
                  and traced exact, energy under the contract)
@@ -74,7 +79,9 @@ Phases, one line each; any failure raises and exits non-zero:
  11. frame_whitted_mesh  WHITTED on config 3's scene at 1920x1080, depth
                  4, through Renderer (trace_whitted): 5 closest-hit and 10
                  any-hit launches and 5 morton5 sorts per frame, every
-                 256th lane of each launch against the plain version
+                 256th lane of each launch against the plain version,
+                 each launch's lane share (and on the closest hits the
+                 slot-order walk's bound, as in phase 8)
  11a. frame_xla  config 3 at 1920x1080 through Renderer on the XLA
                  integrator, AOVs off (CPUGPU_NO_MEGAKERNEL=1) and on
                  (track_aovs): 6 closest-hit launches (the count_depth arm
@@ -205,7 +212,9 @@ Phases, one line each; any failure raises and exits non-zero:
  25. smem         L9 (labs/smem_probe.py): tables from 1,024 to 260,000
                  words staged in one block's shared memory: OK exactly up
                  to the opt-in limit, the right word read; a launch after
-                 the refusals
+                 the refusals; per size the kernel's and torch.take's
+                 device ms timed in turn, and L8's trivial kernel against
+                 x * 2 timed in turn
  18. the {"kernels": [...]} line: per kernel its check's numbers, and per
      main-path launch its lanes, ms, bound and sampled error; the
      instance arms, the count_depth arms, the variant arms and the leaf
@@ -545,6 +554,12 @@ def bound_ms(iters: dict, lane_bytes_total: int, small_bytes: int,
     t_ops = ops / PEAK_F32_FLOPS
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops
                                        else "operations")
+
+
+def lane_share(it: dict):
+    """The share of a warp's lanes that work in a walk trip: count_iters'
+    lane trips / (32 warp trips), None where no walk ran."""
+    return it["ltrip"] / (32 * it["wtrip"]) if it["wtrip"] else None
 
 
 def launch_layouts(nodes, kw) -> tuple:
@@ -1042,39 +1057,75 @@ def frame_mega(scene, cam_cfg, settings, width, height, small_bytes,
         whole_traced=r_whole.stats.traced_rays if whole else None)
 
 
+def slot_bound(entry, args, kw, lanes_bytes) -> tuple | None:
+    """For a closest-hit call that walks with postponed leaves
+    (csrc/pt_device.cuh postponed: no any_hit, count_depth, instances or
+    occlusion leaves), the bound from the slot-order walk's counts -- the
+    count_depth arm's count launch on the same call, whose visits are the
+    parent schedule's -- beside its own; None for every other call.
+    lanes_bytes(counts): the call's lane bytes (without the depth
+    column)."""
+    if kw.get("any_hit") or kw.get("count_depth") or kw.get("occl") or any(
+            k.startswith("inst_") for k in kw):
+        return None
+    from cpugpupathtracing_tpu_torch.ops import pt_frame as ptf
+
+    *_, slot = entry(*args, **dict(kw, count_depth=True, count_iters=True))
+    slot = dict(zip(ptf.COUNTERS, (int(v) for v in slot)))
+    lay = launch_layouts(args[3], kw)
+    return slot, bound_ms(slot, lanes_bytes(slot), 0, shade_ops=0,
+                          layouts=lay, leaves=leaf_kinds(kw, tree_occl=True))
+
+
 def check_traverse(ds, o, d) -> dict:
     """Phase 8 on the check lanes of config 3: traverse_packet_slim's
     closest hits of the camera rays (even lanes active) and its any hits
     of shadow rays from the camera hits toward each light (odd lanes that
     hit active) against the plain version on the card -- closest hits
     bitwise on every lane (t, id, object, normal; inactive lanes t_init
-    and -1), any hits in existence.  Returns each query's numbers."""
+    and -1), any hits in existence with the inactive lanes exact -- then
+    the sparse masks: one live lane in 32 and none, closest and any
+    hits, against the plain version alike; and the check lanes with their
+    masks repeated past the most threads the card keeps resident (a
+    launch of several block waves), every copy bitwise the 8192-lane
+    launch.  Per query its lane share and, for a closest
+    hit with postponed leaves, the bound from the slot-order walk's
+    counts (slot_bound).  Returns each query's numbers."""
     import torch
     from cpugpupathtracing_tpu_torch.ops import pt_frame as ptf
     from cpugpupathtracing_tpu_torch.ops import traverse_packet_slim as tps
 
     dev, n = o.device, o.shape[0]
     rays = columns(o, d)
-    even = torch.arange(n, device=dev) % 2 == 0
+    ar = torch.arange(n, device=dev)
+    even = ar % 2 == 0
+    sparse = ar % 32 == 5
+    none = torch.zeros(n, dtype=torch.bool, device=dev)
     far = torch.full((n,), 1e34, device=dev)
     rec = ptf.leaf_records(ds.pltris)
     cam = tps.traverse_packet_slim_reference(rays, far, ds.pltris,
                                              records=rec)
     pos = o + d * cam[0][:, None]
-    queries = [("closest", rays, far, even, False)]
+    queries = [("closest", rays, far, even, False),
+               ("closest_sparse", rays, far, sparse, False),
+               ("closest_dead", rays, far, none, False)]
     for li in range(ds.num_lights):
         to_l = ds.mk_lights[li, 0:3][None, :] - pos
         dist = torch.sqrt((to_l * to_l).sum(dim=1))
         to_l = to_l / dist[:, None]
-        queries.append((
-            f"any_light{li}", columns(pos + to_l * 0.001, to_l),
-            dist - ds.mk_lights[li, 3] - 0.002, ~even & (cam[1] >= 0), True))
+        shadow = columns(pos + to_l * 0.001, to_l)
+        tmax = dist - ds.mk_lights[li, 3] - 0.002
+        queries.append((f"any_light{li}", shadow, tmax,
+                        ~even & (cam[1] >= 0), True))
+        if li == 0:
+            queries += [("any_sparse", shadow, tmax,
+                         sparse & (cam[1] >= 0), True),
+                        ("any_dead", shadow, tmax, none, True)]
     out = {}
     for name, qr, t0, act, any_hit in queries:
         args = (qr[:3], qr[3:], t0, ds.pnodes, ds.pltris, ds.proots)
-        *got, it = tps.traverse_packet_slim(*args, active=act, any_hit=any_hit,
-                                            count_depth=False,
-                                            count_iters=True)
+        kw = dict(active=act, any_hit=any_hit, count_depth=False)
+        *got, it = tps.traverse_packet_slim(*args, count_iters=True, **kw)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         ref = tps.traverse_packet_slim_reference(qr, t0, ds.pltris, active=act,
@@ -1097,21 +1148,52 @@ def check_traverse(ds, o, d) -> dict:
             raise AssertionError(f"traverse_packet_slim {name}: {mism} lanes "
                                  "differ from the plain version")
         it = dict(zip(ptf.COUNTERS, (int(v) for v in it)))
+        lanes = lambda c: trav_bytes(n, c["ray"], True, True)  # noqa: E731
+        slot = slot_bound(tps.traverse_packet_slim, args, kw, lanes)
         out[name] = dict(
             active=int(act.sum()), hits=int((got[1] >= 0).sum()),
             mismatches=mism,
             max_abs_err=float((got[0] - ref[0]).abs().max()) if not any_hit
             else 0.0,
-            **kernel_ms(lambda: tps.traverse_packet_slim(
-                *args, active=act, any_hit=any_hit, count_depth=False),
-                "traverse_kernel"),
-            plain_ms=plain_ms, iters=it,
-            bound=bound_ms(it, trav_bytes(n, it["ray"], True, True), 0,
-                           shade_ops=0))
+            **kernel_ms(lambda: tps.traverse_packet_slim(*args, **kw),
+                        "traverse_kernel"),
+            plain_ms=plain_ms, iters=it, lane_share=lane_share(it),
+            bound=bound_ms(it, lanes(it), 0, shade_ops=0),
+            bound_slot_ms=None if slot is None else slot[1][0],
+            node_slot=None if slot is None else slot[0]["node"])
+        out[name]["got"] = got
+    # the check lanes repeated past the most threads the card keeps
+    # resident: every copy bitwise the 8192-lane launch
+    props = torch.cuda.get_device_properties(0)
+    most = props.multi_processor_count * props.max_threads_per_multi_processor
+    for name in ("closest", "any_light0"):
+        _, qr, t0, act, any_hit = next(q for q in queries if q[0] == name)
+        kw = dict(active=act, any_hit=any_hit, count_depth=False)
+        reps = most // n + 2
+        big = tps.traverse_packet_slim(
+            tuple(c.repeat(reps) for c in qr[:3]),
+            tuple(c.repeat(reps) for c in qr[3:]), t0.repeat(reps),
+            ds.pnodes, ds.pltris, ds.proots,
+            **dict(kw, active=act.repeat(reps)))
+        ptf.check_status(dev)
+        big = (big[0], big[1], big[2]) + big[3]
+        mism = int(bits_differ(
+            [c.view(reps, n) for c in big],
+            [g[None, :].expand(reps, n) for g in out[name]["got"]]).sum())
+        if mism:
+            raise AssertionError(f"traverse_packet_slim {name} over "
+                                 f"{reps * n} lanes: {mism} lanes differ "
+                                 "from the 8192-lane launch")
+        out[name].update(big_lanes=reps * n, most_resident=most,
+                         big_mismatches=mism)
+    for v in out.values():
+        v.pop("got")
     say("check_traverse", lanes=n, **{
         f"{q}_{k}": v[k] for q, v in out.items()
         for k in ("active", "hits", "mismatches", "ms", "call_ms",
-                  "plain_ms")},
+                  "plain_ms", "lane_share", "bound_slot_ms", "node_slot",
+                  "big_lanes", "most_resident", "big_mismatches")
+        if k in v},
         **{f"{q}_bound_ms": v["bound"][0] for q, v in out.items()},
         **{f"{q}_bound_by": v["bound"][1] for q, v in out.items()},
         **{f"{q}_iters": v["iters"] for q, v in out.items()})
@@ -2132,8 +2214,12 @@ def traverse_main_path(frame_fn, what: str, per_depth: int) -> list:
                                 **k)
             n = a[2].shape[0]
             sel = torch.arange(0, n, SAMPLE_STRIDE, device=dev)
+            slot = slot_bound(
+                entry, a, dict(active=active, any_hit=any_hit,
+                               count_depth=count_depth, **k),
+                lambda c: trav_bytes(n, c["ray"], True, active is not None))
             launches.append(dict(
-                lanes=n, iters=iters, any_hit=any_hit,
+                lanes=n, iters=iters, any_hit=any_hit, slot=slot,
                 count_depth=count_depth, given_active=active is not None,
                 tree=a[3:6], inst={k_: v for k_, v in k.items()
                                    if k_.startswith("inst_")},
@@ -2183,7 +2269,9 @@ def traverse_main_path(frame_fn, what: str, per_depth: int) -> list:
             if not ln["any_hit"] else 0.0, mismatches=mism,
             hits=int((got[1] >= 0).sum()),
             instance_hits=int((got[-1] >= 0).sum()) if inst else 0,
-            iters=it))
+            lane_share=lane_share(it), iters=it,
+            bound_slot_ms=ln["slot"][1][0] if ln["slot"] else None,
+            node_slot=ln["slot"][0]["node"] if ln["slot"] else None))
     ptf.check_status(dev)
     if len(dev_ms) != len(launches):
         dev_ms = launch_ms(frame_fn, "traverse_kernel", expect=len(launches))
@@ -2932,7 +3020,10 @@ def b4_frames(scene, cam_cfg, settings, whitted_settings, width, height,
             v for k, v in got.items() if k != "sorts"),
             first_frame_ms=ms, kernel_ms=sum(mp["ms"] for mp in path),
             sampled_mismatches=sum(mp["mismatches"] for mp in path),
-            arms=sorted(k for k, v in got.items() if v and k != "sorts"))
+            arms=sorted(k for k, v in got.items() if v and k != "sorts"),
+            **{f"launch_{k}": [mp[k] for mp in path] for k in (
+                "kind", "active", "ms", "bound_ms", "lane_share",
+                "bound_slot_ms")})
     return out
 
 
@@ -3874,16 +3965,35 @@ def launch_probe(ds3) -> dict:
     return dict(rows=rows, launches=ran, plain_ms=plain, exact=exact)
 
 
+# interleaved_ms: rounds of device timings per function, and launches per
+# timing (common.busy_ms)
+INTERLEAVE_ROUNDS, INTERLEAVE_REPS = 7, 20
+
+
+def interleaved_ms(fns) -> list:
+    """The median device ms per call of each fn (common.busy_ms over
+    INTERLEAVE_REPS calls), timed in turn for INTERLEAVE_ROUNDS rounds, so
+    that the functions share the card's state (clocks, caches)."""
+    from cpugpupathtracing_tpu_torch.labs import common as cm
+
+    times = [[] for _ in fns]
+    for _ in range(INTERLEAVE_ROUNDS):
+        for k, fn in enumerate(fns):
+            times[k].append(cm.busy_ms(fn, INTERLEAVE_REPS))
+    return [sorted(t)[len(t) // 2] for t in times]
+
+
 def smem_phase() -> dict:
     """Phase 25, L9 (labs/smem_probe.py run): every size, OK exactly
     when its bytes are at or below the device's opt-in shared memory per
     block and the right word read, FAIL (refused) above it; then a small
-    table's launch.  Per launched size its device ms and bound; beside
-    config 3's entry mirror, torch.take's device ms (common.busy_ms) and
-    the plain version's host ms on the same table."""
+    table's launch.  Per launched size its device ms and bound, and the
+    kernel's and torch.take's device ms on the same table and index timed
+    in turn (interleaved_ms); the plain version's host ms on config 3's
+    entry mirror; and L8's trivial kernel against x * 2, timed in turn."""
     import torch
 
-    from cpugpupathtracing_tpu_torch.labs import common as cm
+    from cpugpupathtracing_tpu_torch.labs import launch_probe as lp
     from cpugpupathtracing_tpu_torch.labs import smem_probe as sp
 
     dev = torch.device("cuda")
@@ -3898,18 +4008,33 @@ def smem_phase() -> dict:
             raise AssertionError(f"smem: {r['label']} ({r['bytes']} B) "
                                  f"{'OK' if r['ok'] else 'FAIL'} against "
                                  f"the {optin} B limit")
+    # per launched size the kernel and torch.take on the same table and
+    # index, interleaved round by round (medians)
+    for r in rows:
+        if r["ok"]:
+            tab = torch.arange(r["words"], dtype=torch.int32, device=dev)
+            idx = torch.full((1,), (r["words"] - 4) // 8, dtype=torch.int32,
+                             device=dev)
+            flat = idx.long() * 8 + 3
+            r["ms_interleaved"], r["take_ms"] = interleaved_ms(
+                (lambda: sp.smem_probe(tab, idx, two_d=r["two_d"]),
+                 lambda: torch.take(tab, flat)))
         say("smem", **{k: (round(v, 5) if isinstance(v, float) else v)
                        for k, v in r.items()})
     mirror = next(r for r in rows if r["label"] == "config 3 entry mirror")
     tab = torch.arange(mirror["words"], dtype=torch.int32, device=dev)
     idx = torch.full((1,), (mirror["words"] - 4) // 8, dtype=torch.int32,
                      device=dev)
-    flat = idx.long() * 8 + 3
-    lib = cm.busy_ms(lambda: torch.take(tab, flat), reps=5)
     plain = timed_plain(lambda: sp.smem_probe_reference(tab, idx))[1]
     call = cuda_ms(lambda: sp.smem_probe(tab, idx), 5)
+    # L8's trivial kernel against x * 2, interleaved round by round
+    x = torch.randn(lp.N, device=dev)
+    l8 = interleaved_ms((lambda: lp.trivial(x), lambda: x * 2))
+    say("smem_l8_retime", trivial_ms=l8[0], x2_ms=l8[1],
+        ratio=l8[0] / l8[1], rounds=INTERLEAVE_ROUNDS, reps=INTERLEAVE_REPS)
     return dict(rows=rows, optin=optin, launches=launched["smem_probe"],
-                mirror=mirror, library_ms=lib, plain_ms=plain, call_ms=call)
+                mirror=mirror, library_ms=mirror["take_ms"], plain_ms=plain,
+                call_ms=call, l8_retime=dict(trivial_ms=l8[0], x2_ms=l8[1]))
 
 
 def probe_entries(launch: dict, smem: dict) -> list:

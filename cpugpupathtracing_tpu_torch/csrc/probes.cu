@@ -13,7 +13,22 @@
 // padding here).  A table above the block's opt-in limit of shared memory
 // is refused by cudaFuncSetAttribute: that refusal is the probe's answer
 // (smem_probe_launch's REFUSED code), and the error is cleared, so a
-// later launch runs.  What bounds it: reading the table once.
+// later launch runs.  What bounds it: reading the table once, into one
+// SM.
+//
+// What the design does about it (redesigned for this card; PERF.md §6):
+// the first version staged the table with scalar int loads by 256
+// threads, one round trip per 256 words (93 rounds for config 3's entry
+// mirror), and ran 3.9x slower than torch.take's one-word read.  Now up
+// to 1024 threads issue every 16-byte request of the table at once as
+// asynchronous copies from global into shared memory
+// (cp.async.cg.shared.global, 16 bytes each, L2 to shared memory without
+// registers), a word count that is not a multiple of 4 takes a scalar
+// tail, and one cp.async.wait_all and __syncthreads() end the staging.
+// No byte of shared memory goes to anything but the table (TMA's
+// cp.async.bulk would need an 8-byte mbarrier there), so the probe's
+// answer, the largest table that fits, is the opt-in limit itself.  The
+// wrapper refuses a table that is not 16-byte aligned.
 //
 // labs/launch_probe.py and labs/smem_probe.py wrap them; their plain
 // versions are x * 2 and tab[i * 8 + 3] in PyTorch.
@@ -43,7 +58,8 @@ namespace {
 using probes::ProbeArgs;
 
 constexpr int kScaleBlock = 256;
-constexpr int kSmemBlock = 256;
+// threads of the staging block: at most one per 16-byte request
+constexpr int kSmemBlock = 1024;
 // smem_probe_launch's code for a table the device refuses to stage: the
 // CUDA error of cudaFuncSetAttribute in the low bits
 constexpr int REFUSED = 1 << 16;
@@ -61,7 +77,19 @@ __global__ void __launch_bounds__(kSmemBlock)
                       int two_d) {
   extern __shared__ int4 smem4[];
   int* s = reinterpret_cast<int*>(smem4);
-  for (int i = threadIdx.x; i < words; i += blockDim.x) s[i] = tab[i];
+  const int4* src = reinterpret_cast<const int4*>(tab);
+  const int quads = words >> 2;
+  for (int i = threadIdx.x; i < quads; i += blockDim.x) {
+    const unsigned dst =
+        static_cast<unsigned>(__cvta_generic_to_shared(smem4 + i));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+                 "l"(src + i)
+                 : "memory");
+  }
+  for (int i = 4 * quads + threadIdx.x; i < words; i += blockDim.x) {
+    s[i] = tab[i];
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
   __syncthreads();
   if (threadIdx.x == 0) {
     const int i = idx[0];
@@ -87,9 +115,11 @@ extern "C" int scale2_launch(const ProbeArgs* a) {
 
 // L9: one block stages the a->n-word table and reads row *idx.  Returns
 // 0, REFUSED | error where the device refuses the table's shared memory
-// (the error cleared), or the launch's error; never synchronises.
+// (the error cleared), -1 for a table that is not 16-byte aligned, or
+// the launch's error; never synchronises.
 extern "C" int smem_probe_launch(const ProbeArgs* a) {
   const size_t bytes = (size_t)a->n * sizeof(int);
+  if (reinterpret_cast<size_t>(a->in) % 16 != 0) return -1;
   const cudaError_t rc = cudaFuncSetAttribute(
       smem_probe_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)bytes);

@@ -218,8 +218,9 @@ struct Tree {  // one slim 8-wide tree: (B, 64) nodes, (NL, 128) leaf rows
   // record), set to 1 when the leaf-14 closest hit reads its payload (a
   // record that passes the triangle test); else null
   unsigned char* seen_pay;
-  // with count_iters: the launch's warp trips and lane trips of
-  // pt_frame's walk loops (count_trip), shared by both trees; else null
+  // with count_iters: the launch's warp trips and lane trips of the walk
+  // loops of pt_frame and traverse (count_trip, count_trip_vote), shared
+  // by both trees; else null
   unsigned long long* trips;
 };
 
@@ -234,9 +235,9 @@ constexpr int NUM_COUNTERS = 6;
 // active lane (the lowest lane adds the mask's population), so that lane
 // trips / (32 warp trips) is the share of a warp's lanes that work in a
 // trip.  The host build runs one lane at a time: a warp of one lane.  Only
-// pt_frame's walks count, and only in the kernel arm of its count launches
-// (kTrips): even untaken, the check and the warp intrinsic in the loop
-// slowed the walk on the card (PERF.md).
+// pt_frame's and traverse's walks count, and only in the kernel arm of
+// their count launches (kTrips): even untaken, the check and the warp
+// intrinsic in the loop slowed the walk on the card (PERF.md).
 PT_HD void count_trip(unsigned long long* trips) {
   if (!trips) return;
 #ifdef __CUDA_ARCH__
@@ -508,6 +509,81 @@ PT_HD int instance_entry(const Tree& tr, const WalkRay& w, WalkRay& cur,
   return 1;
 }
 
+// A node row of a walk: its slab tests at t (at t too when at_t), the
+// passing children pushed in slot order (push_node over the variant
+// layouts, push_children over 64-col rows), the row counted and marked.
+template <bool kDepth, bool kVar>
+PT_HD void visit_node(const Tree& tr, int e, const SlabRay& sr, float t,
+                      bool at_t, int* stack, int& sp, bool& ok,
+                      unsigned long long& it_node, int* depth) {
+  ++it_node;
+  if (tr.seen_node) tr.seen_node[e] = 1;
+  if constexpr (kVar) {
+    ok &= push_node<kDepth>(tr, e, sr, t, at_t, stack, sp, depth);
+  } else {
+    ok &= push_children<kDepth>(tr.nodes + (size_t)e * 64, sr, t, at_t,
+                                stack, sp, depth);
+  }
+}
+
+// closest_hit's test of shading leaf entry e: its 8 records of 16 cols
+// (four 16-byte loads each) in slot order, under the exact-tie rule.
+template <bool kInst, bool kVar>
+PT_HD void leaf_closest(const Tree& tr, int e, const WalkRay& cur, Hit& h,
+                        unsigned long long& it_leaf) {
+  ++it_leaf;
+  if (tr.seen_leaf) tr.seen_leaf[kVar ? var_leaf_row(tr, e) : -e - 1] = 1;
+  const float* row = kVar ? var_leaf(tr, e) : tr.ltris + (size_t)(-e - 1) * 128;
+#pragma unroll 2
+  for (int c = 0; c < LEAF_TRIS; ++c) {
+    const float* r = row + 16 * c;
+    F4 a = ld4(r), b = ld4(r + 4), d4 = ld4(r + 8), p = ld4(r + 12);
+    float tt = tri_test(cur.ox, cur.oy, cur.oz, cur.dx, cur.dy, cur.dz, a.x,
+                        a.y, a.z, a.w, b.x, b.y, b.z, b.w, d4.x);
+    const int id = as_int(p.y);
+    const bool tie =
+        tt == h.t && (id < h.tri || (kInst && id == h.tri && cur.iid < h.iid));
+    if (tt >= 0.0f && (tt < h.t || tie)) {
+      h.t = tt;
+      h.tri = id;
+      h.obj = as_int(p.x);
+      h.nx = d4.y;
+      h.ny = d4.z;
+      h.nz = d4.w;
+      h.iid = cur.iid;
+    }
+  }
+}
+
+// A vote of the postponed-leaf walk (closest_hit's kPost arm): whether p
+// holds on some lane of the warp, every lane taking part.  The host build
+// runs a warp of one lane, whose vote is its own predicate.
+PT_HD bool warp_any(bool p) {
+#ifdef __CUDA_ARCH__
+  return __any_sync(0xffffffffu, p);
+#else
+  return p;
+#endif
+}
+
+// One trip of the postponed-leaf walk under count_iters (trips non-null):
+// a warp trip, and a lane trip per lane that reads a row in it (`works`),
+// so that lane trips are the rows visited, as in count_trip.  Every lane
+// of the warp takes part; the host build counts its one lane.
+PT_HD void count_trip_vote(unsigned long long* trips, bool works) {
+  if (!trips) return;
+#ifdef __CUDA_ARCH__
+  const unsigned m = __ballot_sync(0xffffffffu, works);
+  if ((threadIdx.x & 31u) == 0) {
+    atomicAdd(trips, 1ull);
+    atomicAdd(trips + 1, (unsigned long long)__popc(m));
+  }
+#else
+  trips[0] += 1;
+  trips[1] += works ? 1 : 0;
+#endif
+}
+
 // Closest hit over a shading tree (_emit_traversal, any_hit=False):
 // h.t starts at the ray's t_init; on a hit h holds t, original triangle
 // id, object, flat normal and instance.  A hit replaces the current one
@@ -525,16 +601,33 @@ PT_HD int instance_entry(const Tree& tr, const WalkRay& w, WalkRay& cur,
 // the same rule: a record's id, object and normal come from the payload
 // row at its offset (CPUGPU_LEAF14), or, without payload rows, the hit
 // keeps only its t and takes id 1 (the JAX function's t-only query).
-// kTrips (pt_frame's count launches): count the loop's trips
-// (count_trip).  Returns false on a stack overflow.
+// kTrips (count launches): count the loop's trips (count_trip).
+//
+// kPost (shading leaves only, without kInst or kDepth): postponed leaves
+// (Aila and Laine, HPG 2009, at warp granularity: the labs' L4, v1).
+// Every lane of the warp calls the walk, a lane without a ray with
+// `walk` false (it takes part in the votes only).  A popped leaf is
+// parked in the ray's one pending slot and the walk goes on over nodes;
+// a trip is a leaf trip when some lane pops a leaf while its slot is
+// full, or when no lane holds a node entry -- then every lane with a
+// parked or a current leaf tests one leaf (the parked one first, the
+// current one parked in its place) and the lanes whose entry was a leaf
+// pop -- else a node trip.  So a warp's trips are all node rows or all
+// leaf rows.  Hits stay bitwise by the tie rule: a parked leaf only lets
+// nodes be tested at a larger t, which adds visits and loses none.  The
+// visit counts may differ from the slot-order walk's.  Returns false on
+// a stack overflow.
 template <bool kInst = false, bool kDepth = false, bool kVar = false,
-          int kLeaf = kLeafShade, bool kTrips = false>
+          int kLeaf = kLeafShade, bool kTrips = false, bool kPost = false>
 PT_HD bool closest_hit(const Tree& tr, float ox, float oy, float oz,
                        float dx, float dy, float dz, Hit& h,
                        unsigned long long& it_node,
-                       unsigned long long& it_leaf, int* depth = nullptr) {
+                       unsigned long long& it_leaf, int* depth = nullptr,
+                       bool walk = true) {
   static_assert(!(kInst && kVar), "the instance arms walk 64-col rows");
   static_assert(kLeaf == kLeafShade || kVar, "the leaf arms are variant");
+  static_assert(!kPost || (!kInst && !kDepth && kLeaf == kLeafShade),
+                "postponed leaves: shading leaves, no instances, no depth");
   const WalkRay w = world_ray(ox, oy, oz, dx, dy, dz);
   WalkRay cur = w;
   int stack[kVar ? PT_STACK_W16 : PT_STACK];
@@ -542,20 +635,55 @@ PT_HD bool closest_hit(const Tree& tr, float ox, float oy, float oz,
   bool ok = true;
   for (int i = 1; i < tr.nroots; ++i) stack[sp++] = tr.roots[i];
   int e = tr.roots[0];
+  if constexpr (kPost) {
+    bool live = walk;     // e holds an entry
+    bool parked = false;  // `pend` holds a leaf entry
+    int pend = 0;
+    while (warp_any(live || parked)) {
+      const bool leaf = live && !(kVar ? var_is_node(tr, e) : e >= 0);
+      const bool node = live && !leaf;
+      bool pop;
+      if (warp_any(leaf && parked) || !warp_any(node)) {
+        // a leaf trip: the parked leaf first, the current one parked in
+        // its place; a lane that holds a node entry keeps it
+        if constexpr (kTrips) count_trip_vote(tr.trips, leaf || parked);
+        if (leaf || parked) {
+          leaf_closest<false, kVar>(tr, parked ? pend : e, cur, h, it_leaf);
+        }
+        if (leaf && parked) pend = e;
+        parked = leaf && parked;
+        pop = leaf;
+      } else {
+        // a node trip: no lane that pops a leaf has one parked
+        if constexpr (kTrips) count_trip_vote(tr.trips, node);
+        if (node) {
+          visit_node<false, kVar>(tr, e, cur.sr, h.t, true, stack, sp, ok,
+                                  it_node, depth);
+        }
+        if (leaf) {
+          pend = e;
+          parked = true;
+        }
+        pop = live;
+      }
+      if (pop) {
+        if (sp == 0) {
+          live = false;
+        } else {
+          e = stack[--sp];
+        }
+      }
+    }
+    return ok;
+  }
   for (;;) {
     if constexpr (kTrips) count_trip(tr.trips);
     if (kInst && instance_entry(tr, w, cur, e, stack, sp, ok) == 1) continue;
     if (kInst && e == RESTORE) {
       // the world ray is back; pop below
     } else if (kVar ? var_is_node(tr, e) : e >= 0) {
-      ++it_node;
-      if (tr.seen_node) tr.seen_node[e] = 1;
-      if constexpr (kVar) {
-        ok &= push_node<kDepth>(tr, e, cur.sr, h.t, true, stack, sp, depth);
-      } else {
-        ok &= push_children<kDepth>(tr.nodes + (size_t)e * 64, cur.sr, h.t,
-                                    true, stack, sp, depth);
-      }
+      visit_node<kDepth, kVar>(tr, e, cur.sr, h.t, true, stack, sp, ok,
+                               it_node, depth);
     } else if constexpr (kLeaf != kLeafShade) {
       ++it_leaf;
       const int r0 = occl_leaf_row<kLeaf>(tr, e);
@@ -580,29 +708,7 @@ PT_HD bool closest_hit(const Tree& tr, float ox, float oy, float oz,
         }
       }
     } else {
-      ++it_leaf;
-      if (tr.seen_leaf) tr.seen_leaf[kVar ? var_leaf_row(tr, e) : -e - 1] = 1;
-      const float* row =
-          kVar ? var_leaf(tr, e) : tr.ltris + (size_t)(-e - 1) * 128;
-#pragma unroll 2
-      for (int c = 0; c < LEAF_TRIS; ++c) {
-        const float* r = row + 16 * c;
-        F4 a = ld4(r), b = ld4(r + 4), d4 = ld4(r + 8), p = ld4(r + 12);
-        float tt = tri_test(cur.ox, cur.oy, cur.oz, cur.dx, cur.dy, cur.dz,
-                            a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w, d4.x);
-        const int id = as_int(p.y);
-        const bool tie = tt == h.t && (id < h.tri ||
-                                       (kInst && id == h.tri && cur.iid < h.iid));
-        if (tt >= 0.0f && (tt < h.t || tie)) {
-          h.t = tt;
-          h.tri = id;
-          h.obj = as_int(p.x);
-          h.nx = d4.y;
-          h.ny = d4.z;
-          h.nz = d4.w;
-          h.iid = cur.iid;
-        }
-      }
+      leaf_closest<kInst, kVar>(tr, e, cur, h, it_leaf);
     }
     if (sp == 0) break;
     e = stack[--sp];
@@ -611,16 +717,18 @@ PT_HD bool closest_hit(const Tree& tr, float ox, float oy, float oz,
 }
 
 // Any hit with t < tmax over an occlusion tree (14 bare records per leaf
-// row) or a shading tree (8 records of 16 cols).  Sets `occluded`; with
-// kReport (shading trees only) also writes the record it found into
-// `found` (t, original id, object, flat normal, instance).  With kInst
-// the walk runs the instance machinery; kDepth counts as in closest_hit,
-// up to the row that ends the walk; kVar reads the tree's layout.  A leaf
-// arm (kLeafOccl, kLeafOccl2; kVar only) reads occlusion leaves of one or
-// two rows (14 or 28 records in order), and with kReport writes the t of
-// the record it found and id 1 (the occlusion bit of the JAX function).
-// kTrips (pt_frame's count launches): count the loop's trips
-// (count_trip).  Returns false on a stack overflow.
+// row) or a shading tree (8 records of 16 cols, four 16-byte loads each,
+// as closest_hit reads them; the 9-col occlusion records at their
+// unaligned stride stay scalar).  Sets `occluded`; with kReport (shading
+// trees only) also writes the record it found into `found` (t, original
+// id, object, flat normal, instance).  With kInst the walk runs the
+// instance machinery; kDepth counts as in closest_hit, up to the row that
+// ends the walk; kVar reads the tree's layout.  A leaf arm (kLeafOccl,
+// kLeafOccl2; kVar only) reads occlusion leaves of one or two rows (14 or
+// 28 records in order), and with kReport writes the t of the record it
+// found and id 1 (the occlusion bit of the JAX function).  kTrips (count
+// launches): count the loop's trips (count_trip).  Returns false on a
+// stack overflow.
 template <bool kReport = false, bool kInst = false, bool kDepth = false,
           bool kVar = false, int kLeaf = kLeafShade, bool kTrips = false>
 PT_HD bool any_hit(const Tree& tr, float ox, float oy, float oz, float dx,
@@ -643,14 +751,8 @@ PT_HD bool any_hit(const Tree& tr, float ox, float oy, float oz, float dx,
     if (kInst && e == RESTORE) {
       // the world ray is back; pop below
     } else if (kVar ? var_is_node(tr, e) : e >= 0) {
-      ++it_node;
-      if (tr.seen_node) tr.seen_node[e] = 1;
-      if constexpr (kVar) {
-        ok &= push_node<kDepth>(tr, e, cur.sr, tmax, false, stack, sp, depth);
-      } else {
-        ok &= push_children<kDepth>(tr.nodes + (size_t)e * 64, cur.sr, tmax,
-                                    false, stack, sp, depth);
-      }
+      visit_node<kDepth, kVar>(tr, e, cur.sr, tmax, false, stack, sp, ok,
+                               it_node, depth);
     } else if constexpr (kLeaf != kLeafShade) {
       ++it_leaf;
       const int r0 = occl_leaf_row<kLeaf>(tr, e);
@@ -673,25 +775,41 @@ PT_HD bool any_hit(const Tree& tr, float ox, float oy, float oz, float dx,
       if (tr.seen_leaf) tr.seen_leaf[kVar ? var_leaf_row(tr, e) : -e - 1] = 1;
       const float* row =
           kVar ? var_leaf(tr, e) : tr.ltris + (size_t)(-e - 1) * 128;
-      const int ntri = tr.occl ? OCCL_TRIS : LEAF_TRIS;
-      const int stride = tr.occl ? OCCL_STRIDE : 16;
-      for (int c = 0; c < ntri; ++c) {
-        const float* r = row + stride * c;
-        float tt = tri_test(cur.ox, cur.oy, cur.oz, cur.dx, cur.dy, cur.dz,
-                            ld(r), ld(r + 1), ld(r + 2), ld(r + 3), ld(r + 4),
-                            ld(r + 5), ld(r + 6), ld(r + 7), ld(r + 8));
-        if (tt >= 0.0f && tt < tmax) {
-          occluded = true;
-          if constexpr (kReport) {
-            found->t = tt;
-            found->tri = as_int(ld(r + 13));
-            found->obj = as_int(ld(r + 12));
-            found->nx = ld(r + 9);
-            found->ny = ld(r + 10);
-            found->nz = ld(r + 11);
-            found->iid = cur.iid;
+      if (tr.occl) {
+        // a 1-row occlusion leaf read by the default arm (pt_frame's and
+        // shadow_resolve's shadow trees)
+        for (int c = 0; c < OCCL_TRIS; ++c) {
+          const float tt = occl_tri_test(cur, row + OCCL_STRIDE * c);
+          if (tt >= 0.0f && tt < tmax) {
+            occluded = true;
+            if constexpr (kReport) {
+              found->t = tt;
+              found->tri = 1;
+            }
+            return ok;
           }
-          return ok;
+        }
+      } else {
+#pragma unroll 2
+        for (int c = 0; c < LEAF_TRIS; ++c) {
+          const float* r = row + 16 * c;
+          F4 a = ld4(r), b = ld4(r + 4), d4 = ld4(r + 8);
+          float tt = tri_test(cur.ox, cur.oy, cur.oz, cur.dx, cur.dy, cur.dz,
+                              a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w, d4.x);
+          if (tt >= 0.0f && tt < tmax) {
+            occluded = true;
+            if constexpr (kReport) {
+              const F4 p = ld4(r + 12);
+              found->t = tt;
+              found->tri = as_int(p.y);
+              found->obj = as_int(p.x);
+              found->nx = d4.y;
+              found->ny = d4.z;
+              found->nz = d4.w;
+              found->iid = cur.iid;
+            }
+            return ok;
+          }
         }
       }
     }
@@ -1540,42 +1658,16 @@ PT_HD Params make_params(const PtArgs& a, const Tree& tree,
   return p;
 }
 
-// One lane of traverse_packet_slim: over the closest-hit tree, the
-// nearest hit closer than the lane's t_init (closest_hit's exact-tie rule
-// included) or, with any_hit, the first one the walk finds; with kInst on
-// the instance machinery, the hit's instance (the 7th output column) and
-// its normal in object space.  A lane that is not active, and a lane
-// that hits nothing, writes t_init, ids -1 and a zero normal.  Without
-// t_init / active columns every lane is active with t_init = RAY_TMAX
-// (the closest-hit test of ops/pt_frame.py).  With kDepth (count_depth:
-// a.depth_out set) the lane also writes its walk's bvh_depth, 0 when it
-// is not active.  kVar: the variant walk; kLeaf: its leaf arm over an
-// occlusion tree (traverse_packet_slim's occl: the any hit, the leaf-14
-// closest hit with payload rows, or the t-only closest hit).
-template <bool kInst = false, bool kDepth = false, bool kVar = false,
-          int kLeaf = kLeafShade>
-PT_HD bool traverse_lane(const PtArgs& a, const Tree& tree, int lane,
-                         Counters& cnt) {
-  const float* const* r = reinterpret_cast<const float* const*>(a.ray);
-  const float t0 =
-      a.t_init ? static_cast<const float*>(a.t_init)[lane] : RAY_TMAX;
-  const bool act = !a.active || static_cast<const int*>(a.active)[lane] != 0;
-  Hit h = {t0, -1, -1, 0.0f, 0.0f, 0.0f, -1};
-  int depth = 0;
-  bool ok = true;
-  if (act) {
-    ++cnt.ray;
-    if (a.any_hit) {
-      bool occ = false;
-      ok = any_hit<true, kInst, kDepth, kVar, kLeaf>(
-          tree, r[0][lane], r[1][lane], r[2][lane], r[3][lane], r[4][lane],
-          r[5][lane], t0, occ, cnt.node, cnt.leaf, &h, &depth);
-    } else {
-      ok = closest_hit<kInst, kDepth, kVar, kLeaf>(
-          tree, r[0][lane], r[1][lane], r[2][lane], r[3][lane], r[4][lane],
-          r[5][lane], h, cnt.node, cnt.leaf, &depth);
-    }
-  }
+// Whether lane `lane` of a traverse_packet_slim launch is active (every
+// lane without an active column).
+PT_HD bool lane_active(const PtArgs& a, int lane) {
+  return !a.active || static_cast<const int*>(a.active)[lane] != 0;
+}
+
+// traverse_packet_slim's outputs of lane `lane`: the hit h and, with
+// kDepth, the walk's bvh_depth.
+template <bool kDepth>
+PT_HD void write_hit(const PtArgs& a, int lane, const Hit& h, int depth) {
   if constexpr (kDepth) static_cast<int*>(a.depth_out)[lane] = depth;
   static_cast<float*>(a.hit_out[0])[lane] = h.t;
   static_cast<int*>(a.hit_out[1])[lane] = h.tri;
@@ -1584,7 +1676,93 @@ PT_HD bool traverse_lane(const PtArgs& a, const Tree& tree, int lane,
   static_cast<float*>(a.hit_out[4])[lane] = h.ny;
   static_cast<float*>(a.hit_out[5])[lane] = h.nz;
   if (a.hit_out[6]) static_cast<int*>(a.hit_out[6])[lane] = h.iid;
+}
+
+// The lane's t bound: its t_init, or RAY_TMAX without the column (the
+// closest-hit test of ops/pt_frame.py).
+PT_HD float lane_t_init(const PtArgs& a, int lane) {
+  return a.t_init ? static_cast<const float*>(a.t_init)[lane] : RAY_TMAX;
+}
+
+// The outputs of a lane that is not active: t_init, ids -1, a zero
+// normal, instance -1 and, with kDepth, bvh_depth 0.
+template <bool kDepth>
+PT_HD void dead_lane(const PtArgs& a, int lane) {
+  write_hit<kDepth>(a, lane, {lane_t_init(a, lane), -1, -1, 0.0f, 0.0f, 0.0f,
+                              -1}, 0);
+}
+
+// True when a launch's closest hits walk with postponed leaves
+// (closest_hit's kPost): the closest-hit query over shading leaves,
+// without count_depth (its count follows the slot-order walk's visit
+// order) and without instances (a parked leaf would outlive its
+// instance's RESTORE).
+PT_HD bool postponed(const PtArgs& a) {
+  return !a.any_hit && !a.depth_out && a.num_inst == 0 &&
+         leaf_arm(a) == kLeafShade;
+}
+
+// The walk of one active lane of traverse_packet_slim: over the
+// closest-hit tree, the nearest hit closer than the lane's t_init
+// (closest_hit's exact-tie rule included) or, with any_hit, the first
+// one the walk finds; with kInst on the instance machinery, the hit's
+// instance (the 7th output column) and its normal in object space.  A
+// lane that hits nothing writes t_init, ids -1 and a zero normal.  With
+// kDepth (count_depth: a.depth_out set) the lane also writes its walk's
+// bvh_depth.  kVar: the variant walk; kLeaf: its leaf arm over an
+// occlusion tree (traverse_packet_slim's occl: the any hit, the leaf-14
+// closest hit with payload rows, or the t-only closest hit); kTrips: the
+// walk counts its trips; kPost: the closest hit with postponed leaves
+// (postponed(a)), which every lane of the warp calls, a lane without a
+// ray with `walk` false (it writes nothing).  Returns false on a stack
+// overflow.
+template <bool kInst = false, bool kDepth = false, bool kVar = false,
+          int kLeaf = kLeafShade, bool kTrips = false, bool kPost = false>
+PT_HD bool trace_ray(const PtArgs& a, const Tree& tree, int lane,
+                     Counters& cnt, bool walk = true) {
+  const float* const* r = reinterpret_cast<const float* const*>(a.ray);
+  float ray[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  float t0 = 0.0f;
+  if (walk) {
+    ++cnt.ray;
+    t0 = lane_t_init(a, lane);
+    for (int c = 0; c < 6; ++c) ray[c] = r[c][lane];
+  }
+  Hit h = {t0, -1, -1, 0.0f, 0.0f, 0.0f, -1};
+  int depth = 0;
+  bool ok;
+  if constexpr (kPost) {
+    ok = closest_hit<false, false, kVar, kLeafShade, kTrips, true>(
+        tree, ray[0], ray[1], ray[2], ray[3], ray[4], ray[5], h, cnt.node,
+        cnt.leaf, nullptr, walk);
+  } else if (a.any_hit) {
+    bool occ = false;
+    ok = any_hit<true, kInst, kDepth, kVar, kLeaf, kTrips>(
+        tree, ray[0], ray[1], ray[2], ray[3], ray[4], ray[5], t0, occ,
+        cnt.node, cnt.leaf, &h, &depth);
+  } else {
+    ok = closest_hit<kInst, kDepth, kVar, kLeaf, kTrips>(
+        tree, ray[0], ray[1], ray[2], ray[3], ray[4], ray[5], h, cnt.node,
+        cnt.leaf, &depth);
+  }
+  if (walk) write_hit<kDepth>(a, lane, h, depth);
   return ok;
+}
+
+// One lane of traverse_packet_slim in the host build's schedule, lane by
+// lane: the walk of an active lane (trace_ray, counting its trips
+// whenever count_iters asks), the outputs of a lane that is not active
+// (dead_lane).  Returns false on a stack overflow.
+template <bool kInst = false, bool kDepth = false, bool kVar = false,
+          int kLeaf = kLeafShade, bool kPost = false>
+PT_HD bool traverse_lane(const PtArgs& a, const Tree& tree, int lane,
+                         Counters& cnt) {
+  if (!lane_active(a, lane)) {
+    dead_lane<kDepth>(a, lane);
+    return true;
+  }
+  return trace_ray<kInst, kDepth, kVar, kLeaf, true, kPost>(a, tree, lane,
+                                                            cnt);
 }
 
 }  // namespace pt

@@ -14,10 +14,17 @@ using LaneFn = bool (*)(const pt::Params&, const pt::Tables&, int,
                         pt::Counters&);
 
 // The variant walk of one lane under leaf arm kLeaf, with or without
-// count_depth.
+// count_depth, its closest hits over shading leaves with postponed leaves
+// (pt::postponed), as csrc/traverse.cu picks its kernel.
 template <int kLeaf>
 bool variant_lane(const pt::Params& p, int lane, pt::Counters& cnt,
                   const pt::PtArgs& a) {
+  if constexpr (kLeaf == pt::kLeafShade) {
+    if (pt::postponed(a)) {
+      return pt::traverse_lane<false, false, true, kLeaf, true>(a, p.tree,
+                                                                lane, cnt);
+    }
+  }
   return a.depth_out
              ? pt::traverse_lane<false, true, true, kLeaf>(a, p.tree, lane, cnt)
              : pt::traverse_lane<false, false, true, kLeaf>(a, p.tree, lane,
@@ -37,6 +44,10 @@ bool traverse_body(const pt::Params& p, const pt::Tables&, int lane,
       return variant_lane<pt::kLeafOccl>(p, lane, cnt, a);
   }
   if (pt::variant(a)) return variant_lane<pt::kLeafShade>(p, lane, cnt, a);
+  if (pt::postponed(a)) {
+    return pt::traverse_lane<false, false, false, pt::kLeafShade, true>(
+        a, p.tree, lane, cnt);
+  }
   return a.depth_out ? pt::traverse_lane<false, true>(a, p.tree, lane, cnt)
                      : pt::traverse_lane<false>(a, p.tree, lane, cnt);
 }

@@ -31,16 +31,34 @@
 // t-only closest hit) or 2-row leaves (kLeafOccl2, CPUGPU_OCCL2), 8- or
 // 16-wide, with and without the depth count.
 //
-// What the design does about it, in this first version: one thread per
-// ray with its own stack in local memory, the walk of pt_device.cuh that
-// pt_frame and the per-depth kernels also run (16-byte row loads through
-// the read-only cache; the closest hit with the oracle's exact-tie rule),
-// an any-hit that stops at the first hit; the roots ride in shared memory
-// with the launch's small tables.  Lanes that are not active exit at
-// once, so a shadow launch's cost follows its shadow rays; the caller's
-// morton sort of the wavefront groups coherent rays into warps.  The
+// What the design does about it (redesigned for this card; PERF.md §6):
+// - Warps half empty on masked launches.  One thread per lane
+//   (pt_launch.cuh launch), as before, the caller's morton sort of the
+//   wavefront grouping coherent rays into warps: an inactive lane writes
+//   its outputs at once (t_init, ids -1, a zero normal, depth 0), a live
+//   one walks.  A persistent launch whose warps fetch 32 lanes at a time
+//   from a zeroed counter was built and measured (PERF.md §6):
+//   it ran the XLA route's sparse any hits ~4% faster, but the WHITTED
+//   route's launches ~1% and the instance arm's ~3% slower; schedules
+//   that hand a warp more than one fetch's live lanes were slower still.
+// - Scalar leaf loads.  The any hit reads a shading leaf's 16-col
+//   records with 16-byte loads, as the closest hit does (the 9-col
+//   occlusion records at their unaligned stride stay scalar).
+// - Lanes idle inside the walk.  The closest hits over shading leaves
+//   without count_depth and without instances (pt::postponed: the plain
+//   and variant arms) walk with postponed leaves (closest_hit's kPost,
+//   the labs' L4 v1): a popped leaf waits in the ray's one slot while the
+//   warp votes node trips and leaf trips apart, so a warp's trips are all
+//   node rows or all leaf rows.  Hits stay bitwise by the exact-tie rule;
+//   visit counts may differ from the slot-order walk's.  count_depth keeps
+//   the slot-order walk, whose visit order the count follows, and so does
+//   the instance arm, where a parked leaf would outlive its instance's
+//   RESTORE.
+// The roots ride in shared memory with the launch's small tables.  The
 // depth count is one register and one store, built as its own template
-// arm so the walks without it compile as before.
+// arm so the walks without it compile as before; count launches
+// (count_iters) run their own arm (kTrips), whose walks count warp and
+// lane trips.
 //
 // Build: as pt_frame.cu (ops/pt_frame.py builds every unit).
 
@@ -48,31 +66,71 @@
 
 namespace {
 
+constexpr unsigned kFull = 0xffffffffu;
+
 // kInst: the instance arm (object-space TLAS machinery); kDepth: the
 // count_depth arm (bvh_depth out); kVar: the variant walks
 // (pt::variant, never with kInst); kLeaf: the occl arms (variant only);
-// built ten ways
-template <bool kInst, bool kDepth, bool kVar, int kLeaf = pt::kLeafShade>
+// kTrips: the count launch's arm (count_iters), whose walks count their
+// trips; kPost: the closest hit with postponed leaves (pt::postponed).
+// Built twelve ways, each with and without kTrips.
+template <bool kInst, bool kDepth, bool kVar, int kLeaf, bool kTrips,
+          bool kPost>
 __global__ void __launch_bounds__(pt::kBlock)
     traverse_kernel(const pt::PtArgs a) {
   extern __shared__ float smem[];
   pt::Tables tb;
   const pt::Params p = pt::setup(a, smem, tb);
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool in = lane < a.n;
+  const bool act = in && pt::lane_active(a, lane);
   pt::Counters cnt;
-  const bool ok =
-      lane >= a.n ||
-      pt::traverse_lane<kInst, kDepth, kVar, kLeaf>(a, p.tree, lane, cnt);
+  bool ok = true;
+  if (in && !act) pt::dead_lane<kDepth>(a, lane);
+  // the postponed-leaf walk's votes take the whole warp, unless none of
+  // its lanes is live
+  if (kPost ? __any_sync(kFull, act) : act) {
+    ok = pt::trace_ray<kInst, kDepth, kVar, kLeaf, kTrips, kPost>(
+        a, p.tree, lane, cnt, act);
+  }
   pt::finish(a, ok, cnt);
 }
 
-// The variant walk's launch under leaf arm kLeaf, with or without
-// count_depth as the launch's depth column asks.
+using Kernel = void (*)(const pt::PtArgs);
+
+// One arm's kernel: its count arm (kTrips) under count_iters.
+template <bool kInst, bool kDepth, bool kVar, int kLeaf = pt::kLeafShade,
+          bool kPost = false>
+Kernel arm(const pt::PtArgs& a) {
+  if (a.iters) return traverse_kernel<kInst, kDepth, kVar, kLeaf, true, kPost>;
+  return traverse_kernel<kInst, kDepth, kVar, kLeaf, false, kPost>;
+}
+
+// The variant walk's kernel under leaf arm kLeaf: with count_depth as the
+// launch's depth column asks, or the postponed-leaf closest hit.
 template <int kLeaf>
-int launch_variant(const pt::PtArgs* a) {
-  return a->depth_out
-             ? pt::launch(traverse_kernel<false, true, true, kLeaf>, a)
-             : pt::launch(traverse_kernel<false, false, true, kLeaf>, a);
+Kernel variant_arm(const pt::PtArgs& a) {
+  if constexpr (kLeaf == pt::kLeafShade) {
+    if (pt::postponed(a)) return arm<false, false, true, kLeaf, true>(a);
+  }
+  return a.depth_out ? arm<false, true, true, kLeaf>(a)
+                     : arm<false, false, true, kLeaf>(a);
+}
+
+// The kernel a launch with these arguments takes (not refused).
+Kernel kernel_for(const pt::PtArgs& a) {
+  if (a.num_inst > 0) {
+    return a.depth_out ? arm<true, true, false>(a) : arm<true, false, false>(a);
+  }
+  switch (pt::leaf_arm(a)) {
+    case pt::kLeafOccl2:
+      return variant_arm<pt::kLeafOccl2>(a);
+    case pt::kLeafOccl:
+      return variant_arm<pt::kLeafOccl>(a);
+  }
+  if (pt::variant(a)) return variant_arm<pt::kLeafShade>(a);
+  if (pt::postponed(a)) return arm<false, false, false, pt::kLeafShade, true>(a);
+  return a.depth_out ? arm<false, true, false>(a) : arm<false, false, false>(a);
 }
 
 }  // namespace
@@ -82,19 +140,7 @@ int launch_variant(const pt::PtArgs* a) {
 // variant or occlusion tables); never synchronises.
 extern "C" int traverse_launch(const pt::PtArgs* a) {
   if (pt::refused(*a)) return -1;
-  if (a->num_inst > 0) {
-    return a->depth_out ? pt::launch(traverse_kernel<true, true, false>, a)
-                        : pt::launch(traverse_kernel<true, false, false>, a);
-  }
-  switch (pt::leaf_arm(*a)) {
-    case pt::kLeafOccl2:
-      return launch_variant<pt::kLeafOccl2>(a);
-    case pt::kLeafOccl:
-      return launch_variant<pt::kLeafOccl>(a);
-  }
-  if (pt::variant(*a)) return launch_variant<pt::kLeafShade>(a);
-  return a->depth_out ? pt::launch(traverse_kernel<false, true, false>, a)
-                      : pt::launch(traverse_kernel<false, false, false>, a);
+  return pt::launch(kernel_for(*a), a);
 }
 
 // PtArgs' size and offsets (pt::args_layout), for the ctypes mirror check.

@@ -8,8 +8,9 @@ The port of the JAX package's tools/smem_probe.py (`probe` over _kernel,
 an SMEM operand-size probe of the TPU).  On CUDA tensors `smem_probe`
 launches the hand-written kernel of csrc/probes.cu (smem_probe_kernel;
 built by ops/pt_frame.py with every unit): one block stages the table
-into dynamic shared memory and returns tab[i * 8 + 3] (1-D) or tab[i][3]
-(the (words / 8, 8) 2-D view).  On CPU tensors it runs the plain version,
+into dynamic shared memory by asynchronous 16-byte copies (the table must
+be 16-byte aligned) and returns tab[i * 8 + 3] (1-D) or tab[i][3] (the
+(words / 8, 8) 2-D view).  On CPU tensors it runs the plain version,
 the same read in PyTorch.  Nothing falls back from one to the other.
 
 A table the device refuses to stage -- above its opt-in shared memory
@@ -83,6 +84,9 @@ def smem_probe(tab: torch.Tensor, idx: torch.Tensor, *,
         raise ValueError(f"smem_probe runs on cuda or cpu tensors, not "
                          f"{tab.device}")
     tab, idx = tab.contiguous(), idx.to(_I32).contiguous()
+    if tab.data_ptr() % 16:
+        raise ValueError("smem_probe: the kernel stages the table by 16-byte "
+                         "copies; it must be 16-byte aligned")
     out = torch.empty(1, dtype=_I32, device=tab.device)
     a = ProbeArgs()
     a.inp, a.out, a.idx = tab.data_ptr(), out.data_ptr(), idx.data_ptr()

@@ -892,7 +892,9 @@ def closest_hit(nodes, ltris, roots, rays):
 
 
 def closest_hit_host(nodes, ltris, roots, rays):
-    """`closest_hit` through the g++ build of the kernel body (CPU)."""
+    """B4's closest hit through the g++ build of the kernel body (CPU):
+    the walk with postponed leaves (`closest_hit`'s kPost arm, which B4's
+    closest hits without count_depth or instances take)."""
     from cpugpupathtracing_tpu_torch.ops import traverse_packet_slim as tps
 
     t, tri, obj, nrm, _ = tps.launch(build_host().traverse_host,

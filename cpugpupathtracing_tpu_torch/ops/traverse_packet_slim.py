@@ -7,9 +7,10 @@ It replaces the JAX package's Pallas kernel ops/traverse_packet_slim.py
 (`_traverse_kernel`, launched by `traverse_packet_slim`).  On CUDA tensors
 the wrapper launches the hand-written kernel of csrc/traverse.cu (per-ray
 walk in csrc/pt_device.cuh, shared with pt_frame and the per-depth
-kernels), built by ops/pt_frame.py's `build`.  On CPU tensors it runs
-`traverse_packet_slim_reference`; nothing falls back from one to the
-other.
+kernels), built by ops/pt_frame.py's `build`: one thread per lane, the
+closest hits over shading leaves with postponed leaves (the kernel's
+header).  On CPU tensors it runs `traverse_packet_slim_reference`;
+nothing falls back from one to the other.
 
 Per lane: the nearest hit closer than t_init (exact: ties go to the
 lowest original triangle id, as in the brute-force oracle) or, with

@@ -356,6 +356,133 @@ def test_traverse_matches_plain(card, any_hit):
             assert torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
+MASKS = ["dead", "one_in_32", "half", "live"]
+
+
+def _mask(kind, n, dev="cuda"):
+    """A lane mask: none live, one lane in 32, a random half (numpy seed
+    7), every lane."""
+    if kind == "dead":
+        return torch.zeros(n, dtype=torch.bool, device=dev)
+    if kind == "one_in_32":
+        return torch.arange(n, device=dev) % 32 == 7
+    if kind == "half":
+        rng = np.random.default_rng(7)
+        return torch.from_numpy(rng.uniform(size=n) < 0.5).to(dev)
+    return torch.ones(n, dtype=torch.bool, device=dev)
+
+
+def _arm_call(arm, card, inst_card, mask):
+    """(traverse_packet_slim's output, its plain version's, any_hit, the
+    mask) of one arm on the card scene's camera rays under `mask`: the
+    closest hit (brute force), the any hit toward the card's first light,
+    the count_depth closest hit (the walk) and the instance arm's closest
+    hit (its brute force)."""
+    if arm == "instance":
+        _, dev, o, d, _ = inst_card
+        ikw = dev.inst_kwargs(nrm=False)
+    else:
+        dev, o, d, _ = card
+        ikw = {}
+    n = o.shape[0]
+    rays = _rays(o, d)
+    act = _mask(mask, n)
+    t0 = torch.full((n,), 1e34, device="cuda")
+    if arm == "any":
+        hit = ptf.closest_hit_reference(dev.pltris, rays)
+        pos = o + d * torch.where(hit[1] >= 0, hit[0], 0.0)[:, None]
+        to_l = dev.mk_lights[0, 0:3][None, :] - pos
+        dist = torch.sqrt((to_l * to_l).sum(dim=1))
+        to_l = to_l / dist[:, None]
+        rays = _rays(pos + to_l * 0.001, to_l)
+        t0 = dist - dev.mk_lights[0, 3] - 0.002
+    depth = arm == "depth"
+    got = tps.traverse_packet_slim(rays[:3], rays[3:], t0, dev.pnodes,
+                                   dev.pltris, dev.proots, active=act,
+                                   any_hit=arm == "any", count_depth=depth,
+                                   **ikw)
+    if depth:
+        ref = tps.traverse_walk_reference(rays, t0, dev.pnodes, dev.pltris,
+                                          dev.proots, active=act)
+    else:
+        ref = tps.traverse_packet_slim_reference(
+            rays, t0, dev.pltris, active=act, any_hit=arm == "any",
+            inst=(dev.pnodes, dev.proots, dev.inst_inv,
+                  dev.inst_blas_root_packet) if ikw else None)
+    ptf.check_status("cuda")
+    return got, ref, arm == "any", act, t0
+
+
+@pytest.mark.parametrize("mask", MASKS)
+@pytest.mark.parametrize("arm", ["closest", "any", "depth", "instance"])
+def test_traverse_masks(card, inst_card, arm, mask):
+    """Inactive lanes write their outputs at once and live ones walk (in
+    the postponed-leaf walk a warp's lanes without a ray only vote): under
+    every mask (none live, one in 32, a random half, all) each arm equals
+    its plain version -- closest hits (plain
+    with postponed leaves, count_depth, instance) bitwise on every
+    output, any hits in existence -- and every inactive lane holds
+    t_init, ids -1, a zero normal and depth 0, bitwise."""
+    got, ref, any_hit, act, t0 = _arm_call(arm, card, inst_card, mask)
+    flat = lambda x: (x[0], x[1], x[2], *x[3], *x[4:])  # noqa: E731
+    got, ref = flat(got), flat(ref)
+    dead = ~act
+    assert torch.equal(got[0][dead].view(torch.int32),
+                       t0[dead].view(torch.int32))
+    for c in got[1:3] + got[6:]:
+        want = 0 if c is got[6] else -1
+        assert bool((c[dead] == want).all())
+    for c in got[3:6]:
+        assert bool((c[dead] == 0).all())
+    if any_hit:
+        assert torch.equal(got[1] >= 0, ref[1] >= 0)
+    else:
+        for a_, b_ in zip(_bits(got), _bits(ref)):
+            assert torch.equal(a_, b_)
+    if mask in ("half", "live"):
+        assert int((got[1] >= 0).sum()) > 0
+
+
+def _most_resident() -> int:
+    """The most threads the card keeps resident (every SM full): a launch
+    of more lanes runs in several block waves."""
+    props = torch.cuda.get_device_properties(0)
+    return props.multi_processor_count * props.max_threads_per_multi_processor
+
+
+@pytest.mark.parametrize("lanes", ["one", "ragged", "beyond_resident"])
+def test_traverse_lane_counts(card, lanes):
+    """Launches of 1 lane, of a count that is no multiple of a warp's 32
+    lanes, and of more lanes than the card keeps resident (several block
+    waves): every lane bitwise the 8192-lane launch's at the same ray:
+    closest hits with and without count_depth (the walk's bvh_depth too),
+    any hits."""
+    dev, o, d, _ = card
+    rays = _rays(o, d)
+    n = W * H
+    t0 = 1.0 + 10.0 * torch.arange(n, device="cuda") / n
+    act = _mask("half", n)
+    for any_hit, depth in ((False, False), (False, True), (True, False)):
+        kw = dict(active=act, any_hit=any_hit, count_depth=depth)
+        ref = tps.traverse_packet_slim(rays[:3], rays[3:], t0, dev.pnodes,
+                                       dev.pltris, dev.proots, **kw)
+        if lanes == "one":
+            idx = torch.tensor([int(act.nonzero()[3])], device="cuda")
+        elif lanes == "ragged":
+            idx = torch.arange(n - 77, device="cuda")
+        else:
+            idx = torch.arange(n, device="cuda").repeat(
+                _most_resident() // n + 2)
+        got = tps.traverse_packet_slim(
+            tuple(c[idx] for c in rays[:3]), tuple(c[idx] for c in rays[3:]),
+            t0[idx], dev.pnodes, dev.pltris, dev.proots,
+            **dict(kw, active=act[idx]))
+        ptf.check_status("cuda")
+        flat = lambda x: (x[0], x[1], x[2], *x[3], x[4])  # noqa: E731
+        for a_, b_ in zip(_bits(flat(got)), _bits(flat(ref))):
+            assert torch.equal(a_, b_[idx])
+
+
 @pytest.fixture()
 def whitted_card():
     if not torch.cuda.is_available():
@@ -881,3 +1008,27 @@ def test_launch_and_smem_probes(card):
     assert sp.probe(optin // 4 // 8 * 8, True, dev, optin)["ok"]
     # a launch after the refusal
     assert sp.probe(1024, False, dev, optin)["value"] == 1019
+
+
+@pytest.mark.parametrize("words", ["tail", "limit", "limit+1"])
+def test_smem_probe_staging(card, words):
+    """L9 stages its table by 16-byte asynchronous copies: config 3's
+    entry mirror plus one word (a scalar tail of 1) and the opt-in limit
+    read the right word in 1-D and 2-D (whole rows of 8), one word more
+    is refused; a table that is not 16-byte aligned raises."""
+    from cpugpupathtracing_tpu_torch.labs import smem_probe as sp
+
+    dev = torch.device("cuda")
+    optin = sp.optin_bytes(dev)
+    limit = optin // 4
+    n = {"tail": sp.CONFIG3_ROWS * 8 + 1, "limit": limit,
+         "limit+1": limit + 1}[words]
+    res = sp.probe(n, False, dev, optin)
+    assert res["ok"] == (words != "limit+1")
+    if res["ok"]:
+        assert res["value"] == res["expected"]
+        assert sp.probe(n // 8 * 8, True, dev, optin)["ok"]
+        tab = torch.arange(n + 1, dtype=torch.int32, device=dev)
+        idx = torch.zeros(1, dtype=torch.int32, device=dev)
+        with pytest.raises(ValueError, match="16-byte"):
+            sp.smem_probe(tab[1:], idx)

@@ -95,7 +95,14 @@ def test_c2_grazing_rays_keep_their_hits(c2, walk):
     if walk == "plain_walk":
         got = _walk(dev, rays)
     else:
-        got = ptf.closest_hit_host(dev.pnodes, dev.pltris, dev.proots, rays)
+        # the kernels' slot-order walk: B4's count_depth arm (its closest
+        # hits without count_depth walk with postponed leaves,
+        # tests/test_torch_b4_redesign.py)
+        n = rays[0].shape[0]
+        res = tps.traverse_packet_slim_host(
+            rays[:3], rays[3:], torch.full((n,), ptf.RAY_TMAX), dev.pnodes,
+            dev.pltris, dev.proots, count_depth=True)
+        got = (res[0], res[1], res[2], *res[3])
     assert int((brute[1] >= 0).sum()) > 1500
     floor_obj = int(brute[2][C2_PINNED])
     assert floor_obj >= 0 and bool((brute[2] == floor_obj).sum() > 1000)
