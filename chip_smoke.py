@@ -58,7 +58,9 @@ Phases, one line each; any failure raises and exits non-zero:
                  Renderer
   7. frame_mega  the same on the per-depth route (6 + 6 launches and 3
                  sorts per frame), then one frame from reset on each route
-                 with the same seed: images and traced counts equal
+                 with the same seed: images and traced counts equal;
+                 [mega_d<depth>_<kernel>] per launch, with its live lanes,
+                 warp trips and lane share (shade_extend's count arm)
   8. check_traverse  8192 config-3 lanes: traverse_packet_slim's closest
                  hits of camera rays and any hits of shadow rays toward
                  both lights (half of the lanes inactive), and under one
@@ -115,7 +117,7 @@ Phases, one line each; any failure raises and exits non-zero:
                  ms, call_ms and bound, every 256th lane against the plain
                  version, timed frames with the launch and sort counts
                  per route, the refit's own ms; [frame5_<k>_<kernel>] per
-                 launch
+                 launch, with its live lanes, warp trips and lane share
  17. compare5 / whitted5  one frame from reset per config-5 route at the
                  same transforms (flattened routes: images and traced
                  equal; object-space: its differences reported), and one
@@ -208,7 +210,10 @@ Phases, one line each; any failure raises and exits non-zero:
  24. launch       L8 (labs/launch_probe.py): the trivial kernel once and
                  twice chained against x * 2 and x * 4 bitwise, then host
                  ms per call, device ms and call_ms of it, of x * 2, and
-                 of B4 on the cube and on config 3 at 1-64 tiles
+                 of B4 on the cube and on config 3 at 1-64 tiles;
+                 [launch_shape]: the kernel's block and grid at 1024
+                 f32, trivial / x * 2 and trivial2 / two chained x * 2
+                 timed in turns
  25. smem         L9 (labs/smem_probe.py): tables from 1,024 to 260,000
                  words staged in one block's shared memory: OK exactly up
                  to the opt-in limit, the right word read; a launch after
@@ -560,6 +565,16 @@ def lane_share(it: dict):
     """The share of a warp's lanes that work in a walk trip: count_iters'
     lane trips / (32 warp trips), None where no walk ran."""
     return it["ltrip"] / (32 * it["wtrip"]) if it["wtrip"] else None
+
+
+def walk_share(name: str, it: dict) -> dict:
+    """A launch's live lanes (the rays it traced: shadow_resolve's shadow
+    rays, pt_frame's closest-hit and shadow rays), warp trips and lane
+    share (lane_share; None where its walks count no trips) from its
+    count_iters counters."""
+    live = {"shade_extend": it["ray"], "shadow_resolve": it["sray"]}.get(
+        name, it["ray"] + it["sray"])
+    return dict(live=live, warp_trips=it["wtrip"], lane_share=lane_share(it))
 
 
 def launch_layouts(nodes, kw) -> tuple:
@@ -997,6 +1012,7 @@ def frame_mega(scene, cam_cfg, settings, width, height, small_bytes,
                 layout=launch_layouts(ln["args"][0], ln["kw"])[0],
                 lanes=ln["lanes"], ms=ms,
                 call_ms=c_ms, bound_ms=b[0], bound_by=b[1],
+                **walk_share(ln["name"], it),
                 sampled_lanes=int(e_got[0].shape[0]), max_abs_err=err,
                 flip_share=flips, mean_err=mean,
                 energy_bit_mismatches=int(bits_differ(
@@ -1936,7 +1952,7 @@ def frame5(s5, phase: str, profile: bool, label: str | None = None):
                     (ln["tables"] if ln["name"] == "pt_frame"
                      else ln["args"])[0], ln["kw"])[0],
                 launch=k + 1, lanes=ln["lanes"], ms=ms, call_ms=c_ms,
-                bound_ms=b[0], bound_by=b[1],
+                bound_ms=b[0], bound_by=b[1], **walk_share(ln["name"], it),
                 sampled_lanes=int(e_got.shape[0]),
                 max_abs_err=float((e_ref - e_got).abs().max()),
                 energy_bit_mismatches=mism, iters=it))
@@ -3916,12 +3932,15 @@ def launch_probe(ds3) -> dict:
     (ds3, its plain-table snapshot) at 1, 4, 16 and 64 tiles -- with its
     host ms per synchronised call, its device ms per call (common.busy_ms),
     the profiler's ms per launch of its kernel (None where the profiler saw
-    none) and call_ms (CUDA events).  Fails on a launch the cases do not
+    none) and call_ms (CUDA events); then the kernel's launch shape and
+    trivial / trivial2 against x * 2 / two chained x * 2 timed in turns
+    ([launch_shape]: both ratios).  Fails on a launch the cases do not
     make."""
     import torch
 
     from cpugpupathtracing_tpu_torch.labs import common as cm
     from cpugpupathtracing_tpu_torch.labs import launch_probe as lp
+    from cpugpupathtracing_tpu_torch.utils.build import source_path
 
     dev = torch.device("cuda")
     x = torch.randn(lp.N, device=dev)
@@ -3962,7 +3981,21 @@ def launch_probe(ds3) -> dict:
     for row in rows:
         say("launch", **{k: (round(v, 5) if isinstance(v, float) else v)
                          for k, v in row.items()})
-    return dict(rows=rows, launches=ran, plain_ms=plain, exact=exact)
+    # the kernel's launch shape (probes.cu kScaleBlock threads a block, one
+    # float4 each), and trivial / trivial2 against x * 2 and two chained
+    # x * 2, timed in turns (interleaved_ms)
+    with open(source_path("csrc", "probes.cu")) as f:
+        block = int(re.search(r"constexpr int kScaleBlock = (\d+);",
+                              f.read()).group(1))
+    t1, x2, t2, x4 = interleaved_ms((lambda: lp.trivial(x), lambda: x * 2,
+                                     lambda: lp.trivial2(x),
+                                     lambda: (x * 2) * 2))
+    turns = dict(block=block, grid=-(-lp.N // (4 * block)), trivial_ms=t1,
+                 x2_ms=x2, ratio=t1 / x2, trivial2_ms=t2, x2_twice_ms=x4,
+                 ratio2=t2 / x4)
+    say("launch_shape", **turns)
+    return dict(rows=rows, launches=ran, plain_ms=plain, exact=exact,
+                turns=turns)
 
 
 # interleaved_ms: rounds of device timings per function, and launches per
@@ -4056,7 +4089,7 @@ def probe_entries(launch: dict, smem: dict) -> list:
         "bound_ms": 2 * 4 * lp.N / PEAK_BYTES_PER_S * 1e3,
         "bound_by": "bytes",
         "library_ms": rows["x * 2 (library)"]["ms"],
-        "cases": launch["rows"],
+        "cases": launch["rows"], "turns": launch["turns"],
     }, {
         "name": "smem_probe", "route": "cuda",
         "source": "cpugpupathtracing_tpu_torch/csrc/probes.cu",
@@ -4343,8 +4376,8 @@ def main() -> int:
             "library_ms": None,
             "check_lanes": CHECK_LANES,
             "main_path": [{key: mp[key] for key in (
-                "depth", "lanes", "ms", "call_ms", "bound_ms", "bound_by",
-                "sampled_lanes", "max_abs_err")}
+                "depth", "lanes", "live", "lane_share", "ms", "call_ms",
+                "bound_ms", "bound_by", "sampled_lanes", "max_abs_err")}
                 for mp in mega_path if mp["name"] == name],
         })
     tq = trav["closest"]
@@ -4406,8 +4439,8 @@ def main() -> int:
         else:
             launches = counts5["frame5_inst"][name]
             path = [{key: mp[key] for key in (
-                "launch", "lanes", "ms", "call_ms", "bound_ms", "bound_by",
-                "sampled_lanes", "max_abs_err")}
+                "launch", "lanes", "live", "lane_share", "ms", "call_ms",
+                "bound_ms", "bound_by", "sampled_lanes", "max_abs_err")}
                 for mp in paths5["frame5_inst"] if mp["name"] == name]
         kernels.append({
             "name": name,

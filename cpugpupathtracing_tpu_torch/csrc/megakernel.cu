@@ -35,15 +35,33 @@
 // CPUGPU_OCCL2); shadow_resolve over 16-wide occlusion rows
 // (CPUGPU_OCCL_W16) is its variant arm at sh_width 16.
 //
-// What the design does about it, in this first version: one thread per
-// lane with its own stack in local memory; a lane with nothing to do
-// (not active, or no shadow ray) only copies its columns, so a depth's
-// cost follows the surviving paths -- the per-lane form of the Pallas
-// kernels' skip of all-dead 1024-lane sub-tiles; the small scene tables
-// go to shared memory once per block (pt_launch.cuh).  Between depths
-// the caller's wavefront sorts (compaction, then morton regrouping) pack
-// live lanes into whole warps.  Persistent threads and node caching in
-// shared memory are left for later work.
+// What the design does about it: one thread per lane with its own stack
+// in local memory; a lane with nothing to do (not active, or no shadow
+// ray) only copies its columns, so a depth's cost follows the surviving
+// paths -- the per-lane form of the Pallas kernels' skip of all-dead
+// 1024-lane sub-tiles; the small scene tables go to shared memory once
+// per block (pt_launch.cuh).  Between depths the caller's wavefront
+// sorts (compaction, then morton regrouping) pack live lanes into whole
+// warps.  shade_extend was redesigned for this card (PERF.md §6),
+// against what measurement put on its time: the walks of the live rays
+// (throughput-bound on the incoherent bounce rays of depth 1), the
+// slowest warp's walk (the later depths: a quarter of the live rays
+// takes nearly the time of all of them) and the pass-through of the dead
+// lanes, which did not overlap the slowest walk:
+// - Streaming columns.  Every lane's columns, 60 bytes in and 100 out,
+//   are read and written with ld.global.cs / st.global.cs (pt_device.cuh
+//   col_ld, col_st): 332 MB a launch passes through L2 without evicting
+//   the tree's rows, which the slowest walks keep reading.
+// - Postponed leaves (closest_hit's kPost, as traverse.cu's closest
+//   hits) at every depth of the arms over shading leaves without
+//   instances (pt::shade_extend_lane): every thread of the warp takes
+//   the walk, a thread without a live path only votes.  The instance
+//   and leaf-14 arms keep the slot-order walk.
+// Built, measured and dropped (PERF.md §6): a warp-uniform exit for
+// warps without a live path and a block vote that skips the tables' copy
+// where no lane is live (faster on an all-dead launch, slower on every
+// launch with live lanes), and prefetching the next stack entry's rows
+// into L1 at each pop (slower on every route).
 //
 // Build: as pt_frame.cu (ops/pt_frame.py builds both, one nvcc each).
 
@@ -54,10 +72,13 @@ namespace {
 // kInst: the instance arm (the TLAS machinery of the object-space
 // instanced scene; the instance tables ride in PtArgs, not in the
 // shared-memory pack); kVar: the variant walks (pt::variant); kLeaf: the
-// walk's leaf arm (variant only).  Each kernel is built <false, false>,
-// <true, false> and <false, true>, shade_extend also <false, true,
-// kLeafOccl> (pay) and shadow_resolve <false, true, kLeafOccl2>.
-template <bool kInst, bool kVar, int kLeaf = pt::kLeafShade>
+// walk's leaf arm (variant only); kTrips: shade_extend's count arm
+// (count_iters), whose walks count their warp and lane trips.
+// shade_extend is built <false, false>, <true, false>, <false, true> and
+// <false, true, kLeafOccl> (pay), each with and without kTrips;
+// shadow_resolve <false, false>, <true, false>, <false, true> and
+// <false, true, kLeafOccl2>.
+template <bool kInst, bool kVar, int kLeaf, bool kTrips>
 __global__ void __launch_bounds__(pt::kBlock)
     shade_extend_kernel(const pt::PtArgs a) {
   extern __shared__ float smem[];
@@ -65,9 +86,10 @@ __global__ void __launch_bounds__(pt::kBlock)
   const pt::Params p = pt::setup(a, smem, tb);
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   pt::Counters cnt;
+  // every thread of the warp takes the lane body (the postponed-leaf
+  // walk's votes), one past n without a lane
   const bool ok =
-      lane >= a.n ||
-      pt::shade_extend_lane<kInst, kVar, kLeaf>(p, tb, lane, cnt);
+      pt::shade_extend_lane<kInst, kVar, kLeaf, kTrips>(p, tb, lane, cnt);
   pt::finish(a, ok, cnt);
 }
 
@@ -85,6 +107,15 @@ __global__ void __launch_bounds__(pt::kBlock)
   pt::finish(a, ok, cnt);
 }
 
+using Kernel = void (*)(const pt::PtArgs);
+
+// One arm of shade_extend: its count arm (kTrips) under count_iters.
+template <bool kInst, bool kVar, int kLeaf = pt::kLeafShade>
+Kernel se_arm(const pt::PtArgs& a) {
+  if (a.iters) return shade_extend_kernel<kInst, kVar, kLeaf, true>;
+  return shade_extend_kernel<kInst, kVar, kLeaf, false>;
+}
+
 }  // namespace
 
 // Both entries return cudaGetLastError() after the launch (or -1 when the
@@ -93,15 +124,16 @@ __global__ void __launch_bounds__(pt::kBlock)
 // synchronise.
 extern "C" int mk_shade_extend_launch(const pt::PtArgs* a) {
   if (pt::refused(*a)) return -1;
-  if (a->num_inst > 0) return pt::launch(shade_extend_kernel<true, false>, a);
+  if (a->num_inst > 0) return pt::launch(se_arm<true, false>(*a), a);
   switch (pt::leaf_arm(*a)) {
     case pt::kLeafOccl:
-      return pt::launch(shade_extend_kernel<false, true, pt::kLeafOccl>, a);
+      return pt::launch(se_arm<false, true, pt::kLeafOccl>(*a), a);
     case pt::kLeafOccl2:
       return -1;  // the leaf-14 payload has 1-row leaves only
   }
-  return pt::variant(*a) ? pt::launch(shade_extend_kernel<false, true>, a)
-                         : pt::launch(shade_extend_kernel<false, false>, a);
+  return pt::launch(pt::variant(*a) ? se_arm<false, true>(*a)
+                                    : se_arm<false, false>(*a),
+                    a);
 }
 
 extern "C" int mk_shadow_resolve_launch(const pt::PtArgs* a) {

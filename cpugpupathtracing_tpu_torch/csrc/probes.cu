@@ -2,9 +2,21 @@
 //
 // L8 replaces tools/profile_tpu2.py's Pallas kernels `trivial` and
 // `trivial2` (copy_kernel: o = 2x, launched once and twice chained), a
-// launch-overhead probe: scale2_kernel writes o = 2x over n f32 with a
-// grid-stride loop.  What bounds it: at 1024 f32 nothing but the launch
-// (8 KB of traffic is ~2.4 ns at 3.35 TB/s).
+// launch-overhead probe: scale2_kernel writes o = 2x over n f32.  What
+// bounds it: at 1024 f32 nothing but the launch (8 KB of traffic is ~2.4
+// ns at 3.35 TB/s), so its shape is what a launch costs.
+//
+// What the design does about it (redesigned for this card; PERF.md §6):
+// the first version ran a scalar grid-stride loop over min(ceil(n /
+// 256), 4 x SMs) blocks of 256 threads (4 blocks, 32 warps for 1024
+// f32) and asked the runtime for the SM count on every call; it read
+// slower than PyTorch's x * 2 timed in turns.  Now each thread moves one
+// 16-byte vector (float4) where the input and the output share their
+// alignment mod 16, with a scalar head up to the first 16-byte boundary
+// and a scalar tail, in the smallest grid of kScaleBlock-thread blocks
+// that covers n (one block for 1024 f32); pointers that cannot be
+// aligned together take the scalar path over all n.  No runtime query:
+// the grid follows from n alone.
 //
 // L9 replaces tools/smem_probe.py's Pallas kernel `probe` (_kernel), an
 // operand-size probe of the TPU's SMEM: one block stages an i32 table of
@@ -57,6 +69,8 @@ namespace {
 
 using probes::ProbeArgs;
 
+// L8's threads per block, each with one float4 (PERF.md §6: the fastest
+// of the shapes timed in turns with x * 2)
 constexpr int kScaleBlock = 256;
 // threads of the staging block: at most one per 16-byte request
 constexpr int kSmemBlock = 1024;
@@ -64,10 +78,22 @@ constexpr int kSmemBlock = 1024;
 // CUDA error of cudaFuncSetAttribute in the low bits
 constexpr int REFUSED = 1 << 16;
 
+// o = 2x: thread t's float4 of the nvec after the scalar head, then one
+// scalar of the head or the tail (head + tail elements in all).
 __global__ void __launch_bounds__(kScaleBlock)
-    scale2_kernel(const float* x, float* o, int n) {
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += gridDim.x * blockDim.x) {
+    scale2_kernel(const float* x, float* o, int n, int head, int nvec) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t < nvec) {
+    float4 a = reinterpret_cast<const float4*>(x + head)[t];
+    a.x = a.x * 2.0f;
+    a.y = a.y * 2.0f;
+    a.z = a.z * 2.0f;
+    a.w = a.w * 2.0f;
+    reinterpret_cast<float4*>(o + head)[t] = a;
+  }
+  const int tail0 = head + 4 * nvec;
+  if (t < head + (n - tail0)) {
+    const int i = t < head ? t : tail0 + (t - head);
     o[i] = x[i] * 2.0f;
   }
 }
@@ -102,14 +128,24 @@ __global__ void __launch_bounds__(kSmemBlock)
 // L8: o = 2x on a->stream.  Returns cudaGetLastError(); never
 // synchronises.
 extern "C" int scale2_launch(const ProbeArgs* a) {
-  if (a->n <= 0) return 0;
-  int dev = 0, sms = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const int want = (a->n + kScaleBlock - 1) / kScaleBlock;
-  const int grid = want < 4 * sms ? want : 4 * sms;
-  scale2_kernel<<<grid, kScaleBlock, 0, static_cast<cudaStream_t>(a->stream)>>>(
-      static_cast<const float*>(a->in), static_cast<float*>(a->out), a->n);
+  const int n = a->n;
+  if (n <= 0) return 0;
+  const float* x = static_cast<const float*>(a->in);
+  float* o = static_cast<float*>(a->out);
+  const size_t xa = reinterpret_cast<size_t>(x) % 16;
+  // head: the scalars before the first 16-byte boundary of both; all n
+  // where the two are not aligned alike
+  int head = n, nvec = 0;
+  if (xa == reinterpret_cast<size_t>(o) % 16 && xa % 4 == 0) {
+    head = (int)((16 - xa) % 16 / 4);
+    if (head > n) head = n;
+    nvec = (n - head) / 4;
+  }
+  const int scalars = n - 4 * nvec;
+  const int threads = nvec > scalars ? nvec : scalars;
+  scale2_kernel<<<(threads + kScaleBlock - 1) / kScaleBlock, kScaleBlock, 0,
+                  static_cast<cudaStream_t>(a->stream)>>>(x, o, n, head,
+                                                          nvec);
   return (int)cudaGetLastError();
 }
 

@@ -117,6 +117,30 @@ PT_HD T ld(const T* p) {
 #endif
 }
 
+// Element i of a lane column, read (col_ld) or written (col_st); with kCs
+// as streaming traffic (ld.global.cs / st.global.cs: the lines are the
+// first to leave the caches, so a launch's columns, read and written
+// once, do not push the tree's rows out of L2).  The host build reads
+// and writes plainly.
+template <bool kCs, typename T>
+PT_HD T col_ld(const T* p, int i) {
+#ifdef __CUDA_ARCH__
+  if constexpr (kCs) return __ldcs(p + i);
+#endif
+  return p[i];
+}
+
+template <bool kCs, typename T>
+PT_HD void col_st(T* p, int i, T v) {
+#ifdef __CUDA_ARCH__
+  if constexpr (kCs) {
+    __stcs(p + i, v);
+    return;
+  }
+#endif
+  p[i] = v;
+}
+
 struct F4 {
   float x, y, z, w;
 };
@@ -1224,15 +1248,21 @@ PT_HD Shadow shade_surface(const Tables& tb, const Mode& md, Path& ps,
 // arithmetic of models/scene.hit_surface).  Updates `ps` and returns the
 // NEE shadow ray (all zero unless sneed).  kVar: the variant walk; kLeaf:
 // its leaf arm (kLeafOccl: the leaf-14 walk with payload rows); kTrips:
-// the walk counts its trips.  Clears `ok` on a stack overflow.
+// the walk counts its trips; kPost: the closest hit with postponed leaves
+// (closest_hit's kPost), which every thread of the warp calls, one
+// without a live path with `walk` false (it only votes, and `ps` stays as
+// it is).  Clears `ok` on a stack overflow.
 template <bool kInst = false, bool kVar = false, int kLeaf = kLeafShade,
-          bool kTrips = false>
+          bool kTrips = false, bool kPost = false>
 PT_HD Shadow extend(const Tree& tree, const Tables& tb, const Mode& md,
-                    Path& ps, bool depth0, Counters& cnt, bool& ok) {
-  ++cnt.ray;
+                    Path& ps, bool depth0, Counters& cnt, bool& ok,
+                    bool walk = true) {
   Hit h = {RAY_TMAX, -1, -1, 0.0f, 0.0f, 0.0f, -1};
-  ok &= closest_hit<kInst, false, kVar, kLeaf, kTrips>(
-      tree, ps.ox, ps.oy, ps.oz, ps.dx, ps.dy, ps.dz, h, cnt.node, cnt.leaf);
+  if (walk) ++cnt.ray;
+  ok &= closest_hit<kInst, false, kVar, kLeaf, kTrips, kPost>(
+      tree, ps.ox, ps.oy, ps.oz, ps.dx, ps.dy, ps.dz, h, cnt.node, cnt.leaf,
+      nullptr, walk);
+  if (!walk) return {false, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
   if (kInst && h.iid >= 0) {
     const float* m = tree.inst_nrm + 9 * h.iid;
     const float n0 = h.nx, n1 = h.ny, n2 = h.nz;
@@ -1300,24 +1330,26 @@ struct Params {
 };
 
 // A lane's path from the carry-in columns, or a fresh path (throughput
-// 1, energy 0, active, not specular) when there are none.
+// 1, energy 0, active, not specular) when there are none.  kCs: streaming
+// loads (col_ld).
+template <bool kCs = false>
 PT_HD Path load_path(const Params& p, int lane) {
   Path ps;
-  ps.ox = p.ray[0][lane];
-  ps.oy = p.ray[1][lane];
-  ps.oz = p.ray[2][lane];
-  ps.dx = p.ray[3][lane];
-  ps.dy = p.ray[4][lane];
-  ps.dz = p.ray[5][lane];
-  ps.state = (uint32_t)p.state[lane];
+  ps.ox = col_ld<kCs>(p.ray[0], lane);
+  ps.oy = col_ld<kCs>(p.ray[1], lane);
+  ps.oz = col_ld<kCs>(p.ray[2], lane);
+  ps.dx = col_ld<kCs>(p.ray[3], lane);
+  ps.dy = col_ld<kCs>(p.ray[4], lane);
+  ps.dz = col_ld<kCs>(p.ray[5], lane);
+  ps.state = (uint32_t)col_ld<kCs>(p.state, lane);
   if (p.tp_in[0]) {
-    ps.tpx = p.tp_in[0][lane];
-    ps.tpy = p.tp_in[1][lane];
-    ps.tpz = p.tp_in[2][lane];
-    ps.enx = p.en_in[0][lane];
-    ps.eny = p.en_in[1][lane];
-    ps.enz = p.en_in[2][lane];
-    int fl = p.flags_in[lane];
+    ps.tpx = col_ld<kCs>(p.tp_in[0], lane);
+    ps.tpy = col_ld<kCs>(p.tp_in[1], lane);
+    ps.tpz = col_ld<kCs>(p.tp_in[2], lane);
+    ps.enx = col_ld<kCs>(p.en_in[0], lane);
+    ps.eny = col_ld<kCs>(p.en_in[1], lane);
+    ps.enz = col_ld<kCs>(p.en_in[2], lane);
+    int fl = col_ld<kCs>(p.flags_in, lane);
     ps.active = (fl & 1) != 0;
     ps.spec = (fl >> 1) & 1;
   } else {
@@ -1330,24 +1362,25 @@ PT_HD Path load_path(const Params& p, int lane) {
 }
 
 // State and energy out; with carry-out columns also rays, throughput and
-// flags (plus bit 2 = sneed).
+// flags (plus bit 2 = sneed).  kCs: streaming stores (col_st).
+template <bool kCs = false>
 PT_HD void store_path(const Params& p, int lane, const Path& ps, bool sneed) {
-  p.state_out[lane] = (long long)ps.state;
-  p.en_out[0][lane] = ps.enx;
-  p.en_out[1][lane] = ps.eny;
-  p.en_out[2][lane] = ps.enz;
+  col_st<kCs>(p.state_out, lane, (long long)ps.state);
+  col_st<kCs>(p.en_out[0], lane, ps.enx);
+  col_st<kCs>(p.en_out[1], lane, ps.eny);
+  col_st<kCs>(p.en_out[2], lane, ps.enz);
   if (p.ray_out[0]) {
-    p.ray_out[0][lane] = ps.ox;
-    p.ray_out[1][lane] = ps.oy;
-    p.ray_out[2][lane] = ps.oz;
-    p.ray_out[3][lane] = ps.dx;
-    p.ray_out[4][lane] = ps.dy;
-    p.ray_out[5][lane] = ps.dz;
-    p.tp_out[0][lane] = ps.tpx;
-    p.tp_out[1][lane] = ps.tpy;
-    p.tp_out[2][lane] = ps.tpz;
-    p.flags_out[lane] =
-        (ps.active ? 1 : 0) | (ps.spec << 1) | (sneed ? 4 : 0);
+    col_st<kCs>(p.ray_out[0], lane, ps.ox);
+    col_st<kCs>(p.ray_out[1], lane, ps.oy);
+    col_st<kCs>(p.ray_out[2], lane, ps.oz);
+    col_st<kCs>(p.ray_out[3], lane, ps.dx);
+    col_st<kCs>(p.ray_out[4], lane, ps.dy);
+    col_st<kCs>(p.ray_out[5], lane, ps.dz);
+    col_st<kCs>(p.tp_out[0], lane, ps.tpx);
+    col_st<kCs>(p.tp_out[1], lane, ps.tpy);
+    col_st<kCs>(p.tp_out[2], lane, ps.tpz);
+    col_st<kCs>(p.flags_out, lane,
+                (ps.active ? 1 : 0) | (ps.spec << 1) | (sneed ? 4 : 0));
   }
 }
 
@@ -1418,28 +1451,42 @@ PT_HD bool trace_lane(const Params& p, const Tables& tb, int lane,
 }
 
 // shade_extend: one depth (p.depth_base, absolute) of one lane (kInst: on
-// the instance machinery).  A lane
-// that is not active passes its columns through with flags & 3 and zero
-// shadow columns (the per-lane form of the Pallas kernel's dead-tile
-// rule); a live lane writes its next ray and carry, flags with bit 2 =
-// sneed, and its shadow ray (zero unless sneed, so tmax = sneed ? tmax :
-// 0).  kVar: the variant walk; kLeaf: its leaf arm (kLeafOccl: the leaf-14
-// walk).  Returns false on a stack overflow.
-template <bool kInst = false, bool kVar = false, int kLeaf = kLeafShade>
+// the instance machinery).  A lane that is not active passes its columns
+// through with flags & 3 and zero shadow columns (the per-lane form of
+// the Pallas kernel's dead-tile rule); a live lane writes its next ray
+// and carry, flags with bit 2 = sneed, and its shadow ray (zero unless
+// sneed, so tmax = sneed ? tmax : 0).  Its columns, 60 bytes in and 100
+// out whether the lane is live or not, are read and written as streaming
+// traffic (col_ld, col_st), so that they do not push the tree's rows out
+// of L2 while the launch's slowest walks run.  kVar: the variant walk;
+// kLeaf: its leaf arm (kLeafOccl: the leaf-14 walk); kTrips: the walk
+// counts its trips (count_iters' arm).  Over shading leaves without
+// instances (postponed's launches) the closest hit walks with postponed
+// leaves at every depth, and every thread of the warp calls it (a thread
+// without a live path only votes; one past n writes nothing); the
+// instance and leaf-14 arms walk in slot order.  Returns false on a
+// stack overflow.
+template <bool kInst = false, bool kVar = false, int kLeaf = kLeafShade,
+          bool kTrips = false>
 PT_HD bool shade_extend_lane(const Params& p, const Tables& tb, int lane,
                              Counters& cnt) {
-  Path ps = load_path(p, lane);
+  constexpr bool kPost = !kInst && kLeaf == kLeafShade;
+  const bool in = lane < p.n;
+  Path ps{};
+  if (in) ps = load_path<true>(p, lane);
   Shadow sh = {false, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
   bool ok = true;
-  if (ps.active) {
-    sh = extend<kInst, kVar, kLeaf>(p.tree, tb, p.mode, ps,
-                                    p.depth_base == 0, cnt, ok);
+  if (kPost || ps.active) {
+    sh = extend<kInst, kVar, kLeaf, kTrips, kPost>(
+        p.tree, tb, p.mode, ps, p.depth_base == 0, cnt, ok, ps.active);
   }
-  store_path(p, lane, ps, sh.sneed);
-  const float cols[10] = {sh.ox, sh.oy, sh.oz, sh.dx, sh.dy,
-                          sh.dz, sh.tmax, sh.cr, sh.cg, sh.cb};
+  if (in) {
+    store_path<true>(p, lane, ps, sh.sneed);
+    const float cols[10] = {sh.ox, sh.oy, sh.oz, sh.dx, sh.dy,
+                            sh.dz, sh.tmax, sh.cr, sh.cg, sh.cb};
 #pragma unroll
-  for (int c = 0; c < 10; ++c) p.shadow[c][lane] = cols[c];
+    for (int c = 0; c < 10; ++c) col_st<true>(p.shadow[c], lane, cols[c]);
+  }
   return ok;
 }
 

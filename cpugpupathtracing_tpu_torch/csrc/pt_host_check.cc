@@ -93,13 +93,27 @@ extern "C" int whitted_host(const pt::PtArgs* a) {
   return run(a, pt::whitted_lane);
 }
 
+// shade_extend's lane body under the arguments `a`, as csrc/megakernel.cu
+// picks its kernel: with count_iters its count arm (kTrips).  (The host
+// build's warp of one lane votes its own predicate in the postponed-leaf
+// walk.)
+template <bool kTrips>
+LaneFn shade_extend_body(const pt::PtArgs& a) {
+  constexpr int kShade = pt::kLeafShade;
+  if (a.num_inst > 0) {
+    return pt::shade_extend_lane<true, false, kShade, kTrips>;
+  }
+  if (pt::leaf_arm(a) == pt::kLeafOccl) {
+    return pt::shade_extend_lane<false, true, pt::kLeafOccl, kTrips>;
+  }
+  return pt::variant(a) ? pt::shade_extend_lane<false, true, kShade, kTrips>
+                        : pt::shade_extend_lane<false, false, kShade, kTrips>;
+}
+
 extern "C" int mk_shade_extend_host(const pt::PtArgs* a) {
   if (pt::leaf_arm(*a) == pt::kLeafOccl2) return -1;
-  return run(a, a->num_inst > 0 ? pt::shade_extend_lane<true>
-                : pt::leaf_arm(*a) == pt::kLeafOccl
-                    ? pt::shade_extend_lane<false, true, pt::kLeafOccl>
-                : pt::variant(*a) ? pt::shade_extend_lane<false, true>
-                                  : pt::shade_extend_lane<false>);
+  return run(a, a->iters ? shade_extend_body<true>(*a)
+                         : shade_extend_body<false>(*a));
 }
 
 extern "C" int mk_shadow_resolve_host(const pt::PtArgs* a) {

@@ -15,10 +15,11 @@ and on config 3 (models/scene.py make_reference_scene, its plain 64-col
 tables) at 1, 4, 16 and 64 tiles of 1024 rays of the default camera
 (camera.blocked_lane_rays: the first 8x128 blocks of a 1024-wide
 image).  On CUDA tensors `trivial` / `trivial2` launch the
-hand-written kernel of csrc/probes.cu (scale2_kernel; built by
-ops/pt_frame.py with every unit); on CPU tensors they run the plain
-version, x * 2.  section_stream (XLA's take, scatter-min, sort and
-compaction, no Pallas kernel) is not ported.
+hand-written kernel of csrc/probes.cu (scale2_kernel: one 16-byte
+vector per thread in the smallest grid of 256-thread blocks that covers
+n; built by ops/pt_frame.py with every unit); on CPU tensors they run
+the plain version, x * 2.  section_stream (XLA's take, scatter-min,
+sort and compaction, no Pallas kernel) is not ported.
 
 Per case the driver reports the host wall time per call (each call
 followed by torch.cuda.synchronize()), the device time per call (CUDA

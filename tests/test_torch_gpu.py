@@ -11,7 +11,11 @@ contract (traced exact, < 3% flipped lanes, flips < 0.02, mean within
 split-span schedule against one span bitwise, pt_frame on more lanes
 than its persistent launch keeps resident (so that its threads refill
 finished paths) against its single launch bitwise and the plain version,
-and the per-depth route against the whole-frame route bitwise.  traverse_packet_slim's closest
+and the per-depth route against the whole-frame route bitwise;
+shade_extend on its postponed-leaf walk (at depths 1 and 4) and on the
+slot-order walks of its instance and leaf-14 arms, over a wavefront
+whose lanes are all dead, a dead tail after the compaction, one live
+lane in 32 and a ragged n, bitwise on every output.  traverse_packet_slim's closest
 hits equal its plain version's bitwise and its any hits in existence;
 whitted_frame equals its plain version bitwise (energy, state, traced);
 the two Whitted routes agree on state and traced exactly and on energy
@@ -29,7 +33,8 @@ Every arm of the traversal labs L1-L4, L6 and L7 (labs/) equals its
 plain version bitwise on a bounce fan of the card scene, counters
 included, and L7's warps take the max of their paired L6 warps' trips.
 Every stage set of the floor probe L5 equals its plain version bitwise
-(t and the final entry); the launch probe L8 equals x * 2 and x * 4; the
+(t and the final entry); the launch probe L8 equals x * 2 and x * 4 at
+n = 0 to 4099 and on a view whose alignment differs from its output's; the
 shared-memory probe L9 reads its word from every table up to the
 device's opt-in limit, is refused above it, and launches after a
 refusal."""
@@ -923,6 +928,102 @@ def test_leaf_arms_match_plain(card, arm, monkeypatch):
     ptf.check_status("cuda")
 
 
+def _flat_cols(x):
+    return ([c for v in x for c in _flat_cols(v)] if isinstance(x, tuple)
+            else [x.reshape(-1)])
+
+
+def _all_bitwise(got, ref):
+    for a_, b_ in zip(_bits(_flat_cols(got)), _bits(_flat_cols(ref))):
+        assert torch.equal(a_, b_)
+
+
+def _next_depth(args, out, flags, lanes=None):
+    """shade_extend's arguments of depth 1 from depth 0's arguments and
+    outputs, with the lane flags `flags`, gathered on `lanes` where
+    given."""
+    c = (*out[:4], flags)
+    if lanes is not None:
+        c = tuple(tuple(x[lanes] for x in v) if isinstance(v, tuple)
+                  else v[lanes] for v in c)
+    return (*args[:10], 1, *c)
+
+
+def _dead_lanes(case, fl):
+    """(flags, lanes) of a dead-lane case from depth 0's flags `fl`."""
+    n = fl.shape[0]
+    lane = torch.arange(n, device="cuda")
+    if case == "all_dead":
+        return fl & 2, None
+    if case == "dead_tail":
+        return fl & 3, torch.argsort(((fl & 1) == 0).to(torch.int32),
+                                     stable=True)
+    if case == "one_in_32":
+        return (fl & 2) | (lane % 32 == 5).to(torch.int32), None
+    # ragged: single dead lanes, a dead warp, n not a multiple of 32 or 128
+    dead = (lane % 7 == 3) | ((lane >= 256) & (lane < 288))
+    return (fl & 3) & ~dead.to(torch.int32), lane[:n - 77]
+
+
+B2_DEAD = ["all_dead", "dead_tail", "one_in_32", "ragged"]
+
+
+@pytest.mark.parametrize("depth", [1, 4], ids=["d1", "d4"])
+@pytest.mark.parametrize("case", B2_DEAD)
+def test_shade_extend_dead_lanes(card, case, depth):
+    """shade_extend's postponed-leaf walk at depths 1 and 4 equals its
+    plain version bitwise on every output: over a wavefront whose lanes
+    are all dead, over a dead tail after the compaction (live lanes
+    first), with one live lane in 32, and with single dead lanes, a dead
+    warp and n not a multiple of 32 or 128."""
+    dev, o, d, st = card
+    args, kw = _depth0(dev, o, d, st)
+    out = mk.shade_extend(*args, **kw)
+    args = _next_depth(args, out, *_dead_lanes(case, out[4]))
+    args = (*args[:10], depth, *args[11:])
+    got = mk.shade_extend(*args, **kw)
+    ref = _shade_plain(dev, args, kw)
+    ptf.check_status("cuda")
+    _all_bitwise(got, ref)
+    live = int((args[15] & 1).sum())
+    assert (live == 0) == (case == "all_dead")
+    if case == "all_dead":
+        assert not bool((got[4] & 5).any())
+
+
+@pytest.mark.parametrize("case", B2_DEAD)
+@pytest.mark.parametrize("arm", ["instance", "leaf14"])
+def test_shade_extend_dead_lanes_other_arms(card, inst_card, arm, case,
+                                           monkeypatch):
+    """The instance arm and the leaf-14 arm (slot-order walks) at depth 1
+    equal their plain versions bitwise on every output, over the dead-lane
+    cases of test_shade_extend_dead_lanes."""
+    keys = ("num_lights", "num_sph", "num_pln", "nee", "rr", "cosine",
+            "ref_pdf", "light_tri_meta")
+    if arm == "instance":
+        _, dev, o, d, st = inst_card
+        args, kw = _depth0(dev, o, d, st)
+        kw = dict(kw, **dev.inst_kwargs())
+        extra = dict(inst=(dev.pnodes, dev.proots, dev.inst_inv,
+                           dev.inst_nrm, dev.inst_blas_root_packet))
+    else:
+        _, o, d, st = card
+        dev = _leaf_scene(monkeypatch, "leaf14")
+        args, kw = _depth0(dev, o, d, st)
+        tables, tkw = integrators.route_tables(dev)
+        args, kw = (*tables, *args[10:]), dict(kw, **tkw)
+        extra = dict(records=ptf.leaf_records(tables[1], occl=True,
+                                              pay=tkw["pay"]))
+    out = mk.shade_extend(*args, **kw)
+    args = _next_depth(args, out, *_dead_lanes(case, out[4]))
+    got = mk.shade_extend(*args, **kw)
+    ptf.check_status("cuda")
+    _all_bitwise(got, mk.shade_extend_reference(
+        args[1], *args[2:], **{k: kw[k] for k in keys}, **extra))
+    live = int((args[15] & 1).sum())
+    assert (live == 0) == (case == "all_dead")
+
+
 @pytest.fixture()
 def lab_card():
     if not torch.cuda.is_available():
@@ -1008,6 +1109,19 @@ def test_launch_and_smem_probes(card):
     assert sp.probe(optin // 4 // 8 * 8, True, dev, optin)["ok"]
     # a launch after the refusal
     assert sp.probe(1024, False, dev, optin)["value"] == 1019
+
+
+@pytest.mark.parametrize("n", [0, 1, 3, 1023, 1024, 1025, 4099, "x[1:]"])
+def test_launch_probe_shapes(card, n):
+    """L8's 16-byte vector kernel with its scalar head and tail equals x * 2
+    (and two chained launches x * 4) bitwise at every size, and on a view
+    one element into its storage (input and output aligned apart)."""
+    from cpugpupathtracing_tpu_torch.labs import launch_probe as lp
+
+    x = (torch.randn(1025, device="cuda")[1:] if n == "x[1:]"
+         else torch.randn(n, device="cuda"))
+    assert torch.equal(lp.trivial(x), x * 2)
+    assert torch.equal(lp.trivial2(x), x * 4)
 
 
 @pytest.mark.parametrize("words", ["tail", "limit", "limit+1"])
