@@ -569,12 +569,16 @@ def lane_share(it: dict):
 
 def walk_share(name: str, it: dict) -> dict:
     """A launch's live lanes (the rays it traced: shadow_resolve's shadow
-    rays, pt_frame's closest-hit and shadow rays), warp trips and lane
-    share (lane_share; None where its walks count no trips) from its
-    count_iters counters."""
+    rays, pt_frame's closest-hit and shadow rays), warp trips, lane share
+    (lane_share; None where its walks count no trips) and longest walk
+    (shadow_resolve's: the most rows one shadow ray's walk visited; 0
+    for the other kernels) from its count_iters counters.  In a
+    shadow_resolve warp that walks one ray with all its lanes, a trip's
+    lane trips are the lanes with a child slot or a record to test."""
     live = {"shade_extend": it["ray"], "shadow_resolve": it["sray"]}.get(
         name, it["ray"] + it["sray"])
-    return dict(live=live, warp_trips=it["wtrip"], lane_share=lane_share(it))
+    return dict(live=live, warp_trips=it["wtrip"], lane_share=lane_share(it),
+                longest=it["longest"])
 
 
 def launch_layouts(nodes, kw) -> tuple:
@@ -852,6 +856,9 @@ def check_mega(ds, settings, o, d, st, ref, small_bytes) -> dict:
                             "shade_extend vs plain")
     _, sr_err, _ = contract(torch.stack(sr_p, 1), torch.stack(sr, 1),
                             "shadow_resolve vs plain")
+    if int(bits_differ(tuple(sr), tuple(sr_p)).sum()):
+        raise AssertionError("shadow_resolve: energy differs from the plain "
+                             "version bitwise")
     se_it = dict(zip(ptf.COUNTERS, (int(v) for v in se_it)))
     sr_it = dict(zip(ptf.COUNTERS, (int(v) for v in sr_it)))
     sr_small = 4 * (ds.mk_sph.numel() + ds.mk_pln.numel())
@@ -1007,6 +1014,9 @@ def frame_mega(scene, cam_cfg, settings, width, height, small_bytes,
                              leaves=leaf_kinds(ln["kw"]))
             flips, err, mean = contract(torch.stack(e_ref, 1),
                                         torch.stack(e_got, 1), what)
+            if ln["name"] == "shadow_resolve" and int(bits_differ(
+                    tuple(e_got), tuple(e_ref)).sum()):
+                raise AssertionError(f"{what}: energy differs bitwise")
             main_path.append(dict(
                 name=ln["name"], depth=k // 2,
                 layout=launch_layouts(ln["args"][0], ln["kw"])[0],
@@ -1942,7 +1952,7 @@ def frame5(s5, phase: str, profile: bool, label: str | None = None):
                 raise AssertionError(f"{what}: state or flags differ from "
                                      "the plain version")
             mism = int(bits_differ((e_got, e_got), (e_ref, e_ref)).sum())
-            if ds.machinery and mism:
+            if (ds.machinery or ln["name"] == "shadow_resolve") and mism:
                 raise AssertionError(f"{what}: {mism} energies differ from "
                                      "the plain version")
             contract(e_ref, e_got, what)
@@ -4376,9 +4386,9 @@ def main() -> int:
             "library_ms": None,
             "check_lanes": CHECK_LANES,
             "main_path": [{key: mp[key] for key in (
-                "depth", "lanes", "live", "lane_share", "ms", "call_ms",
-                "bound_ms", "bound_by", "sampled_lanes", "max_abs_err")}
-                for mp in mega_path if mp["name"] == name],
+                "depth", "lanes", "live", "lane_share", "longest", "ms",
+                "call_ms", "bound_ms", "bound_by", "sampled_lanes",
+                "max_abs_err")} for mp in mega_path if mp["name"] == name],
         })
     tq = trav["closest"]
     kernels.append({
@@ -4439,8 +4449,9 @@ def main() -> int:
         else:
             launches = counts5["frame5_inst"][name]
             path = [{key: mp[key] for key in (
-                "launch", "lanes", "live", "lane_share", "ms", "call_ms",
-                "bound_ms", "bound_by", "sampled_lanes", "max_abs_err")}
+                "launch", "lanes", "live", "lane_share", "longest", "ms",
+                "call_ms", "bound_ms", "bound_by", "sampled_lanes",
+                "max_abs_err")}
                 for mp in paths5["frame5_inst"] if mp["name"] == name]
         kernels.append({
             "name": name,

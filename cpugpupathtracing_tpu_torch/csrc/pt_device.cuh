@@ -76,6 +76,8 @@ constexpr int RESTORE = 0x3FFFFFFF;
 constexpr int LEAF_TRIS = 8;
 constexpr int OCCL_TRIS = 14;
 constexpr int OCCL_STRIDE = 9;
+// floats in a leaf row of every leaf table (shading, occlusion, fused)
+constexpr int LEAF_COLS = 128;
 // the leaf layout of a walk (template argument kLeaf): kLeafShade reads
 // the rows Tree::occl names (8 shading records of 16 cols, or 14 bare
 // occlusion records of 9 cols); kLeafOccl / kLeafOccl2 read occlusion
@@ -251,7 +253,12 @@ struct Tree {  // one slim 8-wide tree: (B, 64) nodes, (NL, 128) leaf rows
 struct Counters {  // work done: node / leaf rows visited, rays traversed
   unsigned long long node = 0, leaf = 0, snode = 0, sleaf = 0, ray = 0,
                      sray = 0;
+  // shadow_resolve's count arm: the most rows one shadow ray's walk
+  // visited (the launch's longest walk; a maximum, not a sum)
+  unsigned long long longest = 0;
 };
+// the summed counts (node .. sray); the count arms' iters then hold the
+// warp and lane trips (Tree::trips) and the longest walk
 constexpr int NUM_COUNTERS = 6;
 
 // One trip of a walk loop under count_iters (trips non-null): a warp trip
@@ -329,6 +336,25 @@ PT_HD bool slab_hit(float tmin, float tmax, float t, bool at_t) {
   return hi >= tmin && before && tmax > 0.0f;
 }
 
+// The slab test of one child box c (min xyz, max xyz): whether the ray
+// enters it before t (at t too when at_t; slab_hit).
+PT_HD bool slab_child(const float* c, const SlabRay& r, float t, bool at_t) {
+  float tx1 = (c[0] - r.ox) * r.ix;
+  float ty1 = (c[1] - r.oy) * r.iy;
+  float tz1 = (c[2] - r.oz) * r.iz;
+  float tx2 = (c[3] - r.ox) * r.ix;
+  float ty2 = (c[4] - r.oy) * r.iy;
+  float tz2 = (c[5] - r.oz) * r.iz;
+  if (r.zero) {
+    if (r.zero & 1) zero_slab(c[0], c[3], r.ox, tx1, tx2);
+    if (r.zero & 2) zero_slab(c[1], c[4], r.oy, ty1, ty2);
+    if (r.zero & 4) zero_slab(c[2], c[5], r.oz, tz1, tz2);
+  }
+  float tmin = fmaxf(fmaxf(fminf(tx1, tx2), fminf(ty1, ty2)), fminf(tz1, tz2));
+  float tmax = fminf(fminf(fmaxf(tx1, tx2), fmaxf(ty1, ty2)), fmaxf(tz1, tz2));
+  return slab_hit(tmin, tmax, t, at_t);
+}
+
 // The 8 slab tests of one block of child slots: bounds at `bnd` (48 f32:
 // a 48- or 64-col row, or one half of a 16-wide row), entries at `ent_p`
 // (8 i32, in the row or in a side table).  Pushes every child the ray
@@ -357,21 +383,7 @@ PT_HD bool push_row(const float* bnd, const int* ent_p, const SlabRay& r,
   bool ok = true;
 #pragma unroll
   for (int k = 0; k < 8; ++k) {
-    const float* c = b + 6 * k;  // min xyz, max xyz
-    float tx1 = (c[0] - r.ox) * r.ix;
-    float ty1 = (c[1] - r.oy) * r.iy;
-    float tz1 = (c[2] - r.oz) * r.iz;
-    float tx2 = (c[3] - r.ox) * r.ix;
-    float ty2 = (c[4] - r.oy) * r.iy;
-    float tz2 = (c[5] - r.oz) * r.iz;
-    if (r.zero) {
-      if (r.zero & 1) zero_slab(c[0], c[3], r.ox, tx1, tx2);
-      if (r.zero & 2) zero_slab(c[1], c[4], r.oy, ty1, ty2);
-      if (r.zero & 4) zero_slab(c[2], c[5], r.oz, tz1, tz2);
-    }
-    float tmin = fmaxf(fmaxf(fminf(tx1, tx2), fminf(ty1, ty2)), fminf(tz1, tz2));
-    float tmax = fminf(fminf(fmaxf(tx1, tx2), fmaxf(ty1, ty2)), fmaxf(tz1, tz2));
-    if (slab_hit(tmin, tmax, t, at_t) && ent[k] != SLIM_EMPTY) {
+    if (slab_child(b + 6 * k, r, t, at_t) && ent[k] != SLIM_EMPTY) {
       passed = true;
       if (sp < kCap) {
         stack[sp++] = ent[k];
@@ -383,38 +395,47 @@ PT_HD bool push_row(const float* bnd, const int* ent_p, const SlabRay& r,
   return ok;
 }
 
-// The plain walks' node step: one row of a 64-col table, the entries at
-// cols 48..55, onto a stack of PT_STACK entries.  With kDepth, adds 1 to
-// *depth when at least one child passes (the per-ray reading of the
-// Pallas kernel's `depth += any(bm[k])`).  Returns false if the stack is
-// full.
-template <bool kDepth = false>
-PT_HD bool push_children(const float* row, const SlabRay& r, float t,
-                         bool at_t, int* stack, int& sp,
-                         int* depth = nullptr) {
-  bool passed = false;
-  bool ok = push_row<PT_STACK>(row, reinterpret_cast<const int*>(row + 48),
-                               r, t, at_t, stack, sp, passed);
-  if constexpr (kDepth) *depth += passed ? 1 : 0;
-  return ok;
-}
+// Where a node row's child slots lie: slot k's six bounds (min xyz, max
+// xyz) at bnd + 6k, its entry at ent[k], for k < width (a 16-wide row's
+// slots 8..15 fill its second 48 floats).  The plain walks' rows have 64
+// cols, the entries at cols 48..55; a variant layout (kVar) reads
+// Tree::cols and width, the entries after the bounds in the row or in
+// the side table ents (8 a row).  Every walk's node step reads a row
+// through it.
+struct NodeSlots {
+  const float* bnd;
+  const int* ent;
+  int width;
+};
 
-// The variant walks' node step of row `e` of any layout (Tree::ents,
-// cols, width): one block of 8 slots, two for a 16-wide row (slots 0..7,
-// then 8..15, so children are pushed in slot order).  With kDepth adds 1
-// to *depth when at least one child passes.  Returns false if the stack
-// is full.
-template <bool kDepth = false>
-PT_HD bool push_node(const Tree& tr, int e, const SlabRay& r, float t,
-                     bool at_t, int* stack, int& sp, int* depth = nullptr) {
+template <bool kVar>
+PT_HD NodeSlots node_slots(const Tree& tr, int e) {
+  if constexpr (!kVar) {
+    const float* row = tr.nodes + (size_t)e * 64;
+    return {row, reinterpret_cast<const int*>(row + 48), 8};
+  }
   const float* row = tr.nodes + (size_t)e * tr.cols;
   const int* ent = tr.ents ? tr.ents + (size_t)e * 8
                            : reinterpret_cast<const int*>(row + 6 * tr.width);
+  return {row, ent, tr.width};
+}
+
+// A walk's node step of row `e` (node_slots): one block of 8 slots, two
+// for a 16-wide row (slots 0..7, then 8..15, so children are pushed in
+// slot order), onto a stack of PT_STACK entries (PT_STACK_W16 with kVar).
+// With kDepth adds 1 to *depth when at least one child passes (the
+// per-ray reading of the Pallas kernel's `depth += any(bm[k])`).  Returns
+// false if the stack is full.
+template <bool kDepth, bool kVar>
+PT_HD bool push_node(const Tree& tr, int e, const SlabRay& r, float t,
+                     bool at_t, int* stack, int& sp, int* depth) {
+  constexpr int kCap = kVar ? PT_STACK_W16 : PT_STACK;
+  const NodeSlots s = node_slots<kVar>(tr, e);
   bool passed = false;
-  bool ok = push_row<PT_STACK_W16>(row, ent, r, t, at_t, stack, sp, passed);
-  if (tr.width == 16) {
-    ok &= push_row<PT_STACK_W16>(row + 48, ent + 8, r, t, at_t, stack, sp,
-                                  passed);
+  bool ok = push_row<kCap>(s.bnd, s.ent, r, t, at_t, stack, sp, passed);
+  if (kVar && s.width == 16) {
+    ok &= push_row<kCap>(s.bnd + 48, s.ent + 8, r, t, at_t, stack, sp,
+                         passed);
   }
   if constexpr (kDepth) *depth += passed ? 1 : 0;
   return ok;
@@ -433,8 +454,8 @@ PT_HD int var_leaf_row(const Tree& tr, int e) {
 }
 
 PT_HD const float* var_leaf(const Tree& tr, int e) {
-  return tr.fused_nn ? tr.nodes + (size_t)e * 128
-                     : tr.ltris + (size_t)(-e - 1) * 128;
+  return tr.fused_nn ? tr.nodes + (size_t)e * LEAF_COLS
+                     : tr.ltris + (size_t)(-e - 1) * LEAF_COLS;
 }
 
 // Moller-Trumbore in the association of traverse_packet_slim._leaf_tests
@@ -475,6 +496,39 @@ PT_HD int occl_leaf_row(const Tree& tr, int e) {
     for (int q = 0; q < kOcclRows<kLeaf>; ++q) tr.seen_leaf[r0 + q] = 1;
   }
   return r0;
+}
+
+// The rows of leaf entry e's records, consecutive, LEAF_COLS floats each,
+// every row marked in seen_leaf: a leaf arm's kOcclRows occlusion rows
+// (occl_leaf_row), else the entry's one row (var_leaf under a variant
+// layout, else row -e - 1 of the leaf table).
+template <bool kVar, int kLeaf>
+PT_HD const float* leaf_rows(const Tree& tr, int e) {
+  if constexpr (kLeaf != kLeafShade) {
+    return tr.ltris + (size_t)occl_leaf_row<kLeaf>(tr, e) * LEAF_COLS;
+  } else {
+    if (tr.seen_leaf) tr.seen_leaf[kVar ? var_leaf_row(tr, e) : -e - 1] = 1;
+    return kVar ? var_leaf(tr, e) : tr.ltris + (size_t)(-e - 1) * LEAF_COLS;
+  }
+}
+
+// Record k of one leaf row: an occlusion record [v0, e1, e2] (9 cols, k <
+// OCCL_TRIS), or a shading record (16 cols, k < LEAF_TRIS).
+PT_HD const float* occl_record(const float* row, int k) {
+  return row + OCCL_STRIDE * k;
+}
+
+PT_HD const float* shade_record(const float* row, int k) {
+  return row + 16 * k;
+}
+
+// Record k of a whole leaf from its rows (leaf_rows): occlusion records
+// run on into the next row (a 2-row leaf's 14..27), shading records fill
+// one row.
+PT_HD const float* leaf_record(const float* rows, bool occl, int k) {
+  return occl ? occl_record(rows + (size_t)(k / OCCL_TRIS) * LEAF_COLS,
+                            k % OCCL_TRIS)
+              : shade_record(rows, k);
 }
 
 // The ray of a walk in its current space: world space, or after an
@@ -534,20 +588,15 @@ PT_HD int instance_entry(const Tree& tr, const WalkRay& w, WalkRay& cur,
 }
 
 // A node row of a walk: its slab tests at t (at t too when at_t), the
-// passing children pushed in slot order (push_node over the variant
-// layouts, push_children over 64-col rows), the row counted and marked.
+// passing children pushed in slot order (push_node), the row counted and
+// marked.
 template <bool kDepth, bool kVar>
 PT_HD void visit_node(const Tree& tr, int e, const SlabRay& sr, float t,
                       bool at_t, int* stack, int& sp, bool& ok,
                       unsigned long long& it_node, int* depth) {
   ++it_node;
   if (tr.seen_node) tr.seen_node[e] = 1;
-  if constexpr (kVar) {
-    ok &= push_node<kDepth>(tr, e, sr, t, at_t, stack, sp, depth);
-  } else {
-    ok &= push_children<kDepth>(tr.nodes + (size_t)e * 64, sr, t, at_t,
-                                stack, sp, depth);
-  }
+  ok &= push_node<kDepth, kVar>(tr, e, sr, t, at_t, stack, sp, depth);
 }
 
 // closest_hit's test of shading leaf entry e: its 8 records of 16 cols
@@ -556,11 +605,10 @@ template <bool kInst, bool kVar>
 PT_HD void leaf_closest(const Tree& tr, int e, const WalkRay& cur, Hit& h,
                         unsigned long long& it_leaf) {
   ++it_leaf;
-  if (tr.seen_leaf) tr.seen_leaf[kVar ? var_leaf_row(tr, e) : -e - 1] = 1;
-  const float* row = kVar ? var_leaf(tr, e) : tr.ltris + (size_t)(-e - 1) * 128;
+  const float* row = leaf_rows<kVar, kLeafShade>(tr, e);
 #pragma unroll 2
   for (int c = 0; c < LEAF_TRIS; ++c) {
-    const float* r = row + 16 * c;
+    const float* r = shade_record(row, c);
     F4 a = ld4(r), b = ld4(r + 4), d4 = ld4(r + 8), p = ld4(r + 12);
     float tt = tri_test(cur.ox, cur.oy, cur.oz, cur.dx, cur.dy, cur.dz, a.x,
                         a.y, a.z, a.w, b.x, b.y, b.z, b.w, d4.x);
@@ -712,12 +760,13 @@ PT_HD bool closest_hit(const Tree& tr, float ox, float oy, float oz,
       ++it_leaf;
       const int r0 = occl_leaf_row<kLeaf>(tr, e);
       for (int q = 0; q < kOcclRows<kLeaf>; ++q) {
-        const float* row = tr.ltris + (size_t)(r0 + q) * 128;
-        const float* prow = tr.pay ? tr.pay + (size_t)(r0 + q) * 128 : nullptr;
+        const float* row = tr.ltris + (size_t)(r0 + q) * LEAF_COLS;
+        const float* prow =
+            tr.pay ? tr.pay + (size_t)(r0 + q) * LEAF_COLS : nullptr;
         for (int c = 0; c < OCCL_TRIS; ++c) {
-          const float tt = occl_tri_test(cur, row + OCCL_STRIDE * c);
+          const float tt = occl_tri_test(cur, occl_record(row, c));
           if (tt >= 0.0f && tt <= h.t) {
-            const float* p = prow ? prow + OCCL_STRIDE * c : nullptr;
+            const float* p = prow ? occl_record(prow, c) : nullptr;
             if (p && tr.seen_pay) tr.seen_pay[(r0 + q) * OCCL_TRIS + c] = 1;
             const int id = p ? as_int(ld(p + 4)) : 1;
             if (tt < h.t || id < h.tri) {
@@ -740,21 +789,130 @@ PT_HD bool closest_hit(const Tree& tr, float ox, float oy, float oz,
   return ok;
 }
 
+// Records 4g .. 4g + kRec - 1 of an occlusion row from the kVec4 aligned
+// float4 at `g4` (B3's 16-byte reads, occl_row_any_vec): each one's
+// tri_test, the first hit with 0 <= t < tmax in record order into
+// `first` (-1 while none).
+template <int kRec, int kVec4>
+PT_HD void occl_group(const WalkRay& c, const float* g4, float tmax,
+                      float& first) {
+  float r[36];
+#pragma unroll
+  for (int q = 0; q < kVec4; ++q) {
+    const F4 v = ld4(g4 + 4 * q);
+    r[4 * q] = v.x;
+    r[4 * q + 1] = v.y;
+    r[4 * q + 2] = v.z;
+    r[4 * q + 3] = v.w;
+  }
+#pragma unroll
+  for (int k = 0; k < kRec; ++k) {
+    const float* x = r + OCCL_STRIDE * k;
+    const float tt = tri_test(c.ox, c.oy, c.oz, c.dx, c.dy, c.dz, x[0],
+                              x[1], x[2], x[3], x[4], x[5], x[6], x[7], x[8]);
+    if (first < 0.0f && tt >= 0.0f && tt < tmax) first = tt;
+  }
+}
+
+// The 14 records of an occlusion row (16-byte aligned) read as 16-byte
+// vectors: records 4g .. 4g + 3 are the row's floats 36g .. 36g + 35,
+// nine aligned float4 (g = 0, 1, 2), and records 12 and 13 lie in floats
+// 108 .. 127, the row's last five -- 32 vector loads for a whole row where
+// the scalar reads (occl_tri_test) make up to 126.  Every record is
+// tested (no exit at the first hit), so that no load waits on an earlier
+// record's test.  Returns the t of the first record in record order with
+// 0 <= t < tmax, or -1.
+PT_HD float occl_row_any_vec(const WalkRay& c, const float* row,
+                             float tmax) {
+  float first = -1.0f;
+#pragma unroll
+  for (int g = 0; g < 3; ++g) occl_group<4, 9>(c, row + 36 * g, tmax, first);
+  occl_group<2, 5>(c, row + 108, tmax, first);
+  return first;
+}
+
+// The 14 records of an occlusion row tested in order by scalar loads (a
+// record at stride 9 is not 16-byte aligned), or with kVec by
+// occl_row_any_vec: the t of the first with 0 <= t < tmax, or -1.
+template <bool kVec>
+PT_HD float occl_row_any(const WalkRay& c, const float* row, float tmax) {
+  if constexpr (kVec) return occl_row_any_vec(c, row, tmax);
+  for (int k = 0; k < OCCL_TRIS; ++k) {
+    const float tt = occl_tri_test(c, occl_record(row, k));
+    if (tt >= 0.0f && tt < tmax) return tt;
+  }
+  return -1.0f;
+}
+
+// The any-hit test of leaf entry e of a walk (any_hit's leaf step): its
+// records in order until one has t < tmax.  Returns true on such a
+// record; with kReport (shading trees only) also writes it into `found`
+// (t, original id, object, flat normal, instance), or over an occlusion
+// tree its t and id 1.  The leaf's rows are counted (it_leaf) and marked
+// (seen_leaf).
+template <bool kReport, bool kVar, int kLeaf, bool kVec>
+PT_HD bool leaf_any(const Tree& tr, int e, const WalkRay& cur, float tmax,
+                    unsigned long long& it_leaf, Hit* found) {
+  ++it_leaf;
+  float tt = -1.0f;
+  const float* rows = leaf_rows<kVar, kLeaf>(tr, e);
+  if constexpr (kLeaf != kLeafShade) {
+    for (int q = 0; q < kOcclRows<kLeaf> && tt < 0.0f; ++q) {
+      tt = occl_row_any<kVec>(cur, rows + (size_t)q * LEAF_COLS, tmax);
+    }
+  } else {
+    if (!tr.occl) {
+#pragma unroll 2
+      for (int c = 0; c < LEAF_TRIS; ++c) {
+        const float* r = shade_record(rows, c);
+        F4 a = ld4(r), b = ld4(r + 4), d4 = ld4(r + 8);
+        tt = tri_test(cur.ox, cur.oy, cur.oz, cur.dx, cur.dy, cur.dz, a.x,
+                      a.y, a.z, a.w, b.x, b.y, b.z, b.w, d4.x);
+        if (tt >= 0.0f && tt < tmax) {
+          if constexpr (kReport) {
+            const F4 p = ld4(r + 12);
+            found->t = tt;
+            found->tri = as_int(p.y);
+            found->obj = as_int(p.x);
+            found->nx = d4.y;
+            found->ny = d4.z;
+            found->nz = d4.w;
+            found->iid = cur.iid;
+          }
+          return true;
+        }
+      }
+      return false;
+    }
+    // a 1-row occlusion leaf read by the default arm (pt_frame's and
+    // shadow_resolve's shadow trees)
+    tt = occl_row_any<kVec>(cur, rows, tmax);
+  }
+  if (tt < 0.0f) return false;
+  if constexpr (kReport) {
+    found->t = tt;
+    found->tri = 1;
+  }
+  return true;
+}
+
 // Any hit with t < tmax over an occlusion tree (14 bare records per leaf
 // row) or a shading tree (8 records of 16 cols, four 16-byte loads each,
 // as closest_hit reads them; the 9-col occlusion records at their
-// unaligned stride stay scalar).  Sets `occluded`; with kReport (shading
-// trees only) also writes the record it found into `found` (t, original
-// id, object, flat normal, instance).  With kInst the walk runs the
-// instance machinery; kDepth counts as in closest_hit, up to the row that
-// ends the walk; kVar reads the tree's layout.  A leaf arm (kLeafOccl,
-// kLeafOccl2; kVar only) reads occlusion leaves of one or two rows (14 or
-// 28 records in order), and with kReport writes the t of the record it
-// found and id 1 (the occlusion bit of the JAX function).  kTrips (count
-// launches): count the loop's trips (count_trip).  Returns false on a
-// stack overflow.
+// unaligned stride stay scalar unless kVec): leaf_any at each leaf.  Sets
+// `occluded`; with kReport (shading trees only) also writes the record it
+// found into `found` (t, original id, object, flat normal, instance).
+// With kInst the walk runs the instance machinery; kDepth counts as in
+// closest_hit, up to the row that ends the walk; kVar reads the tree's
+// layout.  A leaf arm (kLeafOccl, kLeafOccl2; kVar only) reads occlusion
+// leaves of one or two rows (14 or 28 records in order), and with
+// kReport writes the t of the record it found and id 1 (the occlusion
+// bit of the JAX function).  kTrips (count launches): count the loop's
+// trips (count_trip).  kVec (B3's walks): occlusion rows read as 16-byte
+// vectors (occl_row_any_vec).  Returns false on a stack overflow.
 template <bool kReport = false, bool kInst = false, bool kDepth = false,
-          bool kVar = false, int kLeaf = kLeafShade, bool kTrips = false>
+          bool kVar = false, int kLeaf = kLeafShade, bool kTrips = false,
+          bool kVec = false>
 PT_HD bool any_hit(const Tree& tr, float ox, float oy, float oz, float dx,
                    float dy, float dz, float tmax, bool& occluded,
                    unsigned long long& it_node, unsigned long long& it_leaf,
@@ -777,65 +935,10 @@ PT_HD bool any_hit(const Tree& tr, float ox, float oy, float oz, float dx,
     } else if (kVar ? var_is_node(tr, e) : e >= 0) {
       visit_node<kDepth, kVar>(tr, e, cur.sr, tmax, false, stack, sp, ok,
                                it_node, depth);
-    } else if constexpr (kLeaf != kLeafShade) {
-      ++it_leaf;
-      const int r0 = occl_leaf_row<kLeaf>(tr, e);
-      for (int q = 0; q < kOcclRows<kLeaf>; ++q) {
-        const float* row = tr.ltris + (size_t)(r0 + q) * 128;
-        for (int c = 0; c < OCCL_TRIS; ++c) {
-          const float tt = occl_tri_test(cur, row + OCCL_STRIDE * c);
-          if (tt >= 0.0f && tt < tmax) {
-            occluded = true;
-            if constexpr (kReport) {
-              found->t = tt;
-              found->tri = 1;
-            }
-            return ok;
-          }
-        }
-      }
-    } else {
-      ++it_leaf;
-      if (tr.seen_leaf) tr.seen_leaf[kVar ? var_leaf_row(tr, e) : -e - 1] = 1;
-      const float* row =
-          kVar ? var_leaf(tr, e) : tr.ltris + (size_t)(-e - 1) * 128;
-      if (tr.occl) {
-        // a 1-row occlusion leaf read by the default arm (pt_frame's and
-        // shadow_resolve's shadow trees)
-        for (int c = 0; c < OCCL_TRIS; ++c) {
-          const float tt = occl_tri_test(cur, row + OCCL_STRIDE * c);
-          if (tt >= 0.0f && tt < tmax) {
-            occluded = true;
-            if constexpr (kReport) {
-              found->t = tt;
-              found->tri = 1;
-            }
-            return ok;
-          }
-        }
-      } else {
-#pragma unroll 2
-        for (int c = 0; c < LEAF_TRIS; ++c) {
-          const float* r = row + 16 * c;
-          F4 a = ld4(r), b = ld4(r + 4), d4 = ld4(r + 8);
-          float tt = tri_test(cur.ox, cur.oy, cur.oz, cur.dx, cur.dy, cur.dz,
-                              a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w, d4.x);
-          if (tt >= 0.0f && tt < tmax) {
-            occluded = true;
-            if constexpr (kReport) {
-              const F4 p = ld4(r + 12);
-              found->t = tt;
-              found->tri = as_int(p.y);
-              found->obj = as_int(p.x);
-              found->nx = d4.y;
-              found->ny = d4.z;
-              found->nz = d4.w;
-              found->iid = cur.iid;
-            }
-            return ok;
-          }
-        }
-      }
+    } else if (leaf_any<kReport, kVar, kLeaf, kVec>(tr, e, cur, tmax,
+                                                    it_leaf, found)) {
+      occluded = true;
+      return ok;
     }
     if (sp == 0) break;
     e = stack[--sp];
@@ -1282,15 +1385,16 @@ PT_HD Shadow extend(const Tree& tree, const Tables& tb, const Mode& md,
 // The NEE shadow test of a shadow ray with sneed set: any hit over the
 // any-hit tree, then the analytic occluders.  True when the light is
 // visible.  kVar: the variant walk; kLeaf: its leaf arm (kLeafOccl2:
-// 2-row occlusion leaves); kTrips: the walk counts its trips.  Clears
-// `ok` on a stack overflow.
+// 2-row occlusion leaves); kTrips: the walk counts its trips; kVec: the
+// occlusion rows read as 16-byte vectors (B3).  Clears `ok` on a stack
+// overflow.
 template <bool kInst = false, bool kVar = false, int kLeaf = kLeafShade,
-          bool kTrips = false>
+          bool kTrips = false, bool kVec = false>
 PT_HD bool unoccluded(const Tree& sh_tree, const Tables& tb, const Shadow& sh,
                       Counters& cnt, bool& ok) {
   ++cnt.sray;
   bool occ = false;
-  ok &= any_hit<false, kInst, false, kVar, kLeaf, kTrips>(
+  ok &= any_hit<false, kInst, false, kVar, kLeaf, kTrips, kVec>(
       sh_tree, sh.ox, sh.oy, sh.oz, sh.dx, sh.dy, sh.dz, sh.tmax, occ,
       cnt.snode, cnt.sleaf);
   if (!occ) {
@@ -1490,37 +1594,54 @@ PT_HD bool shade_extend_lane(const Params& p, const Tables& tb, int lane,
   return ok;
 }
 
-// shadow_resolve: a lane with sneed (flags bit 2) runs the shadow test
-// of its shadow ray over p.sh_tree (kInst: on the instance machinery)
-// and adds the contribution when the light is visible; every other lane
-// copies its energy.  kVar: the variant walk; kLeaf: its leaf arm
-// (kLeafOccl2).  Returns false on a stack overflow.
-template <bool kInst = false, bool kVar = false, int kLeaf = kLeafShade>
+// shadow_resolve's walk of lane `lane`, which has a shadow ray (sneed)
+// and energy `en` (read by the caller), by its own thread: the shadow
+// test of its ray over p.sh_tree (kInst: on the instance machinery; the
+// occlusion rows read as 16-byte vectors), then its energy plus the
+// contribution when the light is visible, written at the lane.  Its
+// columns are read and written as streaming traffic.  kVar: the variant
+// walk; kLeaf: its leaf arm (kLeafOccl2); kTrips: the walk counts its
+// trips and the lane's rows visited (Counters::longest).  Clears `ok` on a
+// stack overflow.
+template <bool kInst = false, bool kVar = false, int kLeaf = kLeafShade,
+          bool kTrips = false>
+PT_HD void shadow_walk(const Params& p, const Tables& tb, int lane,
+                       float (&en)[3], Counters& cnt, bool& ok) {
+  Shadow sh;
+  sh.sneed = true;
+  float* const f[10] = {&sh.ox, &sh.oy, &sh.oz, &sh.dx, &sh.dy,
+                        &sh.dz, &sh.tmax, &sh.cr, &sh.cg, &sh.cb};
+#pragma unroll
+  for (int c = 0; c < 10; ++c) *f[c] = col_ld<true>(p.shadow[c], lane);
+  const unsigned long long rows0 = cnt.snode + cnt.sleaf;
+  if (unoccluded<kInst, kVar, kLeaf, kTrips, true>(p.sh_tree, tb, sh, cnt,
+                                                   ok)) {
+    add_light(en[0], en[1], en[2], sh);
+  }
+#pragma unroll
+  for (int c = 0; c < 3; ++c) col_st<true>(p.en_out[c], lane, en[c]);
+  if constexpr (kTrips) {
+    const unsigned long long rows = cnt.snode + cnt.sleaf - rows0;
+    if (rows > cnt.longest) cnt.longest = rows;
+  }
+}
+
+// shadow_resolve on one lane (the host build's schedule, lane by lane;
+// csrc/megakernel.cu gives a warp with few shadow rays to all its lanes):
+// a lane with sneed (flags bit 2) takes shadow_walk, every other lane
+// copies its energy.  Returns false on a stack overflow.
+template <bool kInst = false, bool kVar = false, int kLeaf = kLeafShade,
+          bool kTrips = false>
 PT_HD bool shadow_resolve_lane(const Params& p, const Tables& tb, int lane,
                                Counters& cnt) {
-  float enx = p.en_in[0][lane], eny = p.en_in[1][lane],
-        enz = p.en_in[2][lane];
   bool ok = true;
+  float en[3];
+  for (int c = 0; c < 3; ++c) en[c] = p.en_in[c][lane];
   if ((p.flags_in[lane] >> 2) & 1) {
-    Shadow sh;
-    sh.sneed = true;
-    sh.ox = p.shadow[0][lane];
-    sh.oy = p.shadow[1][lane];
-    sh.oz = p.shadow[2][lane];
-    sh.dx = p.shadow[3][lane];
-    sh.dy = p.shadow[4][lane];
-    sh.dz = p.shadow[5][lane];
-    sh.tmax = p.shadow[6][lane];
-    sh.cr = p.shadow[7][lane];
-    sh.cg = p.shadow[8][lane];
-    sh.cb = p.shadow[9][lane];
-    if (unoccluded<kInst, kVar, kLeaf>(p.sh_tree, tb, sh, cnt, ok)) {
-      add_light(enx, eny, enz, sh);
-    }
+    shadow_walk<kInst, kVar, kLeaf, kTrips>(p, tb, lane, en, cnt, ok);
+  } else {
+    for (int c = 0; c < 3; ++c) p.en_out[c][lane] = en[c];
   }
-  p.en_out[0][lane] = enx;
-  p.en_out[1][lane] = eny;
-  p.en_out[2][lane] = enz;
   return ok;
 }
 

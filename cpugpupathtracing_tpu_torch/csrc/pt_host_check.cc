@@ -72,6 +72,9 @@ int run(const pt::PtArgs* a, LaneFn fn) {
     it[3] += cnt.sleaf;
     it[4] += cnt.ray;
     it[5] += cnt.sray;
+    if (cnt.longest > it[pt::NUM_COUNTERS + 2]) {
+      it[pt::NUM_COUNTERS + 2] = cnt.longest;
+    }
   }
   return 0;
 }
@@ -116,13 +119,24 @@ extern "C" int mk_shade_extend_host(const pt::PtArgs* a) {
                          : shade_extend_body<false>(*a));
 }
 
+// shadow_resolve's lane body under the arguments `a`, as
+// csrc/megakernel.cu picks its kernel: with count_iters its count arm.
+template <bool kTrips>
+LaneFn shadow_resolve_body(const pt::PtArgs& a) {
+  constexpr int kShade = pt::kLeafShade;
+  if (a.num_inst > 0) {
+    return pt::shadow_resolve_lane<true, false, kShade, kTrips>;
+  }
+  if (pt::sh_leaf_arm(a) == pt::kLeafOccl2) {
+    return pt::shadow_resolve_lane<false, true, pt::kLeafOccl2, kTrips>;
+  }
+  return pt::variant(a) ? pt::shadow_resolve_lane<false, true, kShade, kTrips>
+                        : pt::shadow_resolve_lane<false, false, kShade, kTrips>;
+}
+
 extern "C" int mk_shadow_resolve_host(const pt::PtArgs* a) {
-  return run(a,
-             a->num_inst > 0 ? pt::shadow_resolve_lane<true>
-             : pt::sh_leaf_arm(*a) == pt::kLeafOccl2
-                 ? pt::shadow_resolve_lane<false, true, pt::kLeafOccl2>
-             : pt::variant(*a) ? pt::shadow_resolve_lane<false, true>
-                               : pt::shadow_resolve_lane<false>);
+  return run(a, a->iters ? shadow_resolve_body<true>(*a)
+                         : shadow_resolve_body<false>(*a));
 }
 
 extern "C" int pt_args_layout(long long* out) {

@@ -31,8 +31,9 @@ __device__ __forceinline__ Params setup(const PtArgs& a, float* smem,
 }
 
 // After the lane body: set the overflow flag when `ok` is false, and
-// with count_iters add the warp's work counters (every thread of the
-// warp takes part, lanes past n with zero counts).
+// with count_iters add the warp's work counters and raise the longest
+// walk to the warp's (every thread of the warp takes part, lanes past n
+// with zero counts).
 __device__ __forceinline__ void finish(const PtArgs& a, bool ok,
                                        const Counters& c) {
   if (!ok) atomicOr(static_cast<int*>(a.status), 1);
@@ -46,22 +47,32 @@ __device__ __forceinline__ void finish(const PtArgs& a, bool ok,
       v[k] += __shfl_down_sync(0xffffffffu, v[k], off);
     }
   }
+  unsigned long long longest = c.longest;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const unsigned long long o = __shfl_down_sync(0xffffffffu, longest, off);
+    longest = o > longest ? o : longest;
+  }
   if ((threadIdx.x & 31) == 0) {
     unsigned long long* iters = static_cast<unsigned long long*>(a.iters);
 #pragma unroll
     for (int k = 0; k < NUM_COUNTERS; ++k) atomicAdd(iters + k, v[k]);
+    if (longest) atomicMax(iters + NUM_COUNTERS + 2, longest);
   }
 }
 
-// Launch `kernel` over a->n lanes on a->stream; returns
-// cudaGetLastError() (or -1 when the packed small tables do not match
-// the layout).  Never synchronises.
-inline int launch(void (*kernel)(const PtArgs), const PtArgs* a) {
+// Launch `kernel` over a->n lanes on a->stream, with the kernel's other
+// arguments `x`; returns cudaGetLastError() (or -1 when the packed small
+// tables do not match the layout).  Never synchronises.
+template <typename... X>
+inline int launch(void (*kernel)(const PtArgs, X...), const PtArgs* a,
+                  X... x) {
   if (a->small_words != small_words(*a)) return -1;
   if (a->n <= 0) return 0;
   const size_t smem = sizeof(float) * (size_t)a->small_words;
   const int grid = (a->n + kBlock - 1) / kBlock;
-  kernel<<<grid, kBlock, smem, static_cast<cudaStream_t>(a->stream)>>>(*a);
+  kernel<<<grid, kBlock, smem, static_cast<cudaStream_t>(a->stream)>>>(*a,
+                                                                       x...);
   return (int)cudaGetLastError();
 }
 

@@ -88,7 +88,7 @@ def shade_extend(
     is_specular.  Returns (rays', state', throughput', energy', flags'
     (bit 2 = shadow needed), shadow origin (3), shadow direction (3),
     shadow tmax, contribution (3)), the JAX function's tuple; with
-    count_iters=True (CUDA only) also pt_frame's thirteen work counters
+    count_iters=True (CUDA only) also pt_frame's fourteen work counters
     (ops/pt_frame.py COUNTERS; the shadow ones 0).  inst_inv (I, 12),
     inst_nrm (I, 9), inst_root (I,): the instance arm; ents, fused_nn,
     width: the node-table variants; pay (NO, 128): the leaf-14 payload
@@ -288,7 +288,9 @@ def shadow_resolve(
     (bvh8.to_slim_occl) with occl=True, else shading tables -- and the
     analytic occluders, then energy + (visible ? contrib : 0).  Returns
     energy' (3 (N,) f32 columns); with count_iters=True (CUDA only) also
-    the thirteen work counters (the closest-hit ones 0).  inst_inv (I, 12),
+    the fourteen work counters (the closest-hit ones 0; `sray` the shadow
+    rays walked, `wtrip` / `ltrip` their walks' warp and lane trips,
+    `longest` the most rows one shadow ray's walk visited).  inst_inv (I, 12),
     inst_root (I,): the instance arm (over the shading tables); ents,
     fused_nn, width: the node-table variants (module docstring; fused and
     16-wide tables are shading tables, occl=False, or occlusion tables of

@@ -86,13 +86,14 @@ launches: dict = {}
 # leaf, shadow node and shadow leaf rows read, closest-hit and shadow rays
 # traversed), the warp trips and lane trips of its walk loops
 # (pt::count_trip: lane trips / (32 warp trips) is the share of a warp's
-# lanes that work in a trip), then the distinct node, leaf, shadow node
-# and shadow leaf rows and leaf-14 payload records the launch read
-# (pt::Tree::seen_*)
-NUM_COUNTERS = 8
+# lanes that work in a trip), the longest walk (shadow_resolve's: the
+# most rows one shadow ray visited; 0 elsewhere), then the distinct
+# node, leaf, shadow node and shadow leaf rows and leaf-14 payload
+# records the launch read (pt::Tree::seen_*)
+NUM_COUNTERS = 9
 COUNTERS = ("node", "leaf", "snode", "sleaf", "ray", "sray", "wtrip",
-            "ltrip", "node_rows", "leaf_rows", "snode_rows", "sleaf_rows",
-            "pay_recs")
+            "ltrip", "longest", "node_rows", "leaf_rows", "snode_rows",
+            "sleaf_rows", "pay_recs")
 # records per occlusion leaf row (models/bvh8.py OCCL_TRIS)
 OCCL_TRIS = 14
 # per-ray traversal stack of the kernel (csrc/pt_device.cuh PT_STACK): the
@@ -622,8 +623,8 @@ def count_rows(a: _PtArgs, dev, trees, pay=None):
 
 
 def counters(iters, maps) -> torch.Tensor:
-    """The thirteen counts of COUNTERS: the kernel's six visit counts
-    and two trip counts, then the distinct rows read of nodes, ltris,
+    """The fourteen counts of COUNTERS: the kernel's six visit counts,
+    two trip counts and its longest walk, then the distinct rows read of nodes, ltris,
     sh_nodes and sh_ltris (0 for a tree not walked, and for the shadow
     tree when it is the closest-hit tree, whose rows then count once) and
     the payload records read."""
@@ -680,10 +681,10 @@ def pt_frame(
     Returns (energy (N, 3) f32, state' (N,), traced () int64), or with
     carry_out=True (rays6, state', throughput3, energy3, flags (N,) i32,
     traced).  count_iters=True appends an int64 tensor of the kernel's
-    thirteen work counts (CUDA only; names in COUNTERS): closest-hit node
+    fourteen work counts (CUDA only; names in COUNTERS): closest-hit node
     rows and leaf rows visited, shadow node rows and leaf rows visited,
     closest-hit rays and shadow rays traversed, the walk loops' warp
-    trips and lane trips, then how many distinct rows of each of the four
+    trips and lane trips, 0 (the longest walk is shadow_resolve's), then how many distinct rows of each of the four
     tables (nodes, ltris, sh_nodes, sh_ltris)
     the launch read (the shadow ones 0 when the shadow rays walk the
     closest-hit tables, whose rows then count once) and 0 payload
@@ -1058,7 +1059,7 @@ def _slab_pass(box, o, inv, zero, t, at_t, pad=SLAB_PAD):
     """Lanes whose ray (origin o, reciprocal direction inv, zero-direction
     mask zero; 3-tuples of (N,)) enters the box (6,) [min, max] before t
     (at t too with at_t): the slab test of csrc/pt_device.cuh
-    push_children, zero_slab's rule and slab_hit's margin (pad)
+    slab_child, zero_slab's rule and slab_hit's margin (pad)
     included."""
     return slab_test(box, o, inv, zero, t, at_t, pad)[0]
 

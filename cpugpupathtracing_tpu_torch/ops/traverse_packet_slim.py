@@ -96,7 +96,7 @@ def traverse_packet_slim(
     (nx, ny, nz) flat normal columns, bvh_depth (N,) i32, 0 without
     count_depth) -- the JAX function's order -- and with inst_inv (I, 12)
     / inst_root (I,) also the instance id (N,) i32; with count_iters=True
-    (CUDA only) then ops/pt_frame.py's thirteen work counters (the shadow ones
+    (CUDA only) then ops/pt_frame.py's fourteen work counters (the shadow ones
     0).  occl, pay, occl_rows: the occlusion tables (module docstring)."""
     rays = _columns(origin) + _columns(direction)
     dev = t_init.device

@@ -40,7 +40,7 @@ def whitted_frame(
     models/scene.DeviceScene (mk_mats, mk_lights, mk_sph, mk_pln,
     mk_sph_mat, mk_pln_mat, mk_objmat).  Returns (energy (N, 3) f32,
     state' (N,), traced () int64); with count_iters=True (CUDA only) also
-    ops/pt_frame.py's thirteen work counters, of which `ray` (live depths) and
+    ops/pt_frame.py's fourteen work counters, of which `ray` (live depths) and
     `sray` (shadow rays) count."""
     del num_mats  # read from the table shape
     tables = (mats, lights, sph, pln, sphmat, plnmat, objmat)

@@ -15,7 +15,11 @@ and the per-depth route against the whole-frame route bitwise;
 shade_extend on its postponed-leaf walk (at depths 1 and 4) and on the
 slot-order walks of its instance and leaf-14 arms, over a wavefront
 whose lanes are all dead, a dead tail after the compaction, one live
-lane in 32 and a ragged n, bitwise on every output.  traverse_packet_slim's closest
+lane in 32 and a ragged n, bitwise on every output; shadow_resolve on
+every arm (64- and 48-col, 2-row and 16-wide occlusion leaves, 16-wide
+and fused shading tables, instances) over the same kinds of wavefront,
+columns off 16-byte alignment, two launches in a row and 100 times the
+lanes, bitwise.  traverse_packet_slim's closest
 hits equal its plain version's bitwise and its any hits in existence;
 whitted_frame equals its plain version bitwise (energy, state, traced);
 the two Whitted routes agree on state and traced exactly and on energy
@@ -1022,6 +1026,128 @@ def test_shade_extend_dead_lanes_other_arms(card, inst_card, arm, case,
         args[1], *args[2:], **{k: kw[k] for k in keys}, **extra))
     live = int((args[15] & 1).sum())
     assert (live == 0) == (case == "all_dead")
+
+
+# shadow_resolve's arms (B3): the node layouts of its any-hit tree (64-col
+# plain arm, 48-col with side tables, 2-row and 16-wide occlusion leaves)
+# and of the shading tree it walks without one (16-wide, fused), and the
+# instance arm
+B3_ENV = {
+    "64": dict(CPUGPU_SMEMTREE="0"),
+    "48": {},
+    "occl2": dict(CPUGPU_OCCL2="1"),
+    "occl_w16": dict(CPUGPU_OCCL_W16="1"),
+    "w16": dict(CPUGPU_PACKET_TREE="w16", CPUGPU_OCCL="0"),
+    "fused": dict(CPUGPU_FUSED="1", CPUGPU_OCCL="0"),
+}
+B3_ARMS = list(B3_ENV) + ["instance"]
+B3_CASES = ["all_dead", "dead_tail", "one_in_32", "ragged", "unaligned",
+            "twice", "x100"]
+
+
+def _b3_inputs(arm, card, inst_card, monkeypatch):
+    """(shadow_resolve's arguments after one shade_extend at depth 0,
+    keyword arguments, the plain version's extra arguments) on an arm."""
+    if arm == "instance":
+        _, dev, o, d, st = inst_card
+    else:
+        _, o, d, st = card
+        for k in ("CPUGPU_PACKET_TREE", "CPUGPU_FUSED", "CPUGPU_SMEMTREE",
+                  "CPUGPU_OCCL", "CPUGPU_LEAF14", "CPUGPU_OCCL2",
+                  "CPUGPU_OCCL_W16"):
+            monkeypatch.delenv(k, raising=False)
+        for k, v in B3_ENV[arm].items():
+            monkeypatch.setenv(k, v)
+        monkeypatch.setenv("CPUGPU_SMEMTREE_MIN_NODES", "1")
+        dev = _card_scene().build_device("cuda")
+    args, kw = _depth0(dev, o, d, st)
+    tables, tkw = integrators.route_tables(dev)
+    ext = mk.shade_extend(*tables, *args[10:], **dict(kw, **tkw,
+                                                      **dev.inst_kwargs()))
+    sn, sl, skw = integrators.shadow_tables(dev)
+    extra = dict(num_sph=dev.num_sph, num_pln=dev.num_pln,
+                 occl=skw["occl"])
+    if arm == "instance":
+        extra["inst"] = (sn, dev.proots, dev.inst_inv,
+                         dev.inst_blas_root_packet)
+    return (sn, sl, dev.mk_sph, dev.mk_pln, ext[5], ext[6], ext[7], ext[4],
+            ext[3], ext[8]), skw, extra
+
+
+def _b3_case(case, sargs):
+    """shadow_resolve's arguments under a lane case: every shadow ray
+    dropped; the shadow rays first (a dead tail); one lane in 32 keeping
+    its shadow ray; single lanes and a warp dropped with n not a multiple
+    of 4 or 32; every column a view 4 bytes past a 16-byte
+    boundary; the lanes repeated 100 times."""
+    fl = sargs[7]
+    n = fl.shape[0]
+    lane = torch.arange(n, device="cuda")
+
+    def pick(ix, a=sargs):
+        return a[:4] + tuple(
+            tuple(c[ix] for c in x) if isinstance(x, tuple) else x[ix]
+            for x in a[4:])
+
+    if case == "all_dead":
+        return sargs[:7] + (fl & 3,) + sargs[8:]
+    if case == "dead_tail":
+        return pick(torch.argsort((((fl >> 2) & 1) == 0).to(torch.int32),
+                                  stable=True))
+    if case == "one_in_32":
+        keep = (lane % 32 == 5).to(torch.int32) << 2
+        return sargs[:7] + ((fl & 3) | (fl & keep),) + sargs[8:]
+    if case == "ragged":
+        drop = (lane % 7 == 3) | ((lane >= 256) & (lane < 288))
+        fl = fl & ~(drop.to(torch.int32) << 2)
+        return pick(lane[:n - 77], sargs[:7] + (fl,) + sargs[8:])
+    if case == "unaligned":
+        def off(x):
+            if isinstance(x, tuple):
+                return tuple(off(c) for c in x)
+            y = torch.empty(n + 1, dtype=x.dtype, device="cuda")[1:]
+            y.copy_(x)
+            return y
+        return sargs[:4] + tuple(off(x) for x in sargs[4:])
+    if case == "x100":
+        return pick(lane.repeat(100))
+    return sargs
+
+
+@pytest.mark.parametrize("case", B3_CASES)
+@pytest.mark.parametrize("arm", B3_ARMS)
+def test_shadow_resolve_lane_cases(card, inst_card, arm, case, monkeypatch):
+    """shadow_resolve on every arm equals the plain version bitwise
+    (energy on every lane) over a wavefront without a shadow ray, a dead
+    tail (whole warps of shadow rays, each lane walking its own), one
+    shadow ray in 32 (warps walking it with all their lanes), ragged n,
+    columns that are not 16-byte aligned, two launches in a row on the
+    same inputs, and 100 times the lanes (more than half the warps the
+    card keeps resident, where a warp shares the walks of up to 16 shadow
+    rays; the others launch a tenth of them, at most 2); each call counts
+    one launch."""
+    sargs, skw, extra = _b3_inputs(arm, card, inst_card, monkeypatch)
+    sargs = _b3_case(case, sargs)
+    if case == "unaligned":
+        assert sargs[8][0].data_ptr() % 16 == 4
+    key = ptf.launch_key("shadow_resolve", ptf.table_layout(
+        sargs[0], skw.get("ents"), skw.get("fused_nn", 0),
+        skw.get("width", 8)), inst=arm == "instance",
+        leaf=ptf.leaf_arm(occl_rows=skw.get("occl_rows", 1),
+                          occl_width=skw.get("width", 8) if skw["occl"]
+                          else 8))
+    before = _launched(key)
+    got = [mk.shadow_resolve(*sargs, **skw)
+           for _ in range(2 if case == "twice" else 1)]
+    assert _launched(key) == before + len(got)
+    ref = mk.shadow_resolve_reference(*sargs[1:], **extra)
+    ptf.check_status("cuda")
+    for g in got:
+        _all_bitwise(g, ref)
+    live = int(((sargs[7] >> 2) & 1).sum())
+    assert (live == 0) == (case == "all_dead")
+    if case == "all_dead":
+        _all_bitwise(got[0], sargs[8])
 
 
 @pytest.fixture()
