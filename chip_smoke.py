@@ -70,14 +70,21 @@ Phases, one line each; any failure raises and exits non-zero:
                  resident, bitwise the 8192-lane launch; each query's lane
                  share, and for a closest hit with postponed leaves the
                  bound from the slot-order walk's counts beside its own
-  9. check_whitted  8192 config-1 lanes through whitted_frame against its
-                 plain version (bitwise) and against trace_whitted (state
-                 and traced exact, energy under the contract)
+  9. check_whitted  8192 config-1 lanes through whitted_frame (six
+                 columns) and whitted_frame_rows against the plain
+                 version (bitwise), as given, every lane missing and one
+                 live lane a warp ([check_whitted_<mask>]), and against
+                 trace_whitted (state and traced exact, energy under the
+                 contract)
  10. frame_whitted  config 1 at 800x600 through Renderer: 1 launch per
-                 frame, every 256th lane of it against the plain version,
-                 then one frame from reset on trace_whitted
-                 (CPUGPU_NO_WHITTED_KERNEL=1): traced equal, image within
-                 the golden tolerance
+                 frame and no other device operation in the call, every
+                 256th lane of it against the plain version;
+                 [whitted_launch] per depth (live lanes, shadow rays,
+                 warps with a live lane, lane share), the longest path,
+                 the launch with every lane missing (bitwise, and its
+                 ms), the glue launches and the waves; then one frame
+                 from reset on trace_whitted (CPUGPU_NO_WHITTED_KERNEL=1):
+                 traced equal, image within the golden tolerance
  11. frame_whitted_mesh  WHITTED on config 3's scene at 1920x1080, depth
                  4, through Renderer (trace_whitted): 5 closest-hit and 10
                  any-hit launches and 5 morton5 sorts per frame, every
@@ -335,9 +342,9 @@ FLAT_UNEXPLAINED_MAX, FLAT_T_TOL = 8, 1e-5
 # and 3 normal columns out; on an active lane also its 6 ray columns in (a
 # lane that is not active never loads them)
 TRAV_OUT, TRAV_RAY = 6 * 4, 6 * 4
-# per-lane bytes of whitted_frame: 6 ray columns and the state in;
-# energy, state and traced out
-WHITTED_LANE = 6 * 4 + 8 + 3 * 4 + 8 + 4
+# per-lane bytes of whitted_frame beyond its rays (ray_bytes): the state
+# in, energy and state out; the traced total is one int64
+WHITTED_LANE = 8 + 3 * 4 + 8
 # f32 operations of the Whitted body (csrc/whitted.cuh), counted per
 # object of the scene: a sphere test 27 (sphere_t and the closest-hit
 # compares), a plane test 18; the occluder tests of a shadow ray 26 and
@@ -617,12 +624,21 @@ def trav_bytes(lanes: int, live: int, t_init: bool, active: bool) -> int:
     return lanes * (TRAV_OUT + 4 * t_init + 4 * active) + live * TRAV_RAY
 
 
-def whitted_bound(iters: dict, lanes: int, ds):
+def ray_bytes(lanes: int, rows=None) -> int:
+    """Bytes of a whitted_frame launch's ray inputs, each read once: six
+    columns, or the (n, 3) origin and direction rows of whitted_frame_rows
+    (an origin expanded over every lane, row stride 0, is one row)."""
+    if rows is None:
+        return 24 * lanes
+    return sum(12 if x.stride(0) == 0 else 12 * lanes for x in rows)
+
+
+def whitted_bound(iters: dict, lanes: int, ds, rays_b: int):
     """Least time of a whitted_frame launch's work on this run's data:
     the operations of its live depths and shadow rays (count_iters' `ray`
     and `sray`, every occluder test of a shadow ray counted) over the f32
-    peak, against its lanes' bytes and the small tables over HBM
-    bandwidth."""
+    peak, against its rays' bytes (rays_b, ray_bytes), its lanes' other
+    bytes, the traced total and the small tables over HBM bandwidth."""
     per_depth = (W_OPS_DEPTH + W_OPS_SPH * ds.num_sph + W_OPS_PLN * ds.num_pln
                  + W_OPS_LIGHT * ds.num_lights)
     per_shadow = (W_OPS_SHADOW + W_OPS_OCC_SPH * ds.num_sph
@@ -631,7 +647,7 @@ def whitted_bound(iters: dict, lanes: int, ds):
     small = 4 * sum(t.numel() for t in (ds.mk_mats, ds.mk_lights, ds.mk_sph,
                                          ds.mk_pln, ds.mk_sph_mat,
                                          ds.mk_pln_mat, ds.mk_objmat))
-    t_bytes = (lanes * WHITTED_LANE + small) / PEAK_BYTES_PER_S
+    t_bytes = (lanes * WHITTED_LANE + rays_b + 8 + small) / PEAK_BYTES_PER_S
     t_ops = ops / PEAK_F32_FLOPS
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops
                                        else "operations")
@@ -1244,10 +1260,34 @@ def whitted_args(ds, rays, st):
                  num_pln=ds.num_pln))
 
 
+def miss_rows(o, d):
+    """(origin, direction) rows that miss every object of config 1: from
+    each lane's origin straight back (+z), away from the scene."""
+    import torch
+
+    away = torch.zeros_like(d)
+    away[:, 2] = 1.0
+    return o, away
+
+
+def whitted_masks(o, d) -> dict:
+    """The check's ray sets as (origin, direction) rows: the lanes as
+    given, every lane missing, and one lane a warp (lane 16 of each 32)
+    keeping its ray while the other 31 miss."""
+    import torch
+
+    mo, md = miss_rows(o, d)
+    keep = (torch.arange(o.shape[0], device=o.device) % 32 == 16)[:, None]
+    return dict(lanes=(o, d), all_miss=(mo, md),
+                one_live_a_warp=(o, torch.where(keep, d, md)))
+
+
 def check_whitted(ds, settings, o, d, st) -> dict:
-    """Phase 9 on 8192 config-1 lanes: whitted_frame against its plain
-    version (energy, state and traced bitwise) and against trace_whitted
-    (state and traced exact, energy under the Whitted contract)."""
+    """Phase 9 on 8192 config-1 lanes: whitted_frame (six columns) and
+    whitted_frame_rows against the plain version (energy, state and
+    traced bitwise) on the lanes, on every lane missing and on one live
+    lane a warp; the lanes against trace_whitted (state and traced exact,
+    energy under the Whitted contract)."""
     import torch
     from cpugpupathtracing_tpu_torch.models import whitted
     from cpugpupathtracing_tpu_torch.ops import pt_frame as ptf
@@ -1255,18 +1295,40 @@ def check_whitted(ds, settings, o, d, st) -> dict:
 
     n = st.shape[0]
     depths = settings.max_ray_depth + 1
-    a, kw = whitted_args(ds, columns(o, d), st)
-    *out_k, it = wk.whitted_frame(*a, num_mats=ds.num_mats, depths=depths,
-                                  count_iters=True, **kw)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    out_p = wk.whitted_frame_reference(*a, depths=depths, **kw)
-    torch.cuda.synchronize()
-    plain_ms = (time.perf_counter() - t0) * 1e3
-    same = [torch.equal(x, y) for x, y in zip(out_k, out_p)]
-    if not all(same):
-        raise AssertionError(f"whitted_frame differs from its plain version "
-                             f"(energy, state, traced equal: {same})")
+    masks = {}
+    for mask, (mo, md) in whitted_masks(o, d).items():
+        a, kw = whitted_args(ds, columns(mo, md), st)
+        *out_k, it = wk.whitted_frame(*a, num_mats=ds.num_mats,
+                                      depths=depths, count_iters=True, **kw)
+        rows_k = wk.whitted_frame_rows(*a[:7], mo, md, st,
+                                       num_mats=ds.num_mats, depths=depths,
+                                       **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out_p = wk.whitted_frame_reference(*a, depths=depths, **kw)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        same = [torch.equal(x, y) for x, y in zip(out_k, out_p)]
+        same += [torch.equal(x, y) for x, y in zip(rows_k, out_p)]
+        if not all(same):
+            raise AssertionError(f"whitted_frame ({mask}) differs from its "
+                                 f"plain version (energy, state, traced; "
+                                 f"columns then rows: {same})")
+        it = dict(zip(ptf.COUNTERS, (int(v) for v in it)))
+        masks[mask] = dict(
+            a=a, kw=kw, out_k=out_k, out_p=out_p, plain_ms=plain_ms,
+            iters=it, bound=whitted_bound(it, n, ds, ray_bytes(n)),
+            ms=kernel_ms(lambda: wk.whitted_frame(
+                *a, num_mats=ds.num_mats, depths=depths, **kw),
+                "whitted_kernel"))
+        say(f"check_whitted_{mask}", lanes=n, depths=depths,
+            traced=int(out_k[2]), plain_bitwise=True, rows_bitwise=True,
+            ms=masks[mask]["ms"]["ms"], call_ms=masks[mask]["ms"]["call_ms"],
+            plain_ms=plain_ms, bound_ms=masks[mask]["bound"][0],
+            **{k: it[k] for k in ("ray", "sray", "wtrip", "ltrip",
+                                  "longest")})
+    m = masks["lanes"]
+    a, kw, out_k, out_p = m["a"], m["kw"], m["out_k"], m["out_p"]
     s_t, res = whitted.trace_whitted(ds, settings, o, d, st)
     ptf.check_status(st.device)
     if not (torch.equal(s_t, out_k[1])
@@ -1275,13 +1337,14 @@ def check_whitted(ds, settings, o, d, st) -> dict:
                              "trace_whitted's")
     flips, dmax = whitted_contract(res.energy, out_k[0],
                                    "whitted_frame vs trace_whitted")
-    it = dict(zip(ptf.COUNTERS, (int(v) for v in it)))
-    out = dict(**kernel_ms(lambda: wk.whitted_frame(
-        *a, num_mats=ds.num_mats, depths=depths, **kw), "whitted_kernel"),
-        plain_ms=plain_ms, iters=it, bound=whitted_bound(it, n, ds),
-        max_abs_err=float((out_k[0] - out_p[0]).abs().max()),
-        trace_max_abs_err=dmax, trace_flip_share=flips,
-        trace_bitwise=torch.equal(res.energy, out_k[0]))
+    out = dict(**m["ms"], plain_ms=m["plain_ms"], iters=m["iters"],
+               bound=m["bound"],
+               max_abs_err=float((out_k[0] - out_p[0]).abs().max()),
+               trace_max_abs_err=dmax, trace_flip_share=flips,
+               trace_bitwise=torch.equal(res.energy, out_k[0]),
+               masks={k: dict(ms=v["ms"]["ms"], call_ms=v["ms"]["call_ms"],
+                              bound_ms=v["bound"][0])
+                      for k, v in masks.items()})
     say("check_whitted", lanes=n, depths=depths, traced=int(out_k[2]),
         plain_bitwise=True, state_equal_trace_whitted=True,
         traced_equal_trace_whitted=True,
@@ -1289,6 +1352,49 @@ def check_whitted(ds, settings, o, d, st) -> dict:
                                "trace_flip_share", "trace_bitwise", "ms",
                                "call_ms", "plain_ms", "iters")},
         bound_ms=out["bound"][0], bound_by=out["bound"][1])
+    return out
+
+
+def device_ops(fn) -> list:
+    """The names of the device operations (kernels, memsets, copies) one
+    fn() runs, in order (torch.profiler)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    evs = sorted((e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA),
+                 key=lambda e: e.time_range.start)
+    return [e.name for e in evs]
+
+
+def whitted_depths(ds, args, kw, depths: int) -> dict:
+    """Per depth of a whitted_frame_rows launch on args (tables, origin,
+    direction, state): its live lanes, shadow rays, warps with a live
+    lane and lane share, from count launches cut to 1..depths depths (by
+    difference), and the launch's longest path."""
+    from cpugpupathtracing_tpu_torch.ops import pt_frame as ptf
+    from cpugpupathtracing_tpu_torch.ops import whitted_kernel as wk
+
+    kw = {k: v for k, v in kw.items() if k != "depths"}
+    prev = dict(ray=0, sray=0, wtrip=0, ltrip=0)
+    out = dict(live=[], shadow=[], warps=[], lane_share=[])
+    for dd in range(1, depths + 1):
+        *_, it = wk.whitted_frame_rows(*args, depths=dd, count_iters=True,
+                                       **kw)
+        it = dict(zip(ptf.COUNTERS, (int(v) for v in it)))
+        live, warps = it["ltrip"] - prev["ltrip"], it["wtrip"] - prev["wtrip"]
+        out["live"].append(it["ray"] - prev["ray"])
+        out["shadow"].append(it["sray"] - prev["sray"])
+        out["warps"].append(warps)
+        out["lane_share"].append(live / (32 * warps) if warps else None)
+        prev = it
+    out["longest"] = prev["longest"]
     return out
 
 
@@ -1351,9 +1457,11 @@ def timed_frames(r, what: str, profile: bool, route: str, **want):
 
 def frame_whitted(scene, cam_cfg, settings, width, height, profile: bool):
     """Phase 10: config 1 through Renderer on the whole-frame Whitted
-    kernel.  Returns (main-path entries, counts)."""
+    kernel (whitted_frame_rows: the launch and nothing else on the card).
+    Returns (main-path entries, counts)."""
     import torch
     from cpugpupathtracing_tpu_torch.config import RenderConfig
+    from cpugpupathtracing_tpu_torch.models import whitted
     from cpugpupathtracing_tpu_torch.models.renderer import Renderer
     from cpugpupathtracing_tpu_torch.ops import pt_frame as ptf
     from cpugpupathtracing_tpu_torch.ops import whitted_kernel as wk
@@ -1365,38 +1473,84 @@ def frame_whitted(scene, cam_cfg, settings, width, height, profile: bool):
                  device=dev)
     r.render_frame()  # warm-up
     dev_ms = launch_ms(r.render_frame, "whitted_kernel")
-    call_ms = wrapper_ms(wk, ("whitted_frame",), r.render_frame)
+    call_ms = wrapper_ms(wk, ("whitted_frame_rows",), r.render_frame)
     launches = []
 
     def counted(entry):
         def call(*a, **k):
             *out, iters = entry(*a, count_iters=True, **k)
-            st = a[8]
-            sel = torch.arange(0, st.shape[0], SAMPLE_STRIDE, device=dev)
-            launches.append(dict(
-                lanes=st.shape[0], iters=iters, kw=k,
-                args=a[:7] + (tuple(x[sel] for x in a[7]), st[sel]),
-                got=tuple(x[sel] for x in out[:2])))
+            launches.append(dict(lanes=a[9].shape[0], iters=iters, kw=k,
+                                 full=a, got=tuple(out)))
             return tuple(out)
         return call
 
-    instrument(wk, "whitted_frame", counted, r.render_frame)
+    instrument(wk, "whitted_frame_rows", counted, r.render_frame)
     if not len(launches) == len(dev_ms) == len(call_ms) == 1:
-        raise AssertionError(f"{len(launches)} whitted_frame launches in a "
-                             "frame, expected 1")
+        raise AssertionError(f"{len(launches)} whitted_frame_rows launches "
+                             "in a frame, expected 1")
     ln = launches[0]
     kw = {k: v for k, v in ln["kw"].items() if k != "num_mats"}
-    ref = wk.whitted_frame_reference(*ln["args"], **kw)
-    if not all(torch.equal(x, y) for x, y in zip(ref[:2], ln["got"])):
-        raise AssertionError("whitted_frame's sampled lanes differ from the "
-                             "plain version")
+    full = ln["full"]
+    # the count arm (in the frame) and the timed arm (the frame's
+    # inputs again) against the plain version on every lane: energy,
+    # state and the traced total bitwise
+    ref = wk.whitted_frame_reference(*full[:7], columns(*full[7:9]),
+                                     full[9], **kw)
+    timed = wk.whitted_frame_rows(*full, **ln["kw"])
+    for arm, got in (("count", ln["got"]), ("timed", timed)):
+        if not all(torch.equal(x, y) for x, y in zip(ref, got)):
+            raise AssertionError(f"whitted_frame_rows' {arm} arm differs "
+                                 "from the plain version on the frame's "
+                                 "lanes (energy, state, traced)")
     it = dict(zip(ptf.COUNTERS, (int(v) for v in ln["iters"])))
-    b = whitted_bound(it, ln["lanes"], ds)
+    b = whitted_bound(it, ln["lanes"], ds,
+                      ray_bytes(ln["lanes"], rows=full[7:9]))
+    # the frame's launch: per depth, every lane missing, the device
+    # operations of one call (the launch alone), the waves
+    per_depth = whitted_depths(ds, full, ln["kw"], kw["depths"])
+    mo, md = miss_rows(*full[7:9])
+    miss_args = full[:7] + (mo, md, full[9])
+    miss_out = wk.whitted_frame_rows(*miss_args, **ln["kw"])
+    miss_ref = wk.whitted_frame_reference(*full[:7], columns(mo, md),
+                                          full[9], **kw)
+    if not all(torch.equal(x, y) for x, y in zip(miss_out, miss_ref)):
+        raise AssertionError("whitted_frame_rows differs from the plain "
+                             "version on the frame's lanes all missing")
+    miss_ms = launch_ms(lambda: wk.whitted_frame_rows(*miss_args,
+                                                      **ln["kw"]),
+                        "whitted_kernel", reps=5)
+    ops = device_ops(lambda: wk.whitted_frame_rows(*full, **ln["kw"]))
+    if len(ops) != 1 or "whitted_kernel" not in ops[0]:
+        raise AssertionError(f"a whitted_frame_rows call ran {ops}, "
+                             "expected the kernel alone")
+    # a rendered frame's trace_whitted_kernel span: its device operations
+    # in a profiling session of their own; the glue is every one but the
+    # kernel
+    span_ops = []
+
+    def spanned(entry):
+        def call(*a, **k):
+            out = []
+            span_ops.extend(device_ops(lambda: out.append(entry(*a, **k))))
+            return out[0]
+        return call
+
+    instrument(whitted, "trace_whitted_kernel", spanned, r.render_frame)
+    glue = [x for x in span_ops if "whitted_kernel" not in x]
+    if len(span_ops) - len(glue) != 1:
+        raise AssertionError(f"a frame's trace_whitted_kernel ran "
+                             f"{span_ops}, expected one whitted_kernel")
+    resident = wk.resident_threads(dev)
     main_path = [dict(lanes=ln["lanes"], depths=kw["depths"], ms=dev_ms[0],
                       call_ms=call_ms[0], bound_ms=b[0], bound_by=b[1],
-                      sampled_lanes=int(ref[1].shape[0]),
-                      max_abs_err=float((ref[0] - ln["got"][0]).abs().max()),
-                      iters=it)]
+                      checked_lanes=int(ref[1].shape[0]),
+                      max_abs_err=float((ref[0] - timed[0]).abs().max()),
+                      iters=it, per_depth=per_depth,
+                      all_miss_ms=sum(miss_ms) / len(miss_ms),
+                      device_ops_per_call=len(ops),
+                      glue_launches_per_frame=len(glue), glue_ops=glue,
+                      resident_threads=resident,
+                      waves=ln["lanes"] / resident)]
     ms, traced, rate, got = timed_frames(r, "whitted frames", profile,
                                          "whitted-kernel", whitted_frame=1)
 
@@ -4427,9 +4581,11 @@ def main() -> int:
         "bound_by": whit["bound"][1],
         "library_ms": None,
         "check_lanes": CHECK_LANES,
+        "check_masks": whit["masks"],
         "main_path": [{key: mp[key] for key in (
             "lanes", "depths", "ms", "call_ms", "bound_ms", "bound_by",
-            "sampled_lanes", "max_abs_err")} for mp in whit_path],
+            "checked_lanes", "max_abs_err", "per_depth", "all_miss_ms",
+            "glue_launches_per_frame", "waves")} for mp in whit_path],
     })
     # the instance arms: their 8192-lane check on config 5's object-space
     # scene, launches from config 5's object-space route (B4: from the

@@ -254,7 +254,8 @@ struct Counters {  // work done: node / leaf rows visited, rays traversed
   unsigned long long node = 0, leaf = 0, snode = 0, sleaf = 0, ray = 0,
                      sray = 0;
   // shadow_resolve's count arm: the most rows one shadow ray's walk
-  // visited (the launch's longest walk; a maximum, not a sum)
+  // visited (the launch's longest walk; a maximum, not a sum); the
+  // Whitted kernel's: the most live depths of one lane
   unsigned long long longest = 0;
 };
 // the summed counts (node .. sray); the count arms' iters then hold the
@@ -949,28 +950,33 @@ PT_HD bool any_hit(const Tree& tr, float ox, float oy, float oz, float dx,
 // ---- analytic primitives (megakernel._analytic_tests) ---------------------
 
 // sphere s: hit distance ts or +inf (the shared predicate of the closest
-// and the occlusion tests)
+// and the occlusion tests).  A ray behind the sphere or passing outside
+// it (NaN included) returns before the square root: the same value.
 PT_HD float sphere_t(const float* s, float ox, float oy, float oz, float dx,
                      float dy, float dz) {
   float elx = s[0] - ox, ely = s[1] - oy, elz = s[2] - oz;
   float rsq = s[S_RSQ];
   float tca = elx * dx + ely * dy + elz * dz;
   float d2 = (elx * elx + ely * ely + elz * elz) - tca * tca;
+  if (!(tca >= 0.0f && d2 <= rsq)) return INF_F;
   float thc = sqrtf(fmaxf(rsq - d2, 0.0f));
   float t0 = tca - thc;
   float t1 = tca + thc;
   float ts = t0 < 0.0f ? t1 : t0;
-  bool vs = tca >= 0.0f && d2 <= rsq && ts >= 0.0f;
-  return vs ? ts : INF_F;
+  return ts >= 0.0f ? ts : INF_F;
 }
 
+// plane p: hit distance tp or +inf.  Where the signs of the numerator and
+// the denominator already rule a hit out (tp would be <= 0 or NaN) it
+// returns before the division: the same value.
 PT_HD float plane_t(const float* p, float ox, float oy, float oz, float dx,
                     float dy, float dz) {
   float denom = dx * p[3] + dy * p[4] + dz * p[5];
   bool den_ok = fabsf(denom) > PLANE_DENOM_EPS;
-  float tp = ((p[0] - ox) * p[3] + (p[1] - oy) * p[4] + (p[2] - oz) * p[5]) /
-             (den_ok ? denom : 1.0f);
-  return (den_ok && tp > 0.0f) ? tp : INF_F;
+  float num = (p[0] - ox) * p[3] + (p[1] - oy) * p[4] + (p[2] - oz) * p[5];
+  if (!den_ok || num == 0.0f || (num > 0.0f) != (denom > 0.0f)) return INF_F;
+  float tp = num / denom;
+  return tp > 0.0f ? tp : INF_F;
 }
 
 // kind: 0 = mesh/miss, 1 + s = sphere s, 1 + S + p = plane p

@@ -52,6 +52,21 @@ bool traverse_body(const pt::Params& p, const pt::Tables&, int lane,
                      : pt::traverse_lane<false>(a, p.tree, lane, cnt);
 }
 
+// count_iters: the host run's counts into a->iters.
+void add_counts(const pt::PtArgs* a, const pt::Counters& cnt) {
+  if (!a->iters) return;
+  auto* it = static_cast<unsigned long long*>(a->iters);
+  it[0] += cnt.node;
+  it[1] += cnt.leaf;
+  it[2] += cnt.snode;
+  it[3] += cnt.sleaf;
+  it[4] += cnt.ray;
+  it[5] += cnt.sray;
+  if (cnt.longest > it[pt::NUM_COUNTERS + 2]) {
+    it[pt::NUM_COUNTERS + 2] = cnt.longest;
+  }
+}
+
 int run(const pt::PtArgs* a, LaneFn fn) {
   if (a->small_words != pt::small_words(*a) || pt::refused(*a)) return -1;
   pt::Tables tb;
@@ -64,18 +79,7 @@ int run(const pt::PtArgs* a, LaneFn fn) {
     ok &= fn ? fn(p, tb, lane, cnt) : traverse_body(p, tb, lane, cnt, *a);
   }
   if (!ok) *static_cast<int*>(a->status) |= 1;
-  if (a->iters) {
-    auto* it = static_cast<unsigned long long*>(a->iters);
-    it[0] += cnt.node;
-    it[1] += cnt.leaf;
-    it[2] += cnt.snode;
-    it[3] += cnt.sleaf;
-    it[4] += cnt.ray;
-    it[5] += cnt.sray;
-    if (cnt.longest > it[pt::NUM_COUNTERS + 2]) {
-      it[pt::NUM_COUNTERS + 2] = cnt.longest;
-    }
-  }
+  add_counts(a, cnt);
   return 0;
 }
 
@@ -92,8 +96,23 @@ extern "C" int traverse_host(const pt::PtArgs* a) {
   return run(a, nullptr);
 }
 
-extern "C" int whitted_host(const pt::PtArgs* a) {
-  return run(a, pt::whitted_lane);
+// The Whitted kernel's lanes one after another (count_iters' counts
+// whenever asked), the traced total summed here.
+extern "C" int whitted_host(const pt::PtArgs* a, const pt::WhittedIO* io) {
+  if (a->small_words != pt::small_words(*a)) return -1;
+  if (!io->traced) return -2;
+  pt::Tables tb;
+  pt::Tree tree, sh_tree;
+  pt::unpack(*a, static_cast<const float*>(a->small), tb, tree, sh_tree);
+  const pt::Params p = pt::make_params(*a, tree, sh_tree);
+  pt::Counters cnt;
+  long long tr = 0;
+  for (int lane = 0; lane < a->n; ++lane) {
+    tr += pt::whitted_lane<true>(p, tb, *io, lane, true, cnt);
+  }
+  *static_cast<long long*>(io->traced) = tr;
+  add_counts(a, cnt);
+  return 0;
 }
 
 // shade_extend's lane body under the arguments `a`, as csrc/megakernel.cu
@@ -141,5 +160,12 @@ extern "C" int mk_shadow_resolve_host(const pt::PtArgs* a) {
 
 extern "C" int pt_args_layout(long long* out) {
   pt::args_layout(out);
+  return 0;
+}
+
+extern "C" int whitted_io_layout(long long* out) {
+  out[0] = (long long)sizeof(pt::WhittedIO);
+  out[1] = (long long)offsetof(pt::WhittedIO, traced);
+  out[2] = (long long)offsetof(pt::WhittedIO, scratch);
   return 0;
 }

@@ -230,11 +230,10 @@ def trace_whitted_kernel(dev: DeviceScene, settings: RenderSettings, origin,
     state and traced equal trace_whitted's; energy within the megakernel
     contract.  `idx` is unused: analytic scenes are not sorted."""
     del idx
-    rays = tuple(origin[:, k].contiguous() for k in range(3)) + tuple(
-        direction[:, k].contiguous() for k in range(3))
-    energy, state, traced = wk.whitted_frame(
+    energy, state, traced = wk.whitted_frame_rows(
         dev.mk_mats, dev.mk_lights, dev.mk_sph, dev.mk_pln, dev.mk_sph_mat,
-        dev.mk_pln_mat, dev.mk_objmat, rays, state, num_mats=dev.num_mats,
+        dev.mk_pln_mat, dev.mk_objmat, origin, direction, state,
+        num_mats=dev.num_mats,
         num_lights=dev.num_lights, num_sph=dev.num_sph,
         num_pln=dev.num_pln, depths=settings.max_ray_depth + 1)
     return state, kernel_result(energy, traced)

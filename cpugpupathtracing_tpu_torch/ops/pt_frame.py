@@ -121,7 +121,8 @@ _UNITS = (
     ("pt_frame.cu", ("pt_frame_launch", "pt_frame_resident")),
     ("megakernel.cu", ("mk_shade_extend_launch", "mk_shadow_resolve_launch")),
     ("traverse.cu", ("traverse_launch", "pt_args_layout")),
-    ("whitted.cu", ("whitted_launch",)),
+    ("whitted.cu", ("whitted_launch", "whitted_resident",
+                    "whitted_io_layout")),
     # the traversal labs (labs/)
     ("lab2.cu", ("lab2_launch", "lab2p_launch", "lab_args_layout")),
     ("lab3.cu", ("lab3_launch",)),
@@ -135,6 +136,7 @@ _UNITS = (
 )
 _HOST_SOURCES = ("pt_host_check.cc", "pt_device.cuh", "whitted.cuh")
 _HOST_ENTRIES = ("pt_frame_host", "traverse_host", "whitted_host",
+                 "whitted_io_layout",
                  "mk_shade_extend_host", "mk_shadow_resolve_host",
                  "pt_args_layout")
 _MAX_SMALL_BYTES = 48 * 1024
@@ -218,12 +220,17 @@ def _check_layout(fns: dict, what: str) -> None:
                            f"ctypes mirror's {want}")
 
 
+# entries that take a second pointer after the PtArgs (whitted.cu's
+# WhittedIO); every other entry takes one
+_TWO_ARGS = ("whitted_launch", "whitted_resident", "whitted_host")
+
+
 def _bind(lib, names) -> dict:
     fns = {}
     for name in names:
         fn = getattr(lib, name)
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * (2 if name in _TWO_ARGS else 1)
         fns[name] = fn
     return fns
 
@@ -508,7 +515,8 @@ def launch_args(dev, nodes, ltris, sh_nodes, sh_ltris, tables, rays, *, n,
     closest-hit tree, the shadow tree (both None, with no roots, for the
     Whitted kernel, which walks none), the eight small tables (f32 mats,
     lights, light triangles, spheres, planes; i32 sphmat, plnmat,
-    objmat), six (n,) f32 ray columns, the mode and the stream; `inst`
+    objmat), six (n,) f32 ray columns (or None: the caller sets them),
+    the mode and the stream; `inst`
     the instance tables (check_instances) of a walk on the object-space
     machinery; the node layout of the closest-hit tree (ents, fused_nn,
     width, as resolve_tables resolved them) and the shadow tree's side
@@ -526,7 +534,7 @@ def launch_args(dev, nodes, ltris, sh_nodes, sh_ltris, tables, rays, *, n,
         raise ValueError("roots given without a tree")
     for k, t in enumerate(tables):
         _check(f"table {k}", t, torch.int32 if k >= 5 else torch.float32, dev)
-    for c in range(6):
+    for c in range(6 if rays is not None else 0):
         _check(f"rays[{c}]", rays[c], torch.float32, dev, (n,))
     small = _small_tables(tables, light_tri_meta, roots, sh_roots)
     if small.numel() * 4 > _MAX_SMALL_BYTES:
@@ -538,7 +546,7 @@ def launch_args(dev, nodes, ltris, sh_nodes, sh_ltris, tables, rays, *, n,
         a.nodes, a.ltris = nodes.data_ptr(), ltris.data_ptr()
         a.sh_nodes, a.sh_ltris = sh_nodes.data_ptr(), sh_ltris.data_ptr()
     a.small = small.data_ptr()
-    for c in range(6):
+    for c in range(6 if rays is not None else 0):
         a.ray[c] = rays[c].data_ptr()
     a.small_words = small.numel()
     a.mat_rows, a.light_rows = mats.shape[0], lights.shape[0]

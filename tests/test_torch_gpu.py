@@ -21,9 +21,11 @@ and fused shading tables, instances) over the same kinds of wavefront,
 columns off 16-byte alignment, two launches in a row and 100 times the
 lanes, bitwise.  traverse_packet_slim's closest
 hits equal its plain version's bitwise and its any hits in existence;
-whitted_frame equals its plain version bitwise (energy, state, traced);
-the two Whitted routes agree on state and traced exactly and on energy
-bitwise.  On an instanced scene on the object-space machinery the
+whitted_frame equals its plain version bitwise (energy, state, traced),
+through its six-column and its (n, 3) rows entry, on every lane
+missing, one live lane a warp and rays into the glass sphere at 1 to 5
+depths, and on more lanes than the card keeps resident; the two Whitted
+routes agree on state and traced exactly and on energy bitwise.  On an instanced scene on the object-space machinery the
 instance arms of traverse_packet_slim, shade_extend and shadow_resolve
 equal their plain versions bitwise, and a refit on the card equals a
 fresh build bitwise.  traverse_packet_slim's count_depth arm (plain and
@@ -528,6 +530,92 @@ def test_whitted_routes_agree(whitted_card):
     assert int(one.traced_rays) == int(two.traced_rays)
     assert torch.equal(s1, s2)
     assert torch.equal(one.energy, two.energy)
+
+
+def _whitted_case(o, d, case: str):
+    """(origin, direction) rows of a B5 lane case: every lane missing
+    (straight back, away from the scene), one live lane a warp (lane 16 of
+    each 32 keeps its camera ray, the others miss), or every ray straight
+    into the glass sphere (its center, jittered by a seeded numpy draw:
+    refraction, total internal reflection and Beer's law over 5 depths)."""
+    away = torch.zeros_like(d)
+    away[:, 2] = 1.0
+    if case == "all_miss":
+        return o, away
+    if case == "one_live_a_warp":
+        keep = (torch.arange(o.shape[0], device=o.device) % 32 == 16)[:, None]
+        return o, torch.where(keep, d, away)
+    rng = np.random.default_rng(15)
+    jitter = torch.from_numpy(rng.uniform(-0.35, 0.35, (o.shape[0], 3)))
+    tgt = torch.tensor([0.8, -0.2, 1.5]) + jitter.float()
+    dd = tgt.to(o.device) - o
+    return o, dd / dd.norm(dim=1, keepdim=True)
+
+
+def _whitted_args(dev, st):
+    return ((dev.mk_mats, dev.mk_lights, dev.mk_sph, dev.mk_pln,
+             dev.mk_sph_mat, dev.mk_pln_mat, dev.mk_objmat),
+            dict(num_lights=dev.num_lights, num_sph=dev.num_sph,
+                 num_pln=dev.num_pln))
+
+
+@pytest.mark.parametrize("depths", [1, 2, 3, 4, 5])
+@pytest.mark.parametrize("case", ["all_miss", "one_live_a_warp", "glass"])
+def test_whitted_frame_lane_cases(whitted_card, case, depths):
+    """B5 through both entries (six columns; the (n, 3) rows with the
+    camera origin expanded over every lane) against its plain version
+    bitwise on energy, state and traced, at 1 to 5 depths."""
+    dev, o, d, st = whitted_card
+    o, d = _whitted_case(o, d, case)
+    tables, kw = _whitted_args(dev, st)
+    ref = wk.whitted_frame_reference(*tables, _rays(o, d), st,
+                                     depths=depths, **kw)
+    cols = wk.whitted_frame(*tables, _rays(o, d), st, num_mats=dev.num_mats,
+                            depths=depths, **kw)
+    rows = wk.whitted_frame_rows(*tables, o, d, st, num_mats=dev.num_mats,
+                                 depths=depths, **kw)
+    for got in (cols, rows):
+        assert int(got[2]) == int(ref[2])
+        assert torch.equal(got[1], ref[1])
+        assert torch.equal(got[0], ref[0])
+    if case == "all_miss":
+        assert int(ref[2]) == W * H
+
+
+def test_whitted_frame_past_resident(whitted_card):
+    """A launch of more lanes than the card keeps resident (the camera
+    lanes repeated) equals the plain version bitwise, and its traced
+    total is the sum over the repeats."""
+    dev, o, d, st = whitted_card
+    tables, kw = _whitted_args(dev, st)
+    reps = wk.resident_threads(torch.device("cuda")) // (W * H) + 2
+    o, d, st = o.repeat(reps, 1), d.repeat(reps, 1), st.repeat(reps)
+    got = wk.whitted_frame_rows(*tables, o, d, st, num_mats=dev.num_mats,
+                                depths=5, **kw)
+    ref = wk.whitted_frame_reference(*tables, _rays(o, d), st, depths=5,
+                                     **kw)
+    one = wk.whitted_frame_reference(*tables, _rays(o[:W * H], d[:W * H]),
+                                     st[:W * H], depths=5, **kw)
+    assert int(got[2]) == int(ref[2]) == reps * int(one[2])
+    assert torch.equal(got[1], ref[1])
+    assert torch.equal(got[0], ref[0])
+
+
+def test_whitted_rows_entry_matches_columns(whitted_card):
+    """whitted_frame_rows on the camera's expanded origin and on a
+    contiguous copy of it equals whitted_frame on six columns bitwise;
+    each call is one launch, counted once."""
+    dev, o, d, st = whitted_card
+    tables, kw = _whitted_args(dev, st)
+    assert o.stride(0) == 0
+    before = _launched("whitted_frame")
+    cols = wk.whitted_frame(*tables, _rays(o, d), st, num_mats=dev.num_mats,
+                            depths=5, **kw)
+    for origin in (o, o.contiguous()):
+        rows = wk.whitted_frame_rows(*tables, origin, d, st,
+                                     num_mats=dev.num_mats, depths=5, **kw)
+        assert all(torch.equal(x, y) for x, y in zip(rows, cols))
+    assert _launched("whitted_frame") == before + 3
 
 
 def _instanced_scene():
