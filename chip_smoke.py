@@ -20,7 +20,12 @@ the XLA integrator (`trace_advanced`, `traverse_packet_slim` per scene
 query, its count_depth arm with AOVs) on config 3 with AOVs off and on
 and in the RAY_DEPTH and BVH_DEPTH views, on config 5's object-space
 scene with AOVs, on a mesh light over the light table and on config 1
-in ADVANCED mode; and configs 3 and 5 under every node-table layout and
+in ADVANCED mode; config 3 in the BRUTE_FORCE and COMPARISON modes
+(`traverse_packet_slim` per scene query); config 2 (the midpoint-split
+glTF scene, icosphere fallback) at 1280x720 on both ADVANCED routes;
+config 4 (config 3 at 4 spp) as 1-spp sub-steps against the unrolled
+frame and through `render_pipelined`; a live material edit on config 3;
+and configs 3 and 5 under every node-table layout and
 leaf-side / occlusion variant (CPUGPU_LEAF14, CPUGPU_OCCL2,
 CPUGPU_OCCL_W16), the traversal labs L1-L4, L6 and L7 on config 3's
 bounce fan, and the TPU probes L5, L8 and L9 -- and holds every CUDA
@@ -105,6 +110,31 @@ Phases, one line each; any failure raises and exits non-zero:
                  1920x1080: the accumulator is unchanged across a view
                  frame; ray_depth in [0, depth + 1] and bvh_depth >= 1 on
                  every lane whose primary ray hits a mesh; timed frames
+ 11c. frame_brute / frame_comparison  config 3 at 1920x1080 in the
+                 BRUTE_FORCE mode (trace_brute: one closest-hit launch and
+                 one morton5 sort per depth, 6 + 6 a frame) and the
+                 COMPARISON mode (left half trace_brute, right half
+                 trace_advanced, unsorted: 6 + 12 launches a frame), every
+                 256th lane of every launch of one frame against the plain
+                 version (bitwise; any hits in existence), timed frames
+                 (ms/frame, Mrays/s, B4 launches a frame);
+                 [compare_halves]: the COMPARISON frame's left columns
+                 equal a BRUTE_FORCE frame's and its right columns an
+                 XLA-route ADVANCED frame's, bitwise
+ 11d. scene2 / frame2 / frame2_mega  config 2 (NAIVE_SPLIT trees) at
+                 1280x720 through phases 6 and 7 (2 pt_frame launches and
+                 1 sort, 6 + 6 per-depth launches and 3 sorts a frame),
+                 every sampled lane's energy bitwise against the plain
+                 version, the per-depth frame equal to the whole-frame one
+ 11e. frame4 / substeps4  config 4 (config 3's scene at 4 spp) through
+                 phase 6 (8 pt_frame launches and 4 sorts a frame, every
+                 launch sampled); one frame as 1-spp sub-steps and one
+                 unrolled (CPUGPU_SPP_UNROLL=1): same launches, same
+                 traced count, radiance within 1e-5; render_pipelined
+                 timed
+ 11f. edit3      one material edit between two config-3 frames: the
+                 accumulator resets, a new snapshot, and the frame equals
+                 a fresh renderer's on the edited scene bitwise
  12. scene5      config 5 built flattened (default) and object-space
                  (CPUGPU_NO_FLATTEN=1, sharing the trees): seconds, table
                  bytes, flat_bytes against the budget, tree rows, TLAS
@@ -231,7 +261,12 @@ Phases, one line each; any failure raises and exits non-zero:
      main-path launch its lanes, ms, bound and sampled error; the
      instance arms, the count_depth arms, the variant arms and the leaf
      arms as entries of their own (`*_inst`, `*_depth`, `*_<layout>`,
-     `*_<layout>_<occl|occl2|pay|ow16>`); the six lab kernels with the
+     `*_<layout>_<occl|occl2|pay|ow16>`); the routes of phases 11c-e as
+     entries of their own (`traverse_packet_slim_brute`,
+     `traverse_packet_slim_comparison`, `pt_frame_config2`,
+     `shade_extend_config2`, `shadow_resolve_config2`,
+     `pt_frame_config4`: per launch of a frame its mean ms, bound and
+     plain version's ms on the sampled lanes); the six lab kernels with the
      check-lane numbers of their default arm and, per arm, its numbers on
      the fan (`arms`); the probes L5 (per stage set), L8 (per case) and
      L9 (per size)
@@ -241,7 +276,7 @@ Phases 3-17 run the plain 64-col arms (CPUGPU_SMEMTREE=0 for their
 scenes); the port's default tables (the JAX benchmark's) are the "48"
 layout of phase 20.
 
---profile adds, after phases 6, 7, 10, 11, 11a-b, 14-16 and 17b-d, a
+--profile adds, after phases 6, 7, 10, 11, 11a-e, 14-16 and 17b-d, a
 torch.profiler
 table of two frames' device time by kernel, the device-busy share of the
 frame time and the host-to-device copies from pageable memory per frame,
@@ -263,6 +298,9 @@ import sys
 import time
 
 CHECK_LANES = 8192
+# samples a frame of config 4 (the JAX benchmark's config 4 at its
+# lowest setting, 4-64 spp)
+CONFIG4_SPP = 4
 TIMED_FRAMES = 5
 # timed frames per route of the leaf phases (22, 23): their arms' numbers
 # come from the check lanes and the sampled launches
@@ -1013,7 +1051,8 @@ def frame_mega(scene, cam_cfg, settings, width, height, small_bytes,
             it = dict(zip(ptf.COUNTERS, (int(v) for v in ln["iters"])))
             what = f"per-depth launch {k + 1} ({ln['name']}), sampled lanes"
             if ln["name"] == "shade_extend":
-                ref = shade_plain(mk, ln["args"], ln["kw"], rec)
+                ref, p_ms = timed_plain(lambda: shade_plain(
+                    mk, ln["args"], ln["kw"], rec))
                 if not torch.equal(ref[4], ln["got"][1]):
                     raise AssertionError(f"{what}: flags differ")
                 e_ref, e_got = ref[3], ln["got"][0]
@@ -1021,8 +1060,9 @@ def frame_mega(scene, cam_cfg, settings, width, height, small_bytes,
                              layouts=launch_layouts(ln["args"][0], ln["kw"]),
                              leaves=leaf_kinds(ln["kw"]))
             else:
-                e_ref = resolve_plain(mk, ln["args"], ln["kw"],
-                                      orec if ln["kw"]["occl"] else rec)
+                e_ref, p_ms = timed_plain(lambda: resolve_plain(
+                    mk, ln["args"], ln["kw"],
+                    orec if ln["kw"]["occl"] else rec))
                 e_got = ln["got"][0]
                 b = bound_ms(it, ln["lanes"] * SR_LANE
                              + it["sray"] * SR_SHADOW, sr_small,
@@ -1037,7 +1077,7 @@ def frame_mega(scene, cam_cfg, settings, width, height, small_bytes,
                 name=ln["name"], depth=k // 2,
                 layout=launch_layouts(ln["args"][0], ln["kw"])[0],
                 lanes=ln["lanes"], ms=ms,
-                call_ms=c_ms, bound_ms=b[0], bound_by=b[1],
+                call_ms=c_ms, plain_ms=p_ms, bound_ms=b[0], bound_by=b[1],
                 **walk_share(ln["name"], it),
                 sampled_lanes=int(e_got[0].shape[0]), max_abs_err=err,
                 flip_share=flips, mean_err=mean,
@@ -2421,9 +2461,9 @@ def traverse_main_path(frame_fn, what: str, per_depth: int) -> list:
         nodes, ltris, roots = ln["tree"]
         inst = ln["inst"]
         got = ln["got"]
-        ref = flat_hit(trav_plain(tps, ln["rays"], ln["t_init"], nodes,
-                                  ltris, roots, ln["active"], ln["any_hit"],
-                                  ln["count_depth"], inst, ln["layout"]))
+        ref, p_ms = timed_plain(lambda: flat_hit(trav_plain(
+            tps, ln["rays"], ln["t_init"], nodes, ltris, roots, ln["active"],
+            ln["any_hit"], ln["count_depth"], inst, ln["layout"])))
         if ln["any_hit"] and not ln["count_depth"]:
             mism = int(((got[1] >= 0) != (ref[1] >= 0)).sum())
         else:
@@ -2444,7 +2484,8 @@ def traverse_main_path(frame_fn, what: str, per_depth: int) -> list:
             kind="any" if ln["any_hit"] else "closest",
             count_depth=ln["count_depth"], instance_arm=bool(inst),
             lanes=ln["lanes"], active=it["ray"], ms=None, call_ms=c_ms,
-            bound_ms=b[0], bound_by=b[1], sampled_lanes=int(got[0].shape[0]),
+            plain_ms=p_ms, bound_ms=b[0], bound_by=b[1],
+            sampled_lanes=int(got[0].shape[0]),
             max_abs_err=float((got[0] - ref[0]).abs().max())
             if not ln["any_hit"] else 0.0, mismatches=mism,
             hits=int((got[1] >= 0).sum()),
@@ -2854,16 +2895,18 @@ def c2_lanes(phase: str, ds, cam_cfg, width, height) -> dict:
 
 
 def frame_whole(scene, cam_cfg, settings, width, height, small_bytes,
-                profile: bool, phase: str = "frame"):
+                profile: bool, phase: str = "frame", spp: int = 1):
     """Phase 6: config 3 through Renderer on the whole-frame route: one
     warm-up frame; one frame timing each kernel launch; one frame
     counting each launch's work and holding every SAMPLE_STRIDE-th lane
     of both launches (their real inputs: 2 depths with the carry out,
-    then 4 sorted depths with the carry in) against the plain version;
-    then timed frames through Renderer.  The pt_frame arm is ARM's.
-    Returns (main-path entries, counts, a dict of the frame time, rate
-    and the renderer); prints the [<phase>] line and one
-    [<phase>_launch<k>] line per launch ([launch<k>] for phase 6)."""
+    then 4 sorted depths with the carry in) against the plain version
+    (timed: plain_ms); then timed frames through Renderer.  The pt_frame
+    arm is ARM's.  At spp > 1 samples a frame (config 4) every sample's
+    two launches, as the Renderer's 1-spp sub-steps make them.  Returns
+    (main-path entries, counts, a dict of the frame time, rate and the
+    renderer); prints the [<phase>] line and one [<phase>_launch<k>]
+    line per launch ([launch<k>] for phase 6)."""
     import torch
     from cpugpupathtracing_tpu_torch.config import RenderConfig
     from cpugpupathtracing_tpu_torch.models.renderer import Renderer
@@ -2871,14 +2914,17 @@ def frame_whole(scene, cam_cfg, settings, width, height, small_bytes,
 
     dev = torch.device("cuda")
     r = Renderer(scene, camera=cam_cfg,
-                 config=RenderConfig(width=width, height=height),
+                 config=RenderConfig(width=width, height=height,
+                                     samples_per_frame=spp),
                  settings=settings, device=dev)
     r.render_frame()  # warm-up
     entry = ptf.pt_frame
+    spans_per_frame = 2 * spp
 
     # one frame timing each launch on the device, one with CUDA events
     # around each wrapper call
-    span_ms = launch_ms(r.render_frame, "pt_frame_kernel", expect=2)
+    span_ms = launch_ms(r.render_frame, "pt_frame_kernel",
+                        expect=spans_per_frame)
     span_call_ms = wrapper_ms(ptf, ("pt_frame",), r.render_frame)
 
     # one frame counting each launch's work and keeping every
@@ -2901,12 +2947,15 @@ def frame_whole(scene, cam_cfg, settings, width, height, small_bytes,
         return tuple(out)
 
     instrument(ptf, "pt_frame", lambda _: counted, r.render_frame)
-    if not len(spans) == len(span_ms) == len(span_call_ms) == 2:
-        raise AssertionError(f"{len(spans)} launches in a frame, expected 2")
+    if not (len(spans) == len(span_ms) == len(span_call_ms)
+            == spans_per_frame):
+        raise AssertionError(f"{len(spans)} launches in a frame, expected "
+                             f"{spans_per_frame}")
     main_path = []
     for sp, ms, c_ms in zip(spans, span_ms, span_call_ms):
         k = dict(sp["kw"], carry_in=sp["carry_in"])
-        res = plain(ptf, sp["tables"], sp["rays"], sp["state"], **k)
+        res, p_ms = timed_plain(lambda: plain(ptf, sp["tables"], sp["rays"],
+                                              sp["state"], **k))
         e_ref = torch.stack(res[3], 1) if k.get("carry_out") else res[0]
         what = f"{phase} launch {len(main_path) + 1}, sampled lanes"
         s_flips, s_max, s_mean = contract(e_ref, sp["energy"], what)
@@ -2919,7 +2968,7 @@ def frame_whole(scene, cam_cfg, settings, width, height, small_bytes,
         main_path.append(dict(
             lanes=sp["lanes"], depths=k["depths"],
             depth_base=k.get("depth_base", 0), layouts=layouts, ms=ms,
-            call_ms=c_ms, bound_ms=sb_ms,
+            call_ms=c_ms, plain_ms=p_ms, bound_ms=sb_ms,
             bound_by=sb_by, lane_share=it["ltrip"] / (32 * it["wtrip"]),
             sampled_lanes=sp["state"].shape[0],
             max_abs_err=s_max, flip_share=s_flips, mean_err=s_mean,
@@ -2931,13 +2980,14 @@ def frame_whole(scene, cam_cfg, settings, width, height, small_bytes,
 
     # the main path: timed frames, every count from 0
     frame_ms, traced, rate, frame_counts = timed_frames(
-        r, f"{phase} frames", False, "whole-frame", pt_frame=2, sorts=1)
+        r, f"{phase} frames", False, "whole-frame", pt_frame=spans_per_frame,
+        sorts=spp)
     ptf.check_status(dev)
     r.total_energy_received = 0.0
     r.num_accumulated = 0
     r.render_frame()
     energy = frame_checks(r, phase, height, width)
-    say(phase, width=width, height=height, frames=TIMED_FRAMES,
+    say(phase, width=width, height=height, spp=spp, frames=TIMED_FRAMES,
         ms_per_frame=frame_ms, kernel_share=sum(span_ms) / frame_ms,
         mrays_per_s=rate / 1e6, traced_per_frame=traced,
         launches_per_frame=frame_counts[arm("pt_frame")] / TIMED_FRAMES,
@@ -4267,6 +4317,271 @@ def probe_entries(launch: dict, smem: dict) -> list:
     }]
 
 
+def brute_modes(scene, cam_cfg, settings, width, height,
+                profile: bool) -> dict:
+    """Phases [frame_brute] and [frame_comparison]: config 3 at 1920x1080
+    in the BRUTE_FORCE and COMPARISON modes through Renderer.  A
+    BRUTE_FORCE frame (trace_brute) makes one closest-hit launch of
+    traverse_packet_slim and one morton5 sort per depth; a COMPARISON
+    frame one closest-hit launch per depth for its left half
+    (trace_brute) and a closest and a shadow any-hit launch per depth for
+    its right half (trace_advanced), without sorts.  Every launch of one
+    frame holds every SAMPLE_STRIDE-th lane against its plain version
+    (traverse_main_path), then TIMED_FRAMES timed frames with every count
+    from 0.  [compare_halves]: the first frame of each mode and one
+    ADVANCED frame on the XLA route (CPUGPU_NO_MEGAKERNEL=1), all from a
+    fresh Renderer: the COMPARISON frame's left width // 2 columns equal
+    the BRUTE_FORCE frame's and its right columns the XLA frame's,
+    bitwise.  Returns {run: (main-path entries, counts, numbers)}."""
+    import torch
+    from cpugpupathtracing_tpu_torch.config import RenderConfig, RenderMode
+    from cpugpupathtracing_tpu_torch.models.renderer import Renderer
+    from cpugpupathtracing_tpu_torch.ops import pt_frame as ptf
+
+    dev = torch.device("cuda")
+    config = RenderConfig(width=width, height=height)
+    depths = settings.max_ray_depth + 1
+    runs = {"brute": (RenderMode.BRUTE_FORCE,
+                      dict(traverse_packet_slim=depths, sorts=depths)),
+            "comparison": (RenderMode.COMPARISON,
+                           dict(traverse_packet_slim=3 * depths))}
+    out, first = {}, {}
+    for run, (mode, want) in runs.items():
+        r = Renderer(scene, camera=cam_cfg, config=config,
+                     settings=settings.replace(render_mode=mode), device=dev)
+        reset_counts()
+        r.render_frame()
+        expect_counts(counts(), f"{run} frame from reset", **want)
+        first[run] = r._accumulator.clone()
+        energy = frame_checks(r, run, height, width)
+        main_path = traverse_main_path(r.render_frame, f"{run} frame", 1)
+        for mp in main_path:
+            k = mp["launch"] - 1
+            if run == "comparison":  # the left half's launches first
+                mp["half"] = "left" if k < depths else "right"
+                mp["depth"] = k if k < depths else (k - depths) // 2
+        ms, traced, rate, got = timed_frames(r, f"{run} frames", profile,
+                                             run, **want)
+        ptf.check_status(dev)
+        info = dict(ms_per_frame=ms, mrays_per_s=rate / 1e6,
+                    traced_per_frame=traced,
+                    b4_launches_per_frame=got[arm("traverse_packet_slim")]
+                    / TIMED_FRAMES,
+                    sorts_per_frame=got["sorts"] / TIMED_FRAMES,
+                    mean_energy=energy)
+        say(f"frame_{run}", width=width, height=height,
+            frames=TIMED_FRAMES, **info,
+            b4_ms_per_frame=sum(mp["ms"] for mp in main_path))
+        for mp in main_path:
+            say(f"{run}_l{mp['launch']}_{mp['kind']}", **mp)
+        out[run] = (main_path, got, info)
+
+    with environ(CPUGPU_NO_MEGAKERNEL="1"):
+        rx = Renderer(scene, camera=cam_cfg, config=config,
+                      settings=settings, device=dev)
+        rx.render_frame()
+    half = width // 2
+
+    def cols(acc, lo, hi):
+        return acc.reshape(height, width, 4)[:, lo:hi]
+
+    diff = {}
+    for side, lo, hi, ref in (("left", 0, half, first["brute"]),
+                              ("right", half, width, rx._accumulator)):
+        a, b = cols(first["comparison"], lo, hi), cols(ref, lo, hi)
+        diff[side] = int((a.view(torch.int32) != b.view(torch.int32))
+                         .any(dim=2).sum())
+    say("compare_halves", left_differs_from_brute=diff["left"],
+        right_differs_from_xla=diff["right"], half=half)
+    if diff["left"] or diff["right"]:
+        raise AssertionError(f"COMPARISON halves differ from the whole "
+                             f"frames: {diff}")
+    return out
+
+
+def frame2(dev, profile: bool) -> dict:
+    """Phases [scene2], [frame2] and [frame2_mega]: config 2 (the
+    icosphere fallback, NAIVE_SPLIT on both meshes, one sphere light;
+    ADVANCED, depth 5) at 1280x720 through Renderer on the whole-frame
+    route (pt_frame) and the per-depth route (shade_extend +
+    shadow_resolve per depth): phase 6's and 7's checks, each sampled
+    launch's energy bitwise against its plain version, and the per-depth
+    frame from reset equal to the whole-frame one.  Returns the
+    whole-frame and per-depth main paths and counts."""
+    import torch
+    from cpugpupathtracing_tpu_torch import benchscenes
+
+    scene, cam, settings, width, height, _ = \
+        benchscenes.config2_path_tracer_midpoint()
+    t0 = time.perf_counter()
+    ds = scene.device(dev)
+    torch.cuda.synchronize()
+    tb = ds.table_bytes()
+    say("scene2", seconds=round(time.perf_counter() - t0, 2),
+        build_options=",".join(o.build_option.name for o in scene.objects
+                               if o.mesh is not None),
+        triangles=ds.num_triangles, node_rows=ds.pnodes.shape[0],
+        leaf_rows=ds.pltris.shape[0], occl_node_rows=ds.poccl_nodes.shape[0],
+        table_bytes=sum(tb.values()))
+    small = sum(v for k, v in tb.items() if k.startswith("mk_"))
+    whole, whole_counts, _ = frame_whole(scene, cam, settings, width, height,
+                                         small, profile, phase="frame2")
+    mega, mega_counts, _ = frame_mega(scene, cam, settings, width, height,
+                                      small, profile, phase="frame2_mega")
+    for k, mp in enumerate(whole + mega, 1):
+        if mp["energy_bit_mismatches"]:
+            raise AssertionError(f"config 2 launch {k}: "
+                                 f"{mp['energy_bit_mismatches']} sampled "
+                                 "lanes differ from the plain version")
+    return dict(whole=whole, whole_counts=whole_counts, mega=mega,
+                mega_counts=mega_counts)
+
+
+def substeps4(scene, cam_cfg, settings, width, height, spp: int) -> dict:
+    """Phase [substeps4]: config 4 (config 3's scene at spp samples a
+    frame) through Renderer, one frame from reset as spp 1-spp sub-steps
+    and one unrolled (CPUGPU_SPP_UNROLL=1): the same launches (2 pt_frame
+    and 1 sort a sample), the same traced count, the mean radiance
+    within 1e-5; then render_pipelined over TIMED_FRAMES frames with
+    every count from 0 (no host sync between its frames)."""
+    import numpy as np
+    import torch
+    from cpugpupathtracing_tpu_torch.config import RenderConfig
+    from cpugpupathtracing_tpu_torch.models.renderer import Renderer
+    from cpugpupathtracing_tpu_torch.ops import pt_frame as ptf
+
+    dev = torch.device("cuda")
+    config = RenderConfig(width=width, height=height, samples_per_frame=spp)
+    runs = {}
+    for run, unroll in (("substeps", "0"), ("unrolled", "1")):
+        with environ(CPUGPU_SPP_UNROLL=unroll):
+            r = Renderer(scene, camera=cam_cfg, config=config,
+                         settings=settings, device=dev)
+            if r._spp_substeps(spp) != (unroll == "0"):
+                raise AssertionError(f"config 4 {run}: wrong sub-step rule")
+            reset_counts()
+            r.render_frame()
+            expect_counts(counts(), f"config 4 {run} frame", pt_frame=2 * spp,
+                          sorts=spp)
+            runs[run] = (r, r.stats.traced_rays, r.radiance())
+    (r, tr_s, img_s), (_, tr_u, img_u) = runs["substeps"], runs["unrolled"]
+    diff = np.abs(img_s - img_u)
+    over = int((diff > 1e-5 + 1e-5 * np.abs(img_u)).sum())
+    if tr_s != tr_u or over:
+        raise AssertionError(f"config 4: sub-steps traced {tr_s}, unrolled "
+                             f"{tr_u}; {over} radiance values past 1e-5")
+    torch.cuda.synchronize()
+    reset_counts()
+    total = r.render_pipelined(TIMED_FRAMES)
+    got = counts()
+    expect_counts(got, "config 4 render_pipelined",
+                  pt_frame=2 * spp * TIMED_FRAMES, sorts=spp * TIMED_FRAMES)
+    ptf.check_status(dev)
+    info = dict(spp=spp, traced_per_frame=tr_s, traced_equal=True,
+                radiance_max_abs_diff=float(diff.max()),
+                radiance_bitwise=bool((diff == 0).all()),
+                pipelined_frames=TIMED_FRAMES,
+                pipelined_ms_per_frame=r.stats.frame_time_ms,
+                pipelined_mrays_per_s=total / TIMED_FRAMES
+                / r.stats.frame_time_ms / 1e3,
+                pt_frame_launches_per_frame=got[arm("pt_frame")]
+                / TIMED_FRAMES, mean_energy=r.mean_energy)
+    say("substeps4", width=width, height=height, **info)
+    return dict(info, counts=got)
+
+
+def material_edit(scene, cam_cfg, settings, width, height) -> dict:
+    """Phase [edit3]: one material edit (the ground's white to a green
+    diffuse) between two config-3 frames through Renderer.set_material:
+    the accumulator resets, the next frame runs on a new snapshot (2
+    pt_frame launches and 1 sort, as every frame), and its accumulator
+    and image equal, bitwise, those of a fresh Renderer on a scene built
+    with the new material (one frame, reset, one frame).  The scenes
+    share config 3's meshes and trees, so only snapshots are built; the
+    new snapshot's build is timed."""
+    import torch
+    from cpugpupathtracing_tpu_torch import benchscenes
+    from cpugpupathtracing_tpu_torch.config import RenderConfig
+    from cpugpupathtracing_tpu_torch.models import materials as matlib
+    from cpugpupathtracing_tpu_torch.models.renderer import Renderer
+
+    dev = torch.device("cuda")
+    config = RenderConfig(width=width, height=height)
+    green = matlib.Material.diffuse((0.6, 0.8, 0.6))
+
+    def shared_scene():
+        s = benchscenes.config3_sah_dielectrics()[0]
+        for ob, oa in zip(s.objects, scene.objects):
+            ob.mesh, ob.blas = oa.mesh, oa.blas
+        return s
+
+    r = Renderer(shared_scene(), camera=cam_cfg, config=config,
+                 settings=settings, device=dev)
+    r.render_frame()
+    old = r.scene.device(dev)
+    r.set_material(1, green)
+    if r.num_accumulated != 0:
+        raise AssertionError("a material edit did not reset")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    new = r.scene.device(dev)
+    torch.cuda.synchronize()
+    snapshot_s = time.perf_counter() - t0
+    if new is old or torch.equal(new.mk_mats, old.mk_mats):
+        raise AssertionError("the edit did not make a new snapshot")
+    reset_counts()
+    r.render_frame()
+    expect_counts(counts(), "frame after the edit", pt_frame=2, sorts=1)
+    edited = shared_scene()
+    edited.set_material(1, green)
+    f = Renderer(edited, camera=cam_cfg, config=config, settings=settings,
+                 device=dev)
+    f.render_frame()
+    f.reset()
+    f.render_frame()
+    same = (torch.equal(r._accumulator, f._accumulator)
+            and bool((r.image_u32() == f.image_u32()).all())
+            and r.stats.traced_rays == f.stats.traced_rays)
+    info = dict(snapshot_s=snapshot_s, bitwise_fresh=same,
+                traced=r.stats.traced_rays,
+                mean_energy=frame_checks(r, "edit3", height, width))
+    say("edit3", width=width, height=height, **info)
+    if not same:
+        raise AssertionError("the edited frame differs from a fresh "
+                             "renderer's")
+    return info
+
+
+def route_entry(name: str, kernel: str, source: str, replaces: str,
+                launches: int, path: list, keys: tuple) -> dict:
+    """A kernels-line entry for one kernel's launches on a route added in
+    phases 11c-11g: per launch of one frame its ms (device), call_ms and
+    bound, averaged over the frame's launches; plain_ms, the plain
+    version's time on the sampled lanes of a launch, averaged likewise;
+    max_abs_err, the largest over the sampled lanes; bound_by of the
+    launch with the largest bound; and every launch (main_path)."""
+    k = len(path)
+    top = max(path, key=lambda mp: mp["bound_ms"])
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": f"cpugpupathtracing_tpu_torch/csrc/{source}",
+        "replaces": f"cpugpupathtracing_tpu/ops/{replaces}",
+        "launches": launches,
+        "max_abs_err": max(mp["max_abs_err"] for mp in path),
+        "ms": sum(mp["ms"] for mp in path) / k,
+        "call_ms": sum(mp["call_ms"] for mp in path) / k,
+        "plain_ms": sum(mp["plain_ms"] for mp in path) / k,
+        "bound_ms": sum(mp["bound_ms"] for mp in path) / k,
+        "bound_by": top["bound_by"],
+        "library_ms": None,
+        "kernel": kernel,
+        "plain_lanes": path[0]["sampled_lanes"],
+        "main_path": [{key: mp[key] for key in keys if key in mp}
+                      for mp in path],
+    }
+
+
 def main() -> int:
     import torch
 
@@ -4428,6 +4743,21 @@ def main() -> int:
     xla_path, xla_counts, _ = frame_xla(scene, cam_cfg, settings, width,
                                         height, profile)
     frame_views(scene, cam_cfg, settings, width, height, profile)
+
+    # 11c-g. the BRUTE_FORCE and COMPARISON modes on config 3 (B4 on every
+    # scene query), config 2 on both ADVANCED routes, config 4's
+    # sub-steps, and a live material edit on config 3
+    brute = brute_modes(scene, cam_cfg, settings, width, height, profile)
+    cfg2 = frame2(dev, profile)
+    scene4, cam4, settings4, width4, height4, _ = \
+        benchscenes.config4_variance_reduction(CONFIG4_SPP)
+    for ob, oa in zip(scene4.objects, scene.objects):
+        ob.mesh, ob.blas = oa.mesh, oa.blas  # config 3's trees
+    path4, counts4, _ = frame_whole(scene4, cam4, settings4, width4, height4,
+                                    small_bytes, profile, phase="frame4",
+                                    spp=CONFIG4_SPP)
+    sub4 = substeps4(scene4, cam4, settings4, width4, height4, CONFIG4_SPP)
+    material_edit(scene, cam_cfg, settings, width, height)
 
     # 12-17. config 5: the scene (flattened and object-space), the
     # instance arms on 8192 lanes and the refit, the three routes, the
@@ -4657,6 +4987,39 @@ def main() -> int:
                 "bound_by", "sampled_lanes", "max_abs_err", "mismatches")}
                 for mp in path if mp["count_depth"]],
         })
+    # the routes of phases 11c-e (plain arms: their counts' keys are the
+    # wrappers' names): B4 in the BRUTE_FORCE and COMPARISON frames,
+    # B1-B3 on config 2, B1 on config 4 (its sub-stepped frames)
+    b4_keys = ("launch", "depth", "half", "kind", "lanes", "active", "ms",
+               "call_ms", "plain_ms", "bound_ms", "bound_by",
+               "sampled_lanes", "max_abs_err", "mismatches", "lane_share")
+    for run in ("brute", "comparison"):
+        path, got, _ = brute[run]
+        kernels.append(route_entry(
+            f"traverse_packet_slim_{run}", "traverse_packet_slim",
+            "traverse.cu", "traverse_packet_slim.py:1485",
+            got["traverse_packet_slim"], path, b4_keys))
+    b1_keys = ("lanes", "depths", "ms", "call_ms", "plain_ms", "bound_ms",
+               "bound_by", "lane_share", "sampled_lanes", "max_abs_err",
+               "energy_bit_mismatches")
+    mega_keys = ("depth", "lanes", "live", "lane_share", "longest", "ms",
+                 "call_ms", "plain_ms", "bound_ms", "bound_by",
+                 "sampled_lanes", "max_abs_err", "energy_bit_mismatches")
+    kernels.append(route_entry(
+        "pt_frame_config2", "pt_frame", "pt_frame.cu",
+        "pt_frame_kernel.py:419", cfg2["whole_counts"]["pt_frame"],
+        cfg2["whole"], b1_keys))
+    for name, line in (("shade_extend", 1713), ("shadow_resolve", 1847)):
+        kernels.append(route_entry(
+            f"{name}_config2", name, "megakernel.cu",
+            f"megakernel.py:{line}", cfg2["mega_counts"][name],
+            [mp for mp in cfg2["mega"] if mp["name"] == name], mega_keys))
+    kernels.append(route_entry(
+        "pt_frame_config4", "pt_frame", "pt_frame.cu",
+        "pt_frame_kernel.py:419", counts4["pt_frame"], path4, b1_keys)
+        | {"pipelined": {k: sub4[k] for k in (
+            "pipelined_frames", "pipelined_ms_per_frame",
+            "pipelined_mrays_per_s", "pt_frame_launches_per_frame")}})
     kernels += variant_entries(lay3, lay5)
     kernels += leaf_entries(leaf, leaf5)
     kernels += lab_entries(lab_chk, lab_rows)

@@ -37,6 +37,12 @@ from cpugpupathtracing_tpu_torch.config import BuildOption
 _F32 = np.float32
 
 
+def _half_area(bmin: np.ndarray, bmax: np.ndarray) -> np.float32:
+    """GetAABBVolume (Source/Primitives.cpp:280-284): xy + yz + zx, f32."""
+    e = (bmax - bmin).astype(_F32)
+    return e[..., 0] * e[..., 1] + e[..., 1] * e[..., 2] + e[..., 2] * e[..., 0]
+
+
 def triangle_areas(v0: np.ndarray, v1: np.ndarray, v2: np.ndarray) -> np.ndarray:
     """Heron's formula per GetTriangleArea (Source/Primitives.cpp:270-278)."""
     a = np.linalg.norm(v1 - v0, axis=-1)

@@ -54,7 +54,11 @@ copy of the tables and the kernels run their plain arms.  Otherwise the
 object-space machinery runs: the TLAS's instance entries carry the
 instance id, the kernels move the ray by `inst_inv` into the instance's
 space, and shadow rays keep the shading tables.  A transform edit
-(`set_instance_transform`) refits the snapshot in place on its device.
+(`set_instance_transform`) refits the snapshot in place on its device;
+the live edits (`set_material`, `set_sphere`, `set_plane`, `rebuild_bvh`,
+which sets a mesh's build option) drop it, and the next `device()` builds
+a new one.  `object_stats` reports each object, a mesh with its own
+binary BVH under its build option (`own_bvh`, the reference's BVH panel).
 
 The small scene tables (materials, lights, spheres, planes, object ->
 material) keep the column layouts of the JAX package's
@@ -102,6 +106,9 @@ MORTON_BITS = 8
 # the Whitted kernel's gate takes scenes of at most this many analytic
 # objects and materials (the JAX package's limit, kept for parity)
 ANALYTIC_UNROLL_MAX = 16
+# leaf bound of an object's own binary BVH (object_stats), the JAX
+# package's DEVICE_MAX_LEAF: the tree the reference's BVH panel shows
+DEVICE_MAX_LEAF = 4
 # the JAX kernels' shadow-walk stacks: frames of its frame-stack schedule
 # (CPUGPU_FRAMESTACK, forced at width 16) and slots of the linear one
 # (its traverse_packet_slim FSTACK_FRAMES, STACK).  JAX keeps the any-hit
@@ -350,14 +357,21 @@ class SceneObject:
     # instanced mesh: (I, 4, 4) object-to-world transforms; one BLAS is
     # built and referenced from the TLAS once per instance
     instances: np.ndarray | None = None
+    # the mesh's build heuristic (BVH::Rebuild's option): the closest-hit
+    # tree of modes fat and dp and the object's own BVH (object_stats)
+    build_option: BuildOption = BuildOption.SAH_SPLIT_INTERVALS
     # (mesh, _Blas) of the mesh, kept across snapshots (_blas)
     blas: tuple | None = None
+    # (mesh, build_option, BVH): the object's own binary BVH at
+    # DEVICE_MAX_LEAF, built when object_stats first asks (own_bvh)
+    own: tuple | None = None
 
 
 class _Blas(NamedTuple):
     """The trees of one mesh: its full-sweep SAH binary build (leaf <= 8),
     the slim closest-hit tree of each CPUGPU_PACKET_TREE mode built so
-    far (`pw`, filled by _packet_tree) and the any-hit trees of each leaf
+    far (`pw`, filled by _packet_tree; modes fat and dp keyed with the
+    build option too) and the any-hit trees of each leaf
     size and arity built so far (`po`, filled by _occl_tree)."""
 
     b: bvhlib.BVH
@@ -407,14 +421,14 @@ def _occl_tree(obj: SceneObject, rows: int = 1, width: int = 8,
 
 def _packet_tree(obj: SceneObject, mode: str) -> bvh8lib.BVH8Slim:
     """The object's slim closest-hit tree in CPUGPU_PACKET_TREE mode
-    `mode` (the JAX package's _build_wide_cache), cached per mode."""
+    `mode` (the JAX package's _build_wide_cache), cached per mode and,
+    for the modes fat and dp that rebuild with the object's build option,
+    per option."""
     t = _blas(obj)
-    if mode not in t.pw:
+    heuristic = obj.build_option
+    key = (mode, heuristic) if mode in ("fat", "dp") else mode
+    if key not in t.pw:
         b = t.b
-        # modes fat and dp rebuild with a mesh's build option, which is
-        # SAH_SPLIT_INTERVALS unless a caller of the JAX package's add_mesh
-        # chose another (the port's callers take the default)
-        heuristic = BuildOption.SAH_SPLIT_INTERVALS
         if mode == "fat":
             # fat leaves: a slim leaf is one row, so under-filled SAH
             # leaves would waste most of a leaf visit
@@ -431,8 +445,22 @@ def _packet_tree(obj: SceneObject, mode: str) -> bvh8lib.BVH8Slim:
             pb = b
             w = bvh8lib.collapse_sah(b, leaf_max=8,
                                      width=16 if mode == "w16" else 8)
-        t.pw[mode] = bvh8lib.to_slim(w, pb.tri_normal)
-    return t.pw[mode]
+        t.pw[key] = bvh8lib.to_slim(w, pb.tri_normal)
+    return t.pw[key]
+
+
+def own_bvh(obj: SceneObject) -> bvhlib.BVH:
+    """The mesh object's own binary BVH, the tree the reference's BVH
+    panel reports (the JAX package's SceneObject.bvh): built under the
+    object's build option with leaves of at most DEVICE_MAX_LEAF, when
+    first asked and again after rebuild_bvh; no kernel walks it."""
+    if (obj.own is None or obj.own[0] is not obj.mesh
+            or obj.own[1] != obj.build_option):
+        m = obj.mesh
+        obj.own = (m, obj.build_option, bvhlib.build(
+            m.positions, m.normals, m.indices, obj.build_option,
+            max_leaf_size=DEVICE_MAX_LEAF))
+    return obj.own[2]
 
 
 class Scene:
@@ -459,23 +487,29 @@ class Scene:
         self._device = None
         return len(self.materials) - 1
 
-    def add_mesh(self, name: str, mesh: Mesh, mat_index: int) -> int:
+    def add_mesh(self, name: str, mesh: Mesh, mat_index: int,
+                 build_option: BuildOption = BuildOption.SAH_SPLIT_INTERVALS
+                 ) -> int:
         """Add a triangle mesh.  Its any-hit tree is always built with the
         full-sweep SAH (BuildOption.SAH_SPLIT_PRIMITIVES), its closest-hit
-        tree as CPUGPU_PACKET_TREE says (_packet_tree); hits are exact for
-        any valid tree."""
-        self.objects.append(SceneObject(name, mat_index, PRIM_MESH, mesh=mesh))
+        tree as CPUGPU_PACKET_TREE says (_packet_tree: modes fat and dp
+        with `build_option`); hits are exact for any valid tree."""
+        self.objects.append(SceneObject(name, mat_index, PRIM_MESH, mesh=mesh,
+                                        build_option=BuildOption(build_option)))
         self._device = None
         return len(self.objects) - 1
 
     def add_instanced_mesh(self, name: str, mesh: Mesh, mat_index: int,
-                           transforms) -> int:
+                           transforms,
+                           build_option: BuildOption =
+                           BuildOption.SAH_SPLIT_INTERVALS) -> int:
         """One BLAS, many placements: `transforms` is (I, 4, 4) object-to-
         world matrices, gathered under a TLAS.  An instanced mesh cannot
         be a light."""
         self.objects.append(SceneObject(
             name, mat_index, PRIM_MESH, mesh=mesh,
-            instances=np.asarray(transforms, np.float32).reshape(-1, 4, 4)))
+            instances=np.asarray(transforms, np.float32).reshape(-1, 4, 4),
+            build_option=BuildOption(build_option)))
         self._device = None
         return len(self.objects) - 1
 
@@ -508,6 +542,84 @@ class Scene:
         """data.light_source_indices (Source/Main.cpp:816-819)."""
         self.light_indices.append(obj_index)
         self._device = None
+
+    # -- live edits (the ImGui panel's; the caller resets the accumulator).
+    # Each drops the snapshot, so the next device() builds new tables:
+    # nothing is written into a table a queued frame or a cache (the
+    # whole-frame route's packed small tables) may still hold.
+
+    def set_material(self, index: int, material: matlib.Material) -> None:
+        self.materials[index] = material
+        self._device = None
+
+    def set_sphere(self, obj_index: int, center, radius: float) -> None:
+        """Live sphere editor (the scene-tree drag widgets,
+        Source/Primitives.cpp:385-398)."""
+        obj = self.objects[obj_index]
+        if obj.kind != PRIM_SPHERE:
+            except_error("Scene", "set_sphere on non-sphere object {}", obj.name)
+        obj.sphere = (tuple(center), float(radius))
+        self._device = None
+
+    def set_plane(self, obj_index: int, point, normal) -> None:
+        """Live plane editor (Source/Primitives.cpp:400-415)."""
+        obj = self.objects[obj_index]
+        if obj.kind != PRIM_PLANE:
+            except_error("Scene", "set_plane on non-plane object {}", obj.name)
+        obj.plane = (tuple(point), tuple(normal))
+        self._device = None
+
+    def rebuild_bvh(self, obj_index: int, build_option: BuildOption) -> None:
+        """BVH::Rebuild from the UI (Source/BVH.cpp:47-59, :182-185): the
+        object's build option becomes `build_option`, which the next
+        snapshot's closest-hit tree takes under modes fat and dp and
+        object_stats reports."""
+        obj = self.objects[obj_index]
+        if obj.kind != PRIM_MESH:
+            except_error("Scene", "rebuild_bvh on non-mesh object {}", obj.name)
+        obj.build_option = BuildOption(build_option)
+        self._device = None
+
+    def object_stats(self) -> list[dict]:
+        """The reference scene tree's per-object readout
+        (Source/BVH.cpp:149-186: node count, max depth and total node area
+        per BVH; Source/Main.cpp:859-933: every object with its primitive
+        kind and material), as the JAX package's Scene.object_stats gives
+        it.  A mesh reports its own binary BVH (own_bvh): node count, max
+        depth, triangles, build option and the summed half-area of its
+        nodes (GetAABBVolume, Source/Primitives.cpp:280-284)."""
+        kinds = {PRIM_MESH: "mesh", PRIM_SPHERE: "sphere",
+                 PRIM_PLANE: "plane"}
+        out = []
+        for i, obj in enumerate(self.objects):
+            rec = {
+                "index": i,
+                "name": obj.name,
+                "kind": kinds.get(obj.kind, str(obj.kind)),
+                "material": obj.mat_index,
+                "is_light": i in self.light_indices,
+            }
+            if obj.kind == PRIM_SPHERE and obj.sphere is not None:
+                rec["center"] = list(obj.sphere[0])
+                rec["radius"] = obj.sphere[1]
+            if obj.kind == PRIM_PLANE and obj.plane is not None:
+                rec["point"] = list(obj.plane[0])
+                rec["normal"] = list(obj.plane[1])
+            if obj.kind == PRIM_MESH:
+                b = own_bvh(obj)
+                rec["bvh"] = {
+                    "node_count": int(b.nodes_min.shape[0]),
+                    "max_depth": int(b.max_depth),
+                    "triangles": int(b.tri_indices.shape[0]),
+                    "build_option": BuildOption(obj.build_option).name,
+                    "total_node_area": float(
+                        np.sum(bvhlib._half_area(b.nodes_min, b.nodes_max))
+                    ),
+                }
+                if obj.instances is not None:
+                    rec["instances"] = int(obj.instances.shape[0])
+            out.append(rec)
+        return out
 
     # -- device snapshot --
 

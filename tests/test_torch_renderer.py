@@ -18,6 +18,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 from cpugpupathtracing_tpu_torch.config import (
     CameraConfig,
@@ -28,7 +29,7 @@ from cpugpupathtracing_tpu_torch.config import (
 from cpugpupathtracing_tpu_torch.models import materials as tmat
 from cpugpupathtracing_tpu_torch.models import mesh as tmesh
 from cpugpupathtracing_tpu_torch.models import scene as tscene
-from cpugpupathtracing_tpu_torch.models.renderer import Renderer
+from cpugpupathtracing_tpu_torch.models.renderer import Renderer, trace_sample
 
 from tests.test_torch_scene import golden_scene
 
@@ -69,14 +70,21 @@ def test_golden_frames(name):
 
 
 def test_reset_and_unsupported_modes():
+    """reset() zeroes the accumulator and its counters.  Every render
+    mode has a Renderer; the one mode with no single-integrator trace,
+    COMPARISON (render_frame splits it), is refused by trace_sample."""
     r = _render(CASES["advanced"], frames=1)
     r.reset()
     assert r.num_accumulated == 0 and r.mean_energy == 0.0
     assert float(r._accumulator.abs().sum()) == 0.0
-    with pytest.raises(NotImplementedError):
+    for mode in RenderMode:
         Renderer(golden_scene(tscene, tmat, tmesh),
-                 settings=RenderSettings(render_mode=RenderMode.BRUTE_FORCE),
-                 device="cpu")
+                 settings=RenderSettings(render_mode=mode), device="cpu")
+    o = torch.zeros((4, 3))
+    with pytest.raises(ValueError):
+        trace_sample(r.scene.device("cpu"),
+                     RenderSettings(render_mode=RenderMode.COMPARISON), o, o,
+                     torch.ones(4, dtype=torch.int64), None)
 
 
 def test_renderer_keeps_camera_arrays():
