@@ -135,6 +135,30 @@ Phases, one line each; any failure raises and exits non-zero:
  11f. edit3      one material edit between two config-3 frames: the
                  accumulator resets, a new snapshot, and the frame equals
                  a fresh renderer's on the edited scene bitwise
+ 11g. frontends  `python -m cpugpupathtracing_tpu_torch.cli --scene
+                 reference` at 1920x1080 (config 3), 3 frames with
+                 --stats-json and --checkpoint, twice in new processes: the
+                 second resumes (accumulated 4-6), the PNG decodes, the
+                 saved accumulator equals an in-process Renderer's after 6
+                 frames bitwise; the scene build, the first frame and a
+                 steady frame timed apart; the CLI in WHITTED mode on
+                 config 1's scene (1 whitted_frame launch a frame); a
+                 LiveViewer over the config-3 renderer (GET /frame.png and
+                 /stats.json, POST /input and /control set_material, the
+                 edited frame bitwise a fresh renderer's, serve_frames(3),
+                 publish's ms); validate_frame clean and on a NaN albedo
+                 (FloatingPointError, the state unchanged); profile()'s
+                 trace; metrics()'s keys
+ 11h. sharded    maybe_initialize_distributed at world size 1 through NCCL
+                 (a file:// rendezvous under build/); render_frame_sharded
+                 on config 3 in the pixels and samples modes, each frame
+                 bitwise the Renderer's (2 pt_frame launches and 1 sort);
+                 render_rank / trace_rank for every rank of d = 2 and 4 in
+                 this process: the pixels slices put together bitwise the
+                 frame and 2 frames of 2 spp the Renderer's (sub-steps),
+                 the samples sum in rank order bitwise a d-spp unrolled
+                 frame;
+                 ms a frame of both modes and of the Renderer, in turns
  12. scene5      config 5 built flattened (default) and object-space
                  (CPUGPU_NO_FLATTEN=1, sharing the trees): seconds, table
                  bytes, flat_bytes against the budget, tree rows, TLAS
@@ -4500,7 +4524,6 @@ def material_edit(scene, cam_cfg, settings, width, height) -> dict:
     share config 3's meshes and trees, so only snapshots are built; the
     new snapshot's build is timed."""
     import torch
-    from cpugpupathtracing_tpu_torch import benchscenes
     from cpugpupathtracing_tpu_torch.config import RenderConfig
     from cpugpupathtracing_tpu_torch.models import materials as matlib
     from cpugpupathtracing_tpu_torch.models.renderer import Renderer
@@ -4509,13 +4532,7 @@ def material_edit(scene, cam_cfg, settings, width, height) -> dict:
     config = RenderConfig(width=width, height=height)
     green = matlib.Material.diffuse((0.6, 0.8, 0.6))
 
-    def shared_scene():
-        s = benchscenes.config3_sah_dielectrics()[0]
-        for ob, oa in zip(s.objects, scene.objects):
-            ob.mesh, ob.blas = oa.mesh, oa.blas
-        return s
-
-    r = Renderer(shared_scene(), camera=cam_cfg, config=config,
+    r = Renderer(shared_config3(scene), camera=cam_cfg, config=config,
                  settings=settings, device=dev)
     r.render_frame()
     old = r.scene.device(dev)
@@ -4532,7 +4549,7 @@ def material_edit(scene, cam_cfg, settings, width, height) -> dict:
     reset_counts()
     r.render_frame()
     expect_counts(counts(), "frame after the edit", pt_frame=2, sorts=1)
-    edited = shared_scene()
+    edited = shared_config3(scene)
     edited.set_material(1, green)
     f = Renderer(edited, camera=cam_cfg, config=config, settings=settings,
                  device=dev)
@@ -4549,6 +4566,377 @@ def material_edit(scene, cam_cfg, settings, width, height) -> dict:
     if not same:
         raise AssertionError("the edited frame differs from a fresh "
                              "renderer's")
+    return info
+
+
+# the stats-panel keys of the JAX package's Renderer.metrics
+METRIC_KEYS = {"fps", "frame_time_ms", "traced_rays", "total_traced_rays",
+               "mrays_per_s", "accumulated_frames", "mean_energy", "paused",
+               "objects"}
+# the per-frame lines of cli --stats-json
+STATS_KEYS = {"frame", "fps", "frame_ms", "traced_rays", "accumulated",
+              "mean_energy"}
+
+
+def shared_config3(scene, base=None):
+    """A new config-3 Scene (own materials, so edits stay its own) that
+    shares `scene`'s meshes and trees: only its snapshot is built."""
+    from cpugpupathtracing_tpu_torch import benchscenes
+
+    s = base if base is not None else benchscenes.config3_sah_dielectrics()[0]
+    for ob, oa in zip(s.objects, scene.objects):
+        ob.mesh, ob.blas = oa.mesh, oa.blas
+    return s
+
+
+def run_cli(args: list, what: str) -> tuple:
+    """`python -m cpugpupathtracing_tpu_torch.cli` in a new process from the
+    checkout's root: (its --stats-json lines, its scene-build seconds,
+    wall seconds)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "cpugpupathtracing_tpu_torch.cli", *args],
+        capture_output=True, text=True, timeout=300,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"{what}: exit {proc.returncode}\n"
+                             f"{proc.stderr[-3000:]}")
+    lines = [json.loads(ln) for ln in proc.stdout.splitlines()
+             if ln.startswith("{")]
+    m = re.search(r"scene ready in ([0-9.]+) s", proc.stderr)
+    if m is None or any(set(ln) != STATS_KEYS for ln in lines):
+        raise AssertionError(f"{what}: unexpected output\n{proc.stdout}"
+                             f"{proc.stderr[-2000:]}")
+    return lines, float(m.group(1)), wall
+
+
+def http(viewer, path: str, payload=None):
+    """GET (payload None) or POST a JSON payload to the viewer: (status,
+    body bytes)."""
+    import urllib.error
+    import urllib.request
+
+    url = f"http://127.0.0.1:{viewer.port}{path}"
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(url, data=data,
+                                 method="GET" if data is None else "POST")
+    try:
+        with urllib.request.urlopen(req, timeout=30) as resp:
+            return resp.status, resp.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def frontends(scene, cam_cfg, settings, width, height, dev) -> dict:
+    """Phase [frontends]: the port's front ends on config 3 at width x
+    height.  The CLI (`python -m cpugpupathtracing_tpu_torch.cli --scene
+    reference`, 3 frames, --stats-json, --checkpoint) twice in new
+    processes: the second resumes (accumulated 4-6), the PNG decodes to
+    the frame's size, and the saved accumulator equals, bitwise, an
+    in-process Renderer's after 6 frames (2 pt_frame launches and 1 sort
+    a frame); the scene build, the first frame (the kernels' load) and a
+    steady frame timed apart.  The CLI in WHITTED mode on config 1's
+    scene at 800x600 in process: 1 whitted_frame launch a frame.  A
+    LiveViewer over the config-3 Renderer: GET /frame.png and
+    /stats.json, POST /input (the camera moves, the accumulator resets)
+    and /control set_material (the next frame equals a fresh renderer's
+    on the edited scene, bitwise), serve_frames(3), and publish's ms.
+    validate_frame passes on config 3 and raises FloatingPointError on
+    the scene with a NaN albedo on the ground, the renderer's state
+    unchanged; profile() writes a non-empty trace; metrics() has the JAX
+    package's keys."""
+    import numpy as np
+    import torch
+    from cpugpupathtracing_tpu_torch import cli
+    from cpugpupathtracing_tpu_torch.config import RenderConfig
+    from cpugpupathtracing_tpu_torch.models import materials as matlib
+    from cpugpupathtracing_tpu_torch.models.renderer import Renderer
+    from cpugpupathtracing_tpu_torch.utils import image as imagelib
+    from cpugpupathtracing_tpu_torch.utils.build import BUILD_ROOT
+    from cpugpupathtracing_tpu_torch.viewer import LiveViewer
+
+    out_dir = os.path.join(BUILD_ROOT, "chip_smoke")
+    os.makedirs(out_dir, exist_ok=True)
+    ck = os.path.join(out_dir, "frontends.npz")
+    png = os.path.join(out_dir, "frontends.png")
+    for path in (ck, png):
+        if os.path.exists(path):
+            os.remove(path)
+    flags = ["--scene", "reference", "--width", str(width), "--height",
+             str(height), "--device", str(dev)]
+    runs = []
+    for k in range(2):
+        lines, scene_s, wall = run_cli(
+            flags + ["--frames", "3", "--stats-json", "--checkpoint", ck,
+                     "--out", png], f"cli run {k + 1}")
+        acc = [ln["accumulated"] for ln in lines]
+        if acc != [3 * k + 1, 3 * k + 2, 3 * k + 3]:
+            raise AssertionError(f"cli run {k + 1}: accumulated {acc}")
+        runs.append(dict(wall_s=wall, scene_s=scene_s,
+                         first_frame_ms=lines[0]["frame_ms"],
+                         steady_frame_ms=lines[-1]["frame_ms"],
+                         traced=[ln["traced_rays"] for ln in lines]))
+    img = imagelib.read_png(png)
+    if img.shape != (height, width, 4):
+        raise AssertionError(f"cli PNG {img.shape}")
+    with np.load(ck, allow_pickle=False) as data:
+        saved = torch.from_numpy(data["accumulator"]).to(dev)
+        saved_n = int(data["num_accumulated"])
+    args = cli.parse_args(flags)
+    s3, camera, config, settings3 = cli.frame_setup(args)
+    if (camera, config, settings3) != (cam_cfg, RenderConfig(
+            width=width, height=height), settings):
+        raise AssertionError("cli --scene reference is not config 3")
+    r = Renderer(shared_config3(scene, s3), camera=camera, config=config,
+                 settings=settings3, device=dev)
+    reset_counts()
+    r.render(6)
+    expect_counts(counts(), "six config-3 frames", pt_frame=12, sorts=6)
+    resumed = saved_n == 6 and torch.equal(saved, r._accumulator)
+    if not resumed:
+        raise AssertionError("the CLI's resumed accumulator differs from "
+                             "six in-process frames")
+
+    # the CLI in WHITTED mode on config 1's scene, in process
+    reset_counts()
+    cli.main(["--scene", "whitted", "--mode", "whitted", "--width", "800",
+              "--height", "600", "--frames", "2", "--device", str(dev),
+              "--out", os.path.join(out_dir, "frontends_whitted.png")])
+    expect_counts(counts(), "cli --mode whitted", whitted_frame=2)
+
+    # the viewer over the config-3 renderer
+    viewer = LiveViewer(r, port=0)
+    viewer.start()
+    try:
+        r.render_frame()
+        r.metrics()  # the scene tree's binary BVH, built once
+        publish_ms = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            viewer.publish()
+            publish_ms.append((time.perf_counter() - t0) * 1e3)
+        code, body = http(viewer, "/frame.png")
+        png_bytes = len(body)
+        with open(os.path.join(out_dir, "viewer.png"), "wb") as f:
+            f.write(body)
+        shot = imagelib.read_png(os.path.join(out_dir, "viewer.png"))
+        code2, body2 = http(viewer, "/stats.json")
+        stats = json.loads(body2)
+        if code != 200 or shot.shape != (height, width, 4) or code2 != 200 \
+                or not METRIC_KEYS <= set(stats) \
+                or stats["accumulated_frames"] != 7:
+            raise AssertionError(f"viewer GET: {code} {shot.shape} {code2} "
+                                 f"{sorted(stats)}")
+        z0 = r.camera.pos[2]
+        code, body = http(viewer, "/input", {"key": "w", "dt": 0.1})
+        moved = r.camera.pos[2] < z0 and r.num_accumulated == 0
+        code2, body2 = http(viewer, "/control", {"set_material": {
+            "index": 1, "albedo": [0.6, 0.8, 0.6]}})
+        if code != 200 or code2 != 200 or not moved:
+            raise AssertionError(f"viewer POST: {code} {body} {code2} "
+                                 f"{body2}, moved {moved}")
+        r.render_frame()
+        edited = shared_config3(scene)
+        edited.set_material(1, matlib.Material.diffuse((0.6, 0.8, 0.6)))
+        f = Renderer(edited, camera=r.camera, config=config,
+                     settings=settings3, device=dev)
+        for _ in range(r._sample_counter - 1):
+            f.render_frame()
+        f.reset()
+        f.render_frame()
+        if not (torch.equal(r._accumulator, f._accumulator)
+                and (r.image_u32() == f.image_u32()).all()):
+            raise AssertionError("the viewer's edited frame differs from a "
+                                 "fresh renderer's")
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        viewer.serve_frames(3)
+        serve_ms = (time.perf_counter() - t0) * 1e3 / 3
+        expect_counts(counts(), "serve_frames(3)", pt_frame=6, sorts=3)
+    finally:
+        viewer.close()
+
+    # validate_frame, clean and with a NaN albedo on the ground
+    r.validate_frame()
+    r.scene.set_material(1, matlib.Material.diffuse((math.nan, 0.8, 0.6)))
+    before = (r._accumulator.clone(), r._pixels.clone(), r.num_accumulated,
+              r._sample_counter, r.total_energy_received,
+              r.stats.traced_rays)
+    try:
+        r.validate_frame()
+    except FloatingPointError as e:
+        raised = str(e)
+    else:
+        raise AssertionError("validate_frame passed a NaN albedo")
+    after = (r._accumulator, r._pixels, r.num_accumulated,
+             r._sample_counter, r.total_energy_received, r.stats.traced_rays)
+    if not (torch.equal(before[0], after[0])
+            and torch.equal(before[1], after[1])
+            and before[2:] == after[2:]):
+        raise AssertionError("validate_frame changed the state of a bad "
+                             "frame")
+    r.scene.set_material(1, matlib.Material.diffuse((0.6, 0.8, 0.6)))
+
+    # profile and metrics
+    prof_dir = os.path.join(out_dir, "profile")
+    for name in os.listdir(prof_dir) if os.path.isdir(prof_dir) else ():
+        os.remove(os.path.join(prof_dir, name))
+    with r.profile(prof_dir):
+        r.render_frame()
+    traces = [os.path.getsize(os.path.join(prof_dir, n))
+              for n in os.listdir(prof_dir)]
+    metrics = r.metrics()
+    if len(traces) != 1 or not traces[0] or set(metrics) != METRIC_KEYS:
+        raise AssertionError(f"profile traces {traces}, metrics "
+                             f"{sorted(metrics)}")
+    info = dict(cli=runs, resumed_bitwise=resumed, publish_ms=publish_ms,
+                serve_ms_per_frame=serve_ms, viewer_png_bytes=png_bytes,
+                validate_nan=raised[:80], trace_bytes=traces[0],
+                mrays_per_s=metrics["mrays_per_s"])
+    say("frontends", width=width, height=height, **info)
+    return info
+
+
+def sharded(scene, cam_cfg, settings, width, height, dev) -> dict:
+    """Phase [sharded]: maybe_initialize_distributed at world size 1
+    through NCCL (a file:// rendezvous under build/), then
+    render_frame_sharded on config 3 at width x height in both modes: each
+    frame from zeros equals the Renderer's frame from reset bitwise
+    (accumulator and pixels, gathered; traced), with 2 pt_frame launches
+    and 1 sort a frame.  render_rank and trace_rank for d = 2 and 4, every
+    rank in this process: the pixels-mode slices put together are the
+    frame, and 2 frames of 2 spp the Renderer's (1-spp sub-steps); the
+    samples-mode sum in rank order is a d-spp unrolled frame; bitwise.
+    The ms a frame of the sharded call (both modes) and of the Renderer,
+    in turns."""
+    import torch
+    import torch.distributed as dist
+    from cpugpupathtracing_tpu_torch.config import RenderConfig
+    from cpugpupathtracing_tpu_torch.models import camera as camlib
+    from cpugpupathtracing_tpu_torch.models.renderer import (
+        Renderer,
+        accumulate,
+    )
+    from cpugpupathtracing_tpu_torch.parallel import distributed, sharding
+    from cpugpupathtracing_tpu_torch.utils.build import BUILD_ROOT
+
+    rdv = os.path.join(BUILD_ROOT, "chip_smoke", "rendezvous")
+    os.makedirs(os.path.dirname(rdv), exist_ok=True)
+    if os.path.exists(rdv):
+        os.remove(rdv)
+    t0 = time.perf_counter()
+    with environ(CPUGPU_DISTRIBUTED="1"):
+        multi = distributed.maybe_initialize_distributed(
+            f"file://{rdv}", 1, 0, device=str(dev))
+    init_s = time.perf_counter() - t0
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    if multi or not dist.is_initialized() or dist.get_backend() != backend:
+        raise AssertionError(f"no one-rank {backend} process group")
+    try:
+        mesh = sharding.make_mesh(1, device=dev)
+        config = RenderConfig(width=width, height=height)
+        n = width * height
+        ds = scene.device(dev)
+        cam = camlib.to_arrays(cam_cfg, dev)
+        ref = Renderer(scene, camera=cam_cfg, config=config,
+                       settings=settings, device=dev)
+        ref.render_frame()
+        got = {}
+        for mode in sharding.SHARD_MODES:
+            acc = torch.zeros(sharding.accumulator_shape(width, height, 1,
+                                                         mode),
+                              dtype=torch.float32, device=dev)
+            torch.cuda.synchronize()
+            reset_counts()
+            acc, pix, traced, _ = sharding.render_frame_sharded(
+                ds, cam, acc, 0, settings, width, height, 1, config.seed,
+                mesh, mode)
+            expect_counts(counts(), f"sharded {mode} frame", pt_frame=2,
+                          sorts=1)
+            same = (int(traced) == ref.stats.traced_rays
+                    and (sharding.gather_frame(acc, width, height, mode)
+                         == ref._accumulator.cpu().numpy()).all()
+                    and (sharding.gather_frame(pix, width, height, mode)
+                         == ref._pixels.cpu().numpy()).all())
+            if not same:
+                raise AssertionError(f"sharded {mode} frame differs from "
+                                     "the Renderer's")
+            got[f"{mode}_bitwise"] = True
+
+        def rank_frames(spp, frames, d):
+            """render_rank for every rank of d: the accumulator put
+            together row-major and the traced count of the last frame."""
+            accs = [torch.zeros((n // d, 4), device=dev) for _ in range(d)]
+            for f in range(frames):
+                tr = 0
+                for r in range(d):
+                    accs[r], _, t, _ = sharding.render_rank(
+                        ds, cam, accs[r], f * spp, settings, width, height,
+                        spp, config.seed, r, d)
+                    tr += int(t)
+            return (sharding.gather_frame(torch.cat(accs), width, height,
+                                          "pixels"), tr)
+
+        ref2 = Renderer(scene, camera=cam_cfg,
+                        config=config.replace(samples_per_frame=2),
+                        settings=settings, device=dev)
+        ref2.render_frame()
+        ref2.render_frame()
+        # every rank of d in this process
+        for d in (2, 4):
+            acc, tr = rank_frames(1, 1, d)
+            ok_p = ((acc == ref._accumulator.cpu().numpy()).all()
+                    and tr == ref.stats.traced_rays)
+            acc, tr = rank_frames(2, 2, d)
+            ok_p = bool(ok_p and (acc == ref2._accumulator.cpu().numpy()).all()
+                        and tr == ref2.stats.traced_rays)
+            with environ(CPUGPU_SPP_UNROLL="1"):
+                unrolled = Renderer(scene, camera=cam_cfg,
+                                    config=config.replace(
+                                        samples_per_frame=d),
+                                    settings=settings, device=dev)
+                unrolled.render_frame()
+            parts = [sharding.trace_rank(ds, cam, settings, width, height, 1,
+                                         config.seed, 0, r, d, "samples")
+                     for r in range(d)]
+            acc, pix, _ = accumulate(
+                torch.zeros((n, 4), device=dev),
+                sharding.ordered_sum([e for e, _ in parts]), d, settings)
+            ok_s = (torch.equal(acc, unrolled._accumulator)
+                    and torch.equal(pix, unrolled._pixels)
+                    and sum(int(t) for _, t in parts)
+                    == unrolled.stats.traced_rays)
+            if not (ok_p and ok_s):
+                raise AssertionError(f"d = {d}: pixels bitwise {ok_p}, "
+                                     f"samples bitwise {ok_s}")
+            got[f"d{d}_bitwise"] = True
+
+        # ms a frame in turns: sharded pixels, Renderer, sharded samples
+        accs = {m: torch.zeros(sharding.accumulator_shape(width, height, 1,
+                                                          m),
+                               dtype=torch.float32, device=dev)
+                for m in sharding.SHARD_MODES}
+        times = {"pixels": [], "renderer": [], "samples": []}
+        for k in range(TIMED_FRAMES):
+            for what in times:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if what == "renderer":
+                    ref.render_frame()
+                else:
+                    accs[what], _, tr, _ = sharding.render_frame_sharded(
+                        ds, cam, accs[what], 1 + k, settings, width, height,
+                        1, config.seed, mesh, what)
+                    int(tr)
+                torch.cuda.synchronize()
+                times[what].append((time.perf_counter() - t0) * 1e3)
+    finally:
+        dist.destroy_process_group()
+    info = dict(init_s=init_s, **got,
+                **{f"{k}_ms": v for k, v in times.items()})
+    say("sharded", width=width, height=height, **info)
     return info
 
 
@@ -4758,6 +5146,12 @@ def main() -> int:
                                     spp=CONFIG4_SPP)
     sub4 = substeps4(scene4, cam4, settings4, width4, height4, CONFIG4_SPP)
     material_edit(scene, cam_cfg, settings, width, height)
+
+    # 11g-h. the front ends (the CLI in new processes with its checkpoint,
+    # the viewer, validate_frame, profile, metrics) and render_frame_sharded
+    # on config 3 (NCCL at one rank; d = 2 and 4 rank by rank)
+    frontends(scene, cam_cfg, settings, width, height, dev)
+    sharded(scene, cam_cfg, settings, width, height, dev)
 
     # 12-17. config 5: the scene (flattened and object-space), the
     # instance arms on 8192 lanes and the refit, the three routes, the

@@ -17,6 +17,7 @@ from typing import NamedTuple
 import torch
 
 from cpugpupathtracing_tpu_torch.config import CameraConfig
+from cpugpupathtracing_tpu_torch.utils import rng as rnglib
 from cpugpupathtracing_tpu_torch.utils.device import resolve_device
 from cpugpupathtracing_tpu_torch.utils.vecmath import deg2rad, fdiv, normalize
 
@@ -108,3 +109,30 @@ def unblock_image(arr: torch.Tensor, width: int, height: int, bh: int, bw: int):
     a = arr.reshape((height // bh, width // bw, bh, bw) + lead)
     a = a.transpose(1, 2)  # (H/bh, bh, W/bw, bw, ...)
     return a.reshape((height * width,) + lead)
+
+
+def pixel_rays(cam: CameraArrays, width: int, height: int, *, lane=None,
+               jitter: bool = False, rng_state=None):
+    """Rays for every pixel, row-major (y, x) flattened to (H*W, 3): the
+    reference's per-pixel u = x/width, v = y/height (Source/Main.cpp:
+    713-716), no half-pixel centring.  lane: (H*W,) int64 lane indices
+    (default 0..H*W-1 on the camera's device).  jitter=True adds two
+    next_f32 draws of rng_state to x and y and returns (origin, direction,
+    rng_state'); else (origin, direction)."""
+    if lane is None:
+        lane = torch.arange(width * height, dtype=torch.int64,
+                            device=cam.pos.device)
+    xs = (lane % width).to(torch.float32)
+    ys = (lane // width).to(torch.float32)
+    if jitter:
+        if rng_state is None:
+            raise ValueError("jitter=True requires rng_state")
+        rng_state, jx = rnglib.next_f32(rng_state)
+        rng_state, jy = rnglib.next_f32(rng_state)
+        xs = xs + jx
+        ys = ys + jy
+    origin, direction = get_ray(cam, fdiv(xs, float(width)),
+                                fdiv(ys, float(height)))
+    if jitter:
+        return origin, direction, rng_state
+    return origin, direction
