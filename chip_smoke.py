@@ -30,6 +30,8 @@ leaf-side / occlusion variant (CPUGPU_LEAF14, CPUGPU_OCCL2,
 CPUGPU_OCCL_W16), the traversal labs L1-L4, L6 and L7 on config 3's
 bounce fan, and the TPU probes L5, L8 and L9 -- and holds every CUDA
 kernel of those paths against its plain PyTorch version on the card.
+It also drives the XLA walks (Scene(traversal="wide" | "skip" |
+"binary"), no kernel) on configs 3 and 5 against brute force.
 Phases, one line each; any failure raises and exits non-zero:
 
   1. device      the card's name and power limit (nvidia-smi)
@@ -159,6 +161,23 @@ Phases, one line each; any failure raises and exits non-zero:
                  the samples sum in rank order bitwise a d-spp unrolled
                  frame;
                  ms a frame of both modes and of the Renderer, in turns
+ 11i. walks      the XLA walks (Scene(traversal=...), ops/traverse*.py;
+                 no kernel): configs 2-4 resolve to the packet route
+                 ([walks_resolved]; config 5 in phase 12); for "wide",
+                 "skip" and "binary" config 3's snapshot, its 8192 check
+                 lanes through intersect_scene (camera rays closest,
+                 shadow rays toward light 0 closest and any) against
+                 brute force -- t bitwise, object and kind equal, the
+                 triangle id but on counted, confirmed exact ties, any-hit
+                 existence the closest hits' ([walks_hits_<walk>]) -- and
+                 one 1920x1080 ADVANCED frame through Renderer with no
+                 kernel launch and no sort: ms (host clock, synchronised),
+                 walk calls, steps and host synchronisations per call,
+                 peak memory, pixels and traced beside the packet scene's
+                 XLA-route frame ([walks_frame]); config 5 at 1280x720 on
+                 "wide" and "skip", the hook before each of two frames,
+                 every refit bitwise a fresh build's ([walks_frame5]); one
+                 BVH_DEPTH frame on "binary" ([walks_bvh_view])
  12. scene5      config 5 built flattened (default) and object-space
                  (CPUGPU_NO_FLATTEN=1, sharing the trees): seconds, table
                  bytes, flat_bytes against the budget, tree rows, TLAS
@@ -1699,6 +1718,359 @@ def frame_whitted_mesh(scene, cam_cfg, settings, width, height,
     return main_path, got
 
 
+# ---- 11i: the XLA walks (Scene(traversal="wide" | "skip" | "binary")) ----
+
+WALKS = ("wide", "skip", "binary")
+# the tables of each walk's snapshot (scene.WALK_FIELDS)
+WALK_TABLES = {"wide": ("tri_obj", "wnodes", "wtris9", "wleaf_id",
+                        "inst_blas_root"),
+               "skip": ("tri_obj", "snodes12", "stris9", "sleaf_id",
+                        "inst_blas_root_skip"),
+               "binary": ("tri_obj", "nodes8", "tri_perm")}
+
+
+def walk_scene(make, walk, share=None):
+    """A benchscenes config on the XLA walk `walk`; with `share` (a scene
+    of the same config) it takes that scene's meshes and trees, so only
+    the snapshot is built."""
+    scene, cam, settings, w, h, hook = make()
+    scene.traversal = walk
+    if share is not None:
+        for ob, oa in zip(scene.objects, share.objects):
+            ob.mesh, ob.blas, ob.own, ob.wide = oa.mesh, oa.blas, oa.own, \
+                oa.wide
+    return scene, cam, settings, w, h, hook
+
+
+def walk_reference(ds, o, d, t_init, active=None):
+    """The closest hit of every object by brute force, independent of
+    intersect_scene: the mesh triangles of tris9 (ops/intersect.py
+    brute_force_nearest_triangle), every sphere and plane tested
+    (intersect_sphere / intersect_plane), the nearest taken by one argmin
+    over mesh, spheres, planes in that order (a tie keeps the first):
+    (t, object, kind, primitive)."""
+    import torch
+    from cpugpupathtracing_tpu_torch.models import scene as scenelib
+    from cpugpupathtracing_tpu_torch.ops import intersect as isect
+
+    tr = ds.tris9
+    t, tri = isect.brute_force_nearest_triangle(
+        o, d, tr[:, 0:3], tr[:, 3:6], tr[:, 6:9], t_init)
+    tri = tri.to(torch.int32)
+    cand_t, cand_obj, cand_kind, cand_prim = [t], [
+        torch.where(tri >= 0, ds.tri_obj[tri.clamp(min=0).long()], -1)], [
+        torch.full_like(tri, scenelib.PRIM_MESH)], [tri]
+    sph, pln = ds.mk_sph[:ds.num_sph], ds.mk_pln[:ds.num_pln]
+    for rows, objs, test, kind, a, b in (
+            (sph, ds.sph_obj, isect.intersect_sphere, scenelib.PRIM_SPHERE,
+             slice(0, 3), 3),
+            (pln, ds.pln_obj, isect.intersect_plane, scenelib.PRIM_PLANE,
+             slice(0, 3), slice(3, 6))):
+        for j in range(rows.shape[0]):
+            _, tj = test(o, d, rows[j, a], rows[j, b])
+            cand_t.append(tj)
+            cand_obj.append(torch.full_like(tri, int(objs[j])))
+            cand_kind.append(torch.full_like(tri, kind))
+            cand_prim.append(torch.full_like(tri, j))
+    k = torch.argmin(torch.stack(cand_t, dim=1), dim=1)[:, None]
+    t, obj, kind, tri = (torch.gather(torch.stack(c, dim=1), 1, k)[:, 0]
+                         for c in (cand_t, cand_obj, cand_kind, cand_prim))
+    if active is not None:
+        t = torch.where(active, t, t_init)
+        obj = torch.where(active, obj, -1)
+    return t, obj, kind, tri
+
+
+def walk_hits(ds, o, d, walk):
+    """[walks_hits_<walk>]: the config-3 check lanes through intersect_scene
+    on the walk's snapshot: camera rays (closest), and shadow rays from
+    their brute-force hits toward light 0 (closest and any hit, the lanes
+    that hit active).  t bitwise brute force's on every lane; object and
+    kind equal; the triangle id equal but on exact ties in t (the walks
+    resolve them in visit order, brute force by the lowest id), which are
+    counted and each confirmed a tie; any-hit existence equal to the
+    closest hits'.  Each query also runs with the CUDA graphs off
+    (traverse.GRAPH_MAX_LANES = 0: every step launched from the host),
+    every field bitwise the graphs' run.  Returns the numbers."""
+    import torch
+    from cpugpupathtracing_tpu_torch.models import scene as scenelib
+    from cpugpupathtracing_tpu_torch.ops import intersect as isect
+    from cpugpupathtracing_tpu_torch.ops import traverse as trav
+
+    n, dev = o.shape[0], o.device
+    far = torch.full((n,), 1e34, device=dev)
+    out = {}
+    ref = walk_reference(ds, o, d, far)
+    hit = ref[1] >= 0
+    shadow, tmax, act = shadow_query(ds, o, d, ref[0], hit)
+    so = torch.stack(shadow[:3], dim=1)
+    sd = torch.stack(shadow[3:], dim=1)
+    sref = walk_reference(ds, so, sd, tmax, act)
+    for name, qo, qd, t0, a, r in (("camera", o, d, far, None, ref),
+                                   ("shadow", so, sd, tmax, act, sref)):
+        graph_max = trav.GRAPH_MAX_LANES
+        try:
+            trav.GRAPH_MAX_LANES = 0
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            h0 = scenelib.intersect_scene(ds, qo, qd, t0, active=a)
+            torch.cuda.synchronize()
+            eager_ms = (time.perf_counter() - t1) * 1e3
+        finally:
+            trav.GRAPH_MAX_LANES = graph_max
+        scenelib.intersect_scene(ds, qo, qd, t0, active=a)  # capture
+        trav.reset_stats()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        h = scenelib.intersect_scene(ds, qo, qd, t0, active=a)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t1) * 1e3
+        st = dict(trav.stats)
+        bad_g = sum(int((x.view(torch.int32) != y.view(torch.int32)).sum())
+                    if x.dtype == torch.float32 else int((x != y).sum())
+                    for x, y in zip(h[:6], h0[:6]))
+        if bad_g:
+            raise AssertionError(f"walk {walk} {name}: the graphs' run "
+                                 f"differs from the host-launched one in "
+                                 f"{bad_g} values")
+        live = torch.ones(n, dtype=torch.bool, device=dev) if a is None else a
+        bad_t = int(((h.t.view(torch.int32) != r[0].view(torch.int32))
+                     & live).sum())
+        bad_o = int((((h.obj != r[1]) | (h.kind != r[2])) & live).sum())
+        mesh = live & (h.kind == scenelib.PRIM_MESH) & (h.obj >= 0)
+        other = mesh & (h.prim != r[3])
+        ties = 0
+        if other.any():
+            # the walk's triangle at the same t: an exact tie
+            rows = ds.tris9[h.prim[other].long()]
+            ok, tt = isect.intersect_triangle(
+                qo[other], qd[other], rows[:, 0:3], rows[:, 3:6],
+                rows[:, 6:9])
+            tie = ok & (tt.view(torch.int32) == h.t[other].view(torch.int32))
+            ties = int(tie.sum())
+            if ties != int(other.sum()):
+                raise AssertionError(
+                    f"walk {walk} {name}: {int(other.sum()) - ties} hits on "
+                    "another triangle than brute force's, not at a tie")
+        if bad_t or bad_o:
+            raise AssertionError(f"walk {walk} {name}: t differs from brute "
+                                 f"force on {bad_t} lanes, object or kind on "
+                                 f"{bad_o}")
+        res = dict(active=int(live.sum()), hits=int((h.obj >= 0).sum()),
+                   mesh_hits=int(mesh.sum()), t_mismatches=bad_t,
+                   obj_mismatches=bad_o, id_ties=ties, ms=ms,
+                   ms_graphs_off=eager_ms, graph_mismatches=bad_g,
+                   steps_per_call=st["steps"] / max(st["calls"], 1),
+                   syncs_per_call=st["syncs"] / max(st["calls"], 1),
+                   replays=st["replays"], walk_calls=st["calls"])
+        if name == "shadow":
+            trav.reset_stats()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            ha = scenelib.intersect_scene(ds, qo, qd, t0, active=a,
+                                          any_hit=True)
+            torch.cuda.synchronize()
+            res["any_ms"] = (time.perf_counter() - t1) * 1e3
+            res["any_steps_per_call"] = trav.stats["steps"]
+            bad = int((((ha.obj >= 0) != (h.obj >= 0)) & live).sum())
+            if bad:
+                raise AssertionError(f"walk {walk}: {bad} any hits differ "
+                                     "in existence from the closest hits")
+            res["any_mismatches"] = bad
+        out[name] = res
+        say(f"walks_hits_{walk}", query=name, **res)
+    return out
+
+
+def walk_frame(r, what):
+    """One timed frame of the renderer r on an XLA walk from zeroed
+    counts: no kernel launch and no sort; (ms, traced, walk stats, peak
+    bytes above the frame's start)."""
+    import torch
+    from cpugpupathtracing_tpu_torch.ops import traverse as trav
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    trav.reset_stats()
+    t0 = time.perf_counter()
+    r.render_frame()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    expect_counts(counts(), what)
+    return (ms, r.stats.traced_rays, dict(trav.stats),
+            torch.cuda.max_memory_allocated() - base)
+
+
+def walks(scene, cam_cfg, settings, width, height, dev, scene4) -> dict:
+    """Phase 11i: the XLA walks on the card.  Configs 2-4 resolve to the
+    packet route ([walks_resolved]; config 5 in phase 12).  For "wide",
+    "skip" and "binary": config 3's snapshot on the walk (host seconds,
+    table bytes), its check lanes through intersect_scene against brute
+    force (walk_hits), and one 1920x1080 ADVANCED frame through Renderer
+    (the XLA route: no kernel launch, no sort) with its ms, walk calls,
+    steps, host synchronisations and CUDA-graph replays per call, the
+    graphs it captured, peak memory, and the pixels and traced count
+    beside the packet scene's XLA-route frame; then the same frame in a
+    new renderer (the snapshot's graphs cached), equal to the first, and
+    the device memory the snapshot's graphs held then.  For
+    "wide" and "skip": config 5 at 1280x720, the hook (a refit) before
+    each of two frames, and after each refit the walk's TLAS rows,
+    inst_inv, inst_nrm and world bounds bitwise a fresh build's.  One
+    BVH_DEPTH frame on the "binary" scene.  Returns the numbers."""
+    import torch
+    from cpugpupathtracing_tpu_torch import benchscenes
+    from cpugpupathtracing_tpu_torch.config import (DebugRenderMode,
+                                                    RenderConfig)
+    from cpugpupathtracing_tpu_torch.models.renderer import Renderer
+
+    s2 = benchscenes.config2_path_tracer_midpoint()[0]
+    resolved = {2: s2.device(dev).traversal,
+                3: scene.device(dev).traversal,
+                4: scene4.device(dev).traversal}
+    say("walks_resolved", **{f"config{k}": v for k, v in resolved.items()})
+    if set(resolved.values()) != {"packet"}:
+        raise AssertionError(f"a main-path config left the packet route: "
+                             f"{resolved}")
+
+    config = RenderConfig(width=width, height=height)
+    with environ(CPUGPU_NO_MEGAKERNEL="1"):
+        ref = Renderer(scene, camera=cam_cfg, config=config,
+                       settings=settings, device=dev)
+        ref.render_frame()
+    ref_img, ref_traced = ref.image_u32(), ref.stats.traced_rays
+    del ref
+    o, d, _ = middle_lanes(cam_cfg, width, height, dev)
+    out, share = {}, None
+    make3 = benchscenes.config3_sah_dielectrics
+    for walk in WALKS:
+        sw, *_ = walk_scene(make3, walk, share)
+        share = share or sw
+        t0 = time.perf_counter()
+        ds = sw.device(dev)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        if ds.traversal != walk:
+            raise AssertionError(f"the {walk} scene resolved to "
+                                 f"{ds.traversal}")
+        tb = ds.table_bytes()
+        hits = walk_hits(ds, o, d, walk)
+        r = Renderer(sw, camera=cam_cfg, config=config, settings=settings,
+                     device=dev)
+        ms, traced, st, peak = walk_frame(r, f"walk {walk} frame")
+        energy = frame_checks(r, f"walk {walk} frame", height, width)
+        differ = int((r.image_u32() != ref_img).sum())
+        # the same frame again in a new renderer, the graphs cached
+        r = Renderer(sw, camera=cam_cfg, config=config, settings=settings,
+                     device=dev)
+        ms2, traced2, st2, _ = walk_frame(r, f"walk {walk} second frame")
+        if traced2 != traced or int((r.image_u32() != ref_img).sum()) \
+                != differ:
+            raise AssertionError(f"walk {walk}: the second frame from "
+                                 "renderer differs from the first")
+        # what the snapshot's cached graphs hold on the card after the
+        # frames: the bytes allocated and reserved that dropping them frees
+        # (the cached blocks outside them released first)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        alloc, resv = torch.cuda.memory_allocated(), \
+            torch.cuda.memory_reserved()
+        graphs = len(ds.walk_graphs)
+        graph_lanes = sum(g.width for g in ds.walk_graphs.values())
+        ds.walk_graphs.clear()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        graph_bytes = alloc - torch.cuda.memory_allocated()
+        graph_reserved = resv - torch.cuda.memory_reserved()
+        res = dict(build_seconds=build_s,
+                   walk_table_bytes=sum(v for k, v in tb.items()
+                                        if k in WALK_TABLES[walk]),
+                   ms_per_frame=ms, ms_second_frame=ms2,
+                   captures=st["captures"],
+                   captures_second_frame=st2["captures"],
+                   graphs_cached=graphs, graph_lanes=graph_lanes,
+                   graph_bytes=graph_bytes,
+                   graph_reserved_bytes=graph_reserved,
+                   walk_calls=st["calls"],
+                   steps_per_call=st["steps"] / st["calls"],
+                   syncs_per_call=st["syncs"] / st["calls"],
+                   replays_per_call=st["replays"] / st["calls"],
+                   lane_steps_per_call=st["lane_steps"] / st["calls"],
+                   peak_bytes=peak, traced=traced, traced_packet=ref_traced,
+                   pixels_differ=differ, pixels=width * height,
+                   mean_energy=energy)
+        if walk == "wide":
+            res["wstack_depth"] = ds.wstack_depth
+        say("walks_frame", walk=walk, width=width, height=height, **res)
+        out[walk] = dict(hits=hits, frame=res)
+        if walk == "binary":
+            r.set_debug_mode(DebugRenderMode.BVH_DEPTH)
+            acc = r._accumulator.clone()
+            ms, traced, st, peak = walk_frame(r, "binary BVH_DEPTH frame")
+            if not torch.equal(acc, r._accumulator) or \
+                    traced != width * height:
+                raise AssertionError("the BVH_DEPTH view changed the "
+                                     f"accumulator or traced {traced}")
+            px = torch.from_numpy(r.image_u32().astype("int64"))
+            say("walks_bvh_view", walk=walk, ms_per_frame=ms,
+                walk_calls=st["calls"], steps_per_call=st["steps"],
+                peak_bytes=peak, traced=traced,
+                distinct_pixels=int(torch.unique(px).numel()))
+            out["bvh_view_ms"] = ms
+        del r, ds
+
+    make5 = benchscenes.config5_tlas_animated
+    share5 = None
+    for walk in ("wide", "skip"):
+        s5, cam5, st5, w5, h5, hook5 = walk_scene(make5, walk, share5)
+        share5 = share5 or s5
+        t0 = time.perf_counter()
+        ds5 = s5.device(dev)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        r = Renderer(s5, camera=cam5, config=RenderConfig(width=w5,
+                                                          height=h5),
+                     settings=st5, device=dev)
+        frames = []
+        for k in range(2):
+            hook5(k, r)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if s5.device(dev) is not ds5:
+                raise AssertionError(f"config 5 {walk}: rebuilt, not refit")
+            torch.cuda.synchronize()
+            refit_ms = (time.perf_counter() - t0) * 1e3
+            fresh, *_ = walk_scene(make5, walk, s5)
+            for ob, oa in zip(fresh.objects, s5.objects):
+                if oa.instances is not None:
+                    ob.instances = oa.instances.copy()
+            fds = fresh.build_device(dev)
+            names = WALK_TABLES[walk] + ("inst_inv", "inst_nrm", "world_lo",
+                                         "world_inv_extent")
+            bad = [n for n in names if not torch.equal(
+                *(as_bits(getattr(x, n))[0] for x in (ds5, fds)))]
+            if bad:
+                raise AssertionError(f"config 5 {walk}: refit differs from a "
+                                     f"fresh build in {bad}")
+            ms, traced, st, peak = walk_frame(r, f"config 5 {walk} frame")
+            energy = frame_checks(r, f"config 5 {walk} frame", h5, w5)
+            frames.append(dict(ms=ms, refit_ms=refit_ms,
+                               walk_calls=st["calls"],
+                               steps_per_call=st["steps"] / st["calls"],
+                               syncs_per_call=st["syncs"] / st["calls"],
+                               replays_per_call=st["replays"] / st["calls"],
+                               captures=st["captures"],
+                               peak_bytes=peak, traced=traced,
+                               mean_energy=energy))
+        say("walks_frame5", walk=walk, width=w5, height=h5,
+            build_seconds=build_s, instances=ds5.num_instances,
+            refit_bitwise_fresh=True, frames=frames)
+        out[f"{walk}_config5"] = frames
+        del r
+    return out
+
+
 # ---- config 5: TLAS instancing --------------------------------------------
 
 @contextlib.contextmanager
@@ -1761,8 +2133,11 @@ def scene5(dev) -> dict:
     if not flat["ds"].packet_flattened or not obj["ds"].machinery:
         raise AssertionError("config 5 did not build one flattened and one "
                              "object-space snapshot")
+    if {flat["ds"].traversal, obj["ds"].traversal} != {"packet"}:
+        raise AssertionError("config 5 left the packet route")
     for k in ("flat", "obj"):
         say("scene5", route=k, seconds=round(out[k]["seconds"], 2),
+            traversal=out[k]["ds"].traversal,
             flattened=out[k]["ds"].packet_flattened,
             instances=out[k]["ds"].num_instances,
             flat_bytes=out[k]["info"]["flat_bytes"],
@@ -5152,6 +5527,12 @@ def main() -> int:
     # on config 3 (NCCL at one rank; d = 2 and 4 rank by rank)
     frontends(scene, cam_cfg, settings, width, height, dev)
     sharded(scene, cam_cfg, settings, width, height, dev)
+
+    # 11i. the XLA walks: configs 2-4 on the packet route; config 3 on the
+    # wide, skip and binary walks (check lanes against brute force, one
+    # 1080p frame each), config 5 refit on the wide and skip walks, one
+    # BVH_DEPTH frame on the binary walk
+    walks(scene, cam_cfg, settings, width, height, dev, scene4)
 
     # 12-17. config 5: the scene (flattened and object-space), the
     # instance arms on 8192 lanes and the refit, the three routes, the

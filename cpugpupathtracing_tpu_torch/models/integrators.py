@@ -62,6 +62,7 @@ from cpugpupathtracing_tpu_torch.models.scene import (
 from cpugpupathtracing_tpu_torch.ops import megakernel as mk
 from cpugpupathtracing_tpu_torch.ops import pt_frame as ptf
 from cpugpupathtracing_tpu_torch.ops import sampling
+from cpugpupathtracing_tpu_torch.ops.gathers import select_rows
 from cpugpupathtracing_tpu_torch.utils import rng as rnglib
 from cpugpupathtracing_tpu_torch.utils.vecmath import (
     INV_PI,
@@ -267,7 +268,7 @@ def _gather_material(dev: DeviceScene, mat_idx) -> dict:
     """Material rows of mat_idx (N,) (GetRayHitResult's
     data.materials[mat_index], Source/Main.cpp:336), from the mk_mats
     columns, under the JAX package's names."""
-    m = dev.mk_mats[mat_idx.long()]
+    m = select_rows(dev.mk_mats, mat_idx)
     return dict(albedo=m[:, 0:3], specular=m[:, 3], refractivity=m[:, 4],
                 absorption=m[:, 5:8], ior=m[:, 8], emissive=m[:, 9:12],
                 intensity=m[:, 12], is_light=m[:, 13] > 0.5)

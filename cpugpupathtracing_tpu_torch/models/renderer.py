@@ -556,12 +556,13 @@ class Renderer:
         toggles (max depth, NEE, cosine, RR) are left out: in the
         reference they do not reset the live accumulator (Main.cpp:859-877),
         so they must not invalidate a saved one either.  The port hashes
-        its own tables -- the closest-hit node rows (pnodes), tris9, and
-        the albedo (mk_mats columns 0:3) and emission (9:12) -- so a
-        checkpoint of one package does not load in the other."""
+        its own tables -- the node rows of the snapshot's walk (pnodes, or
+        an XLA walk's nodes8 / wnodes / snodes12), tris9, and the albedo
+        (mk_mats columns 0:3) and emission (9:12) -- so a checkpoint of
+        one package does not load in the other."""
         h = hashlib.sha256()
         dev = self.scene.device(self.device)
-        for arr in (dev.pnodes, dev.tris9, dev.mk_mats[:, 0:3],
+        for arr in (dev.node_table, dev.tris9, dev.mk_mats[:, 0:3],
                     dev.mk_mats[:, 9:12]):
             h.update(arr.contiguous().cpu().numpy().tobytes())
         h.update(repr((self.camera, self.config,

@@ -71,6 +71,16 @@ spheres and planes) and its surface, as the Whitted integrator
 trace_advanced) use them; the tables of the latter's light sampling
 (`tris9`, `tri_normal`, `light_*`) are here too.  The route gates of the kernels live here
 too, as in the JAX package.
+
+`Scene(traversal=...)` picks the walk of intersect_scene as the JAX
+package's argument does: "packet" (the default) the kernels over the slim
+tables above; "wide", "skip" or "binary" (use_wide=False) an XLA walk
+(ops/traverse_wide.py, ops/traverse_skip.py, ops/traverse.py) in PyTorch
+over its own tables (WALK_FIELDS, made from each mesh's own BVH,
+own_bvh), which no kernel route takes.  A walk snapshot builds no packet
+table and a packet snapshot no walk table.  A "packet" scene whose tree
+the kernels' stack cannot hold raises (the JAX package falls back to
+"wide" there; the port takes a walk only when the caller asks for one).
 """
 
 from __future__ import annotations
@@ -89,7 +99,11 @@ from cpugpupathtracing_tpu_torch.models import materials as matlib
 from cpugpupathtracing_tpu_torch.models.mesh import Mesh
 from cpugpupathtracing_tpu_torch.ops import intersect
 from cpugpupathtracing_tpu_torch.ops import pt_frame as ptf
+from cpugpupathtracing_tpu_torch.ops import traverse as trav
 from cpugpupathtracing_tpu_torch.ops import traverse_packet_slim as tps
+from cpugpupathtracing_tpu_torch.ops import traverse_skip as tsk
+from cpugpupathtracing_tpu_torch.ops import traverse_wide as tw
+from cpugpupathtracing_tpu_torch.ops.gathers import select_rows
 from cpugpupathtracing_tpu_torch.ops.pt_frame import PT_STACK, PT_STACK_W16
 from cpugpupathtracing_tpu_torch.utils.device import resolve_device
 from cpugpupathtracing_tpu_torch.utils.log import except_error, log_warn
@@ -165,10 +179,31 @@ VARIANT_FIELDS = (
     ("pfused", torch.float32),       # (BP + NL, 128) node|leaf rows
     ("poccl_pay", torch.float32),    # (NO, 128) leaf-14 payload rows
 )
+# the tables of the XLA walks (ops/traverse*.py), None where the snapshot's
+# walk does not read them (the JAX package's names; a "packet" snapshot
+# builds none of them)
+WALK_FIELDS = (
+    ("tri_obj", torch.int32),         # (T,) owning object (every walk)
+    ("nodes8", torch.float32),        # (B, 8) binary nodes ("binary")
+    ("tri_perm", torch.int32),        # (T,) leaf order -> global tri
+    ("wnodes", torch.float32),        # (B8, 64) 8-wide rows ("wide")
+    ("wtris9", torch.float32),        # (TW, 9) leaf order
+    ("wleaf_id", torch.int32),        # (TW,) leaf order -> original id
+    ("inst_blas_root", torch.int32),  # (I,) wide row of the BLAS root
+    ("snodes12", torch.float32),      # (BS, 12) threaded rows ("skip")
+    ("stris9", torch.float32),        # (T, 9) leaf order
+    ("sleaf_id", torch.int32),        # (T,) leaf order -> original id
+    ("inst_blas_root_skip", torch.int32),  # (I,) skip row of the BLAS root
+)
 META_FIELDS = ("proots", "poccl_roots", "light_tri_meta", "num_lights",
                "num_sph", "num_pln", "has_mesh_lights", "num_instances",
                "packet_flattened", "pfused_nn", "packet_width",
                "smem_small", "poccl_width", "poccl_rows")
+# the walk's metadata (scene_from_numpy: "packet" and no roots when absent)
+WALK_META = ("traversal", "use_wide", "roots", "wroots", "wstack_depth",
+             "sroot")
+# the walks a snapshot can resolve to (Scene's traversal argument)
+TRAVERSALS = ("packet", "wide", "skip", "binary")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -239,10 +274,37 @@ class DeviceScene:
     poccl_pay: torch.Tensor | None = None
     poccl_width: int = 8
     poccl_rows: int = 1
+    # the walk of intersect_scene (TRAVERSALS): "packet" the kernels over
+    # the tables above; "wide", "skip" or "binary" an XLA walk over its
+    # tables of WALK_FIELDS (the packet tables then empty, proots none),
+    # with its roots (binary), wroots and wstack_depth (wide) or sroot
+    # (skip); use_wide as the JAX package's (False: the binary walk)
+    traversal: str = "packet"
+    use_wide: bool = True
+    tri_obj: torch.Tensor | None = None
+    nodes8: torch.Tensor | None = None
+    tri_perm: torch.Tensor | None = None
+    wnodes: torch.Tensor | None = None
+    wtris9: torch.Tensor | None = None
+    wleaf_id: torch.Tensor | None = None
+    inst_blas_root: torch.Tensor | None = None
+    snodes12: torch.Tensor | None = None
+    stris9: torch.Tensor | None = None
+    sleaf_id: torch.Tensor | None = None
+    inst_blas_root_skip: torch.Tensor | None = None
+    roots: tuple = ()
+    wroots: tuple = ()
+    wstack_depth: int = 48
+    sroot: int = -1
     # what a refit needs (Scene._refit_device); None for a snapshot made
     # from numpy tables
     refit: dict | None = dataclasses.field(default=None, compare=False,
                                            repr=False)
+    # the XLA walk's CUDA graphs (ops/traverse.py run_walk): they read
+    # this snapshot's tables, and die with it (a new one after replace)
+    walk_graphs: dict = dataclasses.field(
+        default_factory=trav.graph_cache, init=False, compare=False,
+        repr=False)
 
     @property
     def device(self) -> torch.device:
@@ -282,18 +344,27 @@ class DeviceScene:
             kw["inst_nrm"] = self.inst_nrm
         return kw
 
+    @property
+    def node_table(self) -> torch.Tensor:
+        """The node rows the snapshot's walk reads: pnodes, or the XLA
+        walk's nodes8 / wnodes / snodes12 (the empty pnodes of a scene
+        without meshes)."""
+        t = {"packet": self.pnodes, "binary": self.nodes8,
+             "wide": self.wnodes, "skip": self.snodes12}[self.traversal]
+        return self.pnodes if t is None else t  # no mesh: no walk table
+
     def table_bytes(self) -> dict:
         return {name: int(getattr(self, name).numel()
                           * getattr(self, name).element_size())
-                for name, _ in TABLE_FIELDS + VARIANT_FIELDS
+                for name, _ in TABLE_FIELDS + VARIANT_FIELDS + WALK_FIELDS
                 if getattr(self, name) is not None}
 
     def to_numpy(self) -> tuple[dict, dict]:
         """(arrays, meta): the inverse of scene_from_numpy."""
         arrays = {name: None if getattr(self, name) is None
                   else getattr(self, name).cpu().numpy()
-                  for name, _ in TABLE_FIELDS + VARIANT_FIELDS}
-        meta = {name: getattr(self, name) for name in META_FIELDS}
+                  for name, _ in TABLE_FIELDS + VARIANT_FIELDS + WALK_FIELDS}
+        meta = {name: getattr(self, name) for name in META_FIELDS + WALK_META}
         return arrays, meta
 
 
@@ -301,8 +372,10 @@ def scene_from_numpy(arrays: dict, meta: dict, device="cuda") -> DeviceScene:
     """DeviceScene from numpy tables named like TABLE_FIELDS (e.g. the
     leaves of a JAX package DeviceScene, np.asarray(getattr(dev, name)))
     and the static `meta` of META_FIELDS; the variant tables of
-    VARIANT_FIELDS are carried where given (None or absent: not built).
-    Used by the tests to hand both packages the same tables.  A missing
+    VARIANT_FIELDS and the walk tables of WALK_FIELDS are carried where
+    given (None or absent: not built), with the walk's metadata
+    (traversal "packet" when absent).  Used by the tests to hand both
+    packages the same tables.  A missing
     any-hit tree (None: the JAX package builds none for a scene without
     meshes, nor for one on the object-space instance machinery) becomes
     an empty one, missing instance tables empty ones."""
@@ -322,7 +395,7 @@ def scene_from_numpy(arrays: dict, meta: dict, device="cuda") -> DeviceScene:
         name: torch.from_numpy(table(name, dtype)).to(device=dev, dtype=dtype)
         for name, dtype in TABLE_FIELDS
     }
-    for name, dtype in VARIANT_FIELDS:
+    for name, dtype in VARIANT_FIELDS + WALK_FIELDS:
         a = arrays.get(name)
         tensors[name] = None if a is None else torch.from_numpy(
             np.array(a, order="C")).to(device=dev, dtype=dtype)
@@ -343,6 +416,12 @@ def scene_from_numpy(arrays: dict, meta: dict, device="cuda") -> DeviceScene:
         smem_small=bool(meta.get("smem_small", False)),
         poccl_width=int(meta.get("poccl_width", 8)),
         poccl_rows=int(meta.get("poccl_rows", 1)),
+        traversal=str(meta.get("traversal", "packet")),
+        use_wide=bool(meta.get("use_wide", True)),
+        roots=tuple(int(r) for r in meta.get("roots", ())),
+        wroots=tuple(int(r) for r in meta.get("wroots", ())),
+        wstack_depth=int(meta.get("wstack_depth", 48)),
+        sroot=int(meta.get("sroot", -1)),
     )
 
 
@@ -363,8 +442,11 @@ class SceneObject:
     # (mesh, _Blas) of the mesh, kept across snapshots (_blas)
     blas: tuple | None = None
     # (mesh, build_option, BVH): the object's own binary BVH at
-    # DEVICE_MAX_LEAF, built when object_stats first asks (own_bvh)
+    # DEVICE_MAX_LEAF, built when object_stats or an XLA walk first asks
+    # (own_bvh)
     own: tuple | None = None
+    # (own BVH, BVH8): its 8-wide collapse, the wide walk's tree (_wide_tree)
+    wide: tuple | None = None
 
 
 class _Blas(NamedTuple):
@@ -453,7 +535,8 @@ def own_bvh(obj: SceneObject) -> bvhlib.BVH:
     """The mesh object's own binary BVH, the tree the reference's BVH
     panel reports (the JAX package's SceneObject.bvh): built under the
     object's build option with leaves of at most DEVICE_MAX_LEAF, when
-    first asked and again after rebuild_bvh; no kernel walks it."""
+    first asked and again after rebuild_bvh; no kernel walks it, the XLA
+    walks' tables are made from it."""
     if (obj.own is None or obj.own[0] is not obj.mesh
             or obj.own[1] != obj.build_option):
         m = obj.mesh
@@ -463,12 +546,41 @@ def own_bvh(obj: SceneObject) -> bvhlib.BVH:
     return obj.own[2]
 
 
+def _wide_tree(obj: SceneObject) -> bvh8lib.BVH8:
+    """The wide walk's tree of a mesh object: the greedy 8-wide collapse
+    of own_bvh at leaf_max 4 (the JAX package's bvh8.collapse default,
+    the LEAF_MAX triangles traverse8 tests per leaf step), cached per own
+    BVH."""
+    b = own_bvh(obj)
+    if obj.wide is None or obj.wide[0] is not b:
+        obj.wide = (b, bvh8lib.collapse(b, leaf_max=tw.LEAF_MAX))
+    return obj.wide[1]
+
+
 class Scene:
     """Mutable host scene; `device(device)` returns a cached snapshot,
     rebuilt after any edit but an instance transform, after which it is
-    refit."""
+    refit.
 
-    def __init__(self):
+    traversal (the JAX package's argument): "packet" (the kernels over the
+    slim tables; the default), "wide" (the 8-wide ordered stack walk),
+    "skip" (the stackless threaded walk) or "binary" (the walk shaped like
+    the reference's, whose bvh_depth is its payload.bvh_depth);
+    use_wide=False forces "binary".  The last three are XLA walks
+    (ops/traverse*.py) in PyTorch, on the card or the CPU; no kernel route
+    takes their snapshots.  As in the JAX package a scene without meshes
+    resolves to "binary"; a "packet" scene whose tree the kernels' stack
+    cannot hold raises and names Scene(traversal="wide").  Instanced
+    meshes need the wide or skip walk.  (The JAX package's intersect_scene
+    walks its wide tree for Scene(traversal="binary"), since it tests
+    use_wide first; here "binary" walks the binary tree however asked.)"""
+
+    def __init__(self, use_wide: bool = True, traversal: str = "packet"):
+        if traversal not in TRAVERSALS:
+            except_error("Scene", "unknown traversal '{}' (one of {})",
+                         traversal, ", ".join(TRAVERSALS))
+        self.use_wide = use_wide
+        self.traversal = traversal if use_wide else "binary"
         self.objects: list[SceneObject] = []
         self.materials: list[matlib.Material] = []
         self.light_indices: list[int] = []
@@ -656,13 +768,31 @@ class Scene:
         _apply_transforms(dev, rf, _upload(pack, dev.device))
 
     def build_device(self, device="cuda") -> DeviceScene:
-        dev = resolve_device(device)
+        """A new snapshot on `device` (build_info says what it decided)."""
+        has_mesh = any(o.kind == PRIM_MESH for o in self.objects)
+        # the walk the snapshot resolves to (the JAX package's rule):
+        # use_wide=False, or a scene without meshes, gives "binary"
+        use_wide = self.use_wide and has_mesh
+        traversal = self.traversal if use_wide else "binary"
+        if traversal == "binary" and any(o.instances is not None
+                                         for o in self.objects):
+            except_error("Scene", "instanced meshes require use_wide=True "
+                         "and the wide or skip walk")
+        return self._build(resolve_device(device), traversal, use_wide)
+
+    def _build(self, dev: torch.device, traversal: str,
+               use_wide: bool) -> DeviceScene:
         f32, i32 = np.float32, np.int32
         has_instances = any(o.instances is not None for o in self.objects)
+        has_mesh = any(o.kind == PRIM_MESH for o in self.objects)
+        packet = traversal == "packet"
         flags = packet_flags()
         mode = flags.tree
-        trees = {oi: _blas(o) for oi, o in enumerate(self.objects)
-                 if o.kind == PRIM_MESH}
+        # the packet tables come from each mesh's full-sweep build, the XLA
+        # walks' from its own BVH; both hold the triangles in original
+        # order and the same root box
+        bvhs = {oi: _blas(o).b if packet else own_bvh(o)
+                for oi, o in enumerate(self.objects) if o.kind == PRIM_MESH}
 
         # the flatten decision (the JAX package's packet-path rule):
         # instanced BLASes are copied into world space when the copies
@@ -671,7 +801,7 @@ class Scene:
         flatten = False
         flat_bytes = 0
         budget = float(os.environ.get("CPUGPU_FLATTEN_BUDGET_MB") or "64")
-        if has_instances:
+        if has_instances and packet:
             flat_bytes = sum(
                 len(o.instances) * (_packet_tree(o, mode).nodes.nbytes
                                     + _packet_tree(o, mode).ltris.nbytes)
@@ -695,8 +825,8 @@ class Scene:
         # rays on the shading tables.  Leaves of orows rows (CPUGPU_OCCL2);
         # one arity for the whole table, 16 (CPUGPU_OCCL_W16) only where no
         # mesh is instanced; the leaf-14 payload rows with CPUGPU_LEAF14
-        build_occl = (flags.occl or flags.leaf14) and (not has_instances
-                                                        or flatten)
+        build_occl = (packet and (flags.occl or flags.leaf14)
+                      and (not has_instances or flatten))
         orows = 2 if flags.occl2 else 1
         owidth = 16 if flags.occl_w16 and not has_instances else 8
         leaf14 = flags.leaf14
@@ -719,10 +849,9 @@ class Scene:
 
         for oi, obj in enumerate(self.objects):
             if obj.kind == PRIM_MESH:
-                b = trees[oi].b
-                pw = _packet_tree(obj, mode)
+                b = bvhs[oi]
                 inst = obj.instances
-                tris9_l.append(_pack_tris(b.tri_v0, b.tri_v1, b.tri_v2))
+                tris9_l.append(trav.pack_tris(b.tri_v0, b.tri_v1, b.tri_v2))
                 tnrm_l.append(b.tri_normal)
                 mesh_bvh[oi] = b
                 if inst is None:
@@ -733,6 +862,14 @@ class Scene:
                 elif oi in self.light_indices:
                     except_error("Scene", "instanced mesh '{}' cannot be a "
                                  "light", obj.name)
+                if inst is not None:
+                    inst_objs.append((oi, b.nodes_min[0].copy(),
+                                      b.nodes_max[0].copy()))
+                    inst_obj_l.extend([oi] * len(inst))
+                if not packet:
+                    tri_off += b.num_triangles
+                    continue
+                pw = _packet_tree(obj, mode)
 
                 # closest-hit tables: object index stamped and triangle
                 # ids made global in the leaf records (shared by every
@@ -744,9 +881,10 @@ class Scene:
                     tidc = ltv[:, 16 * krec + 13]
                     tidc[tidc >= 0] += tri_off
                 copies = len(inst) if inst is not None and flatten else 1
+                first = len(inst_obj_l) - (0 if inst is None else len(inst))
                 if inst is not None and flatten:
                     flat_meta.append(dict(
-                        first=len(inst_obj_l), count=len(inst),
+                        first=first, count=len(inst),
                         node_base=pnode_off, ltris_base=pleaf_off,
                         src_bounds=pw.nodes[:, :6 * width].copy(),
                         src_ltris=lt))
@@ -774,7 +912,7 @@ class Scene:
                                      orows) if flatten else None)
                     if inst is not None:
                         oflat_meta.append(dict(
-                            first=len(inst_obj_l), count=len(inst),
+                            first=first, count=len(inst),
                             node_base=onode_off,
                             src_bounds=po.nodes[:, :48].copy()))
                     opay = oc.pay
@@ -808,12 +946,10 @@ class Scene:
                     odepth = max(odepth, po.max_depth)
 
                 if inst is not None:
-                    inst_objs.append((oi, b.nodes_min[0].copy(),
-                                      b.nodes_max[0].copy()))
-                    for k in range(len(inst)):
-                        inst_obj_l.append(oi)
-                        inst_root_l.append(p_flat_roots[-len(inst)]
-                                           if flatten else blas_root)
+                    # every instance names its BLAS's first copy (the JAX
+                    # package's p_blas_root_this)
+                    inst_root_l.extend([p_flat_roots[-len(inst)] if flatten
+                                        else blas_root] * len(inst))
                 tri_off += b.num_triangles
             elif obj.kind == PRIM_SPHERE:
                 c, r = obj.sphere
@@ -838,18 +974,21 @@ class Scene:
             refit = dict(inst_objs=inst_objs, num_instances=num_instances,
                          static_lo=wlo.copy(),
                          static_hi=whi.copy(), flatten=flatten, width=width,
-                         p_tlas_off=pnode_off, p_flat_roots=p_flat_roots,
+                         p_tlas_off=pnode_off if packet else None,
+                         p_flat_roots=p_flat_roots,
                          o_tlas_off=onode_off if build_occl else None,
-                         o_flat_roots=o_flat_roots)
+                         o_flat_roots=o_flat_roots, w_tlas_off=None,
+                         s_tlas_off=None)
             _, tlas_rows, tlas_depth = _transform_pack(self.objects, refit)
             refit["tlas_count"] = len(tlas_rows)
-            # the TLAS rows' entries now (the side tables read them); their
-            # bounds come with the transforms (_apply_transforms)
-            pnodes_l.append(_slim_tlas_rows(
-                tlas_rows, pnode_off, p_flat_roots if flatten else None,
-                width))
-            proots.append(pnode_off)
-            pnode_off += len(tlas_rows)
+            if packet:
+                # the TLAS rows' entries now (the side tables read them);
+                # their bounds come with the transforms (_apply_transforms)
+                pnodes_l.append(_slim_tlas_rows(
+                    tlas_rows, pnode_off, p_flat_roots if flatten else None,
+                    width))
+                proots.append(pnode_off)
+                pnode_off += len(tlas_rows)
             if build_occl:
                 onodes_l.append(_slim_tlas_rows(tlas_rows, onode_off,
                                                 o_flat_roots))
@@ -884,23 +1023,38 @@ class Scene:
         # siblings per level of the TLAS and the deepest tree below it, the
         # RESTORE marker of an instance and the extra roots; refuse a tree
         # that could overflow it (the 8-wide walks' PT_STACK, the 16-wide
-        # walks' PT_STACK_W16)
+        # walks' PT_STACK_W16).  The JAX package falls back to its wide
+        # walk there; here a walk in PyTorch is taken only when asked for
+        # (ROADMAP condition 14)
         stack_need = {}
-        for kind, depth, roots, w in (("closest-hit", pdepth, proots, width),
-                                      ("any-hit", odepth, oroots, owidth)):
-            need = (w - 1) * (tlas_depth + depth + 1) + 1 + max(len(roots), 1)
-            bound = PT_STACK if w == 8 else PT_STACK_W16
-            stack_need[kind] = need
-            if need > bound:
-                except_error(
-                    "Scene", "{} tree needs a {}-entry traversal stack, "
-                    "more than the kernel's {}", kind, need, bound)
+        if packet:
+            for kind, depth, roots, w in (
+                    ("closest-hit", pdepth, proots, width),
+                    ("any-hit", odepth, oroots, owidth)):
+                need = ((w - 1) * (tlas_depth + depth + 1) + 1
+                        + max(len(roots), 1))
+                bound = PT_STACK if w == 8 else PT_STACK_W16
+                stack_need[kind] = need
+                if need > bound:
+                    except_error(
+                        "Scene", "{} tree needs a {}-entry traversal stack, "
+                        "more than the kernel's {}; Scene(traversal=\"wide\") "
+                        "walks it in PyTorch instead", kind, need, bound)
+
+        # the XLA walk's tables (binary, wide or skip), the TLAS rows at
+        # the end, filled by _apply_transforms as a refit fills them
+        walk, walk_meta = {}, {}
+        if not packet and has_mesh:
+            walk, walk_meta = _walk_tables(self.objects, traversal,
+                                           num_instances, tlas_depth, refit)
 
         self.build_info = dict(
             flat_bytes=flat_bytes, flatten_budget_mb=budget,
             flattened=flatten, tlas_rows=refit["tlas_count"] if refit else 0,
             tlas_depth=tlas_depth, stack_need=stack_need, packet_tree=mode,
-            packet_width=width, tree_depth=pdepth, occl_depth=odepth)
+            packet_width=width, tree_depth=pdepth, occl_depth=odepth,
+            traversal=traversal, use_wide=use_wide,
+            wstack_depth=walk_meta.get("wstack_depth"))
         if not np.isfinite(wlo).all():
             wlo = np.zeros(3, f32)
             whi = np.ones(3, f32)
@@ -944,6 +1098,9 @@ class Scene:
                                 if flatten and build_occl else None))
         ds = DeviceScene(
             **{name: t(arrays[name], dtype) for name, dtype in TABLE_FIELDS},
+            **{name: t(walk[name], dtype) for name, dtype in WALK_FIELDS
+               if name in walk},
+            **walk_meta,
             proots=tuple(proots),
             poccl_roots=tuple(oroots),
             light_tri_meta=tuple(light_tri_meta),
@@ -958,6 +1115,8 @@ class Scene:
                        if build_occl and leaf14 else None),
             poccl_width=owidth,
             poccl_rows=orows,
+            traversal=traversal,
+            use_wide=use_wide,
             refit=refit,
         )
         if num_instances:
@@ -1099,13 +1258,107 @@ class Scene:
         return mk, light_tri_meta, lt_total > 0
 
 
-def _pack_tris(v0, v1, v2) -> np.ndarray:
-    """(T, 9) f32 rows [v0, e1, e2]."""
-    out = np.empty((len(v0), 9), np.float32)
-    out[:, 0:3] = v0
-    out[:, 3:6] = np.asarray(v1) - np.asarray(v0)
-    out[:, 6:9] = np.asarray(v2) - np.asarray(v0)
-    return out
+def _walk_tables(objects, traversal: str, num_instances: int,
+                 tlas_depth: int, refit: dict | None) -> tuple[dict, dict]:
+    """The tables and metadata of an XLA walk over the meshes, each from
+    its own BVH (own_bvh), as the JAX package's build lays them out:
+      binary: nodes8 (every mesh's rows, left_first made global) and
+              tri_perm, one root per mesh without instances (:1147-1160);
+      wide:   wnodes (8-wide rows of _wide_tree, interior entries made
+              global and leaf starts rebased into the concatenated
+              wtris9), wtris9, wleaf_id, one root per mesh without
+              instances and the TLAS root last, inst_blas_root, and
+              wstack_depth = min(64, 7 (depth + TLAS depth + 2) + roots)
+              (:1285-1320, :1514-1520);
+      skip:   snodes12 (each mesh threaded to the next world mesh's root,
+              the last to the TLAS or NEXT_DONE, an instanced BLAS to
+              NEXT_RETURN; the TLAS rows last), stris9 and sleaf_id in
+              leaf order, sroot, inst_blas_root_skip (:1405-1480);
+    and tri_obj.  The TLAS rows are left zero: _apply_transforms writes
+    them with the transforms (refit gets their offsets)."""
+    i32 = np.int32
+    meshes = [(oi, o) for oi, o in enumerate(objects) if o.kind == PRIM_MESH]
+    own = [own_bvh(o) for _, o in meshes]
+    tobj = [np.full(b.num_triangles, oi, i32) for (oi, _), b in zip(meshes, own)]
+    tri_offs = np.cumsum([0] + [b.num_triangles for b in own]).tolist()
+    node_offs = np.cumsum([0] + [b.num_nodes for b in own]).tolist()
+    arrays = dict(tri_obj=np.concatenate(tobj))
+    meta = {}
+    if traversal == "binary":
+        nodes, perms, roots = [], [], []
+        for k, ((_, o), b) in enumerate(zip(meshes, own)):
+            lf = b.left_first.astype(i32).copy()
+            leaf = b.prim_count > 0
+            lf[leaf] += tri_offs[k]
+            lf[~leaf] += node_offs[k]
+            nodes.append(trav.pack_nodes(b.nodes_min, b.nodes_max, lf,
+                                         b.prim_count))
+            perms.append(b.tri_indices.astype(i32) + tri_offs[k])
+            if o.instances is None:
+                roots.append(node_offs[k])
+        arrays.update(nodes8=np.concatenate(nodes),
+                      tri_perm=np.concatenate(perms))
+        meta["roots"] = tuple(roots)
+    elif traversal == "wide":
+        rows, tris, leaf_id, roots, inst_root = [], [], [], [], []
+        off = tri_at = depth = 0
+        for k, (_, o) in enumerate(meshes):
+            w = _wide_tree(o)
+            r = w.nodes.copy()
+            cidx = r[:, 48:56].view(i32)
+            ccnt = r[:, 56:64].view(i32)
+            cidx[ccnt == 0] += off
+            cidx[ccnt > 0] += tri_at
+            rows.append(r)
+            tris.append(w.tris9)
+            leaf_id.append(w.leaf_tri_id + tri_offs[k])
+            if o.instances is None:
+                roots.append(off)
+            else:
+                inst_root += [off] * len(o.instances)
+            off += w.num_nodes
+            tri_at += len(w.tris9)
+            depth = max(depth, w.max_depth)
+        if num_instances:
+            refit["w_tlas_off"] = off
+            rows.append(np.zeros((refit["tlas_count"], 64), np.float32))
+            roots.append(off)
+        arrays.update(wnodes=np.concatenate(rows), wtris9=np.concatenate(tris),
+                      wleaf_id=np.concatenate(leaf_id),
+                      inst_blas_root=np.asarray(inst_root, i32))
+        meta.update(wroots=tuple(roots), wstack_depth=min(
+            64, 7 * (depth + tlas_depth + 2) + max(len(roots), 1)))
+    else:  # skip
+        tlas_off = node_offs[-1]
+        world = [node_offs[k] for k, (_, o) in enumerate(meshes)
+                 if o.instances is None]
+        tail = tlas_off if num_instances else tsk.NEXT_DONE
+        rows, tris, leaf_id, inst_root = [], [], [], []
+        widx = 0
+        for k, ((_, o), b) in enumerate(zip(meshes, own)):
+            if o.instances is None:
+                widx += 1
+                end_next = world[widx] if widx < len(world) else tail
+            else:
+                end_next = tsk.NEXT_RETURN
+                inst_root += [node_offs[k]] * len(o.instances)
+            rows.append(tsk.pack_skip_nodes(b, tri_offs[k], node_offs[k],
+                                            end_next))
+            perm = b.tri_indices
+            tris.append(trav.pack_tris(b.tri_v0[perm], b.tri_v1[perm],
+                                       b.tri_v2[perm]))
+            leaf_id.append(perm.astype(i32) + tri_offs[k])
+        if num_instances:
+            # a binary tree over the instances: 2 I - 1 rows
+            refit["s_tlas_off"] = tlas_off
+            rows.append(np.zeros((2 * num_instances - 1, 12), np.float32))
+        arrays.update(snodes12=np.concatenate(rows),
+                      stris9=np.concatenate(tris),
+                      sleaf_id=np.concatenate(leaf_id),
+                      inst_blas_root_skip=np.asarray(inst_root, i32))
+        meta["sroot"] = int(world[0] if world else
+                            (tlas_off if num_instances else -1))
+    return arrays, meta
 
 
 def _rebase(rows: np.ndarray, node_off: int, leaf_off: int) -> np.ndarray:
@@ -1270,9 +1523,10 @@ def _transform_pack(objects, rf: dict):
     (I, 12), inst_nrm (I, 9), the linear parts A (I, 9) and translations
     b (I, 3) of the transforms, the slim TLAS rows (K, 8 * width), those
     of the any-hit TLAS (K, 64, when the scene has any-hit tables),
-    world_lo and
-    world_inv_extent -- the layout _apply_transforms reads.  Raises when
-    a refit (rf with tlas_count) would change the TLAS topology."""
+    the XLA walks' TLAS rows (wide (K, 64), skip (2 I - 1, 12); each where
+    the snapshot has that table), world_lo and world_inv_extent -- the
+    layout _apply_transforms reads.  Raises when a refit (rf with
+    tlas_count) would change the TLAS topology."""
     f32 = np.float32
     inv_l, nrm_l, a_l, b_l, imin_l, imax_l = [], [], [], [], [], []
     for oi, bmin, bmax in rf["inst_objs"]:
@@ -1294,13 +1548,23 @@ def _transform_pack(objects, rf: dict):
                      "rows, {} -> {} instances)", rf["tlas_count"],
                      len(tlas_rows), rf["num_instances"], len(imin))
     flat = rf["flatten"]
-    parts = [np.stack(inv_l), np.stack(nrm_l), np.stack(a_l), np.stack(b_l),
-             _slim_tlas_rows(tlas_rows, rf["p_tlas_off"],
-                             rf["p_flat_roots"] if flat else None,
-                             rf["width"])]
+    parts = [np.stack(inv_l), np.stack(nrm_l), np.stack(a_l), np.stack(b_l)]
+    if rf["p_tlas_off"] is not None:
+        parts.append(_slim_tlas_rows(tlas_rows, rf["p_tlas_off"],
+                                     rf["p_flat_roots"] if flat else None,
+                                     rf["width"]))
     if rf["o_tlas_off"] is not None:
         parts.append(_slim_tlas_rows(tlas_rows, rf["o_tlas_off"],
                                      rf["o_flat_roots"]))
+    if rf["w_tlas_off"] is not None:
+        # the wide walk's TLAS rows: interior entries made global
+        wrow = tlas_rows.copy()
+        wrow[:, 48:56].view(np.int32)[
+            wrow[:, 56:64].view(np.int32) == 0] += rf["w_tlas_off"]
+        parts.append(wrow)
+    if rf["s_tlas_off"] is not None:
+        parts.append(tsk.pack_skip_tlas(imin, imax, np.arange(len(imin)),
+                                        tsk.NEXT_DONE, rf["s_tlas_off"]))
     wlo = np.minimum(rf["static_lo"], imin.min(0))
     whi = np.maximum(rf["static_hi"], imax.max(0))
     wext = np.maximum(whi - wlo, 1e-6).astype(f32)
@@ -1406,16 +1670,19 @@ def _apply_transforms(ds: DeviceScene, rf: dict, words: torch.Tensor) -> None:
     rows exist only without instances."""
     I, K = ds.num_instances, rf["tlas_count"]
     ncol = 8 * rf["width"]
-    sizes = [12 * I, 9 * I, 9 * I, 3 * I, ncol * K]
-    if rf["o_tlas_off"] is not None:
-        sizes.append(64 * K)
-    sizes += [3, 3]
-    parts = list(words.split(sizes))
-    inv, nrm, A, b, prow = parts[:5]
+    # (name, offset into its table, rows, columns) of each TLAS part
+    tlas = [(name, rf[key], rows, cols) for name, key, rows, cols in (
+        ("pnodes", "p_tlas_off", K, ncol), ("poccl_nodes", "o_tlas_off", K, 64),
+        ("wnodes", "w_tlas_off", K, 64),
+        ("snodes12", "s_tlas_off", 2 * I - 1, 12)) if rf[key] is not None]
+    parts = list(words.split([12 * I, 9 * I, 9 * I, 3 * I]
+                             + [r * c for _, _, r, c in tlas] + [3, 3]))
+    inv, nrm, A, b = parts[:4]
     wlo, wie = parts[-2:]
     A, b, nrm3 = A.view(I, 3, 3), b.view(I, 3), nrm.view(I, 3, 3)
+    for (name, o, r, c), rows in zip(tlas, parts[4:-2]):
+        getattr(ds, name)[o:o + r].copy_(rows.view(r, c))
     o = rf["p_tlas_off"]
-    ds.pnodes[o:o + K].copy_(prow.view(K, ncol))
     if ds.pents is not None:  # 8-wide only
         ds.pents[o:o + K].copy_(ds.pnodes[o:o + K, 48:56].view(torch.int32))
     for fm in rf["flat_meta"]:
@@ -1427,7 +1694,6 @@ def _apply_transforms(ds: DeviceScene, rf: dict, words: torch.Tensor) -> None:
         ds.pltris[lb:lb + recs.shape[0]] = recs
     if rf["o_tlas_off"] is not None:
         o = rf["o_tlas_off"]
-        ds.poccl_nodes[o:o + K].copy_(parts[5].view(K, 64))
         if ds.poccl_ents is not None:
             ds.poccl_ents[o:o + K].copy_(
                 ds.poccl_nodes[o:o + K, 48:56].view(torch.int32))
@@ -1590,14 +1856,16 @@ def active_bit(mode: str) -> int:
 # gates' budget of 16 analytic primitives (a TPU compile-time limit of
 # unrolled tests).
 # Where the JAX package asks for the TPU backend, the port asks for a
-# scene on the card.
+# scene on the card.  A snapshot on an XLA walk ("wide", "skip",
+# "binary") takes no kernel route, as in the JAX package.
 
 
 def packet_path_active(dev: DeviceScene) -> bool:
     """True when the scene's meshes are traced by the kernel of
     ops/traverse_packet_slim.py on the card -- where the JAX package runs
     its packet kernel, and where trace_whitted sorts the wavefront."""
-    return bool(dev.proots) and dev.device.type == "cuda"
+    return (dev.traversal == "packet" and bool(dev.proots)
+            and dev.device.type == "cuda")
 
 
 def whitted_kernel_active(dev: DeviceScene, settings) -> bool:
@@ -1612,7 +1880,7 @@ def whitted_kernel_active(dev: DeviceScene, settings) -> bool:
         (dev.device.type == "cuda"
          or os.environ.get("CPUGPU_FORCE_WHITTED_KERNEL") == "1")
         and os.environ.get("CPUGPU_NO_WHITTED_KERNEL") != "1"
-        and not dev.proots
+        and dev.num_triangles == 0
         and dev.num_instances == 0
         and not dev.has_mesh_lights
         and dev.num_sph + dev.num_pln <= ANALYTIC_UNROLL_MAX
@@ -1637,8 +1905,10 @@ def megakernel_gate_reason(dev: DeviceScene, settings) -> str | None:
     integrator (integrators.trace_advanced), as in the JAX package."""
     if os.environ.get("CPUGPU_NO_MEGAKERNEL") == "1":
         return "CPUGPU_NO_MEGAKERNEL=1"
-    if not dev.proots:
+    if dev.num_triangles == 0:
         return "no mesh object (the kernels walk a BVH)"
+    if dev.traversal != "packet":
+        return f"{dev.traversal} traversal (an XLA walk, not the kernels')"
     if dev.has_mesh_lights and not any(c for _, c in dev.light_tri_meta):
         return (f"mesh lights over the {MESH_LIGHT_MAX_TRIS}-triangle "
                 "light table")
@@ -1767,7 +2037,14 @@ def intersect_scene(dev: DeviceScene, origin, direction, t_init, *,
     (IntersectScene, Source/Main.cpp:299-316): the mesh trees through
     ops/traverse_packet_slim (closest or any hit; `active` masks lanes
     out of the traversal), then the analytic spheres and planes.  Rows of
-    lanes that are not active are unspecified.  With any_hit, `obj >= 0`
+    lanes that are not active are unspecified.
+
+    A snapshot on an XLA walk takes it instead, "skip", then "wide", then
+    "binary" as the JAX package dispatches (ops/traverse_skip,
+    traverse_wide, traverse): the object of a hit from tri_obj, or from
+    inst_obj where the walk reports an instance; bvh_depth is the walk's
+    count, whatever count_depth says (the JAX walks always count), and
+    the hit carries no normal (hit_surface takes tri_normal).  With any_hit, `obj >= 0`
     says whether anything lies closer than t_init (the analytic loop's
     nearest hit and an any-hit agree on existence).
 
@@ -1798,7 +2075,38 @@ def intersect_scene(dev: DeviceScene, origin, direction, t_init, *,
     inst = torch.full_like(obj, -1)
     depth = torch.zeros_like(obj)
     normal = None
-    if dev.proots:
+    walk = None
+    if dev.traversal == "skip" and dev.sroot >= 0:
+        walk = tsk.traverse_skip(
+            origin, direction, t_init, dev.snodes12, dev.stris9, dev.sleaf_id,
+            dev.sroot, active=active, any_hit=any_hit,
+            graphs=dev.walk_graphs,
+            **_walk_instances(dev, dev.inst_blas_root_skip))
+    elif dev.traversal == "wide" and dev.wroots:
+        walk = tw.traverse8(
+            origin, direction, t_init, dev.wnodes, dev.wtris9, dev.wleaf_id,
+            dev.wroots, active=active, any_hit=any_hit,
+            stack_depth=dev.wstack_depth, graphs=dev.walk_graphs,
+            **_walk_instances(dev, dev.inst_blas_root))
+    elif dev.traversal == "binary" and dev.roots:
+        t, tri, depth = trav.traverse(
+            origin, direction, t_init, dev.nodes8, dev.tri_perm, dev.tris9,
+            dev.roots, active=active, any_hit=any_hit,
+            graphs=dev.walk_graphs)
+        mesh_hit = tri >= 0
+        obj = torch.where(mesh_hit, select_rows(dev.tri_obj, tri), obj)
+        prim = torch.where(mesh_hit, tri, prim)
+    if walk is not None:
+        t, tri, depth, hit_iid = walk
+        mesh_hit = tri >= 0
+        inst = torch.where(mesh_hit, hit_iid, inst)
+        tobj = select_rows(dev.tri_obj, tri)
+        if dev.num_instances:
+            tobj = torch.where(hit_iid >= 0,
+                               select_rows(dev.inst_obj, hit_iid), tobj)
+        obj = torch.where(mesh_hit, tobj, obj)
+        prim = torch.where(mesh_hit, tri, prim)
+    if dev.traversal == "packet" and dev.proots:
         nodes, ltris, fused_nn, ents = packet_tables(dev)
         res = tps.traverse_packet_slim(
             o_c, d_c, t_init, nodes, ltris, dev.proots,
@@ -1823,16 +2131,29 @@ def intersect_scene(dev: DeviceScene, origin, direction, t_init, *,
                inst=inst, normal=normal)
 
 
+def _walk_instances(dev: DeviceScene, blas_root) -> dict:
+    """The instance arguments of an XLA walk (inst_inv and the walk's
+    BLAS roots), none without instances."""
+    if not dev.num_instances:
+        return {}
+    return dict(inst_inv=dev.inst_inv, inst_blas_root=blas_root)
+
+
 def hit_surface(dev: DeviceScene, hit: Hit, origin, direction):
     """GetRayHitResult (Source/Main.cpp:325-338): hit position, geometric
-    normal (the flat triangle normal of a mesh hit; of an instance hit
-    normalize(inst_nrm @ n_object)) and material index per lane;
-    origin/direction (N, 3).  Lanes that missed get clamped garbage the
-    caller masks."""
+    normal (the flat triangle normal of a mesh hit: the walk's, else
+    tri_normal[prim]; of an instance hit normalize(inst_nrm @ n_object))
+    and material index per lane; origin/direction (N, 3).  Lanes that
+    missed get clamped garbage the caller masks."""
     pos = origin + direction * hit.t[:, None]
-    pc = torch.clamp(hit.prim, min=0).long()
+    pc = torch.clamp(hit.prim, min=0)
     zero = torch.zeros_like(pos)
-    n_mesh = zero if hit.normal is None else torch.stack(hit.normal, dim=1)
+    if hit.normal is not None:
+        n_mesh = torch.stack(hit.normal, dim=1)
+    elif dev.num_triangles:
+        n_mesh = select_rows(dev.tri_normal, pc)
+    else:
+        n_mesh = zero
     if dev.num_instances:
         # the JAX package's explicit arithmetic, which the shade_extend
         # kernel's epilogue repeats, so the two agree bitwise
@@ -1841,15 +2162,13 @@ def hit_surface(dev: DeviceScene, hit: Hit, origin, direction):
             n_mesh[:, 2]), dim=1)
     n_sph = n_pln = zero
     if dev.num_sph:
-        centers = dev.mk_sph[:dev.num_sph, 0:3]
-        n_sph = normalize(pos - centers[torch.clamp(pc, max=dev.num_sph - 1)])
+        n_sph = normalize(pos - select_rows(dev.mk_sph[:dev.num_sph, 0:3], pc))
     if dev.num_pln:
-        n_pln = dev.mk_pln[:dev.num_pln, 3:6][
-            torch.clamp(pc, max=dev.num_pln - 1)]
+        n_pln = select_rows(dev.mk_pln[:dev.num_pln, 3:6], pc)
     normal = torch.where((hit.kind == PRIM_SPHERE)[:, None], n_sph,
                          torch.where((hit.kind == PRIM_PLANE)[:, None], n_pln,
                                      n_mesh))
-    mat_idx = dev.mk_objmat[torch.clamp(hit.obj, min=0).long()]
+    mat_idx = select_rows(dev.mk_objmat, hit.obj)
     return pos, normal, mat_idx
 
 

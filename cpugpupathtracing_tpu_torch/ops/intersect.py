@@ -4,14 +4,17 @@ association (Source/Primitives.cpp).
 
 Rays are `(N, 3)` origin/direction tensors and primitives broadcast
 against them.  Triangles are stored as (v0, e1, e2) with e1 = v1 - v0,
-e2 = v2 - v0 precomputed on the host.
+e2 = v2 - v0 precomputed on the host.  The slab test's one margin
+(`slab_pass`, SLAB_PAD) lives here too: every walk of the port, the
+kernels' plain versions and the XLA walks (ops/traverse*.py), takes it.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from cpugpupathtracing_tpu_torch.utils.vecmath import cross, dot3, sqrt
+from cpugpupathtracing_tpu_torch.utils.vecmath import AABB_MISS, cross, dot3, sqrt
 
 # Double-sided determinant epsilon (Source/Primitives.cpp:16).
 TRI_DET_EPS = 0.001
@@ -59,6 +62,49 @@ def intersect_plane(origin, direction, point, normal):
         denom_ok, denom, torch.ones_like(denom))
     valid = denom_ok & (t > 0.0)
     return valid, torch.where(valid, t, torch.full_like(t, _INF))
+
+
+# csrc/pt_device.cuh SLAB_PAD: 1 + 2 gamma_3 in f32 (1 + 3 * 2^-23)
+SLAB_PAD = float(np.float32(1.0) + np.float32(3.0 * 2.0 ** -23))
+
+
+def slab_pass(tmin, tmax, t, at_t, pad=SLAB_PAD):
+    """csrc/pt_device.cuh slab_hit: the conservative slab test (Ize,
+    JCGT 2013) of entry and exit distances tmin / tmax against t (at t too
+    with at_t): tmax and t widened by pad (SLAB_PAD) before the compares,
+    so a ray grazing a flat box's edge keeps the box (ROADMAP C2); pad 1
+    is the exact test the port had before.  The products round in f32, as
+    the kernel's."""
+    hi, tp = tmax * pad, t * pad
+    before = (tmin < tp) | (tmin == tp) if at_t else tmin < tp
+    return (hi >= tmin) & before & (tmax > 0.0)
+
+
+def slab_interval(origin, inv_direction, bmin, bmax):
+    """(tmin, tmax) of the slab test in the JAX package's arithmetic
+    (ops/intersect.py intersect_aabb there): per axis (b - o) * inv,
+    min / max of the two, a NaN slab (0 * inf: a zero direction component
+    with the origin on the slab) non-restricting, then the max of the
+    entries and the min of the exits over the trailing axis."""
+    t1 = (bmin - origin) * inv_direction
+    t2 = (bmax - origin) * inv_direction
+    lo = torch.minimum(t1, t2)
+    hi = torch.maximum(t1, t2)
+    lo = torch.where(torch.isnan(lo), -float("inf"), lo)
+    hi = torch.where(torch.isnan(hi), float("inf"), hi)
+    return torch.amax(lo, dim=-1), torch.amin(hi, dim=-1)
+
+
+def intersect_aabb(origin, inv_direction, ray_t, bmin, bmax, pad=1.0):
+    """Slab test returning the entry distance, or AABB_MISS (1e30) where
+    the box is missed (IntersectAABB, Source/Primitives.cpp:116-146; the
+    JAX package's intersect_aabb): hit when tmax >= tmin, tmin < ray_t
+    and tmax > 0 (slab_pass at `pad`; 1 is the JAX function's exact test,
+    the XLA walks pass SLAB_PAD).  The binary walk orders a node's two
+    children by these distances and tests the sentinel for a miss."""
+    tmin, tmax = slab_interval(origin, inv_direction, bmin, bmax)
+    hit = slab_pass(tmin, tmax, ray_t, False, pad)
+    return torch.where(hit, tmin, torch.full_like(tmin, AABB_MISS))
 
 
 def brute_force_nearest_triangle(origin, direction, tri_v0, tri_e1, tri_e2,

@@ -61,9 +61,11 @@ import numpy as np
 import torch
 
 from cpugpupathtracing_tpu_torch.ops import sampling
-from cpugpupathtracing_tpu_torch.ops.intersect import (
+from cpugpupathtracing_tpu_torch.ops.intersect import (  # noqa: F401
     PLANE_DENOM_EPS,
+    SLAB_PAD,
     brute_force_nearest_triangle,
+    slab_pass,
 )
 from cpugpupathtracing_tpu_torch.utils.build import hashed_dir, source_path
 from cpugpupathtracing_tpu_torch.utils.device import resolve_device
@@ -1045,22 +1047,6 @@ def instance_records(nodes, ltris, roots, inst_root) -> dict:
                          + torch.arange(6, device=nodes.device)]
     return dict(world=_leaf_rows_records(ltris, world) if world else None,
                 boxes=boxes, blas=[blas[r] for r in iroot])
-
-
-# csrc/pt_device.cuh SLAB_PAD: 1 + 2 gamma_3 in f32 (1 + 3 * 2^-23)
-SLAB_PAD = float(np.float32(1.0) + np.float32(3.0 * 2.0 ** -23))
-
-
-def slab_pass(tmin, tmax, t, at_t, pad=SLAB_PAD):
-    """csrc/pt_device.cuh slab_hit: the conservative slab test (Ize,
-    JCGT 2013) of entry and exit distances tmin / tmax against t (at t too
-    with at_t): tmax and t widened by pad (SLAB_PAD) before the compares,
-    so a ray grazing a flat box's edge keeps the box (ROADMAP C2); pad 1
-    is the exact test the port had before.  The products round in f32, as
-    the kernel's."""
-    hi, tp = tmax * pad, t * pad
-    before = (tmin < tp) | (tmin == tp) if at_t else tmin < tp
-    return (hi >= tmin) & before & (tmax > 0.0)
 
 
 def _slab_pass(box, o, inv, zero, t, at_t, pad=SLAB_PAD):

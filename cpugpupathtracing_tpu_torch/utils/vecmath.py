@@ -15,6 +15,8 @@ INV_PI = 1.0 / PI
 
 # Reference ray-t infinity (Include/Primitives.h:75).
 RAY_TMAX = 1e34
+# The slab test's miss distance (IntersectAABB, Source/Primitives.cpp:116-146).
+AABB_MISS = 1e30
 
 # Self-intersection nudge (Source/Main.cpp:49).
 RAY_NUDGE = 0.001

@@ -43,7 +43,8 @@ Every stage set of the floor probe L5 equals its plain version bitwise
 n = 0 to 4099 and on a view whose alignment differs from its output's; the
 shared-memory probe L9 reads its word from every table up to the
 device's opt-in limit, is refused above it, and launches after a
-refusal."""
+refusal.  The XLA walks (no kernel) give the same hits with their steps
+replayed from CUDA graphs as launched from the host, bitwise."""
 
 import numpy as np
 import pytest
@@ -1360,3 +1361,51 @@ def test_smem_probe_staging(card, words):
         idx = torch.zeros(1, dtype=torch.int32, device=dev)
         with pytest.raises(ValueError, match="16-byte"):
             sp.smem_probe(tab[1:], idx)
+
+
+@pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any"])
+@pytest.mark.parametrize("walk", ["wide", "skip", "binary"])
+def test_walks_graphs_match_host_launched(card, walk, any_hit, monkeypatch):
+    """The XLA walks on the card (Scene(traversal=...), no kernel): the
+    steps replayed from CUDA graphs equal the host-launched steps bitwise
+    on every field of intersect_scene, also on a second call (the
+    snapshot's cached graphs), and the closest hits' t equals brute
+    force's."""
+    from cpugpupathtracing_tpu_torch.models import scene as scenelib
+    from cpugpupathtracing_tpu_torch.ops import intersect as isect
+    from cpugpupathtracing_tpu_torch.ops import traverse as trav
+
+    _, o, d, _ = card
+    s = _card_scene()
+    s.traversal = walk
+    ds = s.build_device("cuda")
+    assert ds.traversal == walk
+    n = o.shape[0]
+    t0 = torch.where(torch.arange(n, device="cuda") % 3 == 0, 4.0, 1e34)
+    act = torch.arange(n, device="cuda") % 5 != 0
+    runs, cached = [], []
+    for graph_max in (0, trav.GRAPH_MAX_LANES, trav.GRAPH_MAX_LANES):
+        monkeypatch.setattr(trav, "GRAPH_MAX_LANES", graph_max)
+        trav.reset_stats()
+        runs.append(scenelib.intersect_scene(ds, o, d, t0, active=act,
+                                             any_hit=any_hit)[:6])
+        assert (trav.stats["replays"] > 0) == (graph_max > 0)
+        cached.append((trav.stats["captures"], len(ds.walk_graphs)))
+    # the graphs are the snapshot's: none host-launched, captured on the
+    # first graph run, reused on the second, none on a new snapshot
+    k = cached[1][1]
+    assert cached == [(0, 0), (k, k), (0, k)] and k > 0, cached
+    assert not s.build_device("cuda").walk_graphs
+    for other in runs[1:]:
+        for a, b in zip(runs[0], other):
+            assert torch.equal(a.view(torch.int32) if a.is_floating_point()
+                               else a, b.view(torch.int32)
+                               if b.is_floating_point() else b)
+    if not any_hit:
+        tr = ds.tris9
+        bt, _ = isect.brute_force_nearest_triangle(
+            o, d, tr[:, 0:3], tr[:, 3:6], tr[:, 6:9], t0)
+        mesh = act & (runs[1][2] == scenelib.PRIM_MESH) & (runs[1][1] >= 0)
+        assert int(mesh.sum()) > 100
+        assert torch.equal(runs[1][0][mesh].view(torch.int32),
+                           bt[mesh].view(torch.int32))
