@@ -300,6 +300,18 @@ Phases, one line each; any failure raises and exits non-zero:
                  the refusals; per size the kernel's and torch.take's
                  device ms timed in turn, and L8's trivial kernel against
                  x * 2 timed in turn
+ 26. bench        bench_torch.py (the port's bench.py) in one new
+                 process, bench_torch.main once a run: config 3 at
+                 1920x1080 (16 frames), config 1 at 800x600 (64), config
+                 5 at 1280x720 (8), config 3 under --devices 1 (8): the
+                 process exits 0 with one line a run of bench.py's keys,
+                 value > 0, every parity gate that applies true
+                 (parity_gate.py: B4 plain and instanced against brute
+                 force, B5 against trace_whitted on config 1, B1 against
+                 the per-depth route where the config takes it), the card
+                 in `device`, and only the config's frame kernel in the
+                 timed frames (BENCH_DETAIL on stderr); the lines, their
+                 details and each run's seconds are printed ([bench_<run>])
  18. the {"kernels": [...]} line: per kernel its check's numbers, and per
      main-path launch its lanes, ms, bound and sampled error; the
      instance arms, the count_depth arms, the variant arms and the leaf
@@ -5315,6 +5327,114 @@ def sharded(scene, cam_cfg, settings, width, height, dev) -> dict:
     return info
 
 
+# bench.py's keys (bench.py:304-325; :171-185 under --devices)
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "extra"}
+BENCH_EXTRA = {"config", "pct_of_kernel_floor", "frame_ms", "rays_per_frame",
+               "resolution", "frames_timed", "scene_build_s", "first_frame_s",
+               "compiled_parity_ok", "compiled_parity_instanced_ok",
+               "compiled_parity_whitted_ok", "compiled_parity_ptframe_ok",
+               "device", "bench_flags"}
+BENCH_DEVICES_EXTRA = {"config", "devices", "shard_mode", "frames_timed",
+                       "frame_ms", "bench_flags"}
+GATE_FIELD = {"parity": "compiled_parity_ok",
+              "instanced": "compiled_parity_instanced_ok",
+              "whitted": "compiled_parity_whitted_ok",
+              "ptframe": "compiled_parity_ptframe_ok"}
+# (phase, arguments, config, the gates that apply (None: the --devices
+# line, which has none), the kernel the timed frames launch, its launches
+# a frame, frames launched: the timed ones, and under --devices the first)
+BENCH_RUNS = (
+    ("bench_config3", ["--config", "3", "1920", "1080", "16"], 3,
+     ("parity", "instanced", "ptframe"), "pt_frame", 2, 16),
+    ("bench_config1", ["--config", "1", "800", "600", "64"], 1,
+     ("parity", "instanced", "whitted"), "whitted_frame", 1, 64),
+    ("bench_config5", ["--config", "5", "1280", "720", "8"], 5,
+     ("parity", "instanced", "ptframe"), "pt_frame", 2, 8),
+    ("bench_devices1", ["--config", "3", "--devices", "1", "1920", "1080",
+                        "8"], 3, None, "pt_frame", 2, 9),
+)
+
+
+# one new process runs the lines in turn through bench_torch.main, as
+# `python bench_torch.py <arguments>` runs one: the interpreter's start and
+# the card's initialisation are paid once, not once a line.  The garbage a
+# line leaves is collected before the next, which would otherwise pay for
+# it in its timed frames (config 5 third: 12.5 ms a frame without, 6.7
+# with, one run each on an H100)
+BENCH_BODY = (
+    "import gc, json, sys, time\n"
+    "import bench_torch\n"
+    "for args in json.loads(sys.argv[1]):\n"
+    "    gc.collect()\n"
+    "    t0 = time.perf_counter()\n"
+    "    bench_torch.main(args)\n"
+    "    print('BENCH_WALL', time.perf_counter() - t0, file=sys.stderr,\n"
+    "          flush=True)\n"
+)
+
+
+def bench() -> None:
+    """Phase [bench]: bench_torch.py, the port's bench.py, in one new
+    process from the checkout's root, bench_torch.main once a line: config
+    3 at 1920x1080 (16 frames), config 1 at 800x600 (64), config 5 at
+    1280x720 (8) and config 3 under --devices 1 (8).  The process exits 0
+    and prints one line a run with bench.py's keys, value > 0,
+    pct_of_kernel_floor null, every gate that applies true and the others
+    null, the card's name in `device`; each run's BENCH_DETAIL line on
+    stderr (unrounded figures, the gates' dicts) counts only the config's
+    frame kernel in the timed frames, launches a frame times frames.
+    Prints each run's line, its detail and its seconds in the process,
+    then the process's seconds."""
+    import torch
+
+    card = torch.cuda.get_device_name(0)
+    torch.cuda.empty_cache()
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", BENCH_BODY,
+         json.dumps([run[1] for run in BENCH_RUNS])],
+        capture_output=True, text=True, timeout=400, cwd=root)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"bench: exit {proc.returncode}\n"
+                             f"{proc.stderr[-3000:]}")
+    lines = proc.stdout.splitlines()
+    err = proc.stderr.splitlines()
+    dets = [ln for ln in err if ln.startswith("BENCH_DETAIL ")]
+    walls = [float(ln.split()[1]) for ln in err if ln.startswith("BENCH_WALL ")]
+    if not len(lines) == len(dets) == len(walls) == len(BENCH_RUNS):
+        raise AssertionError(f"bench: unexpected output\n{proc.stdout}"
+                             f"{proc.stderr[-2000:]}")
+    for run, line, det, run_s in zip(BENCH_RUNS, lines, dets, walls):
+        phase, _, config, gates, kernel, per_frame, frames = run
+        rec = json.loads(line)
+        det = json.loads(det.split(" ", 1)[1])
+        extra = rec["extra"]
+        want = BENCH_EXTRA if gates is not None else BENCH_DEVICES_EXTRA
+        if set(rec) != BENCH_KEYS or set(extra) != want:
+            raise AssertionError(f"{phase}: keys {sorted(rec)} / "
+                                 f"{sorted(extra)}")
+        if not rec["value"] > 0 or extra["config"] != config:
+            raise AssertionError(f"{phase}: {rec}")
+        if gates is not None:
+            got = {g: extra[f] for g, f in GATE_FIELD.items()}
+            if got != {g: (True if g in gates else None) for g in GATE_FIELD}:
+                raise AssertionError(f"{phase}: gates {got}, expected "
+                                     f"{gates} true")
+            if extra["pct_of_kernel_floor"] is not None \
+                    or card not in extra["device"]:
+                raise AssertionError(f"{phase}: {extra}")
+        ran = det["launches"]
+        if (any(not k.startswith(kernel) for k in ran)
+                or sum(ran.values()) != per_frame * frames):
+            raise AssertionError(f"{phase}: launched {ran}, expected "
+                                 f"{per_frame * frames} of {kernel}")
+        say(phase, run_s=round(run_s, 1), line=line)
+        say(f"{phase}_detail", **det)
+    say("bench", process_s=round(wall, 1), runs_s=round(sum(walls), 1))
+
+
 def route_entry(name: str, kernel: str, source: str, replaces: str,
                 launches: int, path: list, keys: tuple) -> dict:
     """A kernels-line entry for one kernel's launches on a route added in
@@ -5600,6 +5720,10 @@ def main() -> int:
     # sessions in one process)
     launch_res = launch_probe(ds)
     smem_res = smem_phase()
+
+    # 26. bench_torch.py in a new process: configs 3, 1, 5 and --devices 1,
+    # each line with bench.py's keys and every gate that applies true
+    bench()
 
     # 18. kernels line, one clock per field: ms (device time per launch,
     # launch_ms), call_ms (CUDA events around the wrapper calls,
