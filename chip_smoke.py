@@ -227,10 +227,14 @@ Phases, one line each; any failure raises and exits non-zero:
                  counters and the rows read included; closest hits
                  against traverse_packet_slim's bitwise, L3's any hit in
                  its occlusion bit (L6's fma arm: mismatches counted;
-                 leaf skip: none; slab skip against its plain version on
-                 a small tree); L2's parent-pointer frames take the frame
-                 stack's trips exactly, L7's warps the max of their paired
-                 L6 warps' trips
+                 leaf skip: none; slab skip, the sweep, against its plain
+                 version on a small tree, and on the check lanes its
+                 counters against the row sequence's); L2's parent-pointer
+                 frames take the frame stack's trips exactly, L7's warps
+                 the max of their paired L6 warps' trips; per L6 / L7 arm
+                 ([check_labs_arm]) its kernels' registers, shared memory
+                 and spills from the build, device ms, bound, the
+                 operations at the unfused f32 rate, ns per warp trip
  17f. labs       the labs' main path: the whole bounce fan (1.07M active
                  lanes) through each of the 36 arms once -- hits against
                  traverse_packet_slim's on every active lane, trips, leaf
@@ -238,10 +242,15 @@ Phases, one line each; any failure raises and exits non-zero:
                  count launch made before the launch counts are zeroed
  17g. check_floor  the floor probe L5 (labs/floor_probe.py) on the 8192
                  check lanes at 16 trips: each of its ten stage sets
-                 against its plain version, bitwise on t and the entry
+                 against its plain version, bitwise on t and the entry;
+                 per stage set ([check_floor_set]) its instantiation's
+                 registers, shared memory and spills, device ms, bound,
+                 unfused-rate ms, the stack-word yardstick, ns per trip
  17h. floor      L5's main path: each stage set once over the whole fan
                  (2,073,600 lanes) at K = 2000 trips: device ms, ns per
-                 warp trip, the bound (slab and leaf operations)
+                 warp trip, the bound (slab and leaf operations), the
+                 same at the unfused rate, the control's stack words at
+                 the shared memory's rate (stack_ms), the resources
  20. layout3      config 3 at 1920x1080 under every node-table layout:
                  the default (CPUGPU_SMEMTREE=48: 48-col rows and the entry
                  side tables), CPUGPU_SMEMTREE=1 (64-col rows with them),
@@ -360,8 +369,11 @@ TIMED_FRAMES = 5
 # timed frames per route of the leaf phases (22, 23): their arms' numbers
 # come from the check lanes and the sampled launches
 LEAF_FRAMES = 2
-# profiling sessions launch_ms makes before it gives up on seeing a launch
-PROFILE_ATTEMPTS = 3
+# profiling sessions launch_ms makes before it gives up on seeing a launch,
+# and the seconds it waits before each new one (a session that records no
+# device event at all has come two or three times in a row, then passed)
+PROFILE_ATTEMPTS = 8
+PROFILE_RETRY_S = 0.5
 # every SAMPLE_STRIDE-th lane of a main-path launch is held against the
 # plain version (~8100 lanes per launch at 1920x1080)
 SAMPLE_STRIDE = 256
@@ -490,6 +502,38 @@ def ptxas_lines(log: str) -> list:
     return out
 
 
+def ptxas_resources(name: str) -> str:
+    """The build's registers, shared memory, stack frame and spills of the
+    kernel instantiation `name` (as ptxas_lines names it)."""
+    from cpugpupathtracing_tpu_torch.ops import pt_frame as ptf
+
+    for ln in ptxas_lines(ptf.build_log):
+        kernel, _, rest = ln.partition(": ")
+        if kernel == name:
+            return rest
+    raise AssertionError(f"ptxas reported no kernel {name}")
+
+
+def lab_instances(arm) -> list:
+    """The kernel instantiations (ptxas_lines' names) that an L6 or L7 arm
+    of labs/bounce_fan.py launches: L6's slab="skip" arm the sweep's
+    three kernels, another L6 arm its
+    lab_ablate_kernel<leaf, slab, ctrl, smem, fixed, fused, fma, unroll>."""
+    from cpugpupathtracing_tpu_torch.labs import kernel_lab as kl
+
+    if arm.kernel == "L7":
+        return ["lab_dual_kernel"]
+    o = kl.options(**arm.kw)
+    if o["slab"] == "skip":
+        return ["sweep_prep_kernel", f"sweep_kernel<{kl.SWEEP_RAYS}>",
+                "sweep_merge_kernel"]
+    leaf, slab, ctrl, smem, fixed, fused, fma, unroll = kl._arm(o)
+    flags = ",".join("true" if v else "false"
+                     for v in (smem, fixed, fused, fma))
+    return [f"lab_ablate_kernel<{kl.LEAF.index(leaf)},{kl.SLAB.index(slab)},"
+            f"{kl.CTRL.index(ctrl)},{flags},{unroll}>"]
+
+
 def sass_twins(lib: str, kernel: str) -> list:
     """Groups (two or more) of the instantiations of `kernel` in the
     shared library `lib` that compiled to the same SASS (cuobjdump -sass,
@@ -573,6 +617,7 @@ def launch_ms(fn, kernels, reps: int = 1, expect: int | None = None) -> list:
             launches_seen=len(evs), launches_expected=expect,
             device_events=sum(1 for e in prof.events()
                               if e.device_type == DeviceType.CUDA))
+        time.sleep(PROFILE_RETRY_S)
     raise AssertionError(f"the profiler saw no launch of {kernels}")
 
 
@@ -4320,6 +4365,9 @@ def check_labs(fan) -> dict:
             raise AssertionError(f"check_labs {arm.label}: {mism} output "
                                  f"words differ from the plain version, "
                                  f"{hits} hits from the standalone traversal")
+        if skip:
+            sweep_counters(fan, got, act)
+            slow_rows = sweep_slow_rows(small, arm)
         out[arm.label] = dict(
             key=bf.arm_key(arm), mismatches=mism, hit_mismatches=hits,
             plain_check="small tree" if skip else "check lanes",
@@ -4333,6 +4381,20 @@ def check_labs(fan) -> dict:
             call_ms=cuda_ms(lambda arm=arm: bf.call(fan, arm, rays, t0, act),
                             CHECK_REPS))
 
+    for arm in bf.ARMS:
+        if arm.kernel not in ("L6", "L7"):
+            continue
+        v = out[arm.label]
+        names = lab_instances(arm)
+        unfused = bf.unfused_ms(arm, torch.tensor(
+            [v["counts"][k] for k in bf.cm.COUNTS]))
+        say("check_labs_arm", label=repr(arm.label), lanes=CHECK_LANES,
+            ms=round(v["ms"], 4), bound_ms=round(v["bound"][0], 5),
+            bound_by=v["bound"][1], unfused_ms=round(unfused, 5),
+            ns_per_trip=round(v["ms"] * 1e6 / max(v["iters"], 1), 3),
+            **{f"ptxas_{k}": repr(f"{k}: {ptxas_resources(k)}")
+               for k in names})
+        v["unfused_ms"] = unfused
     for near in ("", "+nearest"):
         fs = out["pipelined fs+fused" + near]["iters"]
         par = out["pipe fs+fused+near+parent" if near
@@ -4340,6 +4402,11 @@ def check_labs(fan) -> dict:
         if fs != par:
             raise AssertionError(f"check_labs: parent frames took {par} "
                                  f"trips, the frame stack {fs}")
+    rcp_bad, rcp_tested = kl.rcp_check(t0.device)
+    if rcp_bad:
+        raise AssertionError(f"check_labs: the sweep's reciprocal differs "
+                             f"from 1.0f / x on {rcp_bad} of {rcp_tested} "
+                             "inputs")
     # L7: per pair of tiles the sum over its warps of the max of the two
     # L6 (ilv, fixed) warps it pairs, L6's per-warp trips from its plain
     # version (equal to its kernel's per tile above)
@@ -4360,6 +4427,8 @@ def check_labs(fan) -> dict:
                  for e in ("vector", "smem")}
     say("check_labs", lanes=CHECK_LANES, active=int(act.sum()),
         arms=len(out), mismatches=0, parent_iters_equal=True,
+        rcp_fast_inputs=rcp_tested, rcp_fast_mismatches=rcp_bad,
+        sweep_slow_rows=slow_rows,
         pair_max_equal=pair_max, blocks_per_sm=occupancy,
         fma_hit_mismatches=[v["hit_mismatches"] for v in out.values()
                             if v["key"].endswith("_fma")],
@@ -4367,6 +4436,79 @@ def check_labs(fan) -> dict:
         **{f"{k}_plain_ms": round(v["plain_ms"], 1)
            for k, v in out.items()})
     return out
+
+
+# the scales of the small tree's first leaf record's edges that take some
+# rays' determinants past the sweep's fast reciprocal (|det| >= 2^126;
+# 3e19 makes some infinite)
+SWEEP_SLOW_SCALES = (1e19, 3e19)
+
+
+def sweep_slow_rows(small, arm) -> dict:
+    """L6's slab-skip arm on the small tree with its first leaf record's
+    edges scaled by each of SWEEP_SLOW_SCALES: every output bitwise its
+    plain version's, so the rows tested again by tri_test (a determinant
+    past rcp_fast's range) are right.  Returns per scale the active rays
+    whose determinant against that record is past the range (at least
+    one, or the path did not run)."""
+    import torch
+
+    from cpugpupathtracing_tpu_torch.labs import bounce_fan as bf
+
+    out = {}
+    for scale in SWEEP_SLOW_SCALES:
+        lt = small.ltris.clone()
+        lt[0, 3:9] *= scale
+        case = small._replace(ltris=lt)
+        got = bf.call(case, arm, count_rows=True)
+        ref = bf.plain(case, arm, case.rays, case.t_init, case.active,
+                       count_rows=True)
+        mism = sum(int((a_ != b_).sum())
+                   for a_, b_ in (as_bits(a, b) for a, b in zip(got, ref)))
+        # the kernel's determinant, op by op in f32
+        d = [c[case.active] for c in case.rays[3:]]
+        e1, e2 = lt[0, 3:6], lt[0, 6:9]
+        hx = d[1] * e2[2] - d[2] * e2[1]
+        hy = d[2] * e2[0] - d[0] * e2[2]
+        hz = d[0] * e2[1] - d[1] * e2[0]
+        det = e1[0] * hx + e1[1] * hy + e1[2] * hz
+        slow = int((~(det.abs() < 2.0 ** 126)).sum())
+        if mism or not slow:
+            raise AssertionError(f"check_labs slab skip, record edges x "
+                                 f"{scale}: {mism} output words differ from "
+                                 f"the plain version ({slow} slow rays)")
+        out[f"{scale:g}"] = slow
+    return out
+
+
+def sweep_counters(fan, got, act) -> None:
+    """L6's slab="skip" arm on the check lanes of config 3's tree (whose
+    plain walk takes a step per row, too many there): its counters
+    against those of the row sequence every active lane walks
+    (labs/kernel_lab.py sweep_rows) -- depth 0, per tile the sequence's
+    steps times the warps with an active lane, the count launch's work
+    and rows read."""
+    import torch
+
+    from cpugpupathtracing_tpu_torch.labs import common as cm
+    from cpugpupathtracing_tpu_torch.labs import kernel_lab as kl
+
+    node_seq, leaf_seq = kl.sweep_rows(fan.nodes, fan.roots)
+    steps = len(node_seq) + len(leaf_seq)
+    act = act.cpu()
+    live = int(act.sum())
+    want_iters = cm.tile_sum(cm.warp_any(
+        torch.cat([act, torch.zeros(-act.numel() % cm.WARP,
+                                    dtype=torch.bool)])).to(torch.int64)
+        * steps, act.numel())
+    want = [live * len(node_seq), live * len(leaf_seq),
+            live * len(leaf_seq) * cm.LEAF_TRIS, len(set(node_seq)),
+            len(set(leaf_seq))]
+    if bool((got[3] != 0).any()) or not torch.equal(got[4].cpu(), want_iters) \
+            or got[-1].tolist() != want:
+        raise AssertionError(f"check_labs slab skip: counters {got[-1]} "
+                             f"(iters {int(got[4].sum())}) against the row "
+                             f"sequence's {want} ({int(want_iters.sum())})")
 
 
 def labs(fan) -> list:
@@ -4493,11 +4635,22 @@ def check_floor(fan) -> dict:
         if mism:
             raise AssertionError(f"check_floor {stages}: {mism} output words "
                                  "differ from the plain version")
-        out[fp.launch_key(stages)] = dict(
+        v = out[fp.launch_key(stages)] = dict(
             mismatches=mism, max_abs_err=float((got[0] - ref[0]).abs().max()),
             plain_ms=plain_ms,
             bound=fp.bound(stages, CHECK_LANES, FLOOR_CHECK_K),
+            unfused_ms=fp.unfused_ms(stages, CHECK_LANES, FLOOR_CHECK_K),
+            stack_ms=fp.control_yardstick(stages, CHECK_LANES, FLOOR_CHECK_K),
             ms=busy_ms(call, CHECK_REPS), call_ms=cuda_ms(call, CHECK_REPS))
+        name = f"floor_kernel<{fp.stage_bits(stages)}>"
+        v["ptxas"] = f"{name}: {ptxas_resources(name)}"
+        say("check_floor_set", stages="+".join(stages) or "loop",
+            ms=round(v["ms"], 5), bound_ms=round(v["bound"][0], 6),
+            bound_by=v["bound"][1], unfused_ms=round(v["unfused_ms"], 6),
+            stack_ms=round(v["stack_ms"], 6),
+            ns_per_trip=round(fp.ns_per_trip(v["ms"], CHECK_LANES,
+                                             FLOOR_CHECK_K), 3),
+            ptxas=repr(v["ptxas"]))
     say("check_floor", lanes=CHECK_LANES, k_iters=FLOOR_CHECK_K,
         stage_sets=len(out), mismatches=0,
         **{f"{k}_ms": round(v["ms"], 4) for k, v in out.items()})
@@ -4516,9 +4669,12 @@ def floor(fan) -> list:
     got = counts()
     expect_counts(got, "floor", **{r["key"]: got.get(r["key"], 0)
                                    for r in rows})
-    for row in rows:
+    for row, stages in zip(rows, fp.STAGE_SETS):
         row["launches"] = got[row["key"]]
-        say("floor", **{k: (round(v, 4) if isinstance(v, float) else v)
+        name = f"floor_kernel<{fp.stage_bits(stages)}>"
+        row["ptxas"] = f"{name}: {ptxas_resources(name)}"
+        say("floor", **{k: (round(v, 4) if isinstance(v, float) else
+                            repr(v) if k == "ptxas" else v)
                         for k, v in row.items()})
     return rows
 
@@ -4543,7 +4699,7 @@ def floor_entry(chk: dict, rows: list) -> dict:
         "stage_sets": [dict(
             {k: r[k] for k in ("stages", "key", "lanes", "k_iters",
                                "launches", "ms", "ns_per_trip", "bound_ms",
-                               "bound_by")},
+                               "bound_by", "ptxas")},
             check_ms=chk[r["key"]]["ms"],
             check_plain_ms=chk[r["key"]]["plain_ms"]) for r in rows],
     }

@@ -46,7 +46,8 @@ read once: 224 B an 8-wide node row, 448 B a 16-wide one, 512 B a leaf
 row; slab skip reads a node row's 32 B of entries, the smem arm its 192
 B of bounds and the whole entry mirror once) over 3.35 TB/s and its f32
 operations (26 per slab test, 55 per triangle test) over 67 TFLOP/s,
-both from a count launch of the arm.
+both from a count launch of the arm; beside it the operations at the
+unfused f32 issue rate (the kernels are built with --fmad=false).
 
 On the CPU every arm runs its plain version.  The last line of the
 output is a JSON object with the arms' numbers.
@@ -439,10 +440,24 @@ def bound(fan: Fan, arm: Arm, counts, active=None) -> tuple:
          + row * c["node_rows"] + LEAF_ROW_BYTES * c["leaf_rows"])
     if arm.kernel in ("L6", "L7"):
         b += 4 * lanes  # the depth column
-    slabs = 0 if arm.kw.get("slab") == "skip" else c["node"]
-    ops = OPS_SLAB * (16 if wide else 8) * slabs + OPS_TRI * c["tri"]
-    t_b, t_o = b / PEAK_BYTES_PER_S, ops / PEAK_F32_FLOPS
+    t_b, t_o = b / PEAK_BYTES_PER_S, operations(arm, counts) / PEAK_F32_FLOPS
     return max(t_b, t_o) * 1e3, ("bytes" if t_b > t_o else "operations")
+
+
+def operations(arm: Arm, counts) -> int:
+    """The f32 operations of the arm's launch from its COUNTS: 26 per slab
+    test (none under slab skip), 55 per triangle test."""
+    c = dict(zip(cm.COUNTS, (int(v) for v in counts)))
+    slabs = 0 if arm.kw.get("slab") == "skip" else c["node"]
+    return (OPS_SLAB * (16 if arm.kernel == "L3" else 8) * slabs
+            + OPS_TRI * c["tri"])
+
+
+def unfused_ms(arm: Arm, counts) -> float:
+    """The arm's operations at the unfused f32 issue rate
+    (common.UNFUSED_F32_OPS_PER_S, --fmad=false): about twice an
+    operations bound's time."""
+    return operations(arm, counts) / cm.UNFUSED_F32_OPS_PER_S * 1e3
 
 
 def count_pass(fan: Fan, arms=ARMS) -> dict:
@@ -451,7 +466,8 @@ def count_pass(fan: Fan, arms=ARMS) -> dict:
     for arm in arms:
         res = call(fan, arm, count_rows=True)
         out[arm.label] = dict(counts=[int(v) for v in res[-1]],
-                              bound=bound(fan, arm, res[-1]))
+                              bound=bound(fan, arm, res[-1]),
+                              unfused_ms=unfused_ms(arm, res[-1]))
     return out
 
 
@@ -488,6 +504,7 @@ def run(fan: Fan, arms=ARMS, timed: bool = False, bounds=None) -> list:
         if bounds is not None:
             b = bounds[arm.label]
             row.update(bound_ms=b["bound"][0], bound_by=b["bound"][1],
+                       unfused_ms=b["unfused_ms"],
                        counts=dict(zip(cm.COUNTS, b["counts"])))
         rows.append(row)
     return rows
@@ -502,7 +519,8 @@ def fmt(row: dict) -> str:
     lf = "" if row["leaf_share"] is None else \
         f"  {100 * row['leaf_share']:5.1f}% leaf"
     bd = "" if "bound_ms" not in row else \
-        f"  bound {row['bound_ms']:.4f} ms ({row['bound_by']})"
+        f"  bound {row['bound_ms']:.4f} ms ({row['bound_by']}; unfused " \
+        f"{row['unfused_ms']:.4f})"
     hits = {None: "no hits (timing only)", True: "hits OK"}.get(
         row["hits_equal"], f"{row['hit_mismatches']} hits differ")
     return (f"{row['label']:28s} {row['iters']:9d} trips{lf}  {ms}{ns}{bd}"

@@ -40,6 +40,15 @@ FSTACK8, FSTACK16 = FRAME8 * 24, FRAME16 * 24
 # the work of a count launch: node rows slab-tested, leaf rows tested,
 # triangle records tested, then the distinct node and leaf rows read
 COUNTS = ("node", "leaf", "tri", "node_rows", "leaf_rows")
+# What an H100 SXM can issue, beside the data sheet's peaks that the
+# bounds use: every kernel is built with --fmad=false, so its f32
+# arithmetic issues unfused, at most 128 lanes an SM a clock (the data
+# sheet's 67 TFLOP/s counts a fused multiply-add as two); and the shared
+# memory serves 32 banks x 4 B an SM a clock.  At 132 SMs and the 1.98 GHz
+# boost clock.
+SMS, CLOCK_HZ = 132, 1.98e9
+UNFUSED_F32_OPS_PER_S = SMS * 128 * CLOCK_HZ
+SMEM_BYTES_PER_S = SMS * 32 * 4 * CLOCK_HZ
 
 _F32, _I32 = torch.float32, torch.int32
 

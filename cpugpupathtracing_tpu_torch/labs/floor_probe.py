@@ -29,7 +29,10 @@ set the device ms of the launch and ns per warp trip (ms / (warps x K)),
 and its bound: the f32 operations of the slab and leaf stages (26 per
 slab test, 55 per triangle test) over 67 TFLOP/s against the bytes of
 the lane columns and the 64 rows over 3.35 TB/s -- the model has no term
-for the integer and local-memory work of the control stages.  With
+for the integer and stack work of the control stages; beside it the same
+operations at the unfused f32 issue rate (the kernels are built with
+--fmad=false) and a yardstick for the control stages, the stack words
+they move at the shared memory's rate (control_yardstick).  With
 --device cpu it runs the plain version at the given size.  The last line
 of the output is a JSON object of the numbers.
 """
@@ -285,12 +288,66 @@ def bound(stages, lanes: int, k_iters: int) -> tuple:
     f32 operations of its slab and leaf stages against the bytes of the
     lane columns and the 64 rows read once (module docstring)."""
     stages = stage_set(stages)
-    ops = lanes * k_iters * (OPS_SLAB * SLAB_TESTS * ("slab" in stages)
-                             + OPS_TRI * TRI_TESTS * ("leaf" in stages))
+    ops = operations(stages, lanes, k_iters)
     rows = ROWS * (64 + 128) * 4 if "loads" in stages else 0
     b = lanes * LANE_BYTES + rows
     t_b, t_o = b / PEAK_BYTES_PER_S, ops / PEAK_F32_FLOPS
     return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
+
+
+def operations(stages, lanes: int, k_iters: int) -> int:
+    """The f32 operations of the slab and leaf stages of a launch."""
+    stages = stage_set(stages)
+    return lanes * k_iters * (OPS_SLAB * SLAB_TESTS * ("slab" in stages)
+                              + OPS_TRI * TRI_TESTS * ("leaf" in stages))
+
+
+def unfused_ms(stages, lanes: int, k_iters: int) -> float:
+    """The slab and leaf operations at the unfused f32 issue rate
+    (common.UNFUSED_F32_OPS_PER_S): what --fmad=false can reach, about
+    half the bound's 67 TFLOP/s."""
+    return operations(stages, lanes, k_iters) / cm.UNFUSED_F32_OPS_PER_S * 1e3
+
+
+def control_trace(stages, k_iters: int) -> list:
+    """Per TPU row of lanes (the 8 start entries) the control stage's
+    stack work over k_iters trips of the plain version's integer code:
+    (deepest word written, words moved).  The words are counted from the
+    kernel's code: ctrl stores each push taken and loads the top (1 a
+    trip); fctrl stores a 9-word frame, loads the mask word and the popped
+    entry and stores the mask back (12 a trip); no control, none."""
+    stages = stage_set(stages)
+    e = list(range(8))
+    sp = [1] * 8
+    stack = [[0] * STACK for _ in range(8)]
+    for j in range(8):
+        stack[j][0] = j + 8
+    deepest, words = [0] * 8, [0] * 8
+    for _ in range(k_iters):
+        for j in range(8):
+            if "fctrl" in stages:
+                deepest[j] = max(deepest[j], min(sp[j], STACK - 9) + 8)
+                words[j] += 12
+            elif "ctrl" in stages:
+                pushes = sum(e[j] >= 0 and (e[j] + k) % 3 == 0
+                             for k in range(8))
+                if pushes:
+                    deepest[j] = max(deepest[j],
+                                     min(sp[j] + pushes - 1, STACK - 1))
+                words[j] += pushes + 1
+        _control(stages, e, sp, stack)
+    return list(zip(deepest, words))
+
+
+def control_yardstick(stages, lanes: int, k_iters: int) -> float:
+    """ms for the stack words the control stage moves (control_trace, a
+    lane of TPU row (lane % 1024) // 128 moving its row's words) at the
+    shared memory's rate (common.SMEM_BYTES_PER_S): a yardstick for the
+    control stages, which the bound has no term for -- not a bound."""
+    per_row = [w for _, w in control_trace(stages, k_iters)]
+    row = (torch.arange(lanes) % 1024) // 128
+    words = sum(per_row[j] * int((row == j).sum()) for j in range(8))
+    return words * 4 / cm.SMEM_BYTES_PER_S * 1e3
 
 
 def ns_per_trip(ms: float, lanes: int, k_iters: int) -> float:
@@ -301,8 +358,10 @@ def ns_per_trip(ms: float, lanes: int, k_iters: int) -> float:
 def run(nodes, ltris, rays, k_iters: int = K_ITERS,
         timed: bool = False) -> list:
     """One launch of each stage set: where `timed`, its device ms
-    (common.busy_ms) and ns per warp trip; its bound, and t's mean (a
-    check that the stages ran)."""
+    (common.busy_ms) and ns per warp trip; its bound, the slab and leaf
+    operations at the unfused issue rate (unfused_ms), the control's stack
+    words at the shared-memory rate (stack_ms, control_yardstick), and
+    t's mean (a check that the stages ran)."""
     lanes = rays[0].shape[0]
     outs = {}
 
@@ -323,7 +382,10 @@ def run(nodes, ltris, rays, k_iters: int = K_ITERS,
             lanes=lanes, k_iters=k_iters, ms=st_ms,
             ns_per_trip=None if st_ms is None else ns_per_trip(st_ms, lanes,
                                                                k_iters),
-            bound_ms=b_ms, bound_by=b_by, t_mean=float(t.double().mean()),
+            bound_ms=b_ms, bound_by=b_by,
+            unfused_ms=unfused_ms(stages, lanes, k_iters),
+            stack_ms=control_yardstick(stages, lanes, k_iters),
+            t_mean=float(t.double().mean()),
             moved_lanes=int((t != 1.0).sum()),
             entry_sum=int(entry.sum())))
     return rows
@@ -348,7 +410,8 @@ def main(argv=None) -> int:
         ms = "not measured" if r["ms"] is None else \
             f"{r['ms']:.3f} ms  {r['ns_per_trip']:.3f} ns/trip"
         print(f"{r['stages']:24s} {ms}  bound {r['bound_ms']:.4f} ms "
-              f"({r['bound_by']})", flush=True)
+              f"({r['bound_by']}), unfused {r['unfused_ms']:.4f} ms, "
+              f"stack words {r['stack_ms']:.4f} ms", flush=True)
     print(json.dumps(dict(device=str(dev), lanes=fan.info["lanes"],
                           k_iters=args.k_iters, stage_sets=rows)), flush=True)
     return 0

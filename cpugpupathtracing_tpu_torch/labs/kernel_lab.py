@@ -33,7 +33,13 @@ counts votes: entries = iters x unroll at most); fma computes the slab
 planes with a correctly rounded fused multiply-add (`fma_f32` in the
 plain version) and may lose a hit B4 finds; leaf skip tests no triangle
 and finds no hit; slab skip pushes every valid child, so every row of
-the tree is visited and the hits are those of brute force.  Hits
+the tree is visited and the hits are those of brute force.  Every active
+lane of slab skip walks the same rows in the same order (sweep_rows), so
+on the card that arm is not a walk but a sweep (csrc/kernel_lab.cu
+sweep_prep_kernel, sweep_kernel): each thread holds SWEEP_RAYS active
+rays and the block streams the leaf rows, in walk order, through shared
+memory, each record tested against all its rays; the counters come from
+the row sequence and equal the walk's (its plain version).  Hits
 otherwise are bitwise B4's (ops/traverse_packet_slim.py): the same
 arithmetic and the lowest-id tie rule.  The counters are the card's
 schedule, one ray per thread, and cannot equal the JAX lab's 8-row
@@ -152,6 +158,25 @@ def _check_arm(o: dict) -> None:
                          "is not instantiated in csrc/kernel_lab.cu")
 
 
+# the sweep's rays per thread (csrc/kernel_lab.cu kSweepRays), and the
+# most pieces its leaf sequence is cut into (a block each, a leaf row at
+# least; sweep_merge_kernel takes the closest hit over them)
+SWEEP_RAYS = 2
+SWEEP_CHUNKS = 8
+
+
+class SweepArgs(ctypes.Structure):
+    """Mirrors struct kernellab::SweepArgs of csrc/kernel_lab.cu."""
+
+    _fields_ = [
+        ("node_seq", ctypes.c_void_p),
+        ("leaf_seq", ctypes.c_void_p),
+        ("lanes", ctypes.c_void_p),
+        ("live", ctypes.c_void_p),
+        ("part", ctypes.c_void_p),
+    ] + [(name, ctypes.c_int) for name in ("n_node", "n_leaf", "chunks")]
+
+
 _lib_checked = []
 
 
@@ -171,6 +196,13 @@ def _lib():
             raise RuntimeError(f"csrc/kernel_lab.cu instantiates the arms "
                                f"{list(got[:k])}, labs/kernel_lab.py lists "
                                f"{want}")
+        lay = (ctypes.c_longlong * 3)()
+        lib.kernel_lab_sweep_layout(ctypes.addressof(lay))
+        mirror = (ctypes.sizeof(SweepArgs), SweepArgs.live.offset,
+                  SweepArgs.chunks.offset)
+        if tuple(lay) != mirror:
+            raise RuntimeError(f"SweepArgs layout {tuple(lay)} differs from "
+                               f"the ctypes mirror's {mirror}")
         _lib_checked.append(True)
     return lib
 
@@ -190,6 +222,90 @@ def entry_mirror(nodes, node_rows: int) -> torch.Tensor:
         hit = _mirrors[key] = (nodes, nodes[:node_rows, 48:56].contiguous()
                                .view(_I32))
     return hit[1]
+
+
+def sweep_rows(nodes, roots) -> tuple:
+    """(node rows, leaf rows) that an active lane of the slab-skip arm
+    visits, each list in its walk's order: from roots[0], the other roots
+    stacked in order, each node row pushing every valid child (entry not
+    SLIM_EMPTY) in slot order and the last pushed popped first.  The walk
+    reads no ray, so every active lane takes these rows (tests hold the
+    plain version's lanes to them)."""
+    ents = nodes[:, 48:56].contiguous().view(_I32).cpu().tolist()
+    node_seq, leaf_seq = [], []
+    stack = [int(r) for r in roots[1:]]
+    e = int(roots[0])
+    while True:
+        if e < 0:
+            leaf_seq.append(-e - 1)
+        else:
+            node_seq.append(e)
+            stack += [c for c in ents[e] if c != cm.SLIM_EMPTY]
+            if len(stack) > cm.STACK:
+                raise RuntimeError("sweep_rows: the walk overflows the "
+                                   "stack (the depth check failed)")
+        if not stack:
+            return node_seq, leaf_seq
+        e = stack.pop()
+
+
+# the sweep's row sequences on the device, by the table they walk (the
+# cache holds the table, so its id is not reused)
+_sweeps: dict = {}
+
+
+def _sweep_seq(nodes, roots) -> tuple:
+    """(node_seq, leaf_seq) of sweep_rows as i32 tensors on the table's
+    device, computed once per table."""
+    key = (id(nodes), tuple(roots))
+    hit = _sweeps.get(key)
+    if hit is None:
+        if len(_sweeps) >= 8:
+            _sweeps.pop(next(iter(_sweeps)))
+        node_seq, leaf_seq = sweep_rows(nodes, roots)
+        seq = torch.tensor(node_seq + leaf_seq, dtype=_I32,
+                           device=nodes.device)
+        hit = _sweeps[key] = (nodes, seq[:len(node_seq)],
+                              seq[len(node_seq):])
+    return hit[1], hit[2]
+
+
+def _sweep_entry(lib, nodes, roots, n: int):
+    """The launch entry of the slab-skip arm: kernel_lab_sweep_launch with
+    its SweepArgs (the row sequences, the scratch of n lanes, the pieces'
+    partial hits)."""
+    node_seq, leaf_seq = _sweep_seq(nodes, roots)
+    dev = nodes.device
+    chunks = max(1, min(SWEEP_CHUNKS, leaf_seq.numel()))
+    lanes = torch.empty(max(n, 1), dtype=_I32, device=dev)
+    live = torch.empty(1, dtype=_I32, device=dev)
+    part = torch.empty(max(3 * chunks * n, 1), dtype=_I32, device=dev)
+    s = SweepArgs()
+    s.node_seq, s.leaf_seq = node_seq.data_ptr(), leaf_seq.data_ptr()
+    s.lanes, s.live, s.part = lanes.data_ptr(), live.data_ptr(), \
+        part.data_ptr()
+    s.n_node, s.n_leaf, s.chunks = node_seq.numel(), leaf_seq.numel(), chunks
+
+    def entry(args_ptr):
+        return lib.kernel_lab_sweep_launch(args_ptr, ctypes.addressof(s))
+    # the scratch lives until the launch is enqueued (the caching allocator
+    # hands it out again only in stream order)
+    entry.scratch = (lanes, live, part)
+    return entry
+
+
+def rcp_check(dev) -> tuple:
+    """The sweep's reciprocal (csrc/kernel_lab.cu rcp_fast) against 1.0f /
+    x on every f32 of its range (2^-125 <= |x| < 2^126) on the card:
+    (inputs whose results differ in bits, inputs tested).  Launches no
+    arm, so counts no launch."""
+    out = torch.zeros(2, dtype=torch.int64, device=dev)
+    rc = _lib().kernel_lab_rcp_check(
+        out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"kernel_lab_rcp_check failed (error {rc})")
+    bad, tested = out.tolist()
+    return bad, tested
 
 
 def occupancy(node_rows: int, **opts) -> int:
@@ -245,7 +361,10 @@ def traverse_lab(origin, direction, t_init, nodes, ltris, roots, *, active,
                              f"({node_rows * 32} B) exceeds the device's "
                              f"{limit} B of shared memory per block")
         ents = entry_mirror(nodes, node_rows)
-    out = cm.launch(_lib().kernel_lab_launch, "traverse_lab", rays, t_init,
+    lib = _lib()
+    entry = lib.kernel_lab_launch if o["slab"] != "skip" else \
+        _sweep_entry(lib, nodes, roots, t_init.shape[0])
+    out = cm.launch(entry, "traverse_lab", rays, t_init,
                     nodes, None if fused else ltris, roots, active,
                     flags=arm_code(o), nn=nn if fused else 0,
                     node_rows=node_rows, leaf_rows=leaf_rows, leafs=False,
@@ -323,10 +442,11 @@ def _slab_fma(L, bounds, ents, rows, t, mask):
     return passed & (ents[rows] != cm.SLIM_EMPTY) & mask[:, None], tmin
 
 
-def _walk(L, nodes, ltris, roots, nn, o):
+def _walk(L, nodes, ltris, roots, nn, o, visits=None):
     """Every lane's walk in lockstep, one entry per live lane and step:
     sets L's hits and work counts; returns (depth, entries) per padded
-    lane, i64."""
+    lane, i64.  `visits`, a list, receives each step's entry of every
+    padded lane (DONE where the lane is done)."""
     n, dev, ar = L.n, L.dev, L.ar
     fused = o["decode"] == "fused"
     bounds = nodes[:, :48].reshape(-1, 8, 6)
@@ -353,6 +473,8 @@ def _walk(L, nodes, ltris, roots, nn, o):
         if not bool(live.any()):
             break
         steps += live
+        if visits is not None:
+            visits.append(e.clone())
         leaf = live & ((e >= nn) if fused else (e < 0))
         interior = live & ~leaf
         ec = torch.where(interior, e, 0)
@@ -425,14 +547,16 @@ def _lanes(rays, t_init, active, nodes, ltris, fused, nn, count_rows,
 
 
 def traverse_lab_reference(rays, t_init, nodes, ltris, roots, *, active,
-                           nn=0, count_rows=False, warp_trips=False, **opts):
+                           nn=0, count_rows=False, warp_trips=False,
+                           visits=None, **opts):
     """L6's plain version over the six ray columns; with warp_trips the
-    steps of each warp of 32 lanes (i64) are appended."""
+    steps of each warp of 32 lanes (i64) are appended; `visits` (a list)
+    receives every step's entries (_walk)."""
     o = options(**opts)
     fused = o["decode"] == "fused"
     L, node_rows = _lanes(rays, t_init, active, nodes, ltris, fused, nn,
                           count_rows)
-    depth, steps = _walk(L, nodes, ltris, tuple(roots), nn, o)
+    depth, steps = _walk(L, nodes, ltris, tuple(roots), nn, o, visits)
     per_warp = steps.view(-1, cm.WARP).amax(dim=1)
     iters = cm.tile_sum(-(-per_warp // o["unroll"]), L.n0)
     res = _outputs(L, depth, (iters,), count_rows, node_rows)

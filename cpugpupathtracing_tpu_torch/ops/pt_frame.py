@@ -130,7 +130,9 @@ _UNITS = (
     ("lab3.cu", ("lab3_launch",)),
     ("phase_lab.cu", ("phase_launch",)),
     ("kernel_lab.cu", ("kernel_lab_launch", "kernel_lab_arms",
-                       "kernel_lab_occupancy", "kernel_lab_dual_launch")),
+                       "kernel_lab_occupancy", "kernel_lab_dual_launch",
+                       "kernel_lab_sweep_launch", "kernel_lab_sweep_layout",
+                       "kernel_lab_rcp_check")),
     # the TPU probes (labs/floor_probe.py, launch_probe.py, smem_probe.py)
     ("floor_probe.cu", ("floor_launch", "floor_args_layout")),
     ("probes.cu", ("scale2_launch", "smem_probe_launch", "smem_optin",
@@ -222,9 +224,10 @@ def _check_layout(fns: dict, what: str) -> None:
                            f"ctypes mirror's {want}")
 
 
-# entries that take a second pointer after the PtArgs (whitted.cu's
-# WhittedIO); every other entry takes one
-_TWO_ARGS = ("whitted_launch", "whitted_resident", "whitted_host")
+# entries that take a second pointer after their arguments (whitted.cu's
+# WhittedIO, kernel_lab.cu's SweepArgs); every other entry takes one
+_TWO_ARGS = ("whitted_launch", "whitted_resident", "whitted_host",
+             "kernel_lab_sweep_launch", "kernel_lab_rcp_check")
 
 
 def _bind(lib, names) -> dict:

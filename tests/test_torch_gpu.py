@@ -1289,6 +1289,35 @@ def test_lab_dual_takes_the_pair_max(lab_card):
     assert torch.equal(got[4], kl.pair_trips(l6[-1], fan.t_init.numel()))
 
 
+def test_lab_sweep_reciprocal_is_exact(card):
+    """The slab-skip sweep's reciprocal (csrc/kernel_lab.cu rcp_fast)
+    equals 1.0f / x bitwise on every f32 of its range."""
+    from cpugpupathtracing_tpu_torch.labs import kernel_lab as kl
+
+    bad, tested = kl.rcp_check(torch.device("cuda"))
+    assert bad == 0 and tested == 2 * (251 * 2 ** 23)
+
+
+@pytest.mark.parametrize("scale", [1e19, 3e19])
+def test_lab_sweep_slow_rows_match_plain(lab_card, scale):
+    """A leaf record whose determinants pass the sweep's fast reciprocal
+    (|det| >= 2^126, some infinite at 3e19): the slab-skip arm's rows that
+    hold it are tested again exactly, every output bitwise its plain
+    version's."""
+    bf, fan = lab_card
+    arm = next(a for a in bf.ARMS if a.kw.get("slab") == "skip")
+    lt = fan.ltris.clone()
+    lt[0, 3:9] *= scale
+    case = fan._replace(ltris=lt)
+    got = bf.call(case, arm, count_rows=True)
+    ref = bf.plain(case, arm, case.rays, case.t_init, case.active,
+                   count_rows=True)
+    for a, b in zip(got, ref):
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        assert torch.equal(a, b)
+
+
 def test_floor_probe_matches_plain(lab_card):
     """Every stage set of L5 on the fan's rays and random 64-row tables at
     16 trips: t and the final entry bitwise against the plain version."""

@@ -338,3 +338,162 @@ def test_options_and_refusals(case):
         with pytest.raises(ValueError, match="traversal stack"):
             f(r[:3], r[3:], t0, torch.from_numpy(nodes),
               torch.zeros((1, 128)), (0,), active=act)
+
+
+# ---- the slab-skip arm's sweep (csrc/kernel_lab.cu sweep_kernel) ----------
+
+SKIP = dict(slab="skip", leaf="ilv", order="fixed")
+
+
+def _skip_scene():
+    """The small tree on which chip_smoke.py holds the slab-skip arm
+    against its plain version: an icosphere of subdivisions 1 and a
+    ground quad, two roots."""
+    from cpugpupathtracing_tpu_torch.models import materials as matlib
+    from cpugpupathtracing_tpu_torch.models import mesh as meshlib
+    from cpugpupathtracing_tpu_torch.models.scene import Scene
+
+    s = Scene()
+    m = s.add_material(matlib.Material.diffuse((0.8, 0.8, 0.8)))
+    s.add_mesh("ball", meshlib.icosphere(subdivisions=1, radius=2.0), m)
+    s.add_mesh("floor", meshlib.ground_quad(half_extent=50.0, y=-2.0), m)
+    return s
+
+
+@pytest.fixture(scope="module")
+def skip_fan():
+    """The small tree's bounce fan at 32x32 (1024 lanes, about half of them
+    active), with t_init set on every fifth lane."""
+    from cpugpupathtracing_tpu_torch.labs import bounce_fan as bf
+
+    fan = bf.make_fan("cpu", 32, 32, scene=_skip_scene())
+    t0 = fan.t_init.clone()
+    t0[::5] = 3.0
+    return fan, t0
+
+
+@pytest.mark.parametrize("nroots", [2, 1])
+def test_slab_skip_rows_are_every_lanes(skip_fan, nroots):
+    """The sweep's premise: in the slab-skip arm's plain walk every active
+    lane -- t_init set or not, under one root or two -- visits the same
+    entries in the same order, sweep_rows' rows, and an inactive lane
+    none."""
+    fan, t0 = skip_fan
+    roots = fan.roots[:nroots]
+    assert len(fan.roots) == 2
+    visits = []
+    kl.traverse_lab_reference(fan.rays, t0, fan.nodes, fan.ltris, roots,
+                              active=fan.active, visits=visits, **SKIP)
+    seq = torch.stack(visits)[:, :t0.numel()]  # (steps, lanes)
+    act = fan.active
+    assert 0 < int(act.sum()) < act.numel()
+    first = seq[:, act.nonzero()[0, 0]]
+    assert bool((seq[:, act] == first[:, None]).all())
+    assert bool((seq[:, ~act] == cm.DONE).all())
+    node_seq, leaf_seq = kl.sweep_rows(fan.nodes, roots)
+    assert cm.DONE not in first.tolist()  # an active lane never idles
+    assert [e for e in first.tolist() if e >= 0] == node_seq
+    assert [-e - 1 for e in first.tolist() if e < 0] == leaf_seq
+    if nroots == 2:  # both trees, every row of the tables
+        assert sorted(node_seq) == list(range(fan.nodes.shape[0]))
+        assert sorted(leaf_seq) == list(range(fan.ltris.shape[0]))
+
+
+def _tree_order_sweep(rays, t_init, active, ltris, leaf_seq):
+    """Every active ray against every record of the leaf rows, in the
+    rows' order: the closest hit by t, then the lower id (t_init, ids -1
+    to start; an inactive lane keeps them)."""
+    from cpugpupathtracing_tpu_torch.ops.intersect import intersect_triangle
+
+    o = torch.stack(rays[:3], dim=1)
+    d = torch.stack(rays[3:], dim=1)
+    t = t_init.clone()
+    hit = torch.full_like(t, -1, dtype=torch.int32)
+    obj = hit.clone()
+    for row in leaf_seq:
+        recs = ltris[row].view(8, 16)
+        ids = recs[:, 13].contiguous().view(torch.int32)
+        objs = recs[:, 12].contiguous().view(torch.int32)
+        for c in range(8):
+            ok, tt = intersect_triangle(o, d, recs[c, 0:3], recs[c, 3:6],
+                                        recs[c, 6:9])
+            take = active & ok & ((tt < t) | ((tt == t) & (ids[c] < hit)))
+            t = torch.where(take, tt, t)
+            hit = torch.where(take, ids[c], hit)
+            obj = torch.where(take, objs[c], obj)
+    return t, hit, obj
+
+
+@pytest.mark.parametrize("which", ["small", "small_one_root", "spheres"])
+def test_tree_order_sweep_equals_the_walk(skip_fan, case, which):
+    """The sweep the card runs, written here over the plain walk's leaf
+    rows: its t, hit and object bitwise the walk's on every lane, and the
+    walk's counters from the row sequence alone -- depth 0, per tile the
+    sequence's steps times the warps with an active lane, the work of a
+    count launch and the rows read.  On the small tree's fan (two roots,
+    and its first root alone; few of its bounce rays hit) and on the two
+    spheres of `case` (two roots, most rays hit)."""
+    if which == "spheres":
+        rays, t0, act = case["rays"], case["t0"], case["tact"]
+        nodes, ltris, roots = case["two"]
+    else:
+        fan, t0 = skip_fan
+        rays, act, nodes, ltris = fan.rays, fan.active, fan.nodes, fan.ltris
+        roots = fan.roots[:1] if which == "small_one_root" else fan.roots
+    got = kl.traverse_lab(rays[:3], rays[3:], t0, nodes, ltris, roots,
+                          active=act, count_rows=True, **SKIP)
+    node_seq, leaf_seq = kl.sweep_rows(nodes, roots)
+    want = _tree_order_sweep(rays, t0, act, ltris, leaf_seq)
+    assert int((want[1] >= 0).sum()) > (N // 2 if which == "spheres" else 10)
+    assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+    assert bool((got[3] == 0).all())
+    steps = len(node_seq) + len(leaf_seq)
+    warps = cm.warp_any(act).to(torch.int64) * steps
+    assert torch.equal(got[4], cm.tile_sum(warps, t0.numel()))
+    live = int(act.sum())
+    assert got[-1].tolist() == [live * len(node_seq), live * len(leaf_seq),
+                                live * len(leaf_seq) * 8,
+                                len(set(node_seq)), len(set(leaf_seq))]
+
+
+def _merge(hits):
+    """The closest hit over the pieces' (t, hit, object), in piece order:
+    a later piece's hit is taken where its t is smaller, or equal with a
+    lower id (csrc/kernel_lab.cu sweep_merge_kernel)."""
+    t, hit, obj = (x.clone() for x in hits[0])
+    for tt, hh, oo in hits[1:]:
+        take = (hh >= 0) & ((tt < t) | ((tt == t) & (hh < hit)))
+        t = torch.where(take, tt, t)
+        hit = torch.where(take, hh, hit)
+        obj = torch.where(take, oo, obj)
+    return t, hit, obj
+
+
+@pytest.mark.parametrize("which", ["small", "spheres"])
+def test_pieced_sweep_equals_the_walk(skip_fan, case, which):
+    """The sweep as the card cuts it: the leaf sequence in min(8, rows)
+    pieces (piece c the rows [c * rows // 8, (c + 1) * rows // 8)), each
+    swept from t_init, then merged by (t, id): t, hit and object bitwise
+    the plain walk's."""
+    if which == "spheres":
+        rays, t0, act = case["rays"], case["t0"], case["tact"]
+        nodes, ltris, roots = case["two"]
+    else:
+        fan, t0 = skip_fan
+        rays, act, nodes, ltris = fan.rays, fan.active, fan.nodes, fan.ltris
+        roots = fan.roots
+    got = kl.traverse_lab(rays[:3], rays[3:], t0, nodes, ltris, roots,
+                          active=act, **SKIP)
+    _, leaf_seq = kl.sweep_rows(nodes, roots)
+    n = len(leaf_seq)
+    chunks = max(1, min(kl.SWEEP_CHUNKS, n))
+    assert chunks == kl.SWEEP_CHUNKS
+    pieces = [leaf_seq[c * n // chunks:(c + 1) * n // chunks]
+              for c in range(chunks)]
+    assert all(pieces) and sum(pieces, []) == leaf_seq
+    want = _merge([_tree_order_sweep(rays, t0, act, ltris, p)
+                   for p in pieces])
+    assert int((want[1] >= 0).sum()) > 10
+    assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])

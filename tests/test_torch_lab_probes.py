@@ -30,6 +30,7 @@ import torch
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
+from cpugpupathtracing_tpu_torch.labs import common as cm
 from cpugpupathtracing_tpu_torch.labs import floor_probe as fp
 from cpugpupathtracing_tpu_torch.labs import launch_probe as lp
 from cpugpupathtracing_tpu_torch.labs import smem_probe as sp
@@ -181,3 +182,66 @@ def test_smem_probe_answers(monkeypatch):
                         lambda tab, idx, two_d=False: torch.zeros(1))
     with pytest.raises(AssertionError, match="want"):
         sp.probe(1024, False, dev, optin)
+
+
+class _Recorder(list):
+    """A lane's stack that records the deepest word written, counts the
+    words read and written, and the reads of a word never written (the
+    kernel's shared memory holds no zeros there)."""
+
+    def __init__(self, *a):
+        super().__init__(*a)
+        self.deepest, self.words, self.unwritten = 0, 0, 0
+        self.written = {0}  # the seeded word
+
+    def __getitem__(self, k):
+        self.words += 1
+        self.unwritten += k not in self.written
+        return super().__getitem__(k)
+
+    def __setitem__(self, k, v):
+        self.deepest = max(self.deepest, k)
+        self.words += 1
+        self.written.add(k)
+        super().__setitem__(k, v)
+
+
+@pytest.mark.parametrize("control", ["ctrl", "fctrl"])
+def test_floor_control_fits_the_stack(control):
+    """The plain version's control at the probe's K trips never writes a
+    word past the kernel's per-lane stack (fp.STACK words in shared
+    memory, csrc/floor_probe.cu), never reads a word it has not written,
+    and keeps every entry >= 0 (the kernel takes % ROWS as the low bits);
+    control_trace's deepest word and stack words are those the plain
+    version's own accesses show (the seeded word 0 aside)."""
+    e, sp = list(range(8)), [1] * 8
+    stack = [_Recorder([0] * fp.STACK) for _ in range(8)]
+    for j in range(8):
+        list.__setitem__(stack[j], 0, j + 8)
+    for _ in range(fp.K_ITERS):
+        fp._control((control,), e, sp, stack)
+        assert min(e) >= 0
+    assert sum(st.unwritten for st in stack) == 0
+    got = [(st.deepest, st.words) for st in stack]
+    assert got == fp.control_trace((control,), fp.K_ITERS)
+    assert max(d for d, _ in got) < fp.STACK
+    # the control fills most of the stack: ctrl's clamp at STACK - 8 and
+    # fctrl's at STACK - 18 (then a 9-word frame) are reached
+    assert min(d for d, _ in got) >= fp.STACK - 10
+    # the yardstick: 4 bytes a word at the shared memory's rate
+    ms = fp.control_yardstick((control,), 1024, fp.K_ITERS)
+    words = sum(w for _, w in got) * 128
+    assert ms == pytest.approx(words * 4 / cm.SMEM_BYTES_PER_S * 1e3)
+    assert fp.control_yardstick(("loads",), 1024, fp.K_ITERS) == 0.0
+
+
+def test_floor_unfused_rate_is_half_the_bound():
+    """The unfused figure: the same slab and leaf operations at 128 lanes
+    an SM a clock, about half the bound's 67 TFLOP/s."""
+    st = ("ctrl", "loads", "slab", "leaf")
+    ms, _ = fp.bound(st, 2_073_600, 2000)
+    un = fp.unfused_ms(st, 2_073_600, 2000)
+    assert un == pytest.approx(fp.operations(st, 2_073_600, 2000)
+                               / (132 * 128 * 1.98e9) * 1e3)
+    assert 1.9 < un / ms < 2.1
+
