@@ -89,7 +89,9 @@ Phases, one line each; any failure raises and exits non-zero:
                  [whitted_launch] per depth (live lanes, shadow rays,
                  warps with a live lane, lane share), the longest path,
                  the launch with every lane missing (bitwise, and its
-                 ms), the glue launches and the waves; then one frame
+                 ms), the glue operations (device_ops: the PyTorch
+                 operations that do device work) and the waves; then one
+                 frame
                  from reset on trace_whitted (CPUGPU_NO_WHITTED_KERNEL=1):
                  traced equal, image within the golden tolerance
  11. frame_whitted_mesh  WHITTED on config 3's scene at 1920x1080, depth
@@ -229,17 +231,28 @@ Phases, one line each; any failure raises and exits non-zero:
                  its occlusion bit (L6's fma arm: mismatches counted;
                  leaf skip: none; slab skip, the sweep, against its plain
                  version on a small tree, and on the check lanes its
-                 counters against the row sequence's); L2's parent-pointer
-                 frames take the frame stack's trips exactly, L7's warps
-                 the max of their paired L6 warps' trips; per L6 / L7 arm
+                 counters against the row sequence's); L1's and L2's
+                 counters per ray (their warps refill finished rays; the
+                 warp trips, their schedule's, at least the rays' trips
+                 over 32); L2's parent-pointer frames take the frame
+                 stack's per-ray trips exactly, L7's warps the max of
+                 their paired L6 warps' trips; per L1 / L2 / L6 / L7 arm
                  ([check_labs_arm]) its kernels' registers, shared memory
                  and spills from the build, device ms, bound, the
-                 operations at the unfused f32 rate, ns per warp trip
+                 operations at the unfused f32 rate, ns per warp trip, and
+                 L1's and L2's blocks per SM, lane trips, warp trips and
+                 lane share beside the lockstep schedule's
  17f. labs       the labs' main path: the whole bounce fan (1.07M active
-                 lanes) through each of the 36 arms once -- hits against
+                 lanes) through each of the 36 arms once; before it
+                 ([fan_plain]) every L1 and L2 arm on the whole fan
+                 against its plain version on the card, bitwise on every
+                 output and counter but the warp trips (rays refilled
+                 in the middle of a warp's walk) -- hits against
                  traverse_packet_slim's on every active lane, trips, leaf
                  share, device ms, ns per warp trip, the bound from a
-                 count launch made before the launch counts are zeroed
+                 count launch made before the launch counts are zeroed;
+                 L1's and L2's lane trips and lane share, the kernels
+                 each launch runs and the prep kernel's share of its ms
  17g. check_floor  the floor probe L5 (labs/floor_probe.py) on the 8192
                  check lanes at 16 trips: each of its ten stage sets
                  against its plain version, bitwise on t and the entry;
@@ -369,11 +382,24 @@ TIMED_FRAMES = 5
 # timed frames per route of the leaf phases (22, 23): their arms' numbers
 # come from the check lanes and the sampled launches
 LEAF_FRAMES = 2
-# profiling sessions launch_ms makes before it gives up on seeing a launch,
-# and the seconds it waits before each new one (a session that records no
-# device event at all has come two or three times in a row, then passed)
-PROFILE_ATTEMPTS = 8
-PROFILE_RETRY_S = 0.5
+# launch_ms's clock: the spin (GPU cycles) that holds the stream busy
+# ahead of each timed launch, and the runs it makes (the spin four times
+# longer each) before it gives up
+LAUNCH_SPIN_CYCLES = 1_000_000
+LAUNCH_ATTEMPTS = 3
+# the C entry (ops/pt_frame.py build's namespace) that launches each
+# kernel launch_ms times
+KERNEL_ENTRIES = {
+    "pt_frame_kernel": ("pt_frame_launch",),
+    "shade_extend_kernel": ("mk_shade_extend_launch",),
+    "shadow_resolve_kernel": ("mk_shadow_resolve_launch",),
+    "traverse_kernel": ("traverse_launch",),
+    "whitted_kernel": ("whitted_launch",),
+}
+# aten operations that do no device work (device_ops): allocations (views
+# are known by OpOverload.is_view)
+NO_DEVICE_WORK = ("aten::empty", "aten::empty_strided", "aten::empty_like",
+                  "aten::new_empty", "aten::new_empty_strided")
 # every SAMPLE_STRIDE-th lane of a main-path launch is held against the
 # plain version (~8100 lanes per launch at 1920x1080)
 SAMPLE_STRIDE = 256
@@ -515,12 +541,26 @@ def ptxas_resources(name: str) -> str:
 
 
 def lab_instances(arm) -> list:
-    """The kernel instantiations (ptxas_lines' names) that an L6 or L7 arm
-    of labs/bounce_fan.py launches: L6's slab="skip" arm the sweep's
-    three kernels, another L6 arm its
+    """The kernel instantiations (ptxas_lines' names) that an L1, L2, L6
+    or L7 arm of labs/bounce_fan.py launches: L1's and L2's the prep and
+    lab_frame_kernel<fs, fused, gate, condpush> or lab_pipe_kernel<fs,
+    near, parent>; L6's slab="skip" arm the sweep's three kernels, another
+    L6 arm its
     lab_ablate_kernel<leaf, slab, ctrl, smem, fixed, fused, fma, unroll>."""
     from cpugpupathtracing_tpu_torch.labs import kernel_lab as kl
 
+    def bools(*v):
+        return ",".join("true" if b else "false" for b in v)
+
+    kw = arm.kw
+    if arm.kernel == "L1":
+        return ["lab_prep_kernel", "lab_frame_kernel<" + bools(
+            kw.get("frame_stack", False), kw.get("fused", False),
+            kw.get("gate_leaf", False), kw.get("cond_push", False)) + ">"]
+    if arm.kernel == "L2":
+        return ["lab_prep_kernel", "lab_pipe_kernel<" + bools(
+            kw.get("frame_stack", True), kw.get("nearest", False),
+            kw.get("parent", False)) + ">"]
     if arm.kernel == "L7":
         return ["lab_dual_kernel"]
     o = kl.options(**arm.kw)
@@ -580,45 +620,70 @@ def cuda_ms(fn, reps: int) -> float:
 def launch_ms(fn, kernels, reps: int = 1, expect: int | None = None) -> list:
     """Device milliseconds of every launch of the CUDA kernels named in
     `kernels` (a name or a tuple of names of functions in csrc/) while
-    fn() runs reps times, in launch order (torch.profiler); `expect`, the
-    number of launches fn() makes reps times, when the caller knows it.
-    Unlike CUDA events around a call, this leaves out the time the device
-    waits for the host to enqueue the launch.  Every `ms` of the kernels
-    line is this clock but those of the labs, L5, L8 and L9 (labs/common.py
-    busy_ms: CUDA events with the stream held busy, as the profiler misses
-    launches after many sessions in one process, then records none)."""
+    fn() runs reps times, in launch order; `expect`, the number of
+    launches fn() makes reps times, when the caller knows it.  Raises
+    when it sees no launch (or not `expect`).
+
+    The clock is CUDA events, as labs/common.py busy_ms's: each call of
+    the kernel's C entry (KERNEL_ENTRIES: the launch and any memset it
+    makes) runs between two events behind a spin kernel that holds the
+    stream busy while the host enqueues it, so the host's time before the
+    launch does not count; where the spin ended first, fn() runs again
+    with a spin four times longer.  Every `ms` of the kernels line is this
+    clock, the labs', L5's, L8's and L9's too (busy_ms over replays of
+    the single launch).  torch.profiler answers no check: on the card's
+    machine a short session can lose its first launches or all of them
+    (CUPTI stamps device work earlier than the host stamps its launch,
+    and Kineto keeps only what falls inside the session; `PERF.md`
+    section 7).  Only --profile's tables and L8's and L9's
+    profiler_ms, which no check reads, still open sessions."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+
+    from cpugpupathtracing_tpu_torch.ops import pt_frame as ptf
 
     kernels = (kernels,) if isinstance(kernels, str) else kernels
-    for attempt in range(PROFILE_ATTEMPTS):
+    lib = ptf.build()
+    names = sorted({e for k in kernels for e in KERNEL_ENTRIES[k]})
+    entries = {name: getattr(lib, name) for name in names}
+    spin = LAUNCH_SPIN_CYCLES
+    for _ in range(LAUNCH_ATTEMPTS):
+        held = []
+
+        def timed(entry):
+            def call(*args):
+                torch.cuda._sleep(spin)
+                ev = [torch.cuda.Event(), torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True)]
+                ev[0].record()
+                ev[1].record()
+                rc = entry(*args)
+                idled = ev[0].query()
+                ev[2].record()
+                held.append((ev, idled))
+                return rc
+            return call
+
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            # one device operation before fn's first launch (profiling
-            # sessions have missed launches, the first of a session among
-            # them; a miss the caller can see is retried below)
-            torch.ones(1, device="cuda").add_(1)
+        for name in names:
+            setattr(lib, name, timed(entries[name]))
+        try:
             for _ in range(reps):
                 fn()
-            torch.cuda.synchronize()
-        evs = sorted((e for e in prof.events()
-                      if e.device_type == DeviceType.CUDA
-                      and any(k in e.name for k in kernels)),
-                     key=lambda e: e.time_range.start)
-        if evs and (expect is None or len(evs) == expect):
-            return [(e.time_range.end - e.time_range.start) / 1e3
-                    for e in evs]
-        # a profiling session now and then records no device activity
-        # at all (seen after --profile's tables), or misses a launch
-        # (seen after many sessions in one process); the next one does not
-        say("profiler_retry", kernels=",".join(kernels), attempt=attempt + 1,
-            launches_seen=len(evs), launches_expected=expect,
-            device_events=sum(1 for e in prof.events()
-                              if e.device_type == DeviceType.CUDA))
-        time.sleep(PROFILE_RETRY_S)
-    raise AssertionError(f"the profiler saw no launch of {kernels}")
+        finally:
+            for name in names:
+                setattr(lib, name, entries[name])
+        torch.cuda.synchronize()
+        if not any(idled for _, idled in held):
+            break
+        spin *= 4
+    else:
+        raise AssertionError(f"launch_ms: the stream idled before a launch "
+                             f"of {kernels} in {LAUNCH_ATTEMPTS} runs")
+    ms = [ev[1].elapsed_time(ev[2]) for ev, _ in held]
+    if not ms or (expect is not None and len(ms) != expect):
+        raise AssertionError(f"launch_ms saw {len(ms)} launches of "
+                             f"{kernels}, expected {expect or 'some'}")
+    return ms
 
 
 def wrapper_ms(module, names, fn) -> list:
@@ -1495,22 +1560,52 @@ def check_whitted(ds, settings, o, d, st) -> dict:
     return out
 
 
-def device_ops(fn) -> list:
-    """The names of the device operations (kernels, memsets, copies) one
-    fn() runs, in order (torch.profiler)."""
+def device_ops(fn, kernels) -> list:
+    """The device operations one fn() runs, in order, without a profiler
+    (launch_ms says why): each launch of a kernel of `kernels` (a name or
+    a tuple of names, KERNEL_ENTRIES: a call of its C entry) by the
+    kernel's name, and each PyTorch operation on a CUDA tensor that does
+    device work (a copy, a fill, an elementwise or reduction kernel) by
+    the operation's name, e.g. "aten.mul.Tensor"; allocations and views
+    (NO_DEVICE_WORK, OpOverload.is_view) do none."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_flatten
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    evs = sorted((e for e in prof.events()
-                  if e.device_type == DeviceType.CUDA),
-                 key=lambda e: e.time_range.start)
-    return [e.name for e in evs]
+    from cpugpupathtracing_tpu_torch.ops import pt_frame as ptf
+
+    kernels = (kernels,) if isinstance(kernels, str) else kernels
+    ops = []
+
+    class Record(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if not func.is_view and func._schema.name not in NO_DEVICE_WORK:
+                flat, _ = tree_flatten((args, kwargs, out))
+                if any(isinstance(x, torch.Tensor) and x.is_cuda
+                       for x in flat):
+                    ops.append(str(func))
+            return out
+
+    lib = ptf.build()
+    names = {e: k for k in kernels for e in KERNEL_ENTRIES[k]}
+    entries = {e: getattr(lib, e) for e in names}
+
+    def counted(e):
+        def call(*args):
+            ops.append(names[e])
+            return entries[e](*args)
+        return call
+
+    for e in names:
+        setattr(lib, e, counted(e))
+    try:
+        with Record():
+            fn()
+    finally:
+        for e in names:
+            setattr(lib, e, entries[e])
+    return ops
 
 
 def whitted_depths(ds, args, kw, depths: int) -> dict:
@@ -1659,24 +1754,25 @@ def frame_whitted(scene, cam_cfg, settings, width, height, profile: bool):
     miss_ms = launch_ms(lambda: wk.whitted_frame_rows(*miss_args,
                                                       **ln["kw"]),
                         "whitted_kernel", reps=5)
-    ops = device_ops(lambda: wk.whitted_frame_rows(*full, **ln["kw"]))
-    if len(ops) != 1 or "whitted_kernel" not in ops[0]:
+    ops = device_ops(lambda: wk.whitted_frame_rows(*full, **ln["kw"]),
+                     "whitted_kernel")
+    if ops != ["whitted_kernel"]:
         raise AssertionError(f"a whitted_frame_rows call ran {ops}, "
                              "expected the kernel alone")
     # a rendered frame's trace_whitted_kernel span: its device operations
-    # in a profiling session of their own; the glue is every one but the
-    # kernel
+    # (device_ops); the glue is every one but the kernel
     span_ops = []
 
     def spanned(entry):
         def call(*a, **k):
             out = []
-            span_ops.extend(device_ops(lambda: out.append(entry(*a, **k))))
+            span_ops.extend(device_ops(lambda: out.append(entry(*a, **k)),
+                                       "whitted_kernel"))
             return out[0]
         return call
 
     instrument(whitted, "trace_whitted_kernel", spanned, r.render_frame)
-    glue = [x for x in span_ops if "whitted_kernel" not in x]
+    glue = [x for x in span_ops if x != "whitted_kernel"]
     if len(span_ops) - len(glue) != 1:
         raise AssertionError(f"a frame's trace_whitted_kernel ran "
                              f"{span_ops}, expected one whitted_kernel")
@@ -2870,10 +2966,9 @@ def traverse_main_path(frame_fn, what: str, per_depth: int) -> list:
     count_depth launch against the walk bitwise on every output, another
     closest-hit launch against brute force bitwise, an any-hit launch in
     existence (at once: a frame_fn that refits the scene's tables in place
-    must not run between the counted frame and its plain versions).  When
-    the profiler missed a launch of the timed frame, one more frame is
-    timed afterwards.  Returns the main-path entries in launch order, each with
-    its depth (per_depth launches per depth)."""
+    must not run between the counted frame and its plain versions).
+    Returns the main-path entries in launch order, each with its depth
+    (per_depth launches per depth)."""
     import torch
     from cpugpupathtracing_tpu_torch.ops import pt_frame as ptf
     from cpugpupathtracing_tpu_torch.ops import traverse_packet_slim as tps
@@ -2951,7 +3046,8 @@ def traverse_main_path(frame_fn, what: str, per_depth: int) -> list:
             node_slot=ln["slot"][0]["node"] if ln["slot"] else None))
     ptf.check_status(dev)
     if len(dev_ms) != len(launches):
-        dev_ms = launch_ms(frame_fn, "traverse_kernel", expect=len(launches))
+        raise AssertionError(f"{what}: {len(dev_ms)} traversal launches "
+                             f"timed, {len(launches)} counted")
     for mp, ms_k in zip(main_path, dev_ms):
         mp["ms"] = ms_k
     return main_path
@@ -4315,10 +4411,16 @@ def check_labs(fan) -> dict:
     fan: every arm of L1-L4, L6 and L7 (labs/bounce_fan.py ARMS) against
     its plain version on the card, bitwise on every output -- t, hit,
     object, L6's depth, the per-tile trip counters and the count launch's
-    work and rows read -- and its hits against the standalone traversal's
+    work and rows read (L1's and L2's warp trips, their schedule's, must
+    hold the rays' trips: 32 per warp trip at most) -- and its hits
+    against the standalone traversal's
     (closest hits bitwise, L3's any hit in its occlusion bit; fma's
     mismatches counted, leaf skip's none); the L2 invariant that
-    parent-pointer frames take the frame stack's trips exactly; the L7
+    parent-pointer frames take the frame stack's per-ray trips exactly;
+    per L1, L2, L6 and L7 arm ([check_labs_arm]) its kernels' registers,
+    shared memory and spills, and L1's and L2's blocks per SM, lane
+    trips, warp trips and lane share beside the lockstep schedule's (32
+    consecutive lanes a warp, no refill: the plain version's); the L7
     invariant that a warp's trips are the max of the two L6 (ilv, fixed)
     warps it pairs.  L6's slab="skip" arm, whose plain version takes one
     step per row of the tree, is held against its plain version on a small
@@ -4331,6 +4433,7 @@ def check_labs(fan) -> dict:
 
     from cpugpupathtracing_tpu_torch.labs import bounce_fan as bf
     from cpugpupathtracing_tpu_torch.labs import kernel_lab as kl
+    from cpugpupathtracing_tpu_torch.labs import kernel_lab2 as l2
     from cpugpupathtracing_tpu_torch.labs.common import busy_ms
     from cpugpupathtracing_tpu_torch.ops import pt_frame as ptf
 
@@ -4356,6 +4459,10 @@ def check_labs(fan) -> dict:
                 lambda arm=arm: bf.plain(fan, arm, rays, t0, act,
                                          count_rows=True))
             pairs = zip(got, ref)
+        per_ray = arm.kernel in bf.PER_RAY
+        if per_ray:  # COUNTS bitwise, the warp trips the schedule's
+            pairs = list(zip(got[:-1], ref[:-1])) + [(got[-1][:-1],
+                                                      ref[-1][:-1])]
         ptf.check_status(t0.device)
         mism = sum(int((a_ != b_).sum())
                    for a_, b_ in (as_bits(a, b) for a, b in pairs))
@@ -4368,7 +4475,18 @@ def check_labs(fan) -> dict:
         if skip:
             sweep_counters(fan, got, act)
             slow_rows = sweep_slow_rows(small, arm)
-        out[arm.label] = dict(
+        lanes = {}
+        if per_ray:
+            lane, wt, lock = (int(got[3].sum()), int(got[-1][-1]),
+                              int(ref[-1][-1]))
+            if 32 * wt < lane:
+                raise AssertionError(f"check_labs {arm.label}: {wt} warp "
+                                     f"trips hold {lane} lane trips")
+            lanes = dict(lane_trips=lane, warp_trips=wt,
+                         lane_share=lane / (32 * wt),
+                         lockstep_warp_trips=lock,
+                         lockstep_lane_share=lane / (32 * lock))
+        out[arm.label] = dict(lanes,
             key=bf.arm_key(arm), mismatches=mism, hit_mismatches=hits,
             plain_check="small tree" if skip else "check lanes",
             max_abs_err=float(((s_got if skip else got)[0]
@@ -4382,18 +4500,27 @@ def check_labs(fan) -> dict:
                             CHECK_REPS))
 
     for arm in bf.ARMS:
-        if arm.kernel not in ("L6", "L7"):
+        if arm.kernel not in ("L1", "L2", "L6", "L7"):
             continue
         v = out[arm.label]
         names = lab_instances(arm)
         unfused = bf.unfused_ms(arm, torch.tensor(
             [v["counts"][k] for k in bf.cm.COUNTS]))
+        v["ptxas"] = {k: ptxas_resources(k) for k in names}
+        per_ray = {}
+        if arm.kernel in bf.PER_RAY:
+            v["blocks_per_sm"] = l2.occupancy(arm.kernel, **arm.kw)
+            per_ray = dict(blocks_per_sm=v["blocks_per_sm"], **{
+                k: round(v[k], 4) if isinstance(v[k], float) else v[k]
+                for k in ("lane_trips", "warp_trips", "lane_share",
+                          "lockstep_warp_trips", "lockstep_lane_share")})
         say("check_labs_arm", label=repr(arm.label), lanes=CHECK_LANES,
             ms=round(v["ms"], 4), bound_ms=round(v["bound"][0], 5),
             bound_by=v["bound"][1], unfused_ms=round(unfused, 5),
-            ns_per_trip=round(v["ms"] * 1e6 / max(v["iters"], 1), 3),
-            **{f"ptxas_{k}": repr(f"{k}: {ptxas_resources(k)}")
-               for k in names})
+            ns_per_trip=round(v["ms"] * 1e6 / max(
+                v.get("warp_trips", v["iters"]), 1), 3), **per_ray,
+            **{f"ptxas_{k}": repr(f"{k}: {r}")
+               for k, r in v["ptxas"].items()})
         v["unfused_ms"] = unfused
     for near in ("", "+nearest"):
         fs = out["pipelined fs+fused" + near]["iters"]
@@ -4511,17 +4638,69 @@ def sweep_counters(fan, got, act) -> None:
                              f"sequence's {want} ({int(want_iters.sum())})")
 
 
+def fan_plain(fan) -> dict:
+    """Every L1 and L2 arm on the whole fan against its plain version on
+    the card: t, hit, object, the per-tile iters and leafs and the count
+    launch's work and rows read, bitwise; the warp trips, the schedule's,
+    hold the rays' trips.  The fan's active rays outnumber the threads the
+    card keeps resident many times over (the 8192 check lanes' do not),
+    so lanes take new rays while the rest of their warp walks.  Returns
+    per arm label the plain version's ms (host clock)."""
+    import torch
+
+    from cpugpupathtracing_tpu_torch.labs import bounce_fan as bf
+    from cpugpupathtracing_tpu_torch.labs import kernel_lab2 as l2
+    from cpugpupathtracing_tpu_torch.ops import pt_frame as ptf
+
+    live = int(fan.active.sum())
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out, resident = {}, {}
+    for arm in (a for a in bf.ARMS if a.kernel in bf.PER_RAY):
+        # 128 threads a block (csrc/lab_device.cuh lab::kBlock)
+        resident[arm.label] = sms * l2.occupancy(arm.kernel, **arm.kw) * 128
+        if live <= 2 * resident[arm.label]:
+            raise AssertionError(f"fan_plain {arm.label}: {live} active "
+                                 f"rays for {resident[arm.label]} resident "
+                                 "threads")
+        got = bf.call(fan, arm, count_rows=True)
+        ref, out[arm.label] = timed_plain(
+            lambda arm=arm: bf.plain(fan, arm, fan.rays, fan.t_init,
+                                     fan.active, count_rows=True))
+        ptf.check_status(fan.t_init.device)
+        pairs = list(zip(got[:-1], ref[:-1])) + [(got[-1][:-1],
+                                                  ref[-1][:-1])]
+        mism = sum(int((a_ != b_).sum())
+                   for a_, b_ in (as_bits(a, b) for a, b in pairs))
+        lane, wt = int(got[3].sum()), int(got[-1][-1])
+        if mism or 32 * wt < lane:
+            raise AssertionError(f"fan_plain {arm.label}: {mism} output "
+                                 f"words differ from the plain version; "
+                                 f"{wt} warp trips for {lane} lane trips")
+    say("fan_plain", arms=len(out), lanes=fan.t_init.numel(), active=live,
+        most_resident=max(resident.values()), mismatches=0,
+        **{f"{k}_plain_ms": round(v, 1) for k, v in out.items()})
+    return out
+
+
 def labs(fan) -> list:
     """Phase 17f, the labs' main path: the bounce fan at full width
     through every arm, one launch each (labs/bounce_fan.py run): hits
     bitwise against the standalone traversal's, trips, device ms
-    (common.busy_ms) and ns per warp trip, and the bound from a count launch of the arm made before
-    the launch counts are zeroed; and one launch of the standalone
-    traversal's closest hit of the fan, the arms' yardstick.  Fails on any
-    launch of another kernel arm, or a second launch of an arm that its
-    timing did not make."""
+    (common.busy_ms) and ns per warp trip, and the bound from a count
+    launch of the arm made before the launch counts are zeroed (L1's and
+    L2's warp trips from it too, their lane trips and lane share, the
+    kernels each launch runs and the prep kernel's share of the arm's
+    ms, the prep timed alone); and one launch of the standalone
+    traversal's closest hit of the fan, the arms' yardstick.  Before the
+    counts are zeroed, L1's and L2's arms are held against their plain
+    versions on the whole fan (fan_plain).  Fails on any launch of another
+    kernel arm, or a second launch of an arm that its timing did not
+    make."""
     from cpugpupathtracing_tpu_torch.labs import bounce_fan as bf
+    from cpugpupathtracing_tpu_torch.labs import kernel_lab2 as l2
+    from cpugpupathtracing_tpu_torch.labs.common import busy_ms
 
+    fan_plain(fan)
     bounds = bf.count_pass(fan)
     ran: dict = {}  # launches by arm label (the dp arm shares a key)
 
@@ -4542,8 +4721,16 @@ def labs(fan) -> list:
         key = bf.arm_key(arm)
         by_key[key] = by_key.get(key, 0) + ran[arm.label]
     expect_counts(counts(), "labs", **by_key)
+    # the prep alone (L1's and L2's first kernel, the same for every arm)
+    prep_ms = busy_ms(lambda: l2.prep_launch(
+        fan.rays[:3], fan.rays[3:], fan.t_init, fan.nodes, fan.roots,
+        active=fan.active))
+    arms = {a.label: a for a in bf.ARMS}
     for row in rows:
         row["launches"] = ran[row["label"]]
+        if row.get("lane_share") is not None:
+            row.update(prep_ms=prep_ms, prep_share=prep_ms / row["ms"],
+                       kernels=lab_instances(arms[row["label"]]))
         say("labs", **{k: (round(v, 4) if isinstance(v, float) else v)
                        for k, v in row.items() if k != "counts"})
     return rows
@@ -4584,6 +4771,12 @@ def lab_entries(chk: dict, rows: list) -> list:
                 "ns_per_trip": main[lb]["ns_per_trip"],
                 "iters": main[lb]["iters"],
                 "leaf_share": main[lb]["leaf_share"],
+                **{k: main[lb][k] for k in (
+                    "lane_trips", "lane_share", "prep_ms", "prep_share",
+                    "kernels") if main[lb].get(k) is not None},
+                **{f"check_{k}": chk[lb][k] for k in (
+                    "lane_share", "lockstep_lane_share", "blocks_per_sm",
+                    "ptxas") if k in chk[lb]},
                 "bound_ms": main[lb]["bound_ms"],
                 "bound_by": main[lb]["bound_by"],
                 "hits_equal": main[lb]["hits_equal"],
@@ -5871,9 +6064,8 @@ def main() -> int:
                      (e_k, s_k, tr_k), lay3["ref_frames"])
         leaf5 = layouts5(s5, LEAF5_RUNS, ref5, phase="leaf5", profile=False)
 
-    # 24-25. the launch and shared-memory probes L8, L9 (last: their
-    # device times are the profiler's, which misses launches after many
-    # sessions in one process)
+    # 24-25. the launch and shared-memory probes L8, L9 (their ms are
+    # busy_ms; the profiler's beside them, None where it saw no launch)
     launch_res = launch_probe(ds)
     smem_res = smem_phase()
 

@@ -13,11 +13,12 @@
 // Here one thread is one ray with its own stack in local memory, and the
 // 32 rays of a warp iterate together: every loop runs while any lane of
 // the warp is alive (__any_sync), each trip takes at most one entry per
-// lane, and the lanes that are done idle through the warp's remaining
-// trips.  The per-tile counters of the labs (one per 1024 lanes) are sums
-// over the tile's 32 warps: `iters` the warp's trips, `leafs` the trips
-// in which a lane of the warp tested a leaf row (L1, L2) or that ran in
-// leaf mode (L4).
+// lane.  In L3, L4, L6 and L7 a warp holds the rays of 32 consecutive
+// lanes, the lanes that are done idle through the warp's remaining trips,
+// and the per-tile counters (one per 1024 lanes) are sums over the tile's
+// 32 warps: `iters` the warp's trips, `leafs` the trips that ran in leaf
+// mode (L4).  L1 and L2 (lab2.cu) refill a lane whose ray has ended from
+// a list of the active lanes, and count per ray instead.
 
 #pragma once
 

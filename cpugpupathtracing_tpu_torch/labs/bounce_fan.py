@@ -38,7 +38,10 @@ ids by the object's triangle offset; its any hit's occlusion bit against
 the reference any hit; the dp arm's against the standalone traversal's
 over the dp table) -- a mismatch fails the run, but for fma's, which are
 counted, and leaf skip's, which has none --, the total warp trips (L6,
-L7: loop iterations), the leaf-trip share, the device ms of the launch
+L7: loop iterations; L1, L2: their count launch's, whose warps refill
+finished rays), the leaf-trip share (L1, L2: of the rays' trips), L1's
+and L2's lane share (the rays' trips over 32 per warp trip), the device
+ms of the launch
 (common.busy_ms; "not measured" on the CPU), ns per warp trip, and the
 bound: the larger of the bytes the launch must move (each lane's
 t_init, active flag and outputs, an active lane's ray, each distinct row
@@ -411,14 +414,30 @@ def hit_mismatches(fan: Fan, arm: Arm, out, lanes=None) -> int:
     return int((bad & act).sum())
 
 
+# the labs whose counters are per ray (kernel_lab2.py): their warps refill
+# finished rays, and their count launches add the launch's warp trips
+PER_RAY = ("L1", "L2")
+
+
 def trips(arm: Arm, out) -> tuple:
-    """(warp trips, leaf trips or None) of an arm's output: L6's and L7's
-    trips are their loop iterations (L6 unrolled: one per `unroll`
-    steps), with no leaf count."""
+    """(trips, leaf trips or None) of an arm's output: L1's and L2's the
+    trips in which a ray held an entry and those in which it tested a
+    leaf row, summed over the rays; the other labs' their warps' trips
+    and leaf trips; L6's and L7's trips are their loop iterations (L6
+    unrolled: one per `unroll` steps), with no leaf count."""
     if arm.kernel in ("L6", "L7"):
         return int(out[4].sum()), None
     leafs = None if arm.kernel == "L3" else int(out[4].sum())
     return int(out[3].sum()), leafs
+
+
+def warp_trips(arm: Arm, out, counts=None):
+    """The warp trips of an arm's launch: L1's and L2's from its count
+    launch's COUNTS (kernel_lab2.COUNTS; None without them), the other
+    labs' trips (trips())."""
+    if arm.kernel in PER_RAY:
+        return None if counts is None else int(counts[-1])
+    return trips(arm, out)[0]
 
 
 def bound(fan: Fan, arm: Arm, counts, active=None) -> tuple:
@@ -495,10 +514,16 @@ def run(fan: Fan, arms=ARMS, timed: bool = False, bounds=None) -> list:
             raise AssertionError(f"{arm.label}: {bad} active lanes' hits "
                                  "differ from the standalone traversal's")
         it, lf = trips(arm, out)
+        wt = warp_trips(arm, out, None if bounds is None
+                        else bounds[arm.label]["counts"])
+        lane = arm.kernel in PER_RAY
         row = dict(group=arm.group, label=arm.label, key=arm_key(arm),
-                   iters=it, leaf_share=None if lf is None else lf / it,
+                   iters=wt, leaf_share=None if lf is None else lf / it,
+                   lane_trips=it if lane else None,
+                   lane_share=it / (32 * wt) if lane and wt else None,
                    ms=arm_ms,
-                   ns_per_trip=None if arm_ms is None else arm_ms * 1e6 / it,
+                   ns_per_trip=None if arm_ms is None or not wt
+                   else arm_ms * 1e6 / wt,
                    hits_equal=None if bad is None else bad == 0,
                    hit_mismatches=bad)
         if bounds is not None:
@@ -523,8 +548,10 @@ def fmt(row: dict) -> str:
         f"{row['unfused_ms']:.4f})"
     hits = {None: "no hits (timing only)", True: "hits OK"}.get(
         row["hits_equal"], f"{row['hit_mismatches']} hits differ")
-    return (f"{row['label']:28s} {row['iters']:9d} trips{lf}  {ms}{ns}{bd}"
-            f"  {hits}")
+    wt = "" if row["iters"] is None else f"{row['iters']:9d} trips"
+    ls = "" if row["lane_share"] is None else \
+        f"  lanes {100 * row['lane_share']:5.1f}%"
+    return f"{row['label']:28s} {wt}{lf}{ls}  {ms}{ns}{bd}  {hits}"
 
 
 def main(argv=None) -> int:

@@ -117,9 +117,11 @@ def busy_ms(fn, reps: int = 1, spin_cycles: int = 2_000_000,
     the spin ended before the last call was enqueued (a slow host, or an
     fn that synchronises), the stream idled inside the span: the spin is
     made four times longer and the run made again, and after `attempts`
-    such runs this raises.  This is the labs' and probes' clock: a
-    process that opens many torch.profiler sessions sees the profiler
-    miss launches, then record none."""
+    such runs this raises.  This is the labs' and probes' clock (and,
+    one launch at a time, chip_smoke.py launch_ms's): on the card's
+    machine a short torch.profiler session can lose launches or all of
+    them (CUPTI stamps device work earlier than the host stamps its
+    launch, and Kineto keeps only what falls inside the session)."""
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     held = torch.cuda.Event()
@@ -146,9 +148,9 @@ def profiled_ms(fn, kernel: str, reps: int = 1,
     `kernel` ("" for every kernel) while fn() runs reps times
     (torch.profiler, one session): the mean over the launches the
     profiler saw (it misses one now and then), a session that saw none
-    run again.  None ("not measured") where `attempts` sessions saw none:
-    after many sessions in one process the profiler records nothing, so
-    no check rests on this clock (busy_ms is the one that must answer)."""
+    run again.  None ("not measured") where `attempts` sessions saw none
+    (busy_ms says why), so no check rests on this clock (busy_ms is the
+    one that must answer)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -258,11 +260,13 @@ def launch(entry, what: str, rays, t_init, nodes, ltris, roots, active, *,
            flags: int, nn: int = 0, node_rows: int, leaf_rows: int,
            iters: bool = True, leafs: bool = True,
            count_rows: bool = False, depth: bool = False, ents=None,
-           counter_lanes: int = TILE) -> tuple:
+           counter_lanes: int = TILE, warp_trips: bool = False) -> tuple:
     """One launch of a lab kernel over the six ray columns: checked
     arguments, outputs (t, hit, obj), with `depth` the per-lane depth
     column, the `iters` and `leafs` counters (one per counter_lanes
-    lanes) where asked, and with count_rows the COUNTS tensor.  `nodes`
+    lanes) where asked, and with count_rows the COUNTS tensor (with
+    warp_trips the launch's warp trips after it, a fourth work counter of
+    the kernel).  `nodes`
     the node table (or the fused table), `ltris` the leaf rows (None with
     a fused table), node_rows / leaf_rows the seen map's two parts,
     `ents` the (node_rows, 8) i32 entry mirror where the arm reads it."""
@@ -308,7 +312,8 @@ def launch(entry, what: str, rays, t_init, nodes, ltris, roots, active, *,
     if count_rows:
         seen = torch.zeros(node_rows + leaf_rows, dtype=torch.uint8,
                            device=dev)
-        work = torch.zeros(3, dtype=torch.int64, device=dev)
+        work = torch.zeros(4 if warp_trips else 3, dtype=torch.int64,
+                           device=dev)
         a.seen, a.counts = seen.data_ptr(), work.data_ptr()
     a.status = ptf._status_tensor(dev).data_ptr()
     a.stream = torch.cuda.current_stream(dev).cuda_stream
@@ -324,10 +329,12 @@ def launch(entry, what: str, rays, t_init, nodes, ltris, roots, active, *,
 
 
 def count_tensor(work, seen, node_rows) -> torch.Tensor:
-    """COUNTS from the three work counters and the seen map."""
-    return torch.cat([work.to(torch.int64), torch.stack([
+    """COUNTS from the three work counters and the seen map, then any
+    further work counter (L1's and L2's warp trips)."""
+    work = work.to(torch.int64)
+    return torch.cat([work[:3], torch.stack([
         seen[:node_rows].sum(dtype=torch.int64),
-        seen[node_rows:].sum(dtype=torch.int64)])])
+        seen[node_rows:].sum(dtype=torch.int64)]), work[3:]])
 
 
 # ---- the plain versions' lanes ---------------------------------------------

@@ -126,7 +126,8 @@ _UNITS = (
     ("whitted.cu", ("whitted_launch", "whitted_resident",
                     "whitted_io_layout")),
     # the traversal labs (labs/)
-    ("lab2.cu", ("lab2_launch", "lab2p_launch", "lab_args_layout")),
+    ("lab2.cu", ("lab2_launch", "lab2p_launch", "lab2_prep",
+                 "lab2_occupancy", "lab2p_occupancy", "lab_args_layout")),
     ("lab3.cu", ("lab3_launch",)),
     ("phase_lab.cu", ("phase_launch",)),
     ("kernel_lab.cu", ("kernel_lab_launch", "kernel_lab_arms",
@@ -146,7 +147,9 @@ _HOST_ENTRIES = ("pt_frame_host", "traverse_host", "whitted_host",
 _MAX_SMALL_BYTES = 48 * 1024
 
 _lib = None
-build_log = ""      # nvcc's output of the last build (registers, spills)
+# nvcc's output of the build's units (registers, spills), each unit's kept
+# beside its library, so a build that finds the libraries made has it too
+build_log = ""
 build_seconds = 0.0
 build_dir = ""      # the directory of the last build's shared libraries
 _host_lib = None
@@ -225,9 +228,12 @@ def _check_layout(fns: dict, what: str) -> None:
 
 
 # entries that take a second pointer after their arguments (whitted.cu's
-# WhittedIO, kernel_lab.cu's SweepArgs); every other entry takes one
+# WhittedIO, kernel_lab.cu's SweepArgs, lab2.cu's RefillArgs); every other
+# entry takes one
 _TWO_ARGS = ("whitted_launch", "whitted_resident", "whitted_host",
-             "kernel_lab_sweep_launch", "kernel_lab_rcp_check")
+             "kernel_lab_sweep_launch", "kernel_lab_rcp_check",
+             "lab2_launch", "lab2p_launch", "lab2_prep", "lab2_occupancy",
+             "lab2p_occupancy")
 
 
 def _bind(lib, names) -> dict:
@@ -270,23 +276,32 @@ def build() -> types.SimpleNamespace:
     jobs = []
     for unit, _ in _UNITS:
         out = os.path.join(out_dir, "lib" + unit.replace(".cu", ".so"))
-        if not os.path.exists(out):
+        if not (os.path.exists(out) and os.path.exists(f"{out}.log")):
             tmp = f"{out}.{os.getpid()}.tmp"
             proc = subprocess.Popen(
                 [_nvcc(), *NVCC_FLAGS, "-o", tmp, source_path("csrc", unit)],
                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
             jobs.append((unit, out, tmp, proc))
-    logs, failed = [], []
+    logs, failed = {}, []
     for unit, out, tmp, proc in jobs:
         stdout, stderr = proc.communicate(timeout=900)
-        logs.append(f"{unit}:\n{stdout}{stderr}")
+        logs[unit] = f"{unit}:\n{stdout}{stderr}"
         if proc.returncode != 0:
             failed.append(unit)
         else:
+            with open(f"{tmp}.log", "w") as f:
+                f.write(logs[unit])
+            os.replace(f"{tmp}.log", f"{out}.log")
             os.replace(tmp, out)
-    build_log = "".join(logs)
     if failed:
-        raise RuntimeError(f"nvcc failed on {', '.join(failed)}:\n{build_log}")
+        raise RuntimeError(f"nvcc failed on {', '.join(failed)}:\n"
+                           + "".join(logs.values()))
+    for unit, _ in _UNITS:
+        if unit not in logs:
+            out = os.path.join(out_dir, "lib" + unit.replace(".cu", ".so"))
+            with open(f"{out}.log") as f:
+                logs[unit] = f.read()
+    build_log = "".join(logs[unit] for unit, _ in _UNITS)
     build_seconds = time.perf_counter() - t0
     build_dir = out_dir
     fns = {}

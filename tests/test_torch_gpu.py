@@ -1251,10 +1251,12 @@ def lab_card():
 def test_lab_kernels_match_plain(lab_card, lab):
     """Every arm of the traversal lab on the card's bounce fan: the kernel
     equals its plain version bitwise on every output (t, hit, object, L6's
-    depth, the per-tile trip counters, the count launch's work and rows
-    read), its hits equal traverse_packet_slim's (but for L6's fma arm,
-    whose planes are not B4's, and leaf skip, which finds none), and each
-    launch is counted."""
+    depth, the per-tile trip counters -- L1's and L2's per-ray sums --, the
+    count launch's work and rows read), its hits equal
+    traverse_packet_slim's (but for L6's fma arm, whose planes are not
+    B4's, and leaf skip, which finds none), and each launch is counted.
+    L1's and L2's warp trips are their schedule's (warps refill finished
+    rays): at least the rays' trips over 32."""
     bf, fan = lab_card
     for arm in (a for a in bf.ARMS if a.kernel == lab):
         before = _launched(bf.arm_key(arm))
@@ -1264,6 +1266,10 @@ def test_lab_kernels_match_plain(lab_card, lab):
                        count_rows=True)
         ptf.check_status("cuda")
         assert len(got) == len(ref)
+        if lab in bf.PER_RAY:
+            assert 32 * int(got[-1][-1]) >= int(got[3].sum()) > 0
+            got = got[:-1] + (got[-1][:-1],)
+            ref = ref[:-1] + (ref[-1][:-1],)
         for a, b in zip(got, ref):
             if a.dtype == torch.float32:
                 a, b = a.view(torch.int32), b.view(torch.int32)
@@ -1271,6 +1277,42 @@ def test_lab_kernels_match_plain(lab_card, lab):
         if arm.hits == "equal":
             assert bf.hit_mismatches(fan, arm, got) == 0, arm.label
         assert bf.trips(arm, got)[0] > 0
+
+
+@pytest.mark.parametrize("lab", ["L1", "L2"])
+def test_lab2_refill_matches_plain_on_ragged_lanes(lab_card, lab):
+    """L1 and L2 over the fan's lanes repeated until the active rays are
+    three times the threads the card keeps resident, less 9 lanes (not a
+    multiple of 32, the last warp's lanes partly inactive, t_init
+    different on every lane): the warps' first hand-out leaves rays on the
+    list, so lanes take a new ray while the rest of their warp walks.
+    Every output bitwise the plain version's but the schedule's warp
+    trips."""
+    from cpugpupathtracing_tpu_torch.labs import kernel_lab2 as l2
+
+    bf, fan = lab_card
+    arms = [a for a in bf.ARMS if a.kernel == lab]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    # 128 threads a block (csrc/lab_device.cuh lab::kBlock)
+    resident = max(sms * l2.occupancy(lab, **a.kw) * 128 for a in arms)
+    reps = -(-3 * resident // int(fan.active.sum()))
+    rays = tuple(c.repeat(reps)[:-9].contiguous() for c in fan.rays)
+    act = fan.active.repeat(reps)[:-9].contiguous()
+    act[-20:-3] = False
+    n = act.numel()
+    assert n % 32 and int(act.sum()) > 2 * resident
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    t0 = torch.rand(n, device="cuda", generator=gen) * 40.0 + 1.0
+    for arm in arms:
+        ref = bf.plain(fan, arm, rays, t0, act, count_rows=True)
+        got = bf.call(fan, arm, rays, t0, act, count_rows=True)
+        ptf.check_status("cuda")
+        assert 32 * int(got[-1][-1]) >= int(got[3].sum()) > 0
+        for a, b in zip(got[:-1] + (got[-1][:-1],),
+                        ref[:-1] + (ref[-1][:-1],)):
+            if a.dtype == torch.float32:
+                a, b = a.view(torch.int32), b.view(torch.int32)
+            assert torch.equal(a, b), arm.label
 
 
 def test_lab_dual_takes_the_pair_max(lab_card):

@@ -307,3 +307,101 @@ def test_wrappers_refuse(case):
     with pytest.raises(ValueError, match="traversal stack"):
         l2.traverse_lab2(r[:3], r[3:], t0, nodes, ltris, (0,), active=act,
                          frame_stack=True)
+
+
+# ---- the per-ray counters (the card's kernels refill finished rays, so
+# a warp's rays depend on the order in which warps finish) ----------------
+
+def _plain(c, lab, kw, rays, t0, act, **extra):
+    table, nn = l2.fuse_tables(c["nodes"], c["ltris"])
+    if lab == "L1":
+        fused = kw.get("fused", False)
+        return l2.traverse_lab2_reference(
+            rays, t0, table if fused else c["nodes"], c["ltris"], (0,),
+            active=act, nn=nn if fused else 0,
+            frame_stack=kw.get("frame_stack", False), fused=fused, **extra)
+    return l2.traverse_lab2p_reference(
+        rays, t0, table, (0,), active=act, nn=nn,
+        frame_stack=kw.get("frame_stack", True),
+        nearest=kw.get("nearest", False), parent=kw.get("parent", False),
+        **extra)
+
+
+PLAIN_ARMS = {
+    "L1_linear": ("L1", {}), "L1_fs": ("L1", dict(frame_stack=True)),
+    "L2_linear": ("L2", dict(frame_stack=False)),
+    "L2_fs_near_parent": ("L2", dict(frame_stack=True, nearest=True,
+                                     parent=True)),
+}
+
+
+@pytest.mark.parametrize("arm", list(PLAIN_ARMS))
+def test_lab2_counters_do_not_depend_on_lane_order(case, arm):
+    """The same rays in another lane order: every ray's hit and trips move
+    with it, and the tile's counters stay (the lockstep warps' trips of
+    the count launch's warp_trips are the schedule's and may change)."""
+    lab, kw = PLAIN_ARMS[arm]
+    perm = torch.from_numpy(np.random.default_rng(11).permutation(N))
+    rays, t0, act = case["rays"], case["t0"], case["tact"]
+    base = _plain(case, lab, kw, rays, t0, act, count_rows=True)
+    moved = _plain(case, lab, kw, tuple(r[perm] for r in rays), t0[perm],
+                   act[perm], count_rows=True)
+    for a, b in zip(base[:3], moved[:3]):
+        assert torch.equal(a[perm], b)
+    for a, b in zip(base[3:5], moved[3:5]):  # one tile of 1024 lanes
+        assert a.shape == (1,) and torch.equal(a, b)
+    assert torch.equal(base[-1][:5], moved[-1][:5])
+    rb = _plain(case, lab, kw, rays, t0, act, per_ray=True)
+    rm = _plain(case, lab, kw, tuple(r[perm] for r in rays), t0[perm],
+                act[perm], per_ray=True)
+    for a, b in zip(rb[3:5], rm[3:5]):
+        assert torch.equal(a[perm], b)
+    assert int(rb[3][~act].abs().sum()) == 0
+    assert torch.equal(rb[3].sum().view(1), base[3].to(torch.int64))
+    # every warp trip holds at most 32 rays' trips
+    assert 32 * int(base[-1][5]) >= int(base[3].sum())
+
+
+@pytest.mark.parametrize("nearest", [False, True], ids=["ctz", "nearest"])
+def test_lab2p_parent_frames_take_each_rays_trips(case, nearest):
+    """L2's invariant ray by ray: parent-pointer frames take exactly the
+    frame stack's trips and leaf trips on every lane."""
+    kw = dict(frame_stack=True, nearest=nearest)
+    r, t0, act = case["rays"], case["t0"], case["tact"]
+    fs = _plain(case, "L2", kw, r, t0, act, per_ray=True)
+    par = _plain(case, "L2", dict(kw, parent=True), r, t0, act, per_ray=True)
+    for a, b in zip(fs, par):
+        assert torch.equal(a, b)
+    assert int(fs[3].max()) > int(fs[3][act].min()) > 0
+
+
+@pytest.mark.parametrize("arm", list(PLAIN_ARMS))
+def test_lab2_inactive_lanes_in_a_ragged_last_warp(case, arm):
+    """1000 lanes (not a multiple of 32), the last warp's lanes partly
+    inactive, t_init different on every lane: a lane that is not active
+    returns its t_init and ids -1 and counts no trip; the active ones
+    equal the run over all 1024 lanes."""
+    lab, kw = PLAIN_ARMS[arm]
+    n = 1000
+    act = case["tact"][:n].clone()
+    act[-20:-3] = False  # the last warp (lanes 992..999) ends inactive
+    t0 = torch.from_numpy(np.random.default_rng(5).uniform(
+        1.0, 50.0, n).astype(np.float32))
+    rays = tuple(r[:n] for r in case["rays"])
+    got = _plain(case, lab, kw, rays, t0, act, count_rows=True)
+    per = _plain(case, lab, kw, rays, t0, act, per_ray=True)
+    assert got[0].shape == (n,) and got[3].shape == (1,)
+    off = ~act
+    assert torch.equal(got[0][off].view(torch.int32),
+                       t0[off].view(torch.int32))
+    assert (got[1][off] == -1).all() and (got[2][off] == -1).all()
+    assert int(per[3][off].sum()) == 0 and int(per[4][off].sum()) == 0
+    assert bool((per[3][act] > 0).all())
+    full = _plain(case, lab, kw, case["rays"], torch.cat(
+        [t0, torch.full((N - n,), RAY_TMAX)]), torch.cat(
+        [act, torch.zeros(N - n, dtype=torch.bool)]), count_rows=True)
+    for a, b in zip(got[:3], full[:3]):
+        assert torch.equal(a.view(torch.int32) if a.is_floating_point()
+                           else a, (b.view(torch.int32)
+                                    if b.is_floating_point() else b)[:n])
+    assert torch.equal(got[3], full[3]) and torch.equal(got[4], full[4])

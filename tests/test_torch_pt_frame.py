@@ -209,3 +209,44 @@ def test_wrappers_refuse_more_roots_than_the_stack(frame):
     with pytest.raises(ValueError, match="sh_roots"):
         ptf.pt_frame_host(*tdev.tables(), rays, s, depths=1,
                           **dict(kw, sh_roots=many))
+
+
+def test_build_keeps_each_units_nvcc_log(tmp_path, monkeypatch):
+    """A build that finds its libraries made reads each unit's nvcc output
+    (registers, spills) from beside the library, as the build that made
+    them had it; a library without its log is built again.  nvcc is a
+    script here that prints its shell's pid, so a unit built again prints
+    another line."""
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text(
+        "#!/bin/sh\n"
+        "while [ $# -gt 0 ]; do case \"$1\" in\n"
+        "  -o) out=$2; shift 2;; *.cu) src=$1; shift;; *) shift;; esac\n"
+        "done\n"
+        "echo \"ptxas info: $(basename $src) $$\"\n"
+        ": > \"$out\"\n")
+    nvcc.chmod(0o755)
+    out_dir = tmp_path / "kernels"
+    out_dir.mkdir()
+    for name in ("build_log", "build_dir", "build_seconds"):
+        monkeypatch.setattr(ptf, name, getattr(ptf, name))
+    monkeypatch.setattr(ptf, "_nvcc", lambda: str(nvcc))
+    monkeypatch.setattr(ptf, "hashed_dir", lambda *a: str(out_dir))
+    monkeypatch.setattr(ptf, "_bind", lambda lib, names: {})
+    monkeypatch.setattr(ptf, "_check_layout", lambda fns, what: None)
+    monkeypatch.setattr(ptf.ctypes, "CDLL", lambda path: None)
+
+    def build():
+        monkeypatch.setattr(ptf, "_lib", None)
+        ptf.build()
+        return ptf.build_log.split("\n")
+
+    first = build()
+    assert [ln for ln in first if ln.endswith(".cu:")] == [
+        f"{unit}:" for unit, _ in ptf._UNITS]
+    assert build() == first
+    (out_dir / "liblab2.so.log").unlink()
+    again = build()
+    changed = [a for a, b in zip(first, again) if a != b]
+    assert len(again) == len(first) and len(changed) == 1
+    assert changed[0].startswith("ptxas info: lab2.cu ")
